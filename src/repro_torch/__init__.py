@@ -1,0 +1,12 @@
+"""PyTorch + CUDA port of the SpaceVerse request server (Algorithm 1).
+
+A second package beside the JAX reference ``repro``: it imports ``torch``
+and never ``jax``, and nothing of ``repro``.  Its subpackages mirror
+``repro``'s (``configs``, ``kernels``, ``models``, ``data``, ``core``,
+``serving``, ``network``) so a reader finds each counterpart; the three
+TPU kernels on the server's path (flash prefill, dense decode, Eq. 2
+region scoring) are hand-written CUDA for Hopper under ``csrc/``.
+
+Entry points run on the card unless the caller passes ``device="cpu"``
+(``repro_torch.device.resolve_device``).
+"""

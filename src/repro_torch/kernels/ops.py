@@ -1,0 +1,146 @@
+"""Dispatch between the CUDA kernels and their plain versions.
+
+The choice follows the tensors' device and nothing else: CPU tensors take
+the plain version in ``ref.py``; CUDA tensors take the hand-written kernel,
+which raises on what it does not take.  There is no knob a CUDA caller
+could reach to get the plain version, and no fallback on failure.
+
+This module owns what surrounds the kernels, as ``repro.kernels.ops`` does:
+the layout changes (the models use (B, S, H, hd); the kernels want
+(B, H, S, hd), passed as strided views, no copy) and the windowed
+band-slice gather before decode.  It pads no head dim: the kernels take
+hd <= 128 with hd % 4 == 0 as they are.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import torch
+
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ref
+from repro_torch.kernels import region_score as RS
+
+KERNELS = {"flash_attention": FA.KERNEL, "decode_attention": DA.KERNEL,
+           "region_score": RS.KERNEL}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def _on_card(*ts: torch.Tensor) -> bool:
+    kinds = {t.device.type for t in ts}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"operands on mixed or unsupported devices: {kinds}")
+
+
+# ---------------------------------------------------------------------------
+# region_score
+# ---------------------------------------------------------------------------
+
+def region_score(v: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """Eq. (2): v (B, R, Nv, D), e (B, Ne, D) → (B, R) float32."""
+    if _on_card(v, e):
+        return RS.region_score_cuda(v, e)
+    return ref.region_score(v, e)
+
+
+# ---------------------------------------------------------------------------
+# flash attention, (B, S, H, hd) model layout
+# ---------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) → (B, Sq, H, hd)."""
+    if not _on_card(q, k, v):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+    o = FA.flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                window=window, softcap=softcap, scale=scale)
+    return o.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# decode attention (one query token per sequence)
+# ---------------------------------------------------------------------------
+
+CacheLen = Union[int, torch.Tensor]
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cache_len: CacheLen, *, window: int = 0,
+                     softcap: Optional[float] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, H, hd); k, v: (B, S, K, hd); cache_len: int, () or (B,) int
+    (per-row valid-slot counts) → (B, H, hd)."""
+    on_card = _on_card(q, k, v)
+    b, h, hd = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    if window > 0 and s > window:
+        # band slice around each row's position: windowed decode touches
+        # O(window) cache instead of O(S); a (B, window) gather, one band
+        # per row (a scalar length gives every row the same band)
+        lens = DA.device_lengths(cache_len, b, k.device).long()
+        start = torch.clamp(lens - window, 0, s - window)
+        rows = start[:, None] + torch.arange(window, device=k.device)
+        bi = torch.arange(b, device=k.device)[:, None]
+        k, v = k[bi, rows], v[bi, rows]
+        cache_len = lens - start
+    if not on_card:
+        return ref.decode_attention(q, k, v, cache_len, window=window,
+                                    softcap=softcap, scale=scale)
+    o = DA.decode_attention_cuda(q.reshape(b, kh, h // kh, hd),
+                                 k.transpose(1, 2), v.transpose(1, 2),
+                                 cache_len, window=window, softcap=softcap,
+                                 scale=scale)
+    return o.reshape(b, h, hd)
+
+
+# ---------------------------------------------------------------------------
+# multi-token scoring (dense verify / prefill-append; q_len = T per row)
+# ---------------------------------------------------------------------------
+
+def _chunk_to_rows(q: torch.Tensor, kh: int) -> torch.Tensor:
+    """(B, T, H, hd) → (B, KH, T·group, hd) token-major rows (row r ↦ chunk
+    token r // group)."""
+    b, t, h, hd = q.shape
+    qg = q.reshape(b, t, kh, h // kh, hd).permute(0, 2, 1, 3, 4)
+    return qg.reshape(b, kh, t * (h // kh), hd)
+
+
+def _rows_to_chunk(o: torch.Tensor, t: int, h: int) -> torch.Tensor:
+    b, kh, rows, hd = o.shape
+    return (o.reshape(b, kh, t, rows // t, hd).permute(0, 2, 1, 3, 4)
+            .reshape(b, t, h, hd))
+
+
+def multi_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           cache_len: CacheLen, *, window: int = 0,
+                           softcap: Optional[float] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, T, H, hd), a T-token chunk at logical positions
+    ``cache_len - T .. cache_len - 1``, causal within the chunk; k, v:
+    (B, S, K, hd); cache_len: int, () or (B,) INCLUDING the chunk
+    → (B, T, H, hd)."""
+    if not _on_card(q, k, v):
+        return ref.multi_decode_attention(q, k, v, cache_len, window=window,
+                                          softcap=softcap, scale=scale)
+    b, t, h, hd = q.shape
+    kh = k.shape[2]
+    o = DA.decode_attention_cuda(_chunk_to_rows(q, kh), k.transpose(1, 2),
+                                 v.transpose(1, 2), cache_len, window=window,
+                                 softcap=softcap, scale=scale, q_len=t)
+    return _rows_to_chunk(o, t, h)

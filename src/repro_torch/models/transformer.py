@@ -1,0 +1,180 @@
+"""Decoder stack of the port: a Python loop over stacked layer parameters.
+
+The parameter tree keeps the JAX package's structure, ``{"embed": ...,
+"blocks": (per pattern position, each leaf stacked on a leading n_super
+axis), "final_norm": ...}``, so the bridge converts it leaf by leaf; where
+the JAX stack runs one ``lax.scan`` over super-blocks, this one indexes
+layer ``i`` of each stacked leaf (a view) inside a Python loop.
+
+Public entry points: ``init_params`` / ``init_cache``, ``prefill`` (the
+full prompt, filling a dense KV cache) and ``decode_step`` (one token).
+Only attention blocks (``ATTN``, dense FFN) are ported; other block kinds
+raise.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple, Union
+
+import torch
+
+from repro_torch.configs.base import ATTN, ArchConfig, BlockSpec
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import frontends
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_map
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _check_block(spec: BlockSpec) -> None:
+    if spec.kind != ATTN or spec.moe:
+        raise NotImplementedError(
+            f"block kind {spec.kind!r} (moe={spec.moe}) is not ported: only "
+            "attention blocks with a dense FFN")
+
+
+def _has_ffn(cfg: ArchConfig) -> bool:
+    return cfg.d_ff > 0
+
+
+def _init_block(gen: torch.Generator, cfg: ArchConfig, spec: BlockSpec,
+                device) -> Params:
+    _check_block(spec)
+    dt = getattr(torch, cfg.dtype)
+    p: Params = {"norm1": torch.zeros((cfg.d_model,), dtype=dt,
+                                      device=device),
+                 "mixer": L.init_attention(gen, cfg, device)}
+    if _has_ffn(cfg):
+        p["norm2"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
+        p["ffn"] = L.init_mlp(gen, cfg, device)
+    return p
+
+
+def _stacked(n: int, make: Callable[[], Params]) -> Params:
+    """Stack ``n`` trees from ``make()`` on a new leading axis, filling a
+    preallocated buffer one layer at a time (peak memory: the stack plus
+    one layer)."""
+    first = make()
+    out = tree_map(lambda x: torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
+                                         device=x.device), first)
+
+    def put(i, tree):
+        tree_map(lambda o, x: o[i].copy_(x), out, tree)
+
+    put(0, first)
+    del first
+    for i in range(1, n):
+        put(i, make())
+    return out
+
+
+def init_params_with(cfg: ArchConfig, gen: torch.Generator,
+                     device: torch.device) -> Params:
+    blocks = tuple(_stacked(cfg.n_super,
+                            lambda s=spec: _init_block(gen, cfg, s, device))
+                   for spec in cfg.block_pattern)
+    return {
+        "embed": frontends.init_embed(gen, cfg, device),
+        "blocks": blocks,
+        "final_norm": torch.zeros((cfg.d_model,),
+                                  dtype=getattr(torch, cfg.dtype),
+                                  device=device),
+    }
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, *,
+                device: DeviceLike = None) -> Params:
+    """Random weights from a ``torch.Generator`` seeded with ``seed``, made
+    on ``device`` (the card unless ``"cpu"`` is asked for)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return init_params_with(cfg, gen, dev)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device) -> Tuple:
+    """Per-pattern-position dense KV caches, each leaf stacked to
+    (n_super, B, max_len, KH, hd)."""
+    dt = getattr(torch, cfg.dtype)
+    out = []
+    for spec in cfg.block_pattern:
+        _check_block(spec)
+        one = L.init_attn_cache(cfg, batch, max_len, dt, device)
+        out.append({k: torch.zeros((cfg.n_super,) + tuple(x.shape),
+                                   dtype=x.dtype, device=device)
+                    for k, x in one.items()})
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+
+def _apply_block(p: Params, x: torch.Tensor, *, cfg: ArchConfig,
+                 spec: BlockSpec, cos, sin, cache, cache_index, mode: str
+                 ) -> torch.Tensor:
+    _check_block(spec)
+    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    h, _ = L.attention(p["mixer"], h, cfg=cfg, window=spec.window, cos=cos,
+                       sin=sin, cache=cache, cache_index=cache_index,
+                       mode=mode)
+    x = x + h
+    if _has_ffn(cfg):
+        x = x + L.mlp(p["ffn"], L.rms_norm(x, p["norm2"], cfg.norm_eps))
+    return x
+
+
+def _layer(tree: Any, i: int) -> Any:
+    return tree_map(lambda x: x[i], tree)
+
+
+def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor,
+               positions: torch.Tensor, *, mode: str, cache: Tuple,
+               cache_index=None) -> torch.Tensor:
+    cos, sin = L.rope_angles(
+        positions, cfg.resolved_head_dim, cfg.rope_theta,
+        cfg.mrope_sections if cfg.use_mrope and positions.dim() == 3
+        else None)
+    for i in range(cfg.n_super):
+        for pos, spec in enumerate(cfg.block_pattern):
+            x = _apply_block(_layer(params["blocks"][pos], i), x, cfg=cfg,
+                             spec=spec, cos=cos, sin=sin,
+                             cache=_layer(cache[pos], i),
+                             cache_index=cache_index, mode=mode)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+@torch.inference_mode()
+def prefill(params: Params, cfg: ArchConfig, inputs: Dict[str, torch.Tensor],
+            max_len: int) -> Tuple[torch.Tensor, Tuple, int]:
+    """Run the full prompt, fill a cache of capacity ``max_len``.
+
+    Returns (logits_last (B, V) float32, cache, next_index)."""
+    x, positions = frontends.embed_inputs(params["embed"], cfg, inputs)
+    b, s = x.shape[:2]
+    cache = init_cache(cfg, b, max_len, x.device)
+    x = _run_stack(params, cfg, x, positions, mode="prefill", cache=cache)
+    logits = frontends.logits_from_hidden(params["embed"], cfg, x[:, -1])
+    return logits, cache, s
+
+
+@torch.inference_mode()
+def decode_step(params: Params, cfg: ArchConfig, cache: Tuple,
+                inputs: Dict[str, torch.Tensor],
+                index: Union[int, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Tuple]:
+    """One decode step at cache slot ``index``: an int for batch-uniform
+    decode, or a (B,) tensor where every row sits at its own position.  The
+    cache is updated in place.  Returns (logits (B, V) float32, cache)."""
+    x, positions = frontends.embed_decode(params["embed"], cfg, inputs, index)
+    x = _run_stack(params, cfg, x, positions, mode="decode", cache=cache,
+                   cache_index=index)
+    return frontends.logits_from_hidden(params["embed"], cfg, x[:, -1]), cache

@@ -1,0 +1,107 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Marked ``cuda``: every test skips without a CUDA device (it needs the card
+and ``nvcc``).  Run on a machine with an H100:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances, element by element: attention 1e-4 absolute in float32 (TF32
+off) and 1e-5 + 2^-6·|want| in bfloat16 (two bfloat16 ulps: both sides
+round an f32 result); region scores, f32 math and output, 1e-5 absolute.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+# (absolute, relative to |want|)
+TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 2.0 ** -6)}
+TOL_REGION = (1e-5, 0.0)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _randn(gen, *shape, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _close(got, want, tol):
+    atol, rtol = tol
+    got, want = got.float(), want.float()
+    bad = (got - want).abs() > atol + rtol * want.abs()
+    assert not bool(bad.any()), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("hd,group,sq,skv,window,softcap,dtype", [
+    (12, 3, 33, 33, 0, None, torch.float32),
+    (16, 2, 70, 70, 16, None, torch.float32),
+    (16, 2, 9, 50, 0, 5.0, torch.float32),
+    (128, 7, 1025, 1025, 0, None, torch.bfloat16),
+    (128, 6, 200, 200, 0, None, torch.float32),
+])
+def test_flash_attention_kernel_matches_plain(card, hd, group, sq, skv,
+                                              window, softcap, dtype):
+    kh = 2
+    q = _randn(card, 1, sq, kh * group, hd, dtype=dtype)
+    k = _randn(card, 1, skv, kh, hd, dtype=dtype)
+    v = _randn(card, 1, skv, kh, hd, dtype=dtype)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, window=window, softcap=softcap)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    _close(got, ref.flash_attention(q, k, v, window=window, softcap=softcap),
+           TOL[dtype])
+
+
+@pytest.mark.parametrize("hd,group,q_len,window,softcap,dtype", [
+    (12, 3, 1, 0, None, torch.float32),
+    (16, 2, 3, 0, None, torch.float32),
+    (16, 3, 1, 8, 3.0, torch.float32),
+    (128, 7, 1, 0, None, torch.bfloat16),
+    (128, 6, 3, 5, None, torch.float32),
+])
+def test_decode_attention_kernel_matches_plain(card, hd, group, q_len,
+                                               window, softcap, dtype):
+    s, kh = 300, 2
+    q = _randn(card, 4, q_len, kh * group, hd, dtype=dtype)
+    k = _randn(card, 4, s, kh, hd, dtype=dtype)
+    v = _randn(card, 4, s, kh, hd, dtype=dtype)
+    lens = torch.tensor([0, 1, 150, s], dtype=torch.int32, device="cuda")
+    got = ops.multi_decode_attention(q, k, v, lens, window=window,
+                                     softcap=softcap)
+    want = ref.multi_decode_attention(q, k, v, lens, window=window,
+                                      softcap=softcap)
+    _close(got, want, TOL[dtype])
+    assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("nv,ne,d,dtype", [(1, 1, 1536, torch.bfloat16),
+                                           (3, 2, 48, torch.float32)])
+def test_region_score_kernel_matches_plain(card, nv, ne, d, dtype):
+    v = _randn(card, 2, 100, nv, d, dtype=dtype)
+    e = _randn(card, 2, ne, d, dtype=dtype)
+    _close(ops.region_score(v, e), ref.region_score(v, e), TOL_REGION)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(card):
+    q = _randn(card, 1, 4, 8, 16)
+    with pytest.raises(ValueError, match="Sq <= Skv"):
+        flash_attention_cuda(q, q[:, :2, :4], q[:, :2, :4])
+    with pytest.raises(ValueError, match="head dim"):
+        x = _randn(card, 1, 2, 4, 130)
+        flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError, match="rows"):
+        x = _randn(card, 1, 1, 33, 16)
+        decode_attention_cuda(x, x, x, 3)
+    with pytest.raises(ValueError, match="share device and dtype"):
+        flash_attention_cuda(q, q.bfloat16(), q)

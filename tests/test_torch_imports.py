@@ -1,0 +1,92 @@
+"""Import hygiene and the device rule of the port.
+
+``import repro_torch`` and every one of its modules must pull in neither
+JAX nor the JAX package, and its entry points must run on the card unless
+``device="cpu"`` is asked for.
+"""
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+"""
+
+
+def _run(args, cwd, **env):
+    full = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), **env)
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=full,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_port_imports_neither_jax_nor_repro():
+    out = _run(["-c", _PROBE], cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 30
+    assert bad == "[]"
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    src = open(os.path.join(REPO, "chip_smoke.py")).read()
+    for line in src.splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            assert words[1].split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                line
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """No CUDA device: non-zero exit and no result line.  The same alone in
+    a directory without the repo."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    out = _run([os.path.join(REPO, "chip_smoke.py")], cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=alone,
+                         capture_output=True, text=True, timeout=120,
+                         env={k: v for k, v in os.environ.items()
+                              if k != "PYTHONPATH"})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_entry_points_default_to_the_card():
+    from repro_torch.configs.spaceverse_pair import proxy_pair
+    from repro_torch.core import confidence as C
+    from repro_torch.core import eo_adapter as EO
+    from repro_torch.models import transformer as T
+    sat, _ = proxy_pair("small")
+    calls = [lambda: T.init_params(sat),
+             lambda: EO.init_adapter(sat, EO.EOAdapterConfig()),
+             lambda: C.init_confidence(48, 48, hidden=8)]
+    for call in calls:
+        if torch.cuda.is_available():
+            tree = call()
+            leaf = tree["embed"]["tok"] if "embed" in tree else (
+                tree["patch_proj"] if "patch_proj" in tree
+                else tree["trunk"]["w1"])
+            assert leaf.device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
+    assert T.init_params(sat, device="cpu")["final_norm"].device.type == "cpu"

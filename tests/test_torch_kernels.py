@@ -1,0 +1,220 @@
+"""The port's plain kernel versions against the JAX package's oracles.
+
+Same numpy inputs through ``repro.kernels.ref`` / ``repro.kernels.ops``
+(interpret-mode Pallas) and ``repro_torch.kernels.ops`` on the CPU, which
+takes the plain PyTorch versions.  float32 throughout; tolerance 5e-5
+absolute (float32 sums taken in another order).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+TOL = 5e-5
+
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=0,
+                               atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # (hd, group, kh, sq, skv, window, softcap)
+    (12, 1, 2, 24, 24, 0, None),
+    (12, 2, 2, 24, 24, 0, None),
+    (12, 3, 1, 24, 24, 0, None),
+    (16, 1, 2, 32, 32, 0, None),
+    (16, 2, 2, 32, 32, 0, None),
+    (16, 3, 2, 32, 32, 0, None),
+    (16, 2, 2, 32, 32, 8, None),      # sliding window
+    (12, 3, 1, 24, 24, 0, 5.0),       # logit softcap
+]
+
+
+@pytest.mark.parametrize("hd,group,kh,sq,skv,window,softcap", FLASH_CASES)
+def test_flash_attention_plain_matches_jax(hd, group, kh, sq, skv, window,
+                                           softcap):
+    rng = np.random.default_rng(hd * 100 + group * 10 + window)
+    q = _rand(rng, 2, sq, kh * group, hd)
+    k = _rand(rng, 2, skv, kh, hd)
+    v = _rand(rng, 2, skv, kh, hd)
+    got = tops.flash_attention(_t(q), _t(k), _t(v), window=window,
+                               softcap=softcap)
+    want = jref.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), window=window,
+                                softcap=softcap)
+    _close(got, want)
+    if hd == 12 and window == 0 and softcap is None:
+        return   # interpret-mode Pallas is slow: hd 16 and the options do
+    kernel = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), window=window,
+                                  softcap=softcap, impl="pallas_interpret")
+    _close(got, kernel)
+
+
+def test_flash_attention_bottom_right_alignment():
+    """Sq < Skv: row i sees keys <= i + Skv - Sq, as the JAX oracle."""
+    rng = np.random.default_rng(7)
+    q = _rand(rng, 1, 5, 4, 16)
+    k = _rand(rng, 1, 13, 2, 16)
+    v = _rand(rng, 1, 13, 2, 16)
+    got = tops.flash_attention(_t(q), _t(k), _t(v))
+    want = jref.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v))
+    _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# decode attention (q_len = 1) and the multi-token chunk (q_len = 3)
+# ---------------------------------------------------------------------------
+
+DECODE_CASES = [(hd, group, q_len) for hd in (12, 16) for group in (1, 2, 3)
+                for q_len in (1, 3)]
+
+
+def _decode_inputs(hd, group, q_len, s=37, kh=2, b=4, seed=0):
+    rng = np.random.default_rng(seed + hd + 10 * group + 100 * q_len)
+    q = _rand(rng, b, q_len, kh * group, hd)
+    k = _rand(rng, b, s, kh, hd)
+    v = _rand(rng, b, s, kh, hd)
+    lens = np.array([0, 1, s // 2, s], np.int32)[:b]   # ragged, incl. 0
+    return q, k, v, lens
+
+
+@pytest.mark.parametrize("hd,group,q_len", DECODE_CASES)
+def test_decode_attention_plain_matches_jax(hd, group, q_len):
+    q, k, v, lens = _decode_inputs(hd, group, q_len)
+    kernel = None
+    if q_len == 1:
+        got = tops.decode_attention(_t(q[:, 0]), _t(k), _t(v), _t(lens))
+        want = jref.decode_attention(jnp.asarray(q[:, 0]), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.asarray(lens))
+        if group == 3:   # interpret-mode Pallas is slow: q_len 3 covers it
+            kernel = jops.decode_attention(
+                jnp.asarray(q[:, 0]), jnp.asarray(k), jnp.asarray(v),
+                jnp.asarray(lens), impl="pallas_interpret")
+    else:
+        got = tops.multi_decode_attention(_t(q), _t(k), _t(v), _t(lens))
+        want = jref.multi_decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), jnp.asarray(lens))
+        kernel = jops.multi_decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(lens), impl="pallas_interpret")
+    _close(got, want)
+    if kernel is not None:
+        _close(got, kernel)
+    # rows with nothing to attend to output zeros
+    assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("window,softcap,q_len",
+                         [(8, None, 1), (8, None, 3), (0, 3.0, 1),
+                          (5, 2.5, 3)])
+def test_decode_attention_window_softcap_match_jax(window, softcap, q_len):
+    q, k, v, lens = _decode_inputs(16, 2, q_len, seed=window)
+    if q_len == 1:
+        got = tops.decode_attention(_t(q[:, 0]), _t(k), _t(v), _t(lens),
+                                    window=window, softcap=softcap)
+        want = jops.decode_attention(
+            jnp.asarray(q[:, 0]), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(lens), window=window, softcap=softcap, impl="ref")
+        kernel = jops.decode_attention(
+            jnp.asarray(q[:, 0]), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(lens), window=window, softcap=softcap,
+            impl="pallas_interpret")
+    else:
+        got = tops.multi_decode_attention(_t(q), _t(k), _t(v), _t(lens),
+                                          window=window, softcap=softcap)
+        want = jref.multi_decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(lens), window=window, softcap=softcap)
+        kernel = jops.multi_decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(lens), window=window, softcap=softcap,
+            impl="pallas_interpret")
+    _close(got, want)
+    _close(got, kernel)
+
+
+def test_decode_attention_scalar_length_broadcasts():
+    q, k, v, _ = _decode_inputs(12, 3, 1)
+    got = tops.decode_attention(_t(q[:, 0]), _t(k), _t(v), 20)
+    want = jref.decode_attention(jnp.asarray(q[:, 0]), jnp.asarray(k),
+                                 jnp.asarray(v), jnp.int32(20))
+    _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# region score (Eq. 2)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nv,ne,d", [(1, 1, 48), (3, 2, 16), (2, 5, 128)])
+def test_region_score_plain_matches_jax(nv, ne, d):
+    rng = np.random.default_rng(nv * 10 + ne)
+    v = _rand(rng, 2, 100, nv, d)                      # R = 100 (paper N_r)
+    e = _rand(rng, 2, ne, d)
+    got = tops.region_score(_t(v), _t(e))
+    _close(got, jref.region_score(jnp.asarray(v), jnp.asarray(e)))
+    # the Pallas kernel normalises as x·rsqrt(|x|² + 1e-12): ~1e-6 relative
+    kernel = jops.region_score(jnp.asarray(v), jnp.asarray(e),
+                               impl="pallas_interpret")
+    _close(got, kernel, tol=TOL * nv * ne)
+
+
+def test_plain_versions_keep_input_dtype():
+    rng = np.random.default_rng(3)
+    q = _t(_rand(rng, 1, 8, 4, 16)).bfloat16()
+    k = _t(_rand(rng, 1, 8, 2, 16)).bfloat16()
+    assert tref.flash_attention(q, k, k).dtype == torch.bfloat16
+    assert tref.decode_attention(q[:, 0], k, k, 5).dtype == torch.bfloat16
+    assert tref.region_score(k, q[:, 0]).dtype == torch.float32
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.region_score import region_score_cuda
+    x = torch.zeros(1, 2, 4, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_cuda(x, x, x, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        region_score_cuda(x, x[0])
+
+
+@pytest.mark.parametrize("b,kh,s", [(1, 2, 1026), (1, 4, 2049),
+                                    (1, 4, 67 * 64), (1, 4, 4288),
+                                    (3, 2, 1), (2, 4, 64 * 500 + 5)])
+def test_decode_split_plan_covers_the_cache_without_a_cliff(b, kh, s):
+    from repro_torch.kernels.decode_attention import KV_TILE, split_plan
+    splits, split_len = split_plan(b, kh, s, sm_count=132)
+    assert split_len % KV_TILE == 0
+    assert (splits - 1) * split_len < s <= splits * split_len   # none empty
+    n_tiles = -(-s // KV_TILE)
+    want = -(-2 * 132 // (b * kh))
+    # as many splits as the card wants, or one per tile: a prime tile count
+    # does not collapse the plan to one split
+    assert min(want, n_tiles) <= 2 * splits
+    assert splits <= min(want, n_tiles)
