@@ -5,30 +5,54 @@
 
 Phases, each of which raises (exit code 1, no result line) on failure:
 
-1. Build the three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, all started together) into ``build/kernels/``.
+1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, all started together) into ``build/kernels/``.
 2. Hold each kernel against its plain PyTorch version on the card: the main
-   path's shapes in bfloat16 and small float32 shapes (head dims 12/16, GQA
+   paths' shapes in bfloat16 and small float32 shapes (head dims 12/16, GQA
    groups 1-3, ragged lengths with 0, window, softcap, q_len 3; TF32 off).
-   Tolerances, element by element: attention in float32 1e-4 absolute;
-   attention in bfloat16 1e-5 + 2^-6·|want| (two bfloat16 ulps of the
-   plain value: both sides round an f32 result to bfloat16); region scores
-   (f32 math and output in both) 1e-5 absolute, which also covers the
-   Pallas kernel's rsqrt(‖x‖² + 1e-12) normalisation.  Then time kernel,
-   plain version and one PyTorch library call at
-   the main path's shapes (cold L2: a 64 MiB buffer is rewritten before
-   every launch and its own time subtracted).
-3. End to end on a small proxy pair: the port's ``CascadeServer`` on the
-   card must give the decisions and tokens it gives on the CPU from the
-   same weights.
-4. The main path: ``CascadeServer.handle`` at the full width and depth of
-   the paper's pair (Qwen2-VL-2B on the satellite, Qwen2-VL-7B on the
-   ground), bfloat16, random weights from a seed, serving requests that
-   reach both tiers; every kernel's launch count is zeroed before and read
-   after, and each must have launched.
+   The paged decode kernel: an f32 sweep over page sizes 1-16, windows,
+   softcaps, q_len up to 9 (63 rows), rows with cache_len 0 and
+   0 < cache_len < q_len; then (a) the 2B slot step (B 8, KH 2, group 6,
+   page 8, table width 257, cache_len 1025-2049, shared prefix pages in
+   several rows, trash entries past each row's length), (b) the same at the
+   7B width (KH 4, group 7) and (c) the 7B verify at q_len 5 (35 rows,
+   B 4).  The kernel reads pools whose trash page is NaN, so a read past a
+   row's length would show.  Tolerances, element by element: attention in
+   float32 1e-4 absolute; attention in bfloat16 1e-5 + 2^-6·|want| (two
+   bfloat16 ulps of the plain value: both sides round an f32 result to
+   bfloat16); region scores (f32 math and output in both) 1e-5 absolute,
+   which also covers the Pallas kernel's rsqrt(‖x‖² + 1e-12)
+   normalisation.  Then time kernel, plain version and one PyTorch library
+   call (for the paged kernel: gathering the pages plus
+   ``scaled_dot_product_attention``, two calls) at the main paths' shapes
+   (cold L2: a 64 MiB buffer is rewritten before every launch and its own
+   time subtracted).
+3. End to end on a small proxy pair: the port's ``CascadeServer``, its
+   ``InferenceEngine.serve`` on the paged slot path and a γ = 3
+   speculative engine on the card must give the decisions and tokens they
+   give on the CPU from the same weights (float32).
+4. The cascade server: ``CascadeServer.handle`` at the full width and
+   depth of the paper's pair (Qwen2-VL-2B on the satellite, Qwen2-VL-7B on
+   the ground), bfloat16, random weights from a seed, serving requests
+   that reach both tiers.
 5. Where the time goes: prefill and per-token decode time of each tier,
    and the device's busy share over decode steps from ``torch.profiler``.
+6. The slot path: the 2B's ``InferenceEngine.serve`` (8 slots, page 8) on
+   24 requests over 4 scenes (per scene 1 det with 1024 answer tokens,
+   1 cls, 4 vqa).  Checks: every request answered; 20 prefix hits and 4
+   misses; after the drain only the resident prefixes hold pages; the
+   shared prefix pages byte-equal from their prefill to the end; the paged
+   kernel launched 28 × (slot steps + admission calls).  Prints step time,
+   tokens/s and the device busy share.
+7. Speculative verify: the 7B's ``EngineCore`` with γ = 4 on 4 slots,
+   drafted by the 2B: 6 vqa/cls requests, then one det request carrying
+   the 7B's own greedy answer (from a non-speculative slot-path run) as
+   piggybacked drafts.  Prints ``spec_stats()`` and how far the det answer
+   agrees with the greedy one (bf16 near-ties may flip an argmax; equality
+   is asserted in phase 3, in float32).  Checks the launch counts as in 6.
 
+Phases 4, 6 and 7 each zero every kernel's launch count just before they
+run and read it just after; each kernel of a path must have launched.
 Its last lines: the card's name and power limit as ``nvidia-smi`` gives
 them, one JSON object with every kernel's numbers, then
 ``{"ok": true, "device": {...}}``.
@@ -46,6 +70,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "region_score.cu")
+# decode_attention.cu holds the dense and the paged entry points
 # (absolute, relative to |want|) per element; see the docstring
 TOL_F32 = (1e-4, 0.0)
 TOL_BF16 = (1e-5, 2.0 ** -6)
@@ -56,15 +81,20 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:84",
     "decode_attention": "src/repro/kernels/decode_attention.py:219",
     "region_score": "src/repro/kernels/region_score.py:38",
+    "paged_decode_attention": "src/repro/kernels/decode_attention.py:301",
 }
 SOURCE_OF = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "region_score": "src/repro_torch/csrc/region_score.cu",
+    "paged_decode_attention": "src/repro_torch/csrc/decode_attention.cu",
 }
 # full-width adapter: N_r = 32² = 1024 = cfg.num_patches, 16-px regions
 # (the Eq. 3 pyramid pools by 1, 2, 4 and 8, so the side must divide by 8)
 FULL_GRID, FULL_IMAGE = 32, 512
+# the spec phase's det request carries piggybacked drafts for all but its
+# last LOCAL_TAIL answer positions, which the 2B drafts locally
+LOCAL_TAIL = 32
 
 
 def log(*a):
@@ -267,6 +297,9 @@ def kernel_checks(torch):
         "bound_ms": b_ms, "bound_by": b_by,
         "shape": "B1 R1024 Nv1 Ne1 D1536 bf16"}}
 
+    report["paged_decode_attention"] = paged_kernel_checks(
+        torch, randn, timer, errors)
+
     torch.cuda.synchronize()
     if errors:
         raise RuntimeError("kernel disagrees with its plain version:\n"
@@ -275,9 +308,168 @@ def kernel_checks(torch):
         for tag, m in shapes.items():
             log(f"  time {name:16s} {tag:4s} {m['shape']:40s} "
                 f"kernel {m['ms']:.4f} ms  plain {m['plain_ms']:.4f} ms  "
-                f"library {m['library_ms']:.4f} ms  bound {m['bound_ms']:.5f} "
-                f"ms ({m['bound_by']})")
+                f"{m.get('library_is', 'library')} {m['library_ms']:.4f} ms  "
+                f"bound {m['bound_ms']:.5f} ms ({m['bound_by']})")
     return report
+
+
+def paged_case(torch, randn, *, b, kh, group, hd, page, width, lens, q_len,
+               dtype, shared_blocks=0, scenes=2):
+    """Pools, block table and queries for one paged-decode check.
+
+    Page 0 is the trash page.  Row ``r``'s first ``shared_blocks`` table
+    entries map the shared prefix pages of scene ``r % scenes`` (read-only,
+    in several rows); its further blocks below its length are private; the
+    entries past its length point at the trash page.  Returns (q, k_pool,
+    v_pool, table, lens, trash_pools): the kernel gets pools whose trash
+    page is NaN (so any read past a row's length shows), the plain version
+    the same pools with a zero trash page."""
+    n_shared = scenes * shared_blocks
+    need = [-(-int(n) // page) for n in lens]
+    n_priv = sum(max(n - shared_blocks, 0) for n in need)
+    n_pages = 1 + n_shared + n_priv
+    table = torch.zeros((b, width), dtype=torch.int32)
+    nxt = 1 + n_shared
+    for r, n in enumerate(need):
+        sh = 1 + (r % scenes) * shared_blocks
+        for j in range(min(n, width)):
+            if j < shared_blocks:
+                table[r, j] = sh + j
+            else:
+                table[r, j] = nxt
+                nxt += 1
+    k_pool = randn(n_pages, page, kh, hd, dtype=dtype)
+    v_pool = randn(n_pages, page, kh, hd, dtype=dtype)
+    k_pool[0] = 0
+    v_pool[0] = 0
+    k_nan, v_nan = k_pool.clone(), v_pool.clone()
+    k_nan[0] = float("nan")
+    v_nan[0] = float("nan")
+    q = randn(b, q_len, kh * group, hd, dtype=dtype)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, k_pool, v_pool, table.cuda(), lens_t, (k_nan, v_nan)
+
+
+def paged_bytes_and_flops(torch, q, k_pool, table, lens, q_len):
+    """Bytes the function must move (each distinct (page, slot) a row needs
+    read once for K and for V, q, the table entries it reads, lengths, o
+    written once) and its FLOPs (QK and PV)."""
+    b, _, h, hd = q.shape
+    page, kh = k_pool.shape[1], k_pool.shape[2]
+    s = table.shape[1] * page
+    pos = torch.arange(s, device=table.device)
+    valid = pos[None, :] < lens[:, None].long()
+    slot = table.long()[:, pos // page] * page + pos % page
+    n_slots = int(torch.unique(slot[valid]).numel())
+    n_entries = int((-(-lens.long() // page)).sum())
+    kv = 2 * n_slots * kh * hd * k_pool.element_size()
+    io = 2 * q.numel() * q.element_size() + 4 * (n_entries + b)
+    flops = 4.0 * hd * h * q_len * float(lens.sum())
+    return kv + io, flops
+
+
+def paged_kernel_checks(torch, randn, timer, errors):
+    """The paged decode kernel against its plain version: an f32 sweep, then
+    the slot path's shapes in bf16 with their times."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention_cuda)
+
+    def both(q, k_pool, v_pool, table, lens, nan_pools, window=0,
+             softcap=None):
+        if q.shape[1] == 1:
+            got = ops.paged_decode_attention(q[:, 0], *nan_pools, table,
+                                             lens, window=window,
+                                             softcap=softcap)[:, None]
+            want = ref.paged_decode_attention(q[:, 0], k_pool, v_pool, table,
+                                              lens, window=window,
+                                              softcap=softcap)[:, None]
+        else:
+            got = ops.paged_multi_decode_attention(
+                q, *nan_pools, table, lens, window=window, softcap=softcap)
+            want = ref.paged_multi_decode_attention(
+                q, k_pool, v_pool, table, lens, window=window,
+                softcap=softcap)
+        return got, want
+
+    log("paged_decode_attention vs plain")
+    for page, hd, group, q_len, window, softcap in [
+            (1, 16, 2, 1, 0, None), (4, 12, 3, 3, 0, None),
+            (8, 16, 2, 5, 0, None), (16, 16, 3, 1, 0, 3.0),
+            (8, 12, 1, 3, 7, None), (4, 16, 2, 5, 5, 2.5),
+            (8, 128, 7, 9, 0, None), (16, 64, 6, 1, 0, None)]:
+        lens = [0, 1, 2, 37, 64, 150, 95, 3]
+        width = -(-160 // page)
+        args = paged_case(torch, randn, b=len(lens), kh=2, group=group,
+                          hd=hd, page=page, width=width, lens=lens,
+                          q_len=q_len, dtype=torch.float32,
+                          shared_blocks=32 // page)
+        got, want = both(*args, window=window, softcap=softcap)
+        case = (f"f32 page{page} hd{hd} g{group} q_len{q_len} w{window} "
+                f"cap{softcap}")
+        check("paged_decode", got, want, TOL_F32, case, errors)
+        if float(got[0].abs().max()) != 0.0:
+            errors.append(f"paged_decode {case}: cache_len 0 row not zero")
+
+    out = {}
+    bf16 = torch.bfloat16
+    for tag, kh, group, q_len, b in (("a 2B q1", 2, 6, 1, 8),
+                                     ("b 7B q1", 4, 7, 1, 8),
+                                     ("c 7B q5", 4, 7, 5, 4)):
+        page, width, hd = 8, 257, 128
+        lens = [1025 + (1024 * i) // (b - 1) for i in range(b)]
+        q, k_pool, v_pool, table, lens_t, nan_pools = paged_case(
+            torch, randn, b=b, kh=kh, group=group, hd=hd, page=page,
+            width=width, lens=lens, q_len=q_len, dtype=bf16,
+            shared_blocks=1024 // page)
+        got, want = both(q, k_pool, v_pool, table, lens_t, nan_pools)
+        err = check("paged_decode", got, want, TOL_BF16,
+                    f"bf16 {tag} B{b} KH{kh} g{group} page{page} "
+                    f"P{width}", errors)
+        n_bytes, flops = paged_bytes_and_flops(torch, q, k_pool, table,
+                                               lens_t, q_len)
+        b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+        qr = q.reshape(b, q_len, kh, group, hd).permute(0, 2, 1, 3, 4) \
+            .reshape(b, kh, q_len * group, hd)
+        kt, vt = k_pool.transpose(1, 2), v_pool.transpose(1, 2)
+        # the yardstick: gather the pages, then one SDPA call (two calls)
+        s = width * page
+        pos = torch.arange(s, device="cuda")
+        eff = (lens_t[:, None].long() - (q_len - 1)
+               + torch.arange(q_len, device="cuda")[None, :])
+        mask = (pos[None, None, :] < eff[:, :, None])[:, None]
+        qh = q.transpose(1, 2)
+
+        def library():
+            kg = ref.gather_pages(k_pool, table).transpose(1, 2)
+            vg = ref.gather_pages(v_pool, table).transpose(1, 2)
+            return F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        lib_err = float((library().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        if q_len == 1:
+            def plain():
+                return ref.paged_decode_attention(q[:, 0], k_pool, v_pool,
+                                                  table, lens_t)
+        else:
+            def plain():
+                return ref.paged_multi_decode_attention(q, k_pool, v_pool,
+                                                        table, lens_t)
+        out[tag] = {
+            "max_abs_err": err,
+            "ms": timer(lambda: paged_decode_attention_cuda(
+                qr, kt, vt, table, lens_t, q_len=q_len)),
+            "plain_ms": timer(plain),
+            "library_ms": timer(library),
+            "library_is": "gather_pages + scaled_dot_product_attention "
+                          "(two calls)",
+            "library_max_abs_err": lib_err,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "shape": (f"B{b} KH{kh} g{group} q_len{q_len} hd{hd} page{page} "
+                      f"P{width} cache_len {lens[0]}..{lens[-1]} bf16")}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -379,7 +571,68 @@ def small_reference(torch):
             f"{'equal' if same else 'DIFFERENT'}")
         if not same:
             raise RuntimeError(f"card and CPU disagree on {req.task} {taus}")
+    small_slot_path(torch, sat, gs, card[0], card[1], ac)
     return {(w.tier, w.exit_stage) for _, _, w, _ in want}
+
+
+def scene_stream(tasks_per_scene, n_scenes, image_size, grid, seed):
+    """Requests fanning out over ``n_scenes`` captured scenes: per scene
+    the tasks in ``tasks_per_scene``, all on the scene's image (numpy data
+    from ``make_dataset``), scene by scene."""
+    from repro_torch.data import synthetic
+    from repro_torch.serving import Request
+    cfg = synthetic.EOTaskConfig(image_size=image_size, grid=grid)
+    out = []
+    for sc in range(n_scenes):
+        data = synthetic.make_dataset("vqa", len(tasks_per_scene),
+                                      seed=seed + sc, cfg=cfg)
+        for i, task in enumerate(tasks_per_scene):
+            out.append(Request(task=task, image=data["images"][0],
+                               prompt=int(data["prompts"][i]),
+                               scene_id=(seed, sc)))
+    return out
+
+
+def clone_requests(reqs, drafts=None):
+    from repro_torch.serving import Request
+    return [Request(task=r.task, image=r.image, prompt=r.prompt,
+                    scene_id=r.scene_id,
+                    draft_tokens=None if drafts is None else drafts[i])
+            for i, r in enumerate(reqs)]
+
+
+def served_tokens(responses, reqs):
+    by_id = {r.request_id: r.tokens for r in responses}
+    return [by_id[r.request_id] for r in reqs]
+
+
+def small_slot_path(torch, sat, gs, sat_card, gs_card, ac):
+    """``InferenceEngine.serve`` on the paged slot path, and a γ = 3
+    speculative engine drafted by the satellite tier: the same tokens on
+    the card as on the CPU (and spec equal to greedy)."""
+    from repro_torch.serving import EngineConfig, InferenceEngine
+    reqs = scene_stream(["det", "vqa", "cls", "vqa"], 3, ac.image_size,
+                        ac.grid, seed=70)
+    greedy = {}
+    for spec in (0, 3):
+        for dev, tier, draft in (("cpu", gs, sat),
+                                 ("cuda", gs_card, sat_card)):
+            eng = InferenceEngine(
+                tier.params, tier.cfg, ac,
+                EngineConfig(slots=3, answer_vocab=9, spec_gamma=spec),
+                draft=draft if spec else None, device=dev)
+            rs = clone_requests(reqs)
+            toks = served_tokens(eng.serve(rs), rs)
+            greedy.setdefault(dev, toks)
+            same = all((a == b).all() for a, b in zip(toks, greedy["cpu"]))
+            log(f"  small slot path spec_gamma {spec} on {dev}: "
+                f"{len(toks)} requests, prefix hits "
+                f"{eng.core.stats['prefix_hits']}, "
+                f"{'equal to' if same else 'DIFFERENT from'} the CPU "
+                "greedy tokens")
+            if not same:
+                raise RuntimeError(f"slot path spec_gamma {spec} on {dev} "
+                                   "disagrees with the CPU greedy tokens")
 
 
 MAIN_TASKS = [("vqa", (0.5, 0.4)), ("cls", (0.5, 0.4)),
@@ -421,11 +674,274 @@ def main_path(torch):
     if tiers != {"satellite", "ground"}:
         raise RuntimeError(f"main path reached only {tiers}")
     log(f"  launches in the main path: {counts}")
-    missing = [k for k, n in counts.items() if n == 0]
+    missing = [k for k in ("flash_attention", "decode_attention",
+                           "region_score") if counts[k] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: "
                            f"{missing}")
     return sat, gs, ac, counts, results
+
+
+class StepProbe:
+    """Instruments one ``EngineCore`` for a phase: counts admission calls,
+    times every step on the host clock (each step ends in its one token
+    fetch, so the clock covers the device work), and profiles steps
+    [``first``, ``first + n``) with ``torch.profiler``."""
+
+    def __init__(self, torch, core, first: int = 64, n: int = 8):
+        from torch.profiler import ProfilerActivity, profile
+        self.torch, self.core = torch, core
+        self.admissions, self.step_s = 0, []
+        self.first, self.n = first, n
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.window_s = 0.0
+        step, admit = core.step, core.admit_many
+
+        def admit_many(requests):
+            self.admissions += 1
+            return admit(requests)
+
+        def timed_step():
+            k = len(self.step_s)
+            if k == self.first:
+                torch.cuda.synchronize()
+                self.prof.start()
+            t0 = time.perf_counter()
+            out = step()
+            self.step_s.append(time.perf_counter() - t0)
+            if self.first <= k < self.first + self.n:
+                self.window_s += self.step_s[-1]
+            if k == self.first + self.n - 1:
+                torch.cuda.synchronize()
+                self.prof.stop()
+            return out
+
+        core.admit_many, core.step = admit_many, timed_step
+
+    def profile(self):
+        """``profile_summary`` of the profiled steps; None when fewer steps
+        ran."""
+        if len(self.step_s) < self.first + self.n:
+            return None
+        return profile_summary(self.torch, self.prof, self.n, self.window_s)
+
+
+def profile_summary(torch, prof, n_steps: int, seconds: float):
+    """From a ``torch.profiler`` run over ``n_steps`` steps that took
+    ``seconds`` on the host clock: the device's busy share, and the top
+    device kernels and host operations in ms per step."""
+    events = prof.key_averages()
+
+    def dev_us(e):   # the attribute's name differs across versions
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # Only the device's own events (kernels, copies): a CPU op such as
+    # aten::mm also carries its kernels' time as self device time, so
+    # summing every event would count that work twice.
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    top_dev = sorted(kernels, key=lambda e: -dev_us(e))[:6]
+    top_host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:6]
+    per = 1e3 * n_steps
+    return {"device_busy_share":
+            sum(dev_us(e) for e in kernels) / 1e6 / seconds,
+            "top_device_ms_per_step": {e.key[:60]: dev_us(e) / per
+                                       for e in top_dev},
+            "top_host_ms_per_step": {e.key[:60]: e.self_cpu_time_total / per
+                                     for e in top_host}}
+
+
+def slot_phase(torch, sat, ac):
+    """``InferenceEngine.serve`` of the satellite tier (Qwen2-VL-2B) at full
+    width on the paged slot path: 24 requests over 4 scenes (per scene 1
+    det with 1024 answer tokens, 1 cls, 4 vqa) on 8 slots."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig, InferenceEngine
+    av = ac.num_classes + 1
+    eng = InferenceEngine(sat.params, sat.cfg, ac,
+                          EngineConfig(slots=8, page_size=8, answer_vocab=av),
+                          device="cuda")
+    core = eng.core
+    eng.warmup()
+    reqs = scene_stream(["det", "cls", "vqa", "vqa", "vqa", "vqa"], 4,
+                        FULL_IMAGE, FULL_GRID, seed=300)
+    # snapshot each scene's shared pages the moment they are written
+    snaps, prefill = {}, core._prefill_prefixes
+
+    def prefill_and_snapshot(miss):
+        prefill(miss)
+        for scene, _ in miss:
+            pages = torch.tensor(core._prefix.get(scene).pages,
+                                 device="cuda")
+            snaps[scene] = (pages, [{k: v[:, pages].clone()
+                                     for k, v in layer.items()}
+                                    for layer in core._slot_cache])
+
+    core._prefill_prefixes = prefill_and_snapshot
+    probe = StepProbe(torch, core)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+
+    toks = served_tokens(out, reqs)
+    for r, t in zip(reqs, toks):
+        if len(t) != ac.answer_len(r.task) or t.min() < 0 or t.max() >= av:
+            raise RuntimeError(f"slot phase: {r.task} answered {len(t)} "
+                               "tokens or outside the answer vocab")
+    st, kv = core.stats, core.kv_stats()
+    steps = st["sched"]["steps"]
+    n_layers = sat.cfg.num_layers
+    resident = kv["prefix_shared_pages"]
+    checks = {
+        "every request answered": len(out) == len(reqs) == 24,
+        "prefix_hits == 20": st["prefix_hits"] == 20,
+        "prefix_misses == 4": st["prefix_misses"] == 4,
+        "pages_in_use == resident prefix pages":
+            kv["pages_in_use"] == resident == 4 * ac.n_regions // 8,
+        "shared pages unchanged": len(snaps) == 4 and all(
+            all(torch.equal(v, layer[k][:, pages])
+                for saved, layer in zip(saved_layers, core._slot_cache)
+                for k, v in saved.items())
+            for pages, saved_layers in snaps.values()),
+        "paged launches == layers x (steps + admissions)":
+            counts["paged_decode_attention"]
+            == n_layers * (steps + probe.admissions),
+        "flash launched": counts["flash_attention"] > 0,
+    }
+    n_tok = sum(len(t) for t in toks)
+    step_ms = 1e3 * sum(probe.step_s) / len(probe.step_s)
+    prof = probe.profile()
+    busy = prof and prof["device_busy_share"]
+    res = {"requests": len(out), "slot_steps": steps,
+           "admission_calls": probe.admissions,
+           "prefix_hits": st["prefix_hits"],
+           "prefix_misses": st["prefix_misses"],
+           "mid_stream_refills": st["mid_stream_refills"],
+           "pages_in_use": kv["pages_in_use"], "n_pages": kv["n_pages"],
+           "answer_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "step_ms_mean": step_ms,
+           "step_ms_median": 1e3 * sorted(probe.step_s)[steps // 2],
+           "device_busy_share": busy, "profile": prof, "launches": counts}
+    log(f"  slot path: {len(out)} requests in {wall:.2f} s, {steps} slot "
+        f"steps + {probe.admissions} admission calls, step {step_ms:.2f} ms"
+        f" (mean), {n_tok / wall:.1f} answer tokens/s, device busy "
+        f"{busy if busy is None else round(busy, 3)}")
+    log(f"  slot path checks: {checks}")
+    log("slot_phase " + json.dumps(res))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"slot phase failed: {bad}")
+    return res
+
+
+def spec_phase(torch, sat, gs, ac):
+    """The 7B ground tier's speculative ``EngineCore`` (γ = 4, 4 slots)
+    drafted by the 2B satellite tier: 6 vqa/cls requests (1-token answers
+    need no drafts, so the engine verifies them without drafting), then
+    one det request whose piggybacked drafts are the 7B's own greedy answer
+    from a non-speculative slot-path run, all but the last ``LOCAL_TAIL``
+    positions: verify-only steps first, then local drafting by the 2B for
+    the tail (and for everything after a first disagreement, which drops
+    the piggybacked stream)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineCore, EngineCoreConfig
+    av = ac.num_classes + 1
+    gamma, n_layers = 4, gs.cfg.num_layers
+    small = scene_stream(["vqa", "cls", "vqa"], 2, FULL_IMAGE, FULL_GRID,
+                         seed=400)
+    det = scene_stream(["det"], 1, FULL_IMAGE, FULL_GRID, seed=500)[0]
+
+    def drain(core, requests):
+        out, queue = {}, list(requests)
+        while queue or core.active_count():
+            n = min(len(queue), len(core.free_slots()))
+            if n:
+                core.admit_many(queue[:n])
+                del queue[:n]
+            for r, t in core.step():
+                out[r.request_id] = t
+        return [out[r.request_id] for r in requests]
+
+    # the 7B's greedy det answer on the non-speculative slot path
+    plain = EngineCore(gs, ac, EngineCoreConfig(slots=4, answer_vocab=av))
+    plain.warmup()
+    plain_probe = StepProbe(torch, plain)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    greedy = drain(plain, clone_requests([det]))[0]
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    plain_counts = ops.launch_counts()
+    plain_steps = plain.stats["sched"]["steps"]
+
+    spec = EngineCore(gs, ac, EngineCoreConfig(slots=4, answer_vocab=av,
+                                               spec_gamma=gamma),
+                      draft=sat)
+    spec.warmup()
+    probe = StepProbe(torch, spec, first=4, n=8)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    small_toks = drain(spec, clone_requests(small))
+    small_steps = spec.stats["spec"]["steps"]
+    det_req = clone_requests([det], [greedy[:-LOCAL_TAIL]])
+    got = drain(spec, det_req)[0]
+    torch.cuda.synchronize()
+    t_spec = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    sp = spec.spec_stats()
+    agree = got == greedy
+    first_diff = None if agree.all() else int(np.argmin(agree))
+    verify_steps = sp["steps"]
+    checks = {
+        "small answered": all(len(t) == 1 for t in small_toks),
+        "det answered": len(got) == ac.answer_len("det")
+                        and got.min() >= 0 and got.max() < av,
+        "verify-only steps ran": sp["verify_only_steps"] > 0,
+        "local drafting ran": sp["steps"] > sp["verify_only_steps"],
+        "paged launches == layers x (verify steps + admissions)":
+            counts["paged_decode_attention"]
+            == n_layers * (verify_steps + probe.admissions),
+        "plain paged launches == layers x (steps + admissions)":
+            plain_counts["paged_decode_attention"]
+            == n_layers * (plain_steps + plain_probe.admissions),
+        "drafter's dense decode launched": counts["decode_attention"] > 0,
+    }
+    res = {"spec_stats": sp, "verify_steps": verify_steps,
+           "local_draft_steps": sp["steps"] - sp["verify_only_steps"],
+           "small_request_steps": small_steps,
+           "admission_calls": probe.admissions,
+           "det_agreement_share": float(agree.mean()),
+           "det_first_disagreement": first_diff,
+           "spec_wall_s": t_spec, "greedy_det_wall_s": t_plain,
+           "greedy_slot_steps": plain_steps,
+           "greedy_step_ms": 1e3 * sum(plain_probe.step_s)
+           / max(len(plain_probe.step_s), 1),
+           "spec_step_ms": 1e3 * sum(probe.step_s) / max(len(probe.step_s),
+                                                         1),
+           "spec_profile": probe.profile(),
+           "greedy_profile": plain_probe.profile(),
+           "launches": counts, "greedy_launches": plain_counts}
+    log(f"  spec: {verify_steps} verify steps ({sp['verify_only_steps']} "
+        f"verify-only), accept rate {sp['accept_rate']:.3f}, "
+        f"{sp['tokens_per_slot_step']:.2f} tokens per slot step; det "
+        f"agrees with the greedy answer on {agree.mean():.4f} of "
+        f"{len(greedy)} positions (first disagreement: {first_diff}); spec "
+        f"{t_spec:.2f} s vs greedy det {t_plain:.2f} s")
+    log(f"  spec checks: {checks}")
+    log("spec_phase " + json.dumps(res))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"spec phase failed: {bad}")
+    return res
 
 
 def breakdown(torch, sat, gs, ac, n_steps: int = 32):
@@ -464,21 +980,6 @@ def breakdown(torch, sat, gs, ac, n_steps: int = 32):
                                               {"tokens": tok},
                                               idx + n_steps + i)
             torch.cuda.synchronize()
-        events = prof.key_averages()
-
-        def dev_us(e):   # the attribute's name differs across versions
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0))
-
-        # Only the device's own events (kernels, copies): a CPU op such as
-        # aten::mm also carries its kernels' time as self device time, so
-        # summing every event would count that work twice.
-        kernels = [e for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)]
-        dev_us_total = sum(dev_us(e) for e in kernels)
-        top_dev = sorted(kernels, key=lambda e: -dev_us(e))[:6]
-        top_host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:6]
         # a decode step streams every layer's weights and the unembedding
         bb = tier.params["backbone"]
         head = bb["embed"].get("head", bb["embed"]["tok"])
@@ -487,11 +988,7 @@ def breakdown(torch, sat, gs, ac, n_steps: int = 32):
             "prefill_ms": 1e3 * t_prefill,
             "decode_step_ms": 1e3 * t_step,
             "decode_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S,
-            "device_busy_share": dev_us_total / 1e3 / (8 * 1e3 * t_step),
-            "top_device_ms_per_step": {e.key[:60]: dev_us(e) / 8e3
-                                       for e in top_dev},
-            "top_host_ms_per_step": {e.key[:60]: e.self_cpu_time_total / 8e3
-                                     for e in top_host}}
+            **profile_summary(torch, prof, 8, 8 * t_step)}
         log(f"  {name}: prefill {out[name]['prefill_ms']:.2f} ms, decode "
             f"step {out[name]['decode_step_ms']:.3f} ms (weight-streaming "
             f"bound {out[name]['decode_bound_ms']:.3f} ms), device busy "
@@ -542,13 +1039,27 @@ def main() -> int:
     log("phase 5: where the time goes")
     breakdown(torch, sat, gs, ac)
 
+    log("phase 6: slot path at full width (InferenceEngine.serve, 2B)")
+    slot = slot_phase(torch, sat, ac)
+
+    log("phase 7: speculative verify at full width (7B, drafted by 2B)")
+    spec = spec_phase(torch, sat, gs, ac)
+
+    # each path drove the kernels with the counts zeroed just before it
+    by_path = {"cascade_server": counts, "slot_serve": slot["launches"],
+               "spec_greedy": spec["greedy_launches"],
+               "spec": spec["launches"]}
+    headline = {"flash_attention": "7B", "decode_attention": "7B",
+                "region_score": "main", "paged_decode_attention": "a 2B q1"}
     line = []
-    for name in ("flash_attention", "decode_attention", "region_score"):
+    for name, tag in headline.items():
         shapes = kernels[name]
-        m = shapes.get("7B", shapes.get("main"))
+        m = shapes[tag]
         line.append({
             "name": name, "route": "cuda", "source": SOURCE_OF[name],
-            "replaces": REPLACES[name], "launches": counts[name],
+            "replaces": REPLACES[name],
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],

@@ -60,6 +60,18 @@ class EOAdapterConfig:
             return c + 1 + p
         raise ValueError(task)
 
+    def prompt_id(self, task: str, prompt: int) -> int:
+        """Scalar host-side ``prompt_token`` for the admission path: the
+        same vocabulary layout, no device round trip."""
+        c = self.num_classes
+        if task == "vqa":
+            return int(prompt)
+        if task == "cls":
+            return c
+        if task == "det":
+            return c + 1 + int(prompt)
+        raise ValueError(task)
+
 
 def init_adapter(backbone_cfg: ArchConfig, adapter_cfg: EOAdapterConfig,
                  seed: int = 0, *, device: DeviceLike = None) -> Params:
@@ -112,6 +124,20 @@ def prefill_tokens(params: Params, backbone_cfg: ArchConfig,
     """Prefill [regions | prompt] from already-converted prompt token ids."""
     patch_embeds = encode_regions(params, adapter_cfg, images)
     inputs = {"tokens": prompt_tokens[:, None], "patch_embeds": patch_embeds}
+    return T.prefill(params["backbone"], backbone_cfg, inputs, max_len)
+
+
+def prefill_regions(params: Params, backbone_cfg: ArchConfig,
+                    adapter_cfg: EOAdapterConfig, images: torch.Tensor,
+                    max_len: int) -> Tuple[torch.Tensor, Tuple, int]:
+    """Prefill the scene prefix only: the R region tokens, no prompt.  They
+    are the prompt-independent prefix of every request over one captured
+    scene (causal attention), so the paged engine prefills them once per
+    scene and shares their KV pages read-only."""
+    patch_embeds = encode_regions(params, adapter_cfg, images)
+    inputs = {"tokens": torch.zeros((images.shape[0], 0), dtype=torch.int32,
+                                    device=images.device),
+              "patch_embeds": patch_embeds}
     return T.prefill(params["backbone"], backbone_cfg, inputs, max_len)
 
 

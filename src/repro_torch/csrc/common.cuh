@@ -66,14 +66,21 @@ struct TileLoader {
   static_assert(ROWS * CPR % THREADS == 0, "tile must split evenly");
   uint4 buf[PER];
 
-  __device__ __forceinline__ void fetch(const T* __restrict__ src, int64_t rs,
-                                        int nrows) {
+  // Rows at ``row(r)`` (a pointer to row r's first element), any addressing:
+  // strided for a dense cache, through a block table for a paged one.
+  template <typename RowFn>
+  __device__ __forceinline__ void fetch_rows(const RowFn& row, int nrows) {
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const int c = threadIdx.x + j * THREADS, r = c / CPR, e = (c % CPR) * EPC;
-      buf[j] = r < nrows ? __ldg(reinterpret_cast<const uint4*>(src + r * rs + e))
+      buf[j] = r < nrows ? __ldg(reinterpret_cast<const uint4*>(row(r) + e))
                          : make_uint4(0u, 0u, 0u, 0u);
     }
+  }
+
+  __device__ __forceinline__ void fetch(const T* __restrict__ src, int64_t rs,
+                                        int nrows) {
+    fetch_rows([=](int r) { return src + r * rs; }, nrows);
   }
 
   __device__ __forceinline__ void store(float* __restrict__ dst, int ss) const {
@@ -92,21 +99,36 @@ struct TileLoader {
 
 // The element-wise fallback of TileLoader for head dims below the padded HD
 // (the proxies' 12 and 16): dims >= hd and rows >= nrows read as zero.
+template <typename T, int ROWS, int HD, int THREADS, typename RowFn>
+__device__ __forceinline__ void load_rows_scalar(float* __restrict__ dst, int ss,
+                                                 const RowFn& row, int nrows,
+                                                 int hd) {
+#pragma unroll 8
+  for (int i = threadIdx.x; i < ROWS * HD; i += THREADS) {
+    const int r = i / HD, d = i % HD;
+    dst[r * ss + d] = (r < nrows && d < hd) ? to_f32(row(r)[d]) : 0.f;
+  }
+}
+
 template <typename T, int ROWS, int HD, int THREADS>
 __device__ __forceinline__ void load_tile_scalar(float* __restrict__ dst, int ss,
                                                  const T* __restrict__ src,
                                                  int64_t rs, int nrows, int hd) {
-#pragma unroll 8
-  for (int i = threadIdx.x; i < ROWS * HD; i += THREADS) {
-    const int r = i / HD, d = i % HD;
-    dst[r * ss + d] = (r < nrows && d < hd) ? to_f32(src[r * rs + d]) : 0.f;
-  }
+  load_rows_scalar<T, ROWS, HD, THREADS>(
+      dst, ss, [=](int r) { return src + r * rs; }, nrows, hd);
 }
 
 // TileLoader's condition: full-width rows, 16-byte aligned base and stride.
 __host__ __forceinline__ bool rows_vectorisable(const void* p, long long rs,
                                                 int hd, int HD, int elem) {
   return hd == HD && ((uintptr_t)p % 16) == 0 && (rs * elem) % 16 == 0;
+}
+
+// The same for rows reached through further strides (head, page): each of
+// them must keep 16-byte alignment too.
+__host__ __forceinline__ bool strides_aligned(long long s0, long long s1,
+                                              int elem) {
+  return (s0 * elem) % 16 == 0 && (s1 * elem) % 16 == 0;
 }
 
 // Allow a kernel more than 48 KB of dynamic shared memory (once per kernel).

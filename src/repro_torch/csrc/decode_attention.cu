@@ -1,30 +1,42 @@
-// Flash-decoding over a dense KV cache for Hopper (sm_90a), split-K, f32 math.
+// Flash-decoding over a dense or a paged KV cache for Hopper (sm_90a),
+// split-K, f32 math.
 //
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention_pallas
 // (dense decode of the batch path, models/layers.py mode="decode", and the
-// q_len > 1 token-major chunk of ops.multi_decode_attention).
+// q_len > 1 token-major chunk of ops.multi_decode_attention), and
+// src/repro/kernels/decode_attention.py::paged_decode_attention_pallas for
+// fp pools (the slot path's paged decode at q_len 1 and the speculative
+// verifier at q_len = gamma + 1, ops.paged_multi_decode_attention).
 //
-// What bounds it on this card: bytes.  At batch 1 a row group reads its
-// cache_len x hd K and V once and does ~4·hd FLOPs per (query row, key), a
-// few FLOPs per byte, far below the ~295 FLOPs/byte where the tensor cores
-// would become the limit.  The whole read is ~1 MB per layer at the main
-// path's shapes, so launch latency and occupancy matter as much as bandwidth.
+// What bounds it on this card: bytes.  A row group reads its cache_len x hd
+// K and V once and does ~4·hd FLOPs per (query row, key), a few FLOPs per
+// byte, far below the ~295 FLOPs/byte where the tensor cores would become
+// the limit.  The read is ~1 MB per layer and row at the main path's
+// shapes, so launch latency and occupancy matter as much as bandwidth.
 //
 // What the design does about it:
 //  * One block per (KV split, KV head, batch row): the group's q_len·group
-//    query rows share every K/V tile the block loads (the point of the
-//    kernel at batch 1), so K/V are read once per KV head, never per query
-//    head.
+//    query rows share every K/V tile the block loads, so K/V are read once
+//    per KV head, never per query head.  Up to 32 rows take 4 warps, up to
+//    64 (the paged verifier: (gamma+1)·7 = 35 rows on the 7B at gamma 4)
+//    take 8; a warp holds at most 8 rows.
 //  * Q rows and K/V tiles move in 16-byte chunks at hd = 32, 64 or 128,
 //    all of a thread's in flight at once (the proxies' hd 12/16 take an
 //    element-wise path).
-//  * Split-K over the cache gives the card enough blocks at batch 1 (the
+//  * Split-K over the cache gives the card enough blocks at small batch (the
 //    TPU kernel's sequential KV grid axis becomes independent splits); a
 //    second small kernel, one block per (query row, KV head, batch row),
-//    combines the splits' (m, l, acc) partials.
-//  * Per-row cache_len (a scalar broadcasts in the wrapper): splits and
-//    tiles outside [lo, cache_len) are skipped; rows with cache_len == 0
-//    output zeros.
+//    combines the splits' (m, l, acc) partials.  Splits past a row's length
+//    leave (m = -inf, l = 0, acc = 0), which the combine weighs as zero.
+//  * Paged: key s of row b lives at pool[tbl[b, s / page], s % page, kh, :]
+//    (any page size, including pages smaller than the 64-key tile); each
+//    token's hd vector is contiguous, so the 16-byte loads stay.  The block
+//    reads its own table entries (no scalar prefetch on this card).  The
+//    split plan comes from the table width, never from the lengths.
+//  * Per-row cache_len (a scalar broadcasts in the wrapper), clipped to the
+//    cache: keys at or past cache_len are never read (their tile rows load
+//    as zeros), and tiles outside [lo, cache_len) are skipped; rows with
+//    cache_len == 0 output zeros.
 //  * The mask is the TPU kernel's _kv_block_update one: query row r belongs
 //    to chunk token t = r / group with eff_len = cache_len - (q_len-1) + t,
 //    columns < eff_len (and >= eff_len - window with a window) are valid;
@@ -34,51 +46,72 @@
 
 namespace {
 
-constexpr int DA_WARPS = 4;
 constexpr int DA_BK = 64;                  // keys per tile: two per lane
 constexpr int DA_RPW = 8;                  // query rows per warp, at most
-constexpr int DA_MAX_ROWS = DA_WARPS * DA_RPW;
+constexpr int DA_MAX_ROWS = 8 * DA_RPW;    // 8 warps
 constexpr int DA_COMBINE_THREADS = 128;    // >= hd: one thread per output dim
 
-template <int HD>
+template <int HD, int WARPS>
 constexpr size_t da_smem_bytes() {
-  return (size_t)(DA_MAX_ROWS * HD + DA_BK * (HD + 4) + DA_BK * HD) * sizeof(float);
+  return (size_t)(WARPS * DA_RPW * HD + DA_BK * (HD + 4) + DA_BK * HD) * sizeof(float);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(DA_WARPS * 32)
+// Where key s of one (batch row, KV head) lives.  Dense: base + s·ss.
+// Paged: pool + tbl[s / page]·sn + (s % page)·ss (base already offset to
+// the KV head).
+template <typename T, bool PAGED>
+struct KvRows {
+  const T* base;
+  const int* tbl;       // this batch row's block-table entries (paged)
+  int64_t sn, ss;
+  int page;
+  __device__ __forceinline__ const T* operator()(int s) const {
+    if (!PAGED) return base + s * ss;
+    const int blk = s / page;
+    return base + (int64_t)__ldg(tbl + blk) * sn + (int64_t)(s - blk * page) * ss;
+  }
+};
+
+template <typename T, int HD, int WARPS, bool PAGED>
+__global__ void __launch_bounds__(WARPS * 32)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ cache_len,
+                    const T* __restrict__ v, const int* __restrict__ tbl,
+                    const int* __restrict__ cache_len,
                     float* __restrict__ part_acc, float* __restrict__ part_ml,
                     int KH, int rows, int q_len, int S, int hd, int split_len,
                     int64_t q_sb, int64_t q_sh, int64_t q_sr,
-                    int64_t k_sb, int64_t k_sh, int64_t k_ss,
-                    int64_t v_sb, int64_t v_sh, int64_t v_ss,
+                    int64_t k_s0, int64_t k_sh, int64_t k_ss,
+                    int64_t v_s0, int64_t v_sh, int64_t v_ss,
+                    int64_t tbl_sb, int page,
                     int window, float softcap, float scale, int vec) {
-  constexpr int THREADS = DA_WARPS * 32;
+  constexpr int THREADS = WARPS * 32;
+  constexpr int MAXR = WARPS * DA_RPW;
   constexpr int KST = HD + 4;
   constexpr int DPL = HD / 32;
   extern __shared__ float4 da_smem4[];
   float* qs = reinterpret_cast<float*>(da_smem4);   // [rows][HD]
-  float* ks = qs + DA_MAX_ROWS * HD;                // [DA_BK][KST]
+  float* ks = qs + MAXR * HD;                       // [DA_BK][KST]
   float* vs = ks + DA_BK * KST;                     // [DA_BK][HD]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int splits = gridDim.x;
   const int group = rows / q_len;
-  const int len = cache_len[b];
+  const int len = min(cache_len[b], S);
 
   const T* qb = q + b * q_sb + kh * q_sh;
-  const T* kb = k + b * k_sb + kh * k_sh;
-  const T* vb = v + b * v_sb + kh * v_sh;
+  // dense: k_s0 is the batch stride; paged: the page stride
+  const KvRows<T, PAGED> krow{k + (PAGED ? 0 : b * k_s0) + kh * k_sh,
+                              tbl + b * tbl_sb, k_s0, k_ss, page};
+  const KvRows<T, PAGED> vrow{v + (PAGED ? 0 : b * v_s0) + kh * v_sh,
+                              tbl + b * tbl_sb, v_s0, v_ss, page};
 
   if (vec) {
-    TileLoader<T, DA_MAX_ROWS, HD, THREADS> ql;
+    TileLoader<T, MAXR, HD, THREADS> ql;
     ql.fetch(qb, q_sr, rows);
     ql.store(qs, HD);
   } else {
-    load_tile_scalar<T, DA_MAX_ROWS, HD, THREADS>(qs, HD, qb, q_sr, rows, hd);
+    load_tile_scalar<T, MAXR, HD, THREADS>(qs, HD, qb, q_sr, rows, hd);
   }
 
   float m[DA_RPW], l[DA_RPW], acc[DA_RPW][DPL];
@@ -93,22 +126,23 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // columns any row of the group can see: [lo, len)
   const int lo = window > 0 ? max(len - window - (q_len - 1), 0) : 0;
   const int s0 = split * split_len;
-  const int s1 = min(S, s0 + split_len);
+  const int s1 = min(len, s0 + split_len);   // never read a key >= len
 
   for (int k0 = s0; k0 < s1; k0 += DA_BK) {
-    if (k0 + DA_BK <= lo || k0 >= len) continue;   // block-uniform skip
+    if (k0 + DA_BK <= lo) continue;            // block-uniform skip
+    const int nk = s1 - k0;
     __syncthreads();
     if (vec) {                                 // K and V both in flight
       TileLoader<T, DA_BK, HD, THREADS> kl, vl;
-      kl.fetch(kb + k0 * k_ss, k_ss, s1 - k0);
-      vl.fetch(vb + k0 * v_ss, v_ss, s1 - k0);
+      kl.fetch_rows([&](int r) { return krow(k0 + r); }, nk);
+      vl.fetch_rows([&](int r) { return vrow(k0 + r); }, nk);
       kl.store(ks, KST);
       vl.store(vs, HD);
     } else {
-      load_tile_scalar<T, DA_BK, HD, THREADS>(ks, KST, kb + k0 * k_ss, k_ss,
-                                              s1 - k0, hd);
-      load_tile_scalar<T, DA_BK, HD, THREADS>(vs, HD, vb + k0 * v_ss, v_ss,
-                                              s1 - k0, hd);
+      load_rows_scalar<T, DA_BK, HD, THREADS>(
+          ks, KST, [&](int r) { return krow(k0 + r); }, nk, hd);
+      load_rows_scalar<T, DA_BK, HD, THREADS>(
+          vs, HD, [&](int r) { return vrow(k0 + r); }, nk, hd);
     }
     __syncthreads();
 
@@ -122,7 +156,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float4 x = ka[d4], y = kbb[d4];
 #pragma unroll
       for (int i = 0; i < DA_RPW; ++i) {
-        const int r = warp + DA_WARPS * i;
+        const int r = warp + WARPS * i;
         if (r < rows) {
           const float4 qq = reinterpret_cast<const float4*>(qs + r * HD)[d4];
           sa[i] += qq.x * x.x + qq.y * x.y + qq.z * x.z + qq.w * x.w;
@@ -136,7 +170,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DA_RPW; ++i) {
       pa[i] = pb[i] = 0.f;
-      const int r = warp + DA_WARPS * i;
+      const int r = warp + WARPS * i;
       if (r >= rows) continue;                     // warp-uniform
       const int eff = len - (q_len - 1) + r / group;
       bool oka = ca < eff && ca < s1, okb = cb < eff && cb < s1;
@@ -166,7 +200,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 #pragma unroll
       for (int i = 0; i < DA_RPW; ++i) {
-        const int r = warp + DA_WARPS * i;
+        const int r = warp + WARPS * i;
         if (r < rows) {
           const float xa = __shfl_sync(0xffffffffu, pa[i], j);
           const float xb = __shfl_sync(0xffffffffu, pb[i], j);
@@ -180,7 +214,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // partials: [(b·KH + kh)·splits + split]·rows + r
 #pragma unroll
   for (int i = 0; i < DA_RPW; ++i) {
-    const int r = warp + DA_WARPS * i;
+    const int r = warp + WARPS * i;
     if (r >= rows) continue;
     const int64_t idx = ((int64_t)(b * KH + kh) * splits + split) * rows + r;
     if (lane == 0) {
@@ -231,68 +265,97 @@ decode_combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* cache_len, void* o, float* part_acc,
-                   float* part_ml, int B, int KH, int rows, int q_len, int S,
-                   int hd, const long long* st, int splits, int split_len,
-                   int window, float softcap, float scale,
-                   cudaStream_t stream) {
-  constexpr size_t smem = da_smem_bytes<HD>();
+// The launch arguments both entry points share.  st: q (b, h, r), k (0, h,
+// s), v (0, h, s), o (b, h, r) strides, where k/v's "0" stride is the batch
+// stride (dense) or the page stride (paged) and "s" steps one key (dense)
+// or one slot within a page (paged).
+struct DecodeArgs {
+  const void *q, *k, *v;
+  const int* tbl;
+  const int* cache_len;
+  void* o;
+  float *part_acc, *part_ml;
+  int B, KH, rows, q_len, S, hd;
+  long long st[12];
+  long long tbl_sb;
+  int page, splits, split_len, window;
+  float softcap, scale;
+  int vec;
+};
+
+template <typename T, int HD, int WARPS, bool PAGED>
+cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = da_smem_bytes<HD, WARPS>();
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = allow_smem(decode_split_kernel<T, HD>, smem);
+    cudaError_t e = allow_smem(decode_split_kernel<T, HD, WARPS, PAGED>, smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const int elem = (int)sizeof(T);
-  const int vec = rows_vectorisable(q, st[2], hd, HD, elem) &&
-                  rows_vectorisable(k, st[5], hd, HD, elem) &&
-                  rows_vectorisable(v, st[8], hd, HD, elem);
-  dim3 grid(splits, KH, B);
-  decode_split_kernel<T, HD><<<grid, DA_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), cache_len, part_acc, part_ml, KH, rows,
-      q_len, S, hd, split_len, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], window, softcap, scale, vec);
+  const long long* st = a.st;
+  decode_split_kernel<T, HD, WARPS, PAGED>
+      <<<dim3(a.splits, a.KH, a.B), WARPS * 32, smem, stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), a.tbl, a.cache_len, a.part_acc,
+          a.part_ml, a.KH, a.rows, a.q_len, a.S, a.hd, a.split_len, st[0],
+          st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], a.tbl_sb,
+          a.page, a.window, a.softcap, a.scale, a.vec);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const size_t csmem = (size_t)(splits + 32) * sizeof(float);
+  const size_t csmem = (size_t)(a.splits + 32) * sizeof(float);
   e = allow_smem(decode_combine_kernel<T>, csmem);
   if (e != cudaSuccess) return e;
-  decode_combine_kernel<T><<<dim3(rows, KH, B), DA_COMBINE_THREADS, csmem,
-                             stream>>>(part_acc, part_ml, static_cast<T*>(o),
-                                       KH, rows, hd, splits, st[9], st[10],
-                                       st[11]);
+  decode_combine_kernel<T><<<dim3(a.rows, a.KH, a.B), DA_COMBINE_THREADS,
+                             csmem, stream>>>(
+      a.part_acc, a.part_ml, static_cast<T*>(a.o), a.KH, a.rows, a.hd,
+      a.splits, st[9], st[10], st[11]);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v,
-                        const int* cache_len, void* o, float* part_acc,
-                        float* part_ml, int B, int KH, int rows, int q_len,
-                        int S, int hd, const long long* st, int splits,
-                        int split_len, int window, float softcap, float scale,
-                        cudaStream_t stream) {
-  if (hd <= 32)
-    return launch<T, 32>(q, k, v, cache_len, o, part_acc, part_ml, B, KH, rows,
-                         q_len, S, hd, st, splits, split_len, window, softcap,
-                         scale, stream);
-  if (hd <= 64)
-    return launch<T, 64>(q, k, v, cache_len, o, part_acc, part_ml, B, KH, rows,
-                         q_len, S, hd, st, splits, split_len, window, softcap,
-                         scale, stream);
-  return launch<T, 128>(q, k, v, cache_len, o, part_acc, part_ml, B, KH, rows,
-                        q_len, S, hd, st, splits, split_len, window, softcap,
-                        scale, stream);
+template <typename T, bool PAGED>
+cudaError_t dispatch_hd(const DecodeArgs& a, cudaStream_t stream) {
+  if (a.rows <= 32) {
+    if (a.hd <= 32) return launch<T, 32, 4, PAGED>(a, stream);
+    if (a.hd <= 64) return launch<T, 64, 4, PAGED>(a, stream);
+    return launch<T, 128, 4, PAGED>(a, stream);
+  }
+  if (!PAGED) return cudaErrorInvalidValue;   // the dense entry takes <= 32
+  if (a.hd <= 32) return launch<T, 32, 8, PAGED>(a, stream);
+  if (a.hd <= 64) return launch<T, 64, 8, PAGED>(a, stream);
+  return launch<T, 128, 8, PAGED>(a, stream);
+}
+
+template <bool PAGED>
+int run(DecodeArgs& a, int dtype, void* stream) {
+  const int max_rows = PAGED ? DA_MAX_ROWS : 32;
+  if (a.hd < 1 || a.hd > 128 || a.hd % 4 != 0 || a.rows < 1 ||
+      a.rows > max_rows || a.q_len < 1 || a.rows % a.q_len != 0 ||
+      a.split_len % DA_BK != 0 || a.splits < 1 ||
+      (long long)a.splits * a.split_len < a.S || (PAGED && a.page < 1))
+    return (int)cudaErrorInvalidValue;
+  const int hd_pad = a.hd <= 32 ? 32 : (a.hd <= 64 ? 64 : 128);
+  const int elem = dtype == DT_BF16 ? 2 : 4;
+  // 16-byte tile loads: full-width rows and every stride that reaches a
+  // row (head, page or batch) keeping 16-byte alignment
+  a.vec = rows_vectorisable(a.q, a.st[2], a.hd, hd_pad, elem) &&
+          strides_aligned(a.st[0], a.st[1], elem) &&
+          rows_vectorisable(a.k, a.st[5], a.hd, hd_pad, elem) &&
+          strides_aligned(a.st[3], a.st[4], elem) &&
+          rows_vectorisable(a.v, a.st[8], a.hd, hd_pad, elem) &&
+          strides_aligned(a.st[6], a.st[7], elem);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_BF16) return (int)dispatch_hd<__nv_bfloat16, PAGED>(a, s);
+  if (dtype == DT_F32) return (int)dispatch_hd<float, PAGED>(a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (B,KH,rows,hd) token-major rows (rows = q_len·group), k/v (B,KH,S,hd),
-// cache_len (B,) int32, o (B,KH,rows,hd); any strides with a unit innermost
-// one.  part_acc (B·KH·splits·rows·hd) and part_ml (B·KH·splits·rows·2) are
-// f32 scratch.  split_len must be a multiple of 64.  softcap <= 0 = none.
+// q (B,KH,rows,hd) token-major rows (rows = q_len·group <= 32), k/v
+// (B,KH,S,hd), cache_len (B,) int32, o (B,KH,rows,hd); any strides with a
+// unit innermost one.  part_acc (B·KH·splits·rows·hd) and part_ml
+// (B·KH·splits·rows·2) are f32 scratch.  split_len must be a multiple of
+// 64.  softcap <= 0 = none.
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const int* cache_len,
     void* o, float* part_acc, float* part_ml,
@@ -303,23 +366,32 @@ extern "C" int decode_attention_fwd(
     long long o_sb, long long o_sh, long long o_sr,
     int splits, int split_len, int window, float softcap, float scale,
     int dtype, void* stream) {
-  if (hd < 1 || hd > 128 || hd % 4 != 0 || rows < 1 || rows > DA_MAX_ROWS ||
-      q_len < 1 || rows % q_len != 0 || split_len % DA_BK != 0 ||
-      splits < 1 || (long long)splits * split_len < S)
-    return (int)cudaErrorInvalidValue;
-  const long long st[12] = {q_sb, q_sh, q_sr, k_sb, k_sh, k_ss,
-                            v_sb, v_sh, v_ss, o_sb, o_sh, o_sr};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == DT_BF16)
-    e = dispatch_hd<__nv_bfloat16>(q, k, v, cache_len, o, part_acc, part_ml, B,
-                                   KH, rows, q_len, S, hd, st, splits,
-                                   split_len, window, softcap, scale, s);
-  else if (dtype == DT_F32)
-    e = dispatch_hd<float>(q, k, v, cache_len, o, part_acc, part_ml, B, KH,
-                           rows, q_len, S, hd, st, splits, split_len, window,
-                           softcap, scale, s);
-  else
-    e = cudaErrorInvalidValue;
-  return (int)e;
+  DecodeArgs a{q, k, v, nullptr, cache_len, o, part_acc, part_ml,
+               B, KH, rows, q_len, S, hd,
+               {q_sb, q_sh, q_sr, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                o_sb, o_sh, o_sr},
+               0, 1, splits, split_len, window, softcap, scale, 0};
+  return run<false>(a, dtype, stream);
+}
+
+// The paged form: k_pool/v_pool (n_pages, KH, page, hd) strided views (the
+// model's (n_pages, page, KH, hd) pools passed without a copy), block_table
+// (B, P) int32 with row stride tbl_sb, S = P·page.  rows <= 64.  The rest as
+// decode_attention_fwd.
+extern "C" int paged_decode_attention_fwd(
+    const void* q, const void* k_pool, const void* v_pool,
+    const int* block_table, const int* cache_len, void* o, float* part_acc,
+    float* part_ml, int B, int KH, int rows, int q_len, int P, int page,
+    int hd, long long q_sb, long long q_sh, long long q_sr,
+    long long k_sn, long long k_sh, long long k_sp,
+    long long v_sn, long long v_sh, long long v_sp, long long tbl_sb,
+    long long o_sb, long long o_sh, long long o_sr,
+    int splits, int split_len, int window, float softcap, float scale,
+    int dtype, void* stream) {
+  DecodeArgs a{q, k_pool, v_pool, block_table, cache_len, o, part_acc,
+               part_ml, B, KH, rows, q_len, P * page, hd,
+               {q_sb, q_sh, q_sr, k_sn, k_sh, k_sp, v_sn, v_sh, v_sp,
+                o_sb, o_sh, o_sr},
+               tbl_sb, page, splits, split_len, window, softcap, scale, 0};
+  return run<true>(a, dtype, stream);
 }

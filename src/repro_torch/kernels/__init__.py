@@ -3,6 +3,8 @@
 - ``ref``               plain PyTorch versions (the CPU path and the oracle)
 - ``flash_attention``   prefill attention, ``csrc/flash_attention.cu``
 - ``decode_attention``  dense flash-decoding, ``csrc/decode_attention.cu``
+- ``paged_decode_attention``  the same through a block table over page
+                        pools (slot decode and speculative verify)
 - ``region_score``      Eq. (2) scoring, ``csrc/region_score.cu``
 - ``ops``               device-based dispatch + layout adaptation
 - ``build``             nvcc build into ``build/kernels/`` and ctypes binding

@@ -112,12 +112,17 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
 
-    def __call__(self, *args) -> None:
+    def bind(self) -> None:
+        """Build (or find) the library and bind the entry point, ahead of
+        the first launch if called early."""
         if self._fn is None:
             fn = getattr(load(self.source), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
+
+    def __call__(self, *args) -> None:
+        self.bind()
         err = self._fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")

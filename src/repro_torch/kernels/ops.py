@@ -7,8 +7,9 @@ could reach to get the plain version, and no fallback on failure.
 
 This module owns what surrounds the kernels, as ``repro.kernels.ops`` does:
 the layout changes (the models use (B, S, H, hd); the kernels want
-(B, H, S, hd), passed as strided views, no copy) and the windowed
-band-slice gather before decode.  It pads no head dim: the kernels take
+(B, H, S, hd), and the (n_pages, page, KH, hd) page pools become
+(n_pages, KH, page, hd), passed as strided views, no copy) and the windowed
+band-slice gather before dense decode.  It pads no head dim: the kernels take
 hd <= 128 with hd % 4 == 0 as they are.
 """
 from __future__ import annotations
@@ -19,11 +20,13 @@ import torch
 
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import paged_decode_attention as PDA
 from repro_torch.kernels import ref
 from repro_torch.kernels import region_score as RS
 
 KERNELS = {"flash_attention": FA.KERNEL, "decode_attention": DA.KERNEL,
-           "region_score": RS.KERNEL}
+           "region_score": RS.KERNEL,
+           "paged_decode_attention": PDA.KERNEL}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -143,4 +146,54 @@ def multi_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = DA.decode_attention_cuda(_chunk_to_rows(q, kh), k.transpose(1, 2),
                                  v.transpose(1, 2), cache_len, window=window,
                                  softcap=softcap, scale=scale, q_len=t)
+    return _rows_to_chunk(o, t, h)
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention (page pools, per-row block tables)
+# ---------------------------------------------------------------------------
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_table: torch.Tensor,
+                           cache_len: CacheLen, *, window: int = 0,
+                           softcap: Optional[float] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, H, hd); k_pool, v_pool: (n_pages, page, K, hd) fp pools;
+    block_table: (B, P) int32 (physical page per logical block);
+    cache_len: int, () or (B,) → (B, H, hd).  Shared prefix pages may
+    appear in many rows' tables; the pools are only read."""
+    if not _on_card(q, k_pool, v_pool, block_table):
+        return ref.paged_decode_attention(q, k_pool, v_pool, block_table,
+                                          cache_len, window=window,
+                                          softcap=softcap, scale=scale)
+    b, h, hd = q.shape
+    kh = k_pool.shape[2]
+    o = PDA.paged_decode_attention_cuda(
+        q.reshape(b, kh, h // kh, hd), k_pool.transpose(1, 2),
+        v_pool.transpose(1, 2), block_table, cache_len, window=window,
+        softcap=softcap, scale=scale)
+    return o.reshape(b, h, hd)
+
+
+def paged_multi_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor,
+                                 block_table: torch.Tensor,
+                                 cache_len: CacheLen, *, window: int = 0,
+                                 softcap: Optional[float] = None,
+                                 scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """The speculative verifier's scoring op: q (B, T, H, hd), a T = γ+1
+    chunk causal within itself; pools and table as
+    ``paged_decode_attention``; cache_len INCLUDING the chunk
+    → (B, T, H, hd)."""
+    if not _on_card(q, k_pool, v_pool, block_table):
+        return ref.paged_multi_decode_attention(
+            q, k_pool, v_pool, block_table, cache_len, window=window,
+            softcap=softcap, scale=scale)
+    b, t, h, hd = q.shape
+    kh = k_pool.shape[2]
+    o = PDA.paged_decode_attention_cuda(
+        _chunk_to_rows(q, kh), k_pool.transpose(1, 2),
+        v_pool.transpose(1, 2), block_table, cache_len, window=window,
+        softcap=softcap, scale=scale, q_len=t)
     return _rows_to_chunk(o, t, h)

@@ -1,0 +1,88 @@
+"""Flash-decoding through a block table over a paged KV pool: the wrapper
+around ``paged_decode_attention_fwd`` in ``csrc/decode_attention.cu``.
+
+The paged form of ``decode_attention``'s split-K kernel, sharing its body
+and its combine: key ``s`` of batch row ``b`` lives at
+``pool[block_table[b, s // page], kh, s % page, :]``.  One kernel serves the
+slot path's decode (``q_len`` 1) and the speculative verifier (``q_len`` =
+γ+1, causal within the chunk), up to ``MAX_ROWS`` = 64 query rows
+(``q_len·group``) per KV head.  The split plan follows the table width,
+which is fixed for an engine, never the lengths; keys at or past a row's
+``cache_len`` are never read.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.kernels.build import DTYPES, CudaKernel, check_operands
+from repro_torch.kernels.decode_attention import (_sm_count, device_lengths,
+                                                  split_plan)
+
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
+KERNEL = CudaKernel("decode_attention.cu", "paged_decode_attention_fwd",
+                    [_P] * 8 + [_I] * 7 + [_L] * 13
+                    + [_I, _I, _I, _F, _F, _I, _P])
+MAX_ROWS = 64         # q_len·group rows one block holds (8 warps)
+
+
+def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor,
+                                block_table: torch.Tensor,
+                                cache_len: Union[int, torch.Tensor], *,
+                                window: int = 0,
+                                softcap: Optional[float] = None,
+                                scale: Optional[float] = None,
+                                q_len: int = 1) -> torch.Tensor:
+    """q: (B, KH, q_len·group, hd) token-major rows; k_pool, v_pool:
+    (n_pages, KH, page, hd), any strides with a unit innermost one (the
+    model's (n_pages, page, KH, hd) pools pass as ``transpose(1, 2)``
+    views); block_table: (B, P) int32; cache_len: int or () / (B,) int
+    tensor of valid slots INCLUDING the chunk → (B, KH, q_len·group, hd),
+    on the card."""
+    check_operands(q, k_pool, v_pool)
+    if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"bad shapes q{tuple(q.shape)} "
+                         f"k_pool{tuple(k_pool.shape)} "
+                         f"v_pool{tuple(v_pool.shape)}")
+    b, kh, rows, hd = q.shape
+    page = k_pool.shape[2]
+    if k_pool.shape[1] != kh or k_pool.shape[3] != hd:
+        raise ValueError("pools must be (n_pages, KH, page, hd) matching q")
+    if rows % q_len or not 1 <= rows <= MAX_ROWS:
+        raise ValueError(f"rows {rows} must be q_len·group <= {MAX_ROWS}")
+    if hd > 128 or hd % 4:
+        raise ValueError(f"head dim {hd} unsupported (hd <= 128, hd % 4 == 0)")
+    if (block_table.dim() != 2 or block_table.shape[0] != b
+            or block_table.dtype != torch.int32
+            or block_table.device != q.device
+            or block_table.stride(1) != 1):
+        raise ValueError("block_table must be a (B, P) int32 tensor with "
+                         "unit column stride on the operands' device")
+    n_blocks = block_table.shape[1]
+    if n_blocks < 1:
+        raise ValueError("empty block table")
+    lens = device_lengths(cache_len, b, q.device)
+    scale = scale if scale is not None else hd ** -0.5
+    splits, split_len = split_plan(b, kh, n_blocks * page,
+                                   _sm_count(q.device.index))
+    o = torch.empty((b, kh, rows, hd), dtype=q.dtype, device=q.device)
+    part_acc = torch.empty((b, kh, splits, rows, hd), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((b, kh, splits, rows, 2), dtype=torch.float32,
+                          device=q.device)
+    ks, vs = k_pool.stride(), v_pool.stride()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        KERNEL(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+               block_table.data_ptr(), lens.data_ptr(), o.data_ptr(),
+               part_acc.data_ptr(), part_ml.data_ptr(),
+               b, kh, rows, q_len, n_blocks, page, hd,
+               *q.stride()[:3], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+               block_table.stride(0), *o.stride()[:3],
+               splits, split_len, int(window), float(softcap or 0.0),
+               float(scale), DTYPES[q.dtype], stream)
+    return o

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernels on the port's path.
 
 They mirror ``repro.kernels.ref`` function by function: the same layouts
-(the model's (B, S, H, hd)), float32 compute, and a cast back to the input
-dtype.  ``ops`` takes them for tensors on the CPU; the tests hold them
+(the model's (B, S, H, hd), and (n_pages, page, KH, hd) page pools),
+float32 compute, and a cast back to the input dtype.  The paged versions
+take fp pools only.  ``ops`` takes them for tensors on the CPU; the tests hold them
 against the JAX oracles, and ``chip_smoke.py`` holds each CUDA kernel
 against them on the card.
 """
@@ -108,3 +109,43 @@ def multi_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     o = torch.einsum("bkgts,bskd->btkgd", p, v.float())
     return o.reshape(b, t, h, hd).to(q.dtype)
+
+
+def gather_pages(pool: torch.Tensor, block_table: torch.Tensor
+                 ) -> torch.Tensor:
+    """pool: (n_pages, page, ...); block_table: (B, P) int → (B, P·page,
+    ...) dense per-row cache (logical position ``s`` of row ``b`` is
+    ``pool[block_table[b, s // page], s % page]``)."""
+    pages = pool[block_table.long()]                 # (B, P, page, ...)
+    b, p, page = pages.shape[:3]
+    return pages.reshape((b, p * page) + tuple(pool.shape[2:]))
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_table: torch.Tensor,
+                           cache_len, *, window: int = 0,
+                           softcap: Optional[float] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Gather every row's pages into a dense (B, P·page, KH, hd) cache, then
+    dense ragged decode.  q: (B, H, hd); k_pool, v_pool: (n_pages, page,
+    KH, hd) fp pools; block_table: (B, P); cache_len: int, () or (B,)
+    → (B, H, hd)."""
+    return decode_attention(q, gather_pages(k_pool, block_table),
+                            gather_pages(v_pool, block_table), cache_len,
+                            window=window, softcap=softcap, scale=scale)
+
+
+def paged_multi_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor,
+                                 block_table: torch.Tensor, cache_len, *,
+                                 window: int = 0,
+                                 softcap: Optional[float] = None,
+                                 scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """The chunk-causal form: q (B, T, H, hd) at logical positions
+    ``cache_len - T .. cache_len - 1`` (cache_len INCLUDING the chunk)
+    → (B, T, H, hd)."""
+    return multi_decode_attention(q, gather_pages(k_pool, block_table),
+                                  gather_pages(v_pool, block_table),
+                                  cache_len, window=window, softcap=softcap,
+                                  scale=scale)

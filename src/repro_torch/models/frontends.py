@@ -85,7 +85,7 @@ def embed_decode(p: Params, cfg: ArchConfig, inputs: Dict[str, torch.Tensor],
     b, t = tokens.shape
     x = F.embedding(tokens, p["tok"])
     steps = torch.arange(t, device=x.device)
-    if isinstance(index, int):
+    if isinstance(index, int) or index.dim() == 0:
         pos = (index + steps)[None].expand(b, t)
     else:
         pos = index[:, None] + steps

@@ -1,13 +1,18 @@
 """Model building blocks of the port (PyTorch; params are dicts of tensors).
 
 The attention-only slice of ``repro.models.layers``: RMSNorm, RoPE with
-Qwen2-VL's M-RoPE sections, GQA attention backed by the flash and decode
-kernels (modes ``"prefill"`` and dense ``"decode"``), and the SwiGLU MLP.
-The other mixers (MoE, Mamba, mLSTM, sLSTM, Hymba) and the paged, verify
-and prefill-append modes are not ported yet and raise.
+Qwen2-VL's M-RoPE sections, GQA attention backed by the flash, decode and
+paged-decode kernels (modes ``"prefill"``, ``"decode"`` and ``"verify"``,
+over a dense cache or a page pool through a block table), and the SwiGLU
+MLP.  The other mixers (MoE, Mamba, mLSTM, sLSTM, Hymba), mode
+``"prefill_append"`` and quantized page pools are not ported yet and raise.
 
 Unlike the JAX package, which is functional, attention writes the KV cache
-in place and returns the same cache object.
+in place and returns the same cache object.  Where the JAX scatter drops a
+write past the end of a cache (a finished slot whose index ran past its
+capacity), the port clamps it onto the row's last slot (dense) or the last
+table entry (paged); such rows are inactive, their table rows name the
+trash page, and nothing reads what they write.
 """
 from __future__ import annotations
 
@@ -102,16 +107,59 @@ def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def init_paged_attn_cache(cfg: ArchConfig, n_pages: int, page_size: int,
+                          dtype, device, kv_dtype: Optional[str] = None
+                          ) -> Params:
+    """Paged KV layout: a pool of fixed-size pages (n_pages, page, KH, hd)
+    shared by all sequences; per-row block tables (passed to ``attention``)
+    resolve logical positions to (page, offset).  fp pools only."""
+    if kv_dtype is not None:
+        raise NotImplementedError(
+            f"kv_dtype={kv_dtype!r}: quantized page pools are not ported "
+            "(ROADMAP queue 1, item 10)")
+    shape = (n_pages, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _paged_kv_write(cache: Params, pages: torch.Tensor, off: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor) -> None:
+    """The ONE paged KV scatter, in place: token K/V land at physical
+    ``(pages, off)`` (decode writes one token per row, verify a (B, S)
+    chunk).  Several rows may target the same (trash page, offset): the
+    admission step steers every row it does not admit there.  Which write
+    wins is then unspecified and harmless, since nothing reads the trash
+    page's values; the writes never accumulate."""
+    cache["k"][pages, off] = k
+    cache["v"][pages, off] = v
+
+
+def _table_pages(block_table: torch.Tensor, pos: torch.Tensor,
+                 page: int) -> torch.Tensor:
+    """Physical page of each logical position: (B, S) positions → (B, S)
+    page ids.  Blocks past the table clamp to its last entry (see the
+    module note)."""
+    blk = torch.clamp(pos // page, max=block_table.shape[1] - 1)
+    return torch.gather(block_table, 1, blk.long()).long()
+
+
 def attention(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
               cos: torch.Tensor, sin: torch.Tensor,
               cache: Optional[Params] = None,
               cache_index: Optional[Index] = None,
+              block_table: Optional[torch.Tensor] = None,
               mode: str = "prefill") -> Tuple[torch.Tensor, Params]:
     """``"prefill"``: causal attention over the whole sequence, whose K/V
     fill cache positions [0, S).  ``"decode"``: S == 1 at ``cache_index``
-    (an int, or a (B,) tensor of per-row positions), attending to the
-    dense cache up to and including that position."""
-    if mode not in ("prefill", "decode"):
+    (an int, or a (B,) tensor of per-row positions), attending to the cache
+    up to and including that position.  ``"verify"``: a speculative
+    S = γ+1 chunk whose first token sits at ``cache_index``, written at
+    positions idx..idx+S-1 and scored causally within the chunk in one
+    call.  With ``block_table`` (B, P) the cache is a page pool
+    (``init_paged_attn_cache``) and decode/verify write and read through
+    the table; shared prefix pages cover positions below the committed
+    index, which neither mode writes."""
+    if mode not in ("prefill", "decode", "verify"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     if cache is None:
         raise ValueError(f"mode {mode!r} needs a cache")
@@ -126,11 +174,38 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
+    cap = cfg.attn_softcap
     if mode == "prefill":
         o = ops.flash_attention(q, k, v, causal=True, window=window,
-                                softcap=cfg.attn_softcap)
+                                softcap=cap)
         cache["k"][:, :s] = k
         cache["v"][:, :s] = v
+    elif mode == "verify" or block_table is not None:
+        if mode == "decode" and s != 1:
+            raise ValueError("decode takes one token per row")
+        idx = torch.as_tensor(cache_index, device=x.device).broadcast_to(
+            (b,))
+        pos = idx[:, None] + torch.arange(s, device=x.device)   # (B, S)
+        if block_table is not None:
+            page = cache["k"].shape[1]
+            _paged_kv_write(cache, _table_pages(block_table, pos, page),
+                            pos % page, k, v)
+            if mode == "decode":
+                o = ops.paged_decode_attention(
+                    q[:, 0], cache["k"], cache["v"], block_table, idx + 1,
+                    window=window, softcap=cap)[:, None]
+            else:
+                o = ops.paged_multi_decode_attention(
+                    q, cache["k"], cache["v"], block_table, idx + s,
+                    window=window, softcap=cap)
+        else:
+            rows = torch.arange(b, device=x.device)[:, None]
+            posw = torch.clamp(pos, max=cache["k"].shape[1] - 1)
+            cache["k"][rows, posw] = k
+            cache["v"][rows, posw] = v
+            o = ops.multi_decode_attention(q, cache["k"], cache["v"],
+                                           idx + s, window=window,
+                                           softcap=cap)
     else:
         if s != 1:
             raise ValueError("decode takes one token per row")
@@ -140,10 +215,11 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
             cache["v"][:, idx] = v[:, 0]
         else:
             rows = torch.arange(b, device=x.device)
-            cache["k"][rows, idx] = k[:, 0]
-            cache["v"][rows, idx] = v[:, 0]
+            idxw = torch.clamp(idx, max=cache["k"].shape[1] - 1)
+            cache["k"][rows, idxw] = k[:, 0]
+            cache["v"][rows, idxw] = v[:, 0]
         o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], idx + 1,
-                                 window=window, softcap=cfg.attn_softcap)
+                                 window=window, softcap=cap)
         o = o[:, None]
     o = o.reshape(b, s, cfg.num_heads * hd)
     return o @ p["wo"], cache

@@ -6,14 +6,16 @@ axis), "final_norm": ...}``, so the bridge converts it leaf by leaf; where
 the JAX stack runs one ``lax.scan`` over super-blocks, this one indexes
 layer ``i`` of each stacked leaf (a view) inside a Python loop.
 
-Public entry points: ``init_params`` / ``init_cache``, ``prefill`` (the
-full prompt, filling a dense KV cache) and ``decode_step`` (one token).
+Public entry points: ``init_params`` / ``init_cache`` /
+``init_paged_cache``, ``prefill`` (the full prompt, filling a dense KV
+cache), ``decode_step`` (one token per row, dense or through a block table
+over page pools) and ``verify_step`` (a γ+1-token speculative chunk).
 Only attention blocks (``ATTN``, dense FFN) are ported; other block kinds
 raise.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -95,18 +97,53 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     return init_params_with(cfg, gen, dev)
 
 
+def _stacked_caches(cfg: ArchConfig, one: Params, device) -> Tuple:
+    """Zeros of each leaf of the per-layer cache ``one`` (meta tensors:
+    shapes only) stacked to (n_super, ...) on ``device``, one tree per
+    pattern position."""
+    out = []
+    for spec in cfg.block_pattern:
+        _check_block(spec)
+        out.append({k: torch.zeros((cfg.n_super,) + tuple(x.shape),
+                                   dtype=x.dtype, device=device)
+                    for k, x in one.items()})
+    return tuple(out)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device) -> Tuple:
     """Per-pattern-position dense KV caches, each leaf stacked to
     (n_super, B, max_len, KH, hd)."""
     dt = getattr(torch, cfg.dtype)
+    return _stacked_caches(
+        cfg, L.init_attn_cache(cfg, batch, max_len, dt, "meta"), device)
+
+
+def init_paged_cache(cfg: ArchConfig, batch: int, n_pages: int,
+                     page_size: int, device,
+                     kv_dtype: Optional[str] = None) -> Tuple:
+    """Paged variant of ``init_cache``: the KV leaves become page pools
+    (n_super, n_pages, page, KH, hd) shared by every sequence and addressed
+    through the ``block_table`` argument of ``decode_step`` /
+    ``verify_step``.  ``batch`` sizes the per-slot recurrent state of the
+    JAX package's hybrid stacks; attention-only stacks have none."""
+    del batch
+    dt = getattr(torch, cfg.dtype)
+    return _stacked_caches(
+        cfg, L.init_paged_attn_cache(cfg, n_pages, page_size, dt, "meta",
+                                     kv_dtype), device)
+
+
+def map_cache_kinds(cfg: ArchConfig, caches, *, kv, state) -> Tuple:
+    """Apply ``kv`` to every attention-KV subtree and ``state`` to every
+    recurrent-state subtree of one or more structurally identical caches
+    (positionally, one subtree from each), as the JAX package's function of
+    the same name; the port's stacks are attention-only, so ``state`` is
+    never called."""
     out = []
-    for spec in cfg.block_pattern:
+    for i, spec in enumerate(cfg.block_pattern):
         _check_block(spec)
-        one = L.init_attn_cache(cfg, batch, max_len, dt, device)
-        out.append({k: torch.zeros((cfg.n_super,) + tuple(x.shape),
-                                   dtype=x.dtype, device=device)
-                    for k, x in one.items()})
+        out.append(kv(*[c[i] for c in caches]))
     return tuple(out)
 
 
@@ -115,13 +152,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def _apply_block(p: Params, x: torch.Tensor, *, cfg: ArchConfig,
-                 spec: BlockSpec, cos, sin, cache, cache_index, mode: str
-                 ) -> torch.Tensor:
+                 spec: BlockSpec, cos, sin, cache, cache_index, mode: str,
+                 block_table=None) -> torch.Tensor:
     _check_block(spec)
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     h, _ = L.attention(p["mixer"], h, cfg=cfg, window=spec.window, cos=cos,
                        sin=sin, cache=cache, cache_index=cache_index,
-                       mode=mode)
+                       block_table=block_table, mode=mode)
     x = x + h
     if _has_ffn(cfg):
         x = x + L.mlp(p["ffn"], L.rms_norm(x, p["norm2"], cfg.norm_eps))
@@ -134,7 +171,7 @@ def _layer(tree: Any, i: int) -> Any:
 
 def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor,
                positions: torch.Tensor, *, mode: str, cache: Tuple,
-               cache_index=None) -> torch.Tensor:
+               cache_index=None, block_table=None) -> torch.Tensor:
     cos, sin = L.rope_angles(
         positions, cfg.resolved_head_dim, cfg.rope_theta,
         cfg.mrope_sections if cfg.use_mrope and positions.dim() == 3
@@ -144,7 +181,8 @@ def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor,
             x = _apply_block(_layer(params["blocks"][pos], i), x, cfg=cfg,
                              spec=spec, cos=cos, sin=sin,
                              cache=_layer(cache[pos], i),
-                             cache_index=cache_index, mode=mode)
+                             cache_index=cache_index, mode=mode,
+                             block_table=block_table)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -169,12 +207,35 @@ def prefill(params: Params, cfg: ArchConfig, inputs: Dict[str, torch.Tensor],
 @torch.inference_mode()
 def decode_step(params: Params, cfg: ArchConfig, cache: Tuple,
                 inputs: Dict[str, torch.Tensor],
-                index: Union[int, torch.Tensor]
+                index: Union[int, torch.Tensor],
+                block_table: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Tuple]:
     """One decode step at cache slot ``index``: an int for batch-uniform
-    decode, or a (B,) tensor where every row sits at its own position.  The
-    cache is updated in place.  Returns (logits (B, V) float32, cache)."""
+    decode, or a (B,) tensor where every row sits at its own position.
+    With ``block_table`` (B, P) int32 the cache is a paged one
+    (``init_paged_cache``): the token's KV lands at (page, offset) through
+    the table and every row reads page-indirectly.  The cache is updated in
+    place.  Returns (logits (B, V) float32, cache)."""
     x, positions = frontends.embed_decode(params["embed"], cfg, inputs, index)
     x = _run_stack(params, cfg, x, positions, mode="decode", cache=cache,
-                   cache_index=index)
+                   cache_index=index, block_table=block_table)
     return frontends.logits_from_hidden(params["embed"], cfg, x[:, -1]), cache
+
+
+@torch.inference_mode()
+def verify_step(params: Params, cfg: ArchConfig, cache: Tuple,
+                inputs: Dict[str, torch.Tensor],
+                index: Union[int, torch.Tensor],
+                block_table: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Tuple]:
+    """Score a T = γ+1-token draft chunk in one step (the speculative
+    verifier).  ``inputs`` holds (B, T) tokens whose first sits at cache
+    slot ``index`` (int or (B,)); their KV is written at positions
+    index..index+T-1 (through ``block_table`` when given) and attention is
+    causal within the chunk.  Returns (logits (B, T, V) float32, cache):
+    ``logits[:, t]`` conditions on the chunk up to ``t``.  Rolling back a
+    rejected suffix is an index decrement: the next chunk overwrites it."""
+    x, positions = frontends.embed_decode(params["embed"], cfg, inputs, index)
+    x = _run_stack(params, cfg, x, positions, mode="verify", cache=cache,
+                   cache_index=index, block_table=block_table)
+    return frontends.logits_from_hidden(params["embed"], cfg, x), cache

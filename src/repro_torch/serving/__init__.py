@@ -1,6 +1,10 @@
-"""Serving runtime of the port: the request server over one executor.
+"""Serving runtime of the port: the request server over one executor, and
+the continuous-batching engine over the slot table.
 
-- ``EngineCore``       one tier's batch path (encode / prefill / decode)
+- ``EngineCore``       one tier's batch path (encode / prefill / decode) and
+                       slot path (admit_many / step, paged KV, speculative
+                       decoding)
+- ``InferenceEngine``  request-level continuous batching over a slot table
 - ``CascadePolicy``    exit/offload decisions (progressive confidence)
 - ``OffloadPipeline``  Eq. 2 → Eq. 3 → link → GS stage
 - ``CascadeExecutor``  Algorithm 1, one request at a time
@@ -9,7 +13,9 @@
 from repro_torch.serving.request import (Request, Response, TIERS,  # noqa: F401
                                          scene_key)
 from repro_torch.serving.engine_core import (EngineCore,  # noqa: F401
-                                             shared_core)
+                                             EngineCoreConfig, shared_core)
+from repro_torch.serving.engine import (EngineConfig,  # noqa: F401
+                                        InferenceEngine)
 from repro_torch.serving.policy import (CascadePolicy,  # noqa: F401
                                         ProgressiveConfidencePolicy)
 from repro_torch.serving.offload import GSView, OffloadPipeline  # noqa: F401

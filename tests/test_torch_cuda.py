@@ -16,6 +16,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
+    paged_decode_attention_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -85,6 +87,56 @@ def test_decode_attention_kernel_matches_plain(card, hd, group, q_len,
     assert float(got[0].abs().max()) == 0.0
 
 
+def _paged_case(gen, b, kh, group, hd, page, width, lens, q_len, dtype):
+    """Pools with a NaN trash page 0 (for the kernel; zero for the plain
+    version), a shared prefix (pages 1..4) in every row, private pages
+    after, trash entries past each row's length."""
+    need = [-(-n // page) for n in lens]
+    n_pages = 5 + sum(max(n - 4, 0) for n in need)
+    table = torch.zeros((b, width), dtype=torch.int32)
+    nxt = 5
+    for r, n in enumerate(need):
+        for j in range(n):
+            table[r, j] = 1 + j if j < 4 else nxt
+            nxt += j >= 4
+    kp = _randn(gen, n_pages, page, kh, hd, dtype=dtype)
+    vp = _randn(gen, n_pages, page, kh, hd, dtype=dtype)
+    kp[0], vp[0] = 0, 0
+    kn, vn = kp.clone(), vp.clone()
+    kn[0], vn[0] = float("nan"), float("nan")
+    q = _randn(gen, b, q_len, kh * group, hd, dtype=dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, kp, vp, kn, vn, table.cuda(), lens
+
+
+@pytest.mark.parametrize("hd,group,q_len,page,window,softcap,dtype", [
+    (16, 2, 1, 1, 0, None, torch.float32),
+    (12, 3, 3, 4, 0, None, torch.float32),
+    (16, 3, 5, 8, 5, 2.5, torch.float32),
+    (128, 6, 1, 8, 0, None, torch.bfloat16),
+    (128, 7, 5, 8, 0, None, torch.bfloat16),      # 35 rows: 8 warps
+    (64, 7, 9, 16, 0, None, torch.float32),       # 63 rows
+])
+def test_paged_decode_kernel_matches_plain(card, hd, group, q_len, page,
+                                           window, softcap, dtype):
+    lens = [0, 1, 2, 77, 150, 203]
+    q, kp, vp, kn, vn, table, lens_t = _paged_case(
+        card, len(lens), 2, group, hd, page, -(-210 // page), lens, q_len,
+        dtype)
+    before = ops.launch_counts()["paged_decode_attention"]
+    got = ops.paged_multi_decode_attention(q, kn, vn, table, lens_t,
+                                           window=window, softcap=softcap)
+    assert ops.launch_counts()["paged_decode_attention"] == before + 1
+    want = ref.paged_multi_decode_attention(q, kp, vp, table, lens_t,
+                                            window=window, softcap=softcap)
+    _close(got, want, TOL[dtype])
+    assert float(got[0].abs().max()) == 0.0
+    if q_len == 1:
+        got1 = ops.paged_decode_attention(q[:, 0], kn, vn, table, lens_t,
+                                          window=window, softcap=softcap)
+        _close(got1, want[:, 0], TOL[dtype])
+
+
 @pytest.mark.parametrize("nv,ne,d,dtype", [(1, 1, 1536, torch.bfloat16),
                                            (3, 2, 48, torch.float32)])
 def test_region_score_kernel_matches_plain(card, nv, ne, d, dtype):
@@ -105,3 +157,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         decode_attention_cuda(x, x, x, 3)
     with pytest.raises(ValueError, match="share device and dtype"):
         flash_attention_cuda(q, q.bfloat16(), q)
+    pool = _randn(card, 6, 2, 8, 16)                 # (n_pages, KH, page, hd)
+    table = torch.zeros((1, 3), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="rows"):
+        paged_decode_attention_cuda(_randn(card, 1, 2, 65, 16), pool, pool,
+                                    table, 3)
+    with pytest.raises(ValueError, match="block_table"):
+        paged_decode_attention_cuda(_randn(card, 1, 2, 4, 16), pool, pool,
+                                    table.long(), 3)
