@@ -26,11 +26,19 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    call (for the paged kernel: gathering the pages plus
    ``scaled_dot_product_attention``, two calls) at the main paths' shapes
    (cold L2: a 64 MiB buffer is rewritten before every launch and its own
-   time subtracted).
+   time subtracted).  The paged prefix-append kernel: an f32 sweep over
+   page sizes 1-16, chunks of 1-64 tokens (q_blk dividing them or not),
+   windows, softcaps, groups 1/6/7, rows of length 0, below the chunk, the
+   chunk alone and mid-prefill, NaN trash page, pools left unchanged; then
+   (d) the 2B engine's flat fused step (B 264: 8 decode rows as in (a),
+   one scene's last 256-token chunk as 256 rows sharing one table row) and
+   (e) that chunk as one q_len-256 row, timed as above.
 3. End to end on a small proxy pair: the port's ``CascadeServer``, its
-   ``InferenceEngine.serve`` on the paged slot path and a γ = 3
-   speculative engine on the card must give the decisions and tokens they
-   give on the CPU from the same weights (float32).
+   ``InferenceEngine.serve`` on the paged slot path, a γ = 3 speculative
+   engine, and chunked prefill (chunk 8, chunk N_r, chunk 8 with γ = 3) on
+   the card must give the decisions and tokens they give on the CPU from
+   the same weights (float32), all equal to the plain engine's, with the
+   plain engine's prefix hits and misses.
 4. The cascade server: ``CascadeServer.handle`` at the full width and
    depth of the paper's pair (Qwen2-VL-2B on the satellite, Qwen2-VL-7B on
    the ground), bfloat16, random weights from a seed, serving requests
@@ -50,9 +58,20 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    piggybacked drafts.  Prints ``spec_stats()`` and how far the det answer
    agrees with the greedy one (bf16 near-ties may flip an argmax; equality
    is asserted in phase 3, in float32).  Checks the launch counts as in 6.
+8. Chunked prefill: phase 6's stream through the 2B's ``InferenceEngine``
+   with ``prefill_chunk`` 256 (token budget 264).  Checks: every request
+   answered; phase 6's 20 prefix hits and 4 misses; pages after the drain
+   = resident prefixes; shared pages byte-equal from publication to the
+   end; chunk + prompt prefill tokens = phase 6's prefix + prompt; no stall
+   step; every fused step within the budget with a token for every
+   decoding slot; the prefix-append kernel launched 28 × fused steps, the
+   paged decode kernel 28 × plain steps, no flash prefill and no region
+   scoring.  Prints fused and plain step time, tokens/s, the device busy
+   share over fused steps, agreement with phase 6's answers (bf16), and the
+   longest gap between two tokens of a det answer here and in phase 6.
 
-Phases 4, 6 and 7 each zero every kernel's launch count just before they
-run and read it just after; each kernel of a path must have launched.
+Phases 4, 6, 7 and 8 each zero every kernel's launch count just before
+they run and read it just after; each kernel of a path must have launched.
 Its last lines: the card's name and power limit as ``nvidia-smi`` gives
 them, one JSON object with every kernel's numbers, then
 ``{"ok": true, "device": {...}}``.
@@ -69,8 +88,9 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-SOURCES = ("flash_attention.cu", "decode_attention.cu", "region_score.cu")
-# decode_attention.cu holds the dense and the paged entry points
+SOURCES = ("flash_attention.cu", "decode_attention.cu", "region_score.cu",
+           "paged_prefill_attention.cu")
+# decode_attention.cu holds the dense and the paged decode entry points
 # (absolute, relative to |want|) per element; see the docstring
 TOL_F32 = (1e-4, 0.0)
 TOL_BF16 = (1e-5, 2.0 ** -6)
@@ -82,12 +102,15 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:219",
     "region_score": "src/repro/kernels/region_score.py:38",
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:301",
+    "paged_prefill_attention": "src/repro/kernels/decode_attention.py:448",
 }
 SOURCE_OF = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "region_score": "src/repro_torch/csrc/region_score.cu",
     "paged_decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+    "paged_prefill_attention":
+        "src/repro_torch/csrc/paged_prefill_attention.cu",
 }
 # full-width adapter: N_r = 32² = 1024 = cfg.num_patches, 16-px regions
 # (the Eq. 3 pyramid pools by 1, 2, 4 and 8, so the side must divide by 8)
@@ -299,6 +322,8 @@ def kernel_checks(torch):
 
     report["paged_decode_attention"] = paged_kernel_checks(
         torch, randn, timer, errors)
+    report["paged_prefill_attention"] = prefill_kernel_checks(
+        torch, randn, timer, errors)
 
     torch.cuda.synchronize()
     if errors:
@@ -314,12 +339,13 @@ def kernel_checks(torch):
 
 
 def paged_case(torch, randn, *, b, kh, group, hd, page, width, lens, q_len,
-               dtype, shared_blocks=0, scenes=2):
-    """Pools, block table and queries for one paged-decode check.
+               dtype, shared_blocks=0, scenes=2, scene_of=None):
+    """Pools, block table and queries for one paged-attention check.
 
     Page 0 is the trash page.  Row ``r``'s first ``shared_blocks`` table
-    entries map the shared prefix pages of scene ``r % scenes`` (read-only,
-    in several rows); its further blocks below its length are private; the
+    entries map the shared prefix pages of scene ``scene_of[r]`` (default
+    ``r % scenes``; read-only, in several rows); its further blocks below
+    its length are private; the
     entries past its length point at the trash page.  Returns (q, k_pool,
     v_pool, table, lens, trash_pools): the kernel gets pools whose trash
     page is NaN (so any read past a row's length shows), the plain version
@@ -331,7 +357,8 @@ def paged_case(torch, randn, *, b, kh, group, hd, page, width, lens, q_len,
     table = torch.zeros((b, width), dtype=torch.int32)
     nxt = 1 + n_shared
     for r, n in enumerate(need):
-        sh = 1 + (r % scenes) * shared_blocks
+        sc = r % scenes if scene_of is None else scene_of[r]
+        sh = 1 + sc * shared_blocks
         for j in range(min(n, width)):
             if j < shared_blocks:
                 table[r, j] = sh + j
@@ -353,7 +380,8 @@ def paged_case(torch, randn, *, b, kh, group, hd, page, width, lens, q_len,
 def paged_bytes_and_flops(torch, q, k_pool, table, lens, q_len):
     """Bytes the function must move (each distinct (page, slot) a row needs
     read once for K and for V, q, the table entries it reads, lengths, o
-    written once) and its FLOPs (QK and PV)."""
+    written once) and its FLOPs (QK and PV over the keys each chunk token
+    sees: max(cache_len - (q_len - 1) + t, 0) for token t)."""
     b, _, h, hd = q.shape
     page, kh = k_pool.shape[1], k_pool.shape[2]
     s = table.shape[1] * page
@@ -364,7 +392,9 @@ def paged_bytes_and_flops(torch, q, k_pool, table, lens, q_len):
     n_entries = int((-(-lens.long() // page)).sum())
     kv = 2 * n_slots * kh * hd * k_pool.element_size()
     io = 2 * q.numel() * q.element_size() + 4 * (n_entries + b)
-    flops = 4.0 * hd * h * q_len * float(lens.sum())
+    eff = (lens[:, None].long() - (q_len - 1)
+           + torch.arange(q_len, device=lens.device)[None, :])
+    flops = 4.0 * hd * h * float(eff.clamp(min=0).sum())
     return kv + io, flops
 
 
@@ -469,6 +499,120 @@ def paged_kernel_checks(torch, randn, timer, errors):
             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
             "shape": (f"B{b} KH{kh} g{group} q_len{q_len} hd{hd} page{page} "
                       f"P{width} cache_len {lens[0]}..{lens[-1]} bf16")}
+    return out
+
+
+def same_bits(a, b) -> bool:
+    """Byte-equal, NaN trash pages included."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def prefill_kernel_checks(torch, randn, timer, errors):
+    """The paged prefix-append kernel against its plain version: an f32
+    sweep (page sizes 1-16, chunks of 1-64 tokens with a q_blk that divides
+    the chunk and one that does not, window, softcap, groups 1/6/7; rows of
+    length 0, below the chunk, the chunk alone and mid-prefill; shared
+    prefix pages in several rows; NaN trash page; the pools unchanged),
+    then the chunked path's shapes in bf16 with their times:
+    (d) the 2B engine's flat fused step (B 264: 8 decode rows as in (a),
+    then one scene's last 256-token chunk as 256 q_len-1 rows sharing one
+    table row at cache_len 769..1024) and (e) that chunk as one row
+    (q_len 256, cache_len 1024)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_prefill_attention import (
+        paged_prefill_attention_cuda)
+
+    log("paged_prefill_attention vs plain")
+    for page, hd, group, q_len, q_blk, window, softcap in [
+            (1, 16, 1, 4, 2, 0, None), (2, 16, 6, 6, 4, 24, None),
+            (8, 64, 7, 16, 8, 0, 3.0), (16, 12, 6, 64, 10, 0, None),
+            (8, 128, 6, 1, None, 0, None), (16, 32, 1, 64, 64, 24, None),
+            (2, 128, 7, 64, None, 0, 2.5), (8, 16, 6, 16, 3, 24, None)]:
+        lens = [0, max(q_len - 1, 1), q_len, q_len + 37, q_len + 150, 3]
+        width = -(-(q_len + 160) // page)
+        q, k_pool, v_pool, table, lens_t, (k_nan, v_nan) = paged_case(
+            torch, randn, b=len(lens), kh=2, group=group, hd=hd, page=page,
+            width=width, lens=lens, q_len=q_len, dtype=torch.float32,
+            shared_blocks=32 // page)
+        k0, v0 = k_nan.clone(), v_nan.clone()
+        got = ops.paged_prefill_attention(q, k_nan, v_nan, table, lens_t,
+                                          window=window, softcap=softcap,
+                                          q_blk=q_blk)
+        want = ref.paged_prefill_attention(q, k_pool, v_pool, table, lens_t,
+                                           window=window, softcap=softcap)
+        case = (f"f32 page{page} hd{hd} g{group} q_len{q_len} q_blk{q_blk} "
+                f"w{window} cap{softcap}")
+        check("paged_prefill", got, want, TOL_F32, case, errors)
+        if float(got[0].abs().max()) != 0.0:
+            errors.append(f"paged_prefill {case}: cache_len 0 row not zero")
+        if not (same_bits(k_nan, k0) and same_bits(v_nan, v0)):
+            errors.append(f"paged_prefill {case}: the pools changed")
+
+    out = {}
+    bf16 = torch.bfloat16
+    page, width, hd, kh, group = 8, 257, 128, 2, 6
+    decode_lens = [1025 + (1024 * i) // 7 for i in range(8)]
+    # 8 decode rows over two scenes' shared prefixes, then the streaming
+    # scene's row (its own shared pages, 1024 tokens written)
+    base = paged_case(torch, randn, b=9, kh=kh, group=group, hd=hd,
+                      page=page, width=width, lens=decode_lens + [1024],
+                      q_len=1, dtype=bf16, shared_blocks=1024 // page,
+                      scenes=3, scene_of=[i % 2 for i in range(8)] + [2])
+    q9, k_pool, v_pool, table9, _, nan_pools = base
+    chunk = torch.arange(769, 1025, dtype=torch.int32, device="cuda")
+    shapes = {
+        "d 2B flat": (
+            torch.cat([q9[:8], randn(256, 1, kh * group, hd, dtype=bf16)]),
+            torch.cat([table9[:8], table9[8:].expand(256, -1)]).contiguous(),
+            torch.cat([torch.tensor(decode_lens, dtype=torch.int32,
+                                    device="cuda"), chunk]), 1),
+        "e 2B chunk": (randn(1, 256, kh * group, hd, dtype=bf16),
+                       table9[8:].contiguous(),
+                       torch.tensor([1024], dtype=torch.int32,
+                                    device="cuda"), 256)}
+    for tag, (q, table, lens_t, q_len) in shapes.items():
+        b = q.shape[0]
+        got = ops.paged_prefill_attention(q, *nan_pools, table, lens_t)
+        want = ref.paged_prefill_attention(q, k_pool, v_pool, table, lens_t)
+        err = check("paged_prefill", got, want, TOL_BF16,
+                    f"bf16 {tag} B{b} q_len{q_len} KH{kh} g{group} "
+                    f"page{page} P{width}", errors)
+        n_bytes, flops = paged_bytes_and_flops(torch, q, k_pool, table,
+                                               lens_t, q_len)
+        b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+        qr = q.reshape(b, q_len, kh, group, hd).permute(0, 2, 1, 3, 4) \
+            .reshape(b, kh, q_len * group, hd)
+        kt, vt = k_pool.transpose(1, 2), v_pool.transpose(1, 2)
+        pos = torch.arange(width * page, device="cuda")
+        eff = (lens_t[:, None].long() - (q_len - 1)
+               + torch.arange(q_len, device="cuda")[None, :])
+        mask = (pos[None, None, :] < eff[:, :, None])[:, None]
+        qh = q.transpose(1, 2)
+
+        def library():
+            kg = ref.gather_pages(k_pool, table).transpose(1, 2)
+            vg = ref.gather_pages(v_pool, table).transpose(1, 2)
+            return F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        lib_err = float((library().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        out[tag] = {
+            "max_abs_err": err,
+            "ms": timer(lambda: paged_prefill_attention_cuda(
+                qr, kt, vt, table, lens_t, q_len=q_len)),
+            "plain_ms": timer(lambda: ref.paged_prefill_attention(
+                q, k_pool, v_pool, table, lens_t)),
+            "library_ms": timer(library),
+            "library_is": "gather_pages + scaled_dot_product_attention "
+                          "(two calls)",
+            "library_max_abs_err": lib_err,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "flops": flops,
+            "shape": (f"B{b} KH{kh} g{group} q_len{q_len} hd{hd} page{page} "
+                      f"P{width} cache_len {int(lens_t.min())}.."
+                      f"{int(lens_t.max())} bf16")}
     return out
 
 
@@ -607,32 +751,43 @@ def served_tokens(responses, reqs):
 
 
 def small_slot_path(torch, sat, gs, sat_card, gs_card, ac):
-    """``InferenceEngine.serve`` on the paged slot path, and a γ = 3
-    speculative engine drafted by the satellite tier: the same tokens on
-    the card as on the CPU (and spec equal to greedy)."""
+    """``InferenceEngine.serve`` on the paged slot path, a γ = 3
+    speculative engine drafted by the satellite tier, and chunked prefill
+    (chunk 8, the whole N_r, and chunk 8 under γ = 3): the same tokens on
+    the card as on the CPU, equal to the plain engine's; the chunked
+    engines hit the prefix cache as often as the unchunked one."""
     from repro_torch.serving import EngineConfig, InferenceEngine
     reqs = scene_stream(["det", "vqa", "cls", "vqa"], 3, ac.image_size,
                         ac.grid, seed=70)
-    greedy = {}
-    for spec in (0, 3):
+    greedy, prefix = {}, {}
+    for kw in ({}, {"spec_gamma": 3}, {"prefill_chunk": 8},
+               {"prefill_chunk": ac.n_regions},
+               {"prefill_chunk": 8, "spec_gamma": 3}):
+        spec = kw.get("spec_gamma", 0)
         for dev, tier, draft in (("cpu", gs, sat),
                                  ("cuda", gs_card, sat_card)):
             eng = InferenceEngine(
                 tier.params, tier.cfg, ac,
-                EngineConfig(slots=3, answer_vocab=9, spec_gamma=spec),
+                EngineConfig(slots=3, answer_vocab=9, **kw),
                 draft=draft if spec else None, device=dev)
             rs = clone_requests(reqs)
             toks = served_tokens(eng.serve(rs), rs)
+            st = eng.core.stats
+            hits = (st["prefix_hits"], st["prefix_misses"])
             greedy.setdefault(dev, toks)
+            prefix.setdefault(dev, hits)
             same = all((a == b).all() for a, b in zip(toks, greedy["cpu"]))
-            log(f"  small slot path spec_gamma {spec} on {dev}: "
-                f"{len(toks)} requests, prefix hits "
-                f"{eng.core.stats['prefix_hits']}, "
+            log(f"  small slot path {kw or 'plain'} on {dev}: "
+                f"{len(toks)} requests, prefix hits/misses {hits}, "
                 f"{'equal to' if same else 'DIFFERENT from'} the CPU "
                 "greedy tokens")
             if not same:
-                raise RuntimeError(f"slot path spec_gamma {spec} on {dev} "
-                                   "disagrees with the CPU greedy tokens")
+                raise RuntimeError(f"slot path {kw} on {dev} disagrees with "
+                                   "the CPU greedy tokens")
+            if hits != prefix[dev]:
+                raise RuntimeError(f"slot path {kw} on {dev}: prefix "
+                                   f"hits/misses {hits}, the plain engine's "
+                                   f"{prefix[dev]}")
 
 
 MAIN_TASKS = [("vqa", (0.5, 0.4)), ("cls", (0.5, 0.4)),
@@ -685,13 +840,16 @@ def main_path(torch):
 class StepProbe:
     """Instruments one ``EngineCore`` for a phase: counts admission calls,
     times every step on the host clock (each step ends in its one token
-    fetch, so the clock covers the device work), and profiles steps
-    [``first``, ``first + n``) with ``torch.profiler``."""
+    fetch, so the clock covers the device work), notes per step whether it
+    was a fused (chunked-prefill) step and how many slots were decoding
+    before it, stamps the host time at which each request received tokens,
+    and profiles steps [``first``, ``first + n``) with ``torch.profiler``."""
 
     def __init__(self, torch, core, first: int = 64, n: int = 8):
         from torch.profiler import ProfilerActivity, profile
         self.torch, self.core = torch, core
         self.admissions, self.step_s = 0, []
+        self.fused, self.decoding, self.emitted = [], [], {}
         self.first, self.n = first, n
         self.prof = profile(activities=[ProfilerActivity.CPU,
                                         ProfilerActivity.CUDA])
@@ -707,9 +865,22 @@ class StepProbe:
             if k == self.first:
                 torch.cuda.synchronize()
                 self.prof.start()
+            before = {sl.request.request_id: len(sl.tokens)
+                      for sl in core._slots if sl.active}
+            self.decoding.append(sum(sl.active and sl.phase == "decode"
+                                     for sl in core._slots))
+            fused0 = core.stats["sched"]["fused_steps"]
             t0 = time.perf_counter()
             out = step()
-            self.step_s.append(time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            self.step_s.append(t1 - t0)
+            self.fused.append(core.stats["sched"]["fused_steps"] > fused0)
+            got = {r.request_id for r, _ in out}
+            got.update(sl.request.request_id for sl in core._slots
+                       if sl.active and len(sl.tokens)
+                       > before.get(sl.request.request_id, 0))
+            for rid in got:
+                self.emitted.setdefault(rid, []).append((t1, k))
             if self.first <= k < self.first + self.n:
                 self.window_s += self.step_s[-1]
             if k == self.first + self.n - 1:
@@ -718,6 +889,20 @@ class StepProbe:
             return out
 
         core.admit_many, core.step = admit_many, timed_step
+
+    def max_token_gap_ms(self, requests):
+        """The longest host-clock gap between two consecutive token
+        emissions of any of ``requests`` (an admission between two steps
+        counts in it).  Gaps that end in a profiled step, or just after
+        the window (the profiler's start and stop fall there), are left
+        out."""
+        skip = range(self.first, self.first + self.n + 1)
+        gaps = [tb - ta for r in requests
+                for (ta, _), (tb, kb) in zip(self.emitted.get(r.request_id, []),
+                                             self.emitted.get(r.request_id,
+                                                              [])[1:])
+                if kb not in skip]
+        return 1e3 * max(gaps) if gaps else None
 
     def profile(self):
         """``profile_summary`` of the profiled steps; None when fewer steps
@@ -828,6 +1013,9 @@ def slot_phase(torch, sat, ac):
            "answer_tokens": n_tok, "wall_s": wall,
            "tokens_per_s": n_tok / wall, "step_ms_mean": step_ms,
            "step_ms_median": 1e3 * sorted(probe.step_s)[steps // 2],
+           "det_max_token_gap_ms": probe.max_token_gap_ms(
+               [r for r in reqs if r.task == "det"]),
+           "prefill_by_kind": dict(st["prefill_by_kind"]),
            "device_busy_share": busy, "profile": prof, "launches": counts}
     log(f"  slot path: {len(out)} requests in {wall:.2f} s, {steps} slot "
         f"steps + {probe.admissions} admission calls, step {step_ms:.2f} ms"
@@ -838,6 +1026,133 @@ def slot_phase(torch, sat, ac):
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise RuntimeError(f"slot phase failed: {bad}")
+    return dict(res, tokens=toks)
+
+
+def chunked_phase(torch, sat, ac, slot):
+    """Phase 6's stream through the 2B's ``InferenceEngine`` with chunked
+    prefill (``prefill_chunk`` 256, token budget 264 = 8 slots + 256): no
+    admission runs a model forward; each scene's 1024 region tokens stream
+    into its shared pages 256 at a time inside fused steps, beside the
+    decoding slots.  Checked against phase 6's run (``slot``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig, InferenceEngine
+    av = ac.num_classes + 1
+    eng = InferenceEngine(sat.params, sat.cfg, ac,
+                          EngineConfig(slots=8, page_size=8, answer_vocab=av,
+                                       prefill_chunk=256),
+                          device="cuda")
+    core = eng.core
+    eng.warmup()
+    budget = core.stats["sched"]["budget"]
+    reqs = scene_stream(["det", "cls", "vqa", "vqa", "vqa", "vqa"], 4,
+                        FULL_IMAGE, FULL_GRID, seed=300)
+    # snapshot each scene's shared pages the moment its stream publishes
+    snaps, put = {}, core._prefix.put
+
+    def put_and_snapshot(scene, pages, state):
+        entry = put(scene, pages, state)
+        idx = torch.tensor(pages, device="cuda")
+        snaps[scene] = (idx, [{k: v[:, idx].clone() for k, v in
+                               layer.items()} for layer in core._slot_cache])
+        return entry
+
+    core._prefix.put = put_and_snapshot
+    probe = StepProbe(torch, core, first=2, n=4)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+
+    toks = served_tokens(out, reqs)
+    for r, t in zip(reqs, toks):
+        if len(t) != ac.answer_len(r.task) or t.min() < 0 or t.max() >= av:
+            raise RuntimeError(f"chunked phase: {r.task} answered {len(t)} "
+                               "tokens or outside the answer vocab")
+    st, kv, sched = core.stats, core.kv_stats(), core.scheduler_stats()
+    steps, fused = sched["steps"], sched["fused_steps"]
+    n_layers = sat.cfg.num_layers
+    by_kind, by_kind6 = st["prefill_by_kind"], slot["prefill_by_kind"]
+    log_ = st["sched"]["step_log"]
+    decoding = [d for d, f in zip(probe.decoding, probe.fused) if f]
+    checks = {
+        "every request answered": len(out) == len(reqs) == 24,
+        "prefix hits/misses == phase 6's":
+            (st["prefix_hits"], st["prefix_misses"])
+            == (slot["prefix_hits"], slot["prefix_misses"]) == (20, 4),
+        "pages_in_use == resident prefix pages":
+            kv["pages_in_use"] == kv["prefix_shared_pages"]
+            == 4 * ac.n_regions // 8,
+        "shared pages unchanged": len(snaps) == 4 and all(
+            all(torch.equal(v, layer[k][:, pages])
+                for saved, layer in zip(saved_layers, core._slot_cache)
+                for k, v in saved.items())
+            for pages, saved_layers in snaps.values()),
+        "chunk + prompt == phase 6's prefix + prompt":
+            by_kind.get("chunk", 0) + by_kind.get("prompt", 0)
+            == by_kind6.get("prefix", 0) + by_kind6.get("prompt", 0),
+        "stall_steps == 0": sched["stall_steps"] == 0,
+        "every fused step within the budget":
+            len(log_) == fused and all(sum(e) <= budget for e in log_),
+        "a decode token for every decoding slot in every fused step":
+            [e[0] for e in log_] == decoding,
+        "prefill launches == layers x fused steps":
+            counts["paged_prefill_attention"] == n_layers * fused,
+        "decode launches == layers x plain steps":
+            counts["paged_decode_attention"] == n_layers * (steps - fused),
+        "no flash prefill, no region scoring":
+            counts["flash_attention"] == 0 and counts["region_score"] == 0,
+    }
+    agree = [bool((a == b).all()) for a, b in zip(toks, slot["tokens"])]
+    det_pos = [float((a == b).mean()) for a, b, r in
+               zip(toks, slot["tokens"], reqs) if r.task == "det"]
+    n_tok = sum(len(t) for t in toks)
+    fused_s = [t for t, f in zip(probe.step_s, probe.fused) if f]
+    plain_s = [t for t, f in zip(probe.step_s, probe.fused) if not f]
+    prof = probe.profile()
+    busy = prof and prof["device_busy_share"]
+    res = {"requests": len(out), "steps": steps, "fused_steps": fused,
+           "budget": budget, "budget_utilization":
+           sched["budget_utilization"], "chunk_tokens": sched["chunk_tokens"],
+           "prompt_tokens": sched["prompt_tokens"],
+           "decode_tokens": sched["decode_tokens"],
+           "stall_steps": sched["stall_steps"],
+           "prefill_by_kind": dict(by_kind),
+           "admission_calls": probe.admissions,
+           "prefix_hits": st["prefix_hits"],
+           "prefix_misses": st["prefix_misses"],
+           "pages_in_use": kv["pages_in_use"],
+           "answers_equal_to_phase_6": sum(agree),
+           "det_answers_equal_to_phase_6": sum(
+               a for a, r in zip(agree, reqs) if r.task == "det"),
+           "det_positions_equal_to_phase_6": det_pos,
+           "answer_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
+           "fused_step_ms_mean": 1e3 * sum(fused_s) / max(len(fused_s), 1),
+           "fused_step_ms_median": 1e3 * sorted(fused_s)[len(fused_s) // 2],
+           "plain_step_ms_mean": 1e3 * sum(plain_s) / max(len(plain_s), 1),
+           "plain_step_ms_median": 1e3 * sorted(plain_s)[len(plain_s) // 2],
+           "det_max_token_gap_ms": probe.max_token_gap_ms(
+               [r for r in reqs if r.task == "det"]),
+           "phase_6_det_max_token_gap_ms": slot["det_max_token_gap_ms"],
+           "profiled_steps_fused": all(probe.fused[2:6]),
+           "device_busy_share": busy, "profile": prof, "launches": counts}
+    log(f"  chunked: {len(out)} requests in {wall:.2f} s, {steps} steps "
+        f"({fused} fused), fused step {res['fused_step_ms_mean']:.2f} ms, "
+        f"plain step {res['plain_step_ms_mean']:.2f} ms, "
+        f"{n_tok / wall:.1f} answer tokens/s, det token gap "
+        f"{res['det_max_token_gap_ms']} ms (phase 6: "
+        f"{slot['det_max_token_gap_ms']} ms), {sum(agree)}/{len(agree)} "
+        f"answers equal to phase 6's, device busy "
+        f"{busy if busy is None else round(busy, 3)}")
+    log(f"  chunked checks: {checks}")
+    log("chunked_phase " + json.dumps(res))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"chunked phase failed: {bad}")
     return res
 
 
@@ -1045,12 +1360,17 @@ def main() -> int:
     log("phase 7: speculative verify at full width (7B, drafted by 2B)")
     spec = spec_phase(torch, sat, gs, ac)
 
+    log("phase 8: chunked prefill at full width (InferenceEngine.serve, 2B)")
+    chunked = chunked_phase(torch, sat, ac, slot)
+
     # each path drove the kernels with the counts zeroed just before it
     by_path = {"cascade_server": counts, "slot_serve": slot["launches"],
                "spec_greedy": spec["greedy_launches"],
-               "spec": spec["launches"]}
+               "spec": spec["launches"],
+               "chunked_serve": chunked["launches"]}
     headline = {"flash_attention": "7B", "decode_attention": "7B",
-                "region_score": "main", "paged_decode_attention": "a 2B q1"}
+                "region_score": "main", "paged_decode_attention": "a 2B q1",
+                "paged_prefill_attention": "d 2B flat"}
     line = []
     for name, tag in headline.items():
         shapes = kernels[name]

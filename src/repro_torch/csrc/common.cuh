@@ -138,3 +138,169 @@ static cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
+
+// Where key s of one (batch row, KV head) lives.  Dense: base + s·ss.
+// Paged: base + tbl[s / page]·sn + (s % page)·ss, base already offset to
+// the KV head and tbl to the batch row's block-table entries.
+template <typename T, bool PAGED>
+struct KvRows {
+  const T* base;
+  const int* tbl;       // this batch row's block-table entries (paged)
+  int64_t sn, ss;
+  int page;
+  __device__ __forceinline__ const T* operator()(int s) const {
+    if (!PAGED) return base + s * ss;
+    const int blk = s / page;
+    return base + (int64_t)__ldg(tbl + blk) * sn + (int64_t)(s - blk * page) * ss;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The attention body the decode and prefix-append kernels share: a block of
+// WARPS warps holds up to WARPS·ATT_RPW query rows (row r in warp r % WARPS),
+// walks 64-key tiles of one (batch row, KV head) and keeps each row's online
+// softmax state (m, l, acc) in registers.  The mask is the TPU kernels'
+// _kv_block_update one: query row r belongs to chunk token r / group, whose
+// effective length is eff0 + r / group; columns < eff (and >= eff - window
+// with a window) are valid; p = where(mask, exp(s - m), 0), so a fully
+// masked row keeps l = 0 and acc = 0.
+// ---------------------------------------------------------------------------
+
+constexpr int ATT_BK = 64;                 // keys per tile: two per lane
+constexpr int ATT_RPW = 8;                 // query rows per warp, at most
+
+// shared memory: q rows [WARPS·ATT_RPW][HD], K tile [ATT_BK][HD + 4] (padded
+// against bank conflicts in the per-lane key rows), V tile [ATT_BK][HD]
+template <int HD, int WARPS>
+constexpr size_t att_smem_bytes() {
+  return (size_t)(WARPS * ATT_RPW * HD + ATT_BK * (HD + 4) + ATT_BK * HD) * sizeof(float);
+}
+
+template <int HD>
+struct RowState {
+  static constexpr int DPL = HD / 32;      // output dims per lane
+  float m[ATT_RPW], l[ATT_RPW], acc[ATT_RPW][DPL];
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int i = 0; i < ATT_RPW; ++i) {
+      m[i] = REPRO_NEG_INF;
+      l[i] = 0.f;
+#pragma unroll
+      for (int dd = 0; dd < DPL; ++dd) acc[i][dd] = 0.f;
+    }
+  }
+};
+
+// Load ``rows`` query rows (row r at q + r·q_sr) into qs as f32.
+template <typename T, int HD, int WARPS>
+__device__ __forceinline__ void load_q_rows(float* qs, const T* q, int64_t q_sr,
+                                            int rows, int hd, int vec) {
+  constexpr int THREADS = WARPS * 32, MAXR = WARPS * ATT_RPW;
+  if (vec) {
+    TileLoader<T, MAXR, HD, THREADS> ql;
+    ql.fetch(q, q_sr, rows);
+    ql.store(qs, HD);
+  } else {
+    load_tile_scalar<T, MAXR, HD, THREADS>(qs, HD, q, q_sr, rows, hd);
+  }
+}
+
+// Fold keys [k_begin, k_end) into every row's state, tile by tile; tiles
+// wholly below ``lo`` (no row's window reaches them) are skipped.  k_begin
+// is a multiple of ATT_BK or a split start; keys >= k_end are never read.
+// Every bound is block-uniform (the loop holds __syncthreads).
+template <typename T, int HD, int WARPS, bool PAGED>
+__device__ __forceinline__ void attend_tiles(
+    RowState<HD>& st, const float* __restrict__ qs, float* __restrict__ ks,
+    float* __restrict__ vs, const KvRows<T, PAGED>& krow,
+    const KvRows<T, PAGED>& vrow, int k_begin, int k_end, int lo, int rows,
+    int group, int eff0, int window, float softcap, float scale, int hd,
+    int vec) {
+  constexpr int THREADS = WARPS * 32;
+  constexpr int KST = HD + 4;
+  constexpr int DPL = HD / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += ATT_BK) {
+    if (k0 + ATT_BK <= lo) continue;           // block-uniform skip
+    const int nk = k_end - k0;
+    __syncthreads();
+    if (vec) {                                 // K and V both in flight
+      TileLoader<T, ATT_BK, HD, THREADS> kl, vl;
+      kl.fetch_rows([&](int r) { return krow(k0 + r); }, nk);
+      vl.fetch_rows([&](int r) { return vrow(k0 + r); }, nk);
+      kl.store(ks, KST);
+      vl.store(vs, HD);
+    } else {
+      load_rows_scalar<T, ATT_BK, HD, THREADS>(
+          ks, KST, [&](int r) { return krow(k0 + r); }, nk, hd);
+      load_rows_scalar<T, ATT_BK, HD, THREADS>(
+          vs, HD, [&](int r) { return vrow(k0 + r); }, nk, hd);
+    }
+    __syncthreads();
+
+    float sa[ATT_RPW], sb[ATT_RPW];
+#pragma unroll
+    for (int i = 0; i < ATT_RPW; ++i) sa[i] = sb[i] = 0.f;
+    const float4* ka = reinterpret_cast<const float4*>(ks + lane * KST);
+    const float4* kbb = reinterpret_cast<const float4*>(ks + (lane + 32) * KST);
+#pragma unroll 2
+    for (int d4 = 0; d4 < HD / 4; ++d4) {
+      const float4 x = ka[d4], y = kbb[d4];
+#pragma unroll
+      for (int i = 0; i < ATT_RPW; ++i) {
+        const int r = warp + WARPS * i;
+        if (r < rows) {
+          const float4 qq = reinterpret_cast<const float4*>(qs + r * HD)[d4];
+          sa[i] += qq.x * x.x + qq.y * x.y + qq.z * x.z + qq.w * x.w;
+          sb[i] += qq.x * y.x + qq.y * y.y + qq.z * y.z + qq.w * y.w;
+        }
+      }
+    }
+
+    const int ca = k0 + lane, cb = k0 + lane + 32;
+    float pa[ATT_RPW], pb[ATT_RPW];
+#pragma unroll
+    for (int i = 0; i < ATT_RPW; ++i) {
+      pa[i] = pb[i] = 0.f;
+      const int r = warp + WARPS * i;
+      if (r >= rows) continue;                     // warp-uniform
+      const int eff = eff0 + r / group;
+      bool oka = ca < eff && ca < k_end, okb = cb < eff && cb < k_end;
+      if (window > 0) {
+        oka = oka && ca >= eff - window;
+        okb = okb && cb >= eff - window;
+      }
+      const float xa = oka ? apply_softcap(sa[i] * scale, softcap) : REPRO_NEG_INF;
+      const float xb = okb ? apply_softcap(sb[i] * scale, softcap) : REPRO_NEG_INF;
+      const float m_new = fmaxf(st.m[i], warp_max(fmaxf(xa, xb)));
+      pa[i] = oka ? expf(xa - m_new) : 0.f;
+      pb[i] = okb ? expf(xb - m_new) : 0.f;
+      const float alpha = expf(st.m[i] - m_new);
+      st.l[i] = st.l[i] * alpha + warp_sum(pa[i] + pb[i]);
+#pragma unroll
+      for (int dd = 0; dd < DPL; ++dd) st.acc[i][dd] *= alpha;
+      st.m[i] = m_new;
+    }
+
+#pragma unroll 2
+    for (int j = 0; j < 32; ++j) {
+      float va[DPL], vb2[DPL];
+#pragma unroll
+      for (int dd = 0; dd < DPL; ++dd) {
+        va[dd] = vs[j * HD + lane * DPL + dd];
+        vb2[dd] = vs[(j + 32) * HD + lane * DPL + dd];
+      }
+#pragma unroll
+      for (int i = 0; i < ATT_RPW; ++i) {
+        const int r = warp + WARPS * i;
+        if (r < rows) {
+          const float xa = __shfl_sync(0xffffffffu, pa[i], j);
+          const float xb = __shfl_sync(0xffffffffu, pb[i], j);
+#pragma unroll
+          for (int dd = 0; dd < DPL; ++dd) st.acc[i][dd] += xa * va[dd] + xb * vb2[dd];
+        }
+      }
+    }
+  }
+}

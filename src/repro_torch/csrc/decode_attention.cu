@@ -46,31 +46,8 @@
 
 namespace {
 
-constexpr int DA_BK = 64;                  // keys per tile: two per lane
-constexpr int DA_RPW = 8;                  // query rows per warp, at most
-constexpr int DA_MAX_ROWS = 8 * DA_RPW;    // 8 warps
+constexpr int DA_MAX_ROWS = 8 * ATT_RPW;   // 8 warps
 constexpr int DA_COMBINE_THREADS = 128;    // >= hd: one thread per output dim
-
-template <int HD, int WARPS>
-constexpr size_t da_smem_bytes() {
-  return (size_t)(WARPS * DA_RPW * HD + DA_BK * (HD + 4) + DA_BK * HD) * sizeof(float);
-}
-
-// Where key s of one (batch row, KV head) lives.  Dense: base + s·ss.
-// Paged: pool + tbl[s / page]·sn + (s % page)·ss (base already offset to
-// the KV head).
-template <typename T, bool PAGED>
-struct KvRows {
-  const T* base;
-  const int* tbl;       // this batch row's block-table entries (paged)
-  int64_t sn, ss;
-  int page;
-  __device__ __forceinline__ const T* operator()(int s) const {
-    if (!PAGED) return base + s * ss;
-    const int blk = s / page;
-    return base + (int64_t)__ldg(tbl + blk) * sn + (int64_t)(s - blk * page) * ss;
-  }
-};
 
 template <typename T, int HD, int WARPS, bool PAGED>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -84,147 +61,51 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int64_t v_s0, int64_t v_sh, int64_t v_ss,
                     int64_t tbl_sb, int page,
                     int window, float softcap, float scale, int vec) {
-  constexpr int THREADS = WARPS * 32;
-  constexpr int MAXR = WARPS * DA_RPW;
-  constexpr int KST = HD + 4;
+  constexpr int MAXR = WARPS * ATT_RPW;
   constexpr int DPL = HD / 32;
   extern __shared__ float4 da_smem4[];
   float* qs = reinterpret_cast<float*>(da_smem4);   // [rows][HD]
-  float* ks = qs + MAXR * HD;                       // [DA_BK][KST]
-  float* vs = ks + DA_BK * KST;                     // [DA_BK][HD]
+  float* ks = qs + MAXR * HD;                       // [ATT_BK][HD + 4]
+  float* vs = ks + ATT_BK * (HD + 4);               // [ATT_BK][HD]
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int splits = gridDim.x;
   const int group = rows / q_len;
   const int len = min(cache_len[b], S);
 
-  const T* qb = q + b * q_sb + kh * q_sh;
   // dense: k_s0 is the batch stride; paged: the page stride
   const KvRows<T, PAGED> krow{k + (PAGED ? 0 : b * k_s0) + kh * k_sh,
                               tbl + b * tbl_sb, k_s0, k_ss, page};
   const KvRows<T, PAGED> vrow{v + (PAGED ? 0 : b * v_s0) + kh * v_sh,
                               tbl + b * tbl_sb, v_s0, v_ss, page};
+  load_q_rows<T, HD, WARPS>(qs, q + b * q_sb + kh * q_sh, q_sr, rows, hd, vec);
 
-  if (vec) {
-    TileLoader<T, MAXR, HD, THREADS> ql;
-    ql.fetch(qb, q_sr, rows);
-    ql.store(qs, HD);
-  } else {
-    load_tile_scalar<T, MAXR, HD, THREADS>(qs, HD, qb, q_sr, rows, hd);
-  }
-
-  float m[DA_RPW], l[DA_RPW], acc[DA_RPW][DPL];
-#pragma unroll
-  for (int i = 0; i < DA_RPW; ++i) {
-    m[i] = REPRO_NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int dd = 0; dd < DPL; ++dd) acc[i][dd] = 0.f;
-  }
-
-  // columns any row of the group can see: [lo, len)
+  RowState<HD> st;
+  st.init();
+  // columns any row of the group can see: [lo, len); this split's share
+  // ends at s1 (never a key >= len)
   const int lo = window > 0 ? max(len - window - (q_len - 1), 0) : 0;
   const int s0 = split * split_len;
-  const int s1 = min(len, s0 + split_len);   // never read a key >= len
-
-  for (int k0 = s0; k0 < s1; k0 += DA_BK) {
-    if (k0 + DA_BK <= lo) continue;            // block-uniform skip
-    const int nk = s1 - k0;
-    __syncthreads();
-    if (vec) {                                 // K and V both in flight
-      TileLoader<T, DA_BK, HD, THREADS> kl, vl;
-      kl.fetch_rows([&](int r) { return krow(k0 + r); }, nk);
-      vl.fetch_rows([&](int r) { return vrow(k0 + r); }, nk);
-      kl.store(ks, KST);
-      vl.store(vs, HD);
-    } else {
-      load_rows_scalar<T, DA_BK, HD, THREADS>(
-          ks, KST, [&](int r) { return krow(k0 + r); }, nk, hd);
-      load_rows_scalar<T, DA_BK, HD, THREADS>(
-          vs, HD, [&](int r) { return vrow(k0 + r); }, nk, hd);
-    }
-    __syncthreads();
-
-    float sa[DA_RPW], sb[DA_RPW];
-#pragma unroll
-    for (int i = 0; i < DA_RPW; ++i) sa[i] = sb[i] = 0.f;
-    const float4* ka = reinterpret_cast<const float4*>(ks + lane * KST);
-    const float4* kbb = reinterpret_cast<const float4*>(ks + (lane + 32) * KST);
-#pragma unroll 2
-    for (int d4 = 0; d4 < HD / 4; ++d4) {
-      const float4 x = ka[d4], y = kbb[d4];
-#pragma unroll
-      for (int i = 0; i < DA_RPW; ++i) {
-        const int r = warp + WARPS * i;
-        if (r < rows) {
-          const float4 qq = reinterpret_cast<const float4*>(qs + r * HD)[d4];
-          sa[i] += qq.x * x.x + qq.y * x.y + qq.z * x.z + qq.w * x.w;
-          sb[i] += qq.x * y.x + qq.y * y.y + qq.z * y.z + qq.w * y.w;
-        }
-      }
-    }
-
-    const int ca = k0 + lane, cb = k0 + lane + 32;
-    float pa[DA_RPW], pb[DA_RPW];
-#pragma unroll
-    for (int i = 0; i < DA_RPW; ++i) {
-      pa[i] = pb[i] = 0.f;
-      const int r = warp + WARPS * i;
-      if (r >= rows) continue;                     // warp-uniform
-      const int eff = len - (q_len - 1) + r / group;
-      bool oka = ca < eff && ca < s1, okb = cb < eff && cb < s1;
-      if (window > 0) {
-        oka = oka && ca >= eff - window;
-        okb = okb && cb >= eff - window;
-      }
-      const float xa = oka ? apply_softcap(sa[i] * scale, softcap) : REPRO_NEG_INF;
-      const float xb = okb ? apply_softcap(sb[i] * scale, softcap) : REPRO_NEG_INF;
-      const float m_new = fmaxf(m[i], warp_max(fmaxf(xa, xb)));
-      pa[i] = oka ? expf(xa - m_new) : 0.f;
-      pb[i] = okb ? expf(xb - m_new) : 0.f;
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + warp_sum(pa[i] + pb[i]);
-#pragma unroll
-      for (int dd = 0; dd < DPL; ++dd) acc[i][dd] *= alpha;
-      m[i] = m_new;
-    }
-
-#pragma unroll 2
-    for (int j = 0; j < 32; ++j) {
-      float va[DPL], vb2[DPL];
-#pragma unroll
-      for (int dd = 0; dd < DPL; ++dd) {
-        va[dd] = vs[j * HD + lane * DPL + dd];
-        vb2[dd] = vs[(j + 32) * HD + lane * DPL + dd];
-      }
-#pragma unroll
-      for (int i = 0; i < DA_RPW; ++i) {
-        const int r = warp + WARPS * i;
-        if (r < rows) {
-          const float xa = __shfl_sync(0xffffffffu, pa[i], j);
-          const float xb = __shfl_sync(0xffffffffu, pb[i], j);
-#pragma unroll
-          for (int dd = 0; dd < DPL; ++dd) acc[i][dd] += xa * va[dd] + xb * vb2[dd];
-        }
-      }
-    }
-  }
+  const int s1 = min(len, s0 + split_len);
+  attend_tiles<T, HD, WARPS, PAGED>(st, qs, ks, vs, krow, vrow, s0, s1, lo,
+                                    rows, group, len - (q_len - 1), window,
+                                    softcap, scale, hd, vec);
 
   // partials: [(b·KH + kh)·splits + split]·rows + r
 #pragma unroll
-  for (int i = 0; i < DA_RPW; ++i) {
+  for (int i = 0; i < ATT_RPW; ++i) {
     const int r = warp + WARPS * i;
     if (r >= rows) continue;
     const int64_t idx = ((int64_t)(b * KH + kh) * splits + split) * rows + r;
     if (lane == 0) {
-      part_ml[idx * 2] = m[i];
-      part_ml[idx * 2 + 1] = l[i];
+      part_ml[idx * 2] = st.m[i];
+      part_ml[idx * 2 + 1] = st.l[i];
     }
 #pragma unroll
     for (int dd = 0; dd < DPL; ++dd) {
       const int d = lane * DPL + dd;
-      if (d < hd) part_acc[idx * hd + d] = acc[i][dd];
+      if (d < hd) part_acc[idx * hd + d] = st.acc[i][dd];
     }
   }
 }
@@ -285,7 +166,7 @@ struct DecodeArgs {
 
 template <typename T, int HD, int WARPS, bool PAGED>
 cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = da_smem_bytes<HD, WARPS>();
+  constexpr size_t smem = att_smem_bytes<HD, WARPS>();
   static bool configured = false;
   if (!configured) {
     cudaError_t e = allow_smem(decode_split_kernel<T, HD, WARPS, PAGED>, smem);
@@ -330,7 +211,7 @@ int run(DecodeArgs& a, int dtype, void* stream) {
   const int max_rows = PAGED ? DA_MAX_ROWS : 32;
   if (a.hd < 1 || a.hd > 128 || a.hd % 4 != 0 || a.rows < 1 ||
       a.rows > max_rows || a.q_len < 1 || a.rows % a.q_len != 0 ||
-      a.split_len % DA_BK != 0 || a.splits < 1 ||
+      a.split_len % ATT_BK != 0 || a.splits < 1 ||
       (long long)a.splits * a.split_len < a.S || (PAGED && a.page < 1))
     return (int)cudaErrorInvalidValue;
   const int hd_pad = a.hd <= 32 ? 32 : (a.hd <= 64 ? 64 : 128);

@@ -5,6 +5,9 @@
 - ``decode_attention``  dense flash-decoding, ``csrc/decode_attention.cu``
 - ``paged_decode_attention``  the same through a block table over page
                         pools (slot decode and speculative verify)
+- ``paged_prefill_attention``  chunked prefill's prefix-append attention
+                        through a block table,
+                        ``csrc/paged_prefill_attention.cu``
 - ``region_score``      Eq. (2) scoring, ``csrc/region_score.cu``
 - ``ops``               device-based dispatch + layout adaptation
 - ``build``             nvcc build into ``build/kernels/`` and ctypes binding

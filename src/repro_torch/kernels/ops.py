@@ -21,12 +21,14 @@ import torch
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import paged_decode_attention as PDA
+from repro_torch.kernels import paged_prefill_attention as PPA
 from repro_torch.kernels import ref
 from repro_torch.kernels import region_score as RS
 
 KERNELS = {"flash_attention": FA.KERNEL, "decode_attention": DA.KERNEL,
            "region_score": RS.KERNEL,
-           "paged_decode_attention": PDA.KERNEL}
+           "paged_decode_attention": PDA.KERNEL,
+           "paged_prefill_attention": PPA.KERNEL}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -196,4 +198,33 @@ def paged_multi_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         _chunk_to_rows(q, kh), k_pool.transpose(1, 2),
         v_pool.transpose(1, 2), block_table, cache_len, window=window,
         softcap=softcap, scale=scale, q_len=t)
+    return _rows_to_chunk(o, t, h)
+
+
+# ---------------------------------------------------------------------------
+# paged prefix-append attention (chunked prefill; q_len = C per row)
+# ---------------------------------------------------------------------------
+
+def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, block_table: torch.Tensor,
+                            cache_len: CacheLen, *, window: int = 0,
+                            softcap: Optional[float] = None,
+                            scale: Optional[float] = None,
+                            q_blk: Optional[int] = None) -> torch.Tensor:
+    """The chunked-prefill scoring op: q (B, C, H, hd), a C-token chunk
+    whose K/V the caller just wrote at per-row (page, offset); pools and
+    table as ``paged_decode_attention``; cache_len INCLUDING the chunk
+    → (B, C, H, hd).  Chunk token ``t`` sees columns
+    ``< cache_len - (C - 1 - t)``.  ``q_blk`` (card only) is the kernel's
+    sub-block of chunk tokens; it never changes the result."""
+    if not _on_card(q, k_pool, v_pool, block_table):
+        return ref.paged_prefill_attention(q, k_pool, v_pool, block_table,
+                                           cache_len, window=window,
+                                           softcap=softcap, scale=scale)
+    b, t, h, hd = q.shape
+    kh = k_pool.shape[2]
+    o = PPA.paged_prefill_attention_cuda(
+        _chunk_to_rows(q, kh), k_pool.transpose(1, 2),
+        v_pool.transpose(1, 2), block_table, cache_len, window=window,
+        softcap=softcap, scale=scale, q_len=t, q_blk=q_blk)
     return _rows_to_chunk(o, t, h)

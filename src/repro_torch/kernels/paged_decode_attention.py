@@ -29,6 +29,33 @@ KERNEL = CudaKernel("decode_attention.cu", "paged_decode_attention_fwd",
 MAX_ROWS = 64         # q_len·group rows one block holds (8 warps)
 
 
+def check_paged(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                block_table: torch.Tensor):
+    """The operand rules the paged kernels share: q (B, KH, rows, hd),
+    pools (n_pages, KH, page, hd) matching q, hd <= 128 with hd % 4 == 0,
+    a non-empty (B, P) int32 block table with unit column stride on the
+    operands' device.  Returns (B, KH, rows, hd, page, P)."""
+    check_operands(q, k_pool, v_pool)
+    if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"bad shapes q{tuple(q.shape)} "
+                         f"k_pool{tuple(k_pool.shape)} "
+                         f"v_pool{tuple(v_pool.shape)}")
+    b, kh, rows, hd = q.shape
+    if k_pool.shape[1] != kh or k_pool.shape[3] != hd:
+        raise ValueError("pools must be (n_pages, KH, page, hd) matching q")
+    if hd > 128 or hd % 4:
+        raise ValueError(f"head dim {hd} unsupported (hd <= 128, hd % 4 == 0)")
+    if (block_table.dim() != 2 or block_table.shape[0] != b
+            or block_table.dtype != torch.int32
+            or block_table.device != q.device
+            or block_table.stride(1) != 1):
+        raise ValueError("block_table must be a (B, P) int32 tensor with "
+                         "unit column stride on the operands' device")
+    if block_table.shape[1] < 1:
+        raise ValueError("empty block table")
+    return b, kh, rows, hd, k_pool.shape[2], block_table.shape[1]
+
+
 def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                 v_pool: torch.Tensor,
                                 block_table: torch.Tensor,
@@ -43,28 +70,10 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     views); block_table: (B, P) int32; cache_len: int or () / (B,) int
     tensor of valid slots INCLUDING the chunk → (B, KH, q_len·group, hd),
     on the card."""
-    check_operands(q, k_pool, v_pool)
-    if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
-        raise ValueError(f"bad shapes q{tuple(q.shape)} "
-                         f"k_pool{tuple(k_pool.shape)} "
-                         f"v_pool{tuple(v_pool.shape)}")
-    b, kh, rows, hd = q.shape
-    page = k_pool.shape[2]
-    if k_pool.shape[1] != kh or k_pool.shape[3] != hd:
-        raise ValueError("pools must be (n_pages, KH, page, hd) matching q")
+    b, kh, rows, hd, page, n_blocks = check_paged(q, k_pool, v_pool,
+                                                  block_table)
     if rows % q_len or not 1 <= rows <= MAX_ROWS:
         raise ValueError(f"rows {rows} must be q_len·group <= {MAX_ROWS}")
-    if hd > 128 or hd % 4:
-        raise ValueError(f"head dim {hd} unsupported (hd <= 128, hd % 4 == 0)")
-    if (block_table.dim() != 2 or block_table.shape[0] != b
-            or block_table.dtype != torch.int32
-            or block_table.device != q.device
-            or block_table.stride(1) != 1):
-        raise ValueError("block_table must be a (B, P) int32 tensor with "
-                         "unit column stride on the operands' device")
-    n_blocks = block_table.shape[1]
-    if n_blocks < 1:
-        raise ValueError("empty block table")
     lens = device_lengths(cache_len, b, q.device)
     scale = scale if scale is not None else hd ** -0.5
     splits, split_len = split_plan(b, kh, n_blocks * page,

@@ -149,3 +149,21 @@ def paged_multi_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                   gather_pages(v_pool, block_table),
                                   cache_len, window=window, softcap=softcap,
                                   scale=scale)
+
+
+def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, block_table: torch.Tensor,
+                            cache_len, *, window: int = 0,
+                            softcap: Optional[float] = None,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """The chunked-prefill prefix-append op: q (B, C, H, hd), a C-token
+    chunk at logical positions ``cache_len - C .. cache_len - 1`` whose K/V
+    the caller just wrote into the pools, attends causally to its own chunk
+    and the committed prefix through the block table.  The same function as
+    ``paged_multi_decode_attention``, kept as its own entry point as in the
+    JAX package: the kernel beside it tiles the chunk axis.  Ragged engine
+    rows (1-token rows, partial chunks, idle rows) differ only in their
+    ``cache_len`` → (B, C, H, hd)."""
+    return paged_multi_decode_attention(q, k_pool, v_pool, block_table,
+                                        cache_len, window=window,
+                                        softcap=softcap, scale=scale)

@@ -9,7 +9,8 @@ Positions follow the JAX package's formulas exactly: prefill gives the
 patch count, and text continues diagonally from ``side``; decode places
 token positions with ``side`` and the offset from ``cfg.num_patches``.  The
 two layouts agree only when the number of regions equals
-``cfg.num_patches``.
+``cfg.num_patches``.  ``embed_chunk`` mixes both per row for the chunked
+prefill's fused step.
 """
 from __future__ import annotations
 
@@ -92,6 +93,36 @@ def embed_decode(p: Params, cfg: ArchConfig, inputs: Dict[str, torch.Tensor],
     if cfg.frontend == "vision" and cfg.use_mrope:
         side = max(int(math.isqrt(max(cfg.num_patches, 1))), 1)
         return x, (side + (pos - cfg.num_patches))[None].expand(3, b, t)
+    return x, pos
+
+
+def embed_chunk(p: Params, cfg: ArchConfig, inputs: Dict[str, torch.Tensor],
+                index: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mixed-modality (B, C) chunk embedding for the fused chunked-prefill
+    step.  Each row is a region chunk (``inputs["patch_embeds"]`` (B, C, d),
+    selected per row by ``inputs["patch_mask"]`` (B,) bool) or a token chunk
+    (``inputs["tokens"]`` (B, C)); ``index`` (B,) is the cache slot of each
+    row's first chunk token.  Positions follow ``embed_inputs``: region
+    token at slot ``p`` is patch ``p``, M-RoPE ``(0, p // side, p % side)``;
+    token rows continue diagonally at ``side + p - num_patches``."""
+    _check_frontend(cfg)
+    tokens = inputs["tokens"]
+    b, t = tokens.shape
+    x = F.embedding(tokens, p["tok"])
+    patches = inputs.get("patch_embeds")
+    patch_mask = inputs.get("patch_mask")
+    if patches is not None:
+        x = torch.where(patch_mask[:, None, None], patches.to(x.dtype), x)
+    index = torch.as_tensor(index, device=x.device)
+    per_row = index[:, None] if index.dim() == 1 else index
+    pos = (per_row + torch.arange(t, device=x.device)).expand(b, t)
+    if cfg.frontend == "vision" and cfg.use_mrope:
+        side = max(int(math.isqrt(max(cfg.num_patches, 1))), 1)
+        tpos = (side + (pos - cfg.num_patches))[None].expand(3, b, t)
+        if patches is None:
+            return x, tpos
+        ppos = torch.stack([torch.zeros_like(pos), pos // side, pos % side])
+        return x, torch.where(patch_mask[None, :, None], ppos, tpos)
     return x, pos
 
 

@@ -2,17 +2,21 @@
 
 The attention-only slice of ``repro.models.layers``: RMSNorm, RoPE with
 Qwen2-VL's M-RoPE sections, GQA attention backed by the flash, decode and
-paged-decode kernels (modes ``"prefill"``, ``"decode"`` and ``"verify"``,
-over a dense cache or a page pool through a block table), and the SwiGLU
-MLP.  The other mixers (MoE, Mamba, mLSTM, sLSTM, Hymba), mode
-``"prefill_append"`` and quantized page pools are not ported yet and raise.
+paged-decode and paged prefix-append kernels (modes ``"prefill"``,
+``"decode"``, ``"verify"`` and ``"prefill_append"``, over a dense cache or
+a page pool through a block table), and the SwiGLU MLP.  The other mixers
+(MoE, Mamba, mLSTM, sLSTM, Hymba) and quantized page pools are not ported
+yet and raise.
 
 Unlike the JAX package, which is functional, attention writes the KV cache
 in place and returns the same cache object.  Where the JAX scatter drops a
 write past the end of a cache (a finished slot whose index ran past its
 capacity), the port clamps it onto the row's last slot (dense) or the last
 table entry (paged); such rows are inactive, their table rows name the
-trash page, and nothing reads what they write.
+trash page, and nothing reads what they write.  That rule does not cover
+the padding tokens of ``"prefill_append"`` (past a row's ``chunk_lens``),
+whose rows may map published shared prefix pages: their paged writes go to
+the trash page ``TRASH_PAGE``, and dense ones keep the old values.
 """
 from __future__ import annotations
 
@@ -26,6 +30,9 @@ from repro_torch.kernels import ops
 
 Params = Dict[str, Any]
 Index = Union[int, torch.Tensor]
+#: the pool page nothing reads (``serving.kv_pool.TRASH_PAGE``): the paged
+#: writes of padding tokens land there
+TRASH_PAGE = 0
 
 
 # ---------------------------------------------------------------------------
@@ -125,9 +132,10 @@ def init_paged_attn_cache(cfg: ArchConfig, n_pages: int, page_size: int,
 def _paged_kv_write(cache: Params, pages: torch.Tensor, off: torch.Tensor,
                     k: torch.Tensor, v: torch.Tensor) -> None:
     """The ONE paged KV scatter, in place: token K/V land at physical
-    ``(pages, off)`` (decode writes one token per row, verify a (B, S)
-    chunk).  Several rows may target the same (trash page, offset): the
-    admission step steers every row it does not admit there.  Which write
+    ``(pages, off)`` (decode writes one token per row, verify and
+    prefill-append a (B, S) chunk).  Several tokens may target the same
+    (trash page, offset): the admission step steers every row it does not
+    admit there, and prefill-append its padding tokens.  Which write
     wins is then unspecified and harmless, since nothing reads the trash
     page's values; the writes never accumulate."""
     cache["k"][pages, off] = k
@@ -148,6 +156,7 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
               cache: Optional[Params] = None,
               cache_index: Optional[Index] = None,
               block_table: Optional[torch.Tensor] = None,
+              chunk_lens: Optional[torch.Tensor] = None,
               mode: str = "prefill") -> Tuple[torch.Tensor, Params]:
     """``"prefill"``: causal attention over the whole sequence, whose K/V
     fill cache positions [0, S).  ``"decode"``: S == 1 at ``cache_index``
@@ -158,8 +167,12 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
     call.  With ``block_table`` (B, P) the cache is a page pool
     (``init_paged_attn_cache``) and decode/verify write and read through
     the table; shared prefix pages cover positions below the committed
-    index, which neither mode writes."""
-    if mode not in ("prefill", "decode", "verify"):
+    index, which neither mode writes.  ``"prefill_append"``: a chunk of S
+    tokens per row at ``cache_index`` (B,), ragged by ``chunk_lens`` (B,)
+    (tokens at ``t >= chunk_lens`` are padding: their writes go nowhere
+    that is read, their outputs are garbage the caller drops), written and
+    scored causally within the chunk in one call."""
+    if mode not in ("prefill", "decode", "verify", "prefill_append"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     if cache is None:
         raise ValueError(f"mode {mode!r} needs a cache")
@@ -180,6 +193,37 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
                                 softcap=cap)
         cache["k"][:, :s] = k
         cache["v"][:, :s] = v
+    elif mode == "prefill_append":
+        idx = torch.as_tensor(cache_index, device=x.device).broadcast_to(
+            (b,))
+        pos = idx[:, None] + torch.arange(s, device=x.device)   # (B, S)
+        valid = (torch.arange(s, device=x.device)[None] < chunk_lens[:, None]
+                 if chunk_lens is not None
+                 else torch.ones((b, s), dtype=torch.bool, device=x.device))
+        if block_table is not None:
+            page = cache["k"].shape[1]
+            pages = torch.where(valid, _table_pages(block_table, pos, page),
+                                TRASH_PAGE)
+            _paged_kv_write(cache, pages, pos % page, k, v)
+            o = ops.paged_prefill_attention(
+                q, cache["k"], cache["v"], block_table, idx + s,
+                window=window, softcap=cap)
+        else:
+            # padding tokens and positions past the cache write back the old
+            # values: a masked select, no host sync.  Positions wrap modulo
+            # the capacity so a row's S slots stay distinct (S <= max_len).
+            max_len = cache["k"].shape[1]
+            if s > max_len:
+                raise ValueError(f"chunk of {s} tokens exceeds the cache")
+            rows = torch.arange(b, device=x.device)[:, None]
+            posw = pos % max_len
+            keep = (valid & (pos < max_len))[..., None, None]
+            for name, new in (("k", k), ("v", v)):
+                leaf = cache[name]
+                leaf[rows, posw] = torch.where(keep, new, leaf[rows, posw])
+            o = ops.multi_decode_attention(q, cache["k"], cache["v"],
+                                           idx + s, window=window,
+                                           softcap=cap)
     elif mode == "verify" or block_table is not None:
         if mode == "decode" and s != 1:
             raise ValueError("decode takes one token per row")

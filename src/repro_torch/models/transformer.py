@@ -9,9 +9,9 @@ layer ``i`` of each stacked leaf (a view) inside a Python loop.
 Public entry points: ``init_params`` / ``init_cache`` /
 ``init_paged_cache``, ``prefill`` (the full prompt, filling a dense KV
 cache), ``decode_step`` (one token per row, dense or through a block table
-over page pools) and ``verify_step`` (a γ+1-token speculative chunk).
-Only attention blocks (``ATTN``, dense FFN) are ported; other block kinds
-raise.
+over page pools), ``verify_step`` (a γ+1-token speculative chunk) and
+``prefill_chunk_step`` (the chunked prefill's ragged fused step).  Only
+attention blocks (``ATTN``, dense FFN) are ported; other block kinds raise.
 """
 from __future__ import annotations
 
@@ -32,7 +32,13 @@ Params = Dict[str, Any]
 # Init
 # ---------------------------------------------------------------------------
 
-def _check_block(spec: BlockSpec) -> None:
+def _check_block(spec: BlockSpec, mode: Optional[str] = None) -> None:
+    if spec.kind != ATTN and mode in ("verify", "prefill_append"):
+        # the JAX package's model-level backstops: a recurrent scan folds a
+        # whole chunk into one state, so it neither rolls back for free
+        # (verify) nor keeps chunk boundaries bit-stable (prefill_append)
+        raise NotImplementedError(
+            f"{mode} mode needs attention blocks, got {spec.kind!r}")
     if spec.kind != ATTN or spec.moe:
         raise NotImplementedError(
             f"block kind {spec.kind!r} (moe={spec.moe}) is not ported: only "
@@ -153,12 +159,13 @@ def map_cache_kinds(cfg: ArchConfig, caches, *, kv, state) -> Tuple:
 
 def _apply_block(p: Params, x: torch.Tensor, *, cfg: ArchConfig,
                  spec: BlockSpec, cos, sin, cache, cache_index, mode: str,
-                 block_table=None) -> torch.Tensor:
-    _check_block(spec)
+                 block_table=None, chunk_lens=None) -> torch.Tensor:
+    _check_block(spec, mode)
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     h, _ = L.attention(p["mixer"], h, cfg=cfg, window=spec.window, cos=cos,
                        sin=sin, cache=cache, cache_index=cache_index,
-                       block_table=block_table, mode=mode)
+                       block_table=block_table, chunk_lens=chunk_lens,
+                       mode=mode)
     x = x + h
     if _has_ffn(cfg):
         x = x + L.mlp(p["ffn"], L.rms_norm(x, p["norm2"], cfg.norm_eps))
@@ -171,7 +178,8 @@ def _layer(tree: Any, i: int) -> Any:
 
 def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor,
                positions: torch.Tensor, *, mode: str, cache: Tuple,
-               cache_index=None, block_table=None) -> torch.Tensor:
+               cache_index=None, block_table=None,
+               chunk_lens=None) -> torch.Tensor:
     cos, sin = L.rope_angles(
         positions, cfg.resolved_head_dim, cfg.rope_theta,
         cfg.mrope_sections if cfg.use_mrope and positions.dim() == 3
@@ -182,7 +190,7 @@ def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor,
                              spec=spec, cos=cos, sin=sin,
                              cache=_layer(cache[pos], i),
                              cache_index=cache_index, mode=mode,
-                             block_table=block_table)
+                             block_table=block_table, chunk_lens=chunk_lens)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -239,3 +247,33 @@ def verify_step(params: Params, cfg: ArchConfig, cache: Tuple,
     x = _run_stack(params, cfg, x, positions, mode="verify", cache=cache,
                    cache_index=index, block_table=block_table)
     return frontends.logits_from_hidden(params["embed"], cfg, x), cache
+
+
+@torch.inference_mode()
+def prefill_chunk_step(params: Params, cfg: ArchConfig, cache: Tuple,
+                       inputs: Dict[str, torch.Tensor], index: torch.Tensor,
+                       block_table: Optional[torch.Tensor] = None,
+                       chunk_lens: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Tuple]:
+    """Advance each row's cache by up to C tokens in one step, the chunked
+    engine's fused step.  ``inputs`` holds a (B, C) chunk per row, mixing
+    modalities through ``frontends.embed_chunk`` (region rows feed
+    ``patch_embeds`` where ``patch_mask``, token rows feed ``tokens``);
+    ``index`` (B,) is the cache slot of each row's first chunk token;
+    ``chunk_lens`` (B,) its valid-token count (rows are ragged: C-token
+    region chunks, 1-token prompt/decode rows, partial chunks, idle rows
+    at 0).  The valid tokens' KV lands at per-row (page, offset) through
+    ``block_table`` (or densely); padding tokens write nothing that is
+    read.  The cache is updated in place.  Returns (logits (B, V) float32
+    at each row's LAST valid token, through a (B, d) hidden gather before
+    the unembedding, cache)."""
+    x, positions = frontends.embed_chunk(params["embed"], cfg, inputs, index)
+    x = _run_stack(params, cfg, x, positions, mode="prefill_append",
+                   cache=cache, cache_index=index, block_table=block_table,
+                   chunk_lens=chunk_lens)
+    if chunk_lens is None:
+        xh = x[:, -1]
+    else:
+        last = torch.clamp(chunk_lens.long() - 1, 0, x.shape[1] - 1)
+        xh = x[torch.arange(x.shape[0], device=x.device), last]
+    return frontends.logits_from_hidden(params["embed"], cfg, xh), cache

@@ -9,7 +9,10 @@ verified tokens) through one batched call with per-slot cache positions;
 finished slots free at once and are refilled mid-stream, so the batch never
 drains to admit the next request.  The KV cache behind the slots is paged
 by default: queries over one captured scene share the image-region prefix
-pages read-only and only prefill their prompt token.
+pages read-only and only prefill their prompt token.  With
+``EngineConfig(prefill_chunk=C)`` a new scene's region prefill streams
+into its pages C tokens at a time inside the steps, next to the decoding
+slots, instead of running at admission.
 
 It runs on the card unless ``device="cpu"`` is asked for, and the weights
 must already lie on that device.
@@ -45,8 +48,9 @@ class EngineConfig:
     #: speculative decoding: γ compact-model draft tokens verified per step
     #: (0 = off).  Needs a ``draft`` tier passed to ``InferenceEngine``.
     spec_gamma: int = 0
-    prefill_chunk: int = 0              # not ported (ROADMAP item 8)
-    token_budget: Optional[int] = None  # not ported (ROADMAP item 8)
+    #: chunked prefill: region tokens per fused step and scene (0 = off)
+    prefill_chunk: int = 0
+    token_budget: Optional[int] = None  # fused-step tokens (→ slots + chunk)
     #: explicit KV pool size in pages (None → worst-case bound)
     pool_pages: Optional[int] = None
     pool_bytes: Optional[int] = None    # not ported (ROADMAP item 10)
@@ -92,6 +96,8 @@ class InferenceEngine:
                              page_size=self.ec.page_size,
                              prefix_cache_scenes=self.ec.prefix_cache_scenes,
                              spec_gamma=self.ec.spec_gamma,
+                             prefill_chunk=self.ec.prefill_chunk,
+                             token_budget=self.ec.token_budget,
                              pool_pages=self.ec.pool_pages),
             draft=draft)
 

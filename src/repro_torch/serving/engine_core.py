@@ -23,11 +23,18 @@ tier's parameters, and the KV caches are updated in place.
   carries them, ``Request.draft_tokens``) and this tier verifies all of
   them in one γ+1-token scoring step; the committed stream is exactly the
   greedy stream.
+- **chunked prefill** (``prefill_chunk = C``, paged only): admission runs no
+  model forward; a new scene's N_r region tokens stream into its shared
+  pages C at a time inside fused token-budget steps, next to every
+  in-flight decode row and pending prompt suffix (``_step_chunked``), so
+  decoding never stops for admission.  The tokens are the unchunked
+  engine's.
 
 Every tensor shape of the slot path is fixed when the tables are allocated
-(pools, block table, logits, index), so a later CUDA graph can capture the
-step.  Chunked prefill, overload control, quantized pools, the device mesh
-and the ``step_impl="vmap"`` oracle are not ported yet: setting them raises
+(pools, block table, logits, index, staging buffer, the fused step's flat
+(token_budget,) batch), so a later CUDA graph can capture the steps.
+Overload control, quantized pools, the device mesh and the
+``step_impl="vmap"`` oracle are not ported yet: setting them raises
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -41,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ATTN
 from repro_torch.core import eo_adapter as EO
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
@@ -53,8 +61,6 @@ Params = Dict[str, Any]
 #: fields of the JAX engine configs outside the port so far: (field, the
 #: value the port takes, where ROADMAP queue 1 lists it)
 NOT_PORTED = (
-    ("prefill_chunk", 0, "item 8 (chunked prefill)"),
-    ("token_budget", None, "item 8 (chunked prefill)"),
     ("overload", None, "item 9 (overload control)"),
     ("kv_dtype", None, "item 10 (quantized paged KV)"),
     ("pool_bytes", None, "item 10 (quantized paged KV)"),
@@ -64,7 +70,12 @@ NOT_PORTED = (
 
 def check_ported(cfg: Any) -> None:
     """Raise ``NotImplementedError`` for a config field set to anything the
-    port does not run yet."""
+    port does not run yet.  A chunked config the JAX engine refuses (off
+    the batched paged engine) raises its ``ValueError`` first."""
+    if cfg.prefill_chunk and (cfg.step_impl != "batched"
+                              or cfg.cache_impl != "paged"):
+        raise ValueError("chunked prefill requires the batched paged engine "
+                         "(chunking off is the oracle)")
     for name, value, item in NOT_PORTED:
         if getattr(cfg, name) != value:
             raise NotImplementedError(
@@ -90,8 +101,13 @@ class EngineCoreConfig:
     #: speculative decoding: γ draft tokens per slot, verified by one
     #: multi-token scoring step of this tier (0 = off, the greedy oracle)
     spec_gamma: int = 0
-    prefill_chunk: int = 0                 # not ported (ROADMAP item 8)
-    token_budget: Optional[int] = None     # not ported (ROADMAP item 8)
+    #: chunked prefill: a new scene's region prefill streams into its
+    #: pages this many tokens at a time inside fused token-budget steps
+    #: (0 = off, synchronous admission, the oracle); values above N_r clamp
+    prefill_chunk: int = 0
+    #: tokens per fused step: decode rows first, then prompt suffixes, then
+    #: region chunks (None → slots + prefill_chunk; must exceed slots)
+    token_budget: Optional[int] = None
     #: explicit KV pool size in pages (paged only); None → the worst-case
     #: bound, under which admission never runs out of pages
     pool_pages: Optional[int] = None
@@ -118,6 +134,12 @@ class _Slot:
     #: speculative engines only: per-emitted-token answer-vocab probability
     #: rows, so ``generate_spec`` honours ``generate``'s (tokens, probs)
     probs: Optional[List[np.ndarray]] = None
+    #: chunked prefill's phase machine: "prefill" (this slot streams its
+    #: scene's region chunks), "wait" (another slot streams its scene; the
+    #: shared pages map at publication), "prompt" (prefix resident, the
+    #: 1-token prompt suffix pending), "decode" (the only phase of other
+    #: engines)
+    phase: str = "decode"
     #: wall-clock request milestones (time-to-first-token accounting)
     t_admit: float = 0.0
     t_first: Optional[float] = None
@@ -186,6 +208,31 @@ class EngineCore:
         # spec engines reserve γ extra KV slots per row
         self._spec_margin = self.cfg.spec_gamma
 
+        self._chunk = self._token_budget = 0
+        if self.cfg.prefill_chunk:
+            if self.cfg.prefill_chunk < 1:
+                raise ValueError("prefill_chunk must be >= 1 when set")
+            if any(s.kind != ATTN for s in tier.cfg.block_pattern):
+                raise ValueError(
+                    "chunked prefill requires attention-only stacks: KV "
+                    "appends are bit-stable across chunk boundaries, "
+                    "recurrent scans are not")
+            self._chunk = min(self.cfg.prefill_chunk, adapter_cfg.n_regions)
+            self._token_budget = (self.cfg.token_budget
+                                  if self.cfg.token_budget is not None
+                                  else self.cfg.slots + self._chunk)
+            if self._token_budget <= self.cfg.slots:
+                raise ValueError(
+                    f"token_budget {self._token_budget} must exceed the "
+                    f"slot count {self.cfg.slots}: every decode row takes "
+                    "one token per step, so a smaller budget would starve "
+                    "prefill streams")
+        #: chunked engines: scene → {slot, pages, progress, order, priority}
+        #: of the region streams in flight (FIFO by order within priority)
+        self._streaming: Dict[Any, Dict[str, Any]] = {}
+        self._stream_seq = 0
+        self._staging = None
+
         @torch.inference_mode()
         def _encode(images, ptok):
             rf = EO.encode_regions(params, ac, images)
@@ -195,6 +242,9 @@ class EngineCore:
         self._encode = _encode
         self._token_feats = torch.inference_mode()(
             lambda toks: EO.token_features(params, toks))
+        # V(x) alone, the one model call of chunked admission
+        self._region_embed = torch.inference_mode()(
+            lambda images: EO.encode_regions(params, ac, images))
         # scene-keyed encode memo for the serve path (bounded LRU)
         self._encode_cache: "OrderedDict[Any, Tuple]" = OrderedDict()
         self._encode_cache_cap = 32
@@ -258,12 +308,14 @@ class EngineCore:
             #: finished-request milestones (bounded): {request_id, task,
             #: t_admit, t_first, t_done, priority} wall-clock
             "request_log": [],
-            #: per-step scheduling ledger; the fused-step fields stay 0
-            #: (chunked prefill is not ported)
+            #: per-step scheduling ledger (every step flavour): tokens by
+            #: kind, fused-step budget accounting, stall steps (a fused step
+            #: in which a streaming scene got no budget), and per fused step
+            #: (decode, prompt, chunk) tokens (bounded)
             "sched": {"steps": 0, "fused_steps": 0, "decode_tokens": 0,
                       "prompt_tokens": 0, "chunk_tokens": 0,
                       "scheduled_tokens": 0, "stall_steps": 0,
-                      "budget": 0, "step_log": []},
+                      "budget": self._token_budget, "step_log": []},
         }
         if self.cfg.spec_gamma:
             self.stats["spec"] = {
@@ -352,6 +404,11 @@ class EngineCore:
         if self.cfg.spec_gamma and self._draft_cache is None:
             self._draft_cache = T.init_cache(self.draft.cfg, n,
                                              self._draft_max_len, dev)
+        if self.cfg.prefill_chunk and self._staging is None:
+            # each streaming slot's region embeddings, fed C at a time
+            self._staging = torch.zeros(
+                (n, self.ac.n_regions, cfg.d_model),
+                dtype=getattr(torch, cfg.dtype), device=dev)
 
     def _block_table_dev(self) -> torch.Tensor:
         """The (slots, pages) block table on the device, uploaded again only
@@ -397,12 +454,19 @@ class EngineCore:
         """Allocate the slot tables and build/bind every kernel ahead of
         the first admission, so no ``nvcc`` build lands mid-serve.  Eager
         PyTorch compiles nothing per shape, so there are no admission
-        buckets to pre-compile as in the JAX engine.  Slot state is
-        untouched."""
+        buckets to pre-compile as in the JAX engine.  Chunked engines also
+        run one all-idle fused step (every flat row unscheduled: its writes
+        land on the trash page, no logits are taken), the shape their
+        serving steps take.  Slot state is untouched."""
         self._ensure_slot_tables()
         if self.device.type == "cuda":
             for kernel in ops.KERNELS.values():
                 kernel.bind()
+        if self.cfg.prefill_chunk:
+            tb, n = self._token_budget, self.cfg.slots
+            zeros = np.zeros((tb,), np.int32)
+            self._fused_step(np.full((tb,), n, np.int32), zeros, zeros,
+                             np.zeros((tb,), bool), np.zeros((tb,), bool))
 
     def _images(self, requests: List[Request]) -> torch.Tensor:
         return torch.from_numpy(np.stack(
@@ -428,6 +492,8 @@ class EngineCore:
         if len(requests) > len(free):
             raise RuntimeError("no free slot")
         self._ensure_slot_tables()
+        if self.cfg.prefill_chunk:
+            return self._admit_many_chunked(requests, free, t_admit)
         if self.cache_impl == "paged":
             return self._admit_many_paged(requests, free, t_admit)
         k = len(requests)
@@ -448,7 +514,7 @@ class EngineCore:
 
     def _record_admissions(self, slot_ids: List[int],
                            requests: List[Request], scenes=None,
-                           private=None,
+                           private=None, phases=None,
                            t_admit: Optional[float] = None) -> None:
         log = self.stats["occupancy_log"]
         now = t_admit if t_admit is not None else time.perf_counter()
@@ -466,7 +532,8 @@ class EngineCore:
                 scene=scenes[j] if scenes else None,
                 private_pages=private[j] if private else None,
                 pending_drafts=pending,
-                probs=[] if wants_probs else None, t_admit=now)
+                probs=[] if wants_probs else None,
+                phase=phases[j] if phases else "decode", t_admit=now)
             self.stats["admitted"] += 1
             if self._step_no > 0 and others_active > 0:
                 self.stats["mid_stream_refills"] += 1
@@ -561,18 +628,78 @@ class EngineCore:
         self._paged_admit(target, ptoks)
         self._note_prefill("prompt", k)        # one prompt token per request
         if self.cfg.spec_gamma:
-            # the drafter mirrors the slot table on its own dense cache: one
-            # [regions | prompt] prefill for the admitted batch
-            _, dcache, _ = EO.prefill_tokens(
-                self.draft.params, self.draft.cfg, self.ac,
-                self._images(requests), self._host_to_dev(ptoks),
-                self._draft_max_len)
-            slots = self._host_to_dev(target)
-            for full, new in zip(self._draft_cache, dcache):
-                _sel_scatter(full, new, slots, 1)
-            self._note_prefill("draft", k * (self.ac.n_regions + 1))
+            self._draft_prefill(requests, ptoks, target)
         self._record_admissions(target, requests, scenes=scenes,
                                 private=private, t_admit=t_admit)
+        return target
+
+    # -- chunked admission ------------------------------------------------
+    def _admit_many_chunked(self, requests: List[Request], free: List[int],
+                            t_admit: Optional[float] = None) -> List[int]:
+        """Stall-free admission: no model forward runs here.  Each request
+        gets a slot, private pages and a phase: its scene resident in the
+        prefix cache → ``"prompt"`` (shared pages mapped read-only, the
+        prompt suffix rides the next fused step); its scene streaming in
+        another slot → ``"wait"`` (shared pages mapped at publication); its
+        scene unseen → ``"prefill"``: this slot streams the scene, fresh
+        shared pages are allocated and the region embeddings (one small
+        projection, the only model call here) are staged.  Only the first
+        query of a scene streams; fan-out queries share its pages."""
+        k = len(requests)
+        scenes = [scene_key(r) for r in requests]
+        new_streams, seen = [], set()
+        for s_ in scenes:
+            if (s_ not in self._prefix and s_ not in self._streaming
+                    and s_ not in seen):
+                new_streams.append(s_)
+                seen.add(s_)
+        # one page budget for the whole batch, up front; streams in flight
+        # are protected too (not resident yet, but they must not be
+        # evicted and restreamed), and their later publications reserve
+        # entry capacity now (put() never checks it)
+        self._prefix.evict_for(
+            k * self._private_per_slot
+            + len(new_streams) * self._n_shared_pages,
+            need_entries=len(new_streams) + len(self._streaming),
+            protect=set(scenes) | set(self._streaming))
+        target = free[:k]
+        stream_reqs, stream_slots, phases, private = [], [], [], []
+        for r, s_, slot in zip(requests, scenes, target):
+            priv = self._pool.alloc(self._private_per_slot)
+            private.append(priv)
+            if s_ in self._prefix:
+                entry = self._prefix.acquire(s_)
+                self._bt_np[slot] = list(entry.pages) + priv
+                phases.append("prompt")
+            elif s_ in self._streaming:
+                # shared blocks stay on the trash page until publication; a
+                # higher-priority waiter raises the stream's priority
+                st = self._streaming[s_]
+                st["priority"] = max(st["priority"], r.priority)
+                self._bt_np[slot] = ([TRASH_PAGE] * self._n_shared_pages
+                                     + priv)
+                phases.append("wait")
+            else:
+                shared = self._pool.alloc(self._n_shared_pages)
+                self._streaming[s_] = {"slot": slot, "pages": shared,
+                                       "progress": 0,
+                                       "order": self._stream_seq,
+                                       "priority": r.priority}
+                self._stream_seq += 1
+                self._bt_np[slot] = shared + priv
+                phases.append("prefill")
+                stream_reqs.append(r)
+                stream_slots.append(slot)
+        self._bt_dev = None
+        self.stats["prefix_hits"] += k - len(new_streams)
+        self.stats["prefix_misses"] += len(new_streams)
+        if stream_slots:
+            embs = self._region_embed(self._images(stream_reqs))
+            self._staging.index_copy_(0, self._host_to_dev(stream_slots),
+                                      embs.to(self._staging.dtype))
+        self._record_admissions(target, requests, scenes=scenes,
+                                private=private, phases=phases,
+                                t_admit=t_admit)
         return target
 
     def _release_slot(self, i: int) -> None:
@@ -631,6 +758,9 @@ class EngineCore:
         tokens per slot), token-for-token the greedy stream.  Finished
         slots free immediately; callers refill them before the next
         ``step`` (continuous batching)."""
+        if self.cfg.prefill_chunk and any(
+                s.active and s.phase != "decode" for s in self._slots):
+            return self._step_chunked()
         if self.cfg.spec_gamma:
             return self._step_spec()
         if self.active_count() == 0:
@@ -652,6 +782,232 @@ class EngineCore:
             if len(slot.tokens) >= slot.l_ans:
                 self._finish_slot(i, finished)
         return finished
+
+    # -- chunked prefill: the fused token-budget step ------------------------
+    def _slot_pos(self, i: int) -> int:
+        """A slot's logical cache index from the phase machine (the host
+        owns it in chunked engines)."""
+        slot = self._slots[i]
+        if not slot.active:
+            return 0
+        if slot.phase == "decode":
+            return self.ac.n_regions + 1 + len(slot.tokens)
+        if slot.phase == "prompt":
+            return self.ac.n_regions
+        if slot.phase == "prefill":
+            return self._streaming[slot.scene]["progress"]
+        return 0                                   # wait: nothing written
+
+    def _fused_step(self, srow: np.ndarray, tokens: np.ndarray,
+                    pos: np.ndarray, patch_mask: np.ndarray,
+                    use_argmax: np.ndarray, want_probs: bool = False
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """ONE step over a flat (token_budget,) batch: row ``j`` is one
+        token of slot ``srow[j]`` at cache slot ``pos[j]``.  Decode rows
+        feed their slot's argmax, prompt rows ``tokens[j]``, region rows
+        the staged embedding at ``pos[j]``; a scene's chunk takes up to C
+        consecutive rows on its streamer's table row, whose KV lands before
+        the reads, so chunk token t sees its siblings < t through the
+        cache.  Padding rows (``srow == slots``) are unscheduled: their
+        writes go to the trash page and their outputs are dropped.  The
+        held logits of each slot with a decode or prompt row are replaced
+        by that row's.  Returns (the flat tokens fed, the answer-vocab
+        probabilities of the held logits before the step if asked)."""
+        n_slots, n_r = self.cfg.slots, self.ac.n_regions
+        av, tb, dev = self.cfg.answer_vocab, len(srow), self.device
+        flat = self._host_to_dev(np.stack(
+            [srow, tokens, pos, patch_mask, use_argmax]).astype(np.int32))
+        srow_d, tokens_d, pos_d = flat[0], flat[1], flat[2]
+        pmask, argm = flat[3].bool(), flat[4].bool()
+        valid = srow_d < n_slots
+        sclamp = torch.clamp(srow_d, max=n_slots - 1).long()
+        av_logits = self._slot_logits[:, :av]
+        probs0 = torch.softmax(av_logits, dim=-1) if want_probs else None
+        y1 = torch.argmax(av_logits, dim=-1).to(torch.int32)
+        tok = torch.where(argm, y1[sclamp], tokens_d)
+        feed = self._staging[sclamp, torch.clamp(pos_d, 0, n_r - 1).long()]
+        logits_f, _ = T.prefill_chunk_step(
+            self.tier.params["backbone"], self.tier.cfg, self._slot_cache,
+            {"tokens": tok[:, None], "patch_embeds": feed[:, None],
+             "patch_mask": pmask}, pos_d,
+            block_table=self._block_table_dev()[sclamp],
+            chunk_lens=valid.to(torch.int32))
+        # the flat row feeding each slot's logits (-1: none); unscheduled
+        # and region rows all go to the dropped index ``n_slots``
+        dest = torch.where(valid & ~pmask, srow_d, n_slots).long()
+        src = torch.full((n_slots + 1,), -1, dtype=torch.long, device=dev)
+        src = src.scatter_(0, dest, torch.arange(tb, device=dev))[:n_slots]
+        self._slot_logits = torch.where(
+            (src >= 0)[:, None], logits_f[torch.clamp(src, min=0)],
+            self._slot_logits)
+        return tok, probs0
+
+    def _step_chunked(self) -> List[Tuple[Request, np.ndarray]]:
+        """ONE fused token-budget step (Sarathi-style chunked prefill).
+
+        The flat (token_budget,) batch takes every decode row first (one
+        token each: admission never delays an in-flight answer), then the
+        pending 1-token prompt suffixes, then up to C region tokens per
+        streaming scene; prompts and streams go by priority, then FIFO.  A
+        scene whose stream completes is published to the prefix cache and
+        its streamer and waiters move to the prompt phase; speculative
+        engines drafter-prefill the rows that reach the decode phase."""
+        n_slots, C = self.cfg.slots, self._chunk
+        n_r, tb = self.ac.n_regions, self._token_budget
+        srow = np.full((tb,), n_slots, np.int32)
+        tokens = np.zeros((tb,), np.int32)
+        pos = np.zeros((tb,), np.int32)
+        patch_mask = np.zeros((tb,), bool)
+        use_argmax = np.zeros((tb,), bool)
+        decode_rows = [i for i, s in enumerate(self._slots)
+                       if s.active and s.phase == "decode"]
+        prompt_rows = sorted(
+            (i for i, s in enumerate(self._slots)
+             if s.active and s.phase == "prompt"),
+            key=lambda i: (-self._slots[i].request.priority, i))
+        j = 0
+        decode_flat = {}
+        for i in decode_rows:
+            srow[j] = i
+            pos[j] = n_r + 1 + len(self._slots[i].tokens)
+            use_argmax[j] = True
+            decode_flat[i] = j
+            j += 1
+        scheduled_prompt = []
+        for i in prompt_rows:
+            if j >= tb:
+                break
+            req = self._slots[i].request
+            srow[j] = i
+            pos[j] = n_r
+            tokens[j] = self.ac.prompt_id(req.task, req.prompt)
+            scheduled_prompt.append(i)
+            j += 1
+        streams = sorted(self._streaming.items(),
+                         key=lambda kv: (-kv[1]["priority"], kv[1]["order"]))
+        stream_sched = []                          # (scene, tokens granted)
+        for s_, st in streams:
+            c = min(C, n_r - st["progress"], tb - j)
+            if c <= 0:
+                continue
+            srow[j:j + c] = st["slot"]
+            pos[j:j + c] = st["progress"] + np.arange(c)
+            patch_mask[j:j + c] = True
+            j += c
+            stream_sched.append((s_, c))
+
+        want_probs = any(self._slots[i].probs is not None
+                         for i in decode_rows)
+        tok, probs0 = self._fused_step(srow, tokens, pos, patch_mask,
+                                       use_argmax, want_probs)
+        toks_np = tok.cpu().numpy()  # spacelint: disable=SL001 (the single deliberate per-step fetch: committed tokens must reach the host-side phase machine)
+        # spacelint: disable=SL001 (probs ride the step, and only for slots that asked for them)
+        probs_np = probs0.cpu().numpy() if want_probs else None
+        self._step_no += 1
+        now = time.perf_counter()
+
+        n_prompt = len(scheduled_prompt)
+        n_chunk = sum(c for _, c in stream_sched)
+        sched = self.stats["sched"]
+        sched["steps"] += 1
+        sched["fused_steps"] += 1
+        sched["decode_tokens"] += len(decode_rows)
+        sched["prompt_tokens"] += n_prompt
+        sched["chunk_tokens"] += n_chunk
+        sched["scheduled_tokens"] += len(decode_rows) + n_prompt + n_chunk
+        if self._streaming and n_chunk == 0:
+            sched["stall_steps"] += 1
+        slog = sched["step_log"]
+        slog.append((len(decode_rows), n_prompt, n_chunk))
+        if len(slog) > self._occupancy_cap:
+            del slog[:self._occupancy_cap // 2]
+        self._note_prefill("prompt", n_prompt)
+        self._note_prefill("chunk", n_chunk)
+
+        if self.cfg.spec_gamma and decode_rows:
+            # fused steps commit decode tokens through the plain path the
+            # drafter never sees: mirror them into its cache
+            dtoks = np.zeros((n_slots,), np.int32)
+            didx = np.zeros((n_slots,), np.int32)
+            for i in decode_rows:
+                dtoks[i] = toks_np[decode_flat[i]]
+                didx[i] = pos[decode_flat[i]]
+            self._draft_feed(dtoks, didx)
+
+        finished: List[Tuple[Request, np.ndarray]] = []
+        for i in decode_rows:
+            slot = self._slots[i]
+            slot.tokens.append(int(toks_np[decode_flat[i]]))
+            if slot.t_first is None:
+                slot.t_first = now
+            if slot.probs is not None:
+                slot.probs.append(probs_np[i])
+            if len(slot.tokens) >= slot.l_ans:
+                self._finish_slot(i, finished)
+        for i in scheduled_prompt:
+            self._slots[i].phase = "decode"
+        for s_, c in stream_sched:
+            st = self._streaming[s_]
+            st["progress"] += c
+            if st["progress"] < n_r:
+                continue
+            # stream complete: publish the prefix (the alloc-time page
+            # reference becomes the cache's own) and move the streamer and
+            # every waiter to the prompt phase, remapping the waiters'
+            # shared blocks off the trash page
+            del self._streaming[s_]
+            self._prefix.put(s_, st["pages"], None)
+            for jj, slot in enumerate(self._slots):
+                if (slot.active and slot.scene == s_
+                        and slot.phase in ("prefill", "wait")):
+                    self._prefix.acquire(s_)
+                    if slot.phase == "wait":
+                        self._bt_np[jj, :self._n_shared_pages] = st["pages"]
+                        self._bt_dev = None
+                    slot.phase = "prompt"
+        # the per-slot index the plain and speculative steps read once the
+        # streams drain (fused steps take positions per flat token)
+        self._slot_index = self._host_to_dev(np.asarray(
+            [self._slot_pos(i) for i in range(n_slots)], np.int32))
+        if self.cfg.spec_gamma and scheduled_prompt:
+            self._draft_prefill_rows(scheduled_prompt)
+        return finished
+
+    def _draft_feed(self, toks: np.ndarray, idx: np.ndarray) -> None:
+        """Mirror tokens committed outside a speculative step (the fused
+        steps' decode rows) into the drafter's cache at per-row ``idx``, so
+        it holds exactly the committed stream and later drafts see no
+        zero-KV gaps.  Rows with nothing committed write a token at
+        position 0 of drafter rows that are prefilled anew before their
+        next draft (at the prompt-to-decode transition), so nothing reads
+        it."""
+        T.decode_step(self.draft.params["backbone"], self.draft.cfg,
+                      self._draft_cache,
+                      {"tokens": self._host_to_dev(toks)[:, None]},
+                      self._host_to_dev(idx))
+
+    def _draft_prefill(self, requests: List[Request], ptoks: np.ndarray,
+                       rows: List[int]) -> None:
+        """The drafter's [regions | prompt] prefill of ``requests`` into its
+        dense cache rows ``rows`` (it mirrors the slot table on its own
+        cache, which is cheap and never shared)."""
+        _, dcache, _ = EO.prefill_tokens(
+            self.draft.params, self.draft.cfg, self.ac,
+            self._images(requests), self._host_to_dev(ptoks),
+            self._draft_max_len)
+        slots = self._host_to_dev(rows)
+        for full, new in zip(self._draft_cache, dcache):
+            _sel_scatter(full, new, slots, 1)
+        self._note_prefill("draft", len(rows) * (self.ac.n_regions + 1))
+
+    def _draft_prefill_rows(self, rows: List[int]) -> None:
+        """Chunked + speculative engines: drafting starts when a slot
+        reaches the decode phase, so its drafter prefill runs then, not at
+        admission (which stays free of model forwards)."""
+        reqs = [self._slots[i].request for i in rows]
+        ptoks = np.asarray([self.ac.prompt_id(r.task, r.prompt)
+                            for r in reqs], np.int32)
+        self._draft_prefill(reqs, ptoks, rows)
 
     # -- speculative decoding ----------------------------------------------
     def _verify_accept(self, chunk: torch.Tensor):
@@ -805,8 +1161,9 @@ class EngineCore:
     # stats
     # ------------------------------------------------------------------
     def scheduler_stats(self) -> Dict[str, Any]:
-        """Step counters + derived rates.  The fused-step fields stay 0
-        (chunked prefill is not ported), and there is no
+        """Step counters + derived rates, for every engine flavour; the
+        fused-step fields (budget utilisation, token mix, stall steps) are
+        only non-trivial for chunked engines.  There is no
         ``steady_recompiles``: eager PyTorch compiles nothing per shape."""
         sched = self.stats["sched"]
         out = {k: v for k, v in sched.items() if k != "step_log"}
@@ -816,7 +1173,10 @@ class EngineCore:
             "prompt": sched["prompt_tokens"] / steps,
             "chunk": sched["chunk_tokens"] / steps,
         }
-        out["budget_utilization"] = 0.0
+        fused = sched["fused_steps"]
+        out["budget_utilization"] = (
+            sched["scheduled_tokens"] / (fused * sched["budget"])
+            if fused and sched["budget"] else 0.0)
         out["prefill_by_kind"] = dict(self.stats["prefill_by_kind"])
         return out
 
@@ -890,8 +1250,14 @@ class EngineCore:
             pages = 0.0
             for s in active:
                 entry = self._prefix.get(s.scene)
-                pages += (self._private_per_slot
-                          + self._n_shared_pages / max(entry.users, 1))
+                if entry is None:
+                    # chunked: the scene is still streaming; its streamer is
+                    # charged the whole shared group, its waiters nothing
+                    share = (self._n_shared_pages
+                             if s.phase == "prefill" else 0)
+                else:
+                    share = self._n_shared_pages / max(entry.users, 1)
+                pages += self._private_per_slot + share
             out["kv_bytes_per_slot"] = int(page_bytes * pages / len(active))
         else:
             out["kv_bytes_per_slot"] = int(page_bytes * self._pages_per_slot)

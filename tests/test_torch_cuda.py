@@ -18,6 +18,8 @@ from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: 
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention_cuda)
+from repro_torch.kernels.paged_prefill_attention import (  # noqa: E402
+    paged_prefill_attention_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -137,6 +139,34 @@ def test_paged_decode_kernel_matches_plain(card, hd, group, q_len, page,
         _close(got1, want[:, 0], TOL[dtype])
 
 
+@pytest.mark.parametrize("hd,group,q_len,q_blk,page,window,softcap,dtype", [
+    (16, 2, 1, None, 1, 0, None, torch.float32),
+    (16, 6, 64, 8, 2, 24, None, torch.float32),     # 384 rows, 8 sub-blocks
+    (12, 7, 16, 3, 8, 0, 2.5, torch.float32),       # 16 % 3: a short tail
+    (64, 1, 6, 4, 16, 0, None, torch.float32),
+    (128, 6, 256, None, 8, 0, None, torch.bfloat16),  # a 2B region chunk
+])
+def test_paged_prefill_kernel_matches_plain(card, hd, group, q_len, q_blk,
+                                            page, window, softcap, dtype):
+    """Rows: idle, shorter than the chunk, the chunk alone, mid-prefill and
+    longer; NaN trash page; the pools are left as they were."""
+    lens = [0, max(q_len - 1, 1), q_len, q_len + 77, q_len + 203]
+    q, kp, vp, kn, vn, table, lens_t = _paged_case(
+        card, len(lens), 2, group, hd, page, -(-(q_len + 210) // page),
+        lens, q_len, dtype)
+    before = ops.launch_counts()["paged_prefill_attention"]
+    kn0 = kn.clone()
+    got = ops.paged_prefill_attention(q, kn, vn, table, lens_t,
+                                      window=window, softcap=softcap,
+                                      q_blk=q_blk)
+    assert ops.launch_counts()["paged_prefill_attention"] == before + 1
+    want = ref.paged_prefill_attention(q, kp, vp, table, lens_t,
+                                       window=window, softcap=softcap)
+    _close(got, want, TOL[dtype])
+    assert float(got[0].abs().max()) == 0.0
+    assert torch.equal(kn.nan_to_num(), kn0.nan_to_num())
+
+
 @pytest.mark.parametrize("nv,ne,d,dtype", [(1, 1, 1536, torch.bfloat16),
                                            (3, 2, 48, torch.float32)])
 def test_region_score_kernel_matches_plain(card, nv, ne, d, dtype):
@@ -165,3 +195,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="block_table"):
         paged_decode_attention_cuda(_randn(card, 1, 2, 4, 16), pool, pool,
                                     table.long(), 3)
+    with pytest.raises(ValueError, match="bad shapes"):
+        paged_prefill_attention_cuda(_randn(card, 1, 2, 4, 16), pool,
+                                     pool[:5], table, 3, q_len=2)
+    with pytest.raises(ValueError, match="q_blk"):
+        paged_prefill_attention_cuda(_randn(card, 1, 2, 12, 16), pool, pool,
+                                     table, 3, q_len=2, q_blk=11)
+    with pytest.raises(ValueError, match="q_blk"):
+        paged_prefill_attention_cuda(_randn(card, 1, 2, 12, 16), pool, pool,
+                                     table, 3, q_len=2, q_blk=0)
