@@ -32,13 +32,25 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    chunk alone and mid-prefill, NaN trash page, pools left unchanged; then
    (d) the 2B engine's flat fused step (B 264: 8 decode rows as in (a),
    one scene's last 256-token chunk as 256 rows sharing one table row) and
-   (e) that chunk as one q_len-256 row, timed as above.
+   (e) that chunk as one q_len-256 row, timed as above.  The chunked
+   gated-linear-attention scan: an f32 sweep (S 1, 37, 64, 256; chunk 16,
+   64; dk 8, 16, 384; dv 9, 24, 385; zero and carried state; log_g
+   -softplus(randn), -2 and -30, where the output must be finite), then
+   (f) the xLSTM-125m prefill shape (B 4, S 4096, H 4, dk 384, dv 385,
+   bf16).  The sLSTM recurrence: an f32 sweep (B 1-3, S 1-300, H 1/4,
+   P 8/64/192, zero and carried state, gate pre-activations past ±30; h and
+   all four final states), then (g) B 4, S 4096, H 4, P 192, f32.  Scan
+   tolerances: outputs and states 1e-4 + 1e-4·|want| in f32, a bf16 output
+   1e-4 + 2^-6·|want|; the sLSTM 2e-4 + 2e-4·|want|.  (f) and (g) are
+   timed as above; no single PyTorch call computes either scan, so their
+   library column is null.
 3. End to end on a small proxy pair: the port's ``CascadeServer``, its
    ``InferenceEngine.serve`` on the paged slot path, a γ = 3 speculative
    engine, and chunked prefill (chunk 8, chunk N_r, chunk 8 with γ = 3) on
    the card must give the decisions and tokens they give on the CPU from
    the same weights (float32), all equal to the plain engine's, with the
-   plain engine's prefix hits and misses.
+   plain engine's prefix hits and misses.  The reduced xlstm-125m (f32): a
+   128-token prefill and 16 greedy decode steps give the CPU's tokens.
 4. The cascade server: ``CascadeServer.handle`` at the full width and
    depth of the paper's pair (Qwen2-VL-2B on the satellite, Qwen2-VL-7B on
    the ground), bfloat16, random weights from a seed, serving requests
@@ -69,12 +81,36 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    scoring.  Prints fused and plain step time, tokens/s, the device busy
    share over fused steps, agreement with phase 6's answers (bf16), and the
    longest gap between two tokens of a det answer here and in phase 6.
+9. The xlstm-125m serve step at full width and depth (12 layers: 8 mLSTM,
+   4 sLSTM; d 768, 4 heads, vocab 50304, bf16, random weights from a
+   seed) through ``transformer.prefill`` and ``decode_step`` with greedy
+   decoding in this script: (i) a B 4 × 32768-token prefill (the
+   ``prefill_32k`` length, its batch cut from 32 to 4 for time) and 128
+   decode steps; (ii) the ``decode_32k`` batch, 128 rows, after a
+   512-token prefill, and 64 decode steps.  Checks: every logit finite;
+   ``ssm_scan`` launched 8 × prefills and ``slstm_scan`` 4 × (prefills +
+   decode steps), no attention kernel; per run, both kernels against
+   their plain versions on the inputs the path gives them (the first
+   mLSTM and sLSTM layers of the run's prefill, the first sLSTM layer of
+   the decode step after it, with its carried state), to phase 2's
+   tolerances; prefill(4096) against prefill(4032) + 64 decode steps over
+   the same tokens (the chunk form against the sequential path, and the
+   sLSTM's initial-state operand) with the weights in float32: logits
+   within 1e-3, every state leaf within 1e-3 of its largest magnitude;
+   in bf16: logits within 0.5, states within 0.25 of their largest
+   magnitude, every argmax equal, each path within 1.0 of the f32 result
+   (bf16 rounding, amplified through 12 random-init layers, moves each
+   path ~0.5 in the logits; limits set from the H100's readings with
+   about twice their room).  Prints prefill ms and
+   tokens/s, each kernel's in-place time per launch, decode step ms and
+   tokens/s, the device busy share over decode steps and the B 128
+   step's bound.
 
-Phases 4, 6, 7 and 8 each zero every kernel's launch count just before
-they run and read it just after; each kernel of a path must have launched.
-Its last lines: the card's name and power limit as ``nvidia-smi`` gives
-them, one JSON object with every kernel's numbers, then
-``{"ok": true, "device": {...}}``.
+Phases 4, 6, 7, 8 and each run of 9 zero every kernel's launch count just
+before they run and read it just after; each kernel of a path must have
+launched. Its last lines: the card's name and power limit as ``nvidia-smi``
+gives them, one JSON object with every kernel's numbers, then ``{"ok":
+true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -84,17 +120,26 @@ import pathlib
 import subprocess
 import sys
 import time
+from typing import Optional
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "region_score.cu",
-           "paged_prefill_attention.cu")
+           "paged_prefill_attention.cu", "ssm_scan.cu", "slstm_scan.cu")
 # decode_attention.cu holds the dense and the paged decode entry points
 # (absolute, relative to |want|) per element; see the docstring
 TOL_F32 = (1e-4, 0.0)
 TOL_BF16 = (1e-5, 2.0 ** -6)
 TOL_REGION = (1e-5, 0.0)
+# the scans, f32 math on both sides in another summation order: outputs
+# and states 1e-4 + 1e-4·|want|; a bf16 scan output (both sides round an f32
+# result) 1e-4 + 2^-6·|want|; the sLSTM's h and (h, c, n, m) after up to
+# 4096 dependent steps 2e-4 + 2e-4·|want| (the JAX package's own parity
+# tolerance for its kernel)
+TOL_SCAN = (1e-4, 1e-4)
+TOL_SCAN_BF16 = (1e-4, 2.0 ** -6)
+TOL_SLSTM = (2e-4, 2e-4)
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 REPLACES = {
@@ -103,6 +148,8 @@ REPLACES = {
     "region_score": "src/repro/kernels/region_score.py:38",
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:301",
     "paged_prefill_attention": "src/repro/kernels/decode_attention.py:448",
+    "ssm_scan": "src/repro/kernels/ssm_scan.py:65",
+    "slstm_scan": "src/repro/kernels/slstm_scan.py:69",
 }
 SOURCE_OF = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
@@ -111,6 +158,8 @@ SOURCE_OF = {
     "paged_decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "paged_prefill_attention":
         "src/repro_torch/csrc/paged_prefill_attention.cu",
+    "ssm_scan": "src/repro_torch/csrc/ssm_scan.cu",
+    "slstm_scan": "src/repro_torch/csrc/slstm_scan.cu",
 }
 # full-width adapter: N_r = 32² = 1024 = cfg.num_patches, 16-px regions
 # (the Eq. 3 pyramid pools by 1, 2, 4 and 8, so the side must divide by 8)
@@ -142,13 +191,13 @@ class ColdTimer:
         self.reps = reps
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
-    def _loop(self, fn):
+    def _loop(self, fn, reps: int):
         torch = self.torch
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(self.SPIN_CYCLES)
         start.record()
-        for _ in range(self.reps):
+        for _ in range(reps):
             self.flush.zero_()
             if fn is not None:
                 fn()
@@ -156,12 +205,15 @@ class ColdTimer:
         torch.cuda.synchronize()
         return start.elapsed_time(end)
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, reps: Optional[int] = None) -> float:
+        """``reps`` (default the timer's) launches of ``fn``, each after an
+        L2 flush."""
+        reps = reps or self.reps
         fn()
         self.torch.cuda.synchronize()
-        both = self._loop(fn)
-        flush = self._loop(None)
-        return max(both - flush, 0.0) / self.reps
+        both = self._loop(fn, reps)
+        flush = self._loop(None, reps)
+        return max(both - flush, 0.0) / reps
 
 
 def bound_ms(n_bytes: float, flops: float, dtype: str):
@@ -324,6 +376,7 @@ def kernel_checks(torch):
         torch, randn, timer, errors)
     report["paged_prefill_attention"] = prefill_kernel_checks(
         torch, randn, timer, errors)
+    report.update(scan_kernel_checks(torch, randn, timer, errors))
 
     torch.cuda.synchronize()
     if errors:
@@ -331,9 +384,11 @@ def kernel_checks(torch):
                            + "\n".join(errors))
     for name, shapes in report.items():
         for tag, m in shapes.items():
+            lib = ("none" if m["library_ms"] is None
+                   else f"{m['library_ms']:.4f} ms")
             log(f"  time {name:16s} {tag:4s} {m['shape']:40s} "
                 f"kernel {m['ms']:.4f} ms  plain {m['plain_ms']:.4f} ms  "
-                f"{m.get('library_is', 'library')} {m['library_ms']:.4f} ms  "
+                f"{m.get('library_is', 'library')} {lib}  "
                 f"bound {m['bound_ms']:.5f} ms ({m['bound_by']})")
     return report
 
@@ -616,6 +671,153 @@ def prefill_kernel_checks(torch, randn, timer, errors):
     return out
 
 
+def ssm_flops(b, h, s, dk, dv, chunk):
+    """FLOPs of the chunk form: per chunk and (row, head) q·kᵀ and score·v
+    over the full C×C block, q·S and the state update."""
+    c = min(chunk, s)
+    per = 2 * c * c * dk + 2 * c * c * dv + 4 * c * dk * dv
+    return float(b * h * (s // c) * per)
+
+
+def slstm_flops(b, s, heads, p_dim):
+    """FLOPs of the recurrence: the h·R matvec (2·P·4P a head and step) and
+    ~30 per unit for the gates and the state update."""
+    return float(b * s * heads * (8 * p_dim * p_dim + 30 * p_dim))
+
+
+def ssm_check(case, got, want, errors):
+    """The scan's output and f32 final state; an output in another dtype
+    than the state (bf16) is held to ``TOL_SCAN_BF16``."""
+    tol = TOL_SCAN_BF16 if got[0].dtype != got[1].dtype else TOL_SCAN
+    e = check("ssm_scan o", got[0], want[0], tol, case, errors)
+    e = max(e, check("ssm_scan state", got[1], want[1], TOL_SCAN, case,
+                     errors))
+    if not all(bool(x.isfinite().all()) for x in got):
+        errors.append(f"ssm_scan {case}: non-finite output")
+    return e
+
+
+def slstm_check(case, got, want, tol, errors):
+    """The sLSTM's h over the sequence and its four final states."""
+    e = check("slstm_scan out", got[0], want[0], tol, case, errors)
+    for name, a, w in zip("hcnm", got[1], want[1]):
+        e = max(e, check(f"slstm_scan {name}", a, w, tol, case, errors))
+    if not all(bool(x.isfinite().all()) for x in (got[0], *got[1])):
+        errors.append(f"slstm_scan {case}: non-finite output")
+    return e
+
+
+def scan_kernel_checks(torch, randn, timer, errors):
+    """The two recurrent kernels against their plain versions.  ssm_scan:
+    an f32 sweep (S 1, 37 (chunk = S), 64, 256; chunk 16 and 64; dk 8, 16,
+    384; dv 9, 24, 385; zero and carried state; log_g = -softplus(randn),
+    and -30 everywhere, where the output must be finite), then (f) the
+    xLSTM-125m prefill shape in bf16 (B 4, S 4096, H 4, dk 384, dv 385).
+    slstm_scan: an f32 sweep (B 1-3, S 1, 2, 37, 300; H 1, 4; P 8, 64, 192;
+    zero and carried state; gate pre-activations ~N(0, 10²), past ±30),
+    comparing h and all four final states, then (g) B 4, S 4096, H 4, P 192
+    f32.  No single PyTorch call computes either scan: the rows' library
+    column is null."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.slstm_scan import slstm_scan_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+    out = {}
+
+    def ssm_inputs(b, s, h, dk, dv, dtype=torch.float32, g_const=None,
+                   carried=False):
+        q = randn(b, s, h, dk) * dk ** -0.5
+        k, v = randn(b, s, h, dk), randn(b, s, h, dv)
+        g = (-F.softplus(randn(b, s, h)) if g_const is None
+             else torch.full((b, s, h), g_const, device="cuda"))
+        st = randn(b, h, dk, dv) if carried else None
+        return q.to(dtype), k.to(dtype), v.to(dtype), g, st
+
+    log("ssm_scan vs plain")
+    for s, chunk, dk, dv, carried, g_const in [
+            (1, 64, 8, 9, False, None), (37, 64, 16, 24, True, None),
+            (64, 16, 8, 9, True, None), (256, 64, 16, 24, False, None),
+            (256, 16, 384, 385, True, None), (64, 64, 384, 385, False, None),
+            (37, 64, 384, 385, True, None), (256, 64, 16, 9, True, -30.0),
+            (128, 64, 8, 24, False, -2.0)]:
+        q, k, v, g, st = ssm_inputs(2, s, 2, dk, dv, g_const=g_const,
+                                    carried=carried)
+        o, sf = ops.ssm_scan(q, k, v, g, st, chunk=chunk)
+        wo, wsf = ref.ssm_scan(q, k, v, g, st, chunk=chunk)
+        case = (f"f32 S{s} chunk{chunk} dk{dk} dv{dv} "
+                f"{'carried' if carried else 'zero'} g{g_const or 'soft'}")
+        ssm_check(case, (o, sf), (wo, wsf), errors)
+
+    # (f) the xLSTM-125m prefill scan: the model's k·i_gate, v with its
+    # augmented ones column, log_f = log_sigmoid(3 + noise), zero state
+    b, s, h, dk, dv = 4, 4096, 4, 384, 385
+    q, k, v, _, _ = ssm_inputs(b, s, h, dk, dv, dtype=torch.bfloat16)
+    k = (k.float() * torch.sigmoid(randn(b, s, h))[..., None]).to(
+        torch.bfloat16)
+    v[..., -1] = 1.0
+    g = ref.log_sigmoid(3.0 + randn(b, s, h))
+    o, sf = ops.ssm_scan(q, k, v, g)
+    wo, wsf = ref.ssm_scan(q, k, v, g)
+    shape = f"B{b} S{s} H{h} dk{dk} dv{dv} chunk64 bf16"
+    err = ssm_check("bf16 (f) " + shape, (o, sf), (wo, wsf), errors)
+    qt, kt, vt, gt = (x.transpose(1, 2) for x in (q, k, v, g))
+    st0 = torch.zeros((b, h, dk, dv), device="cuda")
+    n_bytes = nbytes(q, k, v, g, st0, o, sf)
+    b_ms, b_by = bound_ms(n_bytes, ssm_flops(b, h, s, dk, dv, 64),
+                          "bfloat16")
+    out["ssm_scan"] = {"f xLSTM": {
+        "max_abs_err": err,
+        "ms": timer(lambda: ssm_scan_cuda(qt, kt, vt, gt, st0), reps=5),
+        "plain_ms": timer(lambda: ref.ssm_scan(q, k, v, g), reps=5),
+        "library_ms": None, "library_is": "no single library call",
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+        "shape": shape}}
+
+    log("slstm_scan vs plain")
+
+    def slstm_inputs(b, s, heads, p_dim, scale, carried):
+        d = heads * p_dim
+        gx = randn(b, s, 4 * d) * scale
+        r = randn(heads, p_dim, 4 * p_dim) * p_dim ** -0.5
+        st = None
+        if carried:
+            st = (torch.tanh(randn(b, heads, p_dim)),
+                  randn(b, heads, p_dim) * 3,
+                  torch.rand((b, heads, p_dim), device="cuda") * 5 + 0.5,
+                  randn(b, heads, p_dim) * 10)
+        return gx, r, st
+
+    for b, s, heads, p_dim, carried in [
+            (1, 1, 1, 8, False), (2, 2, 4, 8, True), (3, 37, 1, 64, True),
+            (2, 300, 4, 64, False), (1, 300, 4, 192, True),
+            (3, 1, 4, 192, True), (2, 37, 4, 192, False)]:
+        gx, r, st = slstm_inputs(b, s, heads, p_dim, 10.0, carried)
+        slstm_check(f"f32 B{b} S{s} H{heads} P{p_dim} "
+                    f"{'carried' if carried else 'zero'}",
+                    ops.slstm_scan(gx, r, st), ref.slstm_scan(gx, r, st),
+                    TOL_SLSTM, errors)
+
+    # (g) the xLSTM-125m sLSTM at a 4096-token prefill: model-scale gates
+    # (x @ w_gates + bias: unit noise, forget bias 3), zero start
+    b, s, heads, p_dim = 4, 4096, 4, 192
+    gx, r, _ = slstm_inputs(b, s, heads, p_dim, 1.0, False)
+    gx[..., 2 * heads * p_dim:3 * heads * p_dim] += 3.0
+    shape = f"B{b} S{s} H{heads} P{p_dim} f32"
+    got, want = ops.slstm_scan(gx, r), ref.slstm_scan(gx, r)
+    err = slstm_check("f32 (g) " + shape, got, want, TOL_SLSTM, errors)
+    n_bytes = nbytes(gx, r, got[0], *got[1]) + nbytes(*got[1])
+    b_ms, b_by = bound_ms(n_bytes, slstm_flops(b, s, heads, p_dim),
+                          "float32")
+    out["slstm_scan"] = {"g xLSTM": {
+        "max_abs_err": err,
+        "ms": timer(lambda: slstm_scan_cuda(gx, r), reps=5),
+        "plain_ms": timer(lambda: ref.slstm_scan(gx, r), reps=2),
+        "library_ms": None, "library_is": "no single library call",
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+        "sequential_steps": s, "shape": shape}}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the request server
 # ---------------------------------------------------------------------------
@@ -716,6 +918,7 @@ def small_reference(torch):
         if not same:
             raise RuntimeError(f"card and CPU disagree on {req.task} {taus}")
     small_slot_path(torch, sat, gs, card[0], card[1], ac)
+    small_xlstm(torch)
     return {(w.tier, w.exit_stage) for _, _, w, _ in want}
 
 
@@ -788,6 +991,40 @@ def small_slot_path(torch, sat, gs, sat_card, gs_card, ac):
                 raise RuntimeError(f"slot path {kw} on {dev}: prefix "
                                    f"hits/misses {hits}, the plain engine's "
                                    f"{prefix[dev]}")
+
+
+def small_xlstm(torch, steps: int = 16):
+    """The reduced xlstm-125m (6 layers, d 64, f32) on the card against
+    the same weights on the CPU: a 128-token prefill (two 64-token chunks)
+    and ``steps`` greedy decode steps give the same tokens."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cfg = configs.get_config("xlstm-125m", reduced=True)
+    params = T.init_params(cfg, seed=3, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 128),
+                         generator=torch.Generator().manual_seed(4),
+                         dtype=torch.int32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        logits, cache, idx = T.prefill(p, cfg, {"tokens": toks.to(dev)},
+                                       128 + steps)
+        first = logits.cpu()
+        seq = [logits.argmax(-1).to(torch.int32)]
+        for i in range(steps):
+            logits, cache = T.decode_step(p, cfg, cache,
+                                          {"tokens": seq[-1][:, None]},
+                                          idx + i)
+            seq.append(logits.argmax(-1).to(torch.int32))
+        outs[dev] = (first, torch.stack(seq, 1).cpu())
+    diff = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
+    same = bool((outs["cuda"][1] == outs["cpu"][1]).all())
+    log(f"  small xlstm (reduced, f32): prefill logits max |card - cpu| "
+        f"{diff:.2e}; {steps} greedy tokens "
+        f"{'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise RuntimeError("xlstm greedy tokens differ between card and CPU")
 
 
 MAIN_TASKS = [("vqa", (0.5, 0.4)), ("cls", (0.5, 0.4)),
@@ -1312,6 +1549,326 @@ def breakdown(torch, sat, gs, ac, n_steps: int = 32):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the xlstm-125m serve step (prefill + decode) at full width
+# ---------------------------------------------------------------------------
+
+#: (B, prompt, decode steps): (i) the prefill_32k length with the batch cut
+#: from 32 to 4 for time; (ii) the decode_32k batch of 128 rows after a
+#: 512-token prompt
+XLSTM_RUNS = {"i prefill_32k B4": (4, 32768, 128),
+              "ii decode_32k B128": (128, 512, 64)}
+#: the state-continuation check: prefill(CONT_LEN) against
+#: prefill(CONT_LEN - CONT_STEPS) + CONT_STEPS decode steps, B 4, at full
+#: width with the phase's weights in float32 (TF32 off): last-token logits
+#: (std ~1 at random init) within 1e-3 absolute, every recurrent-state leaf
+#: within 1e-3 of its largest magnitude, two orders above f32 rounding
+#: through 12 layers and far below what a wrong chunk boundary or state
+#: operand gives (O(1)).  The same in bf16 is reported beside each path's
+#: distance from the f32 result: the two bf16 paths round the hidden
+#: states at different places (prefill and decode GEMM shapes, the chunk
+#: form's sums against the per-token update), and random-init weights
+#: amplify that drift through the 12 layers.
+CONT_LEN, CONT_STEPS = 4096, 64
+TOL_CONT_LOGITS = 1e-3
+TOL_CONT_STATE = 1e-3
+#: the same continuation in bf16, limits set from the H100 readings (logits
+#: 0.234, states 0.137, argmax 4/4, each path 0.47-0.49 from f32) with about
+#: twice their room, so that a change to the port's bf16 casts shows
+TOL_CONT_BF16 = {"max_abs_logit_diff": 0.5, "max_state_diff_rel_to_max": 0.25,
+                 "prefill_vs_f32_max_abs": 1.0, "decode_vs_f32_max_abs": 1.0}
+
+
+def kernel_device_ms(torch, prof, names):
+    """{name: (launches, device ms per launch)} of the device kernels whose
+    name contains each of ``names``, from a ``torch.profiler`` run."""
+    out = {}
+    for name in names:
+        n, us = 0, 0.0
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and name in e.key):
+                n += e.count
+                us += getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0))
+        out[name] = (n, us / 1e3 / max(n, 1))
+    return out
+
+
+def xlstm_greedy(torch, T, params, cfg, tokens, steps):
+    """``T.prefill`` on ``tokens`` then ``steps`` greedy ``T.decode_step``s,
+    timed on the host clock around synchronised work.  Returns the
+    per-phase times, the generated tokens and whether every logit was
+    finite (reduced on the device: no host sync inside the loop)."""
+    b, s = tokens.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, idx = T.prefill(params, cfg, {"tokens": tokens},
+                                   s + steps)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    finite = logits.isfinite().all()
+    nxt = logits.argmax(-1).to(torch.int32)
+    out = [nxt]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = T.decode_step(params, cfg, cache,
+                                      {"tokens": nxt[:, None]}, idx + i)
+        finite &= logits.isfinite().all()
+        nxt = logits.argmax(-1).to(torch.int32)
+        out.append(nxt)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    return {"prefill_s": t_prefill, "decode_s": t_decode,
+            "finite": bool(finite), "tokens": torch.stack(out, 1),
+            "cache": cache, "index": idx + steps}
+
+
+def xlstm_continuation(torch, T, params, cfg, toks, n_steps):
+    """prefill(toks) against prefill(toks[:, :-n_steps]) + n_steps decode
+    steps over the same tokens, in float32 (``TOL_CONT_LOGITS``,
+    ``TOL_CONT_STATE``) and in the weights' bf16 (``TOL_CONT_BF16``, every
+    argmax equal)."""
+    import dataclasses
+    from repro_torch.tree import tree_map
+    s_len = toks.shape[1]
+
+    def both(p, c):
+        want, wcache, _ = T.prefill(p, c, {"tokens": toks}, s_len)
+        got, cache, idx = T.prefill(p, c, {"tokens": toks[:, :-n_steps]},
+                                    s_len)
+        for i in range(n_steps):
+            t = s_len - n_steps + i
+            got, cache = T.decode_step(p, c, cache,
+                                       {"tokens": toks[:, t:t + 1]}, idx + i)
+        d_state = max(float((a.float() - w.float()).abs().max())
+                      / max(float(w.float().abs().max()), 1e-30)
+                      for cc, wc in zip(cache, wcache)
+                      for a, w in zip(cc.values(), wc.values()))
+        return got, want, d_state
+
+    out = {"prompt": s_len, "decode_steps": n_steps}
+    f32 = {}
+    runs = [("float32", tree_map(lambda t: t.float(), params),
+             dataclasses.replace(cfg, dtype="float32"))]
+    if cfg.dtype != "float32":
+        runs.append((cfg.dtype, params, cfg))
+    for name, p, c in runs:
+        got, want, d_state = both(p, c)
+        r = {"max_abs_logit_diff": float((got - want).abs().max()),
+             "argmax_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                       .float().mean()),
+             "max_state_diff_rel_to_max": d_state}
+        if name == "float32":
+            f32 = {"prefill": want, "decode": got}
+        else:
+            r["prefill_vs_f32_max_abs"] = float(
+                (want - f32["prefill"]).abs().max())
+            r["decode_vs_f32_max_abs"] = float(
+                (got - f32["decode"]).abs().max())
+        out[name] = r
+        log(f"  xlstm continuation {name}: prefill({s_len}) vs prefill("
+            f"{s_len - n_steps}) + {n_steps} decode steps: logits max "
+            f"|diff| {r['max_abs_logit_diff']:.3e}, argmax agreement "
+            f"{r['argmax_agreement']:.3f}, state max |diff| / max |state| "
+            f"{d_state:.3e}"
+            + ("" if name == "float32" else
+               f"; each bf16 path against f32: prefill "
+               f"{r['prefill_vs_f32_max_abs']:.3e}, decode "
+               f"{r['decode_vs_f32_max_abs']:.3e}"))
+    r = out["float32"]
+    if not (r["max_abs_logit_diff"] <= TOL_CONT_LOGITS
+            and r["max_state_diff_rel_to_max"] <= TOL_CONT_STATE):
+        raise RuntimeError(f"xlstm: the prefill state does not continue "
+                           f"into decode within {TOL_CONT_LOGITS} (logits) "
+                           f"/ {TOL_CONT_STATE} (states) in float32: {r}")
+    r = out.get("bfloat16")
+    if r and not (r["argmax_agreement"] == 1.0
+                  and all(r[k] <= v for k, v in TOL_CONT_BF16.items())):
+        raise RuntimeError(f"xlstm: the bf16 continuation is outside "
+                           f"{TOL_CONT_BF16} or an argmax differs: {r}")
+    return out
+
+
+def capture_scan_inputs(torch, fn):
+    """Runs ``fn()`` with ``ops.ssm_scan`` and ``ops.slstm_scan`` wrapped
+    so that the first call of each keeps a copy of its arguments (the
+    first mLSTM and the first sLSTM layer's inputs on the path); returns
+    (``fn()``'s result, {name: args})."""
+    from repro_torch.kernels import ops
+    saved = {n: getattr(ops, n) for n in ("ssm_scan", "slstm_scan")}
+    got = {}
+
+    def copy(x):
+        if isinstance(x, tuple):
+            return tuple(copy(y) for y in x)
+        return x.clone() if torch.is_tensor(x) else x
+
+    def wrap(name):
+        def call(*args):
+            got.setdefault(name, copy(args))
+            return saved[name](*args)
+        return call
+
+    try:
+        for n in saved:
+            setattr(ops, n, wrap(n))
+        res = fn()
+    finally:
+        for n, f in saved.items():
+            setattr(ops, n, f)
+    return res, got
+
+
+def xlstm_kernels_vs_plain(torch, T, params, cfg, toks, tag):
+    """Both scan kernels against their plain versions at one run's sizes,
+    on the inputs the path gives them: the first mLSTM and sLSTM layers of
+    a prefill over ``toks``, and the first sLSTM layer of the decode step
+    after it (carried (h, c, n, m)).  Launches here are not counted: the
+    run's counts were read before.  Returns {kernel: {case: max_abs_err}}."""
+    from repro_torch.kernels import ops, ref
+    b, s = toks.shape
+    (logits, cache, idx), pre = capture_scan_inputs(
+        torch, lambda: T.prefill(params, cfg, {"tokens": toks}, s + 1))
+    nxt = logits.argmax(-1).to(torch.int32)[:, None]
+    _, dec = capture_scan_inputs(
+        torch, lambda: T.decode_step(params, cfg, cache, {"tokens": nxt},
+                                     idx))
+    del cache
+    errors, out = [], {"ssm_scan": {}, "slstm_scan": {}}
+    case = f"xlstm {tag} prefill B{b} S{s}"
+    args = pre["ssm_scan"]
+    out["ssm_scan"][case] = ssm_check(case, ops.ssm_scan(*args),
+                                      ref.ssm_scan(*args), errors)
+    for case, args in ((case, pre["slstm_scan"]),
+                       (f"xlstm {tag} decode B{b} carried state",
+                        dec["slstm_scan"])):
+        out["slstm_scan"][case] = slstm_check(
+            case, ops.slstm_scan(*args), ref.slstm_scan(*args), TOL_SLSTM,
+            errors)
+    if errors:
+        raise RuntimeError(f"xlstm {tag}: kernels disagree with their plain "
+                           f"versions: {errors}")
+    return out
+
+
+def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
+    """The serve step of xlstm-125m (12 layers: 8 mLSTM, 4 sLSTM; d 768,
+    4 heads, vocab 50304, bf16, random weights from a seed) through the
+    port's ``transformer.prefill`` and ``decode_step``, greedy decoding in
+    this loop.  Checks every logit finite; per run, with the counts zeroed
+    just before it, ``ssm_scan`` = 8 × prefills and ``slstm_scan`` = 4 ×
+    (prefills + decode steps) and no attention kernel; both kernels
+    against their plain versions at the run's sizes; the state
+    continuation within its tolerance.  Prints prefill ms and tokens/s,
+    each kernel's in-place time per launch (profiled prefill), decode step
+    ms and tokens/s, the device busy share over 8 profiled decode steps
+    and the decode step's bound (the recurrent states read and written
+    once, every weight read once)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.configs.base import MLSTM, SLSTM
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cfg = cfg or configs.get_config("xlstm-125m")
+    runs = runs or XLSTM_RUNS
+    n_m = cfg.n_super * sum(sp.kind == MLSTM for sp in cfg.block_pattern)
+    n_s = cfg.n_super * sum(sp.kind == SLSTM for sp in cfg.block_pattern)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=9, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    weight_bytes = nbytes(*tree_leaves(params))
+    log(f"  init {cfg.name}: {n_params / 1e6:.1f} M params ({n_m} mLSTM, "
+        f"{n_s} sLSTM layers), {weight_bytes / 1e9:.3f} GB, "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(90)
+
+    def tokens(b, s):
+        return torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             device="cuda", dtype=torch.int32)
+
+    xlstm_greedy(torch, T, params, cfg, tokens(2, 64), 2)     # warm-up
+    res, launches = {}, {}
+    for tag, (b, s, steps) in runs.items():
+        toks = tokens(b, s)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        g = xlstm_greedy(torch, T, params, cfg, toks, steps)
+        counts = ops.launch_counts()
+        launches[tag] = counts
+        want = {"ssm_scan": n_m, "slstm_scan": n_s * (1 + steps)}
+        bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+        if bad:
+            raise RuntimeError(f"xlstm {tag}: launches {counts}, want "
+                               f"{want} and no other kernel")
+        if not g["finite"]:
+            raise RuntimeError(f"xlstm {tag}: non-finite logits")
+        # device busy share over 8 more decode steps, and the kernels'
+        # in-place times in a profiled prefill of the same shape
+        cache, idx = g["cache"], g["index"]
+        nxt = g["tokens"][:, -1]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for i in range(8):
+                logits, cache = T.decode_step(params, cfg, cache,
+                                              {"tokens": nxt[:, None]},
+                                              idx + i)
+                nxt = logits.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter() - t1
+        busy = profile_summary(torch, prof, 8, t_prof)
+        dec_kernels = kernel_device_ms(torch, prof, ["slstm_scan_kernel"])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            T.prefill(params, cfg, {"tokens": toks}, s + 1)
+            torch.cuda.synchronize()
+        pre_kernels = kernel_device_ms(
+            torch, prof, ["ssm_scan_kernel", "slstm_scan_kernel"])
+        del prof
+        vs_plain = xlstm_kernels_vs_plain(torch, T, params, cfg, toks, tag)
+        state_bytes = nbytes(*(leaf for c in cache for leaf in c.values()))
+        step_bytes = 2 * state_bytes + weight_bytes
+        r = {"batch": b, "prompt": s, "decode_steps": steps,
+             "prefill_ms": 1e3 * g["prefill_s"],
+             "prefill_tokens_per_s": b * s / g["prefill_s"],
+             "decode_step_ms": 1e3 * g["decode_s"] / steps,
+             "decode_tokens_per_s": b * steps / g["decode_s"],
+             "decode_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S,
+             "decode_bound_bytes": step_bytes,
+             "state_bytes_per_row": state_bytes / b,
+             "device_busy_share": busy["device_busy_share"],
+             "top_device_ms_per_step": busy["top_device_ms_per_step"],
+             "prefill_kernel_ms_per_launch": {
+                 k: v[1] for k, v in pre_kernels.items()},
+             "decode_slstm_ms_per_launch":
+                 dec_kernels["slstm_scan_kernel"][1],
+             "kernel_vs_plain_max_abs_err": vs_plain,
+             "launches": counts}
+        res[tag] = r
+        pk = r["prefill_kernel_ms_per_launch"]
+        log(f"  xlstm {tag}: prefill {r['prefill_ms']:.1f} ms "
+            f"({r['prefill_tokens_per_s']:.0f} tokens/s; in place per "
+            f"launch: ssm_scan {pk['ssm_scan_kernel']:.3f} ms, "
+            f"slstm_scan {pk['slstm_scan_kernel']:.3f} ms), "
+            f"decode step {r['decode_step_ms']:.3f} ms "
+            f"({r['decode_tokens_per_s']:.0f} tokens/s, bound "
+            f"{r['decode_bound_ms']:.3f} ms, device busy "
+            f"{r['device_busy_share']:.3f}; slstm_scan "
+            f"{r['decode_slstm_ms_per_launch']:.4f} ms a launch)")
+
+    # state continuation: the chunk form + the sLSTM state operand against
+    # the sequential decode path
+    res["continuation"] = xlstm_continuation(torch, T, params, cfg,
+                                             tokens(4, cont[0]), cont[1])
+    res["launches"] = launches
+    log("xlstm_phase " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1362,15 +1919,26 @@ def main() -> int:
 
     log("phase 8: chunked prefill at full width (InferenceEngine.serve, 2B)")
     chunked = chunked_phase(torch, sat, ac, slot)
+    del sat, gs
+    torch.cuda.empty_cache()
+
+    log("phase 9: xlstm-125m serve step at full width (prefill + decode)")
+    xlstm = xlstm_phase(torch)
 
     # each path drove the kernels with the counts zeroed just before it
     by_path = {"cascade_server": counts, "slot_serve": slot["launches"],
                "spec_greedy": spec["greedy_launches"],
                "spec": spec["launches"],
-               "chunked_serve": chunked["launches"]}
+               "chunked_serve": chunked["launches"],
+               **{f"xlstm {tag}": c for tag, c in xlstm["launches"].items()}}
+    for tag, r in xlstm.items():
+        for name, cases in r.get("kernel_vs_plain_max_abs_err", {}).items():
+            kernels[name].update({c: {"max_abs_err": e}
+                                  for c, e in cases.items()})
     headline = {"flash_attention": "7B", "decode_attention": "7B",
                 "region_score": "main", "paged_decode_attention": "a 2B q1",
-                "paged_prefill_attention": "d 2B flat"}
+                "paged_prefill_attention": "d 2B flat",
+                "ssm_scan": "f xLSTM", "slstm_scan": "g xLSTM"}
     line = []
     for name, tag in headline.items():
         shapes = kernels[name]

@@ -9,6 +9,10 @@
                         through a block table,
                         ``csrc/paged_prefill_attention.cu``
 - ``region_score``      Eq. (2) scoring, ``csrc/region_score.cu``
+- ``ssm_scan``          chunked gated linear-attention scan (the mLSTM
+                        core), ``csrc/ssm_scan.cu``
+- ``slstm_scan``        the sLSTM recurrence from an initial state,
+                        ``csrc/slstm_scan.cu``
 - ``ops``               device-based dispatch + layout adaptation
 - ``build``             nvcc build into ``build/kernels/`` and ctypes binding
 """

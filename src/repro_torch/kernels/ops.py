@@ -8,8 +8,9 @@ could reach to get the plain version, and no fallback on failure.
 This module owns what surrounds the kernels, as ``repro.kernels.ops`` does:
 the layout changes (the models use (B, S, H, hd); the kernels want
 (B, H, S, hd), and the (n_pages, page, KH, hd) page pools become
-(n_pages, KH, page, hd), passed as strided views, no copy) and the windowed
-band-slice gather before dense decode.  It pads no head dim: the kernels take
+(n_pages, KH, page, hd), passed as strided views, no copy), the windowed
+band-slice gather before dense decode, and the recurrent scans' zero
+states.  It pads no head dim: the kernels take
 hd <= 128 with hd % 4 == 0 as they are.
 """
 from __future__ import annotations
@@ -24,11 +25,14 @@ from repro_torch.kernels import paged_decode_attention as PDA
 from repro_torch.kernels import paged_prefill_attention as PPA
 from repro_torch.kernels import ref
 from repro_torch.kernels import region_score as RS
+from repro_torch.kernels import slstm_scan as SL
+from repro_torch.kernels import ssm_scan as SS
 
 KERNELS = {"flash_attention": FA.KERNEL, "decode_attention": DA.KERNEL,
            "region_score": RS.KERNEL,
            "paged_decode_attention": PDA.KERNEL,
-           "paged_prefill_attention": PPA.KERNEL}
+           "paged_prefill_attention": PPA.KERNEL,
+           "ssm_scan": SS.KERNEL, "slstm_scan": SL.KERNEL}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -228,3 +232,43 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
         v_pool.transpose(1, 2), block_table, cache_len, window=window,
         softcap=softcap, scale=scale, q_len=t, q_blk=q_blk)
     return _rows_to_chunk(o, t, h)
+
+
+# ---------------------------------------------------------------------------
+# chunked gated linear attention (model layout (B, S, H, d))
+# ---------------------------------------------------------------------------
+
+def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             log_g: torch.Tensor, state: Optional[torch.Tensor] = None, *,
+             chunk: int = 64):
+    """q, k: (B, S, H, dk); v: (B, S, H, dv); log_g: (B, S, H); state
+    (B, H, dk, dv) or None (f32 zeros) → (o (B, S, H, dv), final_state
+    f32)."""
+    if not _on_card(q, k, v, log_g):
+        return ref.ssm_scan(q, k, v, log_g, state, chunk=chunk)
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    if state is None:
+        state = torch.zeros((b, h, dk, dv), dtype=torch.float32,
+                            device=q.device)
+    o, sf = SS.ssm_scan_cuda(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), log_g.transpose(1, 2),
+                             state, chunk=chunk)
+    return o.transpose(1, 2), sf
+
+
+#: the O(1) per-token update; no kernel, as in the JAX package
+ssm_decode_step = ref.ssm_decode_step
+
+
+# ---------------------------------------------------------------------------
+# sLSTM recurrence
+# ---------------------------------------------------------------------------
+
+def slstm_scan(gates_x: torch.Tensor, r: torch.Tensor, state=None):
+    """gates_x: (B, S, 4d) [z|i|f|o]; r: (H, P, 4P); state: initial
+    (h, c, n, m) each (B, H, P), or None (the zero start) → (h (B, S, d),
+    final (h, c, n, m))."""
+    if not _on_card(gates_x, r):
+        return ref.slstm_scan(gates_x, r, state)
+    return SL.slstm_scan_cuda(gates_x, r, state)

@@ -3,9 +3,13 @@
 They mirror ``repro.kernels.ref`` function by function: the same layouts
 (the model's (B, S, H, hd), and (n_pages, page, KH, hd) page pools),
 float32 compute, and a cast back to the input dtype.  The paged versions
-take fp pools only.  ``ops`` takes them for tensors on the CPU; the tests hold them
-against the JAX oracles, and ``chip_smoke.py`` holds each CUDA kernel
-against them on the card.
+take fp pools only.  ``ssm_scan`` differs from its JAX oracle on purpose
+(ROADMAP §3): it masks the decay exponent before ``exp`` (the oracle's
+``exp(cum_i - cum_j)`` overflows for j > i under strong decay and gives
+``inf·0 = NaN``); ``slstm_scan`` follows its oracle, which takes an
+initial state (the Pallas kernel does not).  ``ops`` takes them for
+tensors on the CPU; the tests hold them against the JAX oracles, and
+``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
 from __future__ import annotations
 
@@ -167,3 +171,119 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return paged_multi_decode_attention(q, k_pool, v_pool, block_table,
                                         cache_len, window=window,
                                         softcap=softcap, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# ssm_scan: chunked gated linear attention (Mamba-2 SSD / mLSTM core)
+# ---------------------------------------------------------------------------
+
+def chunk_for(s: int, chunk: int) -> int:
+    """The JAX package's rule: ``min(chunk, s)``, which must divide s."""
+    chunk = min(chunk, s)
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"chunk {chunk}")
+    return chunk
+
+
+def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             log_g: torch.Tensor, state: Optional[torch.Tensor] = None, *,
+             chunk: int = 64):
+    """Gated linear attention: S_t = exp(g_t)·S_{t-1} + k_t v_tᵀ,
+    o_t = S_tᵀ q_t.
+
+    q, k: (B, S, H, dk); v: (B, S, H, dv); log_g: (B, S, H) per-token log
+    decay (<= 0); state: (B, H, dk, dv) initial state (None: zeros).
+    Returns (o (B, S, H, dv) in q's dtype, final_state f32).  The chunk form
+    of the JAX oracle: in each chunk, decay-masked q·kᵀ and score·v; across
+    chunks, a (dk, dv) f32 state.  The pairwise exponent ``cum_i - cum_j`` is
+    masked to -inf above the diagonal BEFORE ``exp``, so a chunk whose summed
+    decay passes ~88 stays finite."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    chunk = chunk_for(s, chunk)
+    f32 = torch.float32
+    st = (torch.zeros((b, h, dk, dv), dtype=f32, device=q.device)
+          if state is None else state.to(f32))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=q.device))
+    outs = []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        qi = q[:, sl].to(f32).transpose(1, 2)             # (B, H, C, dk)
+        ki = k[:, sl].to(f32).transpose(1, 2)
+        vi = v[:, sl].to(f32).transpose(1, 2)             # (B, H, C, dv)
+        cum = torch.cumsum(log_g[:, sl].to(f32).transpose(1, 2), dim=-1)
+        total = cum[..., -1:]
+        o_inter = (qi * torch.exp(cum)[..., None]) @ st
+        diff = torch.where(tri, cum[..., :, None] - cum[..., None, :],
+                           float("-inf"))
+        scores = (qi @ ki.transpose(-1, -2)) * torch.exp(diff)
+        o_intra = scores @ vi
+        kd = ki * torch.exp(total - cum)[..., None]
+        st = torch.exp(total)[..., None] * st + kd.transpose(-1, -2) @ vi
+        outs.append((o_inter + o_intra).transpose(1, 2))
+    return torch.cat(outs, dim=1).to(q.dtype), st
+
+
+def ssm_decode_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    log_g: torch.Tensor, state: torch.Tensor):
+    """Single-token recurrence. q, k: (B, H, dk); v: (B, H, dv); log_g:
+    (B, H); state: (B, H, dk, dv) → (o (B, H, dv) in q's dtype, new state
+    f32).  No kernel: an O(1) update per token, as in the JAX package."""
+    f32 = torch.float32
+    st = torch.exp(log_g.to(f32))[..., None, None] * state.to(f32)
+    st = st + k.to(f32)[..., :, None] * v.to(f32)[..., None, :]
+    o = torch.einsum("bhd,bhdv->bhv", q.to(f32), st)
+    return o.to(q.dtype), st
+
+
+# ---------------------------------------------------------------------------
+# slstm_scan: the stabilised sLSTM recurrence
+# ---------------------------------------------------------------------------
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``-softplus(-x)``, as ``jax.nn.log_sigmoid``: finite for x << 0,
+    where ``log(sigmoid(x))`` gives -inf."""
+    return -torch.nn.functional.softplus(-x)
+
+
+def slstm_zero_state(b: int, heads: int, p_dim: int, device):
+    """The zero start of the JAX oracle and Pallas kernel: h = c = m = 0,
+    n = 1e-6, each (B, H, P) f32."""
+    z = torch.zeros((b, heads, p_dim), dtype=torch.float32, device=device)
+    return z, z, z + 1e-6, z
+
+
+def slstm_scan(gates_x: torch.Tensor, r: torch.Tensor, state=None):
+    """gates_x: (B, S, 4d) input pre-activations, blocks [z|i|f|o], each
+    h-major (H, P); r: (H, P, 4P) block-diagonal recurrent weights (per-head
+    output [z|i|f|o]); state: the initial (h, c, n, m), each (B, H, P), or
+    None for the zero start.  Returns (h (B, S, d) in gates_x's dtype, final
+    (h, c, n, m) each (B, H, P) f32)."""
+    b, s, d4 = gates_x.shape
+    heads, p_dim = r.shape[0], r.shape[1]
+    f32 = torch.float32
+    if state is None:
+        state = slstm_zero_state(b, heads, p_dim, gates_x.device)
+    h, c, n, m = (x.to(f32) for x in state)
+    rf = r.to(f32)
+    gx = gates_x.to(f32).reshape(b, s, 4, heads, p_dim)
+    hs = []
+    for t in range(s):
+        rec = torch.einsum("bhp,hpq->bhq", h, rf)            # (B, H, 4P)
+        g = gx[:, t] + rec.reshape(b, heads, 4, p_dim).transpose(1, 2)
+        zt = torch.tanh(g[:, 0])
+        ii = g[:, 1]
+        log_f = log_sigmoid(g[:, 2])
+        ot = torch.sigmoid(g[:, 3])
+        m_new = torch.maximum(log_f + m, ii)
+        i_p = torch.exp(ii - m_new)
+        f_p = torch.exp(log_f + m - m_new)
+        c = f_p * c + i_p * zt
+        n = f_p * n + i_p
+        h = ot * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs.append(h)
+    out = torch.stack(hs, dim=1).reshape(b, s, d4 // 4)
+    return out.to(gates_x.dtype), (h, c, n, m)

@@ -1,22 +1,25 @@
 """Model building blocks of the port (PyTorch; params are dicts of tensors).
 
-The attention-only slice of ``repro.models.layers``: RMSNorm, RoPE with
+The ported slice of ``repro.models.layers``: RMSNorm, RoPE with
 Qwen2-VL's M-RoPE sections, GQA attention backed by the flash, decode and
 paged-decode and paged prefix-append kernels (modes ``"prefill"``,
 ``"decode"``, ``"verify"`` and ``"prefill_append"``, over a dense cache or
-a page pool through a block table), and the SwiGLU MLP.  The other mixers
-(MoE, Mamba, mLSTM, sLSTM, Hymba) and quantized page pools are not ported
-yet and raise.
+a page pool through a block table), the SwiGLU MLP, and the xLSTM mixers:
+mLSTM (the chunked scan kernel in prefill, the O(1) update in decode) and
+sLSTM (the recurrence kernel in both), modes ``"prefill"`` and
+``"decode"``.  MoE, Mamba and Hymba, and quantized page pools, are not
+ported yet and raise.
 
 Unlike the JAX package, which is functional, attention writes the KV cache
-in place and returns the same cache object.  Where the JAX scatter drops a
-write past the end of a cache (a finished slot whose index ran past its
-capacity), the port clamps it onto the row's last slot (dense) or the last
-table entry (paged); such rows are inactive, their table rows name the
-trash page, and nothing reads what they write.  That rule does not cover
-the padding tokens of ``"prefill_append"`` (past a row's ``chunk_lens``),
-whose rows may map published shared prefix pages: their paged writes go to
-the trash page ``TRASH_PAGE``, and dense ones keep the old values.
+in place and the recurrent mixers copy their final states into the cache
+they were given; both return the same cache object. Where the JAX scatter
+drops a write past the end of a cache (a finished slot whose index ran past
+its capacity), the port clamps it onto the row's last slot (dense) or the
+last table entry (paged); such rows are inactive, their table rows name the
+trash page, and nothing reads what they write. That rule does not cover the
+padding tokens of ``"prefill_append"`` (past a row's ``chunk_lens``), whose
+rows may map published shared prefix pages: their paged writes go to the
+trash page ``TRASH_PAGE``, and dense ones keep the old values.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import log_sigmoid
 
 Params = Dict[str, Any]
 Index = Union[int, torch.Tensor]
@@ -283,3 +287,134 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# xLSTM mLSTM mixer (matrix memory with q·n normaliser)
+# ---------------------------------------------------------------------------
+
+def init_mlstm(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
+    d = cfg.d_model
+    d_in = 2 * d
+    h = cfg.resolved_ssm_heads
+    dt = getattr(torch, cfg.dtype)
+    f32 = torch.float32
+    return {
+        "w_up": dense_init(gen, d, (d, 2 * d_in), dt, device),
+        "wq": dense_init(gen, d_in, (d_in, d_in), dt, device),
+        "wk": dense_init(gen, d_in, (d_in, d_in), dt, device),
+        "wv": dense_init(gen, d_in, (d_in, d_in), dt, device),
+        "w_i": dense_init(gen, d_in, (d_in, h), f32, device),
+        "w_f": dense_init(gen, d_in, (d_in, h), f32, device),
+        "f_bias": torch.full((h,), 3.0, dtype=f32, device=device),
+        "w_down": dense_init(gen, d_in, (d_in, d), dt, device),
+    }
+
+
+def init_mlstm_cache(cfg: ArchConfig, batch: int, device) -> Params:
+    """The (B, H, dk, dk + 1) f32 state: the value column dk + 1 carries the
+    normaliser n."""
+    h = cfg.resolved_ssm_heads
+    dk = 2 * cfg.d_model // h
+    return {"state": torch.zeros((batch, h, dk, dk + 1), dtype=torch.float32,
+                                 device=device)}
+
+
+def mlstm(p: Params, x: torch.Tensor, *, cfg: ArchConfig,
+          cache: Optional[Params] = None, mode: str = "prefill"
+          ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """``"prefill"``: the chunked scan over the sequence from the cache's
+    state (zeros from ``init_cache``; no cache: zeros).  ``"decode"``:
+    S == 1, the O(1) state update.  The final state is copied into
+    ``cache["state"]`` in place.  The casts follow the JAX package step by
+    step: ``k · i_gate`` in the compute dtype, the gates in f32."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"mlstm mode {mode!r} is not ported")
+    b, s, d = x.shape
+    h = cfg.resolved_ssm_heads
+    d_in = 2 * d
+    dk = d_in // h
+
+    up = x @ p["w_up"]
+    x_in, z = up[..., :d_in], up[..., d_in:]
+    # the scale rounded to the compute dtype first, as JAX promotes a
+    # Python float against a bf16 array
+    q = (x_in @ p["wq"]).reshape(b, s, h, dk) * torch.tensor(
+        dk ** -0.5, dtype=x_in.dtype)
+    k = (x_in @ p["wk"]).reshape(b, s, h, dk)
+    v = (x_in @ p["wv"]).reshape(b, s, h, dk)
+    xf = x_in.float()
+    i_gate = torch.sigmoid(xf @ p["w_i"])                         # (B,S,H)
+    log_f = log_sigmoid(xf @ p["w_f"] + p["f_bias"])
+
+    # fold the normaliser n into the GLA state via an augmented value column
+    k_scaled = k * i_gate[..., None].to(k.dtype)
+    v_aug = torch.cat([v, torch.ones((b, s, h, 1), dtype=v.dtype,
+                                     device=v.device)], dim=-1)
+    state = cache["state"] if cache is not None else None
+    if mode == "decode":
+        if s != 1:
+            raise ValueError("decode takes one token per row")
+        o_aug, new_state = ops.ssm_decode_step(
+            q[:, 0], k_scaled[:, 0], v_aug[:, 0], log_f[:, 0], state)
+        o_aug = o_aug[:, None]
+    else:
+        o_aug, new_state = ops.ssm_scan(q, k_scaled, v_aug, log_f, state)
+    o, den = o_aug[..., :dk], o_aug[..., dk:]
+    o = o / torch.clamp(den.abs(), min=1.0)
+    o = o.reshape(b, s, d_in) * F.silu(z)
+    if cache is not None:
+        cache["state"].copy_(new_state)
+    return o @ p["w_down"], cache
+
+
+# ---------------------------------------------------------------------------
+# xLSTM sLSTM mixer (scalar memory, stabilised exponential gating)
+# ---------------------------------------------------------------------------
+
+def init_slstm(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
+    d = cfg.d_model
+    h = cfg.resolved_ssm_heads
+    p_dim = d // h
+    dt = getattr(torch, cfg.dtype)
+    f32 = torch.float32
+    bias = torch.zeros((4 * d,), dtype=f32, device=device)
+    bias[2 * d:3 * d] = 3.0                                  # forget bias
+    return {
+        "w_gates": dense_init(gen, d, (d, 4 * d), f32, device),
+        "r_gates": dense_init(gen, p_dim, (h, p_dim, 4 * p_dim), f32,
+                              device),
+        "bias": bias,
+        "w_out": dense_init(gen, d, (d, d), dt, device),
+    }
+
+
+def init_slstm_cache(cfg: ArchConfig, batch: int, device) -> Params:
+    """(h, c, n, m), each (B, d) f32: zeros, as the JAX ``init_cache``
+    makes every leaf (its per-layer ``n`` of 1e-6 does not survive the
+    stacking)."""
+    z = torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=device)
+    return {"h": z, "c": z.clone(), "n": z.clone(), "m": z.clone()}
+
+
+def slstm(p: Params, x: torch.Tensor, *, cfg: ArchConfig,
+          cache: Optional[Params] = None, mode: str = "prefill"
+          ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """The recurrence from the cache's (h, c, n, m) (no cache: the zero
+    start) over S tokens, prefill and decode alike; the final state is
+    copied into the cache in place.  The state is (B, d) in the cache and
+    (B, H, P) in the kernel (the same memory order)."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"slstm mode {mode!r} is not ported")
+    b, s, d = x.shape
+    h = cfg.resolved_ssm_heads
+    p_dim = d // h
+    gates_x = x.float() @ p["w_gates"] + p["bias"]               # (B,S,4d)
+    state = None
+    if cache is not None:
+        state = tuple(cache[n].float().reshape(b, h, p_dim) for n in "hcnm")
+    hs, final = ops.slstm_scan(gates_x, p["r_gates"], state)
+    if cache is not None:
+        for n, t in zip("hcnm", final):
+            cache[n].copy_(t.reshape(b, d))
+    return hs.to(x.dtype) @ p["w_out"], cache

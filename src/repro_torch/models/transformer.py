@@ -10,16 +10,20 @@ Public entry points: ``init_params`` / ``init_cache`` /
 ``init_paged_cache``, ``prefill`` (the full prompt, filling a dense KV
 cache), ``decode_step`` (one token per row, dense or through a block table
 over page pools), ``verify_step`` (a γ+1-token speculative chunk) and
-``prefill_chunk_step`` (the chunked prefill's ragged fused step).  Only
-attention blocks (``ATTN``, dense FFN) are ported; other block kinds raise.
+``prefill_chunk_step`` (the chunked prefill's ragged fused step).  Block
+kinds ported: attention (``ATTN``, dense FFN) and the xLSTM mixers
+(``MLSTM``, ``SLSTM``, no FFN), whose recurrent states ride the cache and
+are written back in place; their stacks run ``prefill`` and ``decode_step``
+only (verify and prefill-append need attention blocks, as in the JAX
+package).  MoE, Mamba and Hymba blocks raise.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.configs.base import ATTN, ArchConfig, BlockSpec
+from repro_torch.configs.base import ATTN, MLSTM, SLSTM, ArchConfig, BlockSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import frontends
 from repro_torch.models import layers as L
@@ -32,6 +36,43 @@ Params = Dict[str, Any]
 # Init
 # ---------------------------------------------------------------------------
 
+class _Mixer(NamedTuple):
+    """What a block kind runs: ``init(gen, cfg, device)`` its weights,
+    ``cache(cfg, batch, kv)`` one layer's cache as meta tensors (``kv()``
+    is the attention KV of the dense or paged cache), ``apply(p, h, cfg=,
+    spec=, cache=, mode=, **attention_args)`` the mixer, and whether an
+    FFN follows it."""
+    init: Callable
+    cache: Callable
+    apply: Callable
+    ffn: bool
+
+
+def _apply_attention(p, h, *, cfg, spec, cache, mode, **kw):
+    return L.attention(p, h, cfg=cfg, window=spec.window, cache=cache,
+                       mode=mode, **kw)[0]
+
+
+def _apply_recurrent(mixer):
+    def apply(p, h, *, cfg, spec, cache, mode, **_):
+        return mixer(p, h, cfg=cfg, cache=cache, mode=mode)[0]
+    return apply
+
+
+_MIXERS = {
+    ATTN: _Mixer(L.init_attention, lambda cfg, batch, kv: kv(),
+                 _apply_attention, True),
+    MLSTM: _Mixer(L.init_mlstm,
+                  lambda cfg, batch, kv: L.init_mlstm_cache(cfg, batch,
+                                                            "meta"),
+                  _apply_recurrent(L.mlstm), False),
+    SLSTM: _Mixer(L.init_slstm,
+                  lambda cfg, batch, kv: L.init_slstm_cache(cfg, batch,
+                                                            "meta"),
+                  _apply_recurrent(L.slstm), False),
+}
+
+
 def _check_block(spec: BlockSpec, mode: Optional[str] = None) -> None:
     if spec.kind != ATTN and mode in ("verify", "prefill_append"):
         # the JAX package's model-level backstops: a recurrent scan folds a
@@ -39,14 +80,14 @@ def _check_block(spec: BlockSpec, mode: Optional[str] = None) -> None:
         # (verify) nor keeps chunk boundaries bit-stable (prefill_append)
         raise NotImplementedError(
             f"{mode} mode needs attention blocks, got {spec.kind!r}")
-    if spec.kind != ATTN or spec.moe:
+    if spec.kind not in _MIXERS or spec.moe:
         raise NotImplementedError(
-            f"block kind {spec.kind!r} (moe={spec.moe}) is not ported: only "
-            "attention blocks with a dense FFN")
+            f"block kind {spec.kind!r} (moe={spec.moe}) is not ported: "
+            "attention blocks with a dense FFN, mLSTM and sLSTM")
 
 
-def _has_ffn(cfg: ArchConfig) -> bool:
-    return cfg.d_ff > 0
+def _has_ffn(cfg: ArchConfig, spec: BlockSpec) -> bool:
+    return _MIXERS[spec.kind].ffn and cfg.d_ff > 0
 
 
 def _init_block(gen: torch.Generator, cfg: ArchConfig, spec: BlockSpec,
@@ -55,8 +96,8 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, spec: BlockSpec,
     dt = getattr(torch, cfg.dtype)
     p: Params = {"norm1": torch.zeros((cfg.d_model,), dtype=dt,
                                       device=device),
-                 "mixer": L.init_attention(gen, cfg, device)}
-    if _has_ffn(cfg):
+                 "mixer": _MIXERS[spec.kind].init(gen, cfg, device)}
+    if _has_ffn(cfg, spec):
         p["norm2"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
         p["ffn"] = L.init_mlp(gen, cfg, device)
     return p
@@ -103,13 +144,17 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     return init_params_with(cfg, gen, dev)
 
 
-def _stacked_caches(cfg: ArchConfig, one: Params, device) -> Tuple:
-    """Zeros of each leaf of the per-layer cache ``one`` (meta tensors:
-    shapes only) stacked to (n_super, ...) on ``device``, one tree per
-    pattern position."""
+def _stacked_caches(cfg: ArchConfig, kv: Callable[[], Params], batch: int,
+                    device) -> Tuple:
+    """Zeros of each leaf of the per-layer cache of every pattern position
+    (``kv()`` for attention, as meta tensors: shapes only; the recurrent
+    states of mLSTM and sLSTM with the JAX shapes) stacked to
+    (n_super, ...) on ``device``, one tree per pattern position.  Every
+    leaf is zero, as the JAX ``init_cache`` makes it."""
     out = []
     for spec in cfg.block_pattern:
         _check_block(spec)
+        one = _MIXERS[spec.kind].cache(cfg, batch, kv)
         out.append({k: torch.zeros((cfg.n_super,) + tuple(x.shape),
                                    dtype=x.dtype, device=device)
                     for k, x in one.items()})
@@ -118,11 +163,13 @@ def _stacked_caches(cfg: ArchConfig, one: Params, device) -> Tuple:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device) -> Tuple:
-    """Per-pattern-position dense KV caches, each leaf stacked to
-    (n_super, B, max_len, KH, hd)."""
+    """Per-pattern-position caches, each leaf stacked to (n_super, ...):
+    dense KV (B, max_len, KH, hd) for attention, the (B, H, dk, dk + 1)
+    state for mLSTM, (h, c, n, m) of (B, d) for sLSTM."""
     dt = getattr(torch, cfg.dtype)
     return _stacked_caches(
-        cfg, L.init_attn_cache(cfg, batch, max_len, dt, "meta"), device)
+        cfg, lambda: L.init_attn_cache(cfg, batch, max_len, dt, "meta"),
+        batch, device)
 
 
 def init_paged_cache(cfg: ArchConfig, batch: int, n_pages: int,
@@ -131,25 +178,25 @@ def init_paged_cache(cfg: ArchConfig, batch: int, n_pages: int,
     """Paged variant of ``init_cache``: the KV leaves become page pools
     (n_super, n_pages, page, KH, hd) shared by every sequence and addressed
     through the ``block_table`` argument of ``decode_step`` /
-    ``verify_step``.  ``batch`` sizes the per-slot recurrent state of the
-    JAX package's hybrid stacks; attention-only stacks have none."""
-    del batch
+    ``verify_step``; recurrent states (O(1) per token, nothing to page)
+    stay per slot, (n_super, batch, ...), as in the dense cache."""
     dt = getattr(torch, cfg.dtype)
     return _stacked_caches(
-        cfg, L.init_paged_attn_cache(cfg, n_pages, page_size, dt, "meta",
-                                     kv_dtype), device)
+        cfg, lambda: L.init_paged_attn_cache(cfg, n_pages, page_size, dt,
+                                             "meta", kv_dtype),
+        batch, device)
 
 
 def map_cache_kinds(cfg: ArchConfig, caches, *, kv, state) -> Tuple:
     """Apply ``kv`` to every attention-KV subtree and ``state`` to every
     recurrent-state subtree of one or more structurally identical caches
     (positionally, one subtree from each), as the JAX package's function of
-    the same name; the port's stacks are attention-only, so ``state`` is
-    never called."""
+    the same name."""
     out = []
     for i, spec in enumerate(cfg.block_pattern):
         _check_block(spec)
-        out.append(kv(*[c[i] for c in caches]))
+        fn = kv if spec.kind == ATTN else state
+        out.append(fn(*[c[i] for c in caches]))
     return tuple(out)
 
 
@@ -162,12 +209,13 @@ def _apply_block(p: Params, x: torch.Tensor, *, cfg: ArchConfig,
                  block_table=None, chunk_lens=None) -> torch.Tensor:
     _check_block(spec, mode)
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    h, _ = L.attention(p["mixer"], h, cfg=cfg, window=spec.window, cos=cos,
-                       sin=sin, cache=cache, cache_index=cache_index,
-                       block_table=block_table, chunk_lens=chunk_lens,
-                       mode=mode)
+    h = _MIXERS[spec.kind].apply(p["mixer"], h, cfg=cfg, spec=spec,
+                                 cache=cache, mode=mode, cos=cos, sin=sin,
+                                 cache_index=cache_index,
+                                 block_table=block_table,
+                                 chunk_lens=chunk_lens)
     x = x + h
-    if _has_ffn(cfg):
+    if _has_ffn(cfg, spec):
         x = x + L.mlp(p["ffn"], L.rms_norm(x, p["norm2"], cfg.norm_eps))
     return x
 

@@ -33,9 +33,10 @@ tier's parameters, and the KV caches are updated in place.
 Every tensor shape of the slot path is fixed when the tables are allocated
 (pools, block table, logits, index, staging buffer, the fused step's flat
 (token_budget,) batch), so a later CUDA graph can capture the steps.
-Overload control, quantized pools, the device mesh and the
-``step_impl="vmap"`` oracle are not ported yet: setting them raises
-``NotImplementedError`` naming their ROADMAP item.
+Overload control, quantized pools, the device mesh, the
+``step_impl="vmap"`` oracle and tiers with recurrent (mLSTM/sLSTM) blocks
+are not ported yet: they raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -203,6 +204,13 @@ class EngineCore:
             if draft.params["patch_proj"].device != self.device:
                 raise ValueError("the draft tier must lie on the engine's "
                                  "device")
+            for c in (tier.cfg, draft.cfg):
+                if any(s.kind != ATTN for s in c.block_pattern):
+                    raise ValueError(
+                        "speculative decoding requires attention-only "
+                        "stacks: recurrent state folds the whole chunk into "
+                        "one snapshot, so only attention KV rolls back for "
+                        "free (a per-row length decrement)")
             self._draft_max_len = self._slot_max_len + self.cfg.spec_gamma
         # a verify chunk writes γ positions past the committed index, so
         # spec engines reserve γ extra KV slots per row
@@ -227,6 +235,15 @@ class EngineCore:
                     f"slot count {self.cfg.slots}: every decode row takes "
                     "one token per step, so a smaller budget would starve "
                     "prefill streams")
+        if any(s.kind != ATTN for s in tier.cfg.block_pattern):
+            # the model runs mLSTM/sLSTM stacks (transformer.prefill /
+            # decode_step), but the engine's admission does not carry their
+            # state yet: nothing may half-run
+            raise NotImplementedError(
+                "an EngineCore over recurrent blocks needs the engine's "
+                "recurrent-state admission (prefix-state snapshots in "
+                "_paged_admit, the state branch of _prefix_scatter), which "
+                "is not ported (ROADMAP queue 1, item 17)")
         #: chunked engines: scene → {slot, pages, progress, order, priority}
         #: of the region streams in flight (FIFO by order within priority)
         self._streaming: Dict[Any, Dict[str, Any]] = {}

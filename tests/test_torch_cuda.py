@@ -7,7 +7,9 @@ and ``nvcc``).  Run on a machine with an H100:
 
 Tolerances, element by element: attention 1e-4 absolute in float32 (TF32
 off) and 1e-5 + 2^-6·|want| in bfloat16 (two bfloat16 ulps: both sides
-round an f32 result); region scores, f32 math and output, 1e-5 absolute.
+round an f32 result); region scores, f32 math and output, 1e-5 absolute;
+the scans 1e-4 + 1e-4·|want| (f32 on both sides, another summation order),
+a bf16 scan output 1e-4 + 2^-6·|want|, the sLSTM 2e-4 + 2e-4·|want|.
 """
 import pytest
 
@@ -20,12 +22,16 @@ from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention_cuda)
 from repro_torch.kernels.paged_prefill_attention import (  # noqa: E402
     paged_prefill_attention_cuda)
+from repro_torch.kernels.slstm_scan import slstm_scan_cuda  # noqa: E402
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 # (absolute, relative to |want|)
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 2.0 ** -6)}
 TOL_REGION = (1e-5, 0.0)
+TOL_SCAN = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-4, 2.0 ** -6)}
+TOL_SLSTM = (2e-4, 2e-4)
 
 
 @pytest.fixture
@@ -204,3 +210,86 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="q_blk"):
         paged_prefill_attention_cuda(_randn(card, 1, 2, 12, 16), pool, pool,
                                      table, 3, q_len=2, q_blk=0)
+
+
+@pytest.mark.parametrize("s,chunk,dk,dv,carried,g,dtype", [
+    (1, 64, 8, 9, False, None, torch.float32),
+    (37, 64, 16, 24, True, None, torch.float32),      # chunk = S
+    (256, 16, 384, 385, True, None, torch.float32),   # the xLSTM dk, dv
+    (128, 64, 8, 24, True, -2.0, torch.float32),      # the oracle's NaN case
+    (256, 64, 16, 9, False, -30.0, torch.float32),
+    (512, 64, 384, 385, False, None, torch.bfloat16),
+])
+def test_ssm_scan_kernel_matches_plain(card, s, chunk, dk, dv, carried, g,
+                                       dtype):
+    b, h = 2, 4
+    q = (_randn(card, b, s, h, dk) * dk ** -0.5).to(dtype)
+    k = _randn(card, b, s, h, dk, dtype=dtype)
+    v = _randn(card, b, s, h, dv, dtype=dtype)
+    log_g = (-torch.nn.functional.softplus(_randn(card, b, s, h))
+             if g is None else torch.full((b, s, h), g, device="cuda"))
+    st = _randn(card, b, h, dk, dv) if carried else None
+    before = ops.launch_counts()["ssm_scan"]
+    o, sf = ops.ssm_scan(q, k, v, log_g, st, chunk=chunk)
+    assert ops.launch_counts()["ssm_scan"] == before + 1
+    wo, wsf = ref.ssm_scan(q, k, v, log_g, st, chunk=chunk)
+    assert bool(o.isfinite().all()) and bool(sf.isfinite().all())
+    _close(o, wo, TOL_SCAN[dtype])
+    _close(sf, wsf, TOL_SCAN[torch.float32])
+
+
+@pytest.mark.parametrize("b,s,heads,p_dim,carried", [
+    (1, 1, 1, 8, False), (2, 37, 4, 64, True), (3, 300, 4, 192, True),
+    (2, 1, 4, 192, True)])
+def test_slstm_scan_kernel_matches_plain(card, b, s, heads, p_dim, carried):
+    """Gate pre-activations ~N(0, 10²) (past ±30: the stabiliser), h and
+    all four final states."""
+    gx = _randn(card, b, s, 4 * heads * p_dim) * 10
+    r = _randn(card, heads, p_dim, 4 * p_dim) * p_dim ** -0.5
+    st = None
+    if carried:
+        st = (torch.tanh(_randn(card, b, heads, p_dim)),
+              _randn(card, b, heads, p_dim),
+              torch.rand((b, heads, p_dim), device="cuda") + 0.5,
+              _randn(card, b, heads, p_dim) * 10)
+    before = ops.launch_counts()["slstm_scan"]
+    h, fin = ops.slstm_scan(gx, r, st)
+    assert ops.launch_counts()["slstm_scan"] == before + 1
+    wh, wfin = ref.slstm_scan(gx, r, st)
+    _close(h, wh, TOL_SLSTM)
+    for a, w in zip(fin, wfin):
+        _close(a, w, TOL_SLSTM)
+
+
+def test_xlstm_layers_reach_the_scan_kernels(card):
+    """The card path of the model: a reduced xLSTM prefill launches the
+    chunked scan once per mLSTM layer and the sLSTM kernel once per sLSTM
+    layer; a decode step only the sLSTM kernel."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = configs.get_config("xlstm-125m", reduced=True)
+    params = T.init_params(cfg, seed=0)
+    toks = torch.zeros((2, 16), dtype=torch.int32, device="cuda")
+    ops.reset_launch_counts()
+    logits, cache, idx = T.prefill(params, cfg, {"tokens": toks}, 20)
+    logits, cache = T.decode_step(params, cfg, cache,
+                                  {"tokens": toks[:, :1]}, idx)
+    counts = ops.launch_counts()
+    assert counts["ssm_scan"] == 4 and counts["slstm_scan"] == 2 * 2
+    assert bool(logits.isfinite().all())
+
+
+def test_scan_wrappers_refuse_what_the_kernels_do_not_take(card):
+    x = _randn(card, 1, 2, 100, 8)
+    st = torch.zeros((1, 2, 8, 8), device="cuda")
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssm_scan_cuda(x, x, x, x[..., 0], st, chunk=64)
+    with pytest.raises(ValueError, match="chunk"):
+        y = _randn(card, 1, 2, 128, 8)
+        ssm_scan_cuda(y, y, y, y[..., 0], st, chunk=128)
+    with pytest.raises(TypeError, match="float32"):
+        slstm_scan_cuda(_randn(card, 1, 3, 32, dtype=torch.bfloat16),
+                        _randn(card, 2, 4, 16, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="4P"):
+        slstm_scan_cuda(_randn(card, 1, 3, 4 * 257),
+                        _randn(card, 1, 257, 4 * 257))
