@@ -10,6 +10,15 @@ Phases, each of which raises (exit code 1, no result line) on failure:
 2. Hold each kernel against its plain PyTorch version on the card: the main
    paths' shapes in bfloat16 and small float32 shapes (head dims 12/16, GQA
    groups 1-3, ragged lengths with 0, window, softcap, q_len 3; TF32 off).
+   Flash has two routes: the CUDA-core kernel (f32, and bf16 at hd 12/16)
+   at the old tolerances, also at the 2B/7B shapes when sent there; the
+   tensor-core kernel (bf16, hd 64/128) over a sweep (B 2, Sq = Skv in
+   {1, 63, 64, 65, 129, 1025}, groups 1/6/7, hd 64/128, windows 0/100,
+   softcaps none/30, Sq 65 < Skv 300; the model layout through ``ops``
+   and (B, H, S, hd) tensors; K/V views of buffers that are NaN past Skv)
+   and at the 2B/7B shapes, each element within 1e-5 + 2^-6·|want| +
+   2^-8·attention(q, k, |v|) (it rounds p to bf16 before PV), and a
+   misaligned view must raise.
    The paged decode kernel: an f32 sweep over page sizes 1-16, windows,
    softcaps, q_len up to 9 (63 rows), rows with cache_len 0 and
    0 < cache_len < q_len; then (a) the 2B slot step (B 8, KH 2, group 6,
@@ -44,7 +53,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    1e-4 + 2^-6·|want|; the sLSTM 2e-4 + 2e-4·|want|.  (f) and (g) are
    timed as above; no single PyTorch call computes either scan, so their
    library column is null.
-3. End to end on a small proxy pair: the port's ``CascadeServer``, its
+3. End to end on a small proxy pair (flash on its CUDA-core route alone,
+   counted): the port's ``CascadeServer``, its
    ``InferenceEngine.serve`` on the paged slot path, a γ = 3 speculative
    engine, and chunked prefill (chunk 8, chunk N_r, chunk 8 with γ = 3) on
    the card must give the decisions and tokens they give on the CPU from
@@ -56,7 +66,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    the ground), bfloat16, random weights from a seed, serving requests
    that reach both tiers.
 5. Where the time goes: prefill and per-token decode time of each tier,
-   and the device's busy share over decode steps from ``torch.profiler``.
+   flash's in-place device time per launch in a profiled prefill, and the
+   device's busy share over decode steps from ``torch.profiler``.
 6. The slot path: the 2B's ``InferenceEngine.serve`` (8 slots, page 8) on
    24 requests over 4 scenes (per scene 1 det with 1024 answer tokens,
    1 cls, 4 vqa).  Checks: every request answered; 20 prefix hits and 4
@@ -106,9 +117,11 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    tokens/s, the device busy share over decode steps and the B 128
    step's bound.
 
-Phases 4, 6, 7, 8 and each run of 9 zero every kernel's launch count just
-before they run and read it just after; each kernel of a path must have
-launched. Its last lines: the card's name and power limit as ``nvidia-smi``
+Phases 3, 4, 6, 7, 8 and each run of 9 zero every kernel's launch count
+just before they run and read it just after; each kernel of a path must
+have launched.  In phases 4, 6 and 7 the tensor-core flash route launched
+once per layer of every ``transformer.prefill`` call (28 × prefills) and
+the CUDA-core route never. Its last lines: the card's name and power limit as ``nvidia-smi``
 gives them, one JSON object with every kernel's numbers, then ``{"ok":
 true, "device": {...}}``.
 """
@@ -125,7 +138,8 @@ from typing import Optional
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-SOURCES = ("flash_attention.cu", "decode_attention.cu", "region_score.cu",
+SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu",
+           "decode_attention.cu", "region_score.cu",
            "paged_prefill_attention.cu", "ssm_scan.cu", "slstm_scan.cu")
 # decode_attention.cu holds the dense and the paged decode entry points
 # (absolute, relative to |want|) per element; see the docstring
@@ -143,6 +157,7 @@ TOL_SLSTM = (2e-4, 2e-4)
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 REPLACES = {
+    "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:84",
     "flash_attention": "src/repro/kernels/flash_attention.py:84",
     "decode_attention": "src/repro/kernels/decode_attention.py:219",
     "region_score": "src/repro/kernels/region_score.py:38",
@@ -152,6 +167,7 @@ REPLACES = {
     "slstm_scan": "src/repro/kernels/slstm_scan.py:69",
 }
 SOURCE_OF = {
+    "flash_attention_wgmma": "src/repro_torch/csrc/flash_attention_wgmma.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "region_score": "src/repro_torch/csrc/region_score.cu",
@@ -248,11 +264,102 @@ def check(name, got, want, tol, case, errors):
     return err
 
 
+def check_wgmma(name, got, q, k, v, kw, case, errors):
+    """The tensor-core flash route, element by element within
+    1e-5 + 2^-6·|want| + 2^-8·A, want the f32 plain version and A =
+    attention(q, k, |v|) in f32: it rounds p to bf16 before PV, which
+    moves an output by at most 2^-9·A (the 2^-8 leaves a factor 2 for the
+    order of the f32 sums and the running-max rescales).  Prints the share
+    of the bound used; returns the max absolute error."""
+    from repro_torch.kernels import ref
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = ref.flash_attention(qf, kf, vf, **kw)
+    a = ref.flash_attention(qf, kf, vf.abs(), **kw)
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    share = float((diff / (1e-5 + 2.0 ** -6 * want.abs()
+                           + 2.0 ** -8 * a)).max())
+    ok = math.isfinite(err) and share <= 1.0
+    log(f"  {name:16s} {case:48s} max_abs_err {err:.3e} bound 1e-05+2^-6"
+        f"|want|+2^-8A (used {share:.3f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        errors.append(f"{name} {case}: max_abs_err {err}, {share:.3f} of "
+                      f"the bound")
+    return err
+
+
+def flash_wgmma_sweep(torch, randn, errors):
+    """The tensor-core route (bf16, hd 64/128) against the plain version in
+    the model layout through ``ops`` and on (B, H, S, hd) tensors straight
+    to the wrapper: B 2, Sq = Skv in {1, 63, 64, 65, 129, 1025}, groups
+    1/6/7, hd 64 and 128, windows 0/100, softcaps none/30 (in turns), and
+    Sq 65 < Skv 300.  K/V are views into buffers whose rows past Skv are
+    NaN, so a tensor map sized past Skv would show.  The grids run from 2
+    blocks to B 2 x 28 heads x 17 tiles = 952, so both block shapes the
+    launcher picks (one or two consumer warpgroups) are held.  A
+    misaligned view must raise before any launch."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    bf16, nan = torch.bfloat16, float("nan")
+    log("flash_attention vs plain (wgmma route)")
+    opts = [(0, None), (100, None), (0, 30.0), (100, 30.0)]
+    cases = [(s, s, g, kh, hd) for s in (1, 63, 64, 65, 129, 1025)
+             for g, kh, hd in ((1, 2, 64), (6, 2, 128), (7, 4, 128),
+                               (7, 1, 64))]
+    cases += [(65, 300, 6, 2, 128), (65, 300, 7, 1, 64)]
+    for n, (sq, skv, group, kh, hd) in enumerate(cases):
+        window, softcap = opts[n % len(opts)]
+        kw = {"window": window, "softcap": softcap}
+        h = kh * group
+        q = randn(2, sq, h, hd, dtype=bf16)
+        for layout in ("model", "bhsd"):
+            if layout == "model":       # (B, S, KH, hd) views of (B, S+16, ...)
+                kb, vb = (randn(2, skv + 16, kh, hd, dtype=bf16)
+                          for _ in range(2))
+                kb[:, skv:], vb[:, skv:] = nan, nan
+                k, v = kb[:, :skv], vb[:, :skv]
+                got = ops.flash_attention(q, k, v, **kw)
+            else:                       # (B, KH, S, hd) views of (B, KH, S+16, ...)
+                kb, vb = (randn(2, kh, skv + 16, hd, dtype=bf16)
+                          for _ in range(2))
+                kb[:, :, skv:], vb[:, :, skv:] = nan, nan
+                k, v = kb[:, :, :skv].transpose(1, 2), vb[:, :, :skv] \
+                    .transpose(1, 2)
+                got = flash_attention_cuda(
+                    q.transpose(1, 2).contiguous(), k.transpose(1, 2),
+                    v.transpose(1, 2), **kw).transpose(1, 2)
+            check_wgmma("flash_attention", got, q, k, v, kw,
+                        f"bf16 {layout} hd{hd} g{group} Sq{sq} Skv{skv} "
+                        f"w{window} cap{softcap}", errors)
+    buf = randn(1, 70, 4, 136, dtype=bf16)
+    try:
+        flash_attention_cuda(buf[..., 1:129].transpose(1, 2),
+                             buf[:, :, :2, :128].transpose(1, 2),
+                             buf[:, :, :2, :128].transpose(1, 2))
+        errors.append("flash_attention: a misaligned view was not refused")
+        log("  flash_attention  misaligned q view: launched (FAIL)")
+    except ValueError as e:
+        log(f"  flash_attention  misaligned q view: refused ({e}) ok")
+
+
+def host_us(torch, fn, reps: int = 200) -> float:
+    """Mean host time of one call of ``fn`` (its enqueue), in µs."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / reps
+
+
 def kernel_checks(torch):
     """Returns {kernel: measured numbers at its main-path shape}."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.region_score import region_score_cuda
 
@@ -266,38 +373,70 @@ def kernel_checks(torch):
     bf16 = torch.bfloat16
 
     # -- flash attention: model layout (B, S, H, hd) through ops ------------
-    log("flash_attention vs plain")
-    for hd, group, kh, sq, skv, window, softcap in [
-            (12, 1, 2, 40, 40, 0, None), (12, 3, 1, 33, 33, 0, None),
-            (16, 2, 2, 70, 70, 0, None), (16, 3, 2, 65, 65, 16, None),
-            (16, 2, 1, 37, 37, 0, 5.0), (12, 2, 2, 9, 50, 0, None)]:
-        q = randn(2, sq, kh * group, hd)
-        k, v = randn(2, skv, kh, hd), randn(2, skv, kh, hd)
-        case = (f"f32 hd{hd} g{group} Sq{sq} Skv{skv} w{window} "
+    # the CUDA-core route: float32 and the proxies' head dims, also in bf16
+    log("flash_attention vs plain (CUDA-core route)")
+    for hd, group, kh, sq, skv, window, softcap, dt in [
+            (12, 1, 2, 40, 40, 0, None, torch.float32),
+            (12, 3, 1, 33, 33, 0, None, torch.float32),
+            (16, 2, 2, 70, 70, 0, None, torch.float32),
+            (16, 3, 2, 65, 65, 16, None, torch.float32),
+            (16, 2, 1, 37, 37, 0, 5.0, torch.float32),
+            (12, 2, 2, 9, 50, 0, None, torch.float32),
+            (16, 3, 2, 65, 65, 0, None, bf16),
+            (12, 2, 1, 33, 70, 16, 5.0, bf16)]:
+        q = randn(2, sq, kh * group, hd, dtype=dt)
+        k, v = randn(2, skv, kh, hd, dtype=dt), randn(2, skv, kh, hd, dtype=dt)
+        tag = "f32" if dt == torch.float32 else "bf16"
+        case = (f"{tag} hd{hd} g{group} Sq{sq} Skv{skv} w{window} "
                 f"cap{softcap}")
         check("flash_attention",
               ops.flash_attention(q, k, v, window=window, softcap=softcap),
               ref.flash_attention(q, k, v, window=window, softcap=softcap),
-              TOL_F32, case, errors)
+              TOL_F32 if dt == torch.float32 else TOL_BF16, case, errors)
+    flash_wgmma_sweep(torch, randn, errors)
+    resources = {f"hd{hd} warpgroups {nwg}": {"registers": r,
+                                             "shared_bytes": sm}
+                 for (hd, nwg), (r, sm) in FA.wgmma_block_resources().items()}
+    log(f"  flash_attention_wgmma block resources: {resources}")
     for tag, h, kh in (("2B", 12, 2), ("7B", 28, 4)):
         s, hd = 1025, 128
         q, k, v = randn(1, s, h, hd, dtype=bf16), randn(1, s, kh, hd,
                                                           dtype=bf16), \
             randn(1, s, kh, hd, dtype=bf16)
-        err = check("flash_attention", ops.flash_attention(q, k, v),
-                    ref.flash_attention(q, k, v), TOL_BF16,
-                    f"bf16 {tag} H{h} KH{kh} S{s} hd{hd}", errors)
+        err = check_wgmma("flash_attention", ops.flash_attention(q, k, v),
+                          q, k, v, {}, f"bf16 {tag} H{h} KH{kh} S{s} hd{hd}",
+                          errors)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        # the CUDA-core kernel at the same shape, at its own tolerance
+        err_cc = check("flash_attention",
+                       flash_attention_cuda(qt, kt, vt, via="cuda_cores")
+                       .transpose(1, 2), ref.flash_attention(q, k, v),
+                       TOL_BF16, f"bf16 {tag} S{s} hd{hd} via CUDA cores",
+                       errors)
         flops = 4.0 * hd * h * s * (s + 1) / 2
         b_ms, b_by = bound_ms(nbytes(q, k, v, q), flops, "bfloat16")
-        report.setdefault("flash_attention", {})[tag] = {
-            "max_abs_err": err,
-            "ms": timer(lambda: flash_attention_cuda(qt, kt, vt)),
-            "plain_ms": timer(lambda: ref.flash_attention(q, k, v)),
-            "library_ms": timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "shape": f"B1 H{h} KH{kh} Sq=Skv={s} hd{hd} bf16"}
+        shape = f"B1 H{h} KH{kh} Sq=Skv={s} hd{hd} bf16"
+        m = {"plain_ms": timer(lambda: ref.flash_attention(q, k, v)),
+             "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True)),
+             "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
+        # kernel, library, CUDA cores, kernel: one card, one call, in turns
+        wg_ms = [timer(lambda: flash_attention_cuda(qt, kt, vt))]
+        cc_ms = timer(lambda: flash_attention_cuda(qt, kt, vt,
+                                                   via="cuda_cores"))
+        wg_ms.append(timer(lambda: flash_attention_cuda(qt, kt, vt)))
+        ms = sum(wg_ms) / len(wg_ms)
+        report.setdefault("flash_attention_wgmma", {})[tag] = dict(
+            m, max_abs_err=err, ms=ms, ms_runs=wg_ms, route="wgmma",
+            bound_share=b_ms / ms, block_resources=resources)
+        report.setdefault("flash_attention", {})[tag] = dict(
+            m, max_abs_err=err_cc, ms=cc_ms, route="cuda_cores")
+        # what encoding the three tensor maps adds on the host: enqueue
+        # time of one launch per route, no L2 flush (the device lags)
+        report["flash_attention_wgmma"][tag]["host_us_per_call"] = {
+            r: host_us(torch, lambda: flash_attention_cuda(qt, kt, vt,
+                                                           via=via))
+            for r, via in (("wgmma", None), ("cuda_cores", "cuda_cores"))}
 
     # -- decode attention: (B, H, hd) / (B, T, H, hd) through ops -----------
     log("decode_attention vs plain")
@@ -386,7 +525,8 @@ def kernel_checks(torch):
         for tag, m in shapes.items():
             lib = ("none" if m["library_ms"] is None
                    else f"{m['library_ms']:.4f} ms")
-            log(f"  time {name:16s} {tag:4s} {m['shape']:40s} "
+            route = f" ({m['route']})" if "route" in m else ""
+            log(f"  time {name + route:16s} {tag:4s} {m['shape']:40s} "
                 f"kernel {m['ms']:.4f} ms  plain {m['plain_ms']:.4f} ms  "
                 f"{m.get('library_is', 'library')} {lib}  "
                 f"bound {m['bound_ms']:.5f} ms ({m['bound_by']})")
@@ -1053,7 +1193,9 @@ def main_path(torch):
 
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    results = serve(torch, sat, gs, conf, ac, reqs, "cuda", answer_vocab)
+    with PrefillCounter() as prefills:
+        results = serve(torch, sat, gs, conf, ac, reqs, "cuda",
+                        answer_vocab)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
 
@@ -1066,12 +1208,47 @@ def main_path(torch):
     if tiers != {"satellite", "ground"}:
         raise RuntimeError(f"main path reached only {tiers}")
     log(f"  launches in the main path: {counts}")
-    missing = [k for k in ("flash_attention", "decode_attention",
+    missing = [k for k in ("flash_attention_wgmma", "decode_attention",
                            "region_score") if counts[k] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: "
                            f"{missing}")
+    prefills.check(counts, "main path")
     return sat, gs, ac, counts, results
+
+
+class PrefillCounter:
+    """While active, counts ``transformer.prefill`` calls and the attention
+    layers they run (every layer of the Qwen2-VL tiers is one).  ``check``
+    holds a path's flash launches to them: the tensor-core route once per
+    prefill layer (bf16, hd 128), the CUDA-core route never."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as T
+        self.T, self.orig = T, T.prefill
+        self.calls = self.layers = 0
+
+        def prefill(params, cfg, *a, **kw):
+            self.calls += 1
+            self.layers += cfg.num_layers
+            return self.orig(params, cfg, *a, **kw)
+
+        T.prefill = prefill
+        return self
+
+    def __exit__(self, *exc):
+        self.T.prefill = self.orig
+
+    def check(self, counts, path):
+        wg, cc = (counts["flash_attention_wgmma"],
+                  counts["flash_attention"] - counts["flash_attention_wgmma"])
+        log(f"  {path}: {self.calls} prefills over {self.layers} layers; "
+            f"flash launches wgmma {wg}, CUDA cores {cc}")
+        if not (self.calls > 0 and wg == self.layers and cc == 0):
+            raise RuntimeError(f"{path}: flash launched {wg} times on the "
+                               f"tensor cores and {cc} on the CUDA cores, "
+                               f"want {self.layers} (layers x prefills) and "
+                               f"0")
 
 
 class StepProbe:
@@ -1207,10 +1384,12 @@ def slot_phase(torch, sat, ac):
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = eng.serve(reqs)
+    with PrefillCounter() as prefills:
+        out = eng.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    prefills.check(counts, "slot path")
 
     toks = served_tokens(out, reqs)
     for r, t in zip(reqs, toks):
@@ -1235,7 +1414,7 @@ def slot_phase(torch, sat, ac):
         "paged launches == layers x (steps + admissions)":
             counts["paged_decode_attention"]
             == n_layers * (steps + probe.admissions),
-        "flash launched": counts["flash_attention"] > 0,
+        "flash launched": counts["flash_attention_wgmma"] > 0,
     }
     n_tok = sum(len(t) for t in toks)
     step_ms = 1e3 * sum(probe.step_s) / len(probe.step_s)
@@ -1340,8 +1519,9 @@ def chunked_phase(torch, sat, ac, slot):
             counts["paged_prefill_attention"] == n_layers * fused,
         "decode launches == layers x plain steps":
             counts["paged_decode_attention"] == n_layers * (steps - fused),
-        "no flash prefill, no region scoring":
-            counts["flash_attention"] == 0 and counts["region_score"] == 0,
+        "no flash prefill (either route), no region scoring":
+            counts["flash_attention"] == counts["flash_attention_wgmma"]
+            == counts["region_score"] == 0,
     }
     agree = [bool((a == b).all()) for a, b in zip(toks, slot["tokens"])]
     det_pos = [float((a == b).mean()) for a, b, r in
@@ -1428,10 +1608,12 @@ def spec_phase(torch, sat, gs, ac):
     plain_probe = StepProbe(torch, plain)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    greedy = drain(plain, clone_requests([det]))[0]
+    with PrefillCounter() as prefills:
+        greedy = drain(plain, clone_requests([det]))[0]
     torch.cuda.synchronize()
     t_plain = time.perf_counter() - t0
     plain_counts = ops.launch_counts()
+    prefills.check(plain_counts, "spec phase, greedy 7B")
     plain_steps = plain.stats["sched"]["steps"]
 
     spec = EngineCore(gs, ac, EngineCoreConfig(slots=4, answer_vocab=av,
@@ -1442,13 +1624,15 @@ def spec_phase(torch, sat, gs, ac):
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    small_toks = drain(spec, clone_requests(small))
-    small_steps = spec.stats["spec"]["steps"]
-    det_req = clone_requests([det], [greedy[:-LOCAL_TAIL]])
-    got = drain(spec, det_req)[0]
+    with PrefillCounter() as prefills:
+        small_toks = drain(spec, clone_requests(small))
+        small_steps = spec.stats["spec"]["steps"]
+        det_req = clone_requests([det], [greedy[:-LOCAL_TAIL]])
+        got = drain(spec, det_req)[0]
     torch.cuda.synchronize()
     t_spec = time.perf_counter() - t0
     counts = ops.launch_counts()
+    prefills.check(counts, "spec phase, 7B drafted by 2B")
     sp = spec.spec_stats()
     agree = got == greedy
     first_diff = None if agree.all() else int(np.argmin(agree))
@@ -1496,9 +1680,37 @@ def spec_phase(torch, sat, gs, ac):
     return res
 
 
+class FlashVia:
+    """While active, the model's flash prefill goes to the CUDA-core kernel
+    (``via="cuda_cores"``) instead of the route ``route`` names: phase 5's
+    yardstick for what the tensor-core route moves end to end.  Launches
+    here are not counted on any path."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
+        self.ops, self.orig = ops, ops.flash_attention
+
+        def flash(q, k, v, **kw):
+            return flash_attention_cuda(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                via="cuda_cores", **kw).transpose(1, 2)
+
+        ops.flash_attention = flash
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.orig
+
+
 def breakdown(torch, sat, gs, ac, n_steps: int = 32):
     """Prefill and per-token decode time of each tier (host clock around
-    synchronised work) and the device's busy share over decode steps."""
+    synchronised work); the prefill again with flash on the CUDA-core
+    kernel, in turns with the tensor-core route (wgmma, CUDA cores, CUDA
+    cores, wgmma); the device time of a profiled prefill and flash's
+    in-place time per launch in it; the device's busy share over decode
+    steps."""
+    import contextlib
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import eo_adapter as EO
     from repro_torch.models import transformer as T
@@ -1510,13 +1722,31 @@ def breakdown(torch, sat, gs, ac, n_steps: int = 32):
     out = {}
     for name, tier in (("sat", sat), ("gs", gs)):
         ptok = ac.prompt_token("vqa", prompts)
-        EO.prefill_tokens(tier.params, tier.cfg, ac, images, ptok, 1100)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache, idx = EO.prefill_tokens(tier.params, tier.cfg, ac,
-                                               images, ptok, 1100)
-        torch.cuda.synchronize()
-        t_prefill = time.perf_counter() - t0
+
+        def prefill():
+            return EO.prefill_tokens(tier.params, tier.cfg, ac, images, ptok,
+                                     1100)
+
+        by_route = {"wgmma": [], "cuda_cores": []}
+        for route in ("wgmma", "cuda_cores", "cuda_cores", "wgmma"):
+            with (FlashVia() if route == "cuda_cores"
+                  else contextlib.nullcontext()):
+                prefill()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache, idx = prefill()
+                torch.cuda.synchronize()
+                by_route[route].append(1e3 * (time.perf_counter() - t0))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter() - t0
+        n_flash, flash_ms = kernel_device_ms(
+            torch, prof, ["flash_wgmma_kernel"])["flash_wgmma_kernel"]
+        busy_prefill = profile_summary(torch, prof, 1, t_prof)
+        del prof
         tok = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
         t0 = time.perf_counter()
         for i in range(n_steps):
@@ -1537,11 +1767,20 @@ def breakdown(torch, sat, gs, ac, n_steps: int = 32):
         head = bb["embed"].get("head", bb["embed"]["tok"])
         step_bytes = nbytes(*tree_leaves(bb["blocks"]), head)
         out[name] = {
-            "prefill_ms": 1e3 * t_prefill,
+            "prefill_ms": sum(by_route["wgmma"]) / 2,
+            "prefill_ms_by_route": by_route,
+            "prefill_device_ms": busy_prefill["device_busy_share"]
+            * 1e3 * t_prof,
+            "prefill_flash_launches": n_flash,
+            "prefill_flash_ms_per_launch": flash_ms,
             "decode_step_ms": 1e3 * t_step,
             "decode_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S,
             **profile_summary(torch, prof, 8, 8 * t_step)}
-        log(f"  {name}: prefill {out[name]['prefill_ms']:.2f} ms, decode "
+        log(f"  {name}: prefill {out[name]['prefill_ms']:.2f} ms (runs "
+            f"{by_route['wgmma']}; with flash on the CUDA cores "
+            f"{by_route['cuda_cores']}; device "
+            f"{out[name]['prefill_device_ms']:.2f} ms, flash {n_flash} "
+            f"launches, {flash_ms:.4f} ms each in place), decode "
             f"step {out[name]['decode_step_ms']:.3f} ms (weight-streaming "
             f"bound {out[name]['decode_bound_ms']:.3f} ms), device busy "
             f"{out[name]['device_busy_share']:.3f}")
@@ -1875,7 +2114,7 @@ def main() -> int:
         log("chip_smoke: no CUDA device; the port's smoke run needs the card")
         return 1
     import numpy as np  # noqa: F401  (the port's data path needs numpy)
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1903,7 +2142,15 @@ def main() -> int:
     kernels = kernel_checks(torch)
 
     log("phase 3: small proxy pair, card vs CPU")
+    ops.reset_launch_counts()
     small_reference(torch)
+    torch.cuda.synchronize()
+    small_counts = ops.launch_counts()
+    log(f"  launches on the small proxies (f32): {small_counts}")
+    if not (small_counts["flash_attention"] > 0
+            and small_counts["flash_attention_wgmma"] == 0):
+        raise RuntimeError("small proxies: flash must run on the CUDA-core "
+                           "route alone (float32, hd 12/16)")
 
     log("phase 4: main path at full width")
     sat, gs, ac, counts, _ = main_path(torch)
@@ -1926,7 +2173,8 @@ def main() -> int:
     xlstm = xlstm_phase(torch)
 
     # each path drove the kernels with the counts zeroed just before it
-    by_path = {"cascade_server": counts, "slot_serve": slot["launches"],
+    by_path = {"small_proxies_f32": small_counts,
+               "cascade_server": counts, "slot_serve": slot["launches"],
                "spec_greedy": spec["greedy_launches"],
                "spec": spec["launches"],
                "chunked_serve": chunked["launches"],
@@ -1935,7 +2183,18 @@ def main() -> int:
         for name, cases in r.get("kernel_vs_plain_max_abs_err", {}).items():
             kernels[name].update({c: {"max_abs_err": e}
                                   for c, e in cases.items()})
-    headline = {"flash_attention": "7B", "decode_attention": "7B",
+    # flash's two routes: its ops key counts both, "flash_attention_wgmma"
+    # the tensor-core route alone; the line's "flash_attention" is the
+    # CUDA-core kernel
+    by_path = {p: dict(c, flash_attention=c["flash_attention"]
+                       - c["flash_attention_wgmma"])
+               for p, c in by_path.items()}
+    by_route = {"wgmma": sum(c["flash_attention_wgmma"]
+                             for c in by_path.values()),
+                "cuda_cores": sum(c["flash_attention"]
+                                  for c in by_path.values())}
+    headline = {"flash_attention_wgmma": "7B", "flash_attention": "7B",
+                "decode_attention": "7B",
                 "region_score": "main", "paged_decode_attention": "a 2B q1",
                 "paged_prefill_attention": "d 2B flat",
                 "ssm_scan": "f xLSTM", "slstm_scan": "g xLSTM"}
@@ -1952,7 +2211,9 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "shape": m["shape"],
-            "by_shape": shapes})
+            "by_shape": shapes,
+            **({"launches_by_route": by_route}
+               if name.startswith("flash_attention") else {})})
     log(smi)
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {

@@ -1,14 +1,16 @@
 // Causal GQA flash-attention forward for Hopper (sm_90a), CUDA cores, f32 math.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas
-// (the prefill of [regions | prompt] in models/layers.py, mode="prefill").
+// (the prefill of [regions | prompt] in models/layers.py, mode="prefill"),
+// on the route kernels/flash_attention.py::route gives float32 and head
+// dims other than 64/128 (the proxies' 12 and 16); bf16 at hd 64/128, the
+// full-width models' prefill, runs flash_attention_wgmma.cu.
 //
-// What bounds it on this card: at the main path's shapes (Sq = Skv = 1025,
-// hd = 128, GQA groups 6 and 7) the work is ~2·2·hd·S²/2 FLOPs per head
-// against a few MB of Q/K/V, so it is bound by operations.  This first
-// version runs them on the CUDA cores in float32 (67 TFLOP/s peak), not on
-// the tensor cores (989 TFLOP/s in bf16), so it sits well above the bound;
-// moving QK^T and PV to wgmma is the next step.
+// What bounds it on this card: the work is ~2·2·hd·S²/2 FLOPs per head
+// against a few MB of Q/K/V, so it is bound by operations.  It runs them
+// on the CUDA cores in float32 (67 TFLOP/s peak): exact enough that the
+// card's float32 decisions match the CPU's, which TF32 tensor cores would
+// not be.
 //
 // What the design does about it:
 //  * One block per (32-query tile, head, batch row): the TPU kernel's

@@ -1,12 +1,22 @@
-"""Flash-attention forward: the wrapper around ``csrc/flash_attention.cu``.
+"""Flash-attention forward: the wrapper around its two CUDA kernels.
 
 Causal GQA attention with an online softmax, optional sliding window and
 logit softcap, KV read at head ``h // group``.  Layout (B, H, S, hd) as the
 Pallas kernel's; any strides with a unit innermost one, so ``ops`` hands
 the model's (B, S, H, hd) tensors over as transposed views without a copy.
-Sq need not be a multiple of any tile: the kernel masks its ragged edge.
-The kernel does no head-dim padding in memory: it takes hd <= 128 with
-hd % 4 == 0 and zero-fills its shared-memory tiles up to 32, 64 or 128.
+Sq need not be a multiple of any tile: the kernels mask their ragged edge.
+
+Two routes, chosen by ``route`` from the dtype and head dim alone:
+
+* ``"wgmma"``: bfloat16 at hd 64 or 128 (the models' prefill) goes to
+  ``csrc/flash_attention_wgmma.cu``, QK^T and PV on the tensor cores with
+  K/V tiles loaded by TMA.  TMA needs 16-byte aligned bases and strides;
+  operands that break the rule raise here, they never take the other
+  route.  p is rounded to bf16 before PV.
+* ``"cuda_cores"``: float32 (whose card-vs-CPU decisions must not flip on
+  TF32 rounding) and every other head dim (hd <= 128, hd % 4 == 0, the
+  proxies' 12 and 16) go to ``csrc/flash_attention.cu``, f32 math on the
+  CUDA cores.
 """
 from __future__ import annotations
 
@@ -15,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.build import DTYPES, CudaKernel, check_operands
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -22,14 +33,67 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 KERNEL = CudaKernel("flash_attention.cu", "flash_attention_fwd",
                     [_P] * 4 + [_I] * 6 + [_L] * 12
                     + [_I, _I, _F, _F, _I, _P])
+WGMMA_KERNEL = CudaKernel("flash_attention_wgmma.cu",
+                          "flash_attention_wgmma_fwd",
+                          [_P] * 4 + [_I] * 6 + [_L] * 12
+                          + [_I, _I, _F, _F, _P])
+WGMMA_HEAD_DIMS = (64, 128)
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a (dtype, head dim) takes: ``"wgmma"`` for bfloat16 at hd
+    64 or 128, ``"cuda_cores"`` for float32 and other head dims; any other
+    dtype raises."""
+    if dtype not in DTYPES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_cores"
+
+
+def wgmma_block_resources() -> dict:
+    """{(hd, consumer warpgroups): (registers a thread, dynamic shared
+    memory bytes a block)} of the tensor-core kernel as built; builds it
+    if need be (the card's machine only)."""
+    WGMMA_KERNEL.bind()
+    fn = build.load(WGMMA_KERNEL.source).flash_attention_wgmma_resources
+    fn.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    fn.restype = _I
+    out = {}
+    for hd in WGMMA_HEAD_DIMS:
+        for nwg in (1, 2):
+            regs, smem = _I(), _I()
+            err = fn(hd, nwg, ctypes.byref(regs), ctypes.byref(smem))
+            if err:
+                raise RuntimeError(f"flash_attention_wgmma_resources: CUDA "
+                                   f"error {err}")
+            out[(hd, nwg)] = (regs.value, smem.value)
+    return out
+
+
+def check_tma(**ts: torch.Tensor) -> None:
+    """TMA's rules for the wgmma route: 16-byte aligned base addresses and
+    strides (a size-1 dimension's stride is never used).  Raises."""
+    for name, t in ts.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: TMA needs a 16-byte aligned base "
+                             f"address, got {t.data_ptr():#x}")
+        for size, stride in zip(t.shape[:-1], t.stride()[:-1]):
+            if size > 1 and (stride * t.element_size()) % 16:
+                raise ValueError(f"{name}: TMA needs 16-byte aligned "
+                                 f"strides, got {t.stride()}")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          softcap: Optional[float] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         via: Optional[str] = None) -> torch.Tensor:
     """q: (B, H, Sq, hd); k, v: (B, KH, Skv, hd) → (B, H, Sq, hd), on the
-    card.  The result is a (B, H, Sq, hd) view of a (B, Sq, H, hd) buffer."""
+    card, through the kernel ``route`` names.  ``via="cuda_cores"`` sends
+    any input the CUDA-core kernel takes there instead (a measurement's
+    yardstick; ``ops`` never passes it).  The result is a (B, H, Sq, hd)
+    view of a (B, Sq, H, hd) buffer."""
     check_operands(q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
@@ -42,15 +106,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {hd} unsupported (hd <= 128, hd % 4 == 0)")
     if not 1 <= sq <= skv:
         raise ValueError(f"kernel takes 1 <= Sq <= Skv, got {sq} > {skv}")
+    if via not in (None, "cuda_cores"):
+        raise ValueError(f"via must be None or 'cuda_cores', got {via!r}")
+    wgmma = via is None and route(q.dtype, hd) == "wgmma"
+    if wgmma:
+        check_tma(q=q, k=k, v=v)
     scale = scale if scale is not None else hd ** -0.5
     o = torch.empty((b, sq, h, hd), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            b, h, kh, sq, skv, hd,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3],
+            int(causal), int(window), float(softcap or 0.0), float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-               b, h, kh, sq, skv, hd,
-               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-               *o.stride()[:3],
-               int(causal), int(window), float(softcap or 0.0), float(scale),
-               DTYPES[q.dtype], stream)
+        if wgmma:
+            WGMMA_KERNEL(*args, stream)
+        else:
+            KERNEL(*args, DTYPES[q.dtype], stream)
     return o

@@ -28,15 +28,21 @@ from repro_torch.kernels import region_score as RS
 from repro_torch.kernels import slstm_scan as SL
 from repro_torch.kernels import ssm_scan as SS
 
-KERNELS = {"flash_attention": FA.KERNEL, "decode_attention": DA.KERNEL,
-           "region_score": RS.KERNEL,
+KERNELS = {"flash_attention": FA.KERNEL,
+           "flash_attention_wgmma": FA.WGMMA_KERNEL,
+           "decode_attention": DA.KERNEL, "region_score": RS.KERNEL,
            "paged_decode_attention": PDA.KERNEL,
            "paged_prefill_attention": PPA.KERNEL,
            "ssm_scan": SS.KERNEL, "slstm_scan": SL.KERNEL}
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    """Launches per kernel since the last reset.  ``"flash_attention"``
+    counts every launch of either flash route, ``"flash_attention_wgmma"``
+    the tensor-core route alone (the CUDA-core route is the difference)."""
+    counts = {name: k.launches for name, k in KERNELS.items()}
+    counts["flash_attention"] += counts["flash_attention_wgmma"]
+    return counts
 
 
 def reset_launch_counts() -> None:

@@ -7,7 +7,9 @@ and ``nvcc``).  Run on a machine with an H100:
 
 Tolerances, element by element: attention 1e-4 absolute in float32 (TF32
 off) and 1e-5 + 2^-6·|want| in bfloat16 (two bfloat16 ulps: both sides
-round an f32 result); region scores, f32 math and output, 1e-5 absolute;
+round an f32 result), except flash attention's tensor-core route, which
+rounds p to bfloat16 before PV and is held to 1e-5 + 2^-6·|want| +
+2^-8·attention(q, k, |v|); region scores, f32 math and output, 1e-5 absolute;
 the scans 1e-4 + 1e-4·|want| (f32 on both sides, another summation order),
 a bf16 scan output 1e-4 + 2^-6·|want|, the sLSTM 2e-4 + 2e-4·|want|.
 """
@@ -53,24 +55,61 @@ def _close(got, want, tol):
     assert not bool(bad.any()), float((got - want).abs().max())
 
 
+def _within_wgmma_bound(got, q, k, v, **kw):
+    """The tensor-core flash route rounds p to bf16 before PV: it is held
+    to 1e-5 + 2^-6·|want| + 2^-8·A, A = attention(q, k, |v|) in f32."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = ref.flash_attention(qf, kf, vf, **kw)
+    a = ref.flash_attention(qf, kf, vf.abs(), **kw)
+    bound = 1e-5 + 2.0 ** -6 * want.abs() + 2.0 ** -8 * a
+    diff = (got.float() - want).abs()
+    assert not bool((diff > bound).any()), float(diff.max())
+
+
 @pytest.mark.parametrize("hd,group,sq,skv,window,softcap,dtype", [
     (12, 3, 33, 33, 0, None, torch.float32),
     (16, 2, 70, 70, 16, None, torch.float32),
     (16, 2, 9, 50, 0, 5.0, torch.float32),
-    (128, 7, 1025, 1025, 0, None, torch.bfloat16),
+    (128, 7, 1025, 1025, 0, None, torch.bfloat16),     # wgmma route
     (128, 6, 200, 200, 0, None, torch.float32),
+    (64, 6, 300, 300, 0, None, torch.bfloat16),        # wgmma route
+    (128, 7, 65, 300, 100, 30.0, torch.bfloat16),      # wgmma, ragged
+    (16, 3, 65, 65, 0, None, torch.bfloat16),          # CUDA cores in bf16
 ])
 def test_flash_attention_kernel_matches_plain(card, hd, group, sq, skv,
                                               window, softcap, dtype):
+    """Each case through ``ops`` on the route ``route`` names: the wgmma
+    route held to its bound, the CUDA-core route to ``TOL``; the launch
+    counted on the route's own key."""
+    from repro_torch.kernels.flash_attention import route
     kh = 2
     q = _randn(card, 1, sq, kh * group, hd, dtype=dtype)
     k = _randn(card, 1, skv, kh, hd, dtype=dtype)
     v = _randn(card, 1, skv, kh, hd, dtype=dtype)
-    before = ops.launch_counts()["flash_attention"]
+    wgmma = route(dtype, hd) == "wgmma"
+    before = ops.launch_counts()
     got = ops.flash_attention(q, k, v, window=window, softcap=softcap)
-    assert ops.launch_counts()["flash_attention"] == before + 1
-    _close(got, ref.flash_attention(q, k, v, window=window, softcap=softcap),
-           TOL[dtype])
+    after = ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert (after["flash_attention_wgmma"]
+            == before["flash_attention_wgmma"] + int(wgmma))
+    if wgmma:
+        _within_wgmma_bound(got, q, k, v, window=window, softcap=softcap)
+    else:
+        _close(got, ref.flash_attention(q, k, v, window=window,
+                                        softcap=softcap), TOL[dtype])
+
+
+def test_flash_wgmma_route_refuses_misaligned_views(card):
+    """TMA's 16-byte rule is checked before the launch: a misaligned view
+    raises, it never takes the CUDA-core route."""
+    buf = _randn(card, 1, 70, 4, 136, dtype=torch.bfloat16)
+    q = buf[..., 1:129].transpose(1, 2)
+    k = buf[:, :, :2, :128].transpose(1, 2)
+    before = ops.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(q, k, k)
+    assert ops.launch_counts()["flash_attention"] == before
 
 
 @pytest.mark.parametrize("hd,group,q_len,window,softcap,dtype", [

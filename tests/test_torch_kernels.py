@@ -86,6 +86,109 @@ def test_flash_attention_bottom_right_alignment():
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core flash route: its rounding, its bound, its route rule
+# ---------------------------------------------------------------------------
+
+def _emulate_wgmma_flash(q, k, v, *, window=0, softcap=None, tile=64):
+    """What the wgmma flash kernel computes, in float32 on the CPU: a tiled
+    online softmax over 64-key tiles (base e here, base 2 on the card),
+    p rounded to bfloat16 before PV, l summed from the f32 p, the output
+    rounded to bfloat16.  Bottom-right causal alignment."""
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    scale = hd ** -0.5
+    qf = q.float().reshape(b, sq, kh, h // kh, hd).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]      # (b, kh, 1, skv, hd)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    rows = torch.arange(sq)[:, None] + (skv - sq)
+    m = torch.full(qf.shape[:-1] + (1,), -1e30)
+    lsum = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, skv, tile):
+        cols = torch.arange(k0, min(k0 + tile, skv))[None, :]
+        sc = qf @ kf[..., k0:k0 + tile, :].transpose(-1, -2) * scale
+        if softcap is not None:
+            sc = softcap * torch.tanh(sc / softcap)
+        mask = cols <= rows
+        if window > 0:
+            mask &= cols > rows - window
+        sc = torch.where(mask, sc, torch.tensor(float("-inf")))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(sc - m_new)
+        lsum = lsum * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[..., k0:k0 + tile, :]
+        m = m_new
+    out = acc / lsum.clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).bfloat16()
+
+
+def wgmma_bound_share(got, q, k, v, **kw):
+    """max over elements of |got - want| / (1e-5 + 2^-6·|want| + 2^-8·A),
+    want the f32 plain version, A = attention(q, k, |v|): the bound the
+    tensor-core route is held to (rounding p to bf16 moves an output by at
+    most 2^-9·A; the 2^-8 leaves a factor 2 for the f32 sums' order and
+    the running-max rescales)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = tref.flash_attention(qf, kf, vf, **kw)
+    a = tref.flash_attention(qf, kf, vf.abs(), **kw)
+    bound = 1e-5 + 2.0 ** -6 * want.abs() + 2.0 ** -8 * a
+    return float(((got.float() - want).abs() / bound).max())
+
+
+@pytest.mark.parametrize("group,kh,hd,sq,skv,window,softcap", [
+    (7, 1, 128, 257, 257, 0, None),     # the 7B's group at its head dim
+    (6, 2, 64, 65, 200, 0, None),       # ragged Sq < Skv
+    (2, 2, 128, 130, 130, 32, None),    # sliding window
+    (3, 1, 64, 100, 100, 0, 30.0),      # logit softcap
+])
+def test_wgmma_flash_rounding_stays_within_its_bound(group, kh, hd, sq, skv,
+                                                     window, softcap):
+    """The tensor-core route rounds p to bf16 before PV, so it cannot meet
+    two bf16 ulps of the f32 plain version; an emulation of its arithmetic
+    stays within the stated bound with room to spare (at most 0.6 of it),
+    and the plain version it is held to equals the JAX oracle."""
+    rng = np.random.default_rng(group * 1000 + sq)
+    q = _t(_rand(rng, 1, sq, kh * group, hd)).bfloat16()
+    k = _t(_rand(rng, 1, skv, kh, hd)).bfloat16()
+    v = _t(_rand(rng, 1, skv, kh, hd)).bfloat16()
+    kw = dict(window=window, softcap=softcap)
+    emulated = _emulate_wgmma_flash(q, k, v, **kw)
+    assert wgmma_bound_share(emulated, q, k, v, **kw) <= 0.6
+    want = tref.flash_attention(q.float(), k.float(), v.float(), **kw)
+    oracle = jref.flash_attention(*(jnp.asarray(t.float().numpy())
+                                    for t in (q, k, v)), **kw)
+    _close(want, oracle)
+
+
+def test_flash_route_rule():
+    """bf16 at hd 64/128 takes the tensor cores; float32 (card-vs-CPU
+    decisions in f32 must not flip on TF32 rounding) and other head dims
+    take the CUDA cores; any other dtype raises."""
+    from repro_torch.kernels.flash_attention import route
+    assert route(torch.bfloat16, 64) == route(torch.bfloat16, 128) == "wgmma"
+    for dtype, hd in [(torch.float32, 128), (torch.float32, 64),
+                      (torch.bfloat16, 16), (torch.bfloat16, 12),
+                      (torch.bfloat16, 96)]:
+        assert route(dtype, hd) == "cuda_cores"
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            route(dtype, 128)
+
+
+def test_flash_tma_rule_refuses_misaligned_operands():
+    """The wgmma route's operands need 16-byte aligned bases and strides;
+    a size-1 dimension's stride does not count."""
+    from repro_torch.kernels.flash_attention import check_tma
+    buf = torch.zeros(2, 4, 33, 136, dtype=torch.bfloat16)
+    check_tma(q=buf[..., :128], k=buf[:1, :, :1, 8:72])
+    with pytest.raises(ValueError, match="aligned base"):
+        check_tma(q=buf[..., 1:129])
+    odd = torch.zeros(2, 4, 33, 129, dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="aligned strides"):
+        check_tma(k=odd)
+
+
+# ---------------------------------------------------------------------------
 # decode attention (q_len = 1) and the multi-token chunk (q_len = 3)
 # ---------------------------------------------------------------------------
 
