@@ -17,8 +17,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    softcaps none/30, Sq 65 < Skv 300; the model layout through ``ops``
    and (B, H, S, hd) tensors; K/V views of buffers that are NaN past Skv)
    and at the 2B/7B shapes, each element within 1e-5 + 2^-6·|want| +
-   2^-8·attention(q, k, |v|) (it rounds p to bf16 before PV), and a
-   misaligned view must raise.
+   2^-8·attention(q, k, |v|) (it rounds p to bf16 before PV; see
+   ``check_wgmma``), and a misaligned view must raise.
    The paged decode kernel: an f32 sweep over page sizes 1-16, windows,
    softcaps, q_len up to 9 (63 rows), rows with cache_len 0 and
    0 < cache_len < q_len; then (a) the 2B slot step (B 8, KH 2, group 6,
@@ -267,10 +267,15 @@ def check(name, got, want, tol, case, errors):
 def check_wgmma(name, got, q, k, v, kw, case, errors):
     """The tensor-core flash route, element by element within
     1e-5 + 2^-6·|want| + 2^-8·A, want the f32 plain version and A =
-    attention(q, k, |v|) in f32: it rounds p to bf16 before PV, which
-    moves an output by at most 2^-9·A (the 2^-8 leaves a factor 2 for the
-    order of the f32 sums and the running-max rescales).  Prints the share
-    of the bound used; returns the max absolute error."""
+    attention(q, k, |v|) in f32.  It rounds p to bf16 before PV; bf16's
+    unit roundoff is 2^-8, so each p_j moves by at most 2^-8·p_j and an
+    output by at most 2^-8·A: the third term is exactly that worst case.
+    The output's own rounding to bf16 (2^-9·|want|) falls under 2^-6·|want|,
+    the f32 sums' order, the rescales and ex2.approx (relative errors near
+    2^-24 a step) under the rest.  The p roundings take both signs, so
+    their sum stays well inside the worst case; the shares this prints
+    (of the whole bound) are the evidence.  Returns (max absolute error,
+    share of the bound used)."""
     from repro_torch.kernels import ref
     qf, kf, vf = q.float(), k.float(), v.float()
     want = ref.flash_attention(qf, kf, vf, **kw)
@@ -285,7 +290,7 @@ def check_wgmma(name, got, q, k, v, kw, case, errors):
     if not ok:
         errors.append(f"{name} {case}: max_abs_err {err}, {share:.3f} of "
                       f"the bound")
-    return err
+    return err, share
 
 
 def flash_wgmma_sweep(torch, randn, errors):
@@ -297,7 +302,8 @@ def flash_wgmma_sweep(torch, randn, errors):
     NaN, so a tensor map sized past Skv would show.  The grids run from 2
     blocks to B 2 x 28 heads x 17 tiles = 952, so both block shapes the
     launcher picks (one or two consumer warpgroups) are held.  A
-    misaligned view must raise before any launch."""
+    misaligned view must raise before any launch.  Returns the largest
+    share of the bound any case used."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     bf16, nan = torch.bfloat16, float("nan")
@@ -307,6 +313,7 @@ def flash_wgmma_sweep(torch, randn, errors):
              for g, kh, hd in ((1, 2, 64), (6, 2, 128), (7, 4, 128),
                                (7, 1, 64))]
     cases += [(65, 300, 6, 2, 128), (65, 300, 7, 1, 64)]
+    shares = []
     for n, (sq, skv, group, kh, hd) in enumerate(cases):
         window, softcap = opts[n % len(opts)]
         kw = {"window": window, "softcap": softcap}
@@ -328,9 +335,11 @@ def flash_wgmma_sweep(torch, randn, errors):
                 got = flash_attention_cuda(
                     q.transpose(1, 2).contiguous(), k.transpose(1, 2),
                     v.transpose(1, 2), **kw).transpose(1, 2)
-            check_wgmma("flash_attention", got, q, k, v, kw,
-                        f"bf16 {layout} hd{hd} g{group} Sq{sq} Skv{skv} "
-                        f"w{window} cap{softcap}", errors)
+            shares.append(check_wgmma(
+                "flash_attention", got, q, k, v, kw,
+                f"bf16 {layout} hd{hd} g{group} Sq{sq} Skv{skv} "
+                f"w{window} cap{softcap}", errors)[1])
+    log(f"  wgmma sweep: largest share of the bound {max(shares):.3f}")
     buf = randn(1, 70, 4, 136, dtype=bf16)
     try:
         flash_attention_cuda(buf[..., 1:129].transpose(1, 2),
@@ -340,6 +349,7 @@ def flash_wgmma_sweep(torch, randn, errors):
         log("  flash_attention  misaligned q view: launched (FAIL)")
     except ValueError as e:
         log(f"  flash_attention  misaligned q view: refused ({e}) ok")
+    return max(shares)
 
 
 def host_us(torch, fn, reps: int = 200) -> float:
@@ -359,8 +369,8 @@ def kernel_checks(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     launch_cuda_cores)
     from repro_torch.kernels.region_score import region_score_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -393,25 +403,22 @@ def kernel_checks(torch):
               ops.flash_attention(q, k, v, window=window, softcap=softcap),
               ref.flash_attention(q, k, v, window=window, softcap=softcap),
               TOL_F32 if dt == torch.float32 else TOL_BF16, case, errors)
-    flash_wgmma_sweep(torch, randn, errors)
-    resources = {f"hd{hd} warpgroups {nwg}": {"registers": r,
-                                             "shared_bytes": sm}
-                 for (hd, nwg), (r, sm) in FA.wgmma_block_resources().items()}
-    log(f"  flash_attention_wgmma block resources: {resources}")
+    sweep_share = flash_wgmma_sweep(torch, randn, errors)
     for tag, h, kh in (("2B", 12, 2), ("7B", 28, 4)):
         s, hd = 1025, 128
         q, k, v = randn(1, s, h, hd, dtype=bf16), randn(1, s, kh, hd,
                                                           dtype=bf16), \
             randn(1, s, kh, hd, dtype=bf16)
-        err = check_wgmma("flash_attention", ops.flash_attention(q, k, v),
-                          q, k, v, {}, f"bf16 {tag} H{h} KH{kh} S{s} hd{hd}",
-                          errors)
+        err, share = check_wgmma("flash_attention",
+                                 ops.flash_attention(q, k, v), q, k, v, {},
+                                 f"bf16 {tag} H{h} KH{kh} S{s} hd{hd}",
+                                 errors)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         # the CUDA-core kernel at the same shape, at its own tolerance
         err_cc = check("flash_attention",
-                       flash_attention_cuda(qt, kt, vt, via="cuda_cores")
-                       .transpose(1, 2), ref.flash_attention(q, k, v),
-                       TOL_BF16, f"bf16 {tag} S{s} hd{hd} via CUDA cores",
+                       launch_cuda_cores(qt, kt, vt).transpose(1, 2),
+                       ref.flash_attention(q, k, v), TOL_BF16,
+                       f"bf16 {tag} S{s} hd{hd} on CUDA cores",
                        errors)
         flops = 4.0 * hd * h * s * (s + 1) / 2
         b_ms, b_by = bound_ms(nbytes(q, k, v, q), flops, "bfloat16")
@@ -422,21 +429,21 @@ def kernel_checks(torch):
              "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
         # kernel, library, CUDA cores, kernel: one card, one call, in turns
         wg_ms = [timer(lambda: flash_attention_cuda(qt, kt, vt))]
-        cc_ms = timer(lambda: flash_attention_cuda(qt, kt, vt,
-                                                   via="cuda_cores"))
+        cc_ms = timer(lambda: launch_cuda_cores(qt, kt, vt))
         wg_ms.append(timer(lambda: flash_attention_cuda(qt, kt, vt)))
         ms = sum(wg_ms) / len(wg_ms)
         report.setdefault("flash_attention_wgmma", {})[tag] = dict(
             m, max_abs_err=err, ms=ms, ms_runs=wg_ms, route="wgmma",
-            bound_share=b_ms / ms, block_resources=resources)
+            bound_share=b_ms / ms, tolerance_share=share,
+            sweep_tolerance_share=sweep_share)
         report.setdefault("flash_attention", {})[tag] = dict(
             m, max_abs_err=err_cc, ms=cc_ms, route="cuda_cores")
         # what encoding the three tensor maps adds on the host: enqueue
         # time of one launch per route, no L2 flush (the device lags)
         report["flash_attention_wgmma"][tag]["host_us_per_call"] = {
-            r: host_us(torch, lambda: flash_attention_cuda(qt, kt, vt,
-                                                           via=via))
-            for r, via in (("wgmma", None), ("cuda_cores", "cuda_cores"))}
+            r: host_us(torch, lambda: launch(qt, kt, vt))
+            for r, launch in (("wgmma", flash_attention_cuda),
+                              ("cuda_cores", launch_cuda_cores))}
 
     # -- decode attention: (B, H, hd) / (B, T, H, hd) through ops -----------
     log("decode_attention vs plain")
@@ -1194,8 +1201,9 @@ def main_path(torch):
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     with PrefillCounter() as prefills:
-        results = serve(torch, sat, gs, conf, ac, reqs, "cuda",
-                        answer_vocab)
+        results, flash_in = capture_inputs(
+            torch, lambda: serve(torch, sat, gs, conf, ac, reqs, "cuda",
+                                 answer_vocab), ["flash_attention"])
     torch.cuda.synchronize()
     counts = ops.launch_counts()
 
@@ -1214,7 +1222,28 @@ def main_path(torch):
         raise RuntimeError(f"kernels never launched on the main path: "
                            f"{missing}")
     prefills.check(counts, "main path")
-    return sat, gs, ac, counts, results
+    return sat, gs, ac, counts, flash_on_path_inputs(
+        flash_in["flash_attention"])
+
+
+def flash_on_path_inputs(calls):
+    """The tensor-core flash route held to its bound on the path's own
+    prefill inputs (the first layer's Q/K/V at each shape the path gave
+    it), after the path's counts were read.  Returns {case: numbers}."""
+    from repro_torch.kernels import ops
+    errors, out = [], {}
+    log("flash_attention on phase 4's own prefill inputs (wgmma route)")
+    for (q, k, v), kw in calls:
+        case = (f"phase 4 prefill H{q.shape[2]} KH{k.shape[2]} "
+                f"Sq{q.shape[1]} Skv{k.shape[1]}")
+        err, share = check_wgmma("flash_attention",
+                                 ops.flash_attention(q, k, v, **kw), q, k, v,
+                                 kw, case, errors)
+        out[case] = {"max_abs_err": err, "tolerance_share": share}
+    if errors:
+        raise RuntimeError(f"main path: flash outside its bound on the "
+                           f"path's own inputs: {errors}")
+    return out
 
 
 class PrefillCounter:
@@ -1240,8 +1269,9 @@ class PrefillCounter:
         self.T.prefill = self.orig
 
     def check(self, counts, path):
-        wg, cc = (counts["flash_attention_wgmma"],
-                  counts["flash_attention"] - counts["flash_attention_wgmma"])
+        from repro_torch.kernels import ops
+        by_route = ops.flash_launches_by_route(counts)
+        wg, cc = by_route["wgmma"], by_route["cuda_cores"]
         log(f"  {path}: {self.calls} prefills over {self.layers} layers; "
             f"flash launches wgmma {wg}, CUDA cores {cc}")
         if not (self.calls > 0 and wg == self.layers and cc == 0):
@@ -1520,8 +1550,8 @@ def chunked_phase(torch, sat, ac, slot):
         "decode launches == layers x plain steps":
             counts["paged_decode_attention"] == n_layers * (steps - fused),
         "no flash prefill (either route), no region scoring":
-            counts["flash_attention"] == counts["flash_attention_wgmma"]
-            == counts["region_score"] == 0,
+            ops.flash_launches_by_route(counts)
+            == {"wgmma": 0, "cuda_cores": 0} and counts["region_score"] == 0,
     }
     agree = [bool((a == b).all()) for a, b in zip(toks, slot["tokens"])]
     det_pos = [float((a == b).mean()) for a, b, r in
@@ -1680,21 +1710,21 @@ def spec_phase(torch, sat, gs, ac):
     return res
 
 
-class FlashVia:
+class FlashOnCudaCores:
     """While active, the model's flash prefill goes to the CUDA-core kernel
-    (``via="cuda_cores"``) instead of the route ``route`` names: phase 5's
-    yardstick for what the tensor-core route moves end to end.  Launches
-    here are not counted on any path."""
+    instead of the route ``route`` names: phase 5's yardstick for what the
+    tensor-core route moves end to end.  Launches here are not counted on
+    any path."""
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        from repro_torch.kernels.flash_attention import flash_attention_cuda
+        from repro_torch.kernels.flash_attention import launch_cuda_cores
         self.ops, self.orig = ops, ops.flash_attention
 
         def flash(q, k, v, **kw):
-            return flash_attention_cuda(
+            return launch_cuda_cores(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                via="cuda_cores", **kw).transpose(1, 2)
+                **kw).transpose(1, 2)
 
         ops.flash_attention = flash
         return self
@@ -1729,7 +1759,7 @@ def breakdown(torch, sat, gs, ac, n_steps: int = 32):
 
         by_route = {"wgmma": [], "cuda_cores": []}
         for route in ("wgmma", "cuda_cores", "cuda_cores", "wgmma"):
-            with (FlashVia() if route == "cuda_cores"
+            with (FlashOnCudaCores() if route == "cuda_cores"
                   else contextlib.nullcontext()):
                 prefill()
                 torch.cuda.synchronize()
@@ -1929,24 +1959,30 @@ def xlstm_continuation(torch, T, params, cfg, toks, n_steps):
     return out
 
 
-def capture_scan_inputs(torch, fn):
-    """Runs ``fn()`` with ``ops.ssm_scan`` and ``ops.slstm_scan`` wrapped
-    so that the first call of each keeps a copy of its arguments (the
-    first mLSTM and the first sLSTM layer's inputs on the path); returns
-    (``fn()``'s result, {name: args})."""
+def capture_inputs(torch, fn, names):
+    """Runs ``fn()`` with the ``ops`` functions ``names`` wrapped so that
+    the first call of each at each set of operand shapes keeps a copy of
+    its arguments (the first layer's inputs at that shape on the path);
+    returns (``fn()``'s result, {name: [(args, kwargs), ...]} in call
+    order)."""
     from repro_torch.kernels import ops
-    saved = {n: getattr(ops, n) for n in ("ssm_scan", "slstm_scan")}
-    got = {}
+    saved = {n: getattr(ops, n) for n in names}
+    got = {n: {} for n in names}
 
     def copy(x):
         if isinstance(x, tuple):
             return tuple(copy(y) for y in x)
         return x.clone() if torch.is_tensor(x) else x
 
+    def shapes(x):
+        if isinstance(x, tuple):
+            return tuple(shapes(y) for y in x)
+        return tuple(x.shape) if torch.is_tensor(x) else None
+
     def wrap(name):
-        def call(*args):
-            got.setdefault(name, copy(args))
-            return saved[name](*args)
+        def call(*args, **kw):
+            got[name].setdefault(shapes(args), (copy(args), kw))
+            return saved[name](*args, **kw)
         return call
 
     try:
@@ -1956,7 +1992,7 @@ def capture_scan_inputs(torch, fn):
     finally:
         for n, f in saved.items():
             setattr(ops, n, f)
-    return res, got
+    return res, {n: list(g.values()) for n, g in got.items()}
 
 
 def xlstm_kernels_vs_plain(torch, T, params, cfg, toks, tag):
@@ -1967,21 +2003,23 @@ def xlstm_kernels_vs_plain(torch, T, params, cfg, toks, tag):
     run's counts were read before.  Returns {kernel: {case: max_abs_err}}."""
     from repro_torch.kernels import ops, ref
     b, s = toks.shape
-    (logits, cache, idx), pre = capture_scan_inputs(
-        torch, lambda: T.prefill(params, cfg, {"tokens": toks}, s + 1))
+    scans = ["ssm_scan", "slstm_scan"]
+    (logits, cache, idx), pre = capture_inputs(
+        torch, lambda: T.prefill(params, cfg, {"tokens": toks}, s + 1),
+        scans)
     nxt = logits.argmax(-1).to(torch.int32)[:, None]
-    _, dec = capture_scan_inputs(
+    _, dec = capture_inputs(
         torch, lambda: T.decode_step(params, cfg, cache, {"tokens": nxt},
-                                     idx))
+                                     idx), scans)
     del cache
     errors, out = [], {"ssm_scan": {}, "slstm_scan": {}}
     case = f"xlstm {tag} prefill B{b} S{s}"
-    args = pre["ssm_scan"]
+    args = pre["ssm_scan"][0][0]
     out["ssm_scan"][case] = ssm_check(case, ops.ssm_scan(*args),
                                       ref.ssm_scan(*args), errors)
-    for case, args in ((case, pre["slstm_scan"]),
+    for case, args in ((case, pre["slstm_scan"][0][0]),
                        (f"xlstm {tag} decode B{b} carried state",
-                        dec["slstm_scan"])):
+                        dec["slstm_scan"][0][0])):
         out["slstm_scan"][case] = slstm_check(
             case, ops.slstm_scan(*args), ref.slstm_scan(*args), TOL_SLSTM,
             errors)
@@ -2132,7 +2170,8 @@ def main() -> int:
     rep = build.build_all(SOURCES)
     for src, r in rep.items():
         info = [ln.strip() for ln in r["log"].splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln
+                or "entry function" in ln]
         log(f"  {src}: {r['path']} ({r['seconds']:.1f} s)")
         for ln in info:
             log(f"    {ln}")
@@ -2147,13 +2186,14 @@ def main() -> int:
     torch.cuda.synchronize()
     small_counts = ops.launch_counts()
     log(f"  launches on the small proxies (f32): {small_counts}")
-    if not (small_counts["flash_attention"] > 0
-            and small_counts["flash_attention_wgmma"] == 0):
+    small_flash = ops.flash_launches_by_route(small_counts)
+    if not (small_flash["cuda_cores"] > 0 and small_flash["wgmma"] == 0):
         raise RuntimeError("small proxies: flash must run on the CUDA-core "
                            "route alone (float32, hd 12/16)")
 
     log("phase 4: main path at full width")
-    sat, gs, ac, counts, _ = main_path(torch)
+    sat, gs, ac, counts, held = main_path(torch)
+    kernels["flash_attention_wgmma"].update(held)
 
     log("phase 5: where the time goes")
     breakdown(torch, sat, gs, ac)
@@ -2183,16 +2223,12 @@ def main() -> int:
         for name, cases in r.get("kernel_vs_plain_max_abs_err", {}).items():
             kernels[name].update({c: {"max_abs_err": e}
                                   for c, e in cases.items()})
-    # flash's two routes: its ops key counts both, "flash_attention_wgmma"
-    # the tensor-core route alone; the line's "flash_attention" is the
-    # CUDA-core kernel
-    by_path = {p: dict(c, flash_attention=c["flash_attention"]
-                       - c["flash_attention_wgmma"])
+    # the line's "flash_attention" is the CUDA-core kernel alone
+    routes = {p: ops.flash_launches_by_route(c) for p, c in by_path.items()}
+    by_path = {p: dict(c, flash_attention=routes[p]["cuda_cores"])
                for p, c in by_path.items()}
-    by_route = {"wgmma": sum(c["flash_attention_wgmma"]
-                             for c in by_path.values()),
-                "cuda_cores": sum(c["flash_attention"]
-                                  for c in by_path.values())}
+    by_route = {r: sum(c[r] for c in routes.values())
+                for r in ("wgmma", "cuda_cores")}
     headline = {"flash_attention_wgmma": "7B", "flash_attention": "7B",
                 "decode_attention": "7B",
                 "region_score": "main", "paged_decode_attention": "a 2B q1",

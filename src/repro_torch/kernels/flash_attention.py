@@ -25,7 +25,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
 from repro_torch.kernels.build import DTYPES, CudaKernel, check_operands
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -51,26 +50,6 @@ def route(dtype: torch.dtype, hd: int) -> str:
     return "cuda_cores"
 
 
-def wgmma_block_resources() -> dict:
-    """{(hd, consumer warpgroups): (registers a thread, dynamic shared
-    memory bytes a block)} of the tensor-core kernel as built; builds it
-    if need be (the card's machine only)."""
-    WGMMA_KERNEL.bind()
-    fn = build.load(WGMMA_KERNEL.source).flash_attention_wgmma_resources
-    fn.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
-    fn.restype = _I
-    out = {}
-    for hd in WGMMA_HEAD_DIMS:
-        for nwg in (1, 2):
-            regs, smem = _I(), _I()
-            err = fn(hd, nwg, ctypes.byref(regs), ctypes.byref(smem))
-            if err:
-                raise RuntimeError(f"flash_attention_wgmma_resources: CUDA "
-                                   f"error {err}")
-            out[(hd, nwg)] = (regs.value, smem.value)
-    return out
-
-
 def check_tma(**ts: torch.Tensor) -> None:
     """TMA's rules for the wgmma route: 16-byte aligned base addresses and
     strides (a size-1 dimension's stride is never used).  Raises."""
@@ -84,16 +63,9 @@ def check_tma(**ts: torch.Tensor) -> None:
                                  f"strides, got {t.stride()}")
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, window: int = 0,
-                         softcap: Optional[float] = None,
-                         scale: Optional[float] = None,
-                         via: Optional[str] = None) -> torch.Tensor:
-    """q: (B, H, Sq, hd); k, v: (B, KH, Skv, hd) → (B, H, Sq, hd), on the
-    card, through the kernel ``route`` names.  ``via="cuda_cores"`` sends
-    any input the CUDA-core kernel takes there instead (a measurement's
-    yardstick; ``ops`` never passes it).  The result is a (B, H, Sq, hd)
-    view of a (B, Sq, H, hd) buffer."""
+def _launch_args(q, k, v, causal, window, softcap, scale):
+    """Checks what both kernels take; returns the output (a (B, H, Sq, hd)
+    view of a (B, Sq, H, hd) buffer) and the entry point's arguments."""
     check_operands(q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
@@ -106,11 +78,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {hd} unsupported (hd <= 128, hd % 4 == 0)")
     if not 1 <= sq <= skv:
         raise ValueError(f"kernel takes 1 <= Sq <= Skv, got {sq} > {skv}")
-    if via not in (None, "cuda_cores"):
-        raise ValueError(f"via must be None or 'cuda_cores', got {via!r}")
-    wgmma = via is None and route(q.dtype, hd) == "wgmma"
-    if wgmma:
-        check_tma(q=q, k=k, v=v)
     scale = scale if scale is not None else hd ** -0.5
     o = torch.empty((b, sq, h, hd), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
@@ -119,10 +86,46 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3],
             int(causal), int(window), float(softcap or 0.0), float(scale))
+    return o, args
+
+
+def launch_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool = True, window: int = 0,
+                 softcap: Optional[float] = None,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """The tensor-core kernel: bfloat16 at hd 64 or 128, operands that keep
+    TMA's 16-byte rule; raises on anything else."""
+    if route(q.dtype, q.shape[-1]) != "wgmma":
+        raise ValueError(f"the wgmma kernel takes bfloat16 at hd "
+                         f"{WGMMA_HEAD_DIMS}, got {q.dtype} hd {q.shape[-1]}")
+    o, args = _launch_args(q, k, v, causal, window, softcap, scale)
+    check_tma(q=q, k=k, v=v)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if wgmma:
-            WGMMA_KERNEL(*args, stream)
-        else:
-            KERNEL(*args, DTYPES[q.dtype], stream)
+        WGMMA_KERNEL(*args, torch.cuda.current_stream().cuda_stream)
     return o
+
+
+def launch_cuda_cores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      softcap: Optional[float] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """The CUDA-core kernel, on any input it takes (float32 or bfloat16,
+    hd <= 128, hd % 4 == 0)."""
+    o, args = _launch_args(q, k, v, causal, window, softcap, scale)
+    with torch.cuda.device(q.device):
+        KERNEL(*args, DTYPES[q.dtype],
+               torch.cuda.current_stream().cuda_stream)
+    return o
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0,
+                         softcap: Optional[float] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, H, Sq, hd); k, v: (B, KH, Skv, hd) → (B, H, Sq, hd), on the
+    card, through the kernel ``route`` names.  The result is a (B, H, Sq,
+    hd) view of a (B, Sq, H, hd) buffer."""
+    launch = (launch_wgmma if route(q.dtype, q.shape[-1]) == "wgmma"
+              else launch_cuda_cores)
+    return launch(q, k, v, causal=causal, window=window, softcap=softcap,
+                  scale=scale)

@@ -39,10 +39,17 @@ KERNELS = {"flash_attention": FA.KERNEL,
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last reset.  ``"flash_attention"``
     counts every launch of either flash route, ``"flash_attention_wgmma"``
-    the tensor-core route alone (the CUDA-core route is the difference)."""
+    the tensor-core route alone (``flash_launches_by_route`` splits them)."""
     counts = {name: k.launches for name, k in KERNELS.items()}
     counts["flash_attention"] += counts["flash_attention_wgmma"]
     return counts
+
+
+def flash_launches_by_route(counts: Dict[str, int]) -> Dict[str, int]:
+    """Flash launches of ``launch_counts()``'s result by route:
+    {"wgmma": n, "cuda_cores": n}."""
+    wgmma = counts["flash_attention_wgmma"]
+    return {"wgmma": wgmma, "cuda_cores": counts["flash_attention"] - wgmma}
 
 
 def reset_launch_counts() -> None:

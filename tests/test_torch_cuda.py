@@ -100,6 +100,21 @@ def test_flash_attention_kernel_matches_plain(card, hd, group, sq, skv,
                                         softcap=softcap), TOL[dtype])
 
 
+def test_flash_wgmma_one_warpgroup_blocks_match_plain(card):
+    """A grid of at least two blocks an SM (B 2 x 28 heads x 17 tiles =
+    952) takes the one-consumer-warpgroup block: held to the wgmma bound
+    at the 7B's heads and head dim."""
+    q = _randn(card, 2, 1025, 28, 128, dtype=torch.bfloat16)
+    k = _randn(card, 2, 1025, 4, 128, dtype=torch.bfloat16)
+    v = _randn(card, 2, 1025, 4, 128, dtype=torch.bfloat16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert 2 * 28 * 17 >= 2 * sms
+    before = ops.launch_counts()["flash_attention_wgmma"]
+    got = ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention_wgmma"] == before + 1
+    _within_wgmma_bound(got, q, k, v)
+
+
 def test_flash_wgmma_route_refuses_misaligned_views(card):
     """TMA's 16-byte rule is checked before the launch: a misaligned view
     raises, it never takes the CUDA-core route."""

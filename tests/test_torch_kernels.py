@@ -125,9 +125,10 @@ def _emulate_wgmma_flash(q, k, v, *, window=0, softcap=None, tile=64):
 def wgmma_bound_share(got, q, k, v, **kw):
     """max over elements of |got - want| / (1e-5 + 2^-6·|want| + 2^-8·A),
     want the f32 plain version, A = attention(q, k, |v|): the bound the
-    tensor-core route is held to (rounding p to bf16 moves an output by at
-    most 2^-9·A; the 2^-8 leaves a factor 2 for the f32 sums' order and
-    the running-max rescales)."""
+    tensor-core route is held to.  bf16's unit roundoff is 2^-8, so rounding
+    p moves an output by at most 2^-8·A, the third term exactly; the
+    roundings take both signs, which is where the room the tests measure
+    comes from."""
     qf, kf, vf = q.float(), k.float(), v.float()
     want = tref.flash_attention(qf, kf, vf, **kw)
     a = tref.flash_attention(qf, kf, vf.abs(), **kw)
