@@ -19,14 +19,25 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    and at the 2B/7B shapes, each element within 1e-5 + 2^-6·|want| +
    2^-8·attention(q, k, |v|) (it rounds p to bf16 before PV; see
    ``check_wgmma``), and a misaligned view must raise.
-   The paged decode kernel: an f32 sweep over page sizes 1-16, windows,
-   softcaps, q_len up to 9 (63 rows), rows with cache_len 0 and
-   0 < cache_len < q_len; then (a) the 2B slot step (B 8, KH 2, group 6,
+   Decode attention has two routes too: the CUDA-core kernels (f32 and hd
+   12/16, at the old tolerances; q_len·group past one block's rows in row
+   tiles: 33, 35 and 70 rows) and the tensor-core kernel (bf16, hd 64/128,
+   ``mma.sync``, one launch a call), held to flash's tensor-core bound
+   (``check_mma_decode``) over a sweep (hd 64/128, groups 1-7, q_len 1-16,
+   cache_len 0, 1, a partial tile and the whole cache, windows, softcaps;
+   the cache NaN past each row's length) and at the 2B/7B decode step,
+   where the CUDA-core kernel is held to its own tolerance at the same
+   shape; a misaligned view must raise.
+   The paged decode kernels: an f32 sweep over page sizes 1-16, windows,
+   softcaps, q_len up to 10 (70 rows), rows with cache_len 0 and
+   0 < cache_len < q_len; a bf16 sweep of the tensor-core route (pages 1-64,
+   q_len up to 10); then (a) the 2B slot step (B 8, KH 2, group 6,
    page 8, table width 257, cache_len 1025-2049, shared prefix pages in
    several rows, trash entries past each row's length), (b) the same at the
    7B width (KH 4, group 7) and (c) the 7B verify at q_len 5 (35 rows,
-   B 4).  The kernel reads pools whose trash page is NaN, so a read past a
-   row's length would show.  Tolerances, element by element: attention in
+   B 4), each on both routes, and the 7B verify at γ 9 (q_len 10, 70 rows:
+   two row tiles) on both.  The kernels read pools whose trash page is NaN,
+   so a read past a row's length would show.  Tolerances, element by element: attention in
    float32 1e-4 absolute; attention in bfloat16 1e-5 + 2^-6·|want| (two
    bfloat16 ulps of the plain value: both sides round an f32 result to
    bfloat16); region scores (f32 math and output in both) 1e-5 absolute,
@@ -35,7 +46,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    call (for the paged kernel: gathering the pages plus
    ``scaled_dot_product_attention``, two calls) at the main paths' shapes
    (cold L2: a 64 MiB buffer is rewritten before every launch and its own
-   time subtracted).  The paged prefix-append kernel: an f32 sweep over
+   time subtracted); the decode kernels' two routes and the library call
+   in turns (tensor cores, library, CUDA cores, tensor cores).  The paged
+   prefix-append kernel: an f32 sweep over
    page sizes 1-16, chunks of 1-64 tokens (q_blk dividing them or not),
    windows, softcaps, groups 1/6/7, rows of length 0, below the chunk, the
    chunk alone and mid-prefill, NaN trash page, pools left unchanged; then
@@ -67,7 +80,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    that reach both tiers.
 5. Where the time goes: prefill and per-token decode time of each tier,
    flash's in-place device time per launch in a profiled prefill, and the
-   device's busy share over decode steps from ``torch.profiler``.
+   device's busy share over decode steps from ``torch.profiler``; the
+   profiled decode steps must show one decode kernel a layer (the
+   tensor-core kernel; no split/combine pair).
 6. The slot path: the 2B's ``InferenceEngine.serve`` (8 slots, page 8) on
    24 requests over 4 scenes (per scene 1 det with 1024 answer tokens,
    1 cls, 4 vqa).  Checks: every request answered; 20 prefix hits and 4
@@ -81,6 +96,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    piggybacked drafts.  Prints ``spec_stats()`` and how far the det answer
    agrees with the greedy one (bf16 near-ties may flip an argmax; equality
    is asserted in phase 3, in float32).  Checks the launch counts as in 6.
+   Then a γ 9 engine (a 70-row verify chunk, past one block's 64 rows)
+   serves two of the vqa requests: it must not raise, its launches are
+   counted as above, and its answers' agreement with γ 4's is reported.
 8. Chunked prefill: phase 6's stream through the 2B's ``InferenceEngine``
    with ``prefill_chunk`` 256 (token budget 264).  Checks: every request
    answered; phase 6's 20 prefix hits and 4 misses; pages after the drain
@@ -121,7 +139,11 @@ Phases 3, 4, 6, 7, 8 and each run of 9 zero every kernel's launch count
 just before they run and read it just after; each kernel of a path must
 have launched.  In phases 4, 6 and 7 the tensor-core flash route launched
 once per layer of every ``transformer.prefill`` call (28 × prefills) and
-the CUDA-core route never. Its last lines: the card's name and power limit as ``nvidia-smi``
+the CUDA-core route never; in phases 4 and 6-8 every decode launch (dense
+and paged) took the tensor-core route, in phase 3 the CUDA-core route.
+A kernel with two routes counts all its launches under its old name and
+the tensor-core ones under ``*_wgmma`` / ``*_mma`` as well.  Its last
+lines: the card's name and power limit as ``nvidia-smi``
 gives them, one JSON object with every kernel's numbers, then ``{"ok":
 true, "device": {...}}``.
 """
@@ -139,9 +161,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu",
-           "decode_attention.cu", "region_score.cu",
-           "paged_prefill_attention.cu", "ssm_scan.cu", "slstm_scan.cu")
-# decode_attention.cu holds the dense and the paged decode entry points
+           "decode_attention.cu", "decode_attention_mma.cu",
+           "region_score.cu", "paged_prefill_attention.cu", "ssm_scan.cu",
+           "slstm_scan.cu")
+# decode_attention.cu and decode_attention_mma.cu each hold a dense and a
+# paged decode entry point
 # (absolute, relative to |want|) per element; see the docstring
 TOL_F32 = (1e-4, 0.0)
 TOL_BF16 = (1e-5, 2.0 ** -6)
@@ -160,8 +184,11 @@ REPLACES = {
     "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:84",
     "flash_attention": "src/repro/kernels/flash_attention.py:84",
     "decode_attention": "src/repro/kernels/decode_attention.py:219",
+    "decode_attention_mma": "src/repro/kernels/decode_attention.py:219",
     "region_score": "src/repro/kernels/region_score.py:38",
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:301",
+    "paged_decode_attention_mma":
+        "src/repro/kernels/decode_attention.py:301",
     "paged_prefill_attention": "src/repro/kernels/decode_attention.py:448",
     "ssm_scan": "src/repro/kernels/ssm_scan.py:65",
     "slstm_scan": "src/repro/kernels/slstm_scan.py:69",
@@ -170,8 +197,11 @@ SOURCE_OF = {
     "flash_attention_wgmma": "src/repro_torch/csrc/flash_attention_wgmma.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+    "decode_attention_mma": "src/repro_torch/csrc/decode_attention_mma.cu",
     "region_score": "src/repro_torch/csrc/region_score.cu",
     "paged_decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+    "paged_decode_attention_mma":
+        "src/repro_torch/csrc/decode_attention_mma.cu",
     "paged_prefill_attention":
         "src/repro_torch/csrc/paged_prefill_attention.cu",
     "ssm_scan": "src/repro_torch/csrc/ssm_scan.cu",
@@ -278,8 +308,28 @@ def check_wgmma(name, got, q, k, v, kw, case, errors):
     share of the bound used)."""
     from repro_torch.kernels import ref
     qf, kf, vf = q.float(), k.float(), v.float()
-    want = ref.flash_attention(qf, kf, vf, **kw)
-    a = ref.flash_attention(qf, kf, vf.abs(), **kw)
+    return check_bound(name, got, ref.flash_attention(qf, kf, vf, **kw),
+                       ref.flash_attention(qf, kf, vf.abs(), **kw), case,
+                       errors)
+
+
+def check_mma_decode(name, got, q, k, v, lens, kw, case, errors):
+    """The tensor-core decode route (it rounds p to bf16 before PV, as the
+    flash route does), held to flash's bound: q (B, T, H, hd), k/v (B, S,
+    KH, hd) dense (the plain version's operands; paged pools gathered),
+    cache_len INCLUDING the chunk.  Returns (max absolute error, share of
+    the bound used)."""
+    from repro_torch.kernels import ref
+    qf, kf, vf = q.float(), k.float(), v.float()
+    return check_bound(
+        name, got, ref.multi_decode_attention(qf, kf, vf, lens, **kw),
+        ref.multi_decode_attention(qf, kf, vf.abs(), lens, **kw), case,
+        errors)
+
+
+def check_bound(name, got, want, a, case, errors):
+    """Every element within 1e-5 + 2^-6·|want| + 2^-8·a (``check_wgmma``
+    says why); returns (max absolute error, share of the bound used)."""
     diff = (got.float() - want).abs()
     err = float(diff.max())
     share = float((diff / (1e-5 + 2.0 ** -6 * want.abs()
@@ -368,7 +418,6 @@ def kernel_checks(torch):
     """Returns {kernel: measured numbers at its main-path shape}."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      launch_cuda_cores)
     from repro_torch.kernels.region_score import region_score_cuda
@@ -446,11 +495,14 @@ def kernel_checks(torch):
                               ("cuda_cores", launch_cuda_cores))}
 
     # -- decode attention: (B, H, hd) / (B, T, H, hd) through ops -----------
-    log("decode_attention vs plain")
+    # the CUDA-core route: float32 and the proxies' head dims; 33 and 35
+    # rows take two row tiles
+    log("decode_attention vs plain (CUDA-core route)")
     for hd, group, q_len, window, softcap in [
             (12, 1, 1, 0, None), (12, 3, 1, 0, None), (16, 2, 1, 0, None),
             (16, 3, 3, 0, None), (12, 2, 3, 0, None), (16, 2, 1, 8, None),
-            (16, 3, 1, 0, 3.0), (12, 2, 3, 5, 2.5)]:
+            (16, 3, 1, 0, 3.0), (12, 2, 3, 5, 2.5), (16, 7, 5, 0, None),
+            (12, 3, 11, 6, 2.0)]:
         s, kh, b = 150, 2, 4
         q = randn(b, q_len, kh * group, hd)
         k, v = randn(b, s, kh, hd), randn(b, s, kh, hd)
@@ -469,28 +521,7 @@ def kernel_checks(torch):
                                               lens.cpu(), window=window,
                                               softcap=softcap)
         check("decode_attention", got.cpu(), want, TOL_F32, case, errors)
-    for tag, h, kh, s in (("2B", 12, 2, 1026), ("7B", 28, 4, 2049)):
-        hd = 128
-        q = randn(1, h, hd, dtype=bf16)
-        k, v = randn(1, s, kh, hd, dtype=bf16), randn(1, s, kh, hd,
-                                                        dtype=bf16)
-        err = check("decode_attention", ops.decode_attention(q, k, v, s),
-                    ref.decode_attention(q, k, v, s), TOL_BF16,
-                    f"bf16 {tag} H{h} KH{kh} S{s} hd{hd}", errors)
-        qg = q.reshape(1, kh, h // kh, hd)
-        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-        lens = torch.full((1,), s, dtype=torch.int32, device="cuda")
-        q4 = q.reshape(1, h, 1, hd)
-        b_ms, b_by = bound_ms(nbytes(q, k, v, q), 4.0 * hd * h * s,
-                              "bfloat16")
-        report.setdefault("decode_attention", {})[tag] = {
-            "max_abs_err": err,
-            "ms": timer(lambda: decode_attention_cuda(qg, kt, vt, lens)),
-            "plain_ms": timer(lambda: ref.decode_attention(q, k, v, lens)),
-            "library_ms": timer(lambda: F.scaled_dot_product_attention(
-                q4, kt, vt, enable_gqa=True)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "shape": f"B1 H{h} KH{kh} S{s} cache_len{s} hd{hd} bf16"}
+    report.update(decode_mma_checks(torch, randn, timer, errors))
 
     # -- region score --------------------------------------------------------
     log("region_score vs plain")
@@ -518,8 +549,7 @@ def kernel_checks(torch):
         "bound_ms": b_ms, "bound_by": b_by,
         "shape": "B1 R1024 Nv1 Ne1 D1536 bf16"}}
 
-    report["paged_decode_attention"] = paged_kernel_checks(
-        torch, randn, timer, errors)
+    report.update(paged_kernel_checks(torch, randn, timer, errors))
     report["paged_prefill_attention"] = prefill_kernel_checks(
         torch, randn, timer, errors)
     report.update(scan_kernel_checks(torch, randn, timer, errors))
@@ -530,6 +560,8 @@ def kernel_checks(torch):
                            + "\n".join(errors))
     for name, shapes in report.items():
         for tag, m in shapes.items():
+            if "ms" not in m:
+                continue                    # held, not timed
             lib = ("none" if m["library_ms"] is None
                    else f"{m['library_ms']:.4f} ms")
             route = f" ({m['route']})" if "route" in m else ""
@@ -538,6 +570,108 @@ def kernel_checks(torch):
                 f"{m.get('library_is', 'library')} {lib}  "
                 f"bound {m['bound_ms']:.5f} ms ({m['bound_by']})")
     return report
+
+
+def decode_mma_sweep(torch, randn, errors):
+    """The tensor-core decode route (bf16, hd 64/128) against the plain
+    version through ``ops``: B 4 rows of cache_len 0, 1, 100 (a partial
+    tile) and 300 (the whole cache), hd 64 and 128, groups 1-7, q_len 1-16
+    (up to 70 rows: two row tiles), windows 0/37 and softcaps none/30 in
+    turns.  The cache past each row's length is NaN, so a read past it
+    would show; the row of length 0 must be zero.  A misaligned view must
+    raise.  Returns the largest share of the bound any case used."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    bf16, nan = torch.bfloat16, float("nan")
+    log("decode_attention vs plain (mma route)")
+    opts = [(0, None), (37, None), (0, 30.0), (37, 30.0)]
+    b, kh, s, lens = 4, 2, 300, [0, 1, 100, 300]
+    shares = []
+    for n, (hd, group, q_len) in enumerate([
+            (128, 7, 1), (64, 1, 1), (128, 6, 3), (64, 7, 10), (128, 2, 4),
+            (64, 5, 2), (128, 7, 9), (128, 3, 1), (64, 4, 16)]):
+        window, softcap = opts[n % len(opts)]
+        kw = {"window": window, "softcap": softcap}
+        q = randn(b, q_len, kh * group, hd, dtype=bf16)
+        k, v = (randn(b, s, kh, hd, dtype=bf16) for _ in range(2))
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        past = torch.arange(s, device="cuda")[None, :] >= lens_t[:, None]
+        kn, vn = k.clone(), v.clone()
+        kn[past], vn[past] = nan, nan
+        if q_len == 1:
+            got = ops.decode_attention(q[:, 0], kn, vn, lens_t, **kw)[:, None]
+        else:
+            got = ops.multi_decode_attention(q, kn, vn, lens_t, **kw)
+        shares.append(check_mma_decode(
+            "decode_attention", got, q, k, v, lens_t, kw,
+            f"bf16 hd{hd} g{group} q_len{q_len} w{window} cap{softcap}",
+            errors)[1])
+        if float(got[0].abs().max()) != 0.0:
+            errors.append(f"decode_attention mma hd{hd} g{group}: "
+                          f"cache_len 0 row not zero")
+    log(f"  mma decode sweep: largest share of the bound {max(shares):.3f}")
+    buf = randn(1, 2, 8, 136, dtype=bf16)
+    try:
+        decode_attention_cuda(buf[..., 1:129], buf[..., :128],
+                              buf[..., :128], 3)
+        errors.append("decode_attention: a misaligned view was not refused")
+        log("  decode_attention misaligned q view: launched (FAIL)")
+    except ValueError as e:
+        log(f"  decode_attention misaligned q view: refused ({e}) ok")
+    return max(shares)
+
+
+def decode_mma_checks(torch, randn, timer, errors):
+    """The dense decode kernels at the 2B/7B decode step: the tensor-core
+    route held to its bound (and its sweep), the CUDA-core kernel at the
+    same shape to its tolerance, then timed in turns with the library call
+    (mma, library, CUDA cores, mma).  Returns the report's two rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import decode_attention as DA
+    bf16 = torch.bfloat16
+    sweep_share = decode_mma_sweep(torch, randn, errors)
+    out = {"decode_attention_mma": {}, "decode_attention": {}}
+    for tag, h, kh, s in (("2B", 12, 2, 1026), ("7B", 28, 4, 2049)):
+        hd = 128
+        q = randn(1, h, hd, dtype=bf16)
+        k, v = randn(1, s, kh, hd, dtype=bf16), randn(1, s, kh, hd,
+                                                        dtype=bf16)
+        lens = torch.full((1,), s, dtype=torch.int32, device="cuda")
+        case = f"bf16 {tag} H{h} KH{kh} S{s} hd{hd}"
+        err, share = check_mma_decode(
+            "decode_attention", ops.decode_attention(q, k, v, s)[:, None],
+            q[:, None], k, v, lens, {}, case, errors)
+        qg = q.reshape(1, kh, h // kh, hd)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        err_cc = check("decode_attention",
+                       DA.launch_cuda_cores(qg, kt, vt, lens).reshape(1, h,
+                                                                      hd),
+                       ref.decode_attention(q, k, v, s), TOL_BF16,
+                       case + " on CUDA cores", errors)
+        q4 = q.reshape(1, h, 1, hd)
+        b_ms, b_by = bound_ms(nbytes(q, k, v, q), 4.0 * hd * h * s,
+                              "bfloat16")
+
+        def library():
+            return F.scaled_dot_product_attention(q4, kt, vt, enable_gqa=True)
+
+        m = {"plain_ms": timer(lambda: ref.decode_attention(q, k, v, lens)),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "shape": f"B1 H{h} KH{kh} S{s} cache_len{s} hd{hd} bf16"}
+        # kernel, library, CUDA cores, kernel: one card, one call, in turns
+        mma_ms = [timer(lambda: DA.launch_mma(qg, kt, vt, lens))]
+        m["library_ms"] = timer(library)
+        cc_ms = timer(lambda: DA.launch_cuda_cores(qg, kt, vt, lens))
+        mma_ms.append(timer(lambda: DA.launch_mma(qg, kt, vt, lens)))
+        ms = sum(mma_ms) / len(mma_ms)
+        out["decode_attention_mma"][tag] = dict(
+            m, max_abs_err=err, ms=ms, ms_runs=mma_ms, route="mma",
+            bound_share=b_ms / ms, tolerance_share=share,
+            sweep_tolerance_share=sweep_share)
+        out["decode_attention"][tag] = dict(m, max_abs_err=err_cc, ms=cc_ms,
+                                            route="cuda_cores")
+    return out
 
 
 def paged_case(torch, randn, *, b, kh, group, hd, page, width, lens, q_len,
@@ -601,12 +735,15 @@ def paged_bytes_and_flops(torch, q, k_pool, table, lens, q_len):
 
 
 def paged_kernel_checks(torch, randn, timer, errors):
-    """The paged decode kernel against its plain version: an f32 sweep, then
-    the slot path's shapes in bf16 with their times."""
+    """The paged decode kernels against their plain version: an f32 sweep
+    (the CUDA-core route; 70 rows take two row tiles), a bf16 sweep of the
+    tensor-core route, then the slot path's shapes in bf16 on both routes,
+    the 7B verifier at γ 9 (70 rows) on both, and the times of (a)-(c) in
+    turns with the library call (mma, library, CUDA cores, mma).  Returns
+    the report's two rows."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.paged_decode_attention import (
-        paged_decode_attention_cuda)
+    from repro_torch.kernels import paged_decode_attention as PDA
 
     def both(q, k_pool, v_pool, table, lens, nan_pools, window=0,
              softcap=None):
@@ -625,12 +762,26 @@ def paged_kernel_checks(torch, randn, timer, errors):
                 softcap=softcap)
         return got, want
 
-    log("paged_decode_attention vs plain")
+    def rows_of(q, kh):             # (B, T, H, hd) → (B, KH, T·group, hd)
+        b, t, h, hd = q.shape
+        return q.reshape(b, t, kh, h // kh, hd).permute(0, 2, 1, 3, 4) \
+            .reshape(b, kh, t * (h // kh), hd)
+
+    def on_cuda_cores(q, kh, nan_pools, table, lens_t):
+        b, t, h, hd = q.shape
+        o = PDA.launch_cuda_cores(rows_of(q, kh), *(x.transpose(1, 2)
+                                                 for x in nan_pools),
+                                  table, lens_t, q_len=t)
+        return o.reshape(b, kh, t, h // kh, hd).permute(0, 2, 1, 3, 4) \
+            .reshape(b, t, h, hd)
+
+    log("paged_decode_attention vs plain (CUDA-core route)")
     for page, hd, group, q_len, window, softcap in [
             (1, 16, 2, 1, 0, None), (4, 12, 3, 3, 0, None),
             (8, 16, 2, 5, 0, None), (16, 16, 3, 1, 0, 3.0),
             (8, 12, 1, 3, 7, None), (4, 16, 2, 5, 5, 2.5),
-            (8, 128, 7, 9, 0, None), (16, 64, 6, 1, 0, None)]:
+            (8, 128, 7, 9, 0, None), (16, 64, 6, 1, 0, None),
+            (8, 16, 7, 10, 6, None)]:
         lens = [0, 1, 2, 37, 64, 150, 95, 3]
         width = -(-160 // page)
         args = paged_case(torch, randn, b=len(lens), kh=2, group=group,
@@ -644,11 +795,37 @@ def paged_kernel_checks(torch, randn, timer, errors):
         if float(got[0].abs().max()) != 0.0:
             errors.append(f"paged_decode {case}: cache_len 0 row not zero")
 
-    out = {}
     bf16 = torch.bfloat16
+    log("paged_decode_attention vs plain (mma route)")
+    shares = []
+    for n, (page, hd, group, q_len) in enumerate([
+            (8, 128, 7, 1), (1, 64, 2, 3), (64, 128, 6, 5), (8, 64, 7, 10),
+            (16, 128, 1, 1), (4, 64, 4, 7), (64, 64, 3, 2), (8, 128, 5, 9)]):
+        window, softcap = [(0, None), (40, None), (0, 30.0),
+                           (40, 30.0)][n % 4]
+        lens = [0, 1, 2, 37, 64, 150, 95, 3]
+        width = -(-160 // page)
+        q, k_pool, v_pool, table, lens_t, nan_pools = paged_case(
+            torch, randn, b=len(lens), kh=2, group=group, hd=hd, page=page,
+            width=width, lens=lens, q_len=q_len, dtype=bf16,
+            shared_blocks=32 // page)
+        kw = {"window": window, "softcap": softcap}
+        got, _ = both(q, k_pool, v_pool, table, lens_t, nan_pools, **kw)
+        shares.append(check_mma_decode(
+            "paged_decode", got, q, ref.gather_pages(k_pool, table),
+            ref.gather_pages(v_pool, table), lens_t, kw,
+            f"bf16 page{page} hd{hd} g{group} q_len{q_len} w{window} "
+            f"cap{softcap}", errors)[1])
+        if float(got[0].abs().max()) != 0.0:
+            errors.append(f"paged_decode mma page{page} hd{hd}: cache_len 0 "
+                          f"row not zero")
+    log(f"  mma paged sweep: largest share of the bound {max(shares):.3f}")
+
+    out = {"paged_decode_attention_mma": {}, "paged_decode_attention": {}}
     for tag, kh, group, q_len, b in (("a 2B q1", 2, 6, 1, 8),
                                      ("b 7B q1", 4, 7, 1, 8),
-                                     ("c 7B q5", 4, 7, 5, 4)):
+                                     ("c 7B q5", 4, 7, 5, 4),
+                                     ("c9 7B q10", 4, 7, 10, 4)):
         page, width, hd = 8, 257, 128
         lens = [1025 + (1024 * i) // (b - 1) for i in range(b)]
         q, k_pool, v_pool, table, lens_t, nan_pools = paged_case(
@@ -656,14 +833,22 @@ def paged_kernel_checks(torch, randn, timer, errors):
             width=width, lens=lens, q_len=q_len, dtype=bf16,
             shared_blocks=1024 // page)
         got, want = both(q, k_pool, v_pool, table, lens_t, nan_pools)
-        err = check("paged_decode", got, want, TOL_BF16,
-                    f"bf16 {tag} B{b} KH{kh} g{group} page{page} "
-                    f"P{width}", errors)
+        case = f"bf16 {tag} B{b} KH{kh} g{group} page{page} P{width}"
+        err, share = check_mma_decode(
+            "paged_decode", got, q, ref.gather_pages(k_pool, table),
+            ref.gather_pages(v_pool, table), lens_t, {}, case, errors)
+        err_cc = check("paged_decode",
+                       on_cuda_cores(q, kh, nan_pools, table, lens_t), want,
+                       TOL_BF16, case + " on CUDA cores", errors)
+        if tag.startswith("c9"):          # the γ 9 verifier: held, not timed
+            for key, e in (("paged_decode_attention_mma", err),
+                           ("paged_decode_attention", err_cc)):
+                out[key][tag] = {"max_abs_err": e}
+            continue
         n_bytes, flops = paged_bytes_and_flops(torch, q, k_pool, table,
                                                lens_t, q_len)
         b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
-        qr = q.reshape(b, q_len, kh, group, hd).permute(0, 2, 1, 3, 4) \
-            .reshape(b, kh, q_len * group, hd)
+        qr = rows_of(q, kh)
         kt, vt = k_pool.transpose(1, 2), v_pool.transpose(1, 2)
         # the yardstick: gather the pages, then one SDPA call (two calls)
         s = width * page
@@ -689,18 +874,31 @@ def paged_kernel_checks(torch, randn, timer, errors):
             def plain():
                 return ref.paged_multi_decode_attention(q, k_pool, v_pool,
                                                         table, lens_t)
-        out[tag] = {
-            "max_abs_err": err,
-            "ms": timer(lambda: paged_decode_attention_cuda(
-                qr, kt, vt, table, lens_t, q_len=q_len)),
-            "plain_ms": timer(plain),
-            "library_ms": timer(library),
-            "library_is": "gather_pages + scaled_dot_product_attention "
-                          "(two calls)",
-            "library_max_abs_err": lib_err,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-            "shape": (f"B{b} KH{kh} g{group} q_len{q_len} hd{hd} page{page} "
-                      f"P{width} cache_len {lens[0]}..{lens[-1]} bf16")}
+
+        def mma():
+            return PDA.launch_mma(qr, kt, vt, table, lens_t, q_len=q_len)
+
+        m = {"plain_ms": timer(plain),
+             "library_is": "gather_pages + scaled_dot_product_attention "
+                           "(two calls)",
+             "library_max_abs_err": lib_err,
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+             "shape": (f"B{b} KH{kh} g{group} q_len{q_len} hd{hd} "
+                       f"page{page} P{width} cache_len "
+                       f"{lens[0]}..{lens[-1]} bf16")}
+        # kernel, library, CUDA cores, kernel: one card, one call, in turns
+        mma_ms = [timer(mma)]
+        m["library_ms"] = timer(library)
+        cc_ms = timer(lambda: PDA.launch_cuda_cores(qr, kt, vt, table,
+                                                    lens_t, q_len=q_len))
+        mma_ms.append(timer(mma))
+        ms = sum(mma_ms) / len(mma_ms)
+        out["paged_decode_attention_mma"][tag] = dict(
+            m, max_abs_err=err, ms=ms, ms_runs=mma_ms, route="mma",
+            bound_share=b_ms / ms, tolerance_share=share,
+            sweep_tolerance_share=max(shares))
+        out["paged_decode_attention"][tag] = dict(
+            m, max_abs_err=err_cc, ms=cc_ms, route="cuda_cores")
     return out
 
 
@@ -1216,12 +1414,17 @@ def main_path(torch):
     if tiers != {"satellite", "ground"}:
         raise RuntimeError(f"main path reached only {tiers}")
     log(f"  launches in the main path: {counts}")
-    missing = [k for k in ("flash_attention_wgmma", "decode_attention",
+    missing = [k for k in ("flash_attention_wgmma", "decode_attention_mma",
                            "region_score") if counts[k] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: "
                            f"{missing}")
     prefills.check(counts, "main path")
+    ok, by_route = decode_routes(counts, "mma", need=("decode_attention",))
+    log(f"  main path: decode launches by route {by_route}")
+    if not ok:
+        raise RuntimeError(f"main path: decode left the tensor-core route: "
+                           f"{by_route}")
     return sat, gs, ac, counts, flash_on_path_inputs(
         flash_in["flash_attention"])
 
@@ -1270,7 +1473,7 @@ class PrefillCounter:
 
     def check(self, counts, path):
         from repro_torch.kernels import ops
-        by_route = ops.flash_launches_by_route(counts)
+        by_route = ops.launches_by_route(counts, "flash_attention")
         wg, cc = by_route["wgmma"], by_route["cuda_cores"]
         log(f"  {path}: {self.calls} prefills over {self.layers} layers; "
             f"flash launches wgmma {wg}, CUDA cores {cc}")
@@ -1279,6 +1482,22 @@ class PrefillCounter:
                                f"tensor cores and {cc} on the CUDA cores, "
                                f"want {self.layers} (layers x prefills) and "
                                f"0")
+
+
+DECODE_KERNELS = ("decode_attention", "paged_decode_attention")
+
+
+def decode_routes(counts, route, need=DECODE_KERNELS):
+    """The decode kernels' launches in ``counts`` by route, and whether the
+    path kept to ``route`` ("mma" at full width, bf16 hd 128; "cuda_cores"
+    on phase 3's f32 proxies): none on the other route, some on ``route``
+    for each kernel in ``need``."""
+    from repro_torch.kernels import ops
+    by_route = {n: ops.launches_by_route(counts, n) for n in DECODE_KERNELS}
+    other = "cuda_cores" if route == "mma" else "mma"
+    ok = (all(r[other] == 0 for r in by_route.values())
+          and all(by_route[n][route] > 0 for n in need))
+    return ok, by_route
 
 
 class StepProbe:
@@ -1444,6 +1663,8 @@ def slot_phase(torch, sat, ac):
         "paged launches == layers x (steps + admissions)":
             counts["paged_decode_attention"]
             == n_layers * (steps + probe.admissions),
+        "paged decode on the tensor cores only": decode_routes(
+            counts, "mma", need=("paged_decode_attention",))[0],
         "flash launched": counts["flash_attention_wgmma"] > 0,
     }
     n_tok = sum(len(t) for t in toks)
@@ -1549,8 +1770,10 @@ def chunked_phase(torch, sat, ac, slot):
             counts["paged_prefill_attention"] == n_layers * fused,
         "decode launches == layers x plain steps":
             counts["paged_decode_attention"] == n_layers * (steps - fused),
+        "paged decode on the tensor cores only": decode_routes(
+            counts, "mma", need=("paged_decode_attention",))[0],
         "no flash prefill (either route), no region scoring":
-            ops.flash_launches_by_route(counts)
+            ops.launches_by_route(counts, "flash_attention")
             == {"wgmma": 0, "cuda_cores": 0} and counts["region_score"] == 0,
     }
     agree = [bool((a == b).all()) for a, b in zip(toks, slot["tokens"])]
@@ -1680,7 +1903,12 @@ def spec_phase(torch, sat, gs, ac):
             plain_counts["paged_decode_attention"]
             == n_layers * (plain_steps + plain_probe.admissions),
         "drafter's dense decode launched": counts["decode_attention"] > 0,
+        "decode on the tensor cores only (verifier, drafter, greedy)":
+            decode_routes(counts, "mma")[0] and decode_routes(
+                plain_counts, "mma", need=("paged_decode_attention",))[0],
     }
+    g9 = spec_gamma9(torch, sat, gs, ac, small, small_toks, drain)
+    checks.update(g9.pop("checks"))
     res = {"spec_stats": sp, "verify_steps": verify_steps,
            "local_draft_steps": sp["steps"] - sp["verify_only_steps"],
            "small_request_steps": small_steps,
@@ -1695,7 +1923,8 @@ def spec_phase(torch, sat, gs, ac):
                                                          1),
            "spec_profile": probe.profile(),
            "greedy_profile": plain_probe.profile(),
-           "launches": counts, "greedy_launches": plain_counts}
+           "launches": counts, "greedy_launches": plain_counts,
+           "gamma_9": g9}
     log(f"  spec: {verify_steps} verify steps ({sp['verify_only_steps']} "
         f"verify-only), accept rate {sp['accept_rate']:.3f}, "
         f"{sp['tokens_per_slot_step']:.2f} tokens per slot step; det "
@@ -1707,6 +1936,51 @@ def spec_phase(torch, sat, gs, ac):
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise RuntimeError(f"spec phase failed: {bad}")
+    return res
+
+
+def spec_gamma9(torch, sat, gs, ac, small, small_toks, drain):
+    """The 7B's speculative engine at γ 9, drafted by the 2B: the verify
+    chunk is 10 tokens × group 7 = 70 query rows, past one block's 64 (two
+    row tiles).  Two of phase 7's vqa requests; their answers against the
+    γ 4 engine's (reported, not asserted).  Returns the run's numbers and
+    its checks: launch counts per layer and route, every answer in the
+    vocabulary."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineCore, EngineCoreConfig
+    av, n_layers = ac.num_classes + 1, gs.cfg.num_layers
+    vqa = [i for i, r in enumerate(small) if r.task == "vqa"][:2]
+    spec = EngineCore(gs, ac, EngineCoreConfig(slots=4, answer_vocab=av,
+                                               spec_gamma=9), draft=sat)
+    spec.warmup()
+    probe = StepProbe(torch, spec, first=1 << 30)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with PrefillCounter() as prefills:
+        toks = drain(spec, clone_requests([small[i] for i in vqa]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    prefills.check(counts, "spec phase, γ 9")
+    steps = spec.stats["spec"]["steps"]
+    agree = sum(bool((a == small_toks[i]).all()) for a, i in zip(toks, vqa))
+    ok, by_route = decode_routes(counts, "mma",
+                                 need=("paged_decode_attention",))
+    res = {"requests": len(toks), "verify_rows": 10 * gs.cfg.num_heads
+           // gs.cfg.num_kv_heads, "verify_steps": steps,
+           "admission_calls": probe.admissions,
+           "answers_equal_to_gamma_4": agree, "wall_s": wall,
+           "decode_launches_by_route": by_route, "launches": counts}
+    log(f"  spec γ 9: {len(toks)} vqa answers in {steps} verify steps of "
+        f"{res['verify_rows']} rows, {agree}/{len(toks)} equal to γ 4's")
+    res["checks"] = {
+        "γ 9 answered": len(toks) == 2 and all(
+            len(t) == 1 and 0 <= t.min() and t.max() < av for t in toks),
+        "γ 9 paged launches == layers x (verify steps + admissions)":
+            counts["paged_decode_attention"]
+            == n_layers * (steps + probe.admissions),
+        "γ 9 paged decode on the tensor cores only": ok}
     return res
 
 
@@ -1792,6 +2066,17 @@ def breakdown(torch, sat, gs, ac, n_steps: int = 32):
                                               {"tokens": tok},
                                               idx + n_steps + i)
             torch.cuda.synchronize()
+        # one decode kernel a layer: the tensor-core kernel, no split /
+        # combine pair
+        dec = kernel_device_ms(torch, prof, ["decode_mma_kernel",
+                                             "decode_split_kernel",
+                                             "decode_combine_kernel"])
+        n_dec = {k.split("_")[1]: v[0] for k, v in dec.items()}
+        if n_dec != {"mma": 8 * tier.cfg.num_layers, "split": 0,
+                     "combine": 0}:
+            raise RuntimeError(f"{name}: 8 profiled decode steps launched "
+                               f"decode kernels {n_dec}, want one "
+                               f"decode_mma_kernel a layer and step")
         # a decode step streams every layer's weights and the unembedding
         bb = tier.params["backbone"]
         head = bb["embed"].get("head", bb["embed"]["tok"])
@@ -1804,6 +2089,8 @@ def breakdown(torch, sat, gs, ac, n_steps: int = 32):
             "prefill_flash_launches": n_flash,
             "prefill_flash_ms_per_launch": flash_ms,
             "decode_step_ms": 1e3 * t_step,
+            "decode_kernels_per_step": n_dec["mma"] / 8,
+            "decode_kernel_ms_per_launch": dec["decode_mma_kernel"][1],
             "decode_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S,
             **profile_summary(torch, prof, 8, 8 * t_step)}
         log(f"  {name}: prefill {out[name]['prefill_ms']:.2f} ms (runs "
@@ -1811,7 +2098,9 @@ def breakdown(torch, sat, gs, ac, n_steps: int = 32):
             f"{by_route['cuda_cores']}; device "
             f"{out[name]['prefill_device_ms']:.2f} ms, flash {n_flash} "
             f"launches, {flash_ms:.4f} ms each in place), decode "
-            f"step {out[name]['decode_step_ms']:.3f} ms (weight-streaming "
+            f"step {out[name]['decode_step_ms']:.3f} ms ({n_dec['mma'] // 8}"
+            f" decode kernels a step, {dec['decode_mma_kernel'][1]:.4f} ms "
+            f"each in place; weight-streaming "
             f"bound {out[name]['decode_bound_ms']:.3f} ms), device busy "
             f"{out[name]['device_busy_share']:.3f}")
     log("breakdown " + json.dumps(out))
@@ -2186,10 +2475,14 @@ def main() -> int:
     torch.cuda.synchronize()
     small_counts = ops.launch_counts()
     log(f"  launches on the small proxies (f32): {small_counts}")
-    small_flash = ops.flash_launches_by_route(small_counts)
+    small_flash = ops.launches_by_route(small_counts, "flash_attention")
     if not (small_flash["cuda_cores"] > 0 and small_flash["wgmma"] == 0):
         raise RuntimeError("small proxies: flash must run on the CUDA-core "
                            "route alone (float32, hd 12/16)")
+    ok, small_decode = decode_routes(small_counts, "cuda_cores")
+    if not ok:
+        raise RuntimeError(f"small proxies: decode must run on the CUDA-core "
+                           f"route alone (float32, hd 12/16): {small_decode}")
 
     log("phase 4: main path at full width")
     sat, gs, ac, counts, held = main_path(torch)
@@ -2217,21 +2510,32 @@ def main() -> int:
                "cascade_server": counts, "slot_serve": slot["launches"],
                "spec_greedy": spec["greedy_launches"],
                "spec": spec["launches"],
+               "spec_gamma_9": spec["gamma_9"]["launches"],
                "chunked_serve": chunked["launches"],
                **{f"xlstm {tag}": c for tag, c in xlstm["launches"].items()}}
     for tag, r in xlstm.items():
         for name, cases in r.get("kernel_vs_plain_max_abs_err", {}).items():
             kernels[name].update({c: {"max_abs_err": e}
                                   for c, e in cases.items()})
-    # the line's "flash_attention" is the CUDA-core kernel alone
-    routes = {p: ops.flash_launches_by_route(c) for p, c in by_path.items()}
-    by_path = {p: dict(c, flash_attention=routes[p]["cuda_cores"])
+    # the line's "flash_attention", "decode_attention" and
+    # "paged_decode_attention" are the CUDA-core kernels alone; each row of
+    # a two-route kernel carries the launches by route
+    two_route = ops.TENSOR_CORE_ROUTES
+    routes = {p: {n: ops.launches_by_route(c, n) for n in two_route}
+              for p, c in by_path.items()}
+    by_path = {p: dict(c, **{n: routes[p][n]["cuda_cores"]
+                             for n in two_route})
                for p, c in by_path.items()}
-    by_route = {r: sum(c[r] for c in routes.values())
-                for r in ("wgmma", "cuda_cores")}
+    by_route = {n: {r: sum(rt[n][r] for rt in routes.values())
+                    for r in (tc, "cuda_cores")}
+                for n, (_, tc) in two_route.items()}
+    base_of = {key: n for n, (key, _) in two_route.items()}
+    base_of.update({n: n for n in two_route})
     headline = {"flash_attention_wgmma": "7B", "flash_attention": "7B",
-                "decode_attention": "7B",
-                "region_score": "main", "paged_decode_attention": "a 2B q1",
+                "decode_attention_mma": "7B", "decode_attention": "7B",
+                "region_score": "main",
+                "paged_decode_attention_mma": "a 2B q1",
+                "paged_decode_attention": "a 2B q1",
                 "paged_prefill_attention": "d 2B flat",
                 "ssm_scan": "f xLSTM", "slstm_scan": "g xLSTM"}
     line = []
@@ -2248,8 +2552,8 @@ def main() -> int:
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "shape": m["shape"],
             "by_shape": shapes,
-            **({"launches_by_route": by_route}
-               if name.startswith("flash_attention") else {})})
+            **({"launches_by_route": by_route[base_of[name]]}
+               if name in base_of else {})})
     log(smi)
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {

@@ -208,14 +208,16 @@ __device__ __forceinline__ void load_q_rows(float* qs, const T* q, int64_t q_sr,
 // Fold keys [k_begin, k_end) into every row's state, tile by tile; tiles
 // wholly below ``lo`` (no row's window reaches them) are skipped.  k_begin
 // is a multiple of ATT_BK or a split start; keys >= k_end are never read.
-// Every bound is block-uniform (the loop holds __syncthreads).
+// The block's row r is row row0 + r of the chunk (a row tile keeps the
+// global index in its mask).  Every bound is block-uniform (the loop holds
+// __syncthreads).
 template <typename T, int HD, int WARPS, bool PAGED>
 __device__ __forceinline__ void attend_tiles(
     RowState<HD>& st, const float* __restrict__ qs, float* __restrict__ ks,
     float* __restrict__ vs, const KvRows<T, PAGED>& krow,
     const KvRows<T, PAGED>& vrow, int k_begin, int k_end, int lo, int rows,
-    int group, int eff0, int window, float softcap, float scale, int hd,
-    int vec) {
+    int row0, int group, int eff0, int window, float softcap, float scale,
+    int hd, int vec) {
   constexpr int THREADS = WARPS * 32;
   constexpr int KST = HD + 4;
   constexpr int DPL = HD / 32;
@@ -265,7 +267,7 @@ __device__ __forceinline__ void attend_tiles(
       pa[i] = pb[i] = 0.f;
       const int r = warp + WARPS * i;
       if (r >= rows) continue;                     // warp-uniform
-      const int eff = eff0 + r / group;
+      const int eff = eff0 + (row0 + r) / group;
       bool oka = ca < eff && ca < k_end, okb = cb < eff && cb < k_end;
       if (window > 0) {
         oka = oka && ca >= eff - window;

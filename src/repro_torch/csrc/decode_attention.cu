@@ -1,5 +1,8 @@
 // Flash-decoding over a dense or a paged KV cache for Hopper (sm_90a),
-// split-K, f32 math.
+// split-K, f32 math on the CUDA cores: the route
+// kernels/decode_attention.py::route gives float32 and the head dims other
+// than 64/128 (the proxies' 12/16); bf16 at hd 64/128 takes the tensor-core
+// kernel in decode_attention_mma.cu.
 //
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention_pallas
 // (dense decode of the batch path, models/layers.py mode="decode", and the
@@ -15,11 +18,15 @@
 // shapes, so launch latency and occupancy matter as much as bandwidth.
 //
 // What the design does about it:
-//  * One block per (KV split, KV head, batch row): the group's q_len·group
-//    query rows share every K/V tile the block loads, so K/V are read once
-//    per KV head, never per query head.  Up to 32 rows take 4 warps, up to
-//    64 (the paged verifier: (gamma+1)·7 = 35 rows on the 7B at gamma 4)
-//    take 8; a warp holds at most 8 rows.
+//  * One block per (KV split, KV head and row tile, batch row): the row
+//    tile's query rows share every K/V tile the block loads, so K/V are
+//    read once per KV head and row tile, never per query head.  A row tile
+//    holds up to 32 rows on 4 warps (dense) or up to 64 on 8 (paged: the
+//    verifier's (gamma+1)·7 = 35 rows on the 7B at gamma 4); a warp holds
+//    at most 8 rows.  Longer chunks (any q_len·group) take more row tiles
+//    on the grid's y axis (kernels/decode_attention.py::row_tile
+//    sizes them in whole chunk tokens); a tile's rows keep their global
+//    index in the mask.
 //  * Q rows and K/V tiles move in 16-byte chunks at hd = 32, 64 or 128,
 //    all of a thread's in flight at once (the proxies' hd 12/16 take an
 //    element-wise path).
@@ -55,7 +62,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ tbl,
                     const int* __restrict__ cache_len,
                     float* __restrict__ part_acc, float* __restrict__ part_ml,
-                    int KH, int rows, int q_len, int S, int hd, int split_len,
+                    int KH, int rows, int tile_rows, int q_len, int S,
+                    int hd, int split_len,
                     int64_t q_sb, int64_t q_sh, int64_t q_sr,
                     int64_t k_s0, int64_t k_sh, int64_t k_ss,
                     int64_t v_s0, int64_t v_sh, int64_t v_ss,
@@ -69,7 +77,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* vs = ks + ATT_BK * (HD + 4);               // [ATT_BK][HD]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int kh = blockIdx.y % KH, r0 = blockIdx.y / KH * tile_rows;
+  const int nrows = min(tile_rows, rows - r0);      // this row tile's rows
   const int splits = gridDim.x;
   const int group = rows / q_len;
   const int len = min(cache_len[b], S);
@@ -79,7 +89,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               tbl + b * tbl_sb, k_s0, k_ss, page};
   const KvRows<T, PAGED> vrow{v + (PAGED ? 0 : b * v_s0) + kh * v_sh,
                               tbl + b * tbl_sb, v_s0, v_ss, page};
-  load_q_rows<T, HD, WARPS>(qs, q + b * q_sb + kh * q_sh, q_sr, rows, hd, vec);
+  load_q_rows<T, HD, WARPS>(qs, q + b * q_sb + kh * q_sh + r0 * q_sr, q_sr,
+                            nrows, hd, vec);
 
   RowState<HD> st;
   st.init();
@@ -89,14 +100,15 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int s0 = split * split_len;
   const int s1 = min(len, s0 + split_len);
   attend_tiles<T, HD, WARPS, PAGED>(st, qs, ks, vs, krow, vrow, s0, s1, lo,
-                                    rows, group, len - (q_len - 1), window,
-                                    softcap, scale, hd, vec);
+                                    nrows, r0, group, len - (q_len - 1),
+                                    window, softcap, scale, hd, vec);
 
-  // partials: [(b·KH + kh)·splits + split]·rows + r
+  // partials: [(b·KH + kh)·splits + split]·rows + r, r the global row
 #pragma unroll
   for (int i = 0; i < ATT_RPW; ++i) {
-    const int r = warp + WARPS * i;
-    if (r >= rows) continue;
+    const int lr = warp + WARPS * i;
+    if (lr >= nrows) continue;
+    const int r = r0 + lr;
     const int64_t idx = ((int64_t)(b * KH + kh) * splits + split) * rows + r;
     if (lane == 0) {
       part_ml[idx * 2] = st.m[i];
@@ -156,7 +168,7 @@ struct DecodeArgs {
   const int* cache_len;
   void* o;
   float *part_acc, *part_ml;
-  int B, KH, rows, q_len, S, hd;
+  int B, KH, rows, tile_rows, q_len, S, hd;
   long long st[12];
   long long tbl_sb;
   int page, splits, split_len, window;
@@ -174,11 +186,13 @@ cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
     configured = true;
   }
   const long long* st = a.st;
+  const int row_tiles = (a.rows + a.tile_rows - 1) / a.tile_rows;
   decode_split_kernel<T, HD, WARPS, PAGED>
-      <<<dim3(a.splits, a.KH, a.B), WARPS * 32, smem, stream>>>(
+      <<<dim3(a.splits, a.KH * row_tiles, a.B), WARPS * 32, smem, stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k),
           static_cast<const T*>(a.v), a.tbl, a.cache_len, a.part_acc,
-          a.part_ml, a.KH, a.rows, a.q_len, a.S, a.hd, a.split_len, st[0],
+          a.part_ml, a.KH, a.rows, a.tile_rows, a.q_len, a.S, a.hd,
+          a.split_len, st[0],
           st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], a.tbl_sb,
           a.page, a.window, a.softcap, a.scale, a.vec);
   cudaError_t e = cudaGetLastError();
@@ -195,12 +209,12 @@ cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
 
 template <typename T, bool PAGED>
 cudaError_t dispatch_hd(const DecodeArgs& a, cudaStream_t stream) {
-  if (a.rows <= 32) {
+  if (a.tile_rows <= 32) {
     if (a.hd <= 32) return launch<T, 32, 4, PAGED>(a, stream);
     if (a.hd <= 64) return launch<T, 64, 4, PAGED>(a, stream);
     return launch<T, 128, 4, PAGED>(a, stream);
   }
-  if (!PAGED) return cudaErrorInvalidValue;   // the dense entry takes <= 32
+  if (!PAGED) return cudaErrorInvalidValue;   // dense row tiles: <= 32
   if (a.hd <= 32) return launch<T, 32, 8, PAGED>(a, stream);
   if (a.hd <= 64) return launch<T, 64, 8, PAGED>(a, stream);
   return launch<T, 128, 8, PAGED>(a, stream);
@@ -210,7 +224,9 @@ template <bool PAGED>
 int run(DecodeArgs& a, int dtype, void* stream) {
   const int max_rows = PAGED ? DA_MAX_ROWS : 32;
   if (a.hd < 1 || a.hd > 128 || a.hd % 4 != 0 || a.rows < 1 ||
-      a.rows > max_rows || a.q_len < 1 || a.rows % a.q_len != 0 ||
+      a.tile_rows < 1 || a.tile_rows > max_rows || a.q_len < 1 ||
+      a.rows % a.q_len != 0 || a.KH < 1 ||
+      (long long)a.KH * ((a.rows + a.tile_rows - 1) / a.tile_rows) > 65535 ||
       a.split_len % ATT_BK != 0 || a.splits < 1 ||
       (long long)a.splits * a.split_len < a.S || (PAGED && a.page < 1))
     return (int)cudaErrorInvalidValue;
@@ -232,15 +248,15 @@ int run(DecodeArgs& a, int dtype, void* stream) {
 
 }  // namespace
 
-// q (B,KH,rows,hd) token-major rows (rows = q_len·group <= 32), k/v
-// (B,KH,S,hd), cache_len (B,) int32, o (B,KH,rows,hd); any strides with a
-// unit innermost one.  part_acc (B·KH·splits·rows·hd) and part_ml
-// (B·KH·splits·rows·2) are f32 scratch.  split_len must be a multiple of
-// 64.  softcap <= 0 = none.
+// q (B,KH,rows,hd) token-major rows (rows = q_len·group, any count, in
+// row tiles of tile_rows <= 32), k/v (B,KH,S,hd), cache_len (B,) int32, o
+// (B,KH,rows,hd); any strides with a unit innermost one.  part_acc
+// (B·KH·splits·rows·hd) and part_ml (B·KH·splits·rows·2) are f32 scratch.
+// split_len must be a multiple of 64.  softcap <= 0 = none.
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const int* cache_len,
     void* o, float* part_acc, float* part_ml,
-    int B, int KH, int rows, int q_len, int S, int hd,
+    int B, int KH, int rows, int tile_rows, int q_len, int S, int hd,
     long long q_sb, long long q_sh, long long q_sr,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
@@ -248,7 +264,7 @@ extern "C" int decode_attention_fwd(
     int splits, int split_len, int window, float softcap, float scale,
     int dtype, void* stream) {
   DecodeArgs a{q, k, v, nullptr, cache_len, o, part_acc, part_ml,
-               B, KH, rows, q_len, S, hd,
+               B, KH, rows, tile_rows, q_len, S, hd,
                {q_sb, q_sh, q_sr, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                 o_sb, o_sh, o_sr},
                0, 1, splits, split_len, window, softcap, scale, 0};
@@ -257,12 +273,13 @@ extern "C" int decode_attention_fwd(
 
 // The paged form: k_pool/v_pool (n_pages, KH, page, hd) strided views (the
 // model's (n_pages, page, KH, hd) pools passed without a copy), block_table
-// (B, P) int32 with row stride tbl_sb, S = P·page.  rows <= 64.  The rest as
-// decode_attention_fwd.
+// (B, P) int32 with row stride tbl_sb, S = P·page.  Row tiles of
+// tile_rows <= 64.  The rest as decode_attention_fwd.
 extern "C" int paged_decode_attention_fwd(
     const void* q, const void* k_pool, const void* v_pool,
     const int* block_table, const int* cache_len, void* o, float* part_acc,
-    float* part_ml, int B, int KH, int rows, int q_len, int P, int page,
+    float* part_ml, int B, int KH, int rows, int tile_rows, int q_len, int P,
+    int page,
     int hd, long long q_sb, long long q_sh, long long q_sr,
     long long k_sn, long long k_sh, long long k_sp,
     long long v_sn, long long v_sh, long long v_sp, long long tbl_sb,
@@ -270,7 +287,7 @@ extern "C" int paged_decode_attention_fwd(
     int splits, int split_len, int window, float softcap, float scale,
     int dtype, void* stream) {
   DecodeArgs a{q, k_pool, v_pool, block_table, cache_len, o, part_acc,
-               part_ml, B, KH, rows, q_len, P * page, hd,
+               part_ml, B, KH, rows, tile_rows, q_len, P * page, hd,
                {q_sb, q_sh, q_sr, k_sn, k_sh, k_sp, v_sn, v_sh, v_sp,
                 o_sb, o_sh, o_sr},
                tbl_sb, page, splits, split_len, window, softcap, scale, 0};

@@ -1,0 +1,597 @@
+// Flash-decoding over a dense or a paged KV cache on Hopper's tensor cores
+// (sm_90a): one launch per call, K/V through a cp.async ring, QK^T and PV on
+// mma.sync.  bfloat16 in and out, float32 accumulation; head dims 64 and 128.
+//
+// Replaces: src/repro/kernels/decode_attention.py::decode_attention_pallas
+// (dense decode of the batch path and the drafter, and the q_len > 1 chunk
+// of ops.multi_decode_attention) and ::paged_decode_attention_pallas for fp
+// pools (the slot path's paged decode at q_len 1 and the speculative
+// verifier at q_len = gamma + 1), on the route
+// kernels/decode_attention.py::route gives bf16 at hd 64/128.  float32 and
+// the other head dims stay on decode_attention.cu.
+//
+// What bounds it on this card: bytes.  A (batch row, KV head) reads its
+// cache_len x hd K and V once, ~1 MB per layer at the main path's lengths,
+// and does 4·hd FLOPs per (query row, key): a few FLOPs per byte.  At B 1
+// the whole call moves ~1-4 MB, a microsecond of bandwidth, so what it
+// costs is latency: launches, dependent round trips to memory, and the
+// merge of the key splits.
+//
+// What the design does about it:
+//  * One launch.  The key splits of one (batch row, KV head, row tile) are
+//    the blocks of one thread-block cluster (grid x = splits = cluster
+//    size, at most 16).  Each block folds its keys into (m, l, acc) and
+//    leaves them in its shared memory; after a cluster barrier the blocks
+//    read each other's partials through distributed shared memory and each
+//    merges and writes a share of the output.  No f32 partials in device
+//    memory, no second kernel, no scratch: the wrapper allocates only o.
+//  * Loads overlap compute.  K/V tiles of 64 keys stay bf16 and go straight
+//    to shared memory in 16-byte cp.async.cg copies (no registers) into a
+//    ring of three stages; the next two tiles are in flight while one is
+//    computed.  A split holds several tiles (the plan in
+//    kernels/decode_attention.py::cluster_plan).  Keys at or past the
+//    split's end (never past cache_len) are zero-filled through cp.async's
+//    src-size operand, so no address is formed from a block-table entry
+//    past a row's length and the NaN trash page is never read.
+//  * Paged pools through the block table at any page size: every 16-byte
+//    copy computes its key's page (a block reads its own table entries);
+//    pages smaller than the tile are fine, as TMA's boxes would not be.
+//  * Tensor cores.  The row tile's query rows (token-major, q_len·group)
+//    are packed into 16-row fragments held in registers as mma A operands,
+//    loaded once; rows past the tile are zero and never stored.  S = QK^T
+//    runs as mma.sync.m16n8k16 (bf16, f32 accumulate) with K fragments
+//    from ldmatrix; PV with p re-packed from the S accumulators into bf16
+//    A fragments (as FlashAttention-2) and V fragments from ldmatrix.trans.
+//    Shared memory rows are XOR-swizzled by 16-byte chunk, so ldmatrix
+//    reads no bank twice.  One fragment (the decode step's 6-7 rows): the
+//    four warps each take 16 keys of every tile; two fragments: two warps
+//    each, 32 keys; three or four (35 or 63 verify rows): a warp each, all
+//    64 keys.  Every fragment reads the same K/V tile in shared memory, so
+//    K/V leave device memory once per (b, kh, row tile).  The warps'
+//    partials merge in shared memory before the cluster merge.
+//  * The mask is the TPU kernel's _kv_block_update one: query row r (its
+//    global index in the chunk) belongs to chunk token t = r / group, with
+//    eff = cache_len - (q_len - 1) + t; columns < eff (and >= eff - window
+//    with a window) are valid; softcap before the mask; p = where(mask,
+//    exp(s - m), 0), so fully masked rows and cache_len == 0 emit zeros;
+//    the final acc / max(l, 1e-30); per-row cache_len clipped to the cache.
+//    Softmax runs in base 2 (s·log2 e).
+//
+// What it rounds: p to bf16 before PV, so it is held to |got - want| <=
+// 1e-5 + 2^-6·|want| + 2^-8·A with A = attention(q, k, |v|) (flash's
+// tensor-core bound), not to two bf16 ulps of the f32 plain version.
+//
+// Resources at hd 128: 96 KB of ring (3 x 32 KB) plus 1 KB of (m, l), two
+// blocks an SM; the partials reuse the ring after the last tile.  At hd 64
+// half of that, four blocks an SM.
+#include <cooperative_groups.h>
+
+#include "common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int MD_BK = 64;          // keys per K/V tile
+constexpr int MD_WARPS = 4;
+constexpr int MD_THREADS = 32 * MD_WARPS;
+constexpr int MD_STAGES = 3;
+constexpr int MD_MAX_ROWS = 16 * MD_WARPS;   // four 16-row fragments
+constexpr int MD_MAX_CLUSTER = 16;
+constexpr float MD_LOG2E = 1.4426950408889634f;
+constexpr float MD_MASKED = REPRO_NEG_INF;   // a masked logit (base 2)
+
+template <int HD>
+struct MdLayout {
+  static constexpr int CHUNKS = HD / 8;               // 16 B per chunk
+  static constexpr int TILE_BYTES = MD_BK * HD * 2;   // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // K then V
+  static constexpr int RING_BYTES = MD_STAGES * STAGE_BYTES;
+  static constexpr int PST = HD + 8;                  // f32 partial row
+  static constexpr int PART_BYTES = MD_WARPS * 16 * PST * 4;
+  static_assert(PART_BYTES <= RING_BYTES, "partials reuse the ring");
+  static constexpr int WML_OFF = RING_BYTES;          // [warp][16][2]
+  static constexpr int ML_OFF = WML_OFF + MD_WARPS * 16 * 2 * 4;  // [64][2]
+  static constexpr int BYTES = ML_OFF + MD_MAX_ROWS * 2 * 4;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; src_bytes 0 writes 16 zeros and
+// reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// d += a · b, m16n8k16, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Byte offset of 16-byte chunk ``ch`` of tile row ``row`` (HD bf16 a row),
+// XOR-swizzled so the 8 rows an ldmatrix phase reads hit 8 bank groups.
+template <int HD>
+__device__ __forceinline__ uint32_t tile_off(int row, int ch) {
+  return row * (HD * 2) + ((ch ^ (row & 7)) << 4);
+}
+
+// KS key slices per tile: warp w takes 16-row fragment w / KS and keys
+// [(w % KS)·64/KS, +64/KS) of every tile.
+template <int HD, int KS, bool PAGED>
+__global__ void __launch_bounds__(MD_THREADS)
+decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const int* __restrict__ tbl,
+                  const int* __restrict__ cache_len,
+                  __nv_bfloat16* __restrict__ o, int KH, int rows,
+                  int tile_rows, int q_len, int S, int split_len,
+                  int64_t q_sb, int64_t q_sh, int64_t q_sr, int64_t k_s0,
+                  int64_t k_sh, int64_t k_ss, int64_t v_s0, int64_t v_sh,
+                  int64_t v_ss, int64_t tbl_sb, int page, int64_t o_sb,
+                  int64_t o_sh, int64_t o_sr, int window, float softcap,
+                  float scale) {
+  using L = MdLayout<HD>;
+  constexpr int SW = MD_BK / KS;     // keys per warp per tile
+  constexpr int NB = SW / 8;         // S n-blocks of 8 keys
+  constexpr int KD = HD / 16;        // k-steps over hd (QK^T)
+  constexpr int ND = HD / 8;         // n-blocks of 8 dims (PV)
+  extern __shared__ __align__(128) unsigned char md_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int kh = blockIdx.y % KH, r0 = blockIdx.y / KH * tile_rows;
+  const int nrows = min(tile_rows, rows - r0);
+  const int nfrag = (nrows + 15) / 16;
+  const int group = rows / q_len;
+  const int len = min(cache_len[b], S);
+  const int frag = warp / KS, slice = warp % KS;
+  const bool active = frag < nfrag;                 // warp-uniform
+
+  // this thread's two rows of its fragment (local to the row tile)
+  const int ra = frag * 16 + (lane >> 2), rb = ra + 8;
+  const int eff0 = len - (q_len - 1);
+  const int effa = eff0 + (r0 + ra) / group, effb = eff0 + (r0 + rb) / group;
+
+  // Q A fragments, loaded once; rows past the tile are zero
+  uint32_t qf[KD][4];
+  {
+    const __nv_bfloat16* qb = q + b * q_sb + kh * q_sh;
+    const int c = 2 * (lane & 3);
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      const int d = kd * 16 + c;
+      const bool oka = active && ra < nrows, okb = active && rb < nrows;
+      const __nv_bfloat16* pa = qb + (int64_t)(r0 + ra) * q_sr + d;
+      const __nv_bfloat16* pb = qb + (int64_t)(r0 + rb) * q_sr + d;
+      qf[kd][0] = oka ? *reinterpret_cast<const uint32_t*>(pa) : 0u;
+      qf[kd][1] = okb ? *reinterpret_cast<const uint32_t*>(pb) : 0u;
+      qf[kd][2] = oka ? *reinterpret_cast<const uint32_t*>(pa + 8) : 0u;
+      qf[kd][3] = okb ? *reinterpret_cast<const uint32_t*>(pb + 8) : 0u;
+    }
+  }
+
+  // keys any row of the chunk can see: [lo, len); this split's share is
+  // [kb, s1), never a key >= len
+  const int lo = window > 0 ? max(len - window - (q_len - 1), 0) : 0;
+  const int s0 = split * split_len;
+  const int s1 = min(len, s0 + split_len);
+  const int kb = max(s0, lo);
+  const int ntile = kb < s1 ? (s1 - kb + MD_BK - 1) / MD_BK : 0;
+
+  const __nv_bfloat16* kbase = k + (PAGED ? 0 : b * k_s0) + kh * k_sh;
+  const __nv_bfloat16* vbase = v + (PAGED ? 0 : b * v_s0) + kh * v_sh;
+  const int* trow = tbl + b * tbl_sb;
+  const uint32_t ring = smem_u32(md_smem);
+  if (PAGED) {
+    // this split's block-table entries, on their way to L1 while the row's
+    // length is read (an entry is used only below the length)
+    const int e0 = s0 / page;
+    const int e1 = (min(s0 + split_len, S) + page - 1) / page;
+    for (int e = e0 + 16 * threadIdx.x; e < e1; e += 16 * MD_THREADS)
+      prefetch_l1(trow + e);
+    if (threadIdx.x == 0 && e1 > e0) prefetch_l1(trow + e1 - 1);
+  }
+
+  // tile i (keys kb + 64i ..) into stage i % STAGES; always one commit
+  auto load_tile = [&](int i) {
+    if (i < ntile) {
+      const int t0 = kb + i * MD_BK;
+      const uint32_t st = ring + (i % MD_STAGES) * L::STAGE_BYTES;
+#pragma unroll 4
+      for (int c = threadIdx.x; c < 2 * MD_BK * L::CHUNKS; c += MD_THREADS) {
+        const int isv = c / (MD_BK * L::CHUNKS);
+        const int rem = c - isv * (MD_BK * L::CHUNKS);
+        const int row = rem / L::CHUNKS, ch = rem % L::CHUNKS;
+        const int key = t0 + row;
+        const __nv_bfloat16* base = isv ? vbase : kbase;
+        const __nv_bfloat16* src = base;
+        int bytes = 0;
+        if (key < s1) {
+          int64_t off;
+          if (PAGED) {
+            const int blk = key / page;
+            off = (int64_t)__ldg(trow + blk) * (isv ? v_s0 : k_s0) +
+                  (int64_t)(key - blk * page) * (isv ? v_ss : k_ss);
+          } else {
+            off = (int64_t)key * (isv ? v_ss : k_ss);
+          }
+          src = base + off + ch * 8;
+          bytes = 16;
+        }
+        cp_async16(st + isv * L::TILE_BYTES + tile_off<HD>(row, ch), src,
+                   bytes);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float m[2] = {MD_MASKED, MD_MASKED}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < MD_STAGES; ++i) load_tile(i);
+
+  for (int i = 0; i < ntile; ++i) {
+    cp_async_wait<MD_STAGES - 1>();
+    __syncthreads();                   // tile i landed
+    if (active) {
+      const uint32_t ks = ring + (i % MD_STAGES) * L::STAGE_BYTES;
+      const uint32_t vs = ks + L::TILE_BYTES;
+      const int key0 = slice * SW;        // this warp's first key in the tile
+
+      // S = Q K^T over this warp's SW keys
+      float s[NB][4];
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+        for (int n2 = 0; n2 < NB / 2; ++n2) {
+          const int row = key0 + n2 * 16 + (lane & 7) + ((lane >> 4) << 3);
+          const int ch = kd * 2 + ((lane >> 3) & 1);
+          uint32_t kf[4];
+          ldmatrix_x4(kf, ks + tile_off<HD>(row, ch));
+          mma_bf16(s[2 * n2], qf[kd], kf[0], kf[1]);
+          mma_bf16(s[2 * n2 + 1], qf[kd], kf[2], kf[3]);
+        }
+      }
+
+      // mask, softcap, online softmax in base 2 (rows ra: s[.][0..1], rb:
+      // s[.][2..3]); the row max reduces over the lane quad
+      const int t0 = kb + i * MD_BK + key0;
+      float mx[2] = {MD_MASKED, MD_MASKED};
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = t0 + n * 8 + 2 * (lane & 3) + (j & 1);
+          const int eff = j < 2 ? effa : effb;
+          bool ok = c < s1 && c < eff;
+          if (window > 0) ok = ok && c >= eff - window;
+          float x = s[n][j] * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+          x = ok ? x * MD_LOG2E : MD_MASKED;
+          s[n][j] = x;
+          mx[j >> 1] = fmaxf(mx[j >> 1], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float mn = fmaxf(m[h], mx[h]);
+        alpha[h] = exp2f(m[h] - mn);
+        m[h] = mn;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float x = s[n][j];
+          const float p = x > 0.5f * MD_MASKED ? exp2f(x - m[j >> 1]) : 0.f;
+          s[n][j] = p;
+          l[j >> 1] += p;
+        }
+      }
+
+      // O += P V: the S accumulators of keys 16kk..16kk+15 are the A
+      // fragment of k-step kk, rounded to bf16
+#pragma unroll
+      for (int kk = 0; kk < SW / 16; ++kk) {
+        uint32_t pf[4];
+        pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        const int row = key0 + kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+#pragma unroll
+        for (int n2 = 0; n2 < ND / 2; ++n2) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, vs + tile_off<HD>(row, n2 * 2 + (lane >> 4)));
+          mma_bf16(acc[2 * n2], pf, vf[0], vf[1]);
+          mma_bf16(acc[2 * n2 + 1], pf, vf[2], vf[3]);
+        }
+      }
+    }
+    __syncthreads();                   // tile i consumed: refill its stage
+    load_tile(i + MD_STAGES);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                     // the ring is free: partials reuse it
+
+  float* part = reinterpret_cast<float*>(md_smem);             // [w][16][PST]
+  float* wml = reinterpret_cast<float*>(md_smem + L::WML_OFF);  // [w][16][2]
+  float* ml = reinterpret_cast<float*>(md_smem + L::ML_OFF);    // [64][2]
+  if (active) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+    const int la = lane >> 2, c = 2 * (lane & 3);
+    float* pw = part + warp * 16 * L::PST;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<float2*>(pw + la * L::PST + n * 8 + c) =
+          make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(pw + (la + 8) * L::PST + n * 8 + c) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+    if ((lane & 3) == 0) {
+      wml[(warp * 16 + la) * 2] = m[0];
+      wml[(warp * 16 + la) * 2 + 1] = l[0];
+      wml[(warp * 16 + la + 8) * 2] = m[1];
+      wml[(warp * 16 + la + 8) * 2 + 1] = l[1];
+    }
+  }
+  __syncthreads();
+  // the block's (m, l) per row, merged over its KS key slices
+  for (int r = threadIdx.x; r < nfrag * 16; r += MD_THREADS) {
+    const int w0 = (r >> 4) * KS, rr = r & 15;
+    float mm = MD_MASKED;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) mm = fmaxf(mm, wml[((w0 + s) * 16 + rr) * 2]);
+    float ll = 0.f;
+#pragma unroll
+    for (int s = 0; s < KS; ++s)
+      ll += wml[((w0 + s) * 16 + rr) * 2 + 1] *
+            exp2f(wml[((w0 + s) * 16 + rr) * 2] - mm);
+    ml[r * 2] = mm;
+    ml[r * 2 + 1] = ll;
+  }
+  if (KS > 1) {
+    __syncthreads();
+    // acc merged over the key slices into the fragment's first warp slot
+    for (int e = threadIdx.x; e < nfrag * 16 * HD; e += MD_THREADS) {
+      const int r = e / HD, d = e % HD, w0 = (r >> 4) * KS, rr = r & 15;
+      const float mm = ml[r * 2];
+      float a = 0.f;
+#pragma unroll
+      for (int s = 0; s < KS; ++s)
+        a += part[((w0 + s) * 16 + rr) * L::PST + d] *
+             exp2f(wml[((w0 + s) * 16 + rr) * 2] - mm);
+      part[(w0 * 16 + rr) * L::PST + d] = a;
+    }
+  }
+  cluster.sync();                      // every block's partial is visible
+
+  // the cluster merge: rank j writes elements j·THREADS + t, stepping by
+  // cluster size · THREADS, of this row tile's nrows x HD outputs; every
+  // rank's (m, l, acc) of an element is read at once
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  __nv_bfloat16* ob = o + b * o_sb + kh * o_sh + (int64_t)r0 * o_sr;
+  for (int e = rank * MD_THREADS + threadIdx.x; e < nrows * HD;
+       e += cs * MD_THREADS) {
+    const int r = e / HD, d = e % HD;
+    const int slot = ((r >> 4) * KS * 16 + (r & 15)) * L::PST + d;
+    float mj[MD_MAX_CLUSTER], lj[MD_MAX_CLUSTER], aj[MD_MAX_CLUSTER];
+#pragma unroll
+    for (int j = 0; j < MD_MAX_CLUSTER; ++j) {
+      if (j < cs) {
+        const float* mlj = cluster.map_shared_rank(ml, j);
+        mj[j] = mlj[r * 2];
+        lj[j] = mlj[r * 2 + 1];
+        aj[j] = cluster.map_shared_rank(part, j)[slot];
+      }
+    }
+    float mm = MD_MASKED;
+#pragma unroll
+    for (int j = 0; j < MD_MAX_CLUSTER; ++j)
+      if (j < cs) mm = fmaxf(mm, mj[j]);
+    float ll = 0.f, a = 0.f;
+#pragma unroll
+    for (int j = 0; j < MD_MAX_CLUSTER; ++j) {
+      if (j < cs) {
+        const float w = exp2f(mj[j] - mm);
+        ll += lj[j] * w;
+        a += aj[j] * w;
+      }
+    }
+    ob[(int64_t)r * o_sr + d] = __float2bfloat16(a / fmaxf(ll, 1e-30f));
+  }
+  cluster.sync();                      // no block leaves while read
+}
+
+struct MdArgs {
+  const void *q, *k, *v;
+  const int* tbl;
+  const int* cache_len;
+  void* o;
+  int B, KH, rows, tile_rows, q_len, S, hd;
+  long long st[12];     // q (b, h, r), k (0, h, s), v (0, h, s), o (b, h, r)
+  long long tbl_sb;
+  int page, splits, split_len, window;
+  float softcap, scale;
+};
+
+template <int HD, int KS, bool PAGED>
+cudaError_t md_launch(const MdArgs& a, cudaStream_t stream) {
+  auto kernel = decode_mma_kernel<HD, KS, PAGED>;
+  constexpr int smem = MdLayout<HD>::BYTES;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const int row_tiles = (a.rows + a.tile_rows - 1) / a.tile_rows;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.splits, a.KH * row_tiles, a.B);
+  cfg.blockDim = dim3(MD_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const long long* st = a.st;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), a.tbl, a.cache_len,
+      static_cast<__nv_bfloat16*>(a.o), a.KH, a.rows, a.tile_rows, a.q_len,
+      a.S, a.split_len, (int64_t)st[0], (int64_t)st[1], (int64_t)st[2],
+      (int64_t)st[3], (int64_t)st[4], (int64_t)st[5], (int64_t)st[6],
+      (int64_t)st[7], (int64_t)st[8], (int64_t)a.tbl_sb, a.page,
+      (int64_t)st[9], (int64_t)st[10], (int64_t)st[11], a.window, a.softcap,
+      a.scale);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// the key slices per tile follow the row tile's fragment count
+template <int HD, bool PAGED>
+cudaError_t md_dispatch_ks(const MdArgs& a, cudaStream_t stream) {
+  const int frags = (a.tile_rows + 15) / 16;
+  if (frags == 1) return md_launch<HD, 4, PAGED>(a, stream);
+  if (frags == 2) return md_launch<HD, 2, PAGED>(a, stream);
+  return md_launch<HD, 1, PAGED>(a, stream);
+}
+
+template <bool PAGED>
+int md_run(const MdArgs& a, void* stream) {
+  const int row_tiles =
+      a.tile_rows > 0 ? (a.rows + a.tile_rows - 1) / a.tile_rows : 0;
+  if ((a.hd != 64 && a.hd != 128) || a.rows < 1 || a.tile_rows < 1 ||
+      a.tile_rows > MD_MAX_ROWS || a.q_len < 1 || a.rows % a.q_len != 0 ||
+      a.KH < 1 || (long long)a.KH * row_tiles > 65535 || a.splits < 1 ||
+      a.splits > MD_MAX_CLUSTER || a.split_len < 1 ||
+      (long long)a.splits * a.split_len < a.S || (PAGED && a.page < 1))
+    return (int)cudaErrorInvalidValue;
+  // cp.async and the Q loads: 16-byte aligned bases (the wrapper checks
+  // the strides of the dimensions it uses)
+  const void* ptrs[3] = {a.q, a.k, a.v};
+  for (const void* p : ptrs)
+    if ((uintptr_t)p % 16) return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.hd == 64) return (int)md_dispatch_ks<64, PAGED>(a, s);
+  return (int)md_dispatch_ks<128, PAGED>(a, s);
+}
+
+}  // namespace
+
+// bf16 only, hd 64 or 128.  q (B,KH,rows,hd) token-major rows (rows =
+// q_len·group) in row tiles of tile_rows <= 64; k/v (B,KH,S,hd); cache_len
+// (B,) int32; o (B,KH,rows,hd).  Unit innermost strides; q/k/v bases and
+// the strides of dimensions larger than 1 16-byte aligned.  splits (<= 16)
+// blocks per cluster, each over split_len keys, splits·split_len >= S.
+// softcap <= 0 = none.
+extern "C" int decode_attention_mma_fwd(
+    const void* q, const void* k, const void* v, const int* cache_len,
+    void* o, int B, int KH, int rows, int tile_rows, int q_len, int S,
+    int hd, long long q_sb, long long q_sh, long long q_sr, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long o_sb, long long o_sh, long long o_sr,
+    int splits, int split_len, int window, float softcap, float scale,
+    void* stream) {
+  MdArgs a{q, k, v, nullptr, cache_len, o, B, KH, rows, tile_rows, q_len, S,
+           hd, {q_sb, q_sh, q_sr, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                o_sb, o_sh, o_sr},
+           0, 1, splits, split_len, window, softcap, scale};
+  return md_run<false>(a, stream);
+}
+
+// The paged form: k_pool/v_pool (n_pages, KH, page, hd) strided views,
+// block_table (B, P) int32 with row stride tbl_sb, S = P·page.  The rest
+// as decode_attention_mma_fwd.
+extern "C" int paged_decode_attention_mma_fwd(
+    const void* q, const void* k_pool, const void* v_pool,
+    const int* block_table, const int* cache_len, void* o, int B, int KH,
+    int rows, int tile_rows, int q_len, int P, int page, int hd,
+    long long q_sb, long long q_sh, long long q_sr, long long k_sn,
+    long long k_sh, long long k_sp, long long v_sn, long long v_sh,
+    long long v_sp, long long tbl_sb, long long o_sb, long long o_sh,
+    long long o_sr, int splits, int split_len, int window, float softcap,
+    float scale, void* stream) {
+  MdArgs a{q, k_pool, v_pool, block_table, cache_len, o, B, KH, rows,
+           tile_rows, q_len, P * page, hd,
+           {q_sb, q_sh, q_sr, k_sn, k_sh, k_sp, v_sn, v_sh, v_sp,
+            o_sb, o_sh, o_sr},
+           tbl_sb, page, splits, split_len, window, softcap, scale};
+  return md_run<true>(a, stream);
+}

@@ -88,7 +88,7 @@ prefill_append_kernel(const T* __restrict__ q, const T* __restrict__ k,
   st.init();
   if (hi > 0)
     attend_tiles<T, HD, WARPS, true>(st, qs, ks, vs, krow, vrow,
-                                     lo / ATT_BK * ATT_BK, hi, lo, rows,
+                                     lo / ATT_BK * ATT_BK, hi, lo, rows, 0,
                                      group, eff0, window, softcap, scale, hd,
                                      vec);
 

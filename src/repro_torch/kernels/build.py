@@ -145,3 +145,16 @@ def check_operands(*ts: torch.Tensor) -> None:
             raise ValueError("kernel operands must share device and dtype")
         if t.stride(-1) != 1:
             raise ValueError("kernel operands need a unit innermost stride")
+
+
+def check_16_bytes(rule: str, **ts: torch.Tensor) -> None:
+    """16-byte aligned base addresses and strides (a size-1 dimension's
+    stride is never used), as ``rule`` (TMA, cp.async) needs.  Raises."""
+    for name, t in ts.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {rule} needs a 16-byte aligned base "
+                             f"address, got {t.data_ptr():#x}")
+        for size, stride in zip(t.shape[:-1], t.stride()[:-1]):
+            if size > 1 and (stride * t.element_size()) % 16:
+                raise ValueError(f"{name}: {rule} needs 16-byte aligned "
+                                 f"strides, got {t.stride()}")

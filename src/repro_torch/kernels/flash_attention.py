@@ -25,7 +25,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import DTYPES, CudaKernel, check_operands
+from repro_torch.kernels.build import (DTYPES, CudaKernel, check_16_bytes,
+                                      check_operands)
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -53,14 +54,7 @@ def route(dtype: torch.dtype, hd: int) -> str:
 def check_tma(**ts: torch.Tensor) -> None:
     """TMA's rules for the wgmma route: 16-byte aligned base addresses and
     strides (a size-1 dimension's stride is never used).  Raises."""
-    for name, t in ts.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: TMA needs a 16-byte aligned base "
-                             f"address, got {t.data_ptr():#x}")
-        for size, stride in zip(t.shape[:-1], t.stride()[:-1]):
-            if size > 1 and (stride * t.element_size()) % 16:
-                raise ValueError(f"{name}: TMA needs 16-byte aligned "
-                                 f"strides, got {t.stride()}")
+    check_16_bytes("TMA", **ts)
 
 
 def _launch_args(q, k, v, causal, window, softcap, scale):

@@ -30,26 +30,35 @@ from repro_torch.kernels import ssm_scan as SS
 
 KERNELS = {"flash_attention": FA.KERNEL,
            "flash_attention_wgmma": FA.WGMMA_KERNEL,
-           "decode_attention": DA.KERNEL, "region_score": RS.KERNEL,
+           "decode_attention": DA.KERNEL,
+           "decode_attention_mma": DA.MMA_KERNEL, "region_score": RS.KERNEL,
            "paged_decode_attention": PDA.KERNEL,
+           "paged_decode_attention_mma": PDA.MMA_KERNEL,
            "paged_prefill_attention": PPA.KERNEL,
            "ssm_scan": SS.KERNEL, "slstm_scan": SL.KERNEL}
+#: the kernels with a tensor-core route: {name: (its key, its route)}
+TENSOR_CORE_ROUTES = {
+    "flash_attention": ("flash_attention_wgmma", "wgmma"),
+    "decode_attention": ("decode_attention_mma", "mma"),
+    "paged_decode_attention": ("paged_decode_attention_mma", "mma")}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Launches per kernel since the last reset.  ``"flash_attention"``
-    counts every launch of either flash route, ``"flash_attention_wgmma"``
-    the tensor-core route alone (``flash_launches_by_route`` splits them)."""
+    """Launches per kernel since the last reset.  A kernel with two routes
+    (``TENSOR_CORE_ROUTES``) counts every launch of either under its own
+    name, and the tensor-core route alone under that route's key
+    (``launches_by_route`` splits them)."""
     counts = {name: k.launches for name, k in KERNELS.items()}
-    counts["flash_attention"] += counts["flash_attention_wgmma"]
+    for name, (key, _) in TENSOR_CORE_ROUTES.items():
+        counts[name] += counts[key]
     return counts
 
 
-def flash_launches_by_route(counts: Dict[str, int]) -> Dict[str, int]:
-    """Flash launches of ``launch_counts()``'s result by route:
-    {"wgmma": n, "cuda_cores": n}."""
-    wgmma = counts["flash_attention_wgmma"]
-    return {"wgmma": wgmma, "cuda_cores": counts["flash_attention"] - wgmma}
+def launches_by_route(counts: Dict[str, int], name: str) -> Dict[str, int]:
+    """Launches of ``name`` in ``launch_counts()``'s result by route:
+    {"wgmma" or "mma": n, "cuda_cores": n}."""
+    key, tc = TENSOR_CORE_ROUTES[name]
+    return {tc: counts[key], "cuda_cores": counts[name] - counts[key]}
 
 
 def reset_launch_counts() -> None:

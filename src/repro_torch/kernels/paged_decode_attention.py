@@ -1,32 +1,41 @@
 """Flash-decoding through a block table over a paged KV pool: the wrapper
-around ``paged_decode_attention_fwd`` in ``csrc/decode_attention.cu``.
+around the paged entry points of ``csrc/decode_attention_mma.cu`` and
+``csrc/decode_attention.cu``.
 
-The paged form of ``decode_attention``'s split-K kernel, sharing its body
-and its combine: key ``s`` of batch row ``b`` lives at
-``pool[block_table[b, s // page], kh, s % page, :]``.  One kernel serves the
-slot path's decode (``q_len`` 1) and the speculative verifier (``q_len`` =
-γ+1, causal within the chunk), up to ``MAX_ROWS`` = 64 query rows
-(``q_len·group``) per KV head.  The split plan follows the table width,
-which is fixed for an engine, never the lengths; keys at or past a row's
-``cache_len`` are never read.
+The paged form of ``decode_attention``'s kernels, sharing their bodies and
+their route rule (``decode_attention.route``): key ``s`` of batch row ``b``
+lives at ``pool[block_table[b, s // page], kh, s % page, :]``.  One entry
+serves the slot path's decode (``q_len`` 1) and the speculative verifier
+(``q_len`` = γ+1, causal within the chunk), at any ``q_len·group``: rows
+past one block's 64 go to further row tiles.  The split plan follows the
+table width, which is fixed for an engine, never the lengths; keys at or
+past a row's ``cache_len`` are never read.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels.build import DTYPES, CudaKernel, check_operands
-from repro_torch.kernels.decode_attention import (_sm_count, device_lengths,
-                                                  split_plan)
+from repro_torch.kernels.build import (DTYPES, CudaKernel, check_16_bytes,
+                                       check_operands)
+from repro_torch.kernels.decode_attention import (MMA_MAX_ROWS, _sm_count,
+                                                  cluster_plan,
+                                                  device_lengths, route,
+                                                  row_tile, split_plan)
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 KERNEL = CudaKernel("decode_attention.cu", "paged_decode_attention_fwd",
-                    [_P] * 8 + [_I] * 7 + [_L] * 13
+                    [_P] * 8 + [_I] * 8 + [_L] * 13
                     + [_I, _I, _I, _F, _F, _I, _P])
-MAX_ROWS = 64         # q_len·group rows one block holds (8 warps)
+MMA_KERNEL = CudaKernel("decode_attention_mma.cu",
+                        "paged_decode_attention_mma_fwd",
+                        [_P] * 6 + [_I] * 8 + [_L] * 13
+                        + [_I, _I, _I, _F, _F, _P])
+MAX_ROWS = 64         # query rows of one CUDA-core row tile (8 warps)
 
 
 def check_paged(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -56,24 +65,25 @@ def check_paged(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     return b, kh, rows, hd, k_pool.shape[2], block_table.shape[1]
 
 
-def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
-                                v_pool: torch.Tensor,
-                                block_table: torch.Tensor,
-                                cache_len: Union[int, torch.Tensor], *,
-                                window: int = 0,
-                                softcap: Optional[float] = None,
-                                scale: Optional[float] = None,
-                                q_len: int = 1) -> torch.Tensor:
-    """q: (B, KH, q_len·group, hd) token-major rows; k_pool, v_pool:
-    (n_pages, KH, page, hd), any strides with a unit innermost one (the
-    model's (n_pages, page, KH, hd) pools pass as ``transpose(1, 2)``
-    views); block_table: (B, P) int32; cache_len: int or () / (B,) int
-    tensor of valid slots INCLUDING the chunk → (B, KH, q_len·group, hd),
-    on the card."""
+def _group(q, q_len):
+    rows = q.shape[2]
+    if q_len < 1 or rows < 1 or rows % q_len:
+        raise ValueError(f"rows {rows} must be q_len·group with q_len "
+                         f"{q_len}")
+    return rows // q_len
+
+
+def launch_cuda_cores(q: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, block_table: torch.Tensor,
+                      cache_len: Union[int, torch.Tensor], *,
+                      window: int = 0, softcap: Optional[float] = None,
+                      scale: Optional[float] = None,
+                      q_len: int = 1) -> torch.Tensor:
+    """The CUDA-core kernel, on any input it takes (float32 or bfloat16,
+    hd <= 128, hd % 4 == 0)."""
     b, kh, rows, hd, page, n_blocks = check_paged(q, k_pool, v_pool,
                                                   block_table)
-    if rows % q_len or not 1 <= rows <= MAX_ROWS:
-        raise ValueError(f"rows {rows} must be q_len·group <= {MAX_ROWS}")
+    group = _group(q, q_len)
     lens = device_lengths(cache_len, b, q.device)
     scale = scale if scale is not None else hd ** -0.5
     splits, split_len = split_plan(b, kh, n_blocks * page,
@@ -89,9 +99,62 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         KERNEL(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                block_table.data_ptr(), lens.data_ptr(), o.data_ptr(),
                part_acc.data_ptr(), part_ml.data_ptr(),
-               b, kh, rows, q_len, n_blocks, page, hd,
-               *q.stride()[:3], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-               block_table.stride(0), *o.stride()[:3],
+               b, kh, rows, row_tile(rows, group, MAX_ROWS), q_len, n_blocks,
+               page, hd, *q.stride()[:3], ks[0], ks[1], ks[2], vs[0], vs[1],
+               vs[2], block_table.stride(0), *o.stride()[:3],
                splits, split_len, int(window), float(softcap or 0.0),
                float(scale), DTYPES[q.dtype], stream)
     return o
+
+
+def launch_mma(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+               block_table: torch.Tensor,
+               cache_len: Union[int, torch.Tensor], *, window: int = 0,
+               softcap: Optional[float] = None,
+               scale: Optional[float] = None,
+               q_len: int = 1) -> torch.Tensor:
+    """The tensor-core kernel: bfloat16 at hd 64 or 128, operands that keep
+    cp.async's 16-byte rule; raises on anything else."""
+    if route(q.dtype, q.shape[-1]) != "mma":
+        raise ValueError(f"the mma kernel takes bfloat16 at hd 64 or 128, "
+                         f"got {q.dtype} hd {q.shape[-1]}")
+    b, kh, rows, hd, page, n_blocks = check_paged(q, k_pool, v_pool,
+                                                  block_table)
+    check_16_bytes("cp.async", q=q, k_pool=k_pool, v_pool=v_pool)
+    tile = row_tile(rows, _group(q, q_len), MMA_MAX_ROWS)
+    lens = device_lengths(cache_len, b, q.device)
+    scale = scale if scale is not None else hd ** -0.5
+    splits, split_len = cluster_plan(b * kh * math.ceil(rows / tile),
+                                     n_blocks * page,
+                                     _sm_count(q.device.index))
+    o = torch.empty((b, kh, rows, hd), dtype=q.dtype, device=q.device)
+    ks, vs = k_pool.stride(), v_pool.stride()
+    with torch.cuda.device(q.device):
+        MMA_KERNEL(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                   block_table.data_ptr(), lens.data_ptr(), o.data_ptr(),
+                   b, kh, rows, tile, q_len, n_blocks, page, hd,
+                   *q.stride()[:3], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+                   block_table.stride(0), *o.stride()[:3], splits, split_len,
+                   int(window), float(softcap or 0.0), float(scale),
+                   torch.cuda.current_stream().cuda_stream)
+    return o
+
+
+def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor,
+                                block_table: torch.Tensor,
+                                cache_len: Union[int, torch.Tensor], *,
+                                window: int = 0,
+                                softcap: Optional[float] = None,
+                                scale: Optional[float] = None,
+                                q_len: int = 1) -> torch.Tensor:
+    """q: (B, KH, q_len·group, hd) token-major rows; k_pool, v_pool:
+    (n_pages, KH, page, hd), any strides with a unit innermost one (the
+    model's (n_pages, page, KH, hd) pools pass as ``transpose(1, 2)``
+    views); block_table: (B, P) int32; cache_len: int or () / (B,) int
+    tensor of valid slots INCLUDING the chunk → (B, KH, q_len·group, hd),
+    on the card, through the kernel ``route`` names."""
+    launch = (launch_mma if route(q.dtype, q.shape[-1]) == "mma"
+              else launch_cuda_cores)
+    return launch(q, k_pool, v_pool, block_table, cache_len, window=window,
+                  softcap=softcap, scale=scale, q_len=q_len)

@@ -7,9 +7,10 @@ and ``nvcc``).  Run on a machine with an H100:
 
 Tolerances, element by element: attention 1e-4 absolute in float32 (TF32
 off) and 1e-5 + 2^-6·|want| in bfloat16 (two bfloat16 ulps: both sides
-round an f32 result), except flash attention's tensor-core route, which
-rounds p to bfloat16 before PV and is held to 1e-5 + 2^-6·|want| +
-2^-8·attention(q, k, |v|); region scores, f32 math and output, 1e-5 absolute;
+round an f32 result), except the tensor-core routes of flash and decode
+attention, which round p to bfloat16 before PV and are held to 1e-5 +
+2^-6·|want| + 2^-8·attention(q, k, |v|); region scores, f32 math and
+output, 1e-5 absolute;
 the scans 1e-4 + 1e-4·|want| (f32 on both sides, another summation order),
 a bf16 scan output 1e-4 + 2^-6·|want|, the sLSTM 2e-4 + 2e-4·|want|.
 """
@@ -136,6 +137,10 @@ def test_flash_wgmma_route_refuses_misaligned_views(card):
 ])
 def test_decode_attention_kernel_matches_plain(card, hd, group, q_len,
                                                window, softcap, dtype):
+    """Each case through ``ops`` on the route ``route`` names: the mma
+    route (bf16 at hd 128) held to its bound, the CUDA-core route to
+    ``TOL``; an mma case also runs the CUDA-core kernel, held to ``TOL``."""
+    from repro_torch.kernels import decode_attention as DA
     s, kh = 300, 2
     q = _randn(card, 4, q_len, kh * group, hd, dtype=dtype)
     k = _randn(card, 4, s, kh, hd, dtype=dtype)
@@ -145,7 +150,16 @@ def test_decode_attention_kernel_matches_plain(card, hd, group, q_len,
                                      softcap=softcap)
     want = ref.multi_decode_attention(q, k, v, lens, window=window,
                                       softcap=softcap)
-    _close(got, want, TOL[dtype])
+    if DA.route(dtype, hd) == "mma":
+        _within_mma_decode_bound(got, q, k, v, lens, window=window,
+                                 softcap=softcap)
+        rows = ops._chunk_to_rows(q, kh)
+        cc = DA.launch_cuda_cores(rows, k.transpose(1, 2), v.transpose(1, 2),
+                                  lens, window=window, softcap=softcap,
+                                  q_len=q_len)
+        _close(ops._rows_to_chunk(cc, q_len, kh * group), want, TOL[dtype])
+    else:
+        _close(got, want, TOL[dtype])
     assert float(got[0].abs().max()) == 0.0
 
 
@@ -181,6 +195,12 @@ def _paged_case(gen, b, kh, group, hd, page, width, lens, q_len, dtype):
 ])
 def test_paged_decode_kernel_matches_plain(card, hd, group, q_len, page,
                                            window, softcap, dtype):
+    """Each case through ``ops`` on the route ``route`` names: the mma
+    route (bf16 at hd 128) held to its bound, the CUDA-core route to
+    ``TOL``; the launch counted under the kernel's name either way.  An
+    mma case also runs the CUDA-core kernel, held to ``TOL``."""
+    from repro_torch.kernels import paged_decode_attention as PDA
+    from repro_torch.kernels.decode_attention import route
     lens = [0, 1, 2, 77, 150, 203]
     q, kp, vp, kn, vn, table, lens_t = _paged_case(
         card, len(lens), 2, group, hd, page, -(-210 // page), lens, q_len,
@@ -191,12 +211,184 @@ def test_paged_decode_kernel_matches_plain(card, hd, group, q_len, page,
     assert ops.launch_counts()["paged_decode_attention"] == before + 1
     want = ref.paged_multi_decode_attention(q, kp, vp, table, lens_t,
                                             window=window, softcap=softcap)
-    _close(got, want, TOL[dtype])
+    mma = route(dtype, hd) == "mma"
+
+    def held(got, q, want):
+        if mma:
+            _within_mma_decode_bound(
+                got, q, ref.gather_pages(kp, table),
+                ref.gather_pages(vp, table), lens_t, window=window,
+                softcap=softcap)
+        else:
+            _close(got, want, TOL[dtype])
+
+    held(got, q, want)
     assert float(got[0].abs().max()) == 0.0
+    if mma:
+        cc = PDA.launch_cuda_cores(ops._chunk_to_rows(q, 2),
+                                   kn.transpose(1, 2), vn.transpose(1, 2),
+                                   table, lens_t, window=window,
+                                   softcap=softcap, q_len=q_len)
+        _close(ops._rows_to_chunk(cc, q_len, 2 * group), want, TOL[dtype])
     if q_len == 1:
         got1 = ops.paged_decode_attention(q[:, 0], kn, vn, table, lens_t,
                                           window=window, softcap=softcap)
-        _close(got1, want[:, 0], TOL[dtype])
+        held(got1[:, None], q, want)
+
+
+def _within_mma_decode_bound(got, q, k, v, lens, **kw):
+    """The tensor-core decode route rounds p to bf16 before PV: held to
+    flash's bound, 1e-5 + 2^-6·|want| + 2^-8·A, A = attention(q, k, |v|) in
+    f32.  q (B, T, H, hd); k, v (B, S, KH, hd) dense (pools gathered)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = ref.multi_decode_attention(qf, kf, vf, lens, **kw)
+    a = ref.multi_decode_attention(qf, kf, vf.abs(), lens, **kw)
+    bound = 1e-5 + 2.0 ** -6 * want.abs() + 2.0 ** -8 * a
+    diff = (got.float() - want).abs()
+    assert not bool((diff > bound).any()), float(diff.max())
+
+
+def _nan_past(k, lens):
+    """A copy of the dense cache k (B, S, KH, hd) that is NaN past each
+    row's length: a read past it would show."""
+    kn = k.clone()
+    kn[torch.arange(k.shape[1], device=k.device)[None, :]
+       >= lens[:, None]] = float("nan")
+    return kn
+
+
+@pytest.mark.parametrize("b,kh,group,s,lens", [
+    (1, 2, 6, 1026, [1026]),                  # the 2B decode step
+    (1, 4, 7, 2049, [2049]),                  # the 7B's
+])
+def test_decode_mma_route_at_the_path_shapes(card, b, kh, group, s, lens):
+    """Dense decode in bf16 at hd 128 takes the tensor cores: one launch on
+    the mma key, none on the CUDA cores, within the bound."""
+    q = _randn(card, b, kh * group, 128, dtype=torch.bfloat16)
+    k = _randn(card, b, s, kh, 128, dtype=torch.bfloat16)
+    v = _randn(card, b, s, kh, 128, dtype=torch.bfloat16)
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = ops.launch_counts()
+    got = ops.decode_attention(q, k, v, lens)
+    after = ops.launch_counts()
+    assert after["decode_attention_mma"] == before["decode_attention_mma"] + 1
+    assert after["decode_attention"] == before["decode_attention"] + 1
+    _within_mma_decode_bound(got[:, None], q[:, None], k, v, lens)
+
+
+@pytest.mark.parametrize("hd,group,q_len,window,softcap", [
+    (128, 7, 1, 0, None), (64, 1, 1, 37, None), (128, 6, 3, 0, 30.0),
+    (64, 7, 10, 37, 30.0), (128, 2, 4, 0, None), (64, 5, 2, 0, 30.0),
+    (128, 3, 7, 37, None), (128, 4, 9, 0, None)])
+def test_decode_mma_route_sweep(card, hd, group, q_len, window, softcap):
+    """cache_len 0, 1, a partial tile and the whole cache; the cache past
+    each row's length NaN; q_len up to 10 (70 rows: two row tiles)."""
+    s, kh = 300, 2
+    q = _randn(card, 4, q_len, kh * group, hd, dtype=torch.bfloat16)
+    k = _randn(card, 4, s, kh, hd, dtype=torch.bfloat16)
+    v = _randn(card, 4, s, kh, hd, dtype=torch.bfloat16)
+    lens = torch.tensor([0, 1, 100, s], dtype=torch.int32, device="cuda")
+    got = ops.multi_decode_attention(q, _nan_past(k, lens), _nan_past(v, lens),
+                                     lens, window=window, softcap=softcap)
+    _within_mma_decode_bound(got, q, k, v, lens, window=window,
+                             softcap=softcap)
+    assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("hd,dtype", [(128, torch.bfloat16),
+                                      (16, torch.float32)])
+def test_dense_decode_takes_35_rows_on_either_route(card, hd, dtype):
+    """The 7B's dense verify at γ 4 (q_len 5 × group 7 = 35 rows) runs on
+    both routes: row tiles past one block's rows (32 on the CUDA cores)."""
+    from repro_torch.kernels.decode_attention import route
+    s, kh, group, q_len = 300, 2, 7, 5
+    q = _randn(card, 3, q_len, kh * group, hd, dtype=dtype)
+    k = _randn(card, 3, s, kh, hd, dtype=dtype)
+    v = _randn(card, 3, s, kh, hd, dtype=dtype)
+    lens = torch.tensor([3, 150, s], dtype=torch.int32, device="cuda")
+    key = ("decode_attention_mma" if route(dtype, hd) == "mma"
+           else "decode_attention")
+    before = ops.launch_counts()[key]
+    got = ops.multi_decode_attention(q, k, v, lens)
+    assert ops.launch_counts()[key] == before + 1
+    if dtype == torch.bfloat16:
+        _within_mma_decode_bound(got, q, k, v, lens)
+    else:
+        _close(got, ref.multi_decode_attention(q, k, v, lens), TOL[dtype])
+
+
+@pytest.mark.parametrize("tag,b,kh,group,q_len", [
+    ("a", 8, 2, 6, 1), ("b", 8, 4, 7, 1), ("c", 4, 4, 7, 5)])
+def test_paged_decode_mma_route_at_the_path_shapes(card, tag, b, kh, group,
+                                                   q_len):
+    """The slot path's shapes (page 8, table width 257, cache_len
+    1025..2049, NaN trash page) on the tensor cores, within the bound."""
+    lens = [1025 + (1024 * i) // (b - 1) for i in range(b)]
+    q, kp, vp, kn, vn, table, lens_t = _paged_case(
+        card, b, kh, group, 128, 8, 257, lens, q_len, torch.bfloat16)
+    before = ops.launch_counts()["paged_decode_attention_mma"]
+    got = ops.paged_multi_decode_attention(q, kn, vn, table, lens_t)
+    assert ops.launch_counts()["paged_decode_attention_mma"] == before + 1
+    _within_mma_decode_bound(got, q, ref.gather_pages(kp, table),
+                             ref.gather_pages(vp, table), lens_t)
+
+
+@pytest.mark.parametrize("hd,group,q_len,page,window,softcap", [
+    (128, 7, 1, 8, 0, None), (64, 2, 3, 64, 50, None),
+    (128, 6, 5, 64, 0, 30.0), (64, 7, 10, 8, 50, 30.0),
+    (128, 1, 1, 1, 0, None), (64, 4, 7, 16, 0, None)])
+def test_paged_decode_mma_route_sweep(card, hd, group, q_len, page, window,
+                                      softcap):
+    """Idle rows, rows shorter than the chunk, partial and whole tiles;
+    pages of 1-64 slots; the NaN trash page never read."""
+    lens = [0, 1, 2, 77, 150, 203]
+    q, kp, vp, kn, vn, table, lens_t = _paged_case(
+        card, len(lens), 2, group, hd, page, -(-210 // page), lens, q_len,
+        torch.bfloat16)
+    got = ops.paged_multi_decode_attention(q, kn, vn, table, lens_t,
+                                           window=window, softcap=softcap)
+    _within_mma_decode_bound(got, q, ref.gather_pages(kp, table),
+                             ref.gather_pages(vp, table), lens_t,
+                             window=window, softcap=softcap)
+    assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("hd,dtype", [(128, torch.bfloat16),
+                                      (16, torch.float32)])
+def test_paged_verify_takes_70_rows_on_either_route(card, hd, dtype):
+    """The 7B verifier at γ 9: q_len 10 × group 7 = 70 rows, past one
+    block's 64, on both routes (two row tiles)."""
+    from repro_torch.kernels.decode_attention import route
+    lens = [9, 500, 1025, 2049]
+    q, kp, vp, kn, vn, table, lens_t = _paged_case(
+        card, 4, 4, 7, hd, 8, 257, lens, 10, dtype)
+    key = ("paged_decode_attention_mma" if route(dtype, hd) == "mma"
+           else "paged_decode_attention")
+    before = ops.launch_counts()[key]
+    got = ops.paged_multi_decode_attention(q, kn, vn, table, lens_t)
+    assert ops.launch_counts()[key] == before + 1
+    if dtype == torch.bfloat16:
+        _within_mma_decode_bound(got, q, ref.gather_pages(kp, table),
+                                 ref.gather_pages(vp, table), lens_t)
+    else:
+        _close(got, ref.paged_multi_decode_attention(q, kp, vp, table,
+                                                     lens_t), TOL[dtype])
+
+
+def test_decode_mma_route_refuses_misaligned_views(card):
+    """cp.async's 16-byte rule is checked before the launch: a misaligned
+    view raises on both entries, it never takes the CUDA-core route."""
+    buf = _randn(card, 1, 2, 8, 136, dtype=torch.bfloat16)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention_cuda(buf[..., 1:129], buf[..., :128],
+                              buf[..., :128], 3)
+    pool = _randn(card, 4, 2, 8, 136, dtype=torch.bfloat16)
+    table = torch.zeros((1, 3), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_decode_attention_cuda(buf[..., :128], pool[..., 1:129],
+                                    pool[..., :128], table, 3)
+    assert ops.launch_counts() == before
 
 
 @pytest.mark.parametrize("hd,group,q_len,q_blk,page,window,softcap,dtype", [
@@ -242,16 +434,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="head dim"):
         x = _randn(card, 1, 2, 4, 130)
         flash_attention_cuda(x, x, x)
-    with pytest.raises(ValueError, match="rows"):
-        x = _randn(card, 1, 1, 33, 16)
-        decode_attention_cuda(x, x, x, 3)
     with pytest.raises(ValueError, match="share device and dtype"):
         flash_attention_cuda(q, q.bfloat16(), q)
     pool = _randn(card, 6, 2, 8, 16)                 # (n_pages, KH, page, hd)
     table = torch.zeros((1, 3), dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="rows"):
-        paged_decode_attention_cuda(_randn(card, 1, 2, 65, 16), pool, pool,
-                                    table, 3)
     with pytest.raises(ValueError, match="block_table"):
         paged_decode_attention_cuda(_randn(card, 1, 2, 4, 16), pool, pool,
                                     table.long(), 3)

@@ -322,3 +322,190 @@ def test_decode_split_plan_covers_the_cache_without_a_cliff(b, kh, s):
     # does not collapse the plan to one split
     assert min(want, n_tiles) <= 2 * splits
     assert splits <= min(want, n_tiles)
+
+
+# ---------------------------------------------------------------------------
+# the decode kernels' plans and the tensor-core route's rounding
+# ---------------------------------------------------------------------------
+
+def test_decode_route_rule():
+    """bf16 at hd 64/128 takes the tensor cores (mma.sync); float32 and
+    other head dims take the CUDA cores; any other dtype raises.  The paged
+    wrapper follows the same rule."""
+    from repro_torch.kernels import paged_decode_attention as PDA
+    from repro_torch.kernels.decode_attention import route
+    assert route(torch.bfloat16, 64) == route(torch.bfloat16, 128) == "mma"
+    assert PDA.route is route
+    for dtype, hd in [(torch.float32, 128), (torch.float32, 64),
+                      (torch.bfloat16, 16), (torch.bfloat16, 12),
+                      (torch.bfloat16, 96)]:
+        assert route(dtype, hd) == "cuda_cores"
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            route(dtype, 128)
+
+
+def _pieces(rows, group, max_rows):
+    """The row tiles as chunk-token ranges (whole tokens each)."""
+    from repro_torch.kernels.decode_attention import row_tiles
+    tiles = row_tiles(rows, group, max_rows)
+    assert tiles[0][0] == 0 and tiles[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(tiles, tiles[1:]))
+    assert all(0 < r1 - r0 <= max_rows for r0, r1 in tiles)
+    assert all(r0 % group == 0 and r1 % group == 0 for r0, r1 in tiles)
+    return [(r0 // group, r1 // group) for r0, r1 in tiles]
+
+
+@pytest.mark.parametrize("paged,q_len,group,max_rows,n_tiles", [
+    (True, 10, 7, 64, 2),     # the 7B verifier at γ 9: 70 rows, 63 + 7
+    (False, 5, 7, 32, 2),     # dense 35 rows on the CUDA cores: 28 + 7
+    (False, 10, 7, 64, 2),    # dense 70 rows on the tensor cores
+    (True, 11, 6, 64, 2),     # the 2B verifier at γ 10: 66 rows
+])
+def test_row_tile_plan_composes_to_the_whole_call(paged, q_len, group,
+                                                  max_rows, n_tiles):
+    """Each row tile, scored as a sub-chunk of its whole tokens [t0, t1)
+    with cache_len less the tokens after it (clamped at 0), equals the
+    whole chunk's rows: the kernels' global row index in the mask
+    (eff = cache_len - (q_len - 1) + t) gives the same columns.  Lengths
+    include 0 and rows shorter than the chunk."""
+    pieces = _pieces(q_len * group, group, max_rows)
+    assert len(pieces) == n_tiles
+    rng = np.random.default_rng(q_len * 100 + group)
+    b, kh, hd, page, width = 5, 2, 16, 8, 12
+    q = _t(_rand(rng, b, q_len, kh * group, hd))
+    lens = _t(np.array([0, 3, q_len, 50, 96], np.int32))
+    if paged:
+        k_pool = _t(_rand(rng, 1 + b * width, page, kh, hd))
+        v_pool = _t(_rand(rng, 1 + b * width, page, kh, hd))
+        table = _t(1 + rng.permutation(b * width).reshape(b, width)
+                   .astype(np.int32))
+
+        def call(qq, ll):
+            return tref.paged_multi_decode_attention(qq, k_pool, v_pool,
+                                                     table, ll)
+    else:
+        k = _t(_rand(rng, b, 96, kh, hd))
+        v = _t(_rand(rng, b, 96, kh, hd))
+
+        def call(qq, ll):
+            return tref.multi_decode_attention(qq, k, v, ll)
+    whole = call(q, lens)
+    parts = [call(q[:, t0:t1], torch.clamp(lens - (q_len - t1), min=0))
+             for t0, t1 in pieces]
+    _close(torch.cat(parts, dim=1), whole)
+    assert float(whole[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("clusters,s", [(4, 2049), (2, 1026), (32, 2056),
+                                        (16, 2056), (1, 1), (1, 64),
+                                        (300, 5000), (8, 65)])
+def test_cluster_plan_covers_the_cache_with_no_empty_split(clusters, s):
+    """The tensor-core kernel's split plan: whole 64-key tiles per split,
+    no split empty of cache slots, the cache covered, at most MAX_CLUSTER
+    blocks a cluster, and enough blocks to fill the card where the cache
+    has the tiles for it."""
+    from repro_torch.kernels.decode_attention import (BLOCKS_PER_SM, KV_TILE,
+                                                      MAX_CLUSTER,
+                                                      cluster_plan)
+    splits, split_len = cluster_plan(clusters, s, sm_count=132)
+    assert split_len % KV_TILE == 0 and 1 <= splits <= MAX_CLUSTER
+    assert (splits - 1) * split_len < s <= splits * split_len
+    n_tiles = -(-s // KV_TILE)
+    want = max(BLOCKS_PER_SM * 132 // clusters, 1)
+    # as many splits as the card holds in one wave, the cluster allows and
+    # the tiles give, within the rounding to whole tiles per split
+    assert min(want, MAX_CLUSTER, n_tiles) <= 2 * splits
+    assert clusters * splits <= max(BLOCKS_PER_SM * 132, clusters)
+
+
+def _emulate_mma_decode(q, k, v, lens, *, window=0, softcap=None,
+                        splits=1, split_len=None, tile=64):
+    """What the tensor-core decode kernel computes, in float32 on the CPU:
+    per key split, an online softmax in base 2 over 64-key tiles with p
+    rounded to bf16 before PV and l summed from the f32 p; the splits
+    merged in f32; the output rounded to bf16.  q (B, T, H, hd), k/v
+    (B, S, KH, hd), cache_len INCLUDING the chunk."""
+    b, t, h, hd = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    split_len = split_len or s
+    log2e = 1.4426950408889634
+    qf = q.float().reshape(b, t, kh, g, hd).permute(0, 2, 1, 3, 4) \
+        .reshape(b, kh, t * g, hd)
+    kf, vf = k.float().permute(0, 2, 1, 3), v.float().permute(0, 2, 1, 3)
+    ln = torch.clamp(lens.long(), max=s)[:, None, None, None]
+    eff = ln - (t - 1) + (torch.arange(t * g) // g)[None, None, :, None]
+    parts = []
+    for sp in range(splits):
+        s0, s1 = sp * split_len, min(sp * split_len + split_len, s)
+        m = torch.full(qf.shape[:-1] + (1,), -1e30)
+        lsum, acc = torch.zeros_like(m), torch.zeros_like(qf)
+        for k0 in range(s0, s1, tile):
+            cols = torch.arange(k0, min(k0 + tile, s1))
+            x = qf @ kf[:, :, cols].transpose(-1, -2) * hd ** -0.5
+            if softcap is not None:
+                x = softcap * torch.tanh(x / softcap)
+            ok = (cols < ln) & (cols < eff)
+            if window > 0:
+                ok &= cols >= eff - window
+            x = torch.where(ok, x * log2e, torch.tensor(-1e30))
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            p = torch.where(ok, torch.exp2(x - m_new), torch.tensor(0.0))
+            alpha = torch.exp2(m - m_new)
+            lsum = lsum * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p.bfloat16().float() @ vf[:, :, cols]
+            m = m_new
+        parts.append((m, lsum, acc))
+    mm = torch.stack([p_[0] for p_ in parts]).amax(0)
+    lsum = sum(p_[1] * torch.exp2(p_[0] - mm) for p_ in parts)
+    acc = sum(p_[2] * torch.exp2(p_[0] - mm) for p_ in parts)
+    out = acc / lsum.clamp_min(1e-30)
+    return out.reshape(b, kh, t, g, hd).permute(0, 2, 1, 3, 4) \
+        .reshape(b, t, h, hd).bfloat16()
+
+
+def mma_decode_bound_share(got, q, k, v, lens, **kw):
+    """max over elements of |got - want| / (1e-5 + 2^-6·|want| + 2^-8·A),
+    want the f32 plain version, A = attention(q, k, |v|): flash's
+    tensor-core bound, which the tensor-core decode route is held to."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = tref.multi_decode_attention(qf, kf, vf, lens, **kw)
+    a = tref.multi_decode_attention(qf, kf, vf.abs(), lens, **kw)
+    bound = 1e-5 + 2.0 ** -6 * want.abs() + 2.0 ** -8 * a
+    return float(((got.float() - want).abs() / bound).max())
+
+
+@pytest.mark.parametrize("b,q_len,group,kh,hd,s,window,softcap", [
+    (1, 1, 7, 4, 128, 2049, 0, None),     # the 7B decode step
+    (1, 1, 6, 2, 128, 1026, 0, None),     # the 2B's
+    (4, 5, 7, 1, 128, 600, 0, None),      # the 7B verifier at γ 4
+    (3, 10, 7, 1, 64, 300, 37, 30.0),     # 70 rows, window, softcap
+])
+def test_mma_decode_rounding_stays_within_its_bound(b, q_len, group, kh, hd,
+                                                    s, window, softcap):
+    """The tensor-core decode route rounds p to bf16 before PV; an
+    emulation of its arithmetic over the split plan the card would use
+    stays within flash's tensor-core bound with room to spare (at most 0.6
+    of it), and the plain version it is held to equals the JAX oracle."""
+    from repro_torch.kernels.decode_attention import (MMA_MAX_ROWS,
+                                                      cluster_plan, row_tile)
+    rng = np.random.default_rng(q_len * 1000 + s)
+    q = _t(_rand(rng, b, q_len, kh * group, hd)).bfloat16()
+    k = _t(_rand(rng, b, s, kh, hd)).bfloat16()
+    v = _t(_rand(rng, b, s, kh, hd)).bfloat16()
+    lens = _t(np.linspace(max(s // 3, q_len), s, b).astype(np.int32))
+    rows = q_len * group
+    tiles = -(-rows // row_tile(rows, group, MMA_MAX_ROWS))
+    splits, split_len = cluster_plan(b * kh * tiles, s, sm_count=132)
+    assert splits > 1
+    kw = dict(window=window, softcap=softcap)
+    got = _emulate_mma_decode(q, k, v, lens, splits=splits,
+                              split_len=split_len, **kw)
+    assert mma_decode_bound_share(got, q, k, v, lens, **kw) <= 0.6
+    want = tref.multi_decode_attention(q.float(), k.float(), v.float(), lens,
+                                       **kw)
+    oracle = jref.multi_decode_attention(
+        *(jnp.asarray(t_.float().numpy()) for t_ in (q, k, v)),
+        jnp.asarray(lens.numpy()), **kw)
+    _close(want, oracle)
