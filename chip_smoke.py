@@ -48,13 +48,22 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    (cold L2: a 64 MiB buffer is rewritten before every launch and its own
    time subtracted); the decode kernels' two routes and the library call
    in turns (tensor cores, library, CUDA cores, tensor cores).  The paged
-   prefix-append kernel: an f32 sweep over
-   page sizes 1-16, chunks of 1-64 tokens (q_blk dividing them or not),
-   windows, softcaps, groups 1/6/7, rows of length 0, below the chunk, the
-   chunk alone and mid-prefill, NaN trash page, pools left unchanged; then
-   (d) the 2B engine's flat fused step (B 264: 8 decode rows as in (a),
-   one scene's last 256-token chunk as 256 rows sharing one table row) and
-   (e) that chunk as one q_len-256 row, timed as above.  The chunked
+   prefix-append kernel has two routes as well: the CUDA-core kernel over
+   an f32 sweep (page sizes 1-16, chunks of 1-64 tokens, q_blk dividing
+   them or not, windows, softcaps, groups 1/6/7, rows of length 0, below
+   the chunk, the chunk alone and mid-prefill, NaN trash page, pools left
+   unchanged) at the old tolerance, and the tensor-core route (bf16, hd
+   64/128, the decode kernel's body in its prefix-append mode) held to
+   the decode route's bound over a bf16 sweep (page sizes 1-16, chunks of
+   1-256 tokens, groups 1/6/7, windows, softcaps, the same kinds of rows)
+   and mixed flat steps (decode rows, a prompt row, a fresh stream and
+   one mid-prefill, padding; each slot's table entries past its last
+   position on the NaN trash page) with and without the tile plan; a
+   misaligned view must raise.  Then (d) the 2B engine's flat fused step
+   (B 264: 8 decode rows as in (a), one scene's last 256-token chunk as
+   256 rows sharing one table row; on the tensor cores with the engine's
+   tile plan, 34 row tiles, and without it) and (e) that chunk as one
+   q_len-256 row, on both routes, timed as above.  The chunked
    gated-linear-attention scan: an f32 sweep (S 1, 37, 64, 256; chunk 16,
    64; dk 8, 16, 384; dv 9, 24, 385; zero and carried state; log_g
    -softplus(randn), -2 and -30, where the output must be finite), then
@@ -66,8 +75,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    1e-4 + 2^-6·|want|; the sLSTM 2e-4 + 2e-4·|want|.  (f) and (g) are
    timed as above; no single PyTorch call computes either scan, so their
    library column is null.
-3. End to end on a small proxy pair (flash on its CUDA-core route alone,
-   counted): the port's ``CascadeServer``, its
+3. End to end on a small proxy pair (flash, decode and prefix-append on
+   their CUDA-core routes alone, counted): the port's ``CascadeServer``, its
    ``InferenceEngine.serve`` on the paged slot path, a γ = 3 speculative
    engine, and chunked prefill (chunk 8, chunk N_r, chunk 8 with γ = 3) on
    the card must give the decisions and tokens they give on the CPU from
@@ -105,11 +114,15 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    = resident prefixes; shared pages byte-equal from publication to the
    end; chunk + prompt prefill tokens = phase 6's prefix + prompt; no stall
    step; every fused step within the budget with a token for every
-   decoding slot; the prefix-append kernel launched 28 × fused steps, the
-   paged decode kernel 28 × plain steps, no flash prefill and no region
-   scoring.  Prints fused and plain step time, tokens/s, the device busy
-   share over fused steps, agreement with phase 6's answers (bf16), and the
-   longest gap between two tokens of a det answer here and in phase 6.
+   decoding slot; the prefix-append kernel launched 28 × fused steps, all
+   on its tensor-core route, the paged decode kernel 28 × plain steps, no
+   flash prefill and no region scoring; the prefix-append route held to
+   its bound on the phase's own inputs (the first layer's call of the
+   first fused step with decoding slots, with its tile plan and without).
+   Prints fused and plain step time, tokens/s, the device busy share and
+   device time over profiled fused steps, agreement with phase 6's
+   answers (bf16), and the longest gap between two tokens of a det answer
+   here and in phase 6.
 9. The xlstm-125m serve step at full width and depth (12 layers: 8 mLSTM,
    4 sLSTM; d 768, 4 heads, vocab 50304, bf16, random weights from a
    seed) through ``transformer.prefill`` and ``decode_step`` with greedy
@@ -140,7 +153,9 @@ just before they run and read it just after; each kernel of a path must
 have launched.  In phases 4, 6 and 7 the tensor-core flash route launched
 once per layer of every ``transformer.prefill`` call (28 × prefills) and
 the CUDA-core route never; in phases 4 and 6-8 every decode launch (dense
-and paged) took the tensor-core route, in phase 3 the CUDA-core route.
+and paged) took the tensor-core route, in phase 3 the CUDA-core route;
+every prefix-append launch took the tensor-core route in phase 8 and the
+CUDA-core route in phase 3.
 A kernel with two routes counts all its launches under its old name and
 the tensor-core ones under ``*_wgmma`` / ``*_mma`` as well.  Its last
 lines: the card's name and power limit as ``nvidia-smi``
@@ -165,7 +180,8 @@ SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu",
            "region_score.cu", "paged_prefill_attention.cu", "ssm_scan.cu",
            "slstm_scan.cu")
 # decode_attention.cu and decode_attention_mma.cu each hold a dense and a
-# paged decode entry point
+# paged decode entry point; decode_attention_mma.cu also the prefix-append
+# kernel's tensor-core entry
 # (absolute, relative to |want|) per element; see the docstring
 TOL_F32 = (1e-4, 0.0)
 TOL_BF16 = (1e-5, 2.0 ** -6)
@@ -190,6 +206,8 @@ REPLACES = {
     "paged_decode_attention_mma":
         "src/repro/kernels/decode_attention.py:301",
     "paged_prefill_attention": "src/repro/kernels/decode_attention.py:448",
+    "paged_prefill_attention_mma":
+        "src/repro/kernels/decode_attention.py:448",
     "ssm_scan": "src/repro/kernels/ssm_scan.py:65",
     "slstm_scan": "src/repro/kernels/slstm_scan.py:69",
 }
@@ -204,6 +222,8 @@ SOURCE_OF = {
         "src/repro_torch/csrc/decode_attention_mma.cu",
     "paged_prefill_attention":
         "src/repro_torch/csrc/paged_prefill_attention.cu",
+    "paged_prefill_attention_mma":
+        "src/repro_torch/csrc/decode_attention_mma.cu",
     "ssm_scan": "src/repro_torch/csrc/ssm_scan.cu",
     "slstm_scan": "src/repro_torch/csrc/slstm_scan.cu",
 }
@@ -402,16 +422,31 @@ def flash_wgmma_sweep(torch, randn, errors):
     return max(shares)
 
 
-def host_us(torch, fn, reps: int = 200) -> float:
-    """Mean host time of one call of ``fn`` (its enqueue), in µs."""
+def host_us(torch, fn, reps: int = 100, rounds: int = 5) -> float:
+    """Host time of one call of ``fn`` (its enqueue), in µs: the least mean
+    over ``rounds`` rounds of ``reps`` calls (other work on a shared host
+    only adds time)."""
     fn()
+    best = math.inf
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, time.perf_counter() - t0)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    t = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return 1e6 * t / reps
+    return 1e6 * best / reps
+
+
+def wrapper_us(torch, kernel, fn) -> float:
+    """``host_us`` of ``fn`` with ``kernel``'s C entry point swapped for a
+    no-op: what the wrapper's Python costs the host a call."""
+    kernel.bind()
+    real, kernel._fn = kernel._fn, lambda *args: 0
+    try:
+        return host_us(torch, fn)
+    finally:
+        kernel._fn = real
 
 
 def kernel_checks(torch):
@@ -550,8 +585,7 @@ def kernel_checks(torch):
         "shape": "B1 R1024 Nv1 Ne1 D1536 bf16"}}
 
     report.update(paged_kernel_checks(torch, randn, timer, errors))
-    report["paged_prefill_attention"] = prefill_kernel_checks(
-        torch, randn, timer, errors)
+    report.update(prefill_kernel_checks(torch, randn, timer, errors))
     report.update(scan_kernel_checks(torch, randn, timer, errors))
 
     torch.cuda.synchronize()
@@ -907,23 +941,165 @@ def same_bits(a, b) -> bool:
     return bool(((a == b) | (a.isnan() & b.isnan())).all())
 
 
+def flat_step(torch, randn, runs, *, tb, n_slots, kh, group, hd, page,
+              width, shared, scene_of):
+    """One fused step at the engine's flat shape, bf16: ``runs`` are
+    (slot, first position, tokens) in flat order, the rest of the ``tb``
+    rows padding (the last slot's table row at position 0, as the engine
+    clamps them).  Slot ``s`` maps scene ``scene_of[s]``'s ``shared``
+    prefix pages, then private pages, up to the page of its last position
+    in the step; its entries past that point at page 0, the trash page, as
+    ``paged_case``'s do.  Returns (q (tb, 1, H, hd), k_pool, v_pool, table,
+    lens, (k, v) with a NaN trash page, the tile plan on the card, the
+    scheduled rows)."""
+    import numpy as np
+    from repro_torch.kernels import paged_prefill_attention as PPA
+    srow = np.full((tb,), n_slots, np.int32)
+    pos = np.zeros((tb,), np.int32)
+    j = 0
+    for slot, p0, n in runs:
+        srow[j:j + n], pos[j:j + n] = slot, p0 + np.arange(n)
+        j += n
+    n_scenes = max(scene_of) + 1
+    tables = np.zeros((n_slots, width), np.int32)
+    nxt = 1 + n_scenes * shared
+    for sl in range(n_slots):
+        tables[sl, :shared] = 1 + scene_of[sl] * shared + np.arange(shared)
+        tables[sl, shared:] = nxt + np.arange(width - shared)
+        nxt += width - shared
+    rows_slot = np.minimum(srow, n_slots - 1)
+    need = np.zeros((n_slots,), np.int64)       # entries below a length
+    np.maximum.at(need, rows_slot, -(-(pos + 1) // page))
+    tables[np.arange(width)[None, :] >= need[:, None]] = 0
+    k_pool = randn(nxt, page, kh, hd, dtype=torch.bfloat16)
+    v_pool = randn(nxt, page, kh, hd, dtype=torch.bfloat16)
+    k_pool[0], v_pool[0] = 0, 0
+    k_nan, v_nan = k_pool.clone(), v_pool.clone()
+    k_nan[0], v_nan[0] = float("nan"), float("nan")
+    q = randn(tb, 1, kh * group, hd, dtype=torch.bfloat16)
+    table = torch.from_numpy(tables[rows_slot]).cuda()
+    lens = torch.from_numpy(pos + 1).cuda()
+    plan = PPA.tile_plan(srow, pos, n_slots, group,
+                         PPA.plan_tiles(tb, n_slots, group))
+    return (q, k_pool, v_pool, table, lens, (k_nan, v_nan),
+            torch.from_numpy(plan).cuda(), torch.from_numpy(srow < n_slots)
+            .cuda())
+
+
+def plan_rows(torch, plan, b):
+    """The rows a tile plan covers, as a (b,) bool mask on the card."""
+    rows = torch.zeros((b,), dtype=torch.bool, device=plan.device)
+    for j0, n in plan.T.tolist():
+        rows[j0:j0 + n] = True
+    return rows
+
+
+def check_mma_rows(name, got, q, k_pool, v_pool, table, lens, rows, kw,
+                   case, errors):
+    """``check_mma_decode`` on the rows ``rows`` of a paged call."""
+    from repro_torch.kernels import ref
+    return check_mma_decode(name, got[rows], q[rows],
+                            ref.gather_pages(k_pool, table[rows]),
+                            ref.gather_pages(v_pool, table[rows]),
+                            lens[rows], kw, case, errors)
+
+
+def prefill_mma_sweep(torch, randn, errors):
+    """The prefix-append kernel's tensor-core route (bf16, hd 64/128)
+    against the plain version through ``ops``: page sizes 1-16, chunks of
+    1-256 tokens, groups 1/6/7, windows and softcaps; rows of length 0,
+    below the chunk, the chunk alone and mid-prefill over shared prefix
+    pages; NaN trash page; the pools unchanged.  Then mixed flat steps
+    (decode rows, a prompt row, a fresh stream and one mid-prefill, then
+    padding) with and without the tile plan, and an idle step's plan.  A
+    misaligned view must raise.  Returns the largest share of the bound
+    any case used."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_prefill_attention as PPA
+    bf16 = torch.bfloat16
+    log("paged_prefill_attention vs plain (mma route)")
+    shares = []
+    for n, (page, hd, group, q_len) in enumerate([
+            (1, 64, 1, 1), (2, 128, 6, 7), (4, 64, 7, 16), (8, 128, 6, 64),
+            (16, 128, 7, 100), (8, 64, 1, 256), (16, 128, 6, 256),
+            (4, 128, 7, 33)]):
+        window, softcap = [(0, None), (40, None), (0, 30.0),
+                           (100, 30.0)][n % 4]
+        kw = {"window": window, "softcap": softcap}
+        lens = [0, max(q_len - 1, 1), q_len, q_len + 37, q_len + 150, 3]
+        q, k_pool, v_pool, table, lens_t, (k_nan, v_nan) = paged_case(
+            torch, randn, b=len(lens), kh=2, group=group, hd=hd, page=page,
+            width=-(-(q_len + 160) // page), lens=lens, q_len=q_len,
+            dtype=bf16, shared_blocks=32 // page)
+        k0, v0 = k_nan.clone(), v_nan.clone()
+        got = ops.paged_prefill_attention(q, k_nan, v_nan, table, lens_t,
+                                          **kw)
+        case = (f"bf16 page{page} hd{hd} g{group} q_len{q_len} w{window} "
+                f"cap{softcap}")
+        shares.append(check_mma_decode(
+            "paged_prefill", got, q, ref.gather_pages(k_pool, table),
+            ref.gather_pages(v_pool, table), lens_t, kw, case, errors)[1])
+        if float(got[0].abs().max()) != 0.0:
+            errors.append(f"paged_prefill mma {case}: cache_len 0 row not "
+                          f"zero")
+        if not (same_bits(k_nan, k0) and same_bits(v_nan, v0)):
+            errors.append(f"paged_prefill mma {case}: the pools changed")
+    runs = [(0, 300, 1), (1, 150, 1), (2, 64, 1), (3, 0, 23), (4, 40, 50)]
+    for hd, group, window, softcap in [(128, 6, 0, None), (64, 7, 40, 30.0),
+                                       (128, 1, 0, None)]:
+        kw = {"window": window, "softcap": softcap}
+        q, k_pool, v_pool, table, lens, nan_pools, plan, rows = flat_step(
+            torch, randn, runs, tb=90, n_slots=5, kh=2, group=group, hd=hd,
+            page=8, width=48, shared=8, scene_of=[0, 0, 1, 2, 1])
+        case = f"bf16 mixed flat step hd{hd} g{group} w{window} cap{softcap}"
+        shares.append(check_mma_rows(
+            "paged_prefill", ops.paged_prefill_attention(
+                q, *nan_pools, table, lens, plan=plan, **kw),
+            q, k_pool, v_pool, table, lens, rows, kw, case + " plan",
+            errors)[1])
+        shares.append(check_mma_rows(
+            "paged_prefill", ops.paged_prefill_attention(
+                q, *nan_pools, table, lens, **kw),
+            q, k_pool, v_pool, table, lens, torch.ones_like(rows), kw, case,
+            errors)[1])
+        PPA.launch_mma(q.reshape(90, 2, group, hd), *(x.transpose(1, 2)
+                       for x in nan_pools), table, lens,
+                       plan=torch.zeros_like(plan), **kw)
+        torch.cuda.synchronize()          # an idle plan: every entry exits
+    log(f"  mma prefill sweep: largest share of the bound {max(shares):.3f}")
+    buf = randn(1, 2, 8, 136, dtype=bf16)
+    pool = randn(4, 2, 8, 136, dtype=bf16)
+    table = torch.zeros((1, 3), dtype=torch.int32, device="cuda")
+    try:
+        PPA.paged_prefill_attention_cuda(buf[..., 1:129], pool[..., :128],
+                                         pool[..., :128], table, 3)
+        errors.append("paged_prefill: a misaligned view was not refused")
+        log("  paged_prefill misaligned q view: launched (FAIL)")
+    except ValueError as e:
+        log(f"  paged_prefill misaligned q view: refused ({e}) ok")
+    return max(shares)
+
+
 def prefill_kernel_checks(torch, randn, timer, errors):
     """The paged prefix-append kernel against its plain version: an f32
-    sweep (page sizes 1-16, chunks of 1-64 tokens with a q_blk that divides
-    the chunk and one that does not, window, softcap, groups 1/6/7; rows of
-    length 0, below the chunk, the chunk alone and mid-prefill; shared
-    prefix pages in several rows; NaN trash page; the pools unchanged),
-    then the chunked path's shapes in bf16 with their times:
+    sweep of the CUDA-core route (page sizes 1-16, chunks of 1-64 tokens
+    with a q_blk that divides the chunk and one that does not, window,
+    softcap, groups 1/6/7; rows of length 0, below the chunk, the chunk
+    alone and mid-prefill; shared prefix pages in several rows; NaN trash
+    page; the pools unchanged), the tensor-core route's bf16 sweep, then
+    the chunked path's shapes in bf16 on both routes with their times:
     (d) the 2B engine's flat fused step (B 264: 8 decode rows as in (a),
     then one scene's last 256-token chunk as 256 q_len-1 rows sharing one
-    table row at cache_len 769..1024) and (e) that chunk as one row
-    (q_len 256, cache_len 1024)."""
+    table row at cache_len 769..1024), on the tensor cores with the tile
+    plan the engine builds (34 row tiles) and without it, and (e) that
+    chunk as one row (q_len 256, cache_len 1024).  Times in turns: mma,
+    library, CUDA cores, mma.  Returns the report's two rows."""
     import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.paged_prefill_attention import (
-        paged_prefill_attention_cuda)
+    from repro_torch.kernels import paged_prefill_attention as PPA
 
-    log("paged_prefill_attention vs plain")
+    log("paged_prefill_attention vs plain (CUDA-core route)")
     for page, hd, group, q_len, q_blk, window, softcap in [
             (1, 16, 1, 4, 2, 0, None), (2, 16, 6, 6, 4, 24, None),
             (8, 64, 7, 16, 8, 0, 3.0), (16, 12, 6, 64, 10, 0, None),
@@ -948,42 +1124,42 @@ def prefill_kernel_checks(torch, randn, timer, errors):
             errors.append(f"paged_prefill {case}: cache_len 0 row not zero")
         if not (same_bits(k_nan, k0) and same_bits(v_nan, v0)):
             errors.append(f"paged_prefill {case}: the pools changed")
+    sweep_share = prefill_mma_sweep(torch, randn, errors)
 
-    out = {}
+    out = {"paged_prefill_attention_mma": {}, "paged_prefill_attention": {}}
     bf16 = torch.bfloat16
     page, width, hd, kh, group = 8, 257, 128, 2, 6
-    decode_lens = [1025 + (1024 * i) // 7 for i in range(8)]
-    # 8 decode rows over two scenes' shared prefixes, then the streaming
-    # scene's row (its own shared pages, 1024 tokens written)
-    base = paged_case(torch, randn, b=9, kh=kh, group=group, hd=hd,
-                      page=page, width=width, lens=decode_lens + [1024],
-                      q_len=1, dtype=bf16, shared_blocks=1024 // page,
-                      scenes=3, scene_of=[i % 2 for i in range(8)] + [2])
-    q9, k_pool, v_pool, table9, _, nan_pools = base
-    chunk = torch.arange(769, 1025, dtype=torch.int32, device="cuda")
-    shapes = {
-        "d 2B flat": (
-            torch.cat([q9[:8], randn(256, 1, kh * group, hd, dtype=bf16)]),
-            torch.cat([table9[:8], table9[8:].expand(256, -1)]).contiguous(),
-            torch.cat([torch.tensor(decode_lens, dtype=torch.int32,
-                                    device="cuda"), chunk]), 1),
-        "e 2B chunk": (randn(1, 256, kh * group, hd, dtype=bf16),
-                       table9[8:].contiguous(),
-                       torch.tensor([1024], dtype=torch.int32,
-                                    device="cuda"), 256)}
-    for tag, (q, table, lens_t, q_len) in shapes.items():
+    # 8 decode rows over two scenes' shared prefixes (cache_len 1025..2049),
+    # then the streaming scene's last chunk on slot 8 (positions 768..1023)
+    decode = [(i, 1024 + (1024 * i) // 7, 1) for i in range(8)]
+    q, k_pool, v_pool, table, lens, nan_pools, plan, _ = flat_step(
+        torch, randn, decode + [(8, 768, 256)], tb=264, n_slots=9, kh=kh,
+        group=group, hd=hd, page=page, width=width, shared=1024 // page,
+        scene_of=[0, 1] * 4 + [2])
+    shapes = {"d 2B flat": (q, table, lens, 1, plan),
+              "e 2B chunk": (q[8:].reshape(1, 256, kh * group, hd),
+                             table[8:9].contiguous(), lens[-1:], 256, None)}
+    kt, vt = (x.transpose(1, 2) for x in nan_pools)
+    for tag, (q, table, lens_t, q_len, plan) in shapes.items():
         b = q.shape[0]
-        got = ops.paged_prefill_attention(q, *nan_pools, table, lens_t)
+        case = (f"bf16 {tag} B{b} q_len{q_len} KH{kh} g{group} page{page} "
+                f"P{width}")
+        kg, vg = (ref.gather_pages(p, table) for p in (k_pool, v_pool))
+        err, share = check_mma_decode(
+            "paged_prefill", ops.paged_prefill_attention(
+                q, *nan_pools, table, lens_t, plan=plan),
+            q, kg, vg, lens_t, {}, case + (" plan" if plan is not None
+                                           else ""), errors)
         want = ref.paged_prefill_attention(q, k_pool, v_pool, table, lens_t)
-        err = check("paged_prefill", got, want, TOL_BF16,
-                    f"bf16 {tag} B{b} q_len{q_len} KH{kh} g{group} "
-                    f"page{page} P{width}", errors)
+        qr = q.reshape(b, q_len, kh, group, hd).permute(0, 2, 1, 3, 4) \
+            .reshape(b, kh, q_len * group, hd)
+        err_cc = check("paged_prefill", ops._rows_to_chunk(
+            PPA.launch_cuda_cores(qr, kt, vt, table, lens_t, q_len=q_len),
+            q_len, kh * group), want, TOL_BF16, case + " on CUDA cores",
+            errors)
         n_bytes, flops = paged_bytes_and_flops(torch, q, k_pool, table,
                                                lens_t, q_len)
         b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
-        qr = q.reshape(b, q_len, kh, group, hd).permute(0, 2, 1, 3, 4) \
-            .reshape(b, kh, q_len * group, hd)
-        kt, vt = k_pool.transpose(1, 2), v_pool.transpose(1, 2)
         pos = torch.arange(width * page, device="cuda")
         eff = (lens_t[:, None].long() - (q_len - 1)
                + torch.arange(q_len, device="cuda")[None, :])
@@ -996,23 +1172,77 @@ def prefill_kernel_checks(torch, randn, timer, errors):
             return F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask,
                                                   enable_gqa=True)
 
+        def mma(plan=plan):
+            return PPA.launch_mma(qr, kt, vt, table, lens_t, q_len=q_len,
+                                  plan=plan)
+
         lib_err = float((library().transpose(1, 2).float()
                          - want.float()).abs().max())
-        out[tag] = {
-            "max_abs_err": err,
-            "ms": timer(lambda: paged_prefill_attention_cuda(
-                qr, kt, vt, table, lens_t, q_len=q_len)),
-            "plain_ms": timer(lambda: ref.paged_prefill_attention(
-                q, k_pool, v_pool, table, lens_t)),
-            "library_ms": timer(library),
-            "library_is": "gather_pages + scaled_dot_product_attention "
-                          "(two calls)",
-            "library_max_abs_err": lib_err,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-            "flops": flops,
-            "shape": (f"B{b} KH{kh} g{group} q_len{q_len} hd{hd} page{page} "
-                      f"P{width} cache_len {int(lens_t.min())}.."
-                      f"{int(lens_t.max())} bf16")}
+        m = {"plain_ms": timer(lambda: ref.paged_prefill_attention(
+                 q, k_pool, v_pool, table, lens_t)),
+             "library_is": "gather_pages + scaled_dot_product_attention "
+                           "(two calls)",
+             "library_max_abs_err": lib_err,
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+             "flops": flops,
+             "shape": (f"B{b} KH{kh} g{group} q_len{q_len} hd{hd} "
+                       f"page{page} P{width} cache_len "
+                       f"{int(lens_t.min())}..{int(lens_t.max())} bf16")}
+        # kernel, library, CUDA cores, kernel: one card, one call, in turns
+        mma_ms = [timer(mma)]
+        m["library_ms"] = timer(library)
+        cc_ms = timer(lambda: PPA.launch_cuda_cores(qr, kt, vt, table,
+                                                    lens_t, q_len=q_len))
+        mma_ms.append(timer(mma))
+        ms = sum(mma_ms) / len(mma_ms)
+        row = dict(m, max_abs_err=err, ms=ms, ms_runs=mma_ms, route="mma",
+                   bound_share=b_ms / ms, tolerance_share=share,
+                   sweep_tolerance_share=sweep_share)
+        # the key splits the kernel's plan chose (clusters of that size)
+        tile = PPA.tokens_per_tile(group) * group
+        clusters = kh * (plan.shape[1] if plan is not None
+                         else b * -(-q_len * group // tile))
+        row["splits"] = DA.card_cluster_plan(clusters, width * page, 0,
+                                             DA.MMA_PREFILL, hd, tile)[0]
+
+        def cuda_cores():
+            return PPA.launch_cuda_cores(qr, kt, vt, table, lens_t,
+                                         q_len=q_len)
+
+        # what each route's wrapper costs the host a call (no L2 flush),
+        # and the share of it the wrapper's Python takes (its C entry a
+        # no-op)
+        row["host_us_per_call"] = {
+            "mma": host_us(torch, mma),
+            "cuda_cores": host_us(torch, cuda_cores),
+            "mma_python": wrapper_us(torch, PPA.MMA_KERNEL, mma),
+            "cuda_cores_python": wrapper_us(torch, PPA.KERNEL, cuda_cores)}
+        if plan is not None:
+            # the same call without the plan: a row tile per batch row
+            row["no_plan_ms"] = timer(lambda: mma(None))
+            row["no_plan_max_abs_err"], row["no_plan_tolerance_share"] = \
+                check_mma_decode("paged_prefill", ops.paged_prefill_attention(
+                    q, *nan_pools, table, lens_t), q, kg, vg, lens_t, {},
+                    case, errors)
+            row["plan_tiles"] = int((plan[1] > 0).sum())
+        out["paged_prefill_attention_mma"][tag] = row
+        out["paged_prefill_attention"][tag] = dict(
+            m, max_abs_err=err_cc, ms=cc_ms, route="cuda_cores")
+    # what the split plan reads: clusters of each size the card holds at
+    # once, for each mode's instance at the path's row tiles (a decode
+    # step's group rows, prefix-append's 60)
+    tile = PPA.tokens_per_tile(group) * group
+    occupancy = {name: {n: DA.max_clusters(0, mode, hd, rows_, n)
+                        for n in range(1, 17)}
+                 for name, mode, rows_ in (("dense", DA.MMA_DENSE, group),
+                                           ("paged", DA.MMA_PAGED, group),
+                                           ("prefix-append", DA.MMA_PREFILL,
+                                            tile))}
+    rows = out["paged_prefill_attention_mma"]
+    log(f"  mma: clusters of 1..16 blocks the card holds at once at hd "
+        f"{hd} {occupancy}; prefix-append splits (d) "
+        f"{rows['d 2B flat']['splits']}, (e) {rows['e 2B chunk']['splits']}")
+    rows["d 2B flat"]["max_clusters_by_size"] = occupancy
     return out
 
 
@@ -1578,7 +1808,8 @@ class StepProbe:
 def profile_summary(torch, prof, n_steps: int, seconds: float):
     """From a ``torch.profiler`` run over ``n_steps`` steps that took
     ``seconds`` on the host clock: the device's busy share, and the top
-    device kernels and host operations in ms per step."""
+    device kernels and host operations in ms per step, and the device's
+    time per step."""
     events = prof.key_averages()
 
     def dev_us(e):   # the attribute's name differs across versions
@@ -1596,6 +1827,7 @@ def profile_summary(torch, prof, n_steps: int, seconds: float):
     per = 1e3 * n_steps
     return {"device_busy_share":
             sum(dev_us(e) for e in kernels) / 1e6 / seconds,
+            "device_ms_per_step": sum(dev_us(e) for e in kernels) / per,
             "top_device_ms_per_step": {e.key[:60]: dev_us(e) / per
                                        for e in top_dev},
             "top_host_ms_per_step": {e.key[:60]: e.self_cpu_time_total / per
@@ -1726,10 +1958,17 @@ def chunked_phase(torch, sat, ac, slot):
 
     core._prefix.put = put_and_snapshot
     probe = StepProbe(torch, core, first=2, n=4)
+
+    def mixed():                      # a fused step with decoding slots
+        return bool(core._streaming) and any(
+            sl.active and sl.phase == "decode" for sl in core._slots)
+
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = eng.serve(reqs)
+    # the first layer's prefix-append inputs of the first mixed fused step
+    out, held = capture_inputs(torch, lambda: eng.serve(reqs),
+                               ["paged_prefill_attention"], when=mixed)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -1768,6 +2007,9 @@ def chunked_phase(torch, sat, ac, slot):
             [e[0] for e in log_] == decoding,
         "prefill launches == layers x fused steps":
             counts["paged_prefill_attention"] == n_layers * fused,
+        "prefix-append on the tensor cores only":
+            ops.launches_by_route(counts, "paged_prefill_attention")
+            == {"mma": n_layers * fused, "cuda_cores": 0},
         "decode launches == layers x plain steps":
             counts["paged_decode_attention"] == n_layers * (steps - fused),
         "paged decode on the tensor cores only": decode_routes(
@@ -1809,7 +2051,11 @@ def chunked_phase(torch, sat, ac, slot):
                [r for r in reqs if r.task == "det"]),
            "phase_6_det_max_token_gap_ms": slot["det_max_token_gap_ms"],
            "profiled_steps_fused": all(probe.fused[2:6]),
-           "device_busy_share": busy, "profile": prof, "launches": counts}
+           "device_busy_share": busy, "profile": prof, "launches": counts,
+           "prefill_launches_by_route": ops.launches_by_route(
+               counts, "paged_prefill_attention"),
+           "prefill_on_path_inputs": prefill_on_path_inputs(
+               torch, held["paged_prefill_attention"])}
     log(f"  chunked: {len(out)} requests in {wall:.2f} s, {steps} steps "
         f"({fused} fused), fused step {res['fused_step_ms_mean']:.2f} ms, "
         f"plain step {res['plain_step_ms_mean']:.2f} ms, "
@@ -1817,13 +2063,47 @@ def chunked_phase(torch, sat, ac, slot):
         f"{res['det_max_token_gap_ms']} ms (phase 6: "
         f"{slot['det_max_token_gap_ms']} ms), {sum(agree)}/{len(agree)} "
         f"answers equal to phase 6's, device busy "
-        f"{busy if busy is None else round(busy, 3)}")
+        f"{busy if busy is None else round(busy, 3)}, device "
+        f"{prof and round(prof['device_ms_per_step'], 3)} ms a profiled "
+        f"fused step")
     log(f"  chunked checks: {checks}")
     log("chunked_phase " + json.dumps(res))
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise RuntimeError(f"chunked phase failed: {bad}")
     return res
+
+
+def prefill_on_path_inputs(torch, calls):
+    """The prefix-append kernel's tensor-core route held to its bound on
+    phase 8's own inputs: the first layer's call of the first fused step
+    with decoding slots, with its tile plan (the rows the plan covers) and
+    without it (every row), after the phase's counts were read."""
+    from repro_torch.kernels import ops
+    errors, out = [], {}
+    log("paged_prefill_attention on phase 8's own inputs (mma route)")
+    if not calls:
+        raise RuntimeError("chunked phase: no fused step with decoding "
+                           "slots reached the prefix-append op")
+    (q, k_pool, v_pool, table, lens), kw = calls[0]
+    plan = kw.pop("plan")
+    tiles = int((plan[1] > 0).sum())
+    for tag, p, rows in (("plan", plan, plan_rows(torch, plan, q.shape[0])),
+                         ("no plan", None,
+                          torch.ones(q.shape[0], dtype=torch.bool,
+                                     device=q.device))):
+        case = (f"phase 8 fused step B{q.shape[0]} {int(rows.sum())} rows "
+                f"{tiles} tiles, {tag}")
+        err, share = check_mma_rows(
+            "paged_prefill", ops.paged_prefill_attention(
+                q, k_pool, v_pool, table, lens, plan=p, **kw),
+            q, k_pool, v_pool, table, lens, rows, kw, case, errors)
+        out[tag] = {"max_abs_err": err, "tolerance_share": share,
+                    "rows": int(rows.sum()), "tiles": tiles}
+    if errors:
+        raise RuntimeError(f"chunked phase: prefix-append outside its bound "
+                           f"on the path's own inputs: {errors}")
+    return out
 
 
 def spec_phase(torch, sat, gs, ac):
@@ -2248,10 +2528,11 @@ def xlstm_continuation(torch, T, params, cfg, toks, n_steps):
     return out
 
 
-def capture_inputs(torch, fn, names):
+def capture_inputs(torch, fn, names, when=None):
     """Runs ``fn()`` with the ``ops`` functions ``names`` wrapped so that
     the first call of each at each set of operand shapes keeps a copy of
-    its arguments (the first layer's inputs at that shape on the path);
+    its arguments (the first layer's inputs at that shape on the path),
+    counting only calls made while ``when()`` holds if it is given;
     returns (``fn()``'s result, {name: [(args, kwargs), ...]} in call
     order)."""
     from repro_torch.kernels import ops
@@ -2270,7 +2551,10 @@ def capture_inputs(torch, fn, names):
 
     def wrap(name):
         def call(*args, **kw):
-            got[name].setdefault(shapes(args), (copy(args), kw))
+            if when is None or when():
+                got[name].setdefault(shapes(args),
+                                     (copy(args), {k: copy(v) for k, v
+                                                   in kw.items()}))
             return saved[name](*args, **kw)
         return call
 
@@ -2483,6 +2767,12 @@ def main() -> int:
     if not ok:
         raise RuntimeError(f"small proxies: decode must run on the CUDA-core "
                            f"route alone (float32, hd 12/16): {small_decode}")
+    small_prefill = ops.launches_by_route(small_counts,
+                                          "paged_prefill_attention")
+    if not (small_prefill["cuda_cores"] > 0 and small_prefill["mma"] == 0):
+        raise RuntimeError(f"small proxies: prefix-append must run on the "
+                           f"CUDA-core route alone (float32, hd 12/16): "
+                           f"{small_prefill}")
 
     log("phase 4: main path at full width")
     sat, gs, ac, counts, held = main_path(torch)
@@ -2517,9 +2807,10 @@ def main() -> int:
         for name, cases in r.get("kernel_vs_plain_max_abs_err", {}).items():
             kernels[name].update({c: {"max_abs_err": e}
                                   for c, e in cases.items()})
-    # the line's "flash_attention", "decode_attention" and
-    # "paged_decode_attention" are the CUDA-core kernels alone; each row of
-    # a two-route kernel carries the launches by route
+    # the line's "flash_attention", "decode_attention",
+    # "paged_decode_attention" and "paged_prefill_attention" are the
+    # CUDA-core kernels alone; each row of a two-route kernel carries the
+    # launches by route
     two_route = ops.TENSOR_CORE_ROUTES
     routes = {p: {n: ops.launches_by_route(c, n) for n in two_route}
               for p, c in by_path.items()}
@@ -2536,6 +2827,7 @@ def main() -> int:
                 "region_score": "main",
                 "paged_decode_attention_mma": "a 2B q1",
                 "paged_decode_attention": "a 2B q1",
+                "paged_prefill_attention_mma": "d 2B flat",
                 "paged_prefill_attention": "d 2B flat",
                 "ssm_scan": "f xLSTM", "slstm_scan": "g xLSTM"}
     line = []

@@ -1,21 +1,27 @@
-// Flash-decoding over a dense or a paged KV cache on Hopper's tensor cores
-// (sm_90a): one launch per call, K/V through a cp.async ring, QK^T and PV on
-// mma.sync.  bfloat16 in and out, float32 accumulation; head dims 64 and 128.
+// Flash-decoding over a dense or a paged KV cache, and paged prefix-append
+// attention (chunked prefill), on Hopper's tensor cores (sm_90a): one
+// launch per call, K/V through a cp.async ring, QK^T and PV on mma.sync.
+// bfloat16 in and out, float32 accumulation; head dims 64 and 128.
 //
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention_pallas
 // (dense decode of the batch path and the drafter, and the q_len > 1 chunk
-// of ops.multi_decode_attention) and ::paged_decode_attention_pallas for fp
+// of ops.multi_decode_attention), ::paged_decode_attention_pallas for fp
 // pools (the slot path's paged decode at q_len 1 and the speculative
-// verifier at q_len = gamma + 1), on the route
+// verifier at q_len = gamma + 1) and ::paged_prefill_attention_pallas for
+// fp pools (the chunked engine's fused step, through
+// paged_prefill_attention_mma_fwd), on the route
 // kernels/decode_attention.py::route gives bf16 at hd 64/128.  float32 and
-// the other head dims stay on decode_attention.cu.
+// the other head dims stay on decode_attention.cu and
+// paged_prefill_attention.cu.
 //
-// What bounds it on this card: bytes.  A (batch row, KV head) reads its
-// cache_len x hd K and V once, ~1 MB per layer at the main path's lengths,
-// and does 4·hd FLOPs per (query row, key): a few FLOPs per byte.  At B 1
-// the whole call moves ~1-4 MB, a microsecond of bandwidth, so what it
-// costs is latency: launches, dependent round trips to memory, and the
-// merge of the key splits.
+// What bounds it on this card: bytes for decode.  A (batch row, KV head)
+// reads its cache_len x hd K and V once, ~1 MB per layer at the main path's
+// lengths, and does 4·hd FLOPs per (query row, key): a few FLOPs per byte.
+// At B 1 the whole call moves ~1-4 MB, a microsecond of bandwidth, so what
+// it costs is latency: launches, dependent round trips to memory, and the
+// merge of the key splits.  A prefix-append chunk (256 tokens x group 6
+// over ~1 K keys) does ~1.4 GFLOP on ~1 MB of distinct K/V: operations,
+// which is why its tiles run on the tensor cores too.
 //
 // What the design does about it:
 //  * One launch.  The key splits of one (batch row, KV head, row tile) are
@@ -28,14 +34,20 @@
 //  * Loads overlap compute.  K/V tiles of 64 keys stay bf16 and go straight
 //    to shared memory in 16-byte cp.async.cg copies (no registers) into a
 //    ring of three stages; the next two tiles are in flight while one is
-//    computed.  A split holds several tiles (the plan in
-//    kernels/decode_attention.py::cluster_plan).  Keys at or past the
+//    computed.  A split holds several tiles; a launch takes the most
+//    splits whose clusters all fit on the card at once
+//    (kernels/decode_attention.py::cluster_plan, on the card's occupancy
+//    from decode_attention_mma_max_clusters), so no cluster waits for a
+//    second wave.  Keys at or past the
 //    split's end (never past cache_len) are zero-filled through cp.async's
 //    src-size operand, so no address is formed from a block-table entry
 //    past a row's length and the NaN trash page is never read.
 //  * Paged pools through the block table at any page size: every 16-byte
 //    copy computes its key's page (a block reads its own table entries);
 //    pages smaller than the tile are fine, as TMA's boxes would not be.
+//    A thread reads its rows' table entries together before their copies
+//    (read one per copy, each after the previous copy, they cost a round
+//    trip to memory per 16 bytes).
 //  * Tensor cores.  The row tile's query rows (token-major, q_len·group)
 //    are packed into 16-row fragments held in registers as mma A operands,
 //    loaded once; rows past the tile are zero and never stored.  S = QK^T
@@ -55,7 +67,23 @@
 //    with a window) are valid; softcap before the mask; p = where(mask,
 //    exp(s - m), 0), so fully masked rows and cache_len == 0 emit zeros;
 //    the final acc / max(l, 1e-30); per-row cache_len clipped to the cache.
-//    Softmax runs in base 2 (s·log2 e).
+//    Softmax runs in base 2 (s·log2 e, ex2.approx, p below 2^-126 flushed
+//    to zero).  A warp whose rows all see every key of its share of a tile
+//    skips the mask for that tile.
+//  * Prefix-append (MODE MD_PREFILL) keeps all of the above and adds:
+//    - per-row-tile causal bounds, as the TPU kernel's per-sub-block
+//      skipping: a tile walks only keys [lo, hi), hi its rows' largest
+//      effective length, lo their smallest window floor, and its key
+//      splits share that range in whole tiles, so no block of an early
+//      row tile fetches the keys only later tokens see;
+//    - an optional tile plan for the engine's flat shape (q_len 1, one
+//      batch row per scheduled token, a chunk's tokens as consecutive
+//      rows on copies of one table row): entry i names a first batch row
+//      and a token count, and its rows (each with its own cache_len) share
+//      one row tile and the first row's table row, so a scene's prefix
+//      leaves memory once per (run, KV head, row tile) instead of once per
+//      token.  The grid spans the plan's fixed length; empty entries exit,
+//      and rows in no entry (the engine's padding rows) are not written.
 //
 // What it rounds: p to bf16 before PV, so it is held to |got - want| <=
 // 1e-5 + 2^-6·|want| + 2^-8·A with A = attention(q, k, |v|) (flash's
@@ -80,6 +108,9 @@ constexpr int MD_MAX_ROWS = 16 * MD_WARPS;   // four 16-row fragments
 constexpr int MD_MAX_CLUSTER = 16;
 constexpr float MD_LOG2E = 1.4426950408889634f;
 constexpr float MD_MASKED = REPRO_NEG_INF;   // a masked logit (base 2)
+
+// what a launch scores: dense decode, paged decode, paged prefix-append
+enum { MD_DENSE = 0, MD_PAGED = 1, MD_PREFILL = 2 };
 
 template <int HD>
 struct MdLayout {
@@ -145,6 +176,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// 2^x, flushing results below 2^-126 to zero (the softmax's p)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -159,21 +197,23 @@ __device__ __forceinline__ uint32_t tile_off(int row, int ch) {
 
 // KS key slices per tile: warp w takes 16-row fragment w / KS and keys
 // [(w % KS)·64/KS, +64/KS) of every tile.
-template <int HD, int KS, bool PAGED>
+template <int HD, int KS, int MODE>
 __global__ void __launch_bounds__(MD_THREADS)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   const int* __restrict__ tbl,
                   const int* __restrict__ cache_len,
-                  __nv_bfloat16* __restrict__ o, int KH, int rows,
+                  const int* __restrict__ plan,
+                  __nv_bfloat16* __restrict__ o, int B, int KH, int rows,
                   int tile_rows, int q_len, int S, int split_len,
                   int64_t q_sb, int64_t q_sh, int64_t q_sr, int64_t k_s0,
                   int64_t k_sh, int64_t k_ss, int64_t v_s0, int64_t v_sh,
-                  int64_t v_ss, int64_t tbl_sb, int page, int64_t o_sb,
-                  int64_t o_sh, int64_t o_sr, int window, float softcap,
-                  float scale) {
+                  int64_t v_ss, int64_t tbl_sb, int64_t plan_st, int page,
+                  int64_t o_sb, int64_t o_sh, int64_t o_sr, int window,
+                  float softcap, float scale) {
   using L = MdLayout<HD>;
+  constexpr bool PAGED = MODE != MD_DENSE;
   constexpr int SW = MD_BK / KS;     // keys per warp per tile
   constexpr int NB = SW / 8;         // S n-blocks of 8 keys
   constexpr int KD = HD / 16;        // k-steps over hd (QK^T)
@@ -182,31 +222,74 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   cg::cluster_group cluster = cg::this_cluster();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int split = blockIdx.x, b = blockIdx.z;
-  const int kh = blockIdx.y % KH, r0 = blockIdx.y / KH * tile_rows;
-  const int nrows = min(tile_rows, rows - r0);
-  const int nfrag = (nrows + 15) / 16;
+  const int split = blockIdx.x;
+  const int kh = blockIdx.y % KH, tile = blockIdx.y / KH;
   const int group = rows / q_len;
+  // The row tile: rows [r0, r0 + nrows) of batch row b; with a plan (q_len
+  // 1) the group rows of each of nt consecutive batch rows from b on, which
+  // share b's table row.  An empty plan entry: the whole cluster leaves.
+  const bool planned = MODE == MD_PREFILL && plan != nullptr;
+  int b, r0, nrows;
+  if (planned) {
+    b = plan[tile];
+    const int nt = plan[plan_st + tile];
+    r0 = 0;
+    nrows = nt * group;
+    if (nt < 1 || b < 0 || b > B - nt || nrows > tile_rows) return;
+  } else {
+    b = blockIdx.z;
+    r0 = tile * tile_rows;
+    nrows = min(tile_rows, rows - r0);
+  }
+  const int nfrag = (nrows + 15) / 16;
   const int len = min(cache_len[b], S);
   const int frag = warp / KS, slice = warp % KS;
   const bool active = frag < nfrag;                 // warp-uniform
 
+  // row r of the tile: its batch row, its row there, and the keys it sees
+  // (a planned row its own cache_len, q_len being 1)
+  auto batch_of = [&](int r) { return planned ? b + r / group : b; };
+  auto row_of = [&](int r) { return planned ? r % group : r0 + r; };
+  auto eff_of = [&](int r) {
+    if (planned) return min(cache_len[b + r / group], S);
+    return len - (q_len - 1) + (r0 + r) / group;
+  };
+
   // this thread's two rows of its fragment (local to the row tile)
   const int ra = frag * 16 + (lane >> 2), rb = ra + 8;
-  const int eff0 = len - (q_len - 1);
-  const int effa = eff0 + (r0 + ra) / group, effb = eff0 + (r0 + rb) / group;
+  const bool oka = active && ra < nrows, okb = active && rb < nrows;
+  const int effa = oka ? eff_of(ra) : 0, effb = okb ? eff_of(rb) : 0;
+
+  // the smallest and largest effective length of the warp's rows: a key
+  // tile that every one of them sees whole needs no mask
+  int wmin = oka ? effa : 0x7fffffff, wmax = oka ? effa : 0;
+  if (okb) {
+    wmin = min(wmin, effb);
+    wmax = max(wmax, effb);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    wmin = min(wmin, __shfl_xor_sync(0xffffffffu, wmin, off));
+    wmax = max(wmax, __shfl_xor_sync(0xffffffffu, wmax, off));
+  }
+  const float sl2e = scale * MD_LOG2E;
 
   // Q A fragments, loaded once; rows past the tile are zero
   uint32_t qf[KD][4];
   {
-    const __nv_bfloat16* qb = q + b * q_sb + kh * q_sh;
+    const __nv_bfloat16* qa =
+        oka ? q + (int64_t)batch_of(ra) * q_sb + kh * q_sh +
+                  (int64_t)row_of(ra) * q_sr
+            : q;
+    const __nv_bfloat16* qb =
+        okb ? q + (int64_t)batch_of(rb) * q_sb + kh * q_sh +
+                  (int64_t)row_of(rb) * q_sr
+            : q;
     const int c = 2 * (lane & 3);
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd) {
-      const int d = kd * 16 + c;
-      const bool oka = active && ra < nrows, okb = active && rb < nrows;
-      const __nv_bfloat16* pa = qb + (int64_t)(r0 + ra) * q_sr + d;
-      const __nv_bfloat16* pb = qb + (int64_t)(r0 + rb) * q_sr + d;
+      const __nv_bfloat16* pa = qa + kd * 16 + c;
+      const __nv_bfloat16* pb = qb + kd * 16 + c;
       qf[kd][0] = oka ? *reinterpret_cast<const uint32_t*>(pa) : 0u;
       qf[kd][1] = okb ? *reinterpret_cast<const uint32_t*>(pb) : 0u;
       qf[kd][2] = oka ? *reinterpret_cast<const uint32_t*>(pa + 8) : 0u;
@@ -214,12 +297,40 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  // keys any row of the chunk can see: [lo, len); this split's share is
-  // [kb, s1), never a key >= len
-  const int lo = window > 0 ? max(len - window - (q_len - 1), 0) : 0;
-  const int s0 = split * split_len;
-  const int s1 = min(len, s0 + split_len);
-  const int kb = max(s0, lo);
+  // this split's keys [kb, s1), never a key >= the longest row's length;
+  // the table entries [pf0, pf1) it may read
+  int kb, s1, pf0, pf1;
+  if (MODE == MD_PREFILL) {
+    // per-row-tile causal bounds: keys [lo, hi) some row of the tile sees
+    // (hi its largest effective length, lo its smallest window floor),
+    // shared by the cluster's splits (grid x = cluster size) in whole tiles
+    int hi = 0, emin = 0x7fffffff;
+    for (int r = lane; r < nrows; r += 32) {
+      const int e = eff_of(r);
+      hi = max(hi, e);
+      emin = min(emin, e);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+      emin = min(emin, __shfl_xor_sync(0xffffffffu, emin, off));
+    }
+    const int lo = window > 0 ? max(emin - window, 0) : 0;
+    const int cs = static_cast<int>(gridDim.x);
+    const int per = (max(hi - lo, 0) + cs * MD_BK - 1) / (cs * MD_BK) * MD_BK;
+    kb = lo + split * per;
+    s1 = min(hi, kb + per);
+    pf0 = kb;
+    pf1 = max(s1, kb);
+  } else {
+    // keys any row of the chunk can see: [lo, len)
+    const int lo = window > 0 ? max(len - window - (q_len - 1), 0) : 0;
+    const int s0 = split * split_len;
+    s1 = min(len, s0 + split_len);
+    kb = max(s0, lo);
+    pf0 = s0;
+    pf1 = min(s0 + split_len, S);
+  }
   const int ntile = kb < s1 ? (s1 - kb + MD_BK - 1) / MD_BK : 0;
 
   const __nv_bfloat16* kbase = k + (PAGED ? 0 : b * k_s0) + kh * k_sh;
@@ -227,43 +338,57 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int* trow = tbl + b * tbl_sb;
   const uint32_t ring = smem_u32(md_smem);
   if (PAGED) {
-    // this split's block-table entries, on their way to L1 while the row's
-    // length is read (an entry is used only below the length)
-    const int e0 = s0 / page;
-    const int e1 = (min(s0 + split_len, S) + page - 1) / page;
+    // this split's block-table entries, on their way to L1 (an entry is
+    // used only below the length)
+    const int e0 = pf0 / page;
+    const int e1 = (pf1 + page - 1) / page;
     for (int e = e0 + 16 * threadIdx.x; e < e1; e += 16 * MD_THREADS)
       prefetch_l1(trow + e);
     if (threadIdx.x == 0 && e1 > e0) prefetch_l1(trow + e1 - 1);
   }
 
-  // tile i (keys kb + 64i ..) into stage i % STAGES; always one commit
+  // Tile i (keys kb + 64i ..) into stage i % STAGES; always one commit.
+  // A thread copies 16-byte chunk ch of the same RPT rows of K and of V;
+  // with a block table it reads the rows' entries first, all together, so
+  // its copies wait on one round trip to memory per tile rather than one
+  // per copy (each copy's "memory" clobber keeps the compiler from
+  // hoisting a later table read above an earlier copy).
+  constexpr int RPT = MD_BK * L::CHUNKS / MD_THREADS;   // 8 at hd 128
+  constexpr int ROW_STEP = MD_THREADS / L::CHUNKS;
+  const int ch = threadIdx.x % L::CHUNKS, row0 = threadIdx.x / L::CHUNKS;
   auto load_tile = [&](int i) {
     if (i < ntile) {
       const int t0 = kb + i * MD_BK;
       const uint32_t st = ring + (i % MD_STAGES) * L::STAGE_BYTES;
-#pragma unroll 4
-      for (int c = threadIdx.x; c < 2 * MD_BK * L::CHUNKS; c += MD_THREADS) {
-        const int isv = c / (MD_BK * L::CHUNKS);
-        const int rem = c - isv * (MD_BK * L::CHUNKS);
-        const int row = rem / L::CHUNKS, ch = rem % L::CHUNKS;
-        const int key = t0 + row;
-        const __nv_bfloat16* base = isv ? vbase : kbase;
-        const __nv_bfloat16* src = base;
+      int pg[RPT];
+      if (PAGED) {
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          const int key = t0 + row0 + j * ROW_STEP;
+          pg[j] = key < s1 ? __ldg(trow + key / page) : 0;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int row = row0 + j * ROW_STEP, key = t0 + row;
+        const __nv_bfloat16 *ks = kbase, *vs = vbase;
         int bytes = 0;
         if (key < s1) {
-          int64_t off;
+          int64_t ko, vo;
           if (PAGED) {
-            const int blk = key / page;
-            off = (int64_t)__ldg(trow + blk) * (isv ? v_s0 : k_s0) +
-                  (int64_t)(key - blk * page) * (isv ? v_ss : k_ss);
+            const int slot = key % page;
+            ko = (int64_t)pg[j] * k_s0 + (int64_t)slot * k_ss;
+            vo = (int64_t)pg[j] * v_s0 + (int64_t)slot * v_ss;
           } else {
-            off = (int64_t)key * (isv ? v_ss : k_ss);
+            ko = (int64_t)key * k_ss;
+            vo = (int64_t)key * v_ss;
           }
-          src = base + off + ch * 8;
+          ks = kbase + ko + ch * 8;
+          vs = vbase + vo + ch * 8;
           bytes = 16;
         }
-        cp_async16(st + isv * L::TILE_BYTES + tile_off<HD>(row, ch), src,
-                   bytes);
+        cp_async16(st + tile_off<HD>(row, ch), ks, bytes);
+        cp_async16(st + L::TILE_BYTES + tile_off<HD>(row, ch), vs, bytes);
       }
     }
     cp_async_commit();
@@ -308,19 +433,32 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       // s[.][2..3]); the row max reduces over the lane quad
       const int t0 = kb + i * MD_BK + key0;
       float mx[2] = {MD_MASKED, MD_MASKED};
+      if (softcap <= 0.f && t0 + SW <= min(s1, wmin) &&
+          (window <= 0 || t0 >= wmax - window)) {
+        // every row sees all of the warp's keys of this tile
 #pragma unroll
-      for (int n = 0; n < NB; ++n) {
+        for (int n = 0; n < NB; ++n) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = t0 + n * 8 + 2 * (lane & 3) + (j & 1);
-          const int eff = j < 2 ? effa : effb;
-          bool ok = c < s1 && c < eff;
-          if (window > 0) ok = ok && c >= eff - window;
-          float x = s[n][j] * scale;
-          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-          x = ok ? x * MD_LOG2E : MD_MASKED;
-          s[n][j] = x;
-          mx[j >> 1] = fmaxf(mx[j >> 1], x);
+          for (int j = 0; j < 4; ++j) {
+            s[n][j] *= sl2e;
+            mx[j >> 1] = fmaxf(mx[j >> 1], s[n][j]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NB; ++n) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = t0 + n * 8 + 2 * (lane & 3) + (j & 1);
+            const int eff = j < 2 ? effa : effb;
+            bool ok = c < s1 && c < eff;
+            if (window > 0) ok = ok && c >= eff - window;
+            float x = s[n][j] * scale;
+            if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+            x = ok ? x * MD_LOG2E : MD_MASKED;
+            s[n][j] = x;
+            mx[j >> 1] = fmaxf(mx[j >> 1], x);
+          }
         }
       }
       float alpha[2];
@@ -329,7 +467,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
         const float mn = fmaxf(m[h], mx[h]);
-        alpha[h] = exp2f(m[h] - mn);
+        alpha[h] = ex2(m[h] - mn);
         m[h] = mn;
         l[h] *= alpha[h];
       }
@@ -345,7 +483,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float x = s[n][j];
-          const float p = x > 0.5f * MD_MASKED ? exp2f(x - m[j >> 1]) : 0.f;
+          const float p = x > 0.5f * MD_MASKED ? ex2(x - m[j >> 1]) : 0.f;
           s[n][j] = p;
           l[j >> 1] += p;
         }
@@ -437,7 +575,6 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // rank's (m, l, acc) of an element is read at once
   const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  __nv_bfloat16* ob = o + b * o_sb + kh * o_sh + (int64_t)r0 * o_sr;
   for (int e = rank * MD_THREADS + threadIdx.x; e < nrows * HD;
        e += cs * MD_THREADS) {
     const int r = e / HD, d = e % HD;
@@ -465,7 +602,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
         a += aj[j] * w;
       }
     }
-    ob[(int64_t)r * o_sr + d] = __float2bfloat16(a / fmaxf(ll, 1e-30f));
+    o[(int64_t)batch_of(r) * o_sb + kh * o_sh + (int64_t)row_of(r) * o_sr +
+      d] = __float2bfloat16(a / fmaxf(ll, 1e-30f));
   }
   cluster.sync();                      // no block leaves while read
 }
@@ -474,74 +612,133 @@ struct MdArgs {
   const void *q, *k, *v;
   const int* tbl;
   const int* cache_len;
+  const int* plan;      // prefix-append's tile plan, or null
   void* o;
   int B, KH, rows, tile_rows, q_len, S, hd;
   long long st[12];     // q (b, h, r), k (0, h, s), v (0, h, s), o (b, h, r)
-  long long tbl_sb;
-  int page, splits, split_len, window;
+  long long tbl_sb, plan_st;
+  int n_plan, page, splits, split_len, window;
   float softcap, scale;
 };
 
-template <int HD, int KS, bool PAGED>
-cudaError_t md_launch(const MdArgs& a, cudaStream_t stream) {
-  auto kernel = decode_mma_kernel<HD, KS, PAGED>;
-  constexpr int smem = MdLayout<HD>::BYTES;
+// the grid's row tiles: the plan's entries, or the rows' tiles
+int md_tiles(const MdArgs& a) {
+  if (a.plan != nullptr) return a.n_plan;
+  return a.tile_rows > 0 ? (a.rows + a.tile_rows - 1) / a.tile_rows : 0;
+}
+
+// the kernel's shared memory and cluster attributes, set once
+template <int HD, int KS, int MODE>
+cudaError_t md_configure() {
+  auto kernel = decode_mma_kernel<HD, KS, MODE>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        MdLayout<HD>::BYTES);
     if (e != cudaSuccess) return e;
     e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const int row_tiles = (a.rows + a.tile_rows - 1) / a.tile_rows;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.splits, a.KH * row_tiles, a.B);
+  return cudaSuccess;
+}
+
+// A launch of grid (splits, y, z) in clusters of ``splits`` blocks; attr
+// holds the cluster attribute cfg points at.
+template <int HD>
+void md_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1],
+               int splits, int y, int z, cudaStream_t stream) {
+  cfg = {};
+  cfg.gridDim = dim3(splits, y, z);
   cfg.blockDim = dim3(MD_THREADS);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = MdLayout<HD>::BYTES;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.splits;
+  attr[0].val.clusterDim.x = splits;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+}
+
+template <int HD, int KS, int MODE>
+cudaError_t md_launch(const MdArgs& a, cudaStream_t stream) {
+  auto kernel = decode_mma_kernel<HD, KS, MODE>;
+  cudaError_t e = md_configure<HD, KS, MODE>();
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  md_config<HD>(cfg, attr, a.splits, a.KH * md_tiles(a), a.plan ? 1 : a.B,
+                stream);
   const long long* st = a.st;
-  cudaError_t e = cudaLaunchKernelEx(
+  e = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), a.tbl, a.cache_len,
-      static_cast<__nv_bfloat16*>(a.o), a.KH, a.rows, a.tile_rows, a.q_len,
-      a.S, a.split_len, (int64_t)st[0], (int64_t)st[1], (int64_t)st[2],
-      (int64_t)st[3], (int64_t)st[4], (int64_t)st[5], (int64_t)st[6],
-      (int64_t)st[7], (int64_t)st[8], (int64_t)a.tbl_sb, a.page,
-      (int64_t)st[9], (int64_t)st[10], (int64_t)st[11], a.window, a.softcap,
-      a.scale);
+      static_cast<const __nv_bfloat16*>(a.v), a.tbl, a.cache_len, a.plan,
+      static_cast<__nv_bfloat16*>(a.o), a.B, a.KH, a.rows, a.tile_rows,
+      a.q_len, a.S, a.split_len, (int64_t)st[0], (int64_t)st[1],
+      (int64_t)st[2], (int64_t)st[3], (int64_t)st[4], (int64_t)st[5],
+      (int64_t)st[6], (int64_t)st[7], (int64_t)st[8], (int64_t)a.tbl_sb,
+      (int64_t)a.plan_st, a.page, (int64_t)st[9], (int64_t)st[10],
+      (int64_t)st[11], a.window, a.softcap, a.scale);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 // the key slices per tile follow the row tile's fragment count
-template <int HD, bool PAGED>
+template <int HD, int MODE>
 cudaError_t md_dispatch_ks(const MdArgs& a, cudaStream_t stream) {
   const int frags = (a.tile_rows + 15) / 16;
-  if (frags == 1) return md_launch<HD, 4, PAGED>(a, stream);
-  if (frags == 2) return md_launch<HD, 2, PAGED>(a, stream);
-  return md_launch<HD, 1, PAGED>(a, stream);
+  if (frags == 1) return md_launch<HD, 4, MODE>(a, stream);
+  if (frags == 2) return md_launch<HD, 2, MODE>(a, stream);
+  return md_launch<HD, 1, MODE>(a, stream);
 }
 
-template <bool PAGED>
+// how many clusters of ``splits`` blocks of one instance the card holds
+// at once
+template <int HD, int KS, int MODE>
+cudaError_t md_max_clusters(int splits, int* n) {
+  cudaError_t e = md_configure<HD, KS, MODE>();
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  md_config<HD>(cfg, attr, splits, 1, 1, nullptr);
+  return cudaOccupancyMaxActiveClusters(n, decode_mma_kernel<HD, KS, MODE>,
+                                        &cfg);
+}
+
+// the instance md_dispatch_ks launches for row tiles of tile_rows
+template <int HD, int MODE>
+cudaError_t md_max_clusters_ks(int tile_rows, int splits, int* n) {
+  const int frags = (tile_rows + 15) / 16;
+  if (frags == 1) return md_max_clusters<HD, 4, MODE>(splits, n);
+  if (frags == 2) return md_max_clusters<HD, 2, MODE>(splits, n);
+  return md_max_clusters<HD, 1, MODE>(splits, n);
+}
+
+template <int MODE>
+cudaError_t md_max_clusters_hd(int hd, int tile_rows, int splits, int* n) {
+  if (hd == 64) return md_max_clusters_ks<64, MODE>(tile_rows, splits, n);
+  return md_max_clusters_ks<128, MODE>(tile_rows, splits, n);
+}
+
+template <int MODE>
 int md_run(const MdArgs& a, void* stream) {
-  const int row_tiles =
-      a.tile_rows > 0 ? (a.rows + a.tile_rows - 1) / a.tile_rows : 0;
-  if ((a.hd != 64 && a.hd != 128) || a.rows < 1 || a.tile_rows < 1 ||
-      a.tile_rows > MD_MAX_ROWS || a.q_len < 1 || a.rows % a.q_len != 0 ||
-      a.KH < 1 || (long long)a.KH * row_tiles > 65535 || a.splits < 1 ||
-      a.splits > MD_MAX_CLUSTER || a.split_len < 1 ||
-      (long long)a.splits * a.split_len < a.S || (PAGED && a.page < 1))
+  const long long tiles = md_tiles(a);
+  // decode splits cover [0, S) in split_len keys; prefix-append's share
+  // each tile's own key range (split_len unused)
+  const bool splits_cover =
+      MODE == MD_PREFILL ||
+      (a.split_len >= 1 && (long long)a.splits * a.split_len >= a.S);
+  if ((a.hd != 64 && a.hd != 128) || a.B < 1 || a.rows < 1 ||
+      a.tile_rows < 1 || a.tile_rows > MD_MAX_ROWS || a.q_len < 1 ||
+      a.rows % a.q_len != 0 || a.KH < 1 || tiles < 1 ||
+      a.KH * tiles > 65535 || a.B > 65535 || a.splits < 1 ||
+      a.splits > MD_MAX_CLUSTER || !splits_cover ||
+      (MODE != MD_DENSE && a.page < 1) ||
+      (a.plan != nullptr && (MODE != MD_PREFILL || a.q_len != 1)))
     return (int)cudaErrorInvalidValue;
   // cp.async and the Q loads: 16-byte aligned bases (the wrapper checks
   // the strides of the dimensions it uses)
@@ -549,8 +746,8 @@ int md_run(const MdArgs& a, void* stream) {
   for (const void* p : ptrs)
     if ((uintptr_t)p % 16) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.hd == 64) return (int)md_dispatch_ks<64, PAGED>(a, s);
-  return (int)md_dispatch_ks<128, PAGED>(a, s);
+  if (a.hd == 64) return (int)md_dispatch_ks<64, MODE>(a, s);
+  return (int)md_dispatch_ks<128, MODE>(a, s);
 }
 
 }  // namespace
@@ -569,11 +766,11 @@ extern "C" int decode_attention_mma_fwd(
     long long v_ss, long long o_sb, long long o_sh, long long o_sr,
     int splits, int split_len, int window, float softcap, float scale,
     void* stream) {
-  MdArgs a{q, k, v, nullptr, cache_len, o, B, KH, rows, tile_rows, q_len, S,
-           hd, {q_sb, q_sh, q_sr, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-                o_sb, o_sh, o_sr},
-           0, 1, splits, split_len, window, softcap, scale};
-  return md_run<false>(a, stream);
+  MdArgs a{q, k, v, nullptr, cache_len, nullptr, o, B, KH, rows, tile_rows,
+           q_len, S, hd, {q_sb, q_sh, q_sr, k_sb, k_sh, k_ss, v_sb, v_sh,
+                          v_ss, o_sb, o_sh, o_sr},
+           0, 0, 0, 1, splits, split_len, window, softcap, scale};
+  return md_run<MD_DENSE>(a, stream);
 }
 
 // The paged form: k_pool/v_pool (n_pages, KH, page, hd) strided views,
@@ -588,10 +785,56 @@ extern "C" int paged_decode_attention_mma_fwd(
     long long v_sp, long long tbl_sb, long long o_sb, long long o_sh,
     long long o_sr, int splits, int split_len, int window, float softcap,
     float scale, void* stream) {
-  MdArgs a{q, k_pool, v_pool, block_table, cache_len, o, B, KH, rows,
+  MdArgs a{q, k_pool, v_pool, block_table, cache_len, nullptr, o, B, KH,
+           rows, tile_rows, q_len, P * page, hd,
+           {q_sb, q_sh, q_sr, k_sn, k_sh, k_sp, v_sn, v_sh, v_sp,
+            o_sb, o_sh, o_sr},
+           tbl_sb, 0, 0, page, splits, split_len, window, softcap, scale};
+  return md_run<MD_PAGED>(a, stream);
+}
+
+// Paged prefix-append (chunked prefill): the paged form's operands, with
+// cache_len INCLUDING the chunk, and each row tile walking only the keys
+// its rows see, split over the cluster's ``splits`` blocks.  Without a plan
+// (plan null) the row tiles are tile_rows rows of each batch row.  With
+// one (q_len 1): plan[i] is the first batch row of entry i and
+// plan[plan_st + i] its row count, i < n_plan, consecutive rows sharing
+// the first one's table row, at most tile_rows / group of them; an entry
+// with count 0 is empty, and rows in no entry are not written.
+extern "C" int paged_prefill_attention_mma_fwd(
+    const void* q, const void* k_pool, const void* v_pool,
+    const int* block_table, const int* cache_len, const int* plan, void* o,
+    int B, int KH, int rows, int tile_rows, int q_len, int P, int page,
+    int hd, long long q_sb, long long q_sh, long long q_sr, long long k_sn,
+    long long k_sh, long long k_sp, long long v_sn, long long v_sh,
+    long long v_sp, long long tbl_sb, long long o_sb, long long o_sh,
+    long long o_sr, int n_plan, long long plan_st, int splits, int window,
+    float softcap, float scale, void* stream) {
+  MdArgs a{q, k_pool, v_pool, block_table, cache_len, plan, o, B, KH, rows,
            tile_rows, q_len, P * page, hd,
            {q_sb, q_sh, q_sr, k_sn, k_sh, k_sp, v_sn, v_sh, v_sp,
             o_sb, o_sh, o_sr},
-           tbl_sb, page, splits, split_len, window, softcap, scale};
-  return md_run<true>(a, stream);
+           tbl_sb, plan_st, n_plan, page, splits, 0, window, softcap, scale};
+  return md_run<MD_PREFILL>(a, stream);
+}
+
+// How many clusters of ``splits`` blocks (1..16) of the kernel in mode
+// ``mode`` (0 dense, 1 paged, 2 prefix-append) at head dim hd and row
+// tiles of tile_rows fit on the current device at once, into *n: the
+// wrappers plan their key splits with it.
+extern "C" int decode_attention_mma_max_clusters(int mode, int hd,
+                                                 int tile_rows, int splits,
+                                                 int* n) {
+  if (mode < MD_DENSE || mode > MD_PREFILL || (hd != 64 && hd != 128) ||
+      tile_rows < 1 || tile_rows > MD_MAX_ROWS || splits < 1 ||
+      splits > MD_MAX_CLUSTER)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (mode == MD_DENSE)
+    e = md_max_clusters_hd<MD_DENSE>(hd, tile_rows, splits, n);
+  else if (mode == MD_PAGED)
+    e = md_max_clusters_hd<MD_PAGED>(hd, tile_rows, splits, n);
+  else
+    e = md_max_clusters_hd<MD_PREFILL>(hd, tile_rows, splits, n);
+  return (int)e;
 }

@@ -154,7 +154,8 @@ def check_16_bytes(rule: str, **ts: torch.Tensor) -> None:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {rule} needs a 16-byte aligned base "
                              f"address, got {t.data_ptr():#x}")
-        for size, stride in zip(t.shape[:-1], t.stride()[:-1]):
-            if size > 1 and (stride * t.element_size()) % 16:
+        size, stride, e = t.shape, t.stride(), t.element_size()
+        for i in range(len(stride) - 1):
+            if (stride[i] * e) % 16 and size[i] > 1:
                 raise ValueError(f"{name}: {rule} needs 16-byte aligned "
-                                 f"strides, got {t.stride()}")
+                                 f"strides, got {stride}")

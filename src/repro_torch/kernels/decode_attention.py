@@ -28,10 +28,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import List, Optional, Tuple, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.build import (DTYPES, CudaKernel, check_16_bytes,
                                        check_operands)
 
@@ -47,8 +48,10 @@ MMA_HEAD_DIMS = (64, 128)
 KV_TILE = 64          # keys per shared-memory tile; splits are multiples
 MAX_ROWS = 32         # query rows of one CUDA-core row tile
 MMA_MAX_ROWS = 64     # query rows of one tensor-core row tile (4 x 16)
-BLOCKS_PER_SM = 2     # split-K target: about this many blocks per SM
+BLOCKS_PER_SM = 2     # CUDA-core split-K target: about this many blocks an SM
 MAX_CLUSTER = 16      # key splits per cluster on the tensor-core route
+#: the tensor-core kernel's modes (its ``MODE`` template argument)
+MMA_DENSE, MMA_PAGED, MMA_PREFILL = 0, 1, 2
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
@@ -72,6 +75,9 @@ def device_lengths(cache_len: Union[int, torch.Tensor], b: int,
         raise TypeError(f"cache_len must be integer, got {cache_len.dtype}")
     if cache_len.device != device:
         raise ValueError("cache_len must lie on the operands' device")
+    if (cache_len.dtype == torch.int32 and cache_len.shape == (b,)
+            and cache_len.is_contiguous()):
+        return cache_len               # as the engine passes it: no view
     return cache_len.to(torch.int32).broadcast_to((b,)).contiguous()
 
 
@@ -106,18 +112,50 @@ def split_plan(b: int, kh: int, s: int, sm_count: int):
     return math.ceil(n_tiles / per), per * KV_TILE
 
 
-def cluster_plan(clusters: int, s: int, sm_count: int) -> Tuple[int, int]:
+def cluster_plan(clusters: int, s: int,
+                 fits: Callable[[int], int]) -> Tuple[int, int]:
     """(splits, split_len) of the tensor-core kernel: one cluster per
     (batch row, KV head, row tile), ``splits`` blocks in it (at most
-    ``MAX_CLUSTER``), each over ``split_len`` keys (whole tiles): as many as
-    keep the grid within ``BLOCKS_PER_SM`` blocks per SM, one wave (a grid
-    past it waits for a second).  No split is empty of cache slots (the
-    last may be shorter); the kernel clips every split at S and at each
-    row's length."""
+    ``MAX_CLUSTER`` and the cache's 64-key tiles), each over ``split_len``
+    keys (whole tiles): the most splits whose ``clusters`` all fit on the
+    card at once (``fits(n)``: how many clusters of n blocks it holds), so
+    no cluster waits for a second wave, which costs more than the splits
+    save; one if none fit.  No split is empty of cache slots (the last may
+    be shorter); the kernel clips every split at S and at each row's
+    length, and prefix-append's splits share each row tile's own keys."""
     n_tiles = math.ceil(s / KV_TILE)
-    want = BLOCKS_PER_SM * sm_count // max(clusters, 1)
-    per = math.ceil(n_tiles / min(max(want, 1), MAX_CLUSTER, n_tiles))
+    want = max((n for n in range(1, min(MAX_CLUSTER, n_tiles) + 1)
+                if clusters <= fits(n)), default=1)
+    per = math.ceil(n_tiles / want)
     return math.ceil(n_tiles / per), per * KV_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def max_clusters(device_index: int, mode: int, hd: int, tile_rows: int,
+                 splits: int) -> int:
+    """How many clusters of ``splits`` blocks of the tensor-core kernel in
+    ``mode`` (``MMA_DENSE`` / ``MMA_PAGED`` / ``MMA_PREFILL``) at ``hd`` and
+    row tiles of ``tile_rows`` the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    fn = build.load(MMA_KERNEL.source).decode_attention_mma_max_clusters
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = fn(mode, hd, tile_rows, splits, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"decode_attention_mma_max_clusters: CUDA error "
+                           f"{err}")
+    return n.value
+
+
+@functools.lru_cache(maxsize=None)
+def card_cluster_plan(clusters: int, s: int, device_index: int, mode: int,
+                      hd: int, tile_rows: int) -> Tuple[int, int]:
+    """``cluster_plan`` on the card's own occupancy for the kernel instance
+    a launch runs, computed once per launch geometry."""
+    return cluster_plan(clusters, s, functools.partial(
+        max_clusters, device_index, mode, hd, tile_rows))
 
 
 def _operands(q, k, v, q_len):
@@ -182,8 +220,8 @@ def launch_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lens = device_lengths(cache_len, b, q.device)
     scale = scale if scale is not None else hd ** -0.5
     tile = row_tile(rows, rows // q_len, MMA_MAX_ROWS)
-    splits, split_len = cluster_plan(b * kh * math.ceil(rows / tile), s,
-                                     _sm_count(q.device.index))
+    splits, split_len = card_cluster_plan(b * kh * math.ceil(rows / tile), s,
+                                          q.device.index, MMA_DENSE, hd, tile)
     o = torch.empty((b, kh, rows, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         MMA_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),

@@ -35,12 +35,14 @@ KERNELS = {"flash_attention": FA.KERNEL,
            "paged_decode_attention": PDA.KERNEL,
            "paged_decode_attention_mma": PDA.MMA_KERNEL,
            "paged_prefill_attention": PPA.KERNEL,
+           "paged_prefill_attention_mma": PPA.MMA_KERNEL,
            "ssm_scan": SS.KERNEL, "slstm_scan": SL.KERNEL}
 #: the kernels with a tensor-core route: {name: (its key, its route)}
 TENSOR_CORE_ROUTES = {
     "flash_attention": ("flash_attention_wgmma", "wgmma"),
     "decode_attention": ("decode_attention_mma", "mma"),
-    "paged_decode_attention": ("paged_decode_attention_mma", "mma")}
+    "paged_decode_attention": ("paged_decode_attention_mma", "mma"),
+    "paged_prefill_attention": ("paged_prefill_attention_mma", "mma")}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -236,13 +238,18 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                             cache_len: CacheLen, *, window: int = 0,
                             softcap: Optional[float] = None,
                             scale: Optional[float] = None,
-                            q_blk: Optional[int] = None) -> torch.Tensor:
+                            q_blk: Optional[int] = None,
+                            plan: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """The chunked-prefill scoring op: q (B, C, H, hd), a C-token chunk
     whose K/V the caller just wrote at per-row (page, offset); pools and
     table as ``paged_decode_attention``; cache_len INCLUDING the chunk
     → (B, C, H, hd).  Chunk token ``t`` sees columns
-    ``< cache_len - (C - 1 - t)``.  ``q_blk`` (card only) is the kernel's
-    sub-block of chunk tokens; it never changes the result."""
+    ``< cache_len - (C - 1 - t)``.  Card only, and neither changes a
+    row's result: ``q_blk`` is the CUDA-core kernel's sub-block of chunk
+    tokens, ``plan`` (C 1) the tensor-core kernel's row tiles
+    (``paged_prefill_attention.tile_plan``; rows in none are not
+    written)."""
     if not _on_card(q, k_pool, v_pool, block_table):
         return ref.paged_prefill_attention(q, k_pool, v_pool, block_table,
                                            cache_len, window=window,
@@ -252,7 +259,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     o = PPA.paged_prefill_attention_cuda(
         _chunk_to_rows(q, kh), k_pool.transpose(1, 2),
         v_pool.transpose(1, 2), block_table, cache_len, window=window,
-        softcap=softcap, scale=scale, q_len=t, q_blk=q_blk)
+        softcap=softcap, scale=scale, q_len=t, q_blk=q_blk, plan=plan)
     return _rows_to_chunk(o, t, h)
 
 

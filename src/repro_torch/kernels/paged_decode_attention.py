@@ -21,8 +21,9 @@ import torch
 
 from repro_torch.kernels.build import (DTYPES, CudaKernel, check_16_bytes,
                                        check_operands)
-from repro_torch.kernels.decode_attention import (MMA_MAX_ROWS, _sm_count,
-                                                  cluster_plan,
+from repro_torch.kernels.decode_attention import (MMA_MAX_ROWS, MMA_PAGED,
+                                                  _sm_count,
+                                                  card_cluster_plan,
                                                   device_lengths, route,
                                                   row_tile, split_plan)
 
@@ -124,9 +125,9 @@ def launch_mma(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     tile = row_tile(rows, _group(q, q_len), MMA_MAX_ROWS)
     lens = device_lengths(cache_len, b, q.device)
     scale = scale if scale is not None else hd ** -0.5
-    splits, split_len = cluster_plan(b * kh * math.ceil(rows / tile),
-                                     n_blocks * page,
-                                     _sm_count(q.device.index))
+    splits, split_len = card_cluster_plan(b * kh * math.ceil(rows / tile),
+                                          n_blocks * page, q.device.index,
+                                          MMA_PAGED, hd, tile)
     o = torch.empty((b, kh, rows, hd), dtype=q.dtype, device=q.device)
     ks, vs = k_pool.stride(), v_pool.stride()
     with torch.cuda.device(q.device):

@@ -161,6 +161,7 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
               cache_index: Optional[Index] = None,
               block_table: Optional[torch.Tensor] = None,
               chunk_lens: Optional[torch.Tensor] = None,
+              tile_plan: Optional[torch.Tensor] = None,
               mode: str = "prefill") -> Tuple[torch.Tensor, Params]:
     """``"prefill"``: causal attention over the whole sequence, whose K/V
     fill cache positions [0, S).  ``"decode"``: S == 1 at ``cache_index``
@@ -175,7 +176,10 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
     tokens per row at ``cache_index`` (B,), ragged by ``chunk_lens`` (B,)
     (tokens at ``t >= chunk_lens`` are padding: their writes go nowhere
     that is read, their outputs are garbage the caller drops), written and
-    scored causally within the chunk in one call."""
+    scored causally within the chunk in one call.  ``tile_plan`` (paged
+    ``"prefill_append"`` at S 1 only) groups rows into the prefix-append
+    kernel's row tiles (``ops.paged_prefill_attention``); it never changes
+    a valid row's result."""
     if mode not in ("prefill", "decode", "verify", "prefill_append"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     if cache is None:
@@ -211,7 +215,7 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
             _paged_kv_write(cache, pages, pos % page, k, v)
             o = ops.paged_prefill_attention(
                 q, cache["k"], cache["v"], block_table, idx + s,
-                window=window, softcap=cap)
+                window=window, softcap=cap, plan=tile_plan)
         else:
             # padding tokens and positions past the cache write back the old
             # values: a masked select, no host sync.  Positions wrap modulo

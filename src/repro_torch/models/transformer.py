@@ -206,14 +206,15 @@ def map_cache_kinds(cfg: ArchConfig, caches, *, kv, state) -> Tuple:
 
 def _apply_block(p: Params, x: torch.Tensor, *, cfg: ArchConfig,
                  spec: BlockSpec, cos, sin, cache, cache_index, mode: str,
-                 block_table=None, chunk_lens=None) -> torch.Tensor:
+                 block_table=None, chunk_lens=None,
+                 tile_plan=None) -> torch.Tensor:
     _check_block(spec, mode)
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     h = _MIXERS[spec.kind].apply(p["mixer"], h, cfg=cfg, spec=spec,
                                  cache=cache, mode=mode, cos=cos, sin=sin,
                                  cache_index=cache_index,
                                  block_table=block_table,
-                                 chunk_lens=chunk_lens)
+                                 chunk_lens=chunk_lens, tile_plan=tile_plan)
     x = x + h
     if _has_ffn(cfg, spec):
         x = x + L.mlp(p["ffn"], L.rms_norm(x, p["norm2"], cfg.norm_eps))
@@ -227,7 +228,7 @@ def _layer(tree: Any, i: int) -> Any:
 def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor,
                positions: torch.Tensor, *, mode: str, cache: Tuple,
                cache_index=None, block_table=None,
-               chunk_lens=None) -> torch.Tensor:
+               chunk_lens=None, tile_plan=None) -> torch.Tensor:
     cos, sin = L.rope_angles(
         positions, cfg.resolved_head_dim, cfg.rope_theta,
         cfg.mrope_sections if cfg.use_mrope and positions.dim() == 3
@@ -238,7 +239,8 @@ def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor,
                              spec=spec, cos=cos, sin=sin,
                              cache=_layer(cache[pos], i),
                              cache_index=cache_index, mode=mode,
-                             block_table=block_table, chunk_lens=chunk_lens)
+                             block_table=block_table, chunk_lens=chunk_lens,
+                             tile_plan=tile_plan)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -301,7 +303,8 @@ def verify_step(params: Params, cfg: ArchConfig, cache: Tuple,
 def prefill_chunk_step(params: Params, cfg: ArchConfig, cache: Tuple,
                        inputs: Dict[str, torch.Tensor], index: torch.Tensor,
                        block_table: Optional[torch.Tensor] = None,
-                       chunk_lens: Optional[torch.Tensor] = None
+                       chunk_lens: Optional[torch.Tensor] = None,
+                       tile_plan: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Tuple]:
     """Advance each row's cache by up to C tokens in one step, the chunked
     engine's fused step.  ``inputs`` holds a (B, C) chunk per row, mixing
@@ -312,13 +315,16 @@ def prefill_chunk_step(params: Params, cfg: ArchConfig, cache: Tuple,
     region chunks, 1-token prompt/decode rows, partial chunks, idle rows
     at 0).  The valid tokens' KV lands at per-row (page, offset) through
     ``block_table`` (or densely); padding tokens write nothing that is
-    read.  The cache is updated in place.  Returns (logits (B, V) float32
-    at each row's LAST valid token, through a (B, d) hidden gather before
-    the unembedding, cache)."""
+    read.  ``tile_plan`` (C 1, paged: a (2, n) int32
+    ``kernels.paged_prefill_attention.tile_plan``) groups the rows that
+    share a table row into the prefix-append kernel's row tiles; valid
+    rows' results do not change with it.  The cache is updated in place.
+    Returns (logits (B, V) float32 at each row's LAST valid token, through
+    a (B, d) hidden gather before the unembedding, cache)."""
     x, positions = frontends.embed_chunk(params["embed"], cfg, inputs, index)
     x = _run_stack(params, cfg, x, positions, mode="prefill_append",
                    cache=cache, cache_index=index, block_table=block_table,
-                   chunk_lens=chunk_lens)
+                   chunk_lens=chunk_lens, tile_plan=tile_plan)
     if chunk_lens is None:
         xh = x[:, -1]
     else:

@@ -52,6 +52,7 @@ import torch
 from repro_torch.configs.base import ATTN
 from repro_torch.core import eo_adapter as EO
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_prefill_attention as PPA
 from repro_torch.models import transformer as T
 from repro_torch.serving.kv_pool import (KVPagePool, PrefixCache, TRASH_PAGE,
                                          page_nbytes)
@@ -235,6 +236,11 @@ class EngineCore:
                     f"slot count {self.cfg.slots}: every decode row takes "
                     "one token per step, so a smaller budget would starve "
                     "prefill streams")
+            # the prefix-append kernel's row tiles of a fused step: a fixed
+            # count, so the step's launch shape never follows its mix
+            self._group = tier.cfg.num_heads // tier.cfg.num_kv_heads
+            self._plan_tiles = PPA.plan_tiles(
+                self._token_budget, self.cfg.slots, self._group)
         if any(s.kind != ATTN for s in tier.cfg.block_pattern):
             # the model runs mLSTM/sLSTM stacks (transformer.prefill /
             # decode_step), but the engine's admission does not carry their
@@ -825,17 +831,25 @@ class EngineCore:
         the staged embedding at ``pos[j]``; a scene's chunk takes up to C
         consecutive rows on its streamer's table row, whose KV lands before
         the reads, so chunk token t sees its siblings < t through the
-        cache.  Padding rows (``srow == slots``) are unscheduled: their
-        writes go to the trash page and their outputs are dropped.  The
+        cache.  Those rows share the prefix-append kernel's row tiles
+        through a tile plan built here from ``srow`` and ``pos`` and
+        shipped in the step's one host-to-device copy.  Padding rows
+        (``srow == slots``) are unscheduled: their writes go to the trash
+        page and their outputs are dropped.  The
         held logits of each slot with a decode or prompt row are replaced
         by that row's.  Returns (the flat tokens fed, the answer-vocab
         probabilities of the held logits before the step if asked)."""
         n_slots, n_r = self.cfg.slots, self.ac.n_regions
         av, tb, dev = self.cfg.answer_vocab, len(srow), self.device
-        flat = self._host_to_dev(np.stack(
-            [srow, tokens, pos, patch_mask, use_argmax]).astype(np.int32))
+        plan = PPA.tile_plan(srow, pos, n_slots, self._group,
+                             self._plan_tiles)
+        flat = self._host_to_dev(np.concatenate(
+            [np.stack([srow, tokens, pos, patch_mask, use_argmax]),
+             np.pad(plan, ((0, 0), (0, tb - plan.shape[1])))]
+        ).astype(np.int32))
         srow_d, tokens_d, pos_d = flat[0], flat[1], flat[2]
         pmask, argm = flat[3].bool(), flat[4].bool()
+        plan_d = flat[5:, :plan.shape[1]]
         valid = srow_d < n_slots
         sclamp = torch.clamp(srow_d, max=n_slots - 1).long()
         av_logits = self._slot_logits[:, :av]
@@ -848,7 +862,7 @@ class EngineCore:
             {"tokens": tok[:, None], "patch_embeds": feed[:, None],
              "patch_mask": pmask}, pos_d,
             block_table=self._block_table_dev()[sclamp],
-            chunk_lens=valid.to(torch.int32))
+            chunk_lens=valid.to(torch.int32), tile_plan=plan_d)
         # the flat row feeding each slot's logits (-1: none); unscheduled
         # and region rows all go to the dropped index ``n_slots``
         dest = torch.where(valid & ~pmask, srow_d, n_slots).long()

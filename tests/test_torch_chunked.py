@@ -433,6 +433,39 @@ def test_chunked_engine_matches_jax(tiers, stream, greedy_tokens, chunk):
     assert all(sum(e) <= sched["budget"] for e in st["sched"]["step_log"])
 
 
+@pytest.mark.parametrize("chunk", [8, "full"])
+def test_chunked_engine_with_the_tile_plan_matches_jax(tiers, stream,
+                                                       greedy_tokens, chunk,
+                                                       monkeypatch):
+    """Every fused step threads its tile plan to the prefix-append op.
+    With the op scoring the plan's row tiles as the tensor-core kernel
+    does (each entry's rows through its first row's table row, each row at
+    its own cache_len) and leaving the rows in no tile NaN (the padding
+    rows the kernel does not write), tokens and every counter still equal
+    the JAX chunked engine's and the unchunked oracle's."""
+    plain, plans = tops.paged_prefill_attention, []
+
+    def tiled(q, k_pool, v_pool, block_table, cache_len, *, plan=None,
+              **kw):
+        assert plan is not None and q.shape[1] == 1
+        plans.append(plan.clone())
+        o = torch.full_like(q, float("nan"))
+        for j0, n in plan.T.tolist():
+            if n:
+                o[j0:j0 + n] = plain(q[j0:j0 + n], k_pool, v_pool,
+                                     block_table[j0].expand(n, -1),
+                                     cache_len[j0:j0 + n], **kw)
+        return o
+
+    monkeypatch.setattr(tops, "paged_prefill_attention", tiled)
+    chunk = tiers[5].n_regions if chunk == "full" else chunk
+    port, got, jeng, want = _serve_both(tiers, stream, prefill_chunk=chunk)
+    assert got == want == greedy_tokens[0]
+    _assert_same_engine_state(port, jeng)
+    # the streams' chunk runs shared row tiles
+    assert plans and max(int(p[1].max()) for p in plans) > 1
+
+
 def test_chunked_spec_engine_matches_jax(tiers, stream, greedy_tokens):
     """Chunked + γ 3 speculative engines, with perfect piggybacked drafts on
     the first slots' worth of requests: tokens are the greedy ones and

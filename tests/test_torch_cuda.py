@@ -7,13 +7,14 @@ and ``nvcc``).  Run on a machine with an H100:
 
 Tolerances, element by element: attention 1e-4 absolute in float32 (TF32
 off) and 1e-5 + 2^-6·|want| in bfloat16 (two bfloat16 ulps: both sides
-round an f32 result), except the tensor-core routes of flash and decode
-attention, which round p to bfloat16 before PV and are held to 1e-5 +
-2^-6·|want| + 2^-8·attention(q, k, |v|); region scores, f32 math and
-output, 1e-5 absolute;
+round an f32 result), except the tensor-core routes of flash, decode and
+prefix-append attention, which round p to bfloat16 before PV and are held
+to 1e-5 + 2^-6·|want| + 2^-8·attention(q, k, |v|); region scores, f32
+math and output, 1e-5 absolute;
 the scans 1e-4 + 1e-4·|want| (f32 on both sides, another summation order),
 a bf16 scan output 1e-4 + 2^-6·|want|, the sLSTM 2e-4 + 2e-4·|want|.
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -245,7 +246,7 @@ def _within_mma_decode_bound(got, q, k, v, lens, **kw):
     a = ref.multi_decode_attention(qf, kf, vf.abs(), lens, **kw)
     bound = 1e-5 + 2.0 ** -6 * want.abs() + 2.0 ** -8 * a
     diff = (got.float() - want).abs()
-    assert not bool((diff > bound).any()), float(diff.max())
+    assert bool((diff <= bound).all()), float(diff.max())   # NaN fails
 
 
 def _nan_past(k, lens):
@@ -401,7 +402,13 @@ def test_decode_mma_route_refuses_misaligned_views(card):
 def test_paged_prefill_kernel_matches_plain(card, hd, group, q_len, q_blk,
                                             page, window, softcap, dtype):
     """Rows: idle, shorter than the chunk, the chunk alone, mid-prefill and
-    longer; NaN trash page; the pools are left as they were."""
+    longer; NaN trash page; the pools are left as they were.  Through
+    ``ops`` on the route ``route`` names: the mma route (bf16 at hd 128)
+    held to its bound, the CUDA-core route to ``TOL``; the launch counted
+    under the kernel's name either way.  An mma case also runs the
+    CUDA-core kernel, held to ``TOL``."""
+    from repro_torch.kernels import paged_prefill_attention as PPA
+    from repro_torch.kernels.decode_attention import route
     lens = [0, max(q_len - 1, 1), q_len, q_len + 77, q_len + 203]
     q, kp, vp, kn, vn, table, lens_t = _paged_case(
         card, len(lens), 2, group, hd, page, -(-(q_len + 210) // page),
@@ -414,9 +421,179 @@ def test_paged_prefill_kernel_matches_plain(card, hd, group, q_len, q_blk,
     assert ops.launch_counts()["paged_prefill_attention"] == before + 1
     want = ref.paged_prefill_attention(q, kp, vp, table, lens_t,
                                        window=window, softcap=softcap)
-    _close(got, want, TOL[dtype])
+    if route(dtype, hd) == "mma":
+        _within_mma_decode_bound(got, q, ref.gather_pages(kp, table),
+                                 ref.gather_pages(vp, table), lens_t,
+                                 window=window, softcap=softcap)
+        cc = PPA.launch_cuda_cores(ops._chunk_to_rows(q, 2),
+                                   kn.transpose(1, 2), vn.transpose(1, 2),
+                                   table, lens_t, window=window,
+                                   softcap=softcap, q_len=q_len, q_blk=q_blk)
+        _close(ops._rows_to_chunk(cc, q_len, 2 * group), want, TOL[dtype])
+    else:
+        _close(got, want, TOL[dtype])
     assert float(got[0].abs().max()) == 0.0
     assert torch.equal(kn.nan_to_num(), kn0.nan_to_num())
+
+
+def _flat_case(gen, runs, *, tb, n_slots, kh, group, hd, page, width,
+               shared, scene_of):
+    """One fused step at the engine's flat shape, bf16: ``runs`` are
+    (slot, first position, tokens) in flat order, the rest of the ``tb``
+    rows padding (the last slot's table row, position 0).  Each slot's
+    table maps its scene's ``shared`` prefix pages, then private pages, up
+    to the page of its last position in the step, and its entries past
+    that page 0, the trash page (NaN in the kernel's pools, zero in the
+    plain version's), so a read past a row's length shows.  Returns (q,
+    kp, vp, kn, vn, table, lens, plan on the card, the covered rows)."""
+    from repro_torch.kernels import paged_prefill_attention as PPA
+    srow = np.full((tb,), n_slots, np.int32)
+    pos = np.zeros((tb,), np.int32)
+    j = 0
+    for slot, p0, n in runs:
+        srow[j:j + n], pos[j:j + n] = slot, p0 + np.arange(n)
+        j += n
+    n_scenes = max(scene_of) + 1
+    tables = np.zeros((n_slots, width), np.int32)
+    nxt = 1 + n_scenes * shared
+    for sl in range(n_slots):
+        tables[sl, :shared] = 1 + scene_of[sl] * shared + np.arange(shared)
+        tables[sl, shared:] = nxt + np.arange(width - shared)
+        nxt += width - shared
+    rows_slot = np.minimum(srow, n_slots - 1)
+    need = np.zeros((n_slots,), np.int64)       # entries below a length
+    np.maximum.at(need, rows_slot, -(-(pos + 1) // page))
+    tables[np.arange(width)[None, :] >= need[:, None]] = 0
+    kp = _randn(gen, nxt, page, kh, hd, dtype=torch.bfloat16)
+    vp = _randn(gen, nxt, page, kh, hd, dtype=torch.bfloat16)
+    kp[0], vp[0] = 0, 0
+    kn, vn = kp.clone(), vp.clone()
+    kn[0], vn[0] = float("nan"), float("nan")
+    q = _randn(gen, tb, 1, kh * group, hd, dtype=torch.bfloat16)
+    table = torch.from_numpy(tables[rows_slot]).cuda()
+    lens = torch.from_numpy(pos + 1).cuda()
+    plan = PPA.tile_plan(srow, pos, n_slots, group,
+                         PPA.plan_tiles(tb, n_slots, group))
+    return (q, kp, vp, kn, vn, table, lens, torch.from_numpy(plan).cuda(),
+            torch.from_numpy(srow < n_slots).cuda())
+
+
+def _held_rows(got, q, kp, vp, table, lens, rows, **kw):
+    _within_mma_decode_bound(got[rows], q[rows],
+                             ref.gather_pages(kp, table[rows]),
+                             ref.gather_pages(vp, table[rows]), lens[rows],
+                             **kw)
+
+
+#: (d) the 2B engine's flat fused step: 8 decode rows over two scenes'
+#: shared prefixes, then a third scene's last 256-token chunk as 256 rows
+#: of its streaming slot; (e) that chunk as one q_len-256 row
+PATH_DECODE = [(i, 1024 + (1024 * i) // 7, 1) for i in range(8)]
+
+
+@pytest.mark.parametrize("plan", [True, False])
+def test_prefill_mma_route_at_the_flat_path_shape(card, plan):
+    """(d), with and without the tile plan: every scheduled row within the
+    route's bound; the pools unchanged; one launch on the mma route."""
+    q, kp, vp, kn, vn, table, lens, tiles, rows = _flat_case(
+        card, PATH_DECODE + [(8, 768, 256)], tb=264, n_slots=9, kh=2,
+        group=6, hd=128, page=8, width=257, shared=128,
+        scene_of=[0, 1] * 4 + [2])
+    kn0 = kn.clone()
+    before = ops.launch_counts()["paged_prefill_attention_mma"]
+    got = ops.paged_prefill_attention(q, kn, vn, table, lens,
+                                      plan=tiles if plan else None)
+    assert ops.launch_counts()["paged_prefill_attention_mma"] == before + 1
+    assert bool(rows.all())
+    _held_rows(got, q, kp, vp, table, lens, rows)
+    assert torch.equal(kn.nan_to_num(), kn0.nan_to_num())
+
+
+def test_prefill_mma_route_at_the_chunk_path_shape(card):
+    """(e): the 2B's 256-token chunk as one q_len-256 row at cache_len
+    1024, 26 row tiles of 10 tokens, each walking only its own keys."""
+    q, kp, vp, kn, vn, table, lens = _paged_case(
+        card, 1, 2, 6, 128, 8, 257, [1024], 256, torch.bfloat16)
+    got = ops.paged_prefill_attention(q, kn, vn, table, lens)
+    _within_mma_decode_bound(got, q, ref.gather_pages(kp, table),
+                             ref.gather_pages(vp, table), lens)
+
+
+@pytest.mark.parametrize("hd,group,q_len,page,window,softcap", [
+    (64, 1, 1, 1, 0, None), (128, 6, 7, 2, 24, None),
+    (64, 7, 16, 4, 0, 30.0), (128, 6, 64, 8, 0, None),
+    (128, 7, 100, 16, 40, 30.0), (64, 1, 256, 8, 0, None),
+    (128, 6, 256, 16, 100, None), (128, 7, 33, 4, 0, 5.0)])
+def test_prefill_mma_route_sweep(card, hd, group, q_len, page, window,
+                                 softcap):
+    """Page sizes 1-16, chunks of 1-256 tokens, groups 1/6/7, windows and
+    softcaps; rows idle, shorter than the chunk, the chunk alone and
+    mid-prefill over shared prefix pages; NaN trash page; the pools left
+    as they were."""
+    lens = [0, max(q_len - 1, 1), q_len, q_len + 37, q_len + 150, 3]
+    q, kp, vp, kn, vn, table, lens_t = _paged_case(
+        card, len(lens), 2, group, hd, page, -(-(q_len + 160) // page),
+        lens, q_len, torch.bfloat16)
+    kn0, vn0 = kn.clone(), vn.clone()
+    kw = dict(window=window, softcap=softcap)
+    got = ops.paged_prefill_attention(q, kn, vn, table, lens_t, **kw)
+    _within_mma_decode_bound(got, q, ref.gather_pages(kp, table),
+                             ref.gather_pages(vp, table), lens_t, **kw)
+    assert float(got[0].abs().max()) == 0.0
+    assert torch.equal(kn.nan_to_num(), kn0.nan_to_num())
+    assert torch.equal(vn.nan_to_num(), vn0.nan_to_num())
+
+
+@pytest.mark.parametrize("hd,group,window,softcap", [
+    (128, 6, 0, None), (64, 7, 40, 30.0), (128, 1, 0, None)])
+def test_prefill_mma_route_with_a_mixed_plan(card, hd, group, window,
+                                             softcap):
+    """A step of decode rows, a prompt row, a fresh stream and one
+    mid-prefill, then padding: every scheduled row within the bound with
+    the plan, every row without it; an idle step's plan (every entry
+    empty) launches and exits cleanly."""
+    from repro_torch.kernels import paged_prefill_attention as PPA
+    runs = [(0, 300, 1), (1, 150, 1), (2, 64, 1), (3, 0, 23), (4, 40, 50)]
+    q, kp, vp, kn, vn, table, lens, tiles, rows = _flat_case(
+        card, runs, tb=90, n_slots=5, kh=2, group=group, hd=hd, page=8,
+        width=48, shared=8, scene_of=[0, 0, 1, 2, 1])
+    kw = dict(window=window, softcap=softcap)
+    got = ops.paged_prefill_attention(q, kn, vn, table, lens, plan=tiles,
+                                      **kw)
+    _held_rows(got, q, kp, vp, table, lens, rows, **kw)
+    got = ops.paged_prefill_attention(q, kn, vn, table, lens, **kw)
+    _held_rows(got, q, kp, vp, table, lens, torch.ones_like(rows), **kw)
+    before = ops.launch_counts()["paged_prefill_attention_mma"]
+    PPA.launch_mma(ops._chunk_to_rows(q, 2), kn.transpose(1, 2),
+                   vn.transpose(1, 2), table, lens,
+                   plan=torch.zeros_like(tiles), **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_prefill_attention_mma"] == before + 1
+
+
+def test_prefill_mma_route_refuses_what_it_does_not_take(card):
+    """cp.async's 16-byte rule and the plan's form are checked before the
+    launch: a misaligned view, a plan with q_len > 1 and a plan of the
+    wrong dtype raise, and nothing launches."""
+    from repro_torch.kernels import paged_prefill_attention as PPA
+    buf = _randn(card, 1, 2, 8, 136, dtype=torch.bfloat16)
+    pool = _randn(card, 4, 2, 8, 136, dtype=torch.bfloat16)
+    table = torch.zeros((1, 3), dtype=torch.int32, device="cuda")
+    plan = torch.tensor([[0], [1]], dtype=torch.int32, device="cuda")
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_prefill_attention_cuda(buf[..., 1:129], pool[..., :128],
+                                     pool[..., :128], table, 3)
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_prefill_attention_cuda(buf[..., :128], pool[..., 1:129],
+                                     pool[..., :128], table, 3)
+    with pytest.raises(ValueError, match="q_len 1"):
+        PPA.launch_mma(buf[..., :128], pool[..., :128], pool[..., :128],
+                       table, 3, q_len=2, plan=plan)
+    with pytest.raises(ValueError, match="tile plan"):
+        PPA.launch_mma(buf[..., :128], pool[..., :128], pool[..., :128],
+                       table, 3, plan=plan.long())
+    assert ops.launch_counts() == before
 
 
 @pytest.mark.parametrize("nv,ne,d,dtype", [(1, 1, 1536, torch.bfloat16),

@@ -397,26 +397,53 @@ def test_row_tile_plan_composes_to_the_whole_call(paged, q_len, group,
     assert float(whole[0].abs().max()) == 0.0
 
 
+#: clusters of n blocks (n = 1..16) of the tensor-core kernel that an
+#: NVIDIA H100 80GB HBM3 holds at once at hd 128, for every mode and row
+#: tile (``cudaOccupancyMaxActiveClusters``, as chip_smoke.py phase 2
+#: prints it): two blocks an SM, fewer for clusters the GPCs split badly
+H100_CLUSTERS = {1: 264, 2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30,
+                 9: 23, 10: 21, 11: 16, 12: 16, 13: 14, 14: 14, 15: 14,
+                 16: 14}
+
+
 @pytest.mark.parametrize("clusters,s", [(4, 2049), (2, 1026), (32, 2056),
                                         (16, 2056), (1, 1), (1, 64),
                                         (300, 5000), (8, 65)])
 def test_cluster_plan_covers_the_cache_with_no_empty_split(clusters, s):
     """The tensor-core kernel's split plan: whole 64-key tiles per split,
     no split empty of cache slots, the cache covered, at most MAX_CLUSTER
-    blocks a cluster, and enough blocks to fill the card where the cache
-    has the tiles for it."""
-    from repro_torch.kernels.decode_attention import (BLOCKS_PER_SM, KV_TILE,
-                                                      MAX_CLUSTER,
+    blocks a cluster, every cluster on the card at once, and as many
+    splits as fit where the cache has the tiles for them."""
+    from repro_torch.kernels.decode_attention import (KV_TILE, MAX_CLUSTER,
                                                       cluster_plan)
-    splits, split_len = cluster_plan(clusters, s, sm_count=132)
+    splits, split_len = cluster_plan(clusters, s, H100_CLUSTERS.get)
     assert split_len % KV_TILE == 0 and 1 <= splits <= MAX_CLUSTER
     assert (splits - 1) * split_len < s <= splits * split_len
     n_tiles = -(-s // KV_TILE)
-    want = max(BLOCKS_PER_SM * 132 // clusters, 1)
-    # as many splits as the card holds in one wave, the cluster allows and
-    # the tiles give, within the rounding to whole tiles per split
-    assert min(want, MAX_CLUSTER, n_tiles) <= 2 * splits
-    assert clusters * splits <= max(BLOCKS_PER_SM * 132, clusters)
+    fit = max([n for n in H100_CLUSTERS if clusters <= H100_CLUSTERS[n]],
+              default=1)
+    # the most that fit, the cluster allows and the tiles give, within the
+    # rounding to whole tiles per split; none waits for a second wave
+    assert min(fit, n_tiles) <= 2 * splits
+    assert splits == 1 or clusters <= H100_CLUSTERS[splits]
+
+
+@pytest.mark.parametrize("clusters,s,plan", [
+    (16, 2056, (11, 192)),     # (a) 2B slot step, B 8 x KH 2
+    (32, 2056, (7, 320)),      # (b) 7B slot step, B 8 x KH 4
+    (16, 2056, (11, 192)),     # (c) 7B verify q_len 5, B 4 x KH 4
+    (4, 2049, (11, 192)),      # 7B dense decode, KH 4
+    (2, 1026, (9, 128)),       # 2B dense decode, KH 2
+    (52, 2056, (4, 576)),      # (e) 2B 256-token chunk: 26 row tiles x 2
+    (70, 2056, (3, 704)),      # (d) 2B flat step: 35 plan tiles x 2
+])
+def test_cluster_plan_at_the_path_shapes(clusters, s, plan):
+    """On the H100's occupancy the one planner gives the decode shapes the
+    plans of the two-blocks-an-SM rule they had before it (no decode
+    launch changed), and prefix-append at (d) / (e) the most splits whose
+    clusters all fit at once (5 at (e) would not: 52 > 47)."""
+    from repro_torch.kernels.decode_attention import cluster_plan
+    assert cluster_plan(clusters, s, H100_CLUSTERS.get) == plan
 
 
 def _emulate_mma_decode(q, k, v, lens, *, window=0, softcap=None,
@@ -497,7 +524,7 @@ def test_mma_decode_rounding_stays_within_its_bound(b, q_len, group, kh, hd,
     lens = _t(np.linspace(max(s // 3, q_len), s, b).astype(np.int32))
     rows = q_len * group
     tiles = -(-rows // row_tile(rows, group, MMA_MAX_ROWS))
-    splits, split_len = cluster_plan(b * kh * tiles, s, sm_count=132)
+    splits, split_len = cluster_plan(b * kh * tiles, s, H100_CLUSTERS.get)
     assert splits > 1
     kw = dict(window=window, softcap=softcap)
     got = _emulate_mma_decode(q, k, v, lens, splits=splits,
@@ -509,3 +536,107 @@ def test_mma_decode_rounding_stays_within_its_bound(b, q_len, group, kh, hd,
         *(jnp.asarray(t_.float().numpy()) for t_ in (q, k, v)),
         jnp.asarray(lens.numpy()), **kw)
     _close(want, oracle)
+
+
+# ---------------------------------------------------------------------------
+# the prefix-append kernel's tile plan at the engine's flat shape
+# ---------------------------------------------------------------------------
+
+#: fused steps of a 6-slot engine with a 40-token budget: (slot, first
+#: position, tokens) runs in flat order; the rest of the rows are padding
+PLAN_STEPS = {
+    # three decode rows, a prompt row, then two streaming scenes
+    "decode + prompt + two scenes": [(0, 40, 1), (1, 55, 1), (2, 33, 1),
+                                     (3, 32, 1), (4, 0, 25), (5, 8, 7)],
+    # a decode row, then a scene's chunk cut at the budget
+    "chunk cut at the budget": [(0, 40, 1), (1, 12, 39)],
+    "one scene's chunk": [(2, 0, 40)],
+    "idle step": [],
+}
+
+
+def _flat_step(runs, n_slots, tb):
+    srow = np.full((tb,), n_slots, np.int32)
+    pos = np.zeros((tb,), np.int32)
+    j = 0
+    for slot, p0, n in runs:
+        srow[j:j + n], pos[j:j + n] = slot, p0 + np.arange(n)
+        j += n
+    return srow, pos
+
+
+@pytest.mark.parametrize("group", [1, 6, 7])
+@pytest.mark.parametrize("step", list(PLAN_STEPS))
+def test_prefill_tile_plan_composes_to_the_whole_call(step, group):
+    """The plan of a fused step (built from its flat rows' slots and
+    positions): every scheduled row falls in exactly one tile and padding
+    rows in none; no tile spans two slots or a gap in positions, or holds
+    more than 64 query rows; each run takes the fewest tiles; entries past
+    the step's tiles are empty.  Each tile, scored as the tensor-core
+    kernel scores it (its rows through its first row's table row, each at
+    its own cache_len), equals the whole call's rows, which equal the JAX
+    oracle's."""
+    from repro_torch.kernels import paged_prefill_attention as PPA
+    n_slots, tb, kh, hd, page, width = 6, 40, 2, 16, 8, 10
+    runs = PLAN_STEPS[step]
+    srow, pos = _flat_step(runs, n_slots, tb)
+    n_tiles = PPA.plan_tiles(tb, n_slots, group)
+    plan = PPA.tile_plan(srow, pos, n_slots, group, n_tiles)
+    assert plan.shape == (2, n_tiles) and plan.dtype == np.int32
+    first, count = plan
+    tpt = PPA.tokens_per_tile(group)
+    n = sum(-(-c // tpt) for _, _, c in runs)
+    assert (count[:n] > 0).all() and not count[n:].any()
+    assert not first[n:].any()
+    assert (count <= tpt).all() and (count * group <= 64).all()
+    cover = np.zeros((tb,), int)
+    for j0, c in zip(first[:n], count[:n]):
+        cover[j0:j0 + c] += 1
+        assert (srow[j0:j0 + c] == srow[j0]).all()
+        assert (np.diff(pos[j0:j0 + c]) == 1).all()
+    np.testing.assert_array_equal(cover, srow < n_slots)
+
+    rng = np.random.default_rng(group * 10 + len(runs))
+    q = _t(_rand(rng, tb, 1, kh * group, hd))
+    k_pool = _t(_rand(rng, 1 + n_slots * width, page, kh, hd))
+    v_pool = _t(_rand(rng, 1 + n_slots * width, page, kh, hd))
+    slot_tables = 1 + rng.permutation(n_slots * width).reshape(
+        n_slots, width).astype(np.int32)
+    table = _t(slot_tables[np.minimum(srow, n_slots - 1)])
+    lens = _t(pos + 1)
+    whole = tref.paged_prefill_attention(q, k_pool, v_pool, table, lens)
+    for j0, c in zip(first[:n], count[:n]):
+        part = tref.paged_prefill_attention(
+            q[j0:j0 + c], k_pool, v_pool, table[j0].expand(c, -1),
+            lens[j0:j0 + c])
+        _close(part, whole[j0:j0 + c])
+    oracle = jops.paged_prefill_attention(
+        *(jnp.asarray(t_.numpy()) for t_ in (q, k_pool, v_pool, table,
+                                             lens)), impl="ref")
+    _close(whole, oracle)
+
+
+@pytest.mark.parametrize("group", [1, 6, 7])
+def test_prefill_plan_length_holds_every_fused_step(group):
+    """``plan_tiles`` holds the tiles of any step the engine can schedule
+    (each slot at most one run a step: a decode row, a prompt row or its
+    scene's chunk, in any order and lengths, with padding), so the plan's
+    fixed length never overflows; a plan made too short raises."""
+    from repro_torch.kernels import paged_prefill_attention as PPA
+    rng = np.random.default_rng(group)
+    for tb, n_slots in ((40, 6), (264, 8), (7, 2), (20, 19)):
+        n_tiles = PPA.plan_tiles(tb, n_slots, group)
+        assert n_tiles <= tb
+        for _ in range(50):
+            slots = rng.permutation(n_slots)[:rng.integers(0, n_slots + 1)]
+            cuts = np.sort(rng.integers(0, tb + 1, len(slots)))
+            lens = np.diff(np.concatenate([[0], cuts]))
+            runs = [(int(s), int(rng.integers(0, 500)), int(c))
+                    for s, c in zip(slots, lens)]
+            srow, pos = _flat_step(runs, n_slots, tb)
+            plan = PPA.tile_plan(srow, pos, n_slots, group, n_tiles)
+            assert int(plan[1].sum()) == int((srow < n_slots).sum())
+    srow, pos = _flat_step([(0, 0, 40)], 6, 40)
+    with pytest.raises(ValueError, match="row tiles"):
+        PPA.tile_plan(srow, pos, 6, group, -(-40 // PPA.tokens_per_tile(
+            group)) - 1)
