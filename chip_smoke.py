@@ -68,13 +68,21 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    64; dk 8, 16, 384; dv 9, 24, 385; zero and carried state; log_g
    -softplus(randn), -2 and -30, where the output must be finite), then
    (f) the xLSTM-125m prefill shape (B 4, S 4096, H 4, dk 384, dv 385,
-   bf16).  The sLSTM recurrence: an f32 sweep (B 1-3, S 1-300, H 1/4,
-   P 8/64/192, zero and carried state, gate pre-activations past ±30; h and
-   all four final states), then (g) B 4, S 4096, H 4, P 192, f32.  Scan
-   tolerances: outputs and states 1e-4 + 1e-4·|want| in f32, a bf16 output
-   1e-4 + 2^-6·|want|; the sLSTM 2e-4 + 2e-4·|want|.  (f) and (g) are
-   timed as above; no single PyTorch call computes either scan, so their
-   library column is null.
+   bf16).  The sLSTM recurrence has two routes, chosen by P (the cluster
+   kernel from P 64 up, the per-row kernel below): both over an f32 sweep
+   (B 1-5, 128 and 256, S 1-300, H 1-4 and 16, P 8/64/100/192/256:
+   ragged batch groups and units, two waves of clusters at B 256 and
+   H 16; zero and carried state, gate pre-activations past
+   ±30; h and all four final states), the rule's route through ``ops``,
+   then both at (g) B 4, S 4096, H 4, P 192, (g') B 128, S 512, the
+   decode launches (S 1 at B 4 and B 128), the dependence floor's shape
+   (B 1, H 1, P 8, S 4096) and the rule's crossover (B 4, S 4096, H 4 at
+   P 16, 48, 64), timed in turns, with the cluster plan printed (cs, bt,
+   clusters, clusters resident at once, waves).  Scan tolerances: outputs
+   and states 1e-4 + 1e-4·|want| in f32, a bf16 output 1e-4 +
+   2^-6·|want|; the sLSTM 2e-4 + 2e-4·|want|.  (f) and the sLSTM shapes
+   are timed as above; no single PyTorch call computes either scan, so
+   their library column is null.
 3. End to end on a small proxy pair (flash, decode and prefix-append on
    their CUDA-core routes alone, counted): the port's ``CascadeServer``, its
    ``InferenceEngine.serve`` on the paged slot path, a γ = 3 speculative
@@ -131,7 +139,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    decode steps; (ii) the ``decode_32k`` batch, 128 rows, after a
    512-token prefill, and 64 decode steps.  Checks: every logit finite;
    ``ssm_scan`` launched 8 × prefills and ``slstm_scan`` 4 × (prefills +
-   decode steps), no attention kernel; per run, both kernels against
+   decode steps), every one on the route the rule names (the cluster
+   route at P 192), no attention kernel; per run, both kernels against
    their plain versions on the inputs the path gives them (the first
    mLSTM and sLSTM layers of the run's prefill, the first sLSTM layer of
    the decode step after it, with its carried state), to phase 2's
@@ -209,6 +218,7 @@ REPLACES = {
     "paged_prefill_attention_mma":
         "src/repro/kernels/decode_attention.py:448",
     "ssm_scan": "src/repro/kernels/ssm_scan.py:65",
+    "slstm_scan_cluster": "src/repro/kernels/slstm_scan.py:69",
     "slstm_scan": "src/repro/kernels/slstm_scan.py:69",
 }
 SOURCE_OF = {
@@ -225,6 +235,7 @@ SOURCE_OF = {
     "paged_prefill_attention_mma":
         "src/repro_torch/csrc/decode_attention_mma.cu",
     "ssm_scan": "src/repro_torch/csrc/ssm_scan.cu",
+    "slstm_scan_cluster": "src/repro_torch/csrc/slstm_scan.cu",
     "slstm_scan": "src/repro_torch/csrc/slstm_scan.cu",
 }
 # full-width adapter: N_r = 32² = 1024 = cfg.num_patches, 16-px regions
@@ -1288,14 +1299,10 @@ def scan_kernel_checks(torch, randn, timer, errors):
     384; dv 9, 24, 385; zero and carried state; log_g = -softplus(randn),
     and -30 everywhere, where the output must be finite), then (f) the
     xLSTM-125m prefill shape in bf16 (B 4, S 4096, H 4, dk 384, dv 385).
-    slstm_scan: an f32 sweep (B 1-3, S 1, 2, 37, 300; H 1, 4; P 8, 64, 192;
-    zero and carried state; gate pre-activations ~N(0, 10²), past ±30),
-    comparing h and all four final states, then (g) B 4, S 4096, H 4, P 192
-    f32.  No single PyTorch call computes either scan: the rows' library
-    column is null."""
+    slstm_scan: ``slstm_kernel_checks``.  No single PyTorch call computes
+    either scan: the rows' library column is null."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.slstm_scan import slstm_scan_cuda
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
     out = {}
 
@@ -1349,10 +1356,42 @@ def scan_kernel_checks(torch, randn, timer, errors):
         "shape": shape}}
 
     log("slstm_scan vs plain")
+    out.update(slstm_kernel_checks(torch, randn, timer, errors))
+    return out
 
-    def slstm_inputs(b, s, heads, p_dim, scale, carried):
+
+#: the sLSTM's timed shapes (B, S, H, P): (g) the xLSTM-125m prefill scan
+#: at 4096 tokens, (g') phase 9 (ii)'s B 128 x 512 prefill, the two decode
+#: launches (S 1 at B 4 and B 128), the dependence floor's shape, where a
+#: step is nearly all exchange, and the route rule's crossover: the reduced
+#: proxies' P 16, and P 48 / 64 on either side of ``CLUSTER_MIN_P``
+SLSTM_TIMED = {"g xLSTM": (4, 4096, 4, 192), "g' xLSTM B128": (128, 512, 4, 192),
+               "decode B4": (4, 1, 4, 192), "decode B128": (128, 1, 4, 192),
+               "floor B1 P8": (1, 4096, 1, 8), "P16 B4": (4, 4096, 4, 16),
+               "P48 B4": (4, 4096, 4, 48), "P64 B4": (4, 4096, 4, 64)}
+
+
+def slstm_kernel_checks(torch, randn, timer, errors):
+    """The sLSTM's two routes against the plain version: an f32 sweep (B
+    1-5, 128 and 256, S 1, 2, 5, 20, 33, 37, 50, 300; H 1-4 and 16; P 8,
+    64, 100, 192, 256; zero and carried state; gate pre-activations ~N(0,
+    10²), past ±30; B 256 and H 16 take two waves of clusters),
+    comparing h and all four final states on both routes, the rule's
+    through ``ops`` (which must count one launch on that route); then the
+    ``SLSTM_TIMED`` shapes with model-scale gates, both routes held and
+    timed in turns (cluster, per-row, per-row, cluster), the cluster plan
+    (cs, bt, clusters, clusters resident at once, waves) printed.  No single
+    PyTorch call computes the scan: the library column is null."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import slstm_scan as SL
+    launch = {"cluster": SL.launch_cluster, "per_row": SL.launch_per_row}
+    out = {"slstm_scan": {}, "slstm_scan_cluster": {}}
+
+    def inputs(b, s, heads, p_dim, scale, carried):
         d = heads * p_dim
         gx = randn(b, s, 4 * d) * scale
+        if scale == 1.0:                      # model-scale: forget bias 3
+            gx[..., 2 * d:3 * d] += 3.0
         r = randn(heads, p_dim, 4 * p_dim) * p_dim ** -0.5
         st = None
         if carried:
@@ -1362,34 +1401,86 @@ def scan_kernel_checks(torch, randn, timer, errors):
                   randn(b, heads, p_dim) * 10)
         return gx, r, st
 
+    def plan_of(b, heads, p_dim):
+        cs, bt = SL.card_cluster_plan(b, heads, p_dim, 0)
+        clusters = heads * -(-b // bt)
+        resident = SL.max_clusters(0, p_dim, cs, bt)
+        return {"cs": cs, "bt": bt, "clusters": clusters,
+                "resident": resident, "waves": -(-clusters // resident)}
+
+    def both(case, gx, r, st):
+        """Both routes against the plain version; the rule's through ops.
+        Returns ({route: max_abs_err}, the rule's route, the plan)."""
+        b, s, _ = gx.shape
+        heads, p_dim = r.shape[:2]
+        want = ref.slstm_scan(gx, r, st)
+        rule = SL.route(p_dim)
+        before = ops.launches_by_route(ops.launch_counts(), "slstm_scan")
+        errs = {rule: slstm_check(f"{case} {rule} (rule)",
+                                  ops.slstm_scan(gx, r, st), want, TOL_SLSTM,
+                                  errors)}
+        after = ops.launches_by_route(ops.launch_counts(), "slstm_scan")
+        if after[rule] != before[rule] + 1:
+            errors.append(f"slstm_scan {case}: ops did not launch the "
+                          f"{rule} route the rule names")
+        other = "per_row" if rule == "cluster" else "cluster"
+        errs[other] = slstm_check(f"{case} {other}",
+                                  launch[other](gx, r, st), want, TOL_SLSTM,
+                                  errors)
+        plan = plan_of(b, heads, p_dim)
+        log(f"    rule: {rule}; cluster plan {plan}")
+        return errs, rule, plan
+
     for b, s, heads, p_dim, carried in [
             (1, 1, 1, 8, False), (2, 2, 4, 8, True), (3, 37, 1, 64, True),
             (2, 300, 4, 64, False), (1, 300, 4, 192, True),
-            (3, 1, 4, 192, True), (2, 37, 4, 192, False)]:
-        gx, r, st = slstm_inputs(b, s, heads, p_dim, 10.0, carried)
-        slstm_check(f"f32 B{b} S{s} H{heads} P{p_dim} "
-                    f"{'carried' if carried else 'zero'}",
-                    ops.slstm_scan(gx, r, st), ref.slstm_scan(gx, r, st),
-                    TOL_SLSTM, errors)
+            (3, 1, 4, 192, True), (2, 37, 4, 192, False),
+            (3, 20, 4, 8, True), (5, 37, 2, 64, True),
+            (2, 50, 3, 100, True), (1, 50, 1, 256, False),
+            (5, 2, 4, 192, True), (4, 1, 4, 192, True),
+            (128, 1, 4, 192, True), (256, 5, 4, 192, True),
+            (4, 33, 16, 192, False)]:
+        gx, r, st = inputs(b, s, heads, p_dim, 10.0, carried)
+        both(f"f32 B{b} S{s} H{heads} P{p_dim} "
+             f"{'carried' if carried else 'zero'}", gx, r, st)
 
-    # (g) the xLSTM-125m sLSTM at a 4096-token prefill: model-scale gates
-    # (x @ w_gates + bias: unit noise, forget bias 3), zero start
-    b, s, heads, p_dim = 4, 4096, 4, 192
-    gx, r, _ = slstm_inputs(b, s, heads, p_dim, 1.0, False)
-    gx[..., 2 * heads * p_dim:3 * heads * p_dim] += 3.0
-    shape = f"B{b} S{s} H{heads} P{p_dim} f32"
-    got, want = ops.slstm_scan(gx, r), ref.slstm_scan(gx, r)
-    err = slstm_check("f32 (g) " + shape, got, want, TOL_SLSTM, errors)
-    n_bytes = nbytes(gx, r, got[0], *got[1]) + nbytes(*got[1])
-    b_ms, b_by = bound_ms(n_bytes, slstm_flops(b, s, heads, p_dim),
-                          "float32")
-    out["slstm_scan"] = {"g xLSTM": {
-        "max_abs_err": err,
-        "ms": timer(lambda: slstm_scan_cuda(gx, r), reps=5),
-        "plain_ms": timer(lambda: ref.slstm_scan(gx, r), reps=2),
-        "library_ms": None, "library_is": "no single library call",
-        "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-        "sequential_steps": s, "shape": shape}}
+    for tag, (b, s, heads, p_dim) in SLSTM_TIMED.items():
+        decode = s == 1
+        gx, r, st = inputs(b, s, heads, p_dim, 1.0, decode)
+        shape = f"B{b} S{s} H{heads} P{p_dim} f32"
+        errs, rule, plan = both(f"f32 ({tag}) {shape}", gx, r, st)
+        reps = 50 if decode else 5
+        ms = {"cluster": [], "per_row": []}
+        for name in ("cluster", "per_row", "per_row", "cluster"):
+            ms[name].append(timer(lambda: launch[name](gx, r, st),
+                                  reps=reps))
+        st0 = st or ref.slstm_zero_state(b, heads, p_dim, gx.device)
+        # gates, R and the state read once; h and the final state written
+        n_bytes = nbytes(gx, r, *st0) + 4 * (b * s + 4 * b) * heads * p_dim
+        b_ms, b_by = bound_ms(n_bytes, slstm_flops(b, s, heads, p_dim),
+                              "float32")
+        plain_ms = timer(lambda: ref.slstm_scan(gx, r, st),
+                         reps=2 if s > 1 else 10)
+        for name, key in (("cluster", "slstm_scan_cluster"),
+                          ("per_row", "slstm_scan")):
+            t = sum(ms[name]) / 2
+            out[key][tag] = {
+                "max_abs_err": errs[name], "ms": t, "ms_in_turns": ms[name],
+                "plain_ms": plain_ms, "library_ms": None,
+                "library_is": "no single library call", "bound_ms": b_ms,
+                "bound_by": b_by, "bytes": n_bytes, "sequential_steps": s,
+                "us_per_step": 1e3 * t / s, "shape": shape,
+                "rule_route": rule, "cluster_plan": plan}
+        log(f"  sLSTM ({tag}) {shape}: cluster {ms['cluster']} ms, per-row "
+            f"{ms['per_row']} ms (rule: {rule}), plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}); plan {plan}")
+    floor = out["slstm_scan_cluster"]["floor B1 P8"]["us_per_step"]
+    steps_g = SLSTM_TIMED["g xLSTM"][1]
+    for key in out:
+        out[key]["g xLSTM"]["dependence_floor_ms"] = 1e-3 * floor * steps_g
+    log(f"  sLSTM dependence floor: {floor:.3f} us a step on the cluster "
+        f"route at (B 1, H 1, P 8); x {steps_g} steps = "
+        f"{1e-3 * floor * steps_g:.3f} ms at (g)")
     return out
 
 
@@ -2575,6 +2666,7 @@ def xlstm_kernels_vs_plain(torch, T, params, cfg, toks, tag):
     after it (carried (h, c, n, m)).  Launches here are not counted: the
     run's counts were read before.  Returns {kernel: {case: max_abs_err}}."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import slstm_scan as SL
     b, s = toks.shape
     scans = ["ssm_scan", "slstm_scan"]
     (logits, cache, idx), pre = capture_inputs(
@@ -2585,7 +2677,9 @@ def xlstm_kernels_vs_plain(torch, T, params, cfg, toks, tag):
         torch, lambda: T.decode_step(params, cfg, cache, {"tokens": nxt},
                                      idx), scans)
     del cache
-    errors, out = [], {"ssm_scan": {}, "slstm_scan": {}}
+    sl_key = ("slstm_scan_cluster" if SL.route(
+        pre["slstm_scan"][0][0][1].shape[1]) == "cluster" else "slstm_scan")
+    errors, out = [], {"ssm_scan": {}, sl_key: {}}
     case = f"xlstm {tag} prefill B{b} S{s}"
     args = pre["ssm_scan"][0][0]
     out["ssm_scan"][case] = ssm_check(case, ops.ssm_scan(*args),
@@ -2593,7 +2687,7 @@ def xlstm_kernels_vs_plain(torch, T, params, cfg, toks, tag):
     for case, args in ((case, pre["slstm_scan"][0][0]),
                        (f"xlstm {tag} decode B{b} carried state",
                         dec["slstm_scan"][0][0])):
-        out["slstm_scan"][case] = slstm_check(
+        out[sl_key][case] = slstm_check(
             case, ops.slstm_scan(*args), ref.slstm_scan(*args), TOL_SLSTM,
             errors)
     if errors:
@@ -2619,12 +2713,15 @@ def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
     from repro_torch import configs
     from repro_torch.configs.base import MLSTM, SLSTM
     from repro_torch.kernels import ops
+    from repro_torch.kernels import slstm_scan as SL
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves
     cfg = cfg or configs.get_config("xlstm-125m")
     runs = runs or XLSTM_RUNS
     n_m = cfg.n_super * sum(sp.kind == MLSTM for sp in cfg.block_pattern)
     n_s = cfg.n_super * sum(sp.kind == SLSTM for sp in cfg.block_pattern)
+    sl_route = SL.route(cfg.d_model // cfg.resolved_ssm_heads)
+    sl_kernels = ["slstm_scan_kernel", "slstm_cluster_kernel"]
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=9, device="cuda")
     torch.cuda.synchronize()
@@ -2648,7 +2745,9 @@ def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
         g = xlstm_greedy(torch, T, params, cfg, toks, steps)
         counts = ops.launch_counts()
         launches[tag] = counts
-        want = {"ssm_scan": n_m, "slstm_scan": n_s * (1 + steps)}
+        want = {"ssm_scan": n_m, "slstm_scan": n_s * (1 + steps),
+                "slstm_scan_cluster": (n_s * (1 + steps)
+                                       if sl_route == "cluster" else 0)}
         bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
         if bad:
             raise RuntimeError(f"xlstm {tag}: launches {counts}, want "
@@ -2671,13 +2770,13 @@ def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
             torch.cuda.synchronize()
             t_prof = time.perf_counter() - t1
         busy = profile_summary(torch, prof, 8, t_prof)
-        dec_kernels = kernel_device_ms(torch, prof, ["slstm_scan_kernel"])
+        dec_kernels = kernel_device_ms(torch, prof, sl_kernels)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             T.prefill(params, cfg, {"tokens": toks}, s + 1)
             torch.cuda.synchronize()
-        pre_kernels = kernel_device_ms(
-            torch, prof, ["ssm_scan_kernel", "slstm_scan_kernel"])
+        pre_kernels = kernel_device_ms(torch, prof,
+                                       ["ssm_scan_kernel", *sl_kernels])
         del prof
         vs_plain = xlstm_kernels_vs_plain(torch, T, params, cfg, toks, tag)
         state_bytes = nbytes(*(leaf for c in cache for leaf in c.values()))
@@ -2694,21 +2793,27 @@ def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
              "top_device_ms_per_step": busy["top_device_ms_per_step"],
              "prefill_kernel_ms_per_launch": {
                  k: v[1] for k, v in pre_kernels.items()},
-             "decode_slstm_ms_per_launch":
-                 dec_kernels["slstm_scan_kernel"][1],
+             "decode_slstm_ms_per_launch": {
+                 k: v[1] for k, v in dec_kernels.items()},
+             "slstm_launches_by_route": ops.launches_by_route(
+                 counts, "slstm_scan"),
              "kernel_vs_plain_max_abs_err": vs_plain,
              "launches": counts}
         res[tag] = r
         pk = r["prefill_kernel_ms_per_launch"]
+        dk = r["decode_slstm_ms_per_launch"]
         log(f"  xlstm {tag}: prefill {r['prefill_ms']:.1f} ms "
             f"({r['prefill_tokens_per_s']:.0f} tokens/s; in place per "
-            f"launch: ssm_scan {pk['ssm_scan_kernel']:.3f} ms, "
-            f"slstm_scan {pk['slstm_scan_kernel']:.3f} ms), "
+            f"launch: ssm_scan {pk['ssm_scan_kernel']:.3f} ms, sLSTM "
+            f"cluster {pk['slstm_cluster_kernel']:.3f} / per-row "
+            f"{pk['slstm_scan_kernel']:.3f} ms), "
             f"decode step {r['decode_step_ms']:.3f} ms "
             f"({r['decode_tokens_per_s']:.0f} tokens/s, bound "
             f"{r['decode_bound_ms']:.3f} ms, device busy "
-            f"{r['device_busy_share']:.3f}; slstm_scan "
-            f"{r['decode_slstm_ms_per_launch']:.4f} ms a launch)")
+            f"{r['device_busy_share']:.3f}; sLSTM cluster "
+            f"{dk['slstm_cluster_kernel']:.4f} / per-row "
+            f"{dk['slstm_scan_kernel']:.4f} ms a launch); sLSTM launches by "
+            f"route {r['slstm_launches_by_route']} (rule: {sl_route})")
 
     # state continuation: the chunk form + the sLSTM state operand against
     # the sequential decode path
@@ -2809,18 +2914,18 @@ def main() -> int:
                                   for c, e in cases.items()})
     # the line's "flash_attention", "decode_attention",
     # "paged_decode_attention" and "paged_prefill_attention" are the
-    # CUDA-core kernels alone; each row of a two-route kernel carries the
-    # launches by route
-    two_route = ops.TENSOR_CORE_ROUTES
+    # CUDA-core kernels alone, "slstm_scan" the per-row one; each row of a
+    # two-route kernel carries the launches by route
+    two_route = ops.ROUTES
     routes = {p: {n: ops.launches_by_route(c, n) for n in two_route}
               for p, c in by_path.items()}
-    by_path = {p: dict(c, **{n: routes[p][n]["cuda_cores"]
-                             for n in two_route})
+    by_path = {p: dict(c, **{n: routes[p][n][first]
+                             for n, (_, _, first) in two_route.items()})
                for p, c in by_path.items()}
     by_route = {n: {r: sum(rt[n][r] for rt in routes.values())
-                    for r in (tc, "cuda_cores")}
-                for n, (_, tc) in two_route.items()}
-    base_of = {key: n for n, (key, _) in two_route.items()}
+                    for r in (second, first)}
+                for n, (_, second, first) in two_route.items()}
+    base_of = {key: n for n, (key, _, _) in two_route.items()}
     base_of.update({n: n for n in two_route})
     headline = {"flash_attention_wgmma": "7B", "flash_attention": "7B",
                 "decode_attention_mma": "7B", "decode_attention": "7B",
@@ -2829,7 +2934,8 @@ def main() -> int:
                 "paged_decode_attention": "a 2B q1",
                 "paged_prefill_attention_mma": "d 2B flat",
                 "paged_prefill_attention": "d 2B flat",
-                "ssm_scan": "f xLSTM", "slstm_scan": "g xLSTM"}
+                "ssm_scan": "f xLSTM", "slstm_scan_cluster": "g xLSTM",
+                "slstm_scan": "g xLSTM"}
     line = []
     for name, tag in headline.items():
         shapes = kernels[name]

@@ -36,31 +36,37 @@ KERNELS = {"flash_attention": FA.KERNEL,
            "paged_decode_attention_mma": PDA.MMA_KERNEL,
            "paged_prefill_attention": PPA.KERNEL,
            "paged_prefill_attention_mma": PPA.MMA_KERNEL,
-           "ssm_scan": SS.KERNEL, "slstm_scan": SL.KERNEL}
-#: the kernels with a tensor-core route: {name: (its key, its route)}
-TENSOR_CORE_ROUTES = {
-    "flash_attention": ("flash_attention_wgmma", "wgmma"),
-    "decode_attention": ("decode_attention_mma", "mma"),
-    "paged_decode_attention": ("paged_decode_attention_mma", "mma"),
-    "paged_prefill_attention": ("paged_prefill_attention_mma", "mma")}
+           "ssm_scan": SS.KERNEL, "slstm_scan": SL.KERNEL,
+           "slstm_scan_cluster": SL.CLUSTER_KERNEL}
+#: the kernels with two routes: {name: (the second route's key, its route,
+#: the first route's)}
+ROUTES = {
+    "flash_attention": ("flash_attention_wgmma", "wgmma", "cuda_cores"),
+    "decode_attention": ("decode_attention_mma", "mma", "cuda_cores"),
+    "paged_decode_attention": ("paged_decode_attention_mma", "mma",
+                               "cuda_cores"),
+    "paged_prefill_attention": ("paged_prefill_attention_mma", "mma",
+                                "cuda_cores"),
+    "slstm_scan": ("slstm_scan_cluster", "cluster", "per_row")}
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last reset.  A kernel with two routes
-    (``TENSOR_CORE_ROUTES``) counts every launch of either under its own
-    name, and the tensor-core route alone under that route's key
-    (``launches_by_route`` splits them)."""
+    (``ROUTES``) counts every launch of either under its own name, and the
+    second route alone under that route's key (``launches_by_route``
+    splits them)."""
     counts = {name: k.launches for name, k in KERNELS.items()}
-    for name, (key, _) in TENSOR_CORE_ROUTES.items():
+    for name, (key, _, _) in ROUTES.items():
         counts[name] += counts[key]
     return counts
 
 
 def launches_by_route(counts: Dict[str, int], name: str) -> Dict[str, int]:
     """Launches of ``name`` in ``launch_counts()``'s result by route:
-    {"wgmma" or "mma": n, "cuda_cores": n}."""
-    key, tc = TENSOR_CORE_ROUTES[name]
-    return {tc: counts[key], "cuda_cores": counts[name] - counts[key]}
+    {"wgmma" or "mma": n, "cuda_cores": n}, or for the sLSTM {"cluster": n,
+    "per_row": n}."""
+    key, second, first = ROUTES[name]
+    return {second: counts[key], first: counts[name] - counts[key]}
 
 
 def reset_launch_counts() -> None:

@@ -678,6 +678,88 @@ def test_slstm_scan_kernel_matches_plain(card, b, s, heads, p_dim, carried):
         _close(a, w, TOL_SLSTM)
 
 
+def _slstm_inputs(card, b, s, heads, p_dim, carried):
+    gx = _randn(card, b, s, 4 * heads * p_dim) * 10
+    r = _randn(card, heads, p_dim, 4 * p_dim) * p_dim ** -0.5
+    st = None
+    if carried:
+        st = (torch.tanh(_randn(card, b, heads, p_dim)),
+              _randn(card, b, heads, p_dim),
+              torch.rand((b, heads, p_dim), device="cuda") + 0.5,
+              _randn(card, b, heads, p_dim) * 10)
+    return gx, r, st
+
+
+def _slstm_close(got, want):
+    _close(got[0], want[0], TOL_SLSTM)
+    for a, w in zip(got[1], want[1]):
+        _close(a, w, TOL_SLSTM)
+
+
+@pytest.mark.parametrize("route", ["cluster", "per_row"])
+@pytest.mark.parametrize("b,s,heads,p_dim,carried", [
+    (1, 1, 1, 8, False), (2, 37, 4, 64, True), (3, 300, 4, 192, True),
+    (2, 1, 4, 192, True), (5, 37, 2, 64, True), (3, 20, 3, 100, False),
+    (1, 50, 1, 256, True), (128, 3, 4, 192, True), (4, 1, 4, 192, False)])
+def test_slstm_routes_match_plain(card, route, b, s, heads, p_dim, carried):
+    """Each route on any shape the wrapper takes (ragged batch groups and
+    units, P 8 to 256), pre-activations ~N(0, 10²) past ±30, zero and
+    carried state: h and all four final states."""
+    from repro_torch.kernels import slstm_scan as SL
+    gx, r, st = _slstm_inputs(card, b, s, heads, p_dim, carried)
+    launch = {"cluster": SL.launch_cluster, "per_row": SL.launch_per_row}
+    _slstm_close(launch[route](gx, r, st), ref.slstm_scan(gx, r, st))
+
+
+@pytest.mark.parametrize("plan", [(4, 1), (2, 2), (3, 3), (5, 1), (7, 2),
+                                  (16, 5), (13, 4)])
+def test_slstm_cluster_plans_match_plain(card, plan):
+    """The cluster kernel at plans the planner may not pick: every cluster
+    size, groups of 1 to 5 rows over a ragged batch, units not dividing P."""
+    from repro_torch.kernels import slstm_scan as SL
+    gx, r, st = _slstm_inputs(card, 5, 9, 2, 64, True)
+    _slstm_close(SL.launch_cluster(gx, r, st, plan=plan),
+                 ref.slstm_scan(gx, r, st))
+
+
+@pytest.mark.parametrize("b,s,heads,p_dim", [
+    (4, 64, 4, 192), (128, 8, 4, 192), (4, 1, 4, 192), (128, 1, 4, 192),
+    (1, 64, 1, 8), (3, 5, 4, 64), (3, 5, 4, 32)])
+def test_slstm_shapes_take_the_route_the_rule_names(card, b, s, heads,
+                                                    p_dim):
+    """Phase 2's shapes (S cut) through ``ops``: one launch, on the route
+    ``route`` names for its P; the cluster plan every cluster resident."""
+    from repro_torch.kernels import slstm_scan as SL
+    gx, r, st = _slstm_inputs(card, b, s, heads, p_dim, True)
+    before = ops.launches_by_route(ops.launch_counts(), "slstm_scan")
+    _slstm_close(ops.slstm_scan(gx, r, st), ref.slstm_scan(gx, r, st))
+    after = ops.launches_by_route(ops.launch_counts(), "slstm_scan")
+    rule = SL.route(p_dim)
+    assert {k: after[k] - before[k] for k in after} == {
+        "cluster": int(rule == "cluster"), "per_row": int(rule == "per_row")}
+    assert rule == ("cluster" if p_dim >= 64 else "per_row")
+    cs, bt = SL.card_cluster_plan(b, heads, p_dim, 0)
+    assert heads * -(-b // bt) <= SL.max_clusters(0, p_dim, cs, bt)
+
+
+@pytest.mark.parametrize("b,s,heads,p_dim", [
+    (256, 9, 4, 192), (4, 33, 16, 192), (128, 5, 8, 192)])
+def test_slstm_cluster_route_runs_past_one_wave(card, b, s, heads, p_dim):
+    """Shapes with more clusters than the card holds at once (a large
+    batch, many heads) through ``ops``: one launch on the cluster route,
+    in more than one wave, h and all four final states as the plain
+    version's."""
+    from repro_torch.kernels import slstm_scan as SL
+    gx, r, st = _slstm_inputs(card, b, s, heads, p_dim, True)
+    before = ops.launches_by_route(ops.launch_counts(), "slstm_scan")
+    _slstm_close(ops.slstm_scan(gx, r, st), ref.slstm_scan(gx, r, st))
+    after = ops.launches_by_route(ops.launch_counts(), "slstm_scan")
+    assert {k: after[k] - before[k] for k in after} == {
+        "cluster": 1, "per_row": 0}
+    cs, bt = SL.card_cluster_plan(b, heads, p_dim, 0)
+    assert heads * -(-b // bt) > SL.max_clusters(0, p_dim, cs, bt)
+
+
 def test_xlstm_layers_reach_the_scan_kernels(card):
     """The card path of the model: a reduced xLSTM prefill launches the
     chunked scan once per mLSTM layer and the sLSTM kernel once per sLSTM
@@ -710,3 +792,16 @@ def test_scan_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="4P"):
         slstm_scan_cuda(_randn(card, 1, 3, 4 * 257),
                         _randn(card, 1, 257, 4 * 257))
+    from repro_torch.kernels import slstm_scan as SL
+    for launch in (SL.launch_cluster, SL.launch_per_row):
+        with pytest.raises(TypeError, match="float32"):
+            launch(_randn(card, 1, 3, 32, dtype=torch.bfloat16),
+                   _randn(card, 2, 4, 16, dtype=torch.bfloat16))
+        with pytest.raises(ValueError, match="4P"):
+            launch(_randn(card, 1, 3, 4 * 257), _randn(card, 1, 257, 4 * 257))
+        with pytest.raises(ValueError, match="S 0"):
+            launch(_randn(card, 1, 0, 32), _randn(card, 2, 4, 16))
+    gx, r = _randn(card, 2, 3, 4 * 64), _randn(card, 1, 64, 4 * 64)
+    for plan in [(17, 1), (0, 1), (2, 0), (9, 1)]:    # (9, 1): a block of
+        with pytest.raises(ValueError, match="does not take"):  # no unit
+            SL.launch_cluster(gx, r, plan=plan)

@@ -640,3 +640,111 @@ def test_prefill_plan_length_holds_every_fused_step(group):
     with pytest.raises(ValueError, match="row tiles"):
         PPA.tile_plan(srow, pos, 6, group, -(-40 // PPA.tokens_per_tile(
             group)) - 1)
+
+
+# ---------------------------------------------------------------------------
+# the sLSTM cluster kernel's planner and the route rule
+# ---------------------------------------------------------------------------
+
+#: clusters of cs blocks of the sLSTM cluster kernel at P 192 that an NVIDIA
+#: H100 80GB HBM3 (132 SMs) holds at once (``cudaOccupancyMaxActiveClusters``
+#: as tools/slstm_probe.py prints it for every plan the planner weighs at
+#: B 4, 128 and 256): one count a cluster size for every group size, except
+#: clusters of 16 over groups of 37 rows or more, whose shared memory leaves
+#: one block an SM (7).  Clusters of fewer than 8 do not fit at P 192 (more
+#: than 768 threads a block).
+H100_SLSTM_CLUSTERS = {8: 15, 9: 9, 10: 7, 11: 7, 12: 7, 13: 7, 14: 7,
+                       15: 7, 16: 14}
+H100_SMS = 132
+
+
+def _slstm_fits(cs, bt):
+    return 7 if cs == 16 and bt >= 37 else H100_SLSTM_CLUSTERS.get(cs, 0)
+
+
+def _waves(b, heads, cs, bt):
+    n = _slstm_fits(cs, bt)
+    return -(-heads * -(-b // bt) // n) if n else None
+
+
+@pytest.mark.parametrize("b,heads", [(4, 4), (128, 4), (1, 4), (3, 4),
+                                     (5, 4), (2, 4), (64, 4), (1, 1),
+                                     (7, 2), (128, 1), (256, 4), (4, 16),
+                                     (128, 8)])
+def test_slstm_cluster_plan_covers_each_row_and_unit_once(b, heads):
+    """The planner's (cs, bt) at P 192 on the H100's occupancy: every batch
+    row in exactly one group and every unit in exactly one block (none
+    empty), at most MAX_CLUSTER blocks a cluster, the block within its
+    threads and shared memory, the fewest waves of clusters any plan
+    gives (one on the 132 SMs wherever a plan holds every cluster at once;
+    B 256 and H 8-16 take two), and no plan with as few waves and a larger
+    cluster, or the same cluster and fewer groups."""
+    from repro_torch.kernels import slstm_scan as SL
+    p = 192
+    cs, bt = SL.cluster_plan(b, heads, p, _slstm_fits)
+    assert 1 <= cs <= SL.MAX_CLUSTER and SL.plan_fits_block(p, cs, bt)
+    groups = -(-b // bt)
+    rows = np.zeros(b, int)
+    for g in range(groups):
+        rows[g * bt:min(b, (g + 1) * bt)] += 1
+    assert (rows == 1).all()
+    up = SL.units_per_block(p, cs)
+    units = np.zeros(p, int)
+    for k in range(cs):
+        assert k * up < p, "a block owns no unit"
+        units[k * up:min(p, (k + 1) * up)] += 1
+    assert (units == 1).all()
+    assert 32 * up <= SL.block_limit(p)
+    assert SL.smem_bytes(p, cs, bt) <= SL.SMEM_LIMIT
+    waves = _waves(b, heads, cs, bt)
+    assert waves == (2 if (b, heads) in ((256, 4), (4, 16), (128, 8))
+                     else 1)
+    if waves == 1:
+        assert heads * groups * cs <= 2 * H100_SMS
+    for cs2 in range(1, SL.MAX_CLUSTER + 1):
+        for g2 in range(1, b + 1):
+            bt2 = -(-b // g2)
+            if not SL.plan_fits_block(p, cs2, bt2) or not _slstm_fits(
+                    cs2, bt2):
+                continue
+            w2 = _waves(b, heads, cs2, bt2)
+            assert w2 >= waves
+            if w2 == waves and (cs2, bt2) != (cs, bt):
+                assert cs2 < cs or (cs2 == cs and bt2 < bt)
+
+
+@pytest.mark.parametrize("b,heads,plan", [
+    (4, 4, (16, 4)), (128, 4, (8, 43)), (256, 4, (8, 52)),
+    (4, 16, (16, 4)), (128, 8, (8, 43))])
+def test_slstm_cluster_plan_at_the_path_shapes(b, heads, plan):
+    """xlstm-125m's sLSTM (H 4, P 192): (g) and the decode launches at B 4
+    take one cluster of 16 a head (4 clusters, every row in one group);
+    (g') and decode at B 128 take 12 clusters of 8 (groups of 43 rows),
+    the largest clusters the card holds all at once.  Past one wave the
+    plans ``tools/slstm_probe.py`` timed: B 256 takes 20 clusters of 8
+    (groups of 52) in two waves, H 16 at B 4 16 clusters of 16 and H 8
+    at B 128 24 clusters of 8, two waves each."""
+    from repro_torch.kernels import slstm_scan as SL
+    assert SL.cluster_plan(b, heads, 192, _slstm_fits) == plan
+
+
+def test_slstm_cluster_plan_raises_only_when_no_cluster_fits():
+    """Clusters the card cannot hold at once still get a plan (more waves);
+    a card that holds no cluster of the kernel at all gets an error."""
+    from repro_torch.kernels import slstm_scan as SL
+    assert SL.cluster_plan(4, 64, 192, lambda cs, bt: 1) == (16, 4)
+    with pytest.raises(ValueError, match="no cluster"):
+        SL.cluster_plan(4, 4, 192, lambda cs, bt: 0)
+
+
+def test_slstm_route_rule():
+    """P >= 64 takes the cluster kernel, smaller P the per-row one; ``ops``
+    counts both under "slstm_scan" and the cluster route under its key."""
+    from repro_torch.kernels import slstm_scan as SL
+    assert [SL.route(p) for p in (1, 8, 32, 63, 64, 100, 192, 256)] == [
+        "per_row"] * 4 + ["cluster"] * 4
+    assert tops.ROUTES["slstm_scan"] == ("slstm_scan_cluster", "cluster",
+                                         "per_row")
+    counts = {"slstm_scan": 10, "slstm_scan_cluster": 4}
+    assert tops.launches_by_route(counts, "slstm_scan") == {
+        "cluster": 4, "per_row": 6}
