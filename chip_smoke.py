@@ -64,11 +64,17 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    256 rows sharing one table row; on the tensor cores with the engine's
    tile plan, 34 row tiles, and without it) and (e) that chunk as one
    q_len-256 row, on both routes, timed as above.  The chunked
-   gated-linear-attention scan: an f32 sweep (S 1, 37, 64, 256; chunk 16,
-   64; dk 8, 16, 384; dv 9, 24, 385; zero and carried state; log_g
-   -softplus(randn), -2 and -30, where the output must be finite), then
-   (f) the xLSTM-125m prefill shape (B 4, S 4096, H 4, dk 384, dv 385,
-   bf16).  The sLSTM recurrence has two routes, chosen by P (the cluster
+   gated-linear-attention scan has two routes, chosen by dtype and dk: the
+   CUDA-core kernel over an f32 sweep (S 1, 37, 64, 256; chunk 16, 64; dk
+   8, 16, 384; dv 9, 24, 385; zero and carried state; log_g
+   -softplus(randn), -2 and -30, where the output must be finite) and the
+   tensor-core kernel (bf16, dk % 16 == 0) over a bf16 sweep (dk 16-384,
+   dv 9-385, the same kinds of cases), each call through ``ops`` one
+   launch on its route; then both at (f) the xLSTM-125m prefill shape (B 4,
+   S 4096, H 4, dk 384, dv 385, bf16) and (f') phase 9 (ii)'s B 128 x 512,
+   timed in turns, with the cluster plan printed (blocks a cluster,
+   m-tiles a block, clusters, clusters resident at once, waves).  The
+   sLSTM recurrence has two routes, chosen by P (the cluster
    kernel from P 64 up, the per-row kernel below): both over an f32 sweep
    (B 1-5, 128 and 256, S 1-300, H 1-4 and 16, P 8/64/100/192/256:
    ragged batch groups and units, two waves of clusters at B 256 and
@@ -80,11 +86,14 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    P 16, 48, 64), timed in turns, with the cluster plan printed (cs, bt,
    clusters, clusters resident at once, waves).  Scan tolerances: outputs
    and states 1e-4 + 1e-4·|want| in f32, a bf16 output 1e-4 +
-   2^-6·|want|; the sLSTM 2e-4 + 2e-4·|want|.  (f) and the sLSTM shapes
-   are timed as above; no single PyTorch call computes either scan, so
-   their library column is null.
-3. End to end on a small proxy pair (flash, decode and prefix-append on
-   their CUDA-core routes alone, counted): the port's ``CascadeServer``, its
+   2^-6·|want| (on both scan routes: the tensor-core one feeds its f32
+   operands as bf16 hi + lo pairs and rounds o once); the sLSTM 2e-4 +
+   2e-4·|want|.  (f), (f') and the sLSTM shapes are timed as above; no
+   single PyTorch call computes either scan, so their library column is
+   null.
+3. End to end on a small proxy pair (flash, decode, prefix-append and the
+   chunked scan on their CUDA-core routes alone, counted): the port's
+   ``CascadeServer``, its
    ``InferenceEngine.serve`` on the paged slot path, a γ = 3 speculative
    engine, and chunked prefill (chunk 8, chunk N_r, chunk 8 with γ = 3) on
    the card must give the decisions and tokens they give on the CPU from
@@ -139,8 +148,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    decode steps; (ii) the ``decode_32k`` batch, 128 rows, after a
    512-token prefill, and 64 decode steps.  Checks: every logit finite;
    ``ssm_scan`` launched 8 × prefills and ``slstm_scan`` 4 × (prefills +
-   decode steps), every one on the route the rule names (the cluster
-   route at P 192), no attention kernel; per run, both kernels against
+   decode steps), every one on the route the rule names (the tensor-core
+   scan at bf16, dk 384; the sLSTM's cluster route at P 192), no attention
+   kernel; per run, both kernels against
    their plain versions on the inputs the path gives them (the first
    mLSTM and sLSTM layers of the run's prefill, the first sLSTM layer of
    the decode step after it, with its carried state), to phase 2's
@@ -187,7 +197,7 @@ sys.path.insert(0, str(ROOT / "src"))
 SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu",
            "decode_attention.cu", "decode_attention_mma.cu",
            "region_score.cu", "paged_prefill_attention.cu", "ssm_scan.cu",
-           "slstm_scan.cu")
+           "ssm_scan_mma.cu", "slstm_scan.cu")
 # decode_attention.cu and decode_attention_mma.cu each hold a dense and a
 # paged decode entry point; decode_attention_mma.cu also the prefix-append
 # kernel's tensor-core entry
@@ -217,6 +227,7 @@ REPLACES = {
     "paged_prefill_attention": "src/repro/kernels/decode_attention.py:448",
     "paged_prefill_attention_mma":
         "src/repro/kernels/decode_attention.py:448",
+    "ssm_scan_mma": "src/repro/kernels/ssm_scan.py:65",
     "ssm_scan": "src/repro/kernels/ssm_scan.py:65",
     "slstm_scan_cluster": "src/repro/kernels/slstm_scan.py:69",
     "slstm_scan": "src/repro/kernels/slstm_scan.py:69",
@@ -234,6 +245,7 @@ SOURCE_OF = {
         "src/repro_torch/csrc/paged_prefill_attention.cu",
     "paged_prefill_attention_mma":
         "src/repro_torch/csrc/decode_attention_mma.cu",
+    "ssm_scan_mma": "src/repro_torch/csrc/ssm_scan_mma.cu",
     "ssm_scan": "src/repro_torch/csrc/ssm_scan.cu",
     "slstm_scan_cluster": "src/repro_torch/csrc/slstm_scan.cu",
     "slstm_scan": "src/repro_torch/csrc/slstm_scan.cu",
@@ -1293,18 +1305,41 @@ def slstm_check(case, got, want, tol, errors):
     return e
 
 
+#: the chunked scan's timed shapes (B, S, H) at the xlstm-125m widths
+#: (dk 384, dv 385, bf16): (f) the prefill scan at 4096 tokens, (f') phase 9
+#: (ii)'s B 128 x 512 prefill
+SSM_TIMED = {"f xLSTM": (4, 4096, 4), "f' xLSTM B128": (128, 512, 4)}
+
+
+def ssm_plan(b, h, dk, dv):
+    """The tensor-core scan's cluster plan at a shape: blocks a cluster,
+    m-tiles a block (at most), clusters, clusters resident at once, waves."""
+    from repro_torch.kernels import ssm_scan as SS
+    cs = SS.card_cluster_plan(b * h, dk, dv, 0)
+    resident = SS.max_clusters(0, dk, dv, cs)
+    return {"cs": cs, "m_tiles_per_block": -(-SS.m_tiles(dv) // cs),
+            "clusters": b * h, "resident": resident,
+            "waves": -(-(b * h) // resident)}
+
+
 def scan_kernel_checks(torch, randn, timer, errors):
-    """The two recurrent kernels against their plain versions.  ssm_scan:
-    an f32 sweep (S 1, 37 (chunk = S), 64, 256; chunk 16 and 64; dk 8, 16,
-    384; dv 9, 24, 385; zero and carried state; log_g = -softplus(randn),
-    and -30 everywhere, where the output must be finite), then (f) the
-    xLSTM-125m prefill shape in bf16 (B 4, S 4096, H 4, dk 384, dv 385).
-    slstm_scan: ``slstm_kernel_checks``.  No single PyTorch call computes
-    either scan: the rows' library column is null."""
+    """The two recurrent kernels against their plain versions.  ssm_scan,
+    through ``ops``, each call one launch on the route ``route`` names: an
+    f32 sweep on the CUDA cores (S 1, 37 (chunk = S), 64, 256; chunk 16 and
+    64; dk 8, 16, 384; dv 9, 24, 385; zero and carried state; log_g =
+    -softplus(randn), -2 and -30, where the output must be finite) and a
+    bf16 sweep on the tensor cores (S 1, 37, 64, 256; chunk 16 and 64; dk
+    16, 32, 48, 384; dv 9, 24, 100, 385; zero and carried state; log_g
+    soft and -30); then ``SSM_TIMED`` with the model's operands (k scaled
+    by a sigmoid gate, v's column of ones, log_f = log_sigmoid(3 + noise)),
+    both routes held and timed in turns (tensor cores, CUDA cores, CUDA
+    cores, tensor cores), the cluster plan printed.  slstm_scan:
+    ``slstm_kernel_checks``.  No single PyTorch call computes either scan:
+    the rows' library column is null."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
-    out = {}
+    from repro_torch.kernels import ssm_scan as SS
+    out = {"ssm_scan": {}, "ssm_scan_mma": {}}
 
     def ssm_inputs(b, s, h, dk, dv, dtype=torch.float32, g_const=None,
                    carried=False):
@@ -1315,45 +1350,94 @@ def scan_kernel_checks(torch, randn, timer, errors):
         st = randn(b, h, dk, dv) if carried else None
         return q.to(dtype), k.to(dtype), v.to(dtype), g, st
 
-    log("ssm_scan vs plain")
+    def through_ops(case, args, chunk, route):
+        """``ops.ssm_scan`` against the plain version: one launch, on
+        ``route``; returns the max abs error."""
+        before = ops.launches_by_route(ops.launch_counts(), "ssm_scan")
+        got = ops.ssm_scan(*args, chunk=chunk)
+        after = ops.launches_by_route(ops.launch_counts(), "ssm_scan")
+        if {r: after[r] - before[r] for r in after} != {
+                r: int(r == route) for r in after}:
+            errors.append(f"ssm_scan {case}: not one launch on the {route} "
+                          f"route ({before} -> {after})")
+        return ssm_check(case, got, ref.ssm_scan(*args, chunk=chunk), errors)
+
+    log("ssm_scan vs plain (CUDA-core route: f32)")
     for s, chunk, dk, dv, carried, g_const in [
             (1, 64, 8, 9, False, None), (37, 64, 16, 24, True, None),
             (64, 16, 8, 9, True, None), (256, 64, 16, 24, False, None),
             (256, 16, 384, 385, True, None), (64, 64, 384, 385, False, None),
             (37, 64, 384, 385, True, None), (256, 64, 16, 9, True, -30.0),
             (128, 64, 8, 24, False, -2.0)]:
-        q, k, v, g, st = ssm_inputs(2, s, 2, dk, dv, g_const=g_const,
-                                    carried=carried)
-        o, sf = ops.ssm_scan(q, k, v, g, st, chunk=chunk)
-        wo, wsf = ref.ssm_scan(q, k, v, g, st, chunk=chunk)
         case = (f"f32 S{s} chunk{chunk} dk{dk} dv{dv} "
                 f"{'carried' if carried else 'zero'} g{g_const or 'soft'}")
-        ssm_check(case, (o, sf), (wo, wsf), errors)
+        args = ssm_inputs(2, s, 2, dk, dv, g_const=g_const, carried=carried)
+        out["ssm_scan"][case] = {"max_abs_err": through_ops(
+            case, args, chunk, "cuda_cores")}
+    log("ssm_scan vs plain (tensor-core route: bf16, dk % 16 == 0)")
+    for s, chunk, dk, dv, carried, g_const in [
+            (1, 64, 16, 9, False, None), (37, 64, 32, 24, True, None),
+            (64, 16, 16, 9, True, None), (256, 64, 48, 100, False, None),
+            (256, 16, 384, 385, True, None), (64, 64, 384, 385, False, None),
+            (37, 64, 384, 385, True, None), (256, 64, 16, 9, True, -30.0),
+            (256, 16, 32, 385, True, -30.0)]:
+        case = (f"bf16 S{s} chunk{chunk} dk{dk} dv{dv} "
+                f"{'carried' if carried else 'zero'} g{g_const or 'soft'}")
+        args = ssm_inputs(2, s, 2, dk, dv, dtype=torch.bfloat16,
+                          g_const=g_const, carried=carried)
+        out["ssm_scan_mma"][case] = {"max_abs_err": through_ops(
+            case, args, chunk, "mma")}
 
-    # (f) the xLSTM-125m prefill scan: the model's k·i_gate, v with its
-    # augmented ones column, log_f = log_sigmoid(3 + noise), zero state
-    b, s, h, dk, dv = 4, 4096, 4, 384, 385
-    q, k, v, _, _ = ssm_inputs(b, s, h, dk, dv, dtype=torch.bfloat16)
-    k = (k.float() * torch.sigmoid(randn(b, s, h))[..., None]).to(
-        torch.bfloat16)
-    v[..., -1] = 1.0
-    g = ref.log_sigmoid(3.0 + randn(b, s, h))
-    o, sf = ops.ssm_scan(q, k, v, g)
-    wo, wsf = ref.ssm_scan(q, k, v, g)
-    shape = f"B{b} S{s} H{h} dk{dk} dv{dv} chunk64 bf16"
-    err = ssm_check("bf16 (f) " + shape, (o, sf), (wo, wsf), errors)
-    qt, kt, vt, gt = (x.transpose(1, 2) for x in (q, k, v, g))
-    st0 = torch.zeros((b, h, dk, dv), device="cuda")
-    n_bytes = nbytes(q, k, v, g, st0, o, sf)
-    b_ms, b_by = bound_ms(n_bytes, ssm_flops(b, h, s, dk, dv, 64),
-                          "bfloat16")
-    out["ssm_scan"] = {"f xLSTM": {
-        "max_abs_err": err,
-        "ms": timer(lambda: ssm_scan_cuda(qt, kt, vt, gt, st0), reps=5),
-        "plain_ms": timer(lambda: ref.ssm_scan(q, k, v, g), reps=5),
-        "library_ms": None, "library_is": "no single library call",
-        "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-        "shape": shape}}
+    # (f), (f'): the xLSTM-125m scan's operands, both routes in turns
+    for tag, (b, s, h) in SSM_TIMED.items():
+        dk, dv = 384, 385
+        q, k, v, _, _ = ssm_inputs(b, s, h, dk, dv, dtype=torch.bfloat16)
+        k = (k.float() * torch.sigmoid(randn(b, s, h))[..., None]).to(
+            torch.bfloat16)
+        v[..., -1] = 1.0
+        g = ref.log_sigmoid(3.0 + randn(b, s, h))
+        shape = f"B{b} S{s} H{h} dk{dk} dv{dv} chunk64 bf16"
+        want = ref.ssm_scan(q, k, v, g)
+        args = [x.transpose(1, 2) for x in (q, k, v, g)]
+        args.append(torch.zeros((b, h, dk, dv), device="cuda"))
+        errs = {}
+        for route, launch in (("mma", SS.launch_mma),
+                              ("cuda_cores", SS.launch_cuda_cores)):
+            o, sf = launch(*args)
+            errs[route] = ssm_check(f"bf16 ({tag}) {route} {shape}",
+                                    (o.transpose(1, 2), sf), want, errors)
+        del o, sf, want
+        ms_m = timer(lambda: SS.launch_mma(*args), reps=5)
+        ms_c = timer(lambda: SS.launch_cuda_cores(*args), reps=3)
+        ms_c = (ms_c + timer(lambda: SS.launch_cuda_cores(*args), reps=3)) / 2
+        ms_m = (ms_m + timer(lambda: SS.launch_mma(*args), reps=5)) / 2
+        # q, k, v, log_g and the state read, o and the final state written
+        n_bytes = nbytes(*args) + nbytes(q) // dk * dv + nbytes(args[-1])
+        b_ms, b_by = bound_ms(n_bytes, ssm_flops(b, h, s, dk, dv, 64),
+                              "bfloat16")
+        common = {"plain_ms": timer(lambda: ref.ssm_scan(q, k, v, g),
+                                    reps=3),
+                  "library_ms": None, "library_is": "no single library call",
+                  "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+                  "shape": shape}
+        plan = ssm_plan(b, h, dk, dv)
+        out["ssm_scan_mma"][tag] = dict(common, max_abs_err=errs["mma"],
+                                        ms=ms_m, route="mma", plan=plan,
+                                        bound_share=b_ms / ms_m)
+        out["ssm_scan"][tag] = dict(common, max_abs_err=errs["cuda_cores"],
+                                    ms=ms_c, route="cuda_cores",
+                                    bound_share=b_ms / ms_c)
+        log(f"  ssm_scan ({tag}) {shape}: tensor cores {ms_m:.4f} ms, CUDA "
+            f"cores {ms_c:.4f} ms (in turns; {ms_c / ms_m:.2f}x), plain "
+            f"{common['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"share {b_ms / ms_m:.4f}); plan {plan}")
+
+    # what the plan reads: clusters of each size the card holds at once
+    occupancy = {cs: SS.max_clusters(0, 384, 385, cs)
+                 for cs in SS.cluster_sizes(385)}
+    out["ssm_scan_mma"]["f xLSTM"]["max_clusters_by_size"] = occupancy
+    log(f"  ssm_scan tensor cores: clusters of each size the card holds at "
+        f"once at dk 384, dv 385: {occupancy}")
 
     log("slstm_scan vs plain")
     out.update(slstm_kernel_checks(torch, randn, timer, errors))
@@ -2667,6 +2751,7 @@ def xlstm_kernels_vs_plain(torch, T, params, cfg, toks, tag):
     run's counts were read before.  Returns {kernel: {case: max_abs_err}}."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import slstm_scan as SL
+    from repro_torch.kernels import ssm_scan as SS
     b, s = toks.shape
     scans = ["ssm_scan", "slstm_scan"]
     (logits, cache, idx), pre = capture_inputs(
@@ -2679,11 +2764,13 @@ def xlstm_kernels_vs_plain(torch, T, params, cfg, toks, tag):
     del cache
     sl_key = ("slstm_scan_cluster" if SL.route(
         pre["slstm_scan"][0][0][1].shape[1]) == "cluster" else "slstm_scan")
-    errors, out = [], {"ssm_scan": {}, sl_key: {}}
-    case = f"xlstm {tag} prefill B{b} S{s}"
     args = pre["ssm_scan"][0][0]
-    out["ssm_scan"][case] = ssm_check(case, ops.ssm_scan(*args),
-                                      ref.ssm_scan(*args), errors)
+    ss_key = ("ssm_scan_mma" if SS.route(args[0].dtype, args[0].shape[-1])
+              == "mma" else "ssm_scan")
+    errors, out = [], {ss_key: {}, sl_key: {}}
+    case = f"xlstm {tag} prefill B{b} S{s}"
+    out[ss_key][case] = ssm_check(case, ops.ssm_scan(*args),
+                                  ref.ssm_scan(*args), errors)
     for case, args in ((case, pre["slstm_scan"][0][0]),
                        (f"xlstm {tag} decode B{b} carried state",
                         dec["slstm_scan"][0][0])):
@@ -2714,6 +2801,7 @@ def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
     from repro_torch.configs.base import MLSTM, SLSTM
     from repro_torch.kernels import ops
     from repro_torch.kernels import slstm_scan as SL
+    from repro_torch.kernels import ssm_scan as SS
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves
     cfg = cfg or configs.get_config("xlstm-125m")
@@ -2722,6 +2810,10 @@ def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
     n_s = cfg.n_super * sum(sp.kind == SLSTM for sp in cfg.block_pattern)
     sl_route = SL.route(cfg.d_model // cfg.resolved_ssm_heads)
     sl_kernels = ["slstm_scan_kernel", "slstm_cluster_kernel"]
+    # the mLSTM's scan: dk = 2·d / heads, in the weights' dtype
+    ss_route = SS.route(getattr(torch, cfg.dtype),
+                        2 * cfg.d_model // cfg.resolved_ssm_heads)
+    ss_kernels = ["ssm_scan_kernel", "ssm_scan_mma_kernel"]
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=9, device="cuda")
     torch.cuda.synchronize()
@@ -2746,6 +2838,7 @@ def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
         counts = ops.launch_counts()
         launches[tag] = counts
         want = {"ssm_scan": n_m, "slstm_scan": n_s * (1 + steps),
+                "ssm_scan_mma": n_m if ss_route == "mma" else 0,
                 "slstm_scan_cluster": (n_s * (1 + steps)
                                        if sl_route == "cluster" else 0)}
         bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
@@ -2776,7 +2869,7 @@ def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
             T.prefill(params, cfg, {"tokens": toks}, s + 1)
             torch.cuda.synchronize()
         pre_kernels = kernel_device_ms(torch, prof,
-                                       ["ssm_scan_kernel", *sl_kernels])
+                                       [*ss_kernels, *sl_kernels])
         del prof
         vs_plain = xlstm_kernels_vs_plain(torch, T, params, cfg, toks, tag)
         state_bytes = nbytes(*(leaf for c in cache for leaf in c.values()))
@@ -2797,6 +2890,8 @@ def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
                  k: v[1] for k, v in dec_kernels.items()},
              "slstm_launches_by_route": ops.launches_by_route(
                  counts, "slstm_scan"),
+             "ssm_launches_by_route": ops.launches_by_route(
+                 counts, "ssm_scan"),
              "kernel_vs_plain_max_abs_err": vs_plain,
              "launches": counts}
         res[tag] = r
@@ -2804,7 +2899,8 @@ def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
         dk = r["decode_slstm_ms_per_launch"]
         log(f"  xlstm {tag}: prefill {r['prefill_ms']:.1f} ms "
             f"({r['prefill_tokens_per_s']:.0f} tokens/s; in place per "
-            f"launch: ssm_scan {pk['ssm_scan_kernel']:.3f} ms, sLSTM "
+            f"launch: ssm_scan tensor cores {pk['ssm_scan_mma_kernel']:.3f} / "
+            f"CUDA cores {pk['ssm_scan_kernel']:.3f} ms, sLSTM "
             f"cluster {pk['slstm_cluster_kernel']:.3f} / per-row "
             f"{pk['slstm_scan_kernel']:.3f} ms), "
             f"decode step {r['decode_step_ms']:.3f} ms "
@@ -2813,7 +2909,9 @@ def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
             f"{r['device_busy_share']:.3f}; sLSTM cluster "
             f"{dk['slstm_cluster_kernel']:.4f} / per-row "
             f"{dk['slstm_scan_kernel']:.4f} ms a launch); sLSTM launches by "
-            f"route {r['slstm_launches_by_route']} (rule: {sl_route})")
+            f"route {r['slstm_launches_by_route']} (rule: {sl_route}), scan "
+            f"launches by route {r['ssm_launches_by_route']} (rule: "
+            f"{ss_route})")
 
     # state continuation: the chunk form + the sLSTM state operand against
     # the sequential decode path
@@ -2878,6 +2976,10 @@ def main() -> int:
         raise RuntimeError(f"small proxies: prefix-append must run on the "
                            f"CUDA-core route alone (float32, hd 12/16): "
                            f"{small_prefill}")
+    small_ssm = ops.launches_by_route(small_counts, "ssm_scan")
+    if not (small_ssm["cuda_cores"] > 0 and small_ssm["mma"] == 0):
+        raise RuntimeError(f"small proxies: the chunked scan must run on the "
+                           f"CUDA-core route alone (float32): {small_ssm}")
 
     log("phase 4: main path at full width")
     sat, gs, ac, counts, held = main_path(torch)
@@ -2934,7 +3036,8 @@ def main() -> int:
                 "paged_decode_attention": "a 2B q1",
                 "paged_prefill_attention_mma": "d 2B flat",
                 "paged_prefill_attention": "d 2B flat",
-                "ssm_scan": "f xLSTM", "slstm_scan_cluster": "g xLSTM",
+                "ssm_scan_mma": "f xLSTM", "ssm_scan": "f xLSTM",
+                "slstm_scan_cluster": "g xLSTM",
                 "slstm_scan": "g xLSTM"}
     line = []
     for name, tag in headline.items():

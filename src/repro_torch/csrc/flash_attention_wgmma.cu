@@ -62,15 +62,15 @@
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
 // -lcuda); the wrapper checks TMA's rules (16-byte aligned base and
 // strides) and raises before the launch.
-#include <cuda.h>
-
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 constexpr int WG_BQ = 64;          // query rows per block
 constexpr int WG_BK = 64;          // keys per K/V tile
 constexpr int BOX_COLS = 64;       // 64 bf16 = 128 B, one swizzle span
+static_assert(BOX_COLS == TMA_BOX_COLS, "make_map cuts boxes of BOX_COLS");
 constexpr float LOG2E = 1.4426950408889634f;
 
 // NWG consumer warpgroups share the block's 64 query rows and take its K/V
@@ -99,54 +99,9 @@ struct Layout {
 
 // --- mbarriers --------------------------------------------------------------
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-// Wait for the phase of ``parity`` to complete.  A wait that lasts seconds
-// can only be a fault in the pipeline: trap (a launch error the caller
-// sees) rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > (1ll << 33)) asm volatile("trap;");
-}
-
-// --- TMA ---------------------------------------------------------------------
-
-// One box of a 4-d map, (col, row, head, batch), into shared memory at
-// ``dst``; completion is counted on ``bar`` in bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-        "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
 }
 
 // --- wgmma ---------------------------------------------------------------------
@@ -271,11 +226,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // S = Q K^T of one K tile, over hd in k-steps of 16 (32 B inside a 128-B
@@ -520,54 +470,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // --- host side ---------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (B, N, S, hd) bf16 operand with element strides (sb, sn, ss, 1) as a
-// 4-d map (hd, S, N, B) cut in boxes of 64 columns x ``rows`` rows, 128-byte
-// swizzle, rows past S zero-filled.  A size-1 dimension's stride is never
-// used: it is replaced by a packed one so that TMA's 16-byte rule holds.
-bool make_map(CUtensorMap* map, EncodeTiled enc, const void* ptr, int B, int N,
-              int S, int hd, long long sb, long long sn, long long ss,
-              int rows) {
-  const long long e = 2;
-  if (S == 1) ss = hd;
-  if (N == 1) sn = ss * S;
-  if (B == 1) sb = sn * N;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)N,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)(ss * e), (cuuint64_t)(sn * e),
-                                 (cuuint64_t)(sb * e)};
-  const cuuint32_t box[4] = {(cuuint32_t)BOX_COLS, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int HD, int NWG>
 cudaError_t launch_nwg(const CUtensorMap& qm, const CUtensorMap& km,

@@ -60,6 +60,7 @@
 // __syncthreads a step.  Its steps are shorter than the cluster's exchange
 // when the dot products are short.
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -170,67 +171,9 @@ __host__ __device__ __forceinline__ int64_t sc_smem_floats(int nq, int up,
          3LL * bt * up + 4LL * up * hs + 32LL * (4 * up + 1);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async4(uint32_t dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
                "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void cluster_barrier() {
-  __syncwarp();                       // .aligned: the warp converged
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-      "%2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-// Wait for the phase of ``parity`` to complete.  A wait that lasts seconds
-// can only be a fault in the exchange: trap (a launch error the caller
-// sees) rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > (1ll << 33)) asm volatile("trap;");
-}
-
-// The shared::cluster address of the same shared location in block ``rank``
-__device__ __forceinline__ uint32_t dsmem_addr(uint32_t local, int rank) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(a) : "r"(local), "r"(rank));
-  return a;
 }
 
 // N (1, 2 or 4) consecutive floats into block ``rank``'s shared memory at

@@ -36,7 +36,8 @@ KERNELS = {"flash_attention": FA.KERNEL,
            "paged_decode_attention_mma": PDA.MMA_KERNEL,
            "paged_prefill_attention": PPA.KERNEL,
            "paged_prefill_attention_mma": PPA.MMA_KERNEL,
-           "ssm_scan": SS.KERNEL, "slstm_scan": SL.KERNEL,
+           "ssm_scan": SS.KERNEL, "ssm_scan_mma": SS.MMA_KERNEL,
+           "slstm_scan": SL.KERNEL,
            "slstm_scan_cluster": SL.CLUSTER_KERNEL}
 #: the kernels with two routes: {name: (the second route's key, its route,
 #: the first route's)}
@@ -47,6 +48,7 @@ ROUTES = {
                                "cuda_cores"),
     "paged_prefill_attention": ("paged_prefill_attention_mma", "mma",
                                 "cuda_cores"),
+    "ssm_scan": ("ssm_scan_mma", "mma", "cuda_cores"),
     "slstm_scan": ("slstm_scan_cluster", "cluster", "per_row")}
 
 

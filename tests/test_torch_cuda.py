@@ -805,3 +805,145 @@ def test_scan_wrappers_refuse_what_the_kernels_do_not_take(card):
     for plan in [(17, 1), (0, 1), (2, 0), (9, 1)]:    # (9, 1): a block of
         with pytest.raises(ValueError, match="does not take"):  # no unit
             SL.launch_cluster(gx, r, plan=plan)
+
+
+def _ssm_model_inputs(card, b, s, h, dk, dv, carried=False):
+    """The xLSTM scan's operands: q·dk^-0.5, k·sigmoid(i-gate), v with its
+    column of ones, log_f = log_sigmoid(3 + noise), bf16."""
+    q = (_randn(card, b, s, h, dk) * dk ** -0.5).bfloat16()
+    k = (_randn(card, b, s, h, dk)
+         * torch.sigmoid(_randn(card, b, s, h))[..., None]).bfloat16()
+    v = _randn(card, b, s, h, dv).bfloat16()
+    v[..., -1] = 1.0
+    g = ref.log_sigmoid(3.0 + _randn(card, b, s, h))
+    st = _randn(card, b, h, dk, dv) if carried else None
+    return q, k, v, g, st
+
+
+def _ssm_close(got, want):
+    _close(got[0], want[0], TOL_SCAN[torch.bfloat16])
+    _close(got[1], want[1], TOL_SCAN[torch.float32])
+    assert bool(got[0].isfinite().all()) and bool(got[1].isfinite().all())
+
+
+@pytest.mark.parametrize("b,s", [(4, 512), (128, 512)])
+def test_ssm_mma_route_at_the_path_shapes(card, b, s):
+    """(f)'s shape cut to S 512 (B 4, H 4, dk 384, dv 385) and phase 9
+    (ii)'s B 128 x 512, through ``ops``: one launch, on the tensor-core
+    route, within the scan tolerances."""
+    q, k, v, g, _ = _ssm_model_inputs(card, b, s, 4, 384, 385)
+    before = ops.launches_by_route(ops.launch_counts(), "ssm_scan")
+    got = ops.ssm_scan(q, k, v, g)
+    after = ops.launches_by_route(ops.launch_counts(), "ssm_scan")
+    assert {r: after[r] - before[r] for r in after} == {"mma": 1,
+                                                        "cuda_cores": 0}
+    _ssm_close(got, ref.ssm_scan(q, k, v, g))
+
+
+@pytest.mark.parametrize("dk,dv", [(16, 9), (32, 24), (384, 385), (48, 100)])
+@pytest.mark.parametrize("s,chunk", [(1, 64), (37, 64), (256, 16),
+                                     (256, 64)])
+@pytest.mark.parametrize("carried", [False, True])
+def test_ssm_mma_route_sweep(card, dk, dv, s, chunk, carried):
+    """The tensor-core route over chunks 16 and 64, S 1, 37 (chunk = S)
+    and 256, dv 9, 24, 100 and 385 (ragged last m-tiles), zero and carried
+    states, against the plain version."""
+    from repro_torch.kernels import ssm_scan as SS
+    b, h = 2, 2
+    q = (_randn(card, b, s, h, dk) * dk ** -0.5).bfloat16()
+    k = _randn(card, b, s, h, dk, dtype=torch.bfloat16)
+    v = _randn(card, b, s, h, dv, dtype=torch.bfloat16)
+    g = -torch.nn.functional.softplus(_randn(card, b, s, h))
+    st = (_randn(card, b, h, dk, dv) if carried
+          else torch.zeros((b, h, dk, dv), device="cuda"))
+    o, sf = SS.launch_mma(*(x.transpose(1, 2) for x in (q, k, v, g)), st,
+                          chunk=chunk)
+    _ssm_close((o.transpose(1, 2), sf),
+               ref.ssm_scan(q, k, v, g, st, chunk=chunk))
+
+
+@pytest.mark.parametrize("cs", [5, 6, 7, 9, 16])
+def test_ssm_mma_cluster_sizes_match_plain(card, cs):
+    """Every cluster size the kernel takes at dv 385 (5 to 16 blocks, 1 to 5
+    m-tiles each), the state carried across chunks of 16."""
+    from repro_torch.kernels import ssm_scan as SS
+    q, k, v, g, st = _ssm_model_inputs(card, 1, 128, 2, 384, 385, True)
+    o, sf = SS.launch_mma(*(x.transpose(1, 2) for x in (q, k, v, g)), st,
+                          chunk=16, cs=cs)
+    _ssm_close((o.transpose(1, 2), sf),
+               ref.ssm_scan(q, k, v, g, st, chunk=16))
+
+
+@pytest.mark.parametrize("cs", [5, 6, 7])
+def test_ssm_mma_clusters_stay_in_step_over_long_sequences(card, cs):
+    """B 4 x H 4 over 16384 tokens (256 chunks) at the cluster sizes the
+    plan takes at the xLSTM widths: the blocks of a cluster exchange each
+    chunk's scores through two buffers, so none may run two chunks ahead
+    of another (at clusters of 6 one block has five m-tiles and is the
+    slowest)."""
+    from repro_torch.kernels import ssm_scan as SS
+    q, k, v, g, _ = _ssm_model_inputs(card, 4, 16384, 4, 384, 385)
+    st = torch.zeros((4, 4, 384, 385), device="cuda")
+    o, sf = SS.launch_mma(*(x.transpose(1, 2) for x in (q, k, v, g)), st,
+                          cs=cs)
+    _ssm_close((o.transpose(1, 2), sf), ref.ssm_scan(q, k, v, g))
+
+
+def test_ssm_mma_route_runs_past_one_wave(card):
+    """B 4 x H 8 at the xLSTM widths: more clusters than the card holds at
+    once under the plan, so a second wave, one launch through ``ops``."""
+    from repro_torch.kernels import ssm_scan as SS
+    b, h = 4, 8
+    q, k, v, g, st = _ssm_model_inputs(card, b, 128, h, 384, 385, True)
+    cs = SS.card_cluster_plan(b * h, 384, 385, 0)
+    assert b * h > SS.max_clusters(0, 384, 385, cs)
+    before = ops.launches_by_route(ops.launch_counts(), "ssm_scan")
+    got = ops.ssm_scan(q, k, v, g, st)
+    after = ops.launches_by_route(ops.launch_counts(), "ssm_scan")
+    assert after["mma"] - before["mma"] == 1
+    _ssm_close(got, ref.ssm_scan(q, k, v, g, st))
+
+
+def test_ssm_scan_launches_by_route(card):
+    """Through ``ops``: bf16 at dk 16 and 384 on the tensor cores, f32 (at
+    any dk) and bf16 at dk 8 on the CUDA cores."""
+    cases = [(torch.bfloat16, 16, "mma"), (torch.bfloat16, 384, "mma"),
+             (torch.float32, 384, "cuda_cores"), (torch.float32, 16,
+                                                  "cuda_cores"),
+             (torch.bfloat16, 8, "cuda_cores")]
+    for dtype, dk, route in cases:
+        q = _randn(card, 2, 64, 2, dk, dtype=dtype)
+        v = _randn(card, 2, 64, 2, dk + 1, dtype=dtype)
+        g = -torch.nn.functional.softplus(_randn(card, 2, 64, 2))
+        before = ops.launches_by_route(ops.launch_counts(), "ssm_scan")
+        ops.ssm_scan(q, q, v, g)
+        after = ops.launches_by_route(ops.launch_counts(), "ssm_scan")
+        assert {r: after[r] - before[r] for r in after} == {
+            r: int(r == route) for r in after}, (dtype, dk)
+
+
+def test_ssm_mma_launcher_refuses_what_it_does_not_take(card):
+    """f32 operands, dk the kernel does not take, q or k not 16-byte
+    aligned (base or row stride) and cluster sizes outside 1..5 m-tiles a
+    block raise; nothing falls back to the CUDA cores."""
+    from repro_torch.kernels import ssm_scan as SS
+    b, h, s, dk, dv = 1, 2, 64, 32, 33
+    st = torch.zeros((b, h, dk, dv), device="cuda")
+    g = torch.zeros((b, h, s), device="cuda")
+    q = _randn(card, b, h, s, dk, dtype=torch.bfloat16)
+    v = _randn(card, b, h, s, dv, dtype=torch.bfloat16)
+    before = ops.launch_counts()
+    with pytest.raises(TypeError, match="bfloat16"):
+        SS.launch_mma(q.float(), q.float(), v.float(), g, st)
+    with pytest.raises(ValueError, match="dk 24"):
+        SS.launch_mma(q[..., :24], q[..., :24], v, g, st[:, :, :24])
+    wide = _randn(card, b, h, s, dk + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        SS.launch_mma(wide[..., 1:], q, v, g, st)
+    rows = _randn(card, b, h, s, dk + 4, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned strides"):
+        SS.launch_mma(q, rows[..., :dk], v, g, st)
+    for cs in (0, 17, 4):   # dv 33: 3 m-tiles, clusters of 1..3
+        with pytest.raises(ValueError, match="clusters of"):
+            SS.launch_mma(q, q, v, g, st, cs=cs or -1)
+    assert ops.launch_counts() == before

@@ -748,3 +748,147 @@ def test_slstm_route_rule():
     counts = {"slstm_scan": 10, "slstm_scan_cluster": 4}
     assert tops.launches_by_route(counts, "slstm_scan") == {
         "cluster": 4, "per_row": 6}
+
+
+# ---------------------------------------------------------------------------
+# ssm_scan: the tensor-core route's rule, plan and chunk arithmetic
+# ---------------------------------------------------------------------------
+
+#: chip_smoke.py's scan tolerances (absolute, relative to |want|): the f32
+#: state, and a bf16 output (two bf16 ulps of the plain value)
+TOL_SCAN = (1e-4, 1e-4)
+TOL_SCAN_BF16 = (1e-4, 2.0 ** -6)
+#: clusters of cs blocks of the tensor-core scan an H100 (132 SMs) holds at
+#: once at dk 384 (cudaOccupancyMaxActiveClusters, one 320-thread block an
+#: SM; chip_smoke.py phase 2 prints it, read on an H100 80GB HBM3)
+H100_SSM_CLUSTERS = {5: 22, 6: 17, 7: 15, 8: 15, 9: 9,
+                     **{cs: 7 for cs in range(10, 17)}}
+
+
+def test_ssm_scan_route_rule():
+    """bf16 with dk % 16 == 0 (up to 384) takes the tensor-core kernel; f32
+    and every other dk the CUDA-core one.  ``ops`` counts both under
+    "ssm_scan" and the tensor-core route under its key."""
+    from repro_torch.kernels import ssm_scan as SS
+    bf, f32 = torch.bfloat16, torch.float32
+    assert [SS.route(bf, dk) for dk in (16, 32, 48, 384)] == ["mma"] * 4
+    assert [SS.route(bf, dk) for dk in (8, 12, 24, 400)] == [
+        "cuda_cores"] * 4
+    assert [SS.route(f32, dk) for dk in (8, 16, 384)] == ["cuda_cores"] * 3
+    assert tops.ROUTES["ssm_scan"] == ("ssm_scan_mma", "mma", "cuda_cores")
+    counts = {"ssm_scan": 8, "ssm_scan_mma": 8}
+    assert tops.launches_by_route(counts, "ssm_scan") == {"mma": 8,
+                                                          "cuda_cores": 0}
+
+
+@pytest.mark.parametrize("chains,dv,plan,waves", [
+    (16, 385, 6, 1),      # (f) and phase 9 (i): B 4 x H 4
+    (512, 385, 5, 24),    # (f') and phase 9 (ii): B 128 x H 4
+    (4, 385, 16, 1),      # one cluster of 16 a chain fits
+    (8, 9, 1, 1),         # one m-tile: a block a chain
+    (40, 100, 3, 1)])     # 7 m-tiles: clusters of 3 (44 at once)
+def test_ssm_cluster_plan_on_the_h100_table(chains, dv, plan, waves):
+    """The tensor-core scan's cluster size on the H100's occupancy: every
+    block owns 1..5 16-column m-tiles of dv; the fewest waves (all 16
+    chains of the B 4 prefill at once with clusters of 6: 17 fit, against
+    15 of 7 or 8), then the largest cluster; more waves where no size
+    holds every chain."""
+    from repro_torch.kernels import ssm_scan as SS
+    n_mt = -(-dv // 16)
+    sizes = list(SS.cluster_sizes(dv))
+    assert sizes == list(range(-(-n_mt // SS.MMA_MAX_TILES),
+                               min(SS.MAX_CLUSTER, n_mt) + 1))
+
+    def fits(cs):
+        return H100_SSM_CLUSTERS.get(cs, 132 // cs)
+
+    cs = SS.cluster_plan(chains, dv, fits)
+    assert cs == plan and cs in sizes
+    assert -(-chains // fits(cs)) == waves
+    assert all(-(-chains // fits(c)) >= waves for c in sizes)
+    assert SS.cluster_plan(chains, dv, lambda c: 1) == sizes[-1]
+    with pytest.raises(ValueError, match="no cluster"):
+        SS.cluster_plan(chains, dv, lambda c: 0)
+
+
+def _split(x):
+    """An f32 operand as the tensor-core route feeds it: bf16 hi + bf16 lo
+    (lo = bf16(x - hi)), summed in f32."""
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float()
+
+
+def mma_scan_emulation(q, k, v, log_g, state, chunk):
+    """The tensor-core route's arithmetic, chunk by chunk (model layout, q,
+    k, v bf16): q·kᵀ of the bf16 values with f32 sums, masked before exp
+    and decayed in f32; the f32 operands (the state, the scores P and
+    exp(cum_C - cum_j)·v_j) as bf16 hi + lo; f32 sums; o rounded to bf16
+    once."""
+    b, s, h, dk = q.shape
+    chunk = tref.chunk_for(s, chunk)
+    st = state.float()
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    outs = []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        qi, ki, vi = (x[:, sl].float().transpose(1, 2) for x in (q, k, v))
+        cum = torch.cumsum(log_g[:, sl].float().transpose(1, 2), dim=-1)
+        total = cum[..., -1:]
+        diff = torch.where(tri, cum[..., :, None] - cum[..., None, :],
+                           float("-inf"))
+        p = (qi @ ki.transpose(-1, -2)) * torch.exp(diff)
+        o = torch.exp(cum)[..., None] * (qi @ _split(st)) + _split(p) @ vi
+        vd = _split(torch.exp(total - cum)[..., None] * vi)
+        st = torch.exp(total)[..., None] * st + ki.transpose(-1, -2) @ vd
+        outs.append(o.transpose(1, 2))
+    return torch.cat(outs, dim=1).bfloat16(), st
+
+
+def _share(got, want, tol):
+    atol, rtol = tol
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+@pytest.mark.parametrize("s,chunk,dk,dv,carried,g", [
+    (1, 64, 16, 9, True, None),
+    (37, 64, 32, 385, True, None),       # chunk = S; the ragged m-tile
+    (128, 16, 16, 385, True, None),
+    (128, 64, 32, 9, False, None),
+    (128, 64, 32, 385, True, -30.0),
+    (128, 16, 32, 9, True, -30.0)])
+def test_mma_scan_arithmetic_stays_within_the_scan_tolerances(
+        s, chunk, dk, dv, carried, g):
+    """The tensor-core route's chunk arithmetic (``mma_scan_emulation``)
+    against the f32 plain version on the same bf16 inputs: the state within
+    half of ``TOL_SCAN``, the bf16 output within half of ``TOL_SCAN_BF16``
+    (the hi + lo splits leave ~2^-17 of each f32 operand, far below one bf16
+    ulp of o); and the f32 plain version against the JAX oracle where the
+    oracle is finite (at log_g -30 its exp(cum_i - cum_j) overflows above
+    the diagonal)."""
+    rng = np.random.default_rng(s + dk + dv)
+    b, h = 2, 2
+    q = _t(_rand(rng, b, s, h, dk) * dk ** -0.5).bfloat16()
+    k = _t(_rand(rng, b, s, h, dk)).bfloat16()
+    v = _t(_rand(rng, b, s, h, dv)).bfloat16()
+    lg = (-np.logaddexp(0.0, _rand(rng, b, s, h)) if g is None
+          else np.full((b, s, h), g)).astype(np.float32)
+    st = _rand(rng, b, h, dk, dv) if carried else np.zeros((b, h, dk, dv),
+                                                          np.float32)
+    log_g, state = _t(lg), _t(st)
+    got = mma_scan_emulation(q, k, v, log_g, state, chunk)
+    want = tref.ssm_scan(q, k, v, log_g, state, chunk=chunk)
+    assert got[0].dtype == want[0].dtype == torch.bfloat16
+    assert _share(got[0], want[0], TOL_SCAN_BF16) <= 0.5
+    assert _share(got[1], want[1], TOL_SCAN) <= 0.5
+
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    o, sf = tref.ssm_scan(qf, kf, vf, log_g, state, chunk=chunk)
+    jo, jsf = (np.array(x) for x in jref.ssm_scan(
+        *(jnp.asarray(x.numpy()) for x in (qf, kf, vf, log_g, state)),
+        chunk=chunk))
+    fin = np.isfinite(jo)
+    assert fin.any() and (g is not None or fin.all())
+    assert np.isfinite(jsf).all()
+    assert _share(o[fin], _t(jo[fin]), TOL_SCAN) <= 1.0
+    assert _share(sf, _t(jsf), TOL_SCAN) <= 1.0
