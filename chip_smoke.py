@@ -37,7 +37,13 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    7B width (KH 4, group 7) and (c) the 7B verify at q_len 5 (35 rows,
    B 4), each on both routes, and the 7B verify at γ 9 (q_len 10, 70 rows:
    two row tiles) on both.  The kernels read pools whose trash page is NaN,
-   so a read past a row's length would show.  Tolerances, element by element: attention in
+   so a read past a row's length would show.  The region score (a warp a
+   region) over B 1-70000, R 1-1024 (R 100 and 1023 leave the last block
+   partial), Nv 1-3, Ne 1-5, D 8-9000 in f32 and bf16 (its vector path,
+   and its scalar path: bf16 at D 300, f32 at D 301, an unaligned base),
+   the offload path's (B, R, 1, D) view and D + Ne at the shared-memory
+   limit; at the main path's shape it is timed beside an empty kernel on
+   its grid (the launch floor).  Tolerances, element by element: attention in
    float32 1e-4 absolute; attention in bfloat16 1e-5 + 2^-6·|want| (two
    bfloat16 ulps of the plain value: both sides round an f32 result to
    bfloat16); region scores (f32 math and output in both) 1e-5 absolute,
@@ -103,7 +109,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
 4. The cascade server: ``CascadeServer.handle`` at the full width and
    depth of the paper's pair (Qwen2-VL-2B on the satellite, Qwen2-VL-7B on
    the ground), bfloat16, random weights from a seed, serving requests
-   that reach both tiers.
+   that reach both tiers.  After the counts are read, flash's tensor-core
+   route and the region score are held on the path's own inputs (the
+   first call at each shape).
 5. Where the time goes: prefill and per-token decode time of each tier,
    flash's in-place device time per launch in a profiled prefill, and the
    device's busy share over decode steps from ``torch.profiler``; the
@@ -478,7 +486,6 @@ def kernel_checks(torch):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      launch_cuda_cores)
-    from repro_torch.kernels.region_score import region_score_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -582,30 +589,7 @@ def kernel_checks(torch):
     report.update(decode_mma_checks(torch, randn, timer, errors))
 
     # -- region score --------------------------------------------------------
-    log("region_score vs plain")
-    for b, r, nv, ne, d in [(2, 100, 3, 2, 48), (1, 100, 1, 1, 16),
-                            (2, 64, 2, 5, 300)]:
-        vv, ee = randn(b, r, nv, d), randn(b, ne, d)
-        check("region_score", ops.region_score(vv, ee),
-              ref.region_score(vv, ee), TOL_REGION,
-              f"f32 B{b} R{r} Nv{nv} Ne{ne} D{d}", errors)
-    vv, ee = randn(1, 1024, 1, 1536, dtype=bf16), randn(1, 1, 1536,
-                                                        dtype=bf16)
-    err = check("region_score", ops.region_score(vv, ee),
-                ref.region_score(vv, ee), TOL_REGION,
-                "bf16 B1 R1024 Nv1 Ne1 D1536", errors)
-    d = 1536
-    flops = 1024 * (3 * d + 2 * d) + 3 * d
-    b_ms, b_by = bound_ms(nbytes(vv, ee) + 4 * 1024, flops, "bfloat16")
-    report["region_score"] = {"main": {
-        "max_abs_err": err,
-        "ms": timer(lambda: region_score_cuda(vv, ee)),
-        "plain_ms": timer(lambda: ref.region_score(vv, ee)),
-        "library_ms": timer(lambda: torch.einsum(
-            "brvd,bed->br", F.normalize(vv.float(), dim=-1),
-            F.normalize(ee.float(), dim=-1))),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "shape": "B1 R1024 Nv1 Ne1 D1536 bf16"}}
+    report["region_score"] = region_score_checks(torch, randn, timer, errors)
 
     report.update(paged_kernel_checks(torch, randn, timer, errors))
     report.update(prefill_kernel_checks(torch, randn, timer, errors))
@@ -676,6 +660,84 @@ def decode_mma_sweep(torch, randn, errors):
     except ValueError as e:
         log(f"  decode_attention misaligned q view: refused ({e}) ok")
     return max(shares)
+
+
+# the region score's cases beyond the main path's: (B, R, Nv, Ne, D, dtype)
+REGION_CASES = [
+    (2, 100, 3, 2, 48, "f32"), (1, 100, 1, 1, 16, "f32"),
+    (2, 64, 2, 5, 300, "f32"),
+    (2, 100, 1, 1, 1536, "bf16"),          # the paper's N_r 100: 8 ∤ R
+    (1, 1023, 1, 1, 1536, "bf16"),         # a partial last block
+    (2, 100, 3, 5, 300, "bf16"),           # the scalar path (300 % 8)
+    (2, 100, 3, 5, 301, "f32"),            # the scalar path (odd D)
+    (1, 1024, 1, 1, 3584, "bf16"),         # the 7B width: two pieces a row
+    (2, 37, 3, 5, 3584, "bf16"),           # six pieces over three rows
+    (2, 100, 3, 5, 1536, "bf16"),          # Nv 3, Ne 5
+    (1, 50, 2, 3, 2100, "f32"),            # three pieces a row, f32
+    (1, 8, 2, 2, 9000, "bf16"),            # five pieces a row
+    (70000, 1, 1, 1, 8, "f32"),            # past the old grid cap
+]
+
+
+def region_score_checks(torch, randn, timer, errors):
+    """The region score against its plain version at ``REGION_CASES``, the
+    offload path's (B, R, 1, D) view of (B, R, D) features, an unaligned
+    base (the scalar path) and D at the shared-memory limit, then the main
+    path's shape (B 1, R 1024, Nv 1, Ne 1, D 1536, bf16), timed beside an
+    empty kernel on its grid (the launch floor).  Returns {case: numbers}."""
+    import ctypes
+
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.build import CudaKernel
+    from repro_torch.kernels.region_score import (MAX_SMEM_FLOATS,
+                                                  region_score_cuda)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    log("region_score vs plain")
+    out = {}
+
+    def held(case, v, e, fn=ops.region_score):
+        out[case] = {"max_abs_err": check(
+            "region_score", fn(v, e), ref.region_score(v, e), TOL_REGION,
+            case, errors)}
+
+    for b, r, nv, ne, d, dt in REGION_CASES:
+        held(f"{dt} B{b} R{r} Nv{nv} Ne{ne} D{d}",
+             randn(b, r, nv, d, dtype=dts[dt]), randn(b, ne, d, dtype=dts[dt]))
+    feats = randn(2, 1024, 1536, dtype=torch.bfloat16)
+    held("bf16 (B2, R1024, 1, D1536) view of (B, R, D)", feats[:, :, None, :],
+         randn(2, 1, 1536, dtype=torch.bfloat16), region_score_cuda)
+    buf = randn(2, 100, 2, 1537, dtype=torch.bfloat16)
+    held("bf16 unaligned base B2 R100 Nv2 Ne3 D1536", buf[..., 1:],
+         randn(2, 3, 1536, dtype=torch.bfloat16), region_score_cuda)
+    d = MAX_SMEM_FLOATS - 2
+    held(f"f32 B1 R9 Nv1 Ne2 D{d} (D + Ne at the limit)",
+         randn(1, 9, 1, d), randn(1, 2, d), region_score_cuda)
+
+    vv = randn(1, 1024, 1, 1536, dtype=torch.bfloat16)
+    ee = randn(1, 1, 1536, dtype=torch.bfloat16)
+    held("bf16 B1 R1024 Nv1 Ne1 D1536", vv, ee)
+    err = out["bf16 B1 R1024 Nv1 Ne1 D1536"]["max_abs_err"]
+    # one pass: v·ē and v·v a row (4·D), ē once (3·D a text row)
+    flops = 1024 * 4 * 1536 + 3 * 1536
+    b_ms, b_by = bound_ms(nbytes(vv, ee) + 4 * 1024, flops, "bfloat16")
+    empty = CudaKernel("region_score.cu", "region_score_empty",
+                       [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    stream = torch.cuda.current_stream().cuda_stream
+    m = {"max_abs_err": err,
+         "ms": timer(lambda: region_score_cuda(vv, ee)),
+         "plain_ms": timer(lambda: ref.region_score(vv, ee)),
+         "library_ms": timer(lambda: torch.einsum(
+             "brvd,bed->br", F.normalize(vv.float(), dim=-1),
+             F.normalize(ee.float(), dim=-1))),
+         "launch_floor_ms": timer(lambda: empty(1, 1024, stream)),
+         "bound_ms": b_ms, "bound_by": b_by,
+         "shape": "B1 R1024 Nv1 Ne1 D1536 bf16"}
+    log(f"  region_score main: kernel {m['ms']:.5f} ms, an empty kernel on "
+        f"its grid {m['launch_floor_ms']:.5f} ms, bound {b_ms:.5f} ms "
+        f"({b_by})")
+    out["main"] = m
+    return out
 
 
 def decode_mma_checks(torch, randn, timer, errors):
@@ -1804,9 +1866,10 @@ def main_path(torch):
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     with PrefillCounter() as prefills:
-        results, flash_in = capture_inputs(
+        results, path_in = capture_inputs(
             torch, lambda: serve(torch, sat, gs, conf, ac, reqs, "cuda",
-                                 answer_vocab), ["flash_attention"])
+                                 answer_vocab),
+            ["flash_attention", "region_score"])
     torch.cuda.synchronize()
     counts = ops.launch_counts()
 
@@ -1830,8 +1893,10 @@ def main_path(torch):
     if not ok:
         raise RuntimeError(f"main path: decode left the tensor-core route: "
                            f"{by_route}")
-    return sat, gs, ac, counts, flash_on_path_inputs(
-        flash_in["flash_attention"])
+    held = {"flash_attention_wgmma": flash_on_path_inputs(
+                path_in["flash_attention"]),
+            "region_score": region_on_path_inputs(path_in["region_score"])}
+    return sat, gs, ac, counts, held
 
 
 def flash_on_path_inputs(calls):
@@ -1851,6 +1916,28 @@ def flash_on_path_inputs(calls):
     if errors:
         raise RuntimeError(f"main path: flash outside its bound on the "
                            f"path's own inputs: {errors}")
+    return out
+
+
+def region_on_path_inputs(calls):
+    """The region score held against its plain version on the path's own
+    Eq. 2 inputs (the offload's (B, R, 1, D) view of the region features
+    and the text features, the first call at each shape), after the path's
+    counts were read.  Returns {case: numbers}."""
+    from repro_torch.kernels import ops, ref
+    errors, out = [], {}
+    log("region_score on phase 4's own offload inputs")
+    for (v, e), kw in calls:
+        case = (f"phase 4 offload B{v.shape[0]} R{v.shape[1]} Nv{v.shape[2]}"
+                f" Ne{e.shape[1]} D{v.shape[3]} strides {v.stride()}")
+        out[case] = {"max_abs_err": check(
+            "region_score", ops.region_score(v, e), ref.region_score(v, e),
+            TOL_REGION, case, errors)}
+    if not calls:
+        errors.append("no region score call was captured")
+    if errors:
+        raise RuntimeError(f"main path: region score outside its tolerance "
+                           f"on the path's own inputs: {errors}")
     return out
 
 
@@ -2983,7 +3070,8 @@ def main() -> int:
 
     log("phase 4: main path at full width")
     sat, gs, ac, counts, held = main_path(torch)
-    kernels["flash_attention_wgmma"].update(held)
+    for name, cases in held.items():
+        kernels[name].update(cases)
 
     log("phase 5: where the time goes")
     breakdown(torch, sat, gs, ac)

@@ -596,12 +596,59 @@ def test_prefill_mma_route_refuses_what_it_does_not_take(card):
     assert ops.launch_counts() == before
 
 
-@pytest.mark.parametrize("nv,ne,d,dtype", [(1, 1, 1536, torch.bfloat16),
-                                           (3, 2, 48, torch.float32)])
-def test_region_score_kernel_matches_plain(card, nv, ne, d, dtype):
-    v = _randn(card, 2, 100, nv, d, dtype=dtype)
-    e = _randn(card, 2, ne, d, dtype=dtype)
+@pytest.mark.parametrize("b,r,nv,ne,d,dtype", [
+    (2, 100, 1, 1, 1536, torch.bfloat16),
+    (2, 100, 3, 2, 48, torch.float32),
+    (1, 1024, 1, 1, 1536, torch.bfloat16),     # the main path's shape
+    (1, 1023, 1, 1, 1536, torch.bfloat16),     # a partial last block
+    (2, 100, 3, 5, 300, torch.bfloat16),       # scalar path: 300 % 8
+    (2, 100, 3, 5, 301, torch.float32),        # scalar path: odd D
+    (1, 64, 1, 1, 3584, torch.bfloat16),       # the 7B width: two pieces
+    (2, 37, 3, 5, 3584, torch.bfloat16),       # six pieces over three rows
+    (2, 100, 3, 5, 1536, torch.bfloat16),      # Nv 3, Ne 5
+    (1, 50, 2, 3, 2100, torch.float32),        # three pieces a row, f32
+    (1, 8, 2, 2, 9000, torch.bfloat16),        # five pieces a row
+    (1, 20, 3, 1, 1, torch.float32),           # D 1
+])
+def test_region_score_kernel_matches_plain(card, b, r, nv, ne, d, dtype):
+    v = _randn(card, b, r, nv, d, dtype=dtype)
+    e = _randn(card, b, ne, d, dtype=dtype)
     _close(ops.region_score(v, e), ref.region_score(v, e), TOL_REGION)
+
+
+def test_region_score_kernel_takes_views_and_wide_grids(card):
+    """The offload path's (B, R, 1, D) view of (B, R, D) features, an
+    unaligned base (the scalar path), B 70000 past the old 65535 grid cap,
+    and D at the shared-memory limit."""
+    from repro_torch.kernels.region_score import (MAX_SMEM_FLOATS,
+                                                  region_score_cuda)
+    feats = _randn(card, 2, 1024, 1536, dtype=torch.bfloat16)
+    text = _randn(card, 2, 1, 1536, dtype=torch.bfloat16)
+    view = feats[:, :, None, :]
+    _close(region_score_cuda(view, text), ref.region_score(view, text),
+           TOL_REGION)
+    buf = _randn(card, 2, 100, 2, 1537, dtype=torch.bfloat16)
+    e = _randn(card, 2, 3, 1536, dtype=torch.bfloat16)
+    _close(region_score_cuda(buf[..., 1:], e),
+           ref.region_score(buf[..., 1:], e), TOL_REGION)
+    v, e = _randn(card, 70000, 1, 1, 8), _randn(card, 70000, 1, 8)
+    _close(region_score_cuda(v, e), ref.region_score(v, e), TOL_REGION)
+    d = MAX_SMEM_FLOATS - 2
+    v, e = _randn(card, 1, 9, 1, d), _randn(card, 1, 2, d)
+    _close(region_score_cuda(v, e), ref.region_score(v, e), TOL_REGION)
+
+
+def test_region_score_refuses_past_shared_memory(card):
+    from repro_torch.kernels.region_score import (MAX_SMEM_FLOATS,
+                                                  region_score_cuda)
+    before = ops.launch_counts()
+    d = MAX_SMEM_FLOATS - 1
+    with pytest.raises(ValueError, match="shared memory"):
+        region_score_cuda(_randn(card, 1, 4, 1, d), _randn(card, 1, 2, d))
+    with pytest.raises(ValueError, match="shared memory"):
+        region_score_cuda(_randn(card, 1, 4, 1, d + 1), _randn(card, 1, 1,
+                                                               d + 1))
+    assert ops.launch_counts() == before
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
