@@ -104,8 +104,15 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    engine, and chunked prefill (chunk 8, chunk N_r, chunk 8 with γ = 3) on
    the card must give the decisions and tokens they give on the CPU from
    the same weights (float32), all equal to the plain engine's, with the
-   plain engine's prefix hits and misses.  The reduced xlstm-125m (f32): a
-   128-token prefill and 16 greedy decode steps give the CPU's tokens.
+   plain engine's prefix hits and misses.  So must the batch evaluator
+   (``SpaceVerse.run_batch``, vqa/cls/det at B 4), the four baselines at
+   their deterministic settings (satellite-only, GS-only without a region
+   drop, Tabi, AI-RG at 0.0 and 1.0) and ``CascadeServer(spec_gamma=3)``
+   with a det request whose onboard answer rides the downlink as drafts:
+   decisions, tokens and predictions equal, bytes and latencies within
+   1e-6 relative, scores and probabilities within 1e-4, equal
+   ``spec_stats()`` with piggybacked drafts.  The reduced xlstm-125m (f32):
+   a 128-token prefill and 16 greedy decode steps give the CPU's tokens.
 4. The cascade server: ``CascadeServer.handle`` at the full width and
    depth of the paper's pair (Qwen2-VL-2B on the satellite, Qwen2-VL-7B on
    the ground), bfloat16, random weights from a seed, serving requests
@@ -114,9 +121,12 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    first call at each shape).
 5. Where the time goes: prefill and per-token decode time of each tier,
    flash's in-place device time per launch in a profiled prefill, and the
-   device's busy share over decode steps from ``torch.profiler``; the
+   device's busy share over decode steps from ``torch.profiler``; the 8
    profiled decode steps must show one decode kernel a layer (the
-   tensor-core kernel; no split/combine pair).
+   tensor-core kernel; no split/combine pair) both in the profiler and in
+   the wrappers' launch counts (zeroed before the steps, read after), and
+   a failure prints both, so that a dropped profiler event and a missed
+   launch are told apart.
 6. The slot path: the 2B's ``InferenceEngine.serve`` (8 slots, page 8) on
    24 requests over 4 scenes (per scene 1 det with 1024 answer tokens,
    1 cls, 4 vqa).  Checks: every request answered; 20 prefix hits and 4
@@ -172,15 +182,38 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    path ~0.5 in the logits; limits set from the H100's readings with
    about twice their room).  Prints prefill ms and
    tokens/s, each kernel's in-place time per launch, decode step ms and
-   tokens/s, the device busy share over decode steps and the B 128
-   step's bound.
+   tokens/s, the device busy share over decode steps, the B 128 step's
+   bound, and per run the top device operations of the 8 profiled decode
+   steps (name, launches, ms a step).
+10. The batch evaluator at full width (run after phase 8, while phase 4's
+   pair is loaded): ``SpaceVerse.run_batch`` on cls and vqa at B 16 (the
+   quickstart's batch) over phase 4's τ settings and a split at the
+   middle of the batch's stage-0 scores, det at B 2 (1024 answer tokens
+   on both tiers); ``evaluate("cls", ...)`` over 32 samples in batches of
+   16; the four baselines on cls at B 16 (GS-only with a 0.5 random region
+   drop and AI-RG at its planned fraction, drawn on the card).  Then a
+   ``CascadeServer(spec_gamma=4)`` on phase 4's five vqa/cls requests:
+   tiers, exit stages and bytes equal to phase 4's, token agreement
+   reported.  Checks: every score and probability finite, the τ rule,
+   both routes in the split batches, flash = 28 × prefills on the tensor
+   cores, decode on the mma route only, one region score per
+   ``multiscale_view``, paged decode/verify launched by the server, one
+   verify step per ground request (phase 4's answers are one token long,
+   so no draft is verified here: phases 3 and 7 hold the draft stream);
+   flash, the region score and the dense decode held on the evaluator's
+   first inputs at each shape (B 16 and B 2), the paged decode and verify
+   on the server's.  Prints each ``run_batch``'s wall time (host clock,
+   synchronised) and samples/s, the modelled mean latency and offload
+   rate, and the phase's seconds.
 
-Phases 3, 4, 6, 7, 8 and each run of 9 zero every kernel's launch count
-just before they run and read it just after; each kernel of a path must
-have launched.  In phases 4, 6 and 7 the tensor-core flash route launched
+Phases 3, 4, 6, 7, 8, each run of 9 and each path of 10 (the batch
+evaluator, the speculative server) zero every kernel's launch count just
+before they run and read it just after; each kernel of a path must have
+launched.  In phases 4, 6, 7 and 10 the tensor-core flash route launched
 once per layer of every ``transformer.prefill`` call (28 × prefills) and
-the CUDA-core route never; in phases 4 and 6-8 every decode launch (dense
-and paged) took the tensor-core route, in phase 3 the CUDA-core route;
+the CUDA-core route never; in phases 4, 6-8 and 10 every decode launch
+(dense and paged) took the tensor-core route, in phase 3 the CUDA-core
+route;
 every prefix-append launch took the tensor-core route in phase 8 and the
 CUDA-core route in phase 3.
 A kernel with two routes counts all its launches under its old name and
@@ -1730,6 +1763,7 @@ def small_reference(torch):
         if not same:
             raise RuntimeError(f"card and CPU disagree on {req.task} {taus}")
     small_slot_path(torch, sat, gs, card[0], card[1], ac)
+    small_batch_path(torch, (sat, gs, conf), card, ac)
     small_xlstm(torch)
     return {(w.tier, w.exit_stage) for _, _, w, _ in want}
 
@@ -1803,6 +1837,125 @@ def small_slot_path(torch, sat, gs, sat_card, gs_card, ac):
                 raise RuntimeError(f"slot path {kw} on {dev}: prefix "
                                    f"hits/misses {hits}, the plain engine's "
                                    f"{prefix[dev]}")
+
+
+def weights_device(tier) -> str:
+    return tier.params["patch_proj"].device.type
+
+
+def to_np(x):
+    import numpy as np
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+#: how the card's batch-path results are held to the CPU's (phase 3):
+#: decisions, tokens and predictions exact; bytes, latencies and kept
+#: fractions 1e-6 relative; scores, probabilities and region scores to
+#: float32 attention's tolerance
+BATCH_EXACT = ("pred", "offload", "exit_stage", "sat_pred", "gs_pred")
+BATCH_RELATIVE = ("tx_bytes", "latency_s", "kept_frac")
+BATCH_CLOSE = ("conf_scores", "sat_probs", "gs_probs", "region_scores")
+
+
+def batch_diffs(got, want):
+    """{key: problem} of a card run against the CPU run of the same batch;
+    empty when they agree."""
+    import numpy as np
+    bad = {}
+    if set(got) != set(want):
+        bad["keys"] = sorted(set(got) ^ set(want))
+    for key in set(got) & set(want):
+        g, w = to_np(got[key]), to_np(want[key])
+        if g.shape != w.shape:
+            bad[key] = f"shape {g.shape} against {w.shape}"
+        elif key in BATCH_EXACT:
+            if not np.array_equal(g, w):
+                bad[key] = f"{int((g != w).sum())} elements differ"
+        elif key in BATCH_RELATIVE:
+            if not np.allclose(g, w, rtol=1e-6, atol=0):
+                bad[key] = f"max rel {np.max(np.abs(g - w) / np.abs(w))}"
+        elif key in BATCH_CLOSE:
+            err = float(np.max(np.abs(g.astype(np.float64) - w)))
+            if not err <= TOL_F32[0]:
+                bad[key] = f"max abs {err}"
+    return bad
+
+
+SMALL_SPEC_TASKS = [("vqa", (0.0, 1.01)), ("det", (0.0, 1.01)),
+                    ("cls", (1.01, 0.0)), ("det", (0.5, 0.4))]
+
+
+def small_batch_path(torch, cpu, card, ac, b: int = 4):
+    """The batch evaluator (``SpaceVerse.run_batch``, vqa/cls/det at B
+    ``b``), the four baselines at their deterministic settings and the
+    speculative cascade server (γ 3; a det request offloaded at stage 1,
+    whose onboard answer rides the downlink as drafts) on the card against
+    the same weights on the CPU (``batch_diffs``; for the server: tiers,
+    exit stages and tokens equal, bytes and latencies within 1e-6
+    relative, equal ``spec_stats()`` with piggybacked drafts)."""
+    from repro_torch.baselines import AIRG, GSOnly, SatelliteOnly, Tabi
+    from repro_torch.core.cascade import CascadeConfig, SpaceVerse
+    from repro_torch.data import synthetic
+    from repro_torch.network.orbit import ContactPlan
+    from repro_torch.serving import CascadeServer
+    cc = CascadeConfig(answer_vocab=9)
+    systems = {"cpu": cpu, "card": card}
+    for i, task in enumerate(("vqa", "cls", "det")):
+        data = synthetic.make_dataset(task, b, seed=60 + i)
+        outs = {}
+        for where, (sat, gs, conf) in systems.items():
+            dev = weights_device(sat)
+            im = torch.from_numpy(data["images"]).to(dev)
+            pr = torch.from_numpy(data["prompts"]).to(dev)
+            outs[where] = {
+                "SpaceVerse": SpaceVerse(sat, gs, ac, conf, cc, device=dev)
+                .run_batch(task, im, pr),
+                "SatelliteOnly": SatelliteOnly(sat, ac, cc, device=dev)
+                .run_batch(im, pr, task),
+                "GSOnly": GSOnly(gs, ac, cc, device=dev)
+                .run_batch(im, pr, task),
+                "Tabi": Tabi(sat, gs, ac, cc, device=dev)
+                .run_batch(im, pr, task),
+                **{f"AIRG {rho}": AIRG(sat, gs, ac, cc, offload_fraction=rho,
+                                       device=dev).run_batch(im, pr, task)
+                   for rho in (0.0, 1.0)}}
+        for name, want in outs["cpu"].items():
+            bad = batch_diffs(outs["card"][name], want)
+            log(f"  small batch {name} {task} B{b}: offloads "
+                f"{int(to_np(want.get('offload', [])).sum())}, card "
+                f"{'equal to' if not bad else 'DIFFERENT from'} the CPU "
+                f"{bad or ''}")
+            if bad:
+                raise RuntimeError(f"batch path {name} {task}: card and CPU "
+                                   f"disagree: {bad}")
+    reqs = make_requests(SMALL_SPEC_TASKS, ac.image_size, ac.grid, seed=80)
+    served, stats = {}, {}
+    for where, (sat, gs, conf) in systems.items():
+        server = CascadeServer(
+            sat, gs, ac, conf, cc, spec_gamma=3, device=weights_device(sat),
+            plan=ContactPlan(contact_fraction_override=1.0))
+        server.warmup()
+        served[where] = []
+        for taus, req in reqs:
+            server.cc = CascadeConfig(taus=taus, answer_vocab=9)
+            served[where].append(server.handle(req, now=req.t_arrival))
+        stats[where] = server._gs_spec_core.spec_stats()
+    for (taus, req), g, w in zip(reqs, served["card"], served["cpu"]):
+        check_response(req, g, ac, 9)
+        same = (g.tier == w.tier and g.exit_stage == w.exit_stage
+                and (g.tokens == w.tokens).all()
+                and math.isclose(g.tx_bytes, w.tx_bytes, rel_tol=1e-6)
+                and math.isclose(g.latency_s, w.latency_s, rel_tol=1e-6))
+        log(f"  small spec server (γ 3) {req.task:3s} taus {taus}: card "
+            f"{g.tier}/{g.exit_stage} cpu {w.tier}/{w.exit_stage} "
+            f"{'equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise RuntimeError(f"spec server: card and CPU disagree on "
+                               f"{req.task} {taus}")
+    log(f"  small spec server spec_stats card {stats['card']}")
+    if stats["card"] != stats["cpu"] or not stats["card"]["piggybacked"]:
+        raise RuntimeError(f"spec server: spec_stats card {stats['card']}, "
+                           f"cpu {stats['cpu']} (piggybacked drafts wanted)")
 
 
 def small_xlstm(torch, steps: int = 16):
@@ -1896,39 +2049,41 @@ def main_path(torch):
     held = {"flash_attention_wgmma": flash_on_path_inputs(
                 path_in["flash_attention"]),
             "region_score": region_on_path_inputs(path_in["region_score"])}
-    return sat, gs, ac, counts, held
+    return sat, gs, conf, ac, counts, held, results
 
 
-def flash_on_path_inputs(calls):
+def flash_on_path_inputs(calls, phase: int = 4):
     """The tensor-core flash route held to its bound on the path's own
     prefill inputs (the first layer's Q/K/V at each shape the path gave
     it), after the path's counts were read.  Returns {case: numbers}."""
     from repro_torch.kernels import ops
     errors, out = [], {}
-    log("flash_attention on phase 4's own prefill inputs (wgmma route)")
+    log(f"flash_attention on phase {phase}'s own prefill inputs (wgmma "
+        f"route)")
     for (q, k, v), kw in calls:
-        case = (f"phase 4 prefill H{q.shape[2]} KH{k.shape[2]} "
-                f"Sq{q.shape[1]} Skv{k.shape[1]}")
+        case = (f"phase {phase} prefill B{q.shape[0]} H{q.shape[2]} "
+                f"KH{k.shape[2]} Sq{q.shape[1]} Skv{k.shape[1]}")
         err, share = check_wgmma("flash_attention",
                                  ops.flash_attention(q, k, v, **kw), q, k, v,
                                  kw, case, errors)
         out[case] = {"max_abs_err": err, "tolerance_share": share}
     if errors:
-        raise RuntimeError(f"main path: flash outside its bound on the "
+        raise RuntimeError(f"phase {phase}: flash outside its bound on the "
                            f"path's own inputs: {errors}")
     return out
 
 
-def region_on_path_inputs(calls):
+def region_on_path_inputs(calls, phase: int = 4):
     """The region score held against its plain version on the path's own
     Eq. 2 inputs (the offload's (B, R, 1, D) view of the region features
     and the text features, the first call at each shape), after the path's
     counts were read.  Returns {case: numbers}."""
     from repro_torch.kernels import ops, ref
     errors, out = [], {}
-    log("region_score on phase 4's own offload inputs")
+    log(f"region_score on phase {phase}'s own offload inputs")
     for (v, e), kw in calls:
-        case = (f"phase 4 offload B{v.shape[0]} R{v.shape[1]} Nv{v.shape[2]}"
+        case = (f"phase {phase} offload B{v.shape[0]} R{v.shape[1]} "
+                f"Nv{v.shape[2]}"
                 f" Ne{e.shape[1]} D{v.shape[3]} strides {v.stride()}")
         out[case] = {"max_abs_err": check(
             "region_score", ops.region_score(v, e), ref.region_score(v, e),
@@ -1936,8 +2091,51 @@ def region_on_path_inputs(calls):
     if not calls:
         errors.append("no region score call was captured")
     if errors:
-        raise RuntimeError(f"main path: region score outside its tolerance "
-                           f"on the path's own inputs: {errors}")
+        raise RuntimeError(f"phase {phase}: region score outside its "
+                           f"tolerance on the path's own inputs: {errors}")
+    return out
+
+
+#: the ``ops`` entries of the dense and the paged decode kernels
+DENSE_DECODE_OPS = ("decode_attention", "multi_decode_attention")
+PAGED_DECODE_OPS = ("paged_decode_attention", "paged_multi_decode_attention")
+
+
+def decode_on_path_inputs(calls, phase: int, what: str,
+                          need=DENSE_DECODE_OPS[:1]):
+    """The tensor-core decode route held to its bound on a path's own
+    inputs: the first call of each decode op in ``calls`` ({op: captured
+    calls}) at each shape the path gave it, paged pools gathered into the
+    plain version's dense operands, after the path's counts were read.
+    Fails unless some op of ``need`` was captured.  Returns {case:
+    numbers}."""
+    from repro_torch.kernels import ops, ref
+    errors, out = [], {}
+    log(f"decode attention on phase {phase}'s own {what} inputs (mma "
+        f"route)")
+    for name, got_calls in calls.items():
+        for args, kw in got_calls:
+            got = getattr(ops, name)(*args, **kw)
+            q, *rest = args
+            if q.dim() == 3:            # one token a row: (B, H, hd)
+                q, got = q[:, None], got[:, None]
+            if name in PAGED_DECODE_OPS:
+                k_pool, v_pool, table, lens = rest
+                k = ref.gather_pages(k_pool, table)
+                v = ref.gather_pages(v_pool, table)
+            else:
+                k, v, lens = rest
+            case = (f"phase {phase} {what} B{q.shape[0]} T{q.shape[1]} "
+                    f"H{q.shape[2]} KH{k.shape[2]} S{k.shape[1]}")
+            err, share = check_mma_decode(name, got, q, k, v, lens, kw, case,
+                                          errors)
+            out[f"{name} {case}"] = {"max_abs_err": err,
+                                     "tolerance_share": share}
+    if not any(calls.get(n) for n in need):
+        errors.append(f"none of {need} was captured")
+    if errors:
+        raise RuntimeError(f"phase {phase}: decode outside its bound on the "
+                           f"{what}'s own inputs: {errors}")
     return out
 
 
@@ -2067,11 +2265,12 @@ class StepProbe:
         return profile_summary(self.torch, self.prof, self.n, self.window_s)
 
 
-def profile_summary(torch, prof, n_steps: int, seconds: float):
+def profile_summary(torch, prof, n_steps: int, seconds: float, k: int = 6):
     """From a ``torch.profiler`` run over ``n_steps`` steps that took
-    ``seconds`` on the host clock: the device's busy share, and the top
-    device kernels and host operations in ms per step, and the device's
-    time per step."""
+    ``seconds`` on the host clock: the device's busy share, the device's
+    time per step, the ``k`` device operations (kernels, copies) with the
+    most device time as [name, launches, ms a step], longest first, and
+    the top host operations in ms per step."""
     events = prof.key_averages()
 
     def dev_us(e):   # the attribute's name differs across versions
@@ -2084,14 +2283,14 @@ def profile_summary(torch, prof, n_steps: int, seconds: float):
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
-    top_dev = sorted(kernels, key=lambda e: -dev_us(e))[:6]
+    top_dev = sorted(kernels, key=lambda e: -dev_us(e))[:k]
     top_host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:6]
     per = 1e3 * n_steps
     return {"device_busy_share":
             sum(dev_us(e) for e in kernels) / 1e6 / seconds,
             "device_ms_per_step": sum(dev_us(e) for e in kernels) / per,
-            "top_device_ms_per_step": {e.key[:60]: dev_us(e) / per
-                                       for e in top_dev},
+            "top_device_ops": [[e.key[:90], e.count, dev_us(e) / per]
+                               for e in top_dev],
             "top_host_ms_per_step": {e.key[:60]: e.self_cpu_time_total / per
                                      for e in top_host}}
 
@@ -2559,6 +2758,7 @@ def breakdown(torch, sat, gs, ac, n_steps: int = 32):
     import contextlib
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import eo_adapter as EO
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves
     rng = torch.Generator(device="cuda").manual_seed(7)
@@ -2600,6 +2800,8 @@ def breakdown(torch, sat, gs, ac, n_steps: int = 32):
                                           cache, {"tokens": tok}, idx + i)
         torch.cuda.synchronize()
         t_step = (time.perf_counter() - t0) / n_steps
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(8):
@@ -2609,16 +2811,26 @@ def breakdown(torch, sat, gs, ac, n_steps: int = 32):
                                               idx + n_steps + i)
             torch.cuda.synchronize()
         # one decode kernel a layer: the tensor-core kernel, no split /
-        # combine pair
+        # combine pair, as the profiler sees the device and as the
+        # wrappers count their launches: a short profiler count beside a
+        # full launch count is a dropped profiler event, a short launch
+        # count a missed launch
+        wrapped = ops.launches_by_route(ops.launch_counts(),
+                                        "decode_attention")
         dec = kernel_device_ms(torch, prof, ["decode_mma_kernel",
                                              "decode_split_kernel",
                                              "decode_combine_kernel"])
         n_dec = {k.split("_")[1]: v[0] for k, v in dec.items()}
-        if n_dec != {"mma": 8 * tier.cfg.num_layers, "split": 0,
-                     "combine": 0}:
-            raise RuntimeError(f"{name}: 8 profiled decode steps launched "
-                               f"decode kernels {n_dec}, want one "
-                               f"decode_mma_kernel a layer and step")
+        want = 8 * tier.cfg.num_layers
+        log(f"  {name}: 8 profiled decode steps: profiler kernels {n_dec}, "
+            f"wrapper launches by route {wrapped}, want {want} on mma")
+        if (n_dec != {"mma": want, "split": 0, "combine": 0}
+                or wrapped != {"mma": want, "cuda_cores": 0}):
+            raise RuntimeError(f"{name}: 8 profiled decode steps: the "
+                               f"profiler saw decode kernels {n_dec}, the "
+                               f"wrappers launched {wrapped}; want one "
+                               f"decode_mma_kernel a layer and step "
+                               f"({want})")
         # a decode step streams every layer's weights and the unembedding
         bb = tier.params["backbone"]
         head = bb["embed"].get("head", bb["embed"]["tok"])
@@ -2632,6 +2844,7 @@ def breakdown(torch, sat, gs, ac, n_steps: int = 32):
             "prefill_flash_ms_per_launch": flash_ms,
             "decode_step_ms": 1e3 * t_step,
             "decode_kernels_per_step": n_dec["mma"] / 8,
+            "decode_launches_by_route": wrapped,
             "decode_kernel_ms_per_launch": dec["decode_mma_kernel"][1],
             "decode_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S,
             **profile_summary(torch, prof, 8, 8 * t_step)}
@@ -2647,6 +2860,296 @@ def breakdown(torch, sat, gs, ac, n_steps: int = 32):
             f"{out[name]['device_busy_share']:.3f}")
     log("breakdown " + json.dumps(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the batch evaluator, the baselines and the speculative server
+# ---------------------------------------------------------------------------
+
+#: phase 4's threshold settings; cls and vqa then take a median split
+BATCH_TAUS = [(0.5, 0.4), (0.0, 1.01), (0.0, 0.0), (1.01, 0.0)]
+#: batch per task: the quickstart's 16 for cls and vqa, det at B 2 (1024
+#: answer tokens on both tiers, one threshold setting)
+BATCH_RUNS = {"cls": 16, "vqa": 16, "det": 2}
+#: ``evaluate("cls", ...)`` over EVAL_SAMPLES samples in batches of
+#: EVAL_BATCH
+EVAL_SAMPLES, EVAL_BATCH = 32, 16
+#: the speculative server's γ (phase 7's)
+SERVER_GAMMA = 4
+
+
+def split_tau(scores) -> float:
+    """A threshold between the middle two distinct ``scores``: a split
+    batch whatever ties the scores hold."""
+    import numpy as np
+    u = np.unique(scores)
+    if len(u) < 2:
+        raise RuntimeError(f"stage-0 scores all equal: {u}")
+    return float((u[len(u) // 2 - 1] + u[len(u) // 2]) / 2)
+
+
+def tau_rule_broken(out, taus):
+    """Samples of a ``run_batch`` result whose decisions break the τ rule
+    (as ``tests/test_cascade.py`` states it): exit at stage s iff the
+    scores pass every τ before s and fall below τ_s; no exit iff every
+    score passes."""
+    scores = to_np(out["conf_scores"])
+    off, stage = to_np(out["offload"]), to_np(out["exit_stage"])
+
+    def passes(i, j):
+        return scores[i, j] >= taus[min(j, len(taus) - 1)]
+
+    bad = []
+    for i, s in enumerate(stage):
+        if s >= 0:
+            ok = (off[i] and all(passes(i, j) for j in range(s))
+                  and not passes(i, s))
+        else:
+            ok = not off[i] and all(passes(i, j)
+                                    for j in range(scores.shape[1]))
+        if not ok:
+            bad.append(i)
+    return bad
+
+
+class MultiscaleCounter:
+    """While active, counts ``OffloadPipeline.multiscale_view`` calls (one
+    Eq. 2 region score each)."""
+
+    def __enter__(self):
+        from repro_torch.serving.offload import OffloadPipeline
+        self.cls, self.orig = OffloadPipeline, OffloadPipeline.multiscale_view
+        self.calls = 0
+
+        def view(pipeline, *a, **kw):
+            self.calls += 1
+            return self.orig(pipeline, *a, **kw)
+
+        OffloadPipeline.multiscale_view = view
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.multiscale_view = self.orig
+
+
+def batch_phase(torch, sat, gs, conf, ac, served):
+    """Algorithm 1's batch evaluator at full width: ``SpaceVerse.run_batch``
+    on cls and vqa at B 16 over ``BATCH_TAUS`` and a median split, det at
+    B 2; ``evaluate("cls", ...)`` over 32 samples in batches of 16; the four
+    baselines on cls at B 16 (GS-only with a 0.5 random region drop, AI-RG
+    at its planned fraction: their draws on the card).  Then a
+    ``CascadeServer(spec_gamma=4)`` on phase 4's five vqa/cls requests
+    (``served``): tiers, exit stages and bytes must equal phase 4's; token
+    agreement is reported (bf16 near-ties may flip an argmax).  Checks:
+    every score and probability finite, the τ rule, both routes in the
+    split batch, launch counts per path (flash = 28 × prefills on the
+    tensor cores, decode on the mma route only, one region score per
+    ``multiscale_view``, paged decode for the server, one verify step per
+    ground request: phase 4's answers are one token long, so no draft is
+    verified here; phases 3 and 7 hold the draft stream); flash, the region
+    score and the dense decode held on the evaluator's own first inputs at
+    each shape, and the paged decode and verify on the server's."""
+    import numpy as np
+    from repro_torch.baselines import AIRG, GSOnly, SatelliteOnly, Tabi
+    from repro_torch.core.cascade import CascadeConfig, SpaceVerse
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.network.orbit import ContactPlan
+    from repro_torch.serving import CascadeServer
+    t_phase = time.perf_counter()
+    dev = weights_device(sat)
+    av = ac.num_classes + 1
+    cfg = synthetic.EOTaskConfig(image_size=FULL_IMAGE, grid=FULL_GRID)
+    data = {task: synthetic.make_dataset(
+                task, EVAL_SAMPLES if task == "cls" else b, seed=600 + i,
+                cfg=cfg)
+            for i, (task, b) in enumerate(BATCH_RUNS.items())}
+
+    def on_card(task):
+        b = BATCH_RUNS[task]
+        return (torch.from_numpy(data[task]["images"][:b]).to(dev),
+                torch.from_numpy(data[task]["prompts"][:b]).to(dev))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def spaceverse(taus):
+        return SpaceVerse(sat, gs, ac, conf,
+                          CascadeConfig(taus=taus, answer_vocab=av),
+                          device=dev)
+
+    cc = CascadeConfig(answer_vocab=av)
+    baselines = {
+        "SatelliteOnly": lambda: SatelliteOnly(sat, ac, cc, device=dev),
+        "GSOnly keep 0.5": lambda: GSOnly(gs, ac, cc, keep_frac=0.5,
+                                          device=dev),
+        "Tabi": lambda: Tabi(sat, gs, ac, cc, device=dev),
+        "AIRG": lambda: AIRG(sat, gs, ac, cc, device=dev)}
+
+    def drive():
+        runs = []
+        for task in BATCH_RUNS:
+            im, pr = on_card(task)
+            s0 = None
+            for taus in (BATCH_TAUS + ["median"] if task != "det"
+                         else BATCH_TAUS[:1]):
+                split = taus == "median"
+                if split:
+                    taus = (split_tau(s0), 0.0)
+                out, sec = timed(
+                    lambda: spaceverse(taus).run_batch(task, im, pr))
+                s0 = to_np(out["conf_scores"])[:, 0]
+                runs.append((task, taus, out, sec, split))
+        ev = timed(lambda: spaceverse(BATCH_TAUS[0]).evaluate(
+            "cls", data["cls"], batch_size=EVAL_BATCH))
+        im, pr = on_card("cls")
+        base = {name: timed(lambda: make().run_batch(im, pr, "cls"))
+                for name, make in baselines.items()}
+        return runs, ev, base
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with PrefillCounter() as prefills, MultiscaleCounter() as views:
+        (runs, (ev, ev_s), base), path_in = capture_inputs(
+            torch, drive, ["flash_attention", "region_score",
+                           *DENSE_DECODE_OPS])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    prefills.check(counts, "phase 10 batch evaluator")
+    ok_decode, decode_by_route = decode_routes(counts, "mma",
+                                               need=("decode_attention",))
+
+    res = {"runs": [], "baselines": {}}
+    finite, tau_rule, answers, split = True, [], True, []
+    for task, taus, out, sec, is_split in runs:
+        b = BATCH_RUNS[task]
+        off, lat = to_np(out["offload"]), out["latency_s"]
+        for key in ("conf_scores", "sat_probs", "gs_probs", "region_scores"):
+            finite &= bool(np.isfinite(to_np(out[key])).all())
+        finite &= bool(np.isfinite(lat).all() and (lat > 0).all())
+        tau_rule += [(task, taus, i) for i in tau_rule_broken(out, taus)]
+        for key in ("sat_pred", "gs_pred", "pred"):
+            p = to_np(out[key])
+            answers &= bool(p.min() >= 0 and p.max() < av)
+        if is_split:
+            split.append(0 < off.sum() < b)
+        r = {"task": task, "taus": list(taus), "batch": b, "wall_s": sec,
+             "samples_per_s": b / sec,
+             "modelled_mean_latency_s": float(lat.mean()),
+             "offload_rate": float(off.mean()),
+             "exit_stages": to_np(out["exit_stage"]).tolist()}
+        res["runs"].append(r)
+        log(f"  run_batch {task} B{b} taus {tuple(round(t, 4) for t in taus)}"
+            f": wall {sec:.3f} s ({b / sec:.2f} samples/s), modelled mean "
+            f"latency {r['modelled_mean_latency_s']:.4f} s, offload rate "
+            f"{r['offload_rate']:.3f}")
+    res["evaluate"] = {k: ev[k] for k in ("performance", "latency_s",
+                                          "offload_rate")}
+    res["evaluate"].update(wall_s=ev_s, samples_per_s=EVAL_SAMPLES / ev_s)
+    log(f"  evaluate cls {EVAL_SAMPLES} samples in batches of {EVAL_BATCH}: "
+        f"{json.dumps(res['evaluate'])}")
+    for name, (out, sec) in base.items():
+        p, lat = to_np(out["pred"]), out["latency_s"]
+        answers &= bool(p.min() >= 0 and p.max() < av)
+        finite &= bool(np.isfinite(lat).all() and (lat > 0).all())
+        off = to_np(out.get("offload", np.zeros(len(p), bool)))
+        res["baselines"][name] = {
+            "wall_s": sec, "samples_per_s": len(p) / sec,
+            "modelled_mean_latency_s": float(lat.mean()),
+            "offload_rate": float(off.mean())}
+        log(f"  baseline {name} cls B{len(p)}: "
+            f"{json.dumps(res['baselines'][name])}")
+
+    # the speculative server on phase 4's vqa/cls requests
+    server = CascadeServer(sat, gs, ac, conf, cc, spec_gamma=SERVER_GAMMA,
+                           plan=ContactPlan(contact_fraction_override=1.0),
+                           device=dev)
+    server.warmup()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    def serve_spec():
+        spec = []
+        for taus, req, want, _ in served[:5]:
+            server.cc = CascadeConfig(taus=taus, answer_vocab=av)
+            got, sec = timed(lambda: server.handle(req, now=req.t_arrival))
+            spec.append((taus, req, want, got, sec))
+        return spec
+
+
+    with PrefillCounter() as spec_prefills, MultiscaleCounter() as spec_views:
+        spec, spec_in = capture_inputs(
+            torch, serve_spec, [*DENSE_DECODE_OPS, *PAGED_DECODE_OPS])
+    torch.cuda.synchronize()
+    spec_counts = ops.launch_counts()
+    spec_prefills.check(spec_counts, "phase 10 spec server")
+    ok_spec_decode, spec_by_route = decode_routes(
+        spec_counts, "mma", need=("paged_decode_attention",))
+    same_route, tokens_equal = True, 0
+    for taus, req, want, got, sec in spec:
+        check_response(req, got, ac, av)
+        same = (got.tier == want.tier and got.exit_stage == want.exit_stage
+                and math.isclose(got.tx_bytes, want.tx_bytes, rel_tol=1e-6))
+        same_route &= same
+        agree = bool((got.tokens == want.tokens).all())
+        tokens_equal += agree
+        log(f"  spec server (γ {SERVER_GAMMA}) {req.task} taus {taus}: "
+            f"{got.tier}/{got.exit_stage} tx_bytes {got.tx_bytes:.0f} "
+            f"(phase 4: {want.tier}/{want.exit_stage} "
+            f"{want.tx_bytes:.0f}), tokens {'equal' if agree else 'differ'}"
+            f", wall {sec:.3f} s")
+    sp = server._gs_spec_core.spec_stats()
+    log(f"  spec server (γ {SERVER_GAMMA}) stats: {json.dumps(sp)}")
+    held = {"flash_attention_wgmma": flash_on_path_inputs(
+                path_in["flash_attention"], phase=10),
+            "region_score": region_on_path_inputs(path_in["region_score"],
+                                                  phase=10),
+            "decode_attention_mma": decode_on_path_inputs(
+                {n: path_in[n] for n in DENSE_DECODE_OPS}, 10,
+                "batch evaluator"),
+            "paged_decode_attention_mma": decode_on_path_inputs(
+                spec_in, 10, "spec server", need=PAGED_DECODE_OPS)}
+    checks = {
+        "scores, probabilities and latencies finite": finite,
+        "decisions obey the τ rule": not tau_rule,
+        "median splits take both routes": bool(split) and all(split),
+        "answers in the answer vocabulary": answers,
+        "region score once per multiscale_view":
+            views.calls > 0 and counts["region_score"] == views.calls,
+        "decode on the tensor cores only": ok_decode,
+        "spec server: tiers, exit stages, bytes equal to phase 4's":
+            same_route,
+        "spec server: paged decode/verify launched":
+            spec_counts["paged_decode_attention"] > 0,
+        "spec server: one verify step per ground request":
+            sp["steps"] == sum(got.tier == "ground"
+                               for _, _, _, got, _ in spec),
+        "spec server: decode on the tensor cores only": ok_spec_decode,
+        "spec server: region score once per multiscale_view":
+            spec_counts["region_score"] == spec_views.calls,
+    }
+    res.update(
+        spec_server={"tokens_equal_to_phase_4": tokens_equal,
+                     "requests": len(spec), "spec_stats": sp,
+                     "wall_s": [x[-1] for x in spec]},
+        multiscale_views=views.calls, tau_rule_broken=tau_rule,
+        decode_launches_by_route=decode_by_route,
+        spec_decode_launches_by_route=spec_by_route,
+        launches=counts, spec_launches=spec_counts,
+        seconds=time.perf_counter() - t_phase)
+    log(f"  batch phase: {len(runs)} run_batch calls, {views.calls} "
+        f"multiscale views; spec server tokens equal to phase 4's on "
+        f"{tokens_equal}/{len(spec)}; phase {res['seconds']:.1f} s")
+    log(f"  batch phase checks: {checks}")
+    log("batch_phase " + json.dumps(res))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"batch phase failed: {bad}")
+    res["held"] = held
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2949,7 +3452,7 @@ def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
                 nxt = logits.argmax(-1).to(torch.int32)
             torch.cuda.synchronize()
             t_prof = time.perf_counter() - t1
-        busy = profile_summary(torch, prof, 8, t_prof)
+        busy = profile_summary(torch, prof, 8, t_prof, k=10)
         dec_kernels = kernel_device_ms(torch, prof, sl_kernels)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2970,7 +3473,7 @@ def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
              "decode_bound_bytes": step_bytes,
              "state_bytes_per_row": state_bytes / b,
              "device_busy_share": busy["device_busy_share"],
-             "top_device_ms_per_step": busy["top_device_ms_per_step"],
+             "decode_top_device_ops": busy["top_device_ops"],
              "prefill_kernel_ms_per_launch": {
                  k: v[1] for k, v in pre_kernels.items()},
              "decode_slstm_ms_per_launch": {
@@ -2999,6 +3502,10 @@ def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
             f"route {r['slstm_launches_by_route']} (rule: {sl_route}), scan "
             f"launches by route {r['ssm_launches_by_route']} (rule: "
             f"{ss_route})")
+        log(f"  xlstm {tag}: top device operations of a decode step "
+            f"(name, launches in 8 steps, ms a step):")
+        for op, n, ms in r["decode_top_device_ops"]:
+            log(f"    {ms:9.4f} ms {n:5d}  {op}")
 
     # state continuation: the chunk form + the sLSTM state operand against
     # the sequential decode path
@@ -3069,7 +3576,7 @@ def main() -> int:
                            f"CUDA-core route alone (float32): {small_ssm}")
 
     log("phase 4: main path at full width")
-    sat, gs, ac, counts, held = main_path(torch)
+    sat, gs, conf, ac, counts, held, served = main_path(torch)
     for name, cases in held.items():
         kernels[name].update(cases)
 
@@ -3084,7 +3591,13 @@ def main() -> int:
 
     log("phase 8: chunked prefill at full width (InferenceEngine.serve, 2B)")
     chunked = chunked_phase(torch, sat, ac, slot)
-    del sat, gs
+
+    log("phase 10: batch evaluator, baselines and speculative server at "
+        "full width")
+    batch = batch_phase(torch, sat, gs, conf, ac, served)
+    for name, cases in batch.pop("held").items():
+        kernels[name].update(cases)
+    del sat, gs, conf
     torch.cuda.empty_cache()
 
     log("phase 9: xlstm-125m serve step at full width (prefill + decode)")
@@ -3097,6 +3610,8 @@ def main() -> int:
                "spec": spec["launches"],
                "spec_gamma_9": spec["gamma_9"]["launches"],
                "chunked_serve": chunked["launches"],
+               "batch_evaluator": batch["launches"],
+               "cascade_server_spec": batch["spec_launches"],
                **{f"xlstm {tag}": c for tag, c in xlstm["launches"].items()}}
     for tag, r in xlstm.items():
         for name, cases in r.get("kernel_vs_plain_max_abs_err", {}).items():

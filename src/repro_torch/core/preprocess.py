@@ -4,8 +4,8 @@
   f(x^r)  =   ⎨ D(x^r, (β−α)/(K−α))        α ≤ K(x^r) < β    (downsample)
               ⎩ x^r                        β ≤ K(x^r)        (preserve)
 
-The port of ``repro.core.preprocess`` (``random_mask_filter`` is not
-ported yet).  The scaling factor c = (β−α)/(K−α) ≥ 1 is quantised to a
+The port of ``repro.core.preprocess``, with the GS-only baseline's random
+region drop (``random_mask_filter``) beside it.  The scaling factor c = (β−α)/(K−α) ≥ 1 is quantised to a
 pyramid of power-of-two pooling levels, as in the JAX package; each region
 is replaced by its pooled-then-nearest-upsampled reconstruction (zero if
 discarded).  The region side must divide by every level.
@@ -75,3 +75,28 @@ def multiscale_filter(regions: torch.Tensor, scores: torch.Tensor, *,
         "full_bytes": torch.full((b,), full_bytes, device=scores.device),
     }
     return out, tx_bytes, meta
+
+
+def keep_mask_filter(regions: torch.Tensor, keep: torch.Tensor, *,
+                     bytes_per_px: float = 3.0):
+    """Zero the regions outside ``keep`` (B, R) bool and count the bytes of
+    the kept ones (kept·px·bytes_per_px, f32): the deterministic half of
+    ``random_mask_filter``."""
+    out = torch.where(keep[..., None, None, None], regions,
+                      torch.zeros((), dtype=regions.dtype,
+                                  device=regions.device))
+    px = regions.shape[2] * regions.shape[3] * regions.shape[4]
+    tx_bytes = keep.sum(-1).float() * px * bytes_per_px
+    return out, tx_bytes, {"kept": keep}
+
+
+def random_mask_filter(regions: torch.Tensor, keep_frac: float,
+                       generator: torch.Generator, *,
+                       bytes_per_px: float = 3.0):
+    """GS-only baseline redundancy reduction (Fig. 3/12): random region
+    drop, each region kept with probability ``keep_frac``.  One draw from
+    ``generator``, which lies on the regions' device."""
+    b, r = regions.shape[:2]
+    keep = torch.rand((b, r), generator=generator,
+                      device=regions.device) < keep_frac
+    return keep_mask_filter(regions, keep, bytes_per_px=bytes_per_px)

@@ -8,8 +8,10 @@ decision and forward pass happens in the shared ``CascadeExecutor``; this
 class owns the transmission scheduler and the per-request latency ledger.
 
 It runs on the card unless ``device="cpu"`` is asked for, and the tiers'
-weights must already lie on that device.  Speculative GS decoding
-(``spec_gamma > 0``) is not ported yet and raises.
+weights must already lie on that device.  With ``spec_gamma > 0`` offloaded
+requests decode speculatively at the ground station: the satellite tier
+drafts, and its piggybacked partial answer seeds the first verify chunks;
+the tokens stay the greedy engine's.
 """
 from __future__ import annotations
 
@@ -21,16 +23,16 @@ import torch
 from repro_torch.core import eo_adapter as EO
 from repro_torch.core.cascade import CascadeConfig, TierModel
 from repro_torch.core.latency import DEFAULT_LINK, LatencyModel
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, check_on_device, resolve_device
 from repro_torch.network.link import LinkModel
 from repro_torch.network.orbit import ContactPlan
 from repro_torch.network.scheduler import TransmissionScheduler
-from repro_torch.serving.engine_core import shared_core
+from repro_torch.serving.engine_core import (EngineCore, EngineCoreConfig,
+                                             shared_core)
 from repro_torch.serving.executor import CascadeExecutor
 from repro_torch.serving.offload import OffloadPipeline
 from repro_torch.serving.policy import ProgressiveConfidencePolicy
 from repro_torch.serving.request import Request, Response, scene_key
-from repro_torch.tree import tree_leaves
 
 
 class CascadeServer:
@@ -42,16 +44,9 @@ class CascadeServer:
                  plan: Optional[ContactPlan] = None,
                  link_up: bool = True, tx_jitter: bool = False,
                  spec_gamma: int = 0, *, device: DeviceLike = None):
-        if spec_gamma:
-            raise NotImplementedError(
-                "speculative GS decoding (spec_gamma > 0) is not ported")
         self.device = resolve_device(device)
-        for name, tree in (("sat", sat.params), ("gs", gs.params),
-                           ("conf", conf_params)):
-            for t in tree_leaves(tree):
-                if t.device.type != self.device.type:
-                    raise ValueError(f"{name} weights lie on {t.device}, "
-                                     f"the server on {self.device}")
+        check_on_device(self.device, sat=sat.params, gs=gs.params,
+                        conf=conf_params)
         self.sat, self.gs = sat, gs
         self.ac, self.conf = adapter_cfg, conf_params
         self.cc = cascade_cfg or CascadeConfig()
@@ -61,10 +56,20 @@ class CascadeServer:
         self.scheduler = TransmissionScheduler(self.plan, self.link)
         self.link_up = link_up
         self.tx_jitter = tx_jitter
+        self._gs_spec_core = None
+        if spec_gamma:
+            self._gs_spec_core = EngineCore(
+                gs, adapter_cfg,
+                EngineCoreConfig(slots=1, answer_vocab=self.cc.answer_vocab,
+                                 spec_gamma=spec_gamma),
+                draft=sat)
 
     def warmup(self) -> None:
-        """Nothing to pre-compile: the port runs eagerly and its kernels
-        build at first launch (``chip_smoke.py`` builds them up front)."""
+        """Allocate the speculative GS core's slot tables and bind its
+        kernels, so the first offloaded request pays for neither.  No-op
+        when ``spec_gamma == 0``: the batch path allocates per call."""
+        if self._gs_spec_core is not None:
+            self._gs_spec_core.warmup()
 
     # ------------------------------------------------------------------
     def _pipeline(self) -> OffloadPipeline:
@@ -73,9 +78,9 @@ class CascadeServer:
                                link=self.link, scheduler=self.scheduler)
 
     def _executor(self, pipeline: OffloadPipeline) -> CascadeExecutor:
-        return CascadeExecutor(shared_core(self.sat, self.ac),
-                               shared_core(self.gs, self.ac), self.ac,
-                               pipeline)
+        gs_core = self._gs_spec_core or shared_core(self.gs, self.ac)
+        return CascadeExecutor(shared_core(self.sat, self.ac), gs_core,
+                               self.ac, pipeline)
 
     def _policy(self) -> ProgressiveConfidencePolicy:
         return ProgressiveConfidencePolicy(self.conf, self.cc)

@@ -1,15 +1,19 @@
 """Shared offload pipeline: Eq. 2 region scoring → Eq. 3 multiscale filter →
 transmission → GS-tier inference.
 
-The port of ``repro.serving.offload`` (``random_view`` and draft
-piggybacking are not ported yet).  A ``GSView`` describes what the ground
-station receives:
+The port of ``repro.serving.offload``.  A ``GSView`` describes what the
+ground station receives:
 
 - ``images``        the (possibly filtered) pixels the GS model runs on;
 - ``bytes_frac``    per-sample fraction of the task's full raw-image bytes
   actually transmitted;
 - ``kept_frac``     fraction of vision tokens surviving the filter;
 - ``region_scores`` Eq. 2 normalised K(x^r) when computed.
+
+Transmission has two modes matching the two entry points: the analytic
+per-sample expectation (``transmit_analytic``, the batch evaluator's
+latency ledger) and the window-aware scheduler (``transmit_scheduled``, the
+request server).
 """
 from __future__ import annotations
 
@@ -65,6 +69,31 @@ class OffloadPipeline:
         return GSView(images=images, bytes_frac=np.ones((b,)),
                       kept_frac=np.ones((b,)), region_scores=None, meta={})
 
+    def random_view(self, task: str, images: torch.Tensor, keep_frac: float,
+                    generator: torch.Generator) -> GSView:
+        """Naive random-masking reduction (GS-only ablation, Fig. 3/12)."""
+        regions = synthetic.regions_of(images, self.ac.grid)
+        filt, _, meta = PP.random_mask_filter(regions, keep_frac, generator)
+        gs_images = synthetic.assemble(filt, self.ac.grid)
+        frac = meta["kept"].cpu().numpy().mean(-1)
+        return GSView(images=gs_images, bytes_frac=frac, kept_frac=frac,
+                      region_scores=None, meta=meta)
+
+    # -- draft piggybacking -------------------------------------------------
+    def attach_draft(self, view: GSView, sat_tokens) -> Optional[np.ndarray]:
+        """Piggyback the satellite's already-decoded answer tokens on the
+        offload payload as the GS verifier's first drafts.  They ride the
+        same downlink as the filtered image (a few int32s, recorded in
+        ``view.meta``); a wrong draft costs accept rate, never output
+        correctness.  Returns the drafts, or None when nothing was decoded
+        onboard."""
+        if sat_tokens is None or len(sat_tokens) == 0:
+            return None
+        toks = np.asarray(sat_tokens, np.int32).reshape(-1)
+        view.meta["draft_tokens"] = toks
+        view.meta["draft_bytes"] = int(toks.size * 4)
+        return toks
+
     # -- urgency metadata ---------------------------------------------------
     def attach_urgency(self, view: GSView, priority: int = 0,
                        deadline_s: Optional[float] = None) -> GSView:
@@ -79,6 +108,10 @@ class OffloadPipeline:
     def payload_bytes(self, task: str, bytes_frac) -> np.ndarray:
         """Modelled raw-image downlink bytes scaled by achieved compression."""
         return self.lat.full_bytes(task) * np.asarray(bytes_frac)
+
+    def transmit_analytic(self, n_bytes: float) -> float:
+        """Mean air time on the measured link (batch evaluator's ledger)."""
+        return self.lat.tx_s(self.link, n_bytes)
 
     def transmit_scheduled(self, now: float, n_bytes: float,
                            sample_jitter: bool = False):

@@ -42,6 +42,18 @@ def test_port_imports_neither_jax_nor_repro():
     assert bad == "[]"
 
 
+@pytest.mark.parametrize("module", ["repro_torch", "repro_torch.baselines",
+                                    "repro_torch.core.cascade"])
+def test_entry_modules_import_neither_jax_nor_repro(module):
+    """Each entry module alone, in a fresh interpreter."""
+    probe = (f"import sys, {module}\n"
+             "print(sorted(k for k in sys.modules\n"
+             "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = _run(["-c", probe], cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_chip_smoke_imports_neither_jax_nor_repro():
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     for line in src.splitlines():
@@ -90,3 +102,41 @@ def test_entry_points_default_to_the_card():
             with pytest.raises(RuntimeError, match="CUDA"):
                 call()
     assert T.init_params(sat, device="cpu")["final_norm"].device.type == "cpu"
+
+
+def _cascade_entry_points():
+    """The Algorithm 1 entry points over tier weights, each with CPU
+    weights and its default device."""
+    from repro_torch.baselines import AIRG, GSOnly, SatelliteOnly, Tabi
+    from repro_torch.configs.spaceverse_pair import proxy_pair
+    from repro_torch.core import confidence as C
+    from repro_torch.core import eo_adapter as EO
+    from repro_torch.core.cascade import SpaceVerse, TierModel
+    from repro_torch.serving import CascadeServer
+    sat_cfg, gs_cfg = proxy_pair("small")
+    ac = EO.EOAdapterConfig()
+    sat = TierModel(EO.init_adapter(sat_cfg, ac, 0, device="cpu"), sat_cfg)
+    gs = TierModel(EO.init_adapter(gs_cfg, ac, 1, device="cpu"), gs_cfg)
+    conf = C.init_confidence(sat_cfg.d_model, sat_cfg.d_model, hidden=8,
+                             device="cpu")
+    return {"SpaceVerse": lambda **kw: SpaceVerse(sat, gs, ac, conf, **kw),
+            "SatelliteOnly": lambda **kw: SatelliteOnly(sat, ac, **kw),
+            "GSOnly": lambda **kw: GSOnly(gs, ac, keep_frac=0.5, **kw),
+            "Tabi": lambda **kw: Tabi(sat, gs, ac, **kw),
+            "AIRG": lambda **kw: AIRG(sat, gs, ac, **kw),
+            "CascadeServer(spec_gamma=3)": lambda **kw: CascadeServer(
+                sat, gs, ac, conf, spec_gamma=3, **kw)}
+
+
+def test_cascade_entry_points_default_to_the_card():
+    """``SpaceVerse``, the baselines and the speculative server: the card by
+    default (without one they raise; with one they refuse CPU weights),
+    and ``device="cpu"`` runs on the CPU."""
+    for name, make in _cascade_entry_points().items():
+        if torch.cuda.is_available():
+            with pytest.raises(ValueError, match="weights lie on"):
+                make()
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make()
+        assert make(device="cpu") is not None, name

@@ -137,8 +137,11 @@ def test_offload_view_matches_live_jax(systems):
 
 def test_server_refuses_weights_on_another_device(systems):
     _, _, _, ttiers, ac, conf, _ = systems
-    with pytest.raises(NotImplementedError):
-        CascadeServer(*ttiers, ac, conf, spec_gamma=2, device="cpu")
+    # spec_gamma > 0 builds the speculative GS core on the server's device
+    spec = CascadeServer(*ttiers, ac, conf, spec_gamma=2,
+                         device="cpu")._gs_spec_core
+    assert spec.cfg.spec_gamma == 2 and spec.device.type == "cpu"
+    assert spec.tier is ttiers[1] and spec.draft is ttiers[0]
     # the default device is the card: without one the server raises, with
     # one it refuses these CPU weights
     err = ValueError if torch.cuda.is_available() else RuntimeError
