@@ -96,7 +96,18 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    operands as bf16 hi + lo pairs and rounds o once); the sLSTM 2e-4 +
    2e-4·|want|.  (f), (f') and the sLSTM shapes are timed as above; no
    single PyTorch call computes either scan, so their library column is
-   null.
+   null.  The three paged kernels on int8 and fp8 pools
+   (``quant_kernel_checks``): the kernels read the 8-bit pages and their
+   per-(page, slot, head) scales, and are held against the plain version
+   on the dequantized pools, whose trash page has NaN scales (an int8
+   page cannot hold NaN) and, in fp8, NaN bytes 0x7F: small sweeps of
+   both routes (CUDA cores in f32 at the old tolerance, decode and
+   prefix-append, pages 1-16, hd 12-128, q_len up to 10, chunks up to 64
+   with q_blk; tensor cores in bf16 at hd 64/128 to the unchanged bound,
+   pages 1-64, q_len up to 10, chunks up to 256, a mixed flat step with
+   and without its tile plan), then (a)-(e) on both routes, timed as
+   above beside gather_pages + dequantize + SDPA; their bound counts the
+   8-bit pages and the 4-byte scales once per distinct (page, slot).
 3. End to end on a small proxy pair (flash, decode, prefix-append and the
    chunked scan on their CUDA-core routes alone, counted): the port's
    ``CascadeServer``, its
@@ -113,6 +124,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    1e-6 relative, scores and probabilities within 1e-4, equal
    ``spec_stats()`` with piggybacked drafts.  The reduced xlstm-125m (f32):
    a 128-token prefill and 16 greedy decode steps give the CPU's tokens.
+   The slot path, a γ = 3 speculative engine and a chunked one (chunk 8)
+   on int8 and fp8 pools give the CPU's tokens and counters, with the
+   stored K/V at most one quantization step apart (the share printed).
 4. The cascade server: ``CascadeServer.handle`` at the full width and
    depth of the paper's pair (Qwen2-VL-2B on the satellite, Qwen2-VL-7B on
    the ground), bfloat16, random weights from a seed, serving requests
@@ -205,8 +219,22 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    on the server's.  Prints each ``run_batch``'s wall time (host clock,
    synchronised) and samples/s, the modelled mean latency and offload
    rate, and the phase's seconds.
+11. Quantized pools at full width (after phase 10, while the pair is
+   loaded): phase 6's stream on int8 pools and phase 8's chunked stream
+   on fp8 pools, each with its phase's checks (20 hits and 4 misses,
+   pages, shared pages byte-equal from their prefill to the end, launches
+   per layer on the tensor cores) and every paged launch on the pool's
+   storage; phase 8's scenes without their det requests, chunked on int8
+   pools (every prefix-append launch on the tensor cores and the int8
+   pool); phase 7's γ 4 7B engine drafted by the 2B on its vqa/cls
+   requests on int8 pools (verify launches per layer, a verify chunk
+   reaching the kernel); a 2B engine given phase 6's bf16 pool bytes as
+   ``pool_bytes`` at int8 (its page count the one ``page_nbytes`` gives:
+   4224 B a layer page against 8192 B).  Each quantized kernel is held to
+   its bound on the path's own first inputs; token agreement with the
+   bf16 runs is reported through ``kv_quant.compare_outputs``.
 
-Phases 3, 4, 6, 7, 8, each run of 9 and each path of 10 (the batch
+Phases 3, 4, 6, 7, 8, each run of 9 and each path of 10 and 11 (the batch
 evaluator, the speculative server) zero every kernel's launch count just
 before they run and read it just after; each kernel of a path must have
 launched.  In phases 4, 6, 7 and 10 the tensor-core flash route launched
@@ -217,8 +245,10 @@ route;
 every prefix-append launch took the tensor-core route in phase 8 and the
 CUDA-core route in phase 3.
 A kernel with two routes counts all its launches under its old name and
-the tensor-core ones under ``*_wgmma`` / ``*_mma`` as well.  Its last
-lines: the card's name and power limit as ``nvidia-smi``
+the tensor-core ones under ``*_wgmma`` / ``*_mma`` as well; the paged
+kernels also count their launches on 8-bit pools under
+``"<kernel>[int8]"`` / ``"[fp8]"``, rows of their own in the kernels
+line.  Its last lines: the card's name and power limit as ``nvidia-smi``
 gives them, one JSON object with every kernel's numbers, then ``{"ok":
 true, "device": {...}}``.
 """
@@ -626,6 +656,7 @@ def kernel_checks(torch):
 
     report.update(paged_kernel_checks(torch, randn, timer, errors))
     report.update(prefill_kernel_checks(torch, randn, timer, errors))
+    report.update(quant_kernel_checks(torch, randn, timer, errors))
     report.update(scan_kernel_checks(torch, randn, timer, errors))
 
     torch.cuda.synchronize()
@@ -865,11 +896,13 @@ def paged_case(torch, randn, *, b, kh, group, hd, page, width, lens, q_len,
     return q, k_pool, v_pool, table.cuda(), lens_t, (k_nan, v_nan)
 
 
-def paged_bytes_and_flops(torch, q, k_pool, table, lens, q_len):
+def paged_bytes_and_flops(torch, q, k_pool, table, lens, q_len,
+                          scaled=False):
     """Bytes the function must move (each distinct (page, slot) a row needs
-    read once for K and for V, q, the table entries it reads, lengths, o
-    written once) and its FLOPs (QK and PV over the keys each chunk token
-    sees: max(cache_len - (q_len - 1) + t, 0) for token t)."""
+    read once for K and for V, with an 8-bit pool's (``scaled``) 4-byte
+    scale per KV head, q, the table entries it reads, lengths, o written
+    once) and its FLOPs (QK and PV over the keys each chunk token sees:
+    max(cache_len - (q_len - 1) + t, 0) for token t)."""
     b, _, h, hd = q.shape
     page, kh = k_pool.shape[1], k_pool.shape[2]
     s = table.shape[1] * page
@@ -878,7 +911,7 @@ def paged_bytes_and_flops(torch, q, k_pool, table, lens, q_len):
     slot = table.long()[:, pos // page] * page + pos % page
     n_slots = int(torch.unique(slot[valid]).numel())
     n_entries = int((-(-lens.long() // page)).sum())
-    kv = 2 * n_slots * kh * hd * k_pool.element_size()
+    kv = 2 * n_slots * kh * (hd * k_pool.element_size() + 4 * scaled)
     io = 2 * q.numel() * q.element_size() + 4 * (n_entries + b)
     eff = (lens[:, None].long() - (q_len - 1)
            + torch.arange(q_len, device=lens.device)[None, :])
@@ -1364,6 +1397,265 @@ def prefill_kernel_checks(torch, randn, timer, errors):
     return out
 
 
+def as_bits(t):
+    """A 1-byte leaf as uint8 (the same bits; float8 is not indexed or
+    compared on every device), any other leaf as it is."""
+    import torch
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
+def quant_pools(torch, k_pool, v_pool, kind):
+    """fp pools (trash page 0 zero) → (the quantized leaves, a copy whose
+    trash page has NaN scales and, in fp8, NaN bytes 0x7F): the kernel
+    reads the second, the plain version the first, so a read of the trash
+    page shows (an int8 page cannot hold NaN; its scales can)."""
+    from repro_torch.kernels import kv_quant
+    pools = kv_quant.quantize_pool(k_pool.float(), v_pool.float(), kind)
+    nan = {k: v.clone() for k, v in pools.items()}
+    nan["k_scale"][0] = float("nan")
+    nan["v_scale"][0] = float("nan")
+    if kind == "fp8":
+        as_bits(nan["k"])[0] = 0x7F
+        as_bits(nan["v"])[0] = 0x7F
+    return pools, nan
+
+
+def scales_of(pools):
+    return {"k_scale": pools["k_scale"], "v_scale": pools["v_scale"]}
+
+
+def dequantized(pools, table):
+    """An 8-bit pool pair dequantized and gathered: the dense (B, S, KH,
+    hd) K and V the plain version attends to."""
+    from repro_torch.kernels import ref
+    return tuple(ref.gather_pages(ref.dequantize_pool(pools[n],
+                                                      pools[n + "_scale"]),
+                                  table) for n in ("k", "v"))
+
+
+QUANT_POOLS = ("int8", "fp8")
+
+
+def quant_kernel_checks(torch, randn, timer, errors):
+    """The three paged kernels on int8 and fp8 pools, reading the 8-bit
+    pages and their per-(page, slot, head) scales themselves, against the
+    plain version on the dequantized pools: small sweeps of each route
+    (CUDA cores in f32 over page sizes 1-16, hd 12-128, q_len up to 10,
+    windows and softcaps, chunks with q_blk; the tensor cores in bf16 at
+    hd 64/128 over pages 1-64, q_len up to 10, chunks up to 256 and a mixed
+    flat step with and without its tile plan), then (a)-(e) on both routes
+    with their times in turns (mma, library, CUDA cores, mma), the library
+    call being gather_pages + dequantize + scaled_dot_product_attention.
+    Every kernel reads pools whose trash page has NaN scales (and NaN
+    bytes in fp8).  Returns the report's rows, named "<kernel>[int8]" and
+    "<kernel>[fp8]"."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_decode_attention as PDA
+    from repro_torch.kernels import paged_prefill_attention as PPA
+    bf16 = torch.bfloat16
+    out = {f"{n}[{kind}]": {} for kind in QUANT_POOLS
+           for n in ("paged_decode_attention_mma", "paged_decode_attention",
+                     "paged_prefill_attention_mma",
+                     "paged_prefill_attention")}
+    sweep = {}
+
+    def paged(q, nan, table, lens, op, **kw):
+        fn = {"decode": ops.paged_multi_decode_attention,
+              "prefill": ops.paged_prefill_attention}[op]
+        return fn(q, nan["k"], nan["v"], table, lens, **scales_of(nan), **kw)
+
+    for kind in QUANT_POOLS:
+        shares = []
+        log(f"paged kernels on {kind} pools vs plain (CUDA-core route, f32)")
+        for op, page, hd, group, q_len, window, softcap, q_blk in [
+                ("decode", 1, 16, 2, 1, 0, None, None),
+                ("decode", 8, 12, 3, 3, 0, 3.0, None),
+                ("decode", 16, 128, 7, 10, 7, None, None),
+                ("decode", 4, 32, 6, 5, 0, None, None),
+                ("prefill", 2, 16, 6, 6, 24, None, 4),
+                ("prefill", 8, 128, 6, 1, 0, None, None),
+                ("prefill", 16, 32, 1, 64, 24, None, 64),
+                ("prefill", 8, 64, 7, 16, 0, 2.5, 3)]:
+            lens = [0, max(q_len - 1, 1), q_len, q_len + 37, q_len + 150, 3]
+            q, k_pool, v_pool, table, lens_t, _ = paged_case(
+                torch, randn, b=len(lens), kh=2, group=group, hd=hd,
+                page=page, width=-(-(q_len + 160) // page), lens=lens,
+                q_len=q_len, dtype=torch.float32, shared_blocks=32 // page)
+            pools, nan = quant_pools(torch, k_pool, v_pool, kind)
+            before = {k: as_bits(v).clone() for k, v in nan.items()}
+            kw = {"window": window, "softcap": softcap}
+            got = paged(q, nan, table, lens_t, op,
+                        **(kw if op == "decode" else dict(kw, q_blk=q_blk)))
+            want = ref.paged_multi_decode_attention(
+                q, pools["k"], pools["v"], table, lens_t, **kw,
+                **scales_of(pools))
+            case = (f"{kind} f32 {op} page{page} hd{hd} g{group} "
+                    f"q_len{q_len} w{window} cap{softcap}")
+            check(f"paged_{op}", got, want, TOL_F32, case, errors)
+            if float(got[0].abs().max()) != 0.0:
+                errors.append(f"paged_{op} {case}: cache_len 0 row not zero")
+            if not all(same_bits(as_bits(nan[k]).float(), v.float())
+                       for k, v in before.items()):
+                errors.append(f"paged_{op} {case}: the pools changed")
+        log(f"paged kernels on {kind} pools vs plain (mma route, bf16)")
+        for op, page, hd, group, q_len, window, softcap in [
+                ("decode", 8, 128, 7, 1, 0, None),
+                ("decode", 1, 64, 2, 3, 40, None),
+                ("decode", 64, 128, 6, 5, 0, 30.0),
+                ("decode", 8, 64, 7, 10, 40, 30.0),
+                ("prefill", 2, 128, 6, 7, 0, None),
+                ("prefill", 8, 64, 7, 16, 40, None),
+                ("prefill", 16, 128, 6, 256, 0, 30.0)]:
+            lens = [0, max(q_len - 1, 1), q_len, q_len + 37, q_len + 150, 3]
+            q, k_pool, v_pool, table, lens_t, _ = paged_case(
+                torch, randn, b=len(lens), kh=2, group=group, hd=hd,
+                page=page, width=-(-(q_len + 160) // page), lens=lens,
+                q_len=q_len, dtype=bf16, shared_blocks=32 // page)
+            pools, nan = quant_pools(torch, k_pool, v_pool, kind)
+            kw = {"window": window, "softcap": softcap}
+            got = paged(q, nan, table, lens_t, op, **kw)
+            case = (f"{kind} bf16 {op} page{page} hd{hd} g{group} "
+                    f"q_len{q_len} w{window} cap{softcap}")
+            shares.append(check_mma_decode(f"paged_{op}", got, q,
+                                           *dequantized(pools, table),
+                                           lens_t, kw, case, errors)[1])
+            if float(got[0].abs().max()) != 0.0:
+                errors.append(f"paged_{op} {case}: cache_len 0 row not zero")
+        runs = [(0, 300, 1), (1, 150, 1), (2, 64, 1), (3, 0, 23),
+                (4, 40, 50)]
+        q, k_pool, v_pool, table, lens, _, plan, rows = flat_step(
+            torch, randn, runs, tb=90, n_slots=5, kh=2, group=6, hd=128,
+            page=8, width=48, shared=8, scene_of=[0, 0, 1, 2, 1])
+        pools, nan = quant_pools(torch, k_pool, v_pool, kind)
+        kd, vd = (ref.dequantize_pool(pools[n], pools[n + "_scale"])
+                  for n in ("k", "v"))
+        for tag, p, r in (("plan", plan, rows),
+                          ("no plan", None, torch.ones_like(rows))):
+            shares.append(check_mma_rows(
+                "paged_prefill", paged(q, nan, table, lens, "prefill",
+                                       plan=p),
+                q, kd, vd, table, lens, r, {},
+                f"{kind} bf16 mixed flat step, {tag}", errors)[1])
+        sweep[kind] = max(shares)
+        log(f"  mma sweep on {kind} pools: largest share of the bound "
+            f"{max(shares):.3f}")
+
+    # (a)-(c): the slot path's decode and verify shapes; (d), (e): the
+    # chunked path's, as the fp pools' rows in paged_kernel_checks and
+    # prefill_kernel_checks
+    page, width, hd = 8, 257, 128
+    cases = {}
+    for tag, kh, group, q_len, b in (("a 2B q1", 2, 6, 1, 8),
+                                     ("b 7B q1", 4, 7, 1, 8),
+                                     ("c 7B q5", 4, 7, 5, 4)):
+        lens = [1025 + (1024 * i) // (b - 1) for i in range(b)]
+        q, k_pool, v_pool, table, lens_t, _ = paged_case(
+            torch, randn, b=b, kh=kh, group=group, hd=hd, page=page,
+            width=width, lens=lens, q_len=q_len, dtype=bf16,
+            shared_blocks=1024 // page)
+        cases[tag] = ("decode", q, k_pool, v_pool, table, lens_t, q_len,
+                      None)
+    decode = [(i, 1024 + (1024 * i) // 7, 1) for i in range(8)]
+    q, k_pool, v_pool, table, lens, _, plan, _ = flat_step(
+        torch, randn, decode + [(8, 768, 256)], tb=264, n_slots=9, kh=2,
+        group=6, hd=hd, page=page, width=width, shared=1024 // page,
+        scene_of=[0, 1] * 4 + [2])
+    cases["d 2B flat"] = ("prefill", q, k_pool, v_pool, table, lens, 1,
+                          plan)
+    cases["e 2B chunk"] = ("prefill", q[8:].reshape(1, 256, 12, hd), k_pool,
+                           v_pool, table[8:9].contiguous(), lens[-1:], 256,
+                           None)
+    for tag, (op, q, k_pool, v_pool, table, lens_t, q_len,
+              plan) in cases.items():
+        b, _, h, _ = q.shape
+        kh = k_pool.shape[2]
+        group = h // kh
+        name = ("paged_decode_attention" if op == "decode"
+                else "paged_prefill_attention")
+        W = PDA if op == "decode" else PPA
+        qr = q.reshape(b, q_len, kh, group, hd).permute(0, 2, 1, 3, 4) \
+            .reshape(b, kh, q_len * group, hd)
+        pos = torch.arange(width * page, device="cuda")
+        eff = (lens_t[:, None].long() - (q_len - 1)
+               + torch.arange(q_len, device="cuda")[None, :])
+        mask = (pos[None, None, :] < eff[:, :, None])[:, None]
+        qh = q.transpose(1, 2)
+        for kind in QUANT_POOLS:
+            pools, nan = quant_pools(torch, k_pool, v_pool, kind)
+            kt, vt = nan["k"].transpose(1, 2), nan["v"].transpose(1, 2)
+            sc = {"k_scale": nan["k_scale"].transpose(1, 2),
+                  "v_scale": nan["v_scale"].transpose(1, 2)}
+            case = (f"{kind} {tag} B{b} KH{kh} g{group} q_len{q_len} "
+                    f"page{page} P{width}")
+            extra = {} if plan is None else {"plan": plan}
+            got = paged(q, nan, table, lens_t, op, **extra)
+            kg, vg = dequantized(pools, table)
+            err, share = check_mma_decode(
+                f"paged_{op}", got, q, kg, vg, lens_t, {},
+                case + (" plan" if plan is not None else ""), errors)
+            want = ref.paged_multi_decode_attention(
+                q, pools["k"], pools["v"], table, lens_t, **scales_of(pools))
+
+            def cuda_cores():
+                return W.launch_cuda_cores(qr, kt, vt, table, lens_t,
+                                           q_len=q_len, **sc)
+
+            err_cc = check(f"paged_{op}", ops._rows_to_chunk(
+                cuda_cores(), q_len, h), want, TOL_BF16,
+                case + " on CUDA cores", errors)
+            n_bytes, flops = paged_bytes_and_flops(
+                torch, q, pools["k"], table, lens_t, q_len, scaled=True)
+            b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+
+            def library():
+                kg = ref.gather_pages(as_bits(pools["k"]), table).view(
+                    pools["k"].dtype)
+                vg = ref.gather_pages(as_bits(pools["v"]), table).view(
+                    pools["v"].dtype)
+                ksg = ref.gather_pages(pools["k_scale"], table)
+                vsg = ref.gather_pages(pools["v_scale"], table)
+                kd = (kg.to(bf16) * ksg[..., None].to(bf16)).transpose(1, 2)
+                vd = (vg.to(bf16) * vsg[..., None].to(bf16)).transpose(1, 2)
+                return F.scaled_dot_product_attention(
+                    qh, kd, vd, attn_mask=mask, enable_gqa=True)
+
+            def plain():
+                return ref.paged_multi_decode_attention(
+                    q, pools["k"], pools["v"], table, lens_t,
+                    **scales_of(pools))
+
+            def mma():
+                return W.launch_mma(qr, kt, vt, table, lens_t, q_len=q_len,
+                                    **sc, **extra)
+
+            lib_err = float((library().transpose(1, 2).float()
+                             - want.float()).abs().max())
+            m = {"plain_ms": timer(plain),
+                 "library_is": "gather_pages + dequantize + "
+                               "scaled_dot_product_attention",
+                 "library_max_abs_err": lib_err, "pool": kind,
+                 "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+                 "flops": flops,
+                 "shape": (f"B{b} KH{kh} g{group} q_len{q_len} hd{hd} "
+                           f"page{page} P{width} cache_len "
+                           f"{int(lens_t.min())}..{int(lens_t.max())} "
+                           f"bf16 q, {kind} pool")}
+            mma_ms = [timer(mma)]
+            m["library_ms"] = timer(library)
+            cc_ms = timer(cuda_cores)
+            mma_ms.append(timer(mma))
+            ms = sum(mma_ms) / len(mma_ms)
+            out[f"{name}_mma[{kind}]"][tag] = dict(
+                m, max_abs_err=err, ms=ms, ms_runs=mma_ms, route="mma",
+                bound_share=b_ms / ms, tolerance_share=share,
+                sweep_tolerance_share=sweep[kind])
+            out[f"{name}[{kind}]"][tag] = dict(
+                m, max_abs_err=err_cc, ms=cc_ms, route="cuda_cores",
+                bound_share=b_ms / cc_ms)
+    return out
+
+
 def ssm_flops(b, h, s, dk, dv, chunk):
     """FLOPs of the chunk form: per chunk and (row, head) q·kᵀ and score·v
     over the full C×C block, q·S and the state update."""
@@ -1763,6 +2055,7 @@ def small_reference(torch):
         if not same:
             raise RuntimeError(f"card and CPU disagree on {req.task} {taus}")
     small_slot_path(torch, sat, gs, card[0], card[1], ac)
+    small_quant_path(torch, sat, gs, card[0], card[1], ac)
     small_batch_path(torch, (sat, gs, conf), card, ac)
     small_xlstm(torch)
     return {(w.tier, w.exit_stage) for _, _, w, _ in want}
@@ -1837,6 +2130,68 @@ def small_slot_path(torch, sat, gs, sat_card, gs_card, ac):
                 raise RuntimeError(f"slot path {kw} on {dev}: prefix "
                                    f"hits/misses {hits}, the plain engine's "
                                    f"{prefix[dev]}")
+
+
+def step_share(a, b, kind):
+    """(largest distance, count of values one quantization step or more
+    apart) between two stored 8-bit leaves: int8 by value, e4m3 by code in
+    value order (+0 and -0 both 0)."""
+    import torch
+    if kind == "int8":
+        d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+    else:
+        def rank(x):
+            u = x.view(torch.uint8).to(torch.int32)
+            return torch.where(u >= 128, -(u - 128), u)
+        d = (rank(a) - rank(b)).abs()
+    return int(d.max()), int((d > 0).sum())
+
+
+def small_quant_path(torch, sat, gs, sat_card, gs_card, ac):
+    """The quantized slot path on the small proxies (f32, so the paged
+    kernels run on their CUDA-core route): ``InferenceEngine.serve`` with
+    ``kv_dtype`` int8 and fp8, plain, γ = 3 speculative and chunked (chunk
+    8), on the card and on the CPU from the same weights: the same tokens
+    and prefix counters, the same pages, and stored values at most one
+    quantization step apart (the two devices' f32 K/V differ by rounding;
+    the share one step apart is printed), the trash page aside."""
+    from repro_torch.serving import EngineConfig, InferenceEngine
+    reqs = scene_stream(["det", "vqa", "cls", "vqa"], 3, ac.image_size,
+                        ac.grid, seed=70)
+    for kind in QUANT_POOLS:
+        for kw in ({}, {"spec_gamma": 3}, {"prefill_chunk": 8}):
+            runs = {}
+            for dev, tier, draft in (("cpu", gs, sat),
+                                     ("cuda", gs_card, sat_card)):
+                eng = InferenceEngine(
+                    tier.params, tier.cfg, ac,
+                    EngineConfig(slots=3, answer_vocab=9, kv_dtype=kind,
+                                 **kw),
+                    draft=draft if kw.get("spec_gamma") else None,
+                    device=dev)
+                rs = clone_requests(reqs)
+                toks = served_tokens(eng.serve(rs), rs)
+                st, kv = eng.core.stats, eng.core.kv_stats()
+                runs[dev] = (toks, (st["prefix_hits"], st["prefix_misses"],
+                                    kv["pages_in_use"], kv["n_pages"]),
+                             eng.core._slot_cache)
+            (ct, cc, cpools), (gt, gc, gpools) = runs["cpu"], runs["cuda"]
+            same = all((a == b).all() for a, b in zip(gt, ct))
+            worst = apart = total = 0
+            for cl, gl in zip(cpools, gpools):
+                for name in ("k", "v"):
+                    d, n = step_share(cl[name][:, 1:], gl[name][:, 1:].cpu(),
+                                      kind)
+                    worst, apart = max(worst, d), apart + n
+                    total += cl[name][:, 1:].numel()
+            log(f"  small quantized slot path {kind} {kw or 'plain'}: "
+                f"{len(gt)} requests, tokens {'equal' if same else 'DIFFERENT'}"
+                f" on the card and the CPU, counters card {gc} cpu {cc}, "
+                f"stored values {apart} of {total} one step apart "
+                f"({apart / total:.2e}), largest distance {worst}")
+            if not same or gc != cc or worst > 1:
+                raise RuntimeError(f"quantized slot path {kind} {kw}: card "
+                                   f"and CPU disagree")
 
 
 def weights_device(tier) -> str:
@@ -2116,13 +2471,16 @@ def decode_on_path_inputs(calls, phase: int, what: str,
     for name, got_calls in calls.items():
         for args, kw in got_calls:
             got = getattr(ops, name)(*args, **kw)
+            kw = dict(kw)
+            ks, vs = kw.pop("k_scale", None), kw.pop("v_scale", None)
             q, *rest = args
             if q.dim() == 3:            # one token a row: (B, H, hd)
                 q, got = q[:, None], got[:, None]
             if name in PAGED_DECODE_OPS:
+                # an 8-bit pool dequantized: the plain version's operands
                 k_pool, v_pool, table, lens = rest
-                k = ref.gather_pages(k_pool, table)
-                v = ref.gather_pages(v_pool, table)
+                k = ref.gather_pages(ref.dequantize_pool(k_pool, ks), table)
+                v = ref.gather_pages(ref.dequantize_pool(v_pool, vs), table)
             else:
                 k, v, lens = rest
             case = (f"phase {phase} {what} B{q.shape[0]} T{q.shape[1]} "
@@ -2295,15 +2653,19 @@ def profile_summary(torch, prof, n_steps: int, seconds: float, k: int = 6):
                                      for e in top_host}}
 
 
-def slot_phase(torch, sat, ac):
+def slot_phase(torch, sat, ac, kv_dtype=None):
     """``InferenceEngine.serve`` of the satellite tier (Qwen2-VL-2B) at full
     width on the paged slot path: 24 requests over 4 scenes (per scene 1
-    det with 1024 answer tokens, 1 cls, 4 vqa) on 8 slots."""
+    det with 1024 answer tokens, 1 cls, 4 vqa) on 8 slots; with
+    ``kv_dtype`` on 8-bit pools (phase 11), every paged launch counted
+    under that storage."""
     from repro_torch.kernels import ops
     from repro_torch.serving import EngineConfig, InferenceEngine
     av = ac.num_classes + 1
+    tag = "slot path" + (f" {kv_dtype}" if kv_dtype else "")
     eng = InferenceEngine(sat.params, sat.cfg, ac,
-                          EngineConfig(slots=8, page_size=8, answer_vocab=av),
+                          EngineConfig(slots=8, page_size=8, answer_vocab=av,
+                                       kv_dtype=kv_dtype),
                           device="cuda")
     core = eng.core
     eng.warmup()
@@ -2317,7 +2679,7 @@ def slot_phase(torch, sat, ac):
         for scene, _ in miss:
             pages = torch.tensor(core._prefix.get(scene).pages,
                                  device="cuda")
-            snaps[scene] = (pages, [{k: v[:, pages].clone()
+            snaps[scene] = (pages, [{k: as_bits(v)[:, pages].clone()
                                      for k, v in layer.items()}
                                     for layer in core._slot_cache])
 
@@ -2331,12 +2693,12 @@ def slot_phase(torch, sat, ac):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    prefills.check(counts, "slot path")
+    prefills.check(counts, tag)
 
     toks = served_tokens(out, reqs)
     for r, t in zip(reqs, toks):
         if len(t) != ac.answer_len(r.task) or t.min() < 0 or t.max() >= av:
-            raise RuntimeError(f"slot phase: {r.task} answered {len(t)} "
+            raise RuntimeError(f"{tag}: {r.task} answered {len(t)} "
                                "tokens or outside the answer vocab")
     st, kv = core.stats, core.kv_stats()
     steps = st["sched"]["steps"]
@@ -2349,13 +2711,16 @@ def slot_phase(torch, sat, ac):
         "pages_in_use == resident prefix pages":
             kv["pages_in_use"] == resident == 4 * ac.n_regions // 8,
         "shared pages unchanged": len(snaps) == 4 and all(
-            all(torch.equal(v, layer[k][:, pages])
+            all(torch.equal(v, as_bits(layer[k])[:, pages])
                 for saved, layer in zip(saved_layers, core._slot_cache)
                 for k, v in saved.items())
             for pages, saved_layers in snaps.values()),
         "paged launches == layers x (steps + admissions)":
             counts["paged_decode_attention"]
             == n_layers * (steps + probe.admissions),
+        "every paged launch on the pool's storage":
+            kv_dtype is None or counts[f"paged_decode_attention[{kv_dtype}]"]
+            == counts["paged_decode_attention"],
         "paged decode on the tensor cores only": decode_routes(
             counts, "mma", need=("paged_decode_attention",))[0],
         "flash launched": counts["flash_attention_wgmma"] > 0,
@@ -2376,31 +2741,37 @@ def slot_phase(torch, sat, ac):
            "det_max_token_gap_ms": probe.max_token_gap_ms(
                [r for r in reqs if r.task == "det"]),
            "prefill_by_kind": dict(st["prefill_by_kind"]),
+           "kv_dtype": kv_dtype, "kv_bytes_total": kv["kv_bytes_total"],
+           "page_bytes": kv["page_bytes"],
            "device_busy_share": busy, "profile": prof, "launches": counts}
-    log(f"  slot path: {len(out)} requests in {wall:.2f} s, {steps} slot "
+    log(f"  {tag}: {len(out)} requests in {wall:.2f} s, {steps} slot "
         f"steps + {probe.admissions} admission calls, step {step_ms:.2f} ms"
         f" (mean), {n_tok / wall:.1f} answer tokens/s, device busy "
         f"{busy if busy is None else round(busy, 3)}")
-    log(f"  slot path checks: {checks}")
-    log("slot_phase " + json.dumps(res))
+    log(f"  {tag} checks: {checks}")
+    if kv_dtype is None:
+        log("slot_phase " + json.dumps(res))
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        raise RuntimeError(f"slot phase failed: {bad}")
+        raise RuntimeError(f"{tag} failed: {bad}")
     return dict(res, tokens=toks)
 
 
-def chunked_phase(torch, sat, ac, slot):
+def chunked_phase(torch, sat, ac, slot, kv_dtype=None):
     """Phase 6's stream through the 2B's ``InferenceEngine`` with chunked
     prefill (``prefill_chunk`` 256, token budget 264 = 8 slots + 256): no
     admission runs a model forward; each scene's 1024 region tokens stream
     into its shared pages 256 at a time inside fused steps, beside the
-    decoding slots.  Checked against phase 6's run (``slot``)."""
+    decoding slots.  Checked against phase 6's run (``slot``).  With
+    ``kv_dtype`` on 8-bit pools (phase 11), every paged launch counted
+    under that storage."""
     from repro_torch.kernels import ops
     from repro_torch.serving import EngineConfig, InferenceEngine
     av = ac.num_classes + 1
+    tag = "chunked" + (f" {kv_dtype}" if kv_dtype else "")
     eng = InferenceEngine(sat.params, sat.cfg, ac,
                           EngineConfig(slots=8, page_size=8, answer_vocab=av,
-                                       prefill_chunk=256),
+                                       prefill_chunk=256, kv_dtype=kv_dtype),
                           device="cuda")
     core = eng.core
     eng.warmup()
@@ -2413,7 +2784,7 @@ def chunked_phase(torch, sat, ac, slot):
     def put_and_snapshot(scene, pages, state):
         entry = put(scene, pages, state)
         idx = torch.tensor(pages, device="cuda")
-        snaps[scene] = (idx, [{k: v[:, idx].clone() for k, v in
+        snaps[scene] = (idx, [{k: as_bits(v)[:, idx].clone() for k, v in
                                layer.items()} for layer in core._slot_cache])
         return entry
 
@@ -2437,7 +2808,7 @@ def chunked_phase(torch, sat, ac, slot):
     toks = served_tokens(out, reqs)
     for r, t in zip(reqs, toks):
         if len(t) != ac.answer_len(r.task) or t.min() < 0 or t.max() >= av:
-            raise RuntimeError(f"chunked phase: {r.task} answered {len(t)} "
+            raise RuntimeError(f"{tag}: {r.task} answered {len(t)} "
                                "tokens or outside the answer vocab")
     st, kv, sched = core.stats, core.kv_stats(), core.scheduler_stats()
     steps, fused = sched["steps"], sched["fused_steps"]
@@ -2454,10 +2825,13 @@ def chunked_phase(torch, sat, ac, slot):
             kv["pages_in_use"] == kv["prefix_shared_pages"]
             == 4 * ac.n_regions // 8,
         "shared pages unchanged": len(snaps) == 4 and all(
-            all(torch.equal(v, layer[k][:, pages])
+            all(torch.equal(v, as_bits(layer[k])[:, pages])
                 for saved, layer in zip(saved_layers, core._slot_cache)
                 for k, v in saved.items())
             for pages, saved_layers in snaps.values()),
+        "every paged launch on the pool's storage": kv_dtype is None or all(
+            counts[f"{n}[{kv_dtype}]"] == counts[n]
+            for n in ("paged_decode_attention", "paged_prefill_attention")),
         "chunk + prompt == phase 6's prefix + prompt":
             by_kind.get("chunk", 0) + by_kind.get("prompt", 0)
             == by_kind6.get("prefix", 0) + by_kind6.get("prompt", 0),
@@ -2515,9 +2889,11 @@ def chunked_phase(torch, sat, ac, slot):
            "device_busy_share": busy, "profile": prof, "launches": counts,
            "prefill_launches_by_route": ops.launches_by_route(
                counts, "paged_prefill_attention"),
+           "kv_dtype": kv_dtype,
            "prefill_on_path_inputs": prefill_on_path_inputs(
-               torch, held["paged_prefill_attention"])}
-    log(f"  chunked: {len(out)} requests in {wall:.2f} s, {steps} steps "
+               torch, held["paged_prefill_attention"],
+               phase=11 if kv_dtype else 8)}
+    log(f"  {tag}: {len(out)} requests in {wall:.2f} s, {steps} steps "
         f"({fused} fused), fused step {res['fused_step_ms_mean']:.2f} ms, "
         f"plain step {res['plain_step_ms_mean']:.2f} ms, "
         f"{n_tok / wall:.1f} answer tokens/s, det token gap "
@@ -2527,44 +2903,71 @@ def chunked_phase(torch, sat, ac, slot):
         f"{busy if busy is None else round(busy, 3)}, device "
         f"{prof and round(prof['device_ms_per_step'], 3)} ms a profiled "
         f"fused step")
-    log(f"  chunked checks: {checks}")
-    log("chunked_phase " + json.dumps(res))
+    log(f"  {tag} checks: {checks}")
+    if kv_dtype is None:
+        log("chunked_phase " + json.dumps(res))
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        raise RuntimeError(f"chunked phase failed: {bad}")
-    return res
+        raise RuntimeError(f"{tag} failed: {bad}")
+    return dict(res, tokens=toks)
 
 
-def prefill_on_path_inputs(torch, calls):
-    """The prefix-append kernel's tensor-core route held to its bound on
-    phase 8's own inputs: the first layer's call of the first fused step
-    with decoding slots, with its tile plan (the rows the plan covers) and
-    without it (every row), after the phase's counts were read."""
-    from repro_torch.kernels import ops
+def prefill_on_path_inputs(torch, calls, phase: int = 8):
+    """The prefix-append kernel's tensor-core route held to its bound on a
+    chunked phase's own inputs: the first layer's call of the first fused
+    step with decoding slots, with its tile plan (the rows the plan covers)
+    and without it (every row), after the phase's counts were read; an
+    8-bit pool against its dequantized plain version."""
+    from repro_torch.kernels import ops, ref
     errors, out = [], {}
-    log("paged_prefill_attention on phase 8's own inputs (mma route)")
+    log(f"paged_prefill_attention on phase {phase}'s own inputs (mma "
+        f"route)")
     if not calls:
-        raise RuntimeError("chunked phase: no fused step with decoding "
+        raise RuntimeError(f"phase {phase}: no fused step with decoding "
                            "slots reached the prefix-append op")
     (q, k_pool, v_pool, table, lens), kw = calls[0]
+    kw = dict(kw)
     plan = kw.pop("plan")
+    scales = {k: kw.pop(k) for k in ("k_scale", "v_scale") if k in kw}
+    kd = ref.dequantize_pool(k_pool, scales.get("k_scale"))
+    vd = ref.dequantize_pool(v_pool, scales.get("v_scale"))
     tiles = int((plan[1] > 0).sum())
     for tag, p, rows in (("plan", plan, plan_rows(torch, plan, q.shape[0])),
                          ("no plan", None,
                           torch.ones(q.shape[0], dtype=torch.bool,
                                      device=q.device))):
-        case = (f"phase 8 fused step B{q.shape[0]} {int(rows.sum())} rows "
-                f"{tiles} tiles, {tag}")
+        case = (f"phase {phase} fused step B{q.shape[0]} {int(rows.sum())} "
+                f"rows {tiles} tiles, {tag}")
         err, share = check_mma_rows(
             "paged_prefill", ops.paged_prefill_attention(
-                q, k_pool, v_pool, table, lens, plan=p, **kw),
-            q, k_pool, v_pool, table, lens, rows, kw, case, errors)
+                q, k_pool, v_pool, table, lens, plan=p, **kw, **scales),
+            q, kd, vd, table, lens, rows, kw, case, errors)
         out[tag] = {"max_abs_err": err, "tolerance_share": share,
                     "rows": int(rows.sum()), "tiles": tiles}
     if errors:
-        raise RuntimeError(f"chunked phase: prefix-append outside its bound "
-                           f"on the path's own inputs: {errors}")
+        raise RuntimeError(f"phase {phase}: prefix-append outside its "
+                           f"bound on the path's own inputs: {errors}")
     return out
+
+
+def drain(core, requests):
+    """Admit ``requests`` into free slots as they free up and step ``core``
+    until every one is answered; their tokens in request order."""
+    out, queue = {}, list(requests)
+    while queue or core.active_count():
+        n = min(len(queue), len(core.free_slots()))
+        if n:
+            core.admit_many(queue[:n])
+            del queue[:n]
+        for r, t in core.step():
+            out[r.request_id] = t
+    return [out[r.request_id] for r in requests]
+
+
+def spec_small_requests():
+    """Phase 7's vqa/cls requests: two scenes of vqa, cls, vqa."""
+    return scene_stream(["vqa", "cls", "vqa"], 2, FULL_IMAGE, FULL_GRID,
+                        seed=400)
 
 
 def spec_phase(torch, sat, gs, ac):
@@ -2581,20 +2984,8 @@ def spec_phase(torch, sat, gs, ac):
     from repro_torch.serving import EngineCore, EngineCoreConfig
     av = ac.num_classes + 1
     gamma, n_layers = 4, gs.cfg.num_layers
-    small = scene_stream(["vqa", "cls", "vqa"], 2, FULL_IMAGE, FULL_GRID,
-                         seed=400)
+    small = spec_small_requests()
     det = scene_stream(["det"], 1, FULL_IMAGE, FULL_GRID, seed=500)[0]
-
-    def drain(core, requests):
-        out, queue = {}, list(requests)
-        while queue or core.active_count():
-            n = min(len(queue), len(core.free_slots()))
-            if n:
-                core.admit_many(queue[:n])
-                del queue[:n]
-            for r, t in core.step():
-                out[r.request_id] = t
-        return [out[r.request_id] for r in requests]
 
     # the 7B's greedy det answer on the non-speculative slot path
     plain = EngineCore(gs, ac, EngineCoreConfig(slots=4, answer_vocab=av))
@@ -2677,7 +3068,7 @@ def spec_phase(torch, sat, gs, ac):
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise RuntimeError(f"spec phase failed: {bad}")
-    return res
+    return dict(res, small_tokens=small_toks)
 
 
 def spec_gamma9(torch, sat, gs, ac, small, small_toks, drain):
@@ -2723,6 +3114,159 @@ def spec_gamma9(torch, sat, gs, ac, small, small_toks, drain):
             == n_layers * (steps + probe.admissions),
         "γ 9 paged decode on the tensor cores only": ok}
     return res
+
+
+def quant_phase(torch, sat, gs, ac, slot, spec, chunked):
+    """Phase 11: the slot path on 8-bit pools at full width, while the
+    2B/7B pair is loaded.  (i) Phase 6's stream through the 2B's
+    ``InferenceEngine`` with int8 pools (row 4), (ii) phase 8's chunked
+    stream with fp8 pools (rows 4 and 6), each with its phase's checks
+    (prefix hits and misses, pages, shared pages byte-unchanged, launches
+    per layer and route) and every paged launch counted under the pool's
+    storage; (ii') phase 8's scenes without their det requests, chunked on
+    int8 pools (row 6 on int8: every prefix-append launch on the tensor
+    cores and the int8 pool); (iii) phase 7's γ 4 7B engine drafted by the
+    2B on its vqa/cls
+    requests with int8 pools (row 5): verify launches per layer, on the
+    tensor cores, all on the int8 pool; (iv) a 2B engine given phase 6's
+    bf16 pool bytes as ``pool_bytes`` at int8: its page count is what
+    ``page_nbytes`` gives (4224 B a layer page against 8192 B in bf16).
+    Each quantized kernel is held to its bound on the path's own first
+    inputs.  Token agreement with the bf16 runs is reported through
+    ``kv_quant.compare_outputs``, not asserted (bf16 near-ties flip)."""
+    from repro_torch.kernels import kv_quant, ops
+    from repro_torch.serving import (EngineConfig, EngineCore,
+                                     EngineCoreConfig, InferenceEngine)
+    from repro_torch.serving.kv_pool import page_nbytes
+    t_phase = time.perf_counter()
+    av, res, checks = ac.num_classes + 1, {}, {}
+
+    def agreement(want, got):
+        return kv_quant.compare_outputs(dict(enumerate(want)),
+                                        dict(enumerate(got)))
+
+    # (i) row 4 on int8 pools; its first decode inputs held afterwards
+    int8, held = capture_inputs(
+        torch, lambda: slot_phase(torch, sat, ac, kv_dtype="int8"),
+        ["paged_decode_attention"])
+    res["slot_int8"] = {k: v for k, v in int8.items()
+                        if k not in ("tokens", "profile", "launches")}
+    res["slot_int8"]["agreement_with_phase_6"] = agreement(
+        slot["tokens"], int8["tokens"])
+    res["slot_int8"]["on_path_inputs"] = decode_on_path_inputs(
+        held, 11, "int8 slot path", need=("paged_decode_attention",))
+    checks["int8 slot path: prefix hits/misses == phase 6's"] = (
+        (int8["prefix_hits"], int8["prefix_misses"])
+        == (slot["prefix_hits"], slot["prefix_misses"]))
+
+    # (ii) rows 4 and 6 on fp8 pools
+    fp8 = chunked_phase(torch, sat, ac, slot, kv_dtype="fp8")
+    res["chunked_fp8"] = {k: v for k, v in fp8.items()
+                          if k not in ("tokens", "profile", "launches")}
+    res["chunked_fp8"]["agreement_with_phase_8"] = agreement(
+        chunked["tokens"], fp8["tokens"])
+
+    # (ii') row 6 on int8 pools: phase 8's scenes without their det
+    # requests (one-token answers), so every fused step streams a chunk
+    eng = InferenceEngine(sat.params, sat.cfg, ac,
+                          EngineConfig(slots=8, page_size=8, answer_vocab=av,
+                                       prefill_chunk=256, kv_dtype="int8"),
+                          device="cuda")
+    eng.warmup()
+    reqs = scene_stream(["cls", "vqa", "vqa", "vqa", "vqa"], 4, FULL_IMAGE,
+                        FULL_GRID, seed=300)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    short = served_tokens(eng.serve(reqs), reqs)
+    torch.cuda.synchronize()
+    short_counts = ops.launch_counts()
+    sched, st = eng.core.scheduler_stats(), eng.core.stats
+    checks.update({
+        "int8 chunked: answered": all(len(t) == 1 for t in short),
+        "int8 chunked: 16 hits, 4 misses":
+            (st["prefix_hits"], st["prefix_misses"]) == (16, 4),
+        "int8 chunked: prefill launches == layers x fused steps, all on "
+        "the tensor cores and the int8 pool":
+            short_counts["paged_prefill_attention_mma[int8]"]
+            == short_counts["paged_prefill_attention"]
+            == sat.cfg.num_layers * sched["fused_steps"] > 0})
+    res["chunked_int8_short"] = {
+        "requests": len(short), "fused_steps": sched["fused_steps"],
+        "steps": sched["steps"], "prefix_hits": st["prefix_hits"],
+        "prefix_misses": st["prefix_misses"]}
+    del eng
+
+    # (iii) row 5: the 7B's verify on int8 pools
+    small = spec_small_requests()
+    eng = EngineCore(gs, ac, EngineCoreConfig(slots=4, answer_vocab=av,
+                                              spec_gamma=4, kv_dtype="int8"),
+                     draft=sat)
+    eng.warmup()
+    probe = StepProbe(torch, eng, first=1 << 30)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with PrefillCounter() as prefills:
+        toks, held = capture_inputs(torch, lambda: drain(
+            eng, clone_requests(small)), list(PAGED_DECODE_OPS))
+    torch.cuda.synchronize()
+    spec_counts = ops.launch_counts()
+    prefills.check(spec_counts, "phase 11, 7B γ 4 on int8 pools")
+    n_layers, verify_steps = gs.cfg.num_layers, eng.stats["spec"]["steps"]
+    ok, by_route = decode_routes(spec_counts, "mma",
+                                 need=("paged_decode_attention",))
+    checks.update({
+        "int8 spec: answered": all(len(t) == 1 and 0 <= t.min()
+                                   and t.max() < av for t in toks),
+        "int8 spec: paged launches == layers x (verify steps + admissions)":
+            spec_counts["paged_decode_attention"]
+            == n_layers * (verify_steps + probe.admissions),
+        "int8 spec: every paged launch on the int8 pool":
+            spec_counts["paged_decode_attention[int8]"]
+            == spec_counts["paged_decode_attention"],
+        "int8 spec: decode on the tensor cores only": ok,
+        "int8 spec: a verify chunk reached the kernel":
+            bool(held["paged_multi_decode_attention"])})
+    res["spec_int8"] = {
+        "verify_steps": verify_steps, "admission_calls": probe.admissions,
+        "spec_stats": eng.spec_stats(), "decode_launches_by_route": by_route,
+        "agreement_with_phase_7": agreement(spec["small_tokens"], toks),
+        "on_path_inputs": decode_on_path_inputs(
+            held, 11, "int8 verify", need=PAGED_DECODE_OPS[1:])}
+
+    # (iv) pool_bytes: phase 6's bf16 pool bytes buy ~2x the int8 pages
+    budget = slot["kv_bytes_total"]
+    layer_page = {kind: page_nbytes(8, sat.cfg.num_kv_heads,
+                                    sat.cfg.resolved_head_dim, kv_dtype=kind,
+                                    fp_bytes=2) for kind in (None, "int8")}
+    sized = EngineCore(sat, ac, EngineCoreConfig(
+        slots=8, page_size=8, answer_vocab=av, kv_dtype="int8",
+        pool_bytes=budget))
+    kv = sized.kv_stats()
+    want = budget // (sat.cfg.num_layers * layer_page["int8"])
+    checks.update({
+        "layer page: 8192 B bf16, 4224 B int8":
+            (layer_page[None], layer_page["int8"]) == (8192, 4224),
+        "pool_bytes buys page_nbytes' count":
+            sized._n_pages == kv["n_pages"] == want,
+        "the live int8 pools fit the budget": kv["kv_bytes_total"] <= budget})
+    res["pool_bytes"] = {"budget": budget, "bf16_pages": slot["n_pages"],
+                         "int8_pages": kv["n_pages"],
+                         "layer_page_bytes": {str(k): v for k, v in
+                                              layer_page.items()},
+                         "int8_kv_bytes_total": kv["kv_bytes_total"],
+                         "int8_kv_scale_bytes": kv["kv_scale_bytes"]}
+    del sized
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 11 checks: {checks}")
+    log("quant_phase " + json.dumps(res))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"phase 11 failed: {bad}")
+    return {"launches": {"slot_serve_int8": int8["launches"],
+                         "chunked_serve_fp8": fp8["launches"],
+                         "chunked_serve_int8_short": short_counts,
+                         "spec_int8": spec_counts}}
 
 
 class FlashOnCudaCores:
@@ -3597,6 +4141,9 @@ def main() -> int:
     batch = batch_phase(torch, sat, gs, conf, ac, served)
     for name, cases in batch.pop("held").items():
         kernels[name].update(cases)
+
+    log("phase 11: the slot path on int8 and fp8 pools at full width")
+    quant = quant_phase(torch, sat, gs, ac, slot, spec, chunked)
     del sat, gs, conf
     torch.cuda.empty_cache()
 
@@ -3612,6 +4159,7 @@ def main() -> int:
                "chunked_serve": chunked["launches"],
                "batch_evaluator": batch["launches"],
                "cascade_server_spec": batch["spec_launches"],
+               **quant["launches"],
                **{f"xlstm {tag}": c for tag, c in xlstm["launches"].items()}}
     for tag, r in xlstm.items():
         for name, cases in r.get("kernel_vs_plain_max_abs_err", {}).items():
@@ -3639,6 +4187,13 @@ def main() -> int:
                 "paged_decode_attention": "a 2B q1",
                 "paged_prefill_attention_mma": "d 2B flat",
                 "paged_prefill_attention": "d 2B flat",
+                **{f"{n}[{kind}]": tag for kind in QUANT_POOLS
+                   for n, tag in (("paged_decode_attention_mma", "a 2B q1"),
+                                  ("paged_decode_attention", "a 2B q1"),
+                                  ("paged_prefill_attention_mma",
+                                   "d 2B flat"),
+                                  ("paged_prefill_attention",
+                                   "d 2B flat"))},
                 "ssm_scan_mma": "f xLSTM", "ssm_scan": "f xLSTM",
                 "slstm_scan_cluster": "g xLSTM",
                 "slstm_scan": "g xLSTM"}
@@ -3646,9 +4201,10 @@ def main() -> int:
     for name, tag in headline.items():
         shapes = kernels[name]
         m = shapes[tag]
+        base = name.split("[")[0]
         line.append({
-            "name": name, "route": "cuda", "source": SOURCE_OF[name],
-            "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": SOURCE_OF[base],
+            "replaces": REPLACES[base],
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),

@@ -11,6 +11,11 @@ the structure.  Three kinds of tree are accepted:
 
 ``to_numpy`` is the way back; a round trip is byte-equal.  bfloat16 leaves
 travel as ``ml_dtypes.bfloat16`` arrays, the type JAX hands out.
+
+``cache_from_numpy`` carries a KV-cache tree (the JAX package's
+``init_paged_cache`` leaves, quantized pools included: int8 as it is, fp8
+e4m3 as ``ml_dtypes.float8_e4m3fn``, byte for byte) without the parameter
+kinds' check.
 """
 from __future__ import annotations
 
@@ -44,6 +49,8 @@ def _leaf_to_torch(a: np.ndarray, device: torch.device,
         a = a.copy()
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(a)
     t = t.to(device)
@@ -61,11 +68,21 @@ def from_numpy(tree: Any, *, device: DeviceLike = None,
     return tree_map(lambda a: _leaf_to_torch(np.asarray(a), dev, dtype), tree)
 
 
+def cache_from_numpy(tree: Any, *, device: DeviceLike = None) -> Any:
+    """numpy KV-cache tree → tensors on ``device`` (the card unless
+    ``"cpu"`` is asked for), every leaf byte-equal, its dtype kept."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _leaf_to_torch(np.asarray(a), dev, None), tree)
+
+
 def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         import ml_dtypes  # the bf16 numpy type JAX uses; present beside JAX
         return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    if t.dtype == torch.float8_e4m3fn:
+        import ml_dtypes
+        return t.view(torch.uint8).numpy().view(ml_dtypes.float8_e4m3fn)
     return t.numpy()
 
 

@@ -3,15 +3,28 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 
 #define REPRO_NEG_INF (-1e30f)
 
-// dtype codes passed from Python: 0 = float32, 1 = bfloat16
-enum { DT_F32 = 0, DT_BF16 = 1 };
+// dtype codes passed from Python: 0 = float32, 1 = bfloat16; a paged
+// kernel's pool takes q's code (fp pool) or 2 = int8, 3 = fp8 e4m3
+// (kernels/build.py DTYPES, POOL_DTYPES)
+enum { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_F8 = 3 };
+
+typedef __nv_fp8_e4m3 fp8_t;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f32(fp8_t x) { return static_cast<float>(x); }
+
+// An 8-bit pool element: stored with a per-(page, slot, head) f32 scale,
+// and dequantized as to_f32(x) * scale (the JAX oracle's multiply).
+template <typename T> struct IsQ8 { static constexpr bool value = false; };
+template <> struct IsQ8<int8_t> { static constexpr bool value = true; };
+template <> struct IsQ8<fp8_t> { static constexpr bool value = true; };
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -58,24 +71,43 @@ __device__ __forceinline__ float apply_softcap(float s, float softcap) {
 // about one memory latency, not one per element).  Needs hd == HD, rows
 // 16-byte aligned; rows >= nrows read as zero.  fetch() and store() are
 // split so a kernel can fetch the next tile while it computes on this one.
+// An 8-bit T (16 elements a chunk) also fetches each chunk's row scale and
+// stores to_f32(x) * scale.
 template <typename T, int ROWS, int HD, int THREADS>
 struct TileLoader {
+  static constexpr bool SCALED = IsQ8<T>::value;
   static constexpr int EPC = 16 / (int)sizeof(T);   // elements per chunk
   static constexpr int CPR = HD / EPC;              // chunks per row
-  static constexpr int PER = ROWS * CPR / THREADS;  // chunks per thread
-  static_assert(ROWS * CPR % THREADS == 0, "tile must split evenly");
+  static constexpr int N = ROWS * CPR;              // chunks per tile
+  static constexpr int PER = (N + THREADS - 1) / THREADS;  // per thread
   uint4 buf[PER];
+  float sc[SCALED ? PER : 1];
+
+  // chunk j of this thread exists (a tile of fewer chunks than threads:
+  // 8-bit rows at HD 32 on 8 warps)
+  __device__ __forceinline__ static bool has(int c) {
+    return N % THREADS == 0 || c < N;
+  }
 
   // Rows at ``row(r)`` (a pointer to row r's first element), any addressing:
-  // strided for a dense cache, through a block table for a paged one.
-  template <typename RowFn>
-  __device__ __forceinline__ void fetch_rows(const RowFn& row, int nrows) {
+  // strided for a dense cache, through a block table for a paged one;
+  // ``scale(r)`` row r's scale (read for an 8-bit T only).
+  template <typename RowFn, typename ScaleFn>
+  __device__ __forceinline__ void fetch_rows(const RowFn& row,
+                                             const ScaleFn& scale, int nrows) {
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const int c = threadIdx.x + j * THREADS, r = c / CPR, e = (c % CPR) * EPC;
-      buf[j] = r < nrows ? __ldg(reinterpret_cast<const uint4*>(row(r) + e))
-                         : make_uint4(0u, 0u, 0u, 0u);
+      const bool in = has(c) && r < nrows;
+      buf[j] = in ? __ldg(reinterpret_cast<const uint4*>(row(r) + e))
+                  : make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (SCALED) sc[j] = in ? scale(r) : 0.f;
     }
+  }
+
+  template <typename RowFn>
+  __device__ __forceinline__ void fetch_rows(const RowFn& row, int nrows) {
+    fetch_rows(row, [](int) { return 1.f; }, nrows);
   }
 
   __device__ __forceinline__ void fetch(const T* __restrict__ src, int64_t rs,
@@ -87,27 +119,52 @@ struct TileLoader {
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const int c = threadIdx.x + j * THREADS, r = c / CPR, e = (c % CPR) * EPC;
+      if (!has(c)) continue;
       const T* x = reinterpret_cast<const T*>(&buf[j]);
       float* d = dst + r * ss + e;
 #pragma unroll
-      for (int i = 0; i < EPC; i += 4)
-        *reinterpret_cast<float4*>(d + i) =
-            make_float4(to_f32(x[i]), to_f32(x[i + 1]), to_f32(x[i + 2]), to_f32(x[i + 3]));
+      for (int i = 0; i < EPC; i += 4) {
+        float4 f = make_float4(to_f32(x[i]), to_f32(x[i + 1]), to_f32(x[i + 2]),
+                               to_f32(x[i + 3]));
+        if constexpr (SCALED) {
+          f.x *= sc[j];
+          f.y *= sc[j];
+          f.z *= sc[j];
+          f.w *= sc[j];
+        }
+        *reinterpret_cast<float4*>(d + i) = f;
+      }
     }
   }
 };
 
 // The element-wise fallback of TileLoader for head dims below the padded HD
-// (the proxies' 12 and 16): dims >= hd and rows >= nrows read as zero.
+// (the proxies' 12 and 16): dims >= hd and rows >= nrows read as zero; an
+// 8-bit T stores to_f32(x) * scale(r).
+template <typename T, int ROWS, int HD, int THREADS, typename RowFn,
+          typename ScaleFn>
+__device__ __forceinline__ void load_rows_scalar(float* __restrict__ dst, int ss,
+                                                 const RowFn& row,
+                                                 const ScaleFn& scale,
+                                                 int nrows, int hd) {
+#pragma unroll 8
+  for (int i = threadIdx.x; i < ROWS * HD; i += THREADS) {
+    const int r = i / HD, d = i % HD;
+    float x = 0.f;
+    if (r < nrows && d < hd) {
+      x = to_f32(row(r)[d]);
+      if constexpr (IsQ8<T>::value) x *= scale(r);
+    }
+    dst[r * ss + d] = x;
+  }
+}
+
 template <typename T, int ROWS, int HD, int THREADS, typename RowFn>
 __device__ __forceinline__ void load_rows_scalar(float* __restrict__ dst, int ss,
                                                  const RowFn& row, int nrows,
                                                  int hd) {
-#pragma unroll 8
-  for (int i = threadIdx.x; i < ROWS * HD; i += THREADS) {
-    const int r = i / HD, d = i % HD;
-    dst[r * ss + d] = (r < nrows && d < hd) ? to_f32(row(r)[d]) : 0.f;
-  }
+  load_rows_scalar<T, ROWS, HD, THREADS>(
+      dst, ss, row, [](int) { return 1.f; }, nrows, hd);
 }
 
 template <typename T, int ROWS, int HD, int THREADS>
@@ -141,18 +198,35 @@ static cudaError_t allow_smem(K kernel, size_t bytes) {
 
 // Where key s of one (batch row, KV head) lives.  Dense: base + s·ss.
 // Paged: base + tbl[s / page]·sn + (s % page)·ss, base already offset to
-// the KV head and tbl to the batch row's block-table entries.
+// the KV head and tbl to the batch row's block-table entries.  An 8-bit
+// pool's scale of key s: sbase + tbl[s / page]·ssn + (s % page)·sss, the
+// same table entry as its page (sbase offset to the KV head).
 template <typename T, bool PAGED>
 struct KvRows {
   const T* base;
   const int* tbl;       // this batch row's block-table entries (paged)
   int64_t sn, ss;
   int page;
+  const float* sbase;   // 8-bit pools: the scales, else unused
+  int64_t ssn, sss;
   __device__ __forceinline__ const T* operator()(int s) const {
     if (!PAGED) return base + s * ss;
     const int blk = s / page;
     return base + (int64_t)__ldg(tbl + blk) * sn + (int64_t)(s - blk * page) * ss;
   }
+  __device__ __forceinline__ float scale(int s) const {
+    if (!PAGED) return __ldg(sbase + s * sss);
+    const int blk = s / page;
+    return __ldg(sbase + (int64_t)__ldg(tbl + blk) * ssn +
+                 (int64_t)(s - blk * page) * sss);
+  }
+};
+
+// The scale operands of a paged launch: k's and v's scale pointers and
+// their (page, head, slot) strides; null for an fp pool.
+struct KvScales {
+  const float *k, *v;
+  int64_t k_sn, k_sh, k_ss, v_sn, v_sh, v_ss;
 };
 
 // ---------------------------------------------------------------------------
@@ -206,7 +280,9 @@ __device__ __forceinline__ void load_q_rows(float* qs, const T* q, int64_t q_sr,
 }
 
 // Fold keys [k_begin, k_end) into every row's state, tile by tile; tiles
-// wholly below ``lo`` (no row's window reaches them) are skipped.  k_begin
+// wholly below ``lo`` (no row's window reaches them) are skipped.  T is the
+// cache's element type: f32, bf16, or an 8-bit pool whose keys dequantize
+// in f32 as the tile loads (krow.scale / vrow.scale).  k_begin
 // is a multiple of ATT_BK or a split start; keys >= k_end are never read.
 // The block's row r is row row0 + r of the chunk (a row tile keeps the
 // global index in its mask).  Every bound is block-uniform (the loop holds
@@ -227,17 +303,19 @@ __device__ __forceinline__ void attend_tiles(
     if (k0 + ATT_BK <= lo) continue;           // block-uniform skip
     const int nk = k_end - k0;
     __syncthreads();
+    const auto kat = [&](int r) { return krow(k0 + r); };
+    const auto vat = [&](int r) { return vrow(k0 + r); };
+    const auto ksc = [&](int r) { return krow.scale(k0 + r); };
+    const auto vsc = [&](int r) { return vrow.scale(k0 + r); };
     if (vec) {                                 // K and V both in flight
       TileLoader<T, ATT_BK, HD, THREADS> kl, vl;
-      kl.fetch_rows([&](int r) { return krow(k0 + r); }, nk);
-      vl.fetch_rows([&](int r) { return vrow(k0 + r); }, nk);
+      kl.fetch_rows(kat, ksc, nk);
+      vl.fetch_rows(vat, vsc, nk);
       kl.store(ks, KST);
       vl.store(vs, HD);
     } else {
-      load_rows_scalar<T, ATT_BK, HD, THREADS>(
-          ks, KST, [&](int r) { return krow(k0 + r); }, nk, hd);
-      load_rows_scalar<T, ATT_BK, HD, THREADS>(
-          vs, HD, [&](int r) { return vrow(k0 + r); }, nk, hd);
+      load_rows_scalar<T, ATT_BK, HD, THREADS>(ks, KST, kat, ksc, nk, hd);
+      load_rows_scalar<T, ATT_BK, HD, THREADS>(vs, HD, vat, vsc, nk, hd);
     }
     __syncthreads();
 

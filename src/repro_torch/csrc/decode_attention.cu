@@ -7,9 +7,11 @@
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention_pallas
 // (dense decode of the batch path, models/layers.py mode="decode", and the
 // q_len > 1 token-major chunk of ops.multi_decode_attention), and
-// src/repro/kernels/decode_attention.py::paged_decode_attention_pallas for
-// fp pools (the slot path's paged decode at q_len 1 and the speculative
-// verifier at q_len = gamma + 1, ops.paged_multi_decode_attention).
+// src/repro/kernels/decode_attention.py::paged_decode_attention_pallas (the
+// slot path's paged decode at q_len 1 and the speculative verifier at
+// q_len = gamma + 1, ops.paged_multi_decode_attention), over fp pools and
+// over int8 / fp8 (e4m3) pools with their per-(page, slot, head) f32
+// scales (the k_scale / v_scale operands of the TPU kernel).
 //
 // What bounds it on this card: bytes.  A row group reads its cache_len x hd
 // K and V once and does ~4·hd FLOPs per (query row, key), a few FLOPs per
@@ -40,6 +42,12 @@
 //    token's hd vector is contiguous, so the 16-byte loads stay.  The block
 //    reads its own table entries (no scalar prefetch on this card).  The
 //    split plan comes from the table width, never from the lengths.
+//  * 8-bit pools (the kernel templated on the pool's element type): a
+//    16-byte load carries 16 keys' dims, and each key's f32 scale is read
+//    through the same table entry as its page; the tile is dequantized in
+//    f32 (to_f32(x) * scale, the JAX dequant route's multiply) on its way
+//    to shared memory, so the attention body is the fp pool's.  It moves
+//    half the bytes of a bf16 pool, plus 4 bytes a key and head.
 //  * Per-row cache_len (a scalar broadcasts in the wrapper), clipped to the
 //    cache: keys at or past cache_len are never read (their tile rows load
 //    as zeros), and tiles outside [lo, cache_len) are skipped; rows with
@@ -56,10 +64,11 @@ namespace {
 constexpr int DA_MAX_ROWS = 8 * ATT_RPW;   // 8 warps
 constexpr int DA_COMBINE_THREADS = 128;    // >= hd: one thread per output dim
 
-template <typename T, int HD, int WARPS, bool PAGED>
+template <typename T, typename KT, int HD, int WARPS, bool PAGED>
 __global__ void __launch_bounds__(WARPS * 32)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ tbl,
+decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ k,
+                    const KT* __restrict__ v, KvScales sc,
+                    const int* __restrict__ tbl,
                     const int* __restrict__ cache_len,
                     float* __restrict__ part_acc, float* __restrict__ part_ml,
                     int KH, int rows, int tile_rows, int q_len, int S,
@@ -85,10 +94,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int len = min(cache_len[b], S);
 
   // dense: k_s0 is the batch stride; paged: the page stride
-  const KvRows<T, PAGED> krow{k + (PAGED ? 0 : b * k_s0) + kh * k_sh,
-                              tbl + b * tbl_sb, k_s0, k_ss, page};
-  const KvRows<T, PAGED> vrow{v + (PAGED ? 0 : b * v_s0) + kh * v_sh,
-                              tbl + b * tbl_sb, v_s0, v_ss, page};
+  const KvRows<KT, PAGED> krow{k + (PAGED ? 0 : b * k_s0) + kh * k_sh,
+                               tbl + b * tbl_sb, k_s0, k_ss, page,
+                               sc.k + kh * sc.k_sh, sc.k_sn, sc.k_ss};
+  const KvRows<KT, PAGED> vrow{v + (PAGED ? 0 : b * v_s0) + kh * v_sh,
+                               tbl + b * tbl_sb, v_s0, v_ss, page,
+                               sc.v + kh * sc.v_sh, sc.v_sn, sc.v_ss};
   load_q_rows<T, HD, WARPS>(qs, q + b * q_sb + kh * q_sh + r0 * q_sr, q_sr,
                             nrows, hd, vec);
 
@@ -99,7 +110,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lo = window > 0 ? max(len - window - (q_len - 1), 0) : 0;
   const int s0 = split * split_len;
   const int s1 = min(len, s0 + split_len);
-  attend_tiles<T, HD, WARPS, PAGED>(st, qs, ks, vs, krow, vrow, s0, s1, lo,
+  attend_tiles<KT, HD, WARPS, PAGED>(st, qs, ks, vs, krow, vrow, s0, s1, lo,
                                     nrows, r0, group, len - (q_len - 1),
                                     window, softcap, scale, hd, vec);
 
@@ -164,6 +175,7 @@ decode_combine_kernel(const float* __restrict__ part_acc,
 // or one slot within a page (paged).
 struct DecodeArgs {
   const void *q, *k, *v;
+  KvScales sc;
   const int* tbl;
   const int* cache_len;
   void* o;
@@ -176,21 +188,22 @@ struct DecodeArgs {
   int vec;
 };
 
-template <typename T, int HD, int WARPS, bool PAGED>
+template <typename T, typename KT, int HD, int WARPS, bool PAGED>
 cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
   constexpr size_t smem = att_smem_bytes<HD, WARPS>();
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = allow_smem(decode_split_kernel<T, HD, WARPS, PAGED>, smem);
+    cudaError_t e =
+        allow_smem(decode_split_kernel<T, KT, HD, WARPS, PAGED>, smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const long long* st = a.st;
   const int row_tiles = (a.rows + a.tile_rows - 1) / a.tile_rows;
-  decode_split_kernel<T, HD, WARPS, PAGED>
+  decode_split_kernel<T, KT, HD, WARPS, PAGED>
       <<<dim3(a.splits, a.KH * row_tiles, a.B), WARPS * 32, smem, stream>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-          static_cast<const T*>(a.v), a.tbl, a.cache_len, a.part_acc,
+          static_cast<const T*>(a.q), static_cast<const KT*>(a.k),
+          static_cast<const KT*>(a.v), a.sc, a.tbl, a.cache_len, a.part_acc,
           a.part_ml, a.KH, a.rows, a.tile_rows, a.q_len, a.S, a.hd,
           a.split_len, st[0],
           st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], a.tbl_sb,
@@ -207,21 +220,35 @@ cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, bool PAGED>
+template <typename T, typename KT, bool PAGED>
 cudaError_t dispatch_hd(const DecodeArgs& a, cudaStream_t stream) {
   if (a.tile_rows <= 32) {
-    if (a.hd <= 32) return launch<T, 32, 4, PAGED>(a, stream);
-    if (a.hd <= 64) return launch<T, 64, 4, PAGED>(a, stream);
-    return launch<T, 128, 4, PAGED>(a, stream);
+    if (a.hd <= 32) return launch<T, KT, 32, 4, PAGED>(a, stream);
+    if (a.hd <= 64) return launch<T, KT, 64, 4, PAGED>(a, stream);
+    return launch<T, KT, 128, 4, PAGED>(a, stream);
   }
   if (!PAGED) return cudaErrorInvalidValue;   // dense row tiles: <= 32
-  if (a.hd <= 32) return launch<T, 32, 8, PAGED>(a, stream);
-  if (a.hd <= 64) return launch<T, 64, 8, PAGED>(a, stream);
-  return launch<T, 128, 8, PAGED>(a, stream);
+  if (a.hd <= 32) return launch<T, KT, 32, 8, PAGED>(a, stream);
+  if (a.hd <= 64) return launch<T, KT, 64, 8, PAGED>(a, stream);
+  return launch<T, KT, 128, 8, PAGED>(a, stream);
+}
+
+// the pool's element type: q's (fp pool), or int8 / e4m3 with scales
+// (paged only)
+template <typename T, bool PAGED>
+cudaError_t dispatch_kv(const DecodeArgs& a, int dtype, int kv,
+                        cudaStream_t stream) {
+  if (kv == dtype) return dispatch_hd<T, T, PAGED>(a, stream);
+  if constexpr (PAGED) {
+    if (a.sc.k == nullptr || a.sc.v == nullptr) return cudaErrorInvalidValue;
+    if (kv == DT_I8) return dispatch_hd<T, int8_t, true>(a, stream);
+    if (kv == DT_F8) return dispatch_hd<T, fp8_t, true>(a, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <bool PAGED>
-int run(DecodeArgs& a, int dtype, void* stream) {
+int run(DecodeArgs& a, int dtype, int kv, void* stream) {
   const int max_rows = PAGED ? DA_MAX_ROWS : 32;
   if (a.hd < 1 || a.hd > 128 || a.hd % 4 != 0 || a.rows < 1 ||
       a.tile_rows < 1 || a.tile_rows > max_rows || a.q_len < 1 ||
@@ -232,17 +259,19 @@ int run(DecodeArgs& a, int dtype, void* stream) {
     return (int)cudaErrorInvalidValue;
   const int hd_pad = a.hd <= 32 ? 32 : (a.hd <= 64 ? 64 : 128);
   const int elem = dtype == DT_BF16 ? 2 : 4;
+  const int kelem = kv == DT_I8 || kv == DT_F8 ? 1 : elem;
   // 16-byte tile loads: full-width rows and every stride that reaches a
   // row (head, page or batch) keeping 16-byte alignment
   a.vec = rows_vectorisable(a.q, a.st[2], a.hd, hd_pad, elem) &&
           strides_aligned(a.st[0], a.st[1], elem) &&
-          rows_vectorisable(a.k, a.st[5], a.hd, hd_pad, elem) &&
-          strides_aligned(a.st[3], a.st[4], elem) &&
-          rows_vectorisable(a.v, a.st[8], a.hd, hd_pad, elem) &&
-          strides_aligned(a.st[6], a.st[7], elem);
+          rows_vectorisable(a.k, a.st[5], a.hd, hd_pad, kelem) &&
+          strides_aligned(a.st[3], a.st[4], kelem) &&
+          rows_vectorisable(a.v, a.st[8], a.hd, hd_pad, kelem) &&
+          strides_aligned(a.st[6], a.st[7], kelem);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_BF16) return (int)dispatch_hd<__nv_bfloat16, PAGED>(a, s);
-  if (dtype == DT_F32) return (int)dispatch_hd<float, PAGED>(a, s);
+  if (dtype == DT_BF16)
+    return (int)dispatch_kv<__nv_bfloat16, PAGED>(a, dtype, kv, s);
+  if (dtype == DT_F32) return (int)dispatch_kv<float, PAGED>(a, dtype, kv, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -263,33 +292,42 @@ extern "C" int decode_attention_fwd(
     long long o_sb, long long o_sh, long long o_sr,
     int splits, int split_len, int window, float softcap, float scale,
     int dtype, void* stream) {
-  DecodeArgs a{q, k, v, nullptr, cache_len, o, part_acc, part_ml,
+  DecodeArgs a{q, k, v, {nullptr, nullptr, 0, 0, 0, 0, 0, 0}, nullptr,
+               cache_len, o, part_acc, part_ml,
                B, KH, rows, tile_rows, q_len, S, hd,
                {q_sb, q_sh, q_sr, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                 o_sb, o_sh, o_sr},
                0, 1, splits, split_len, window, softcap, scale, 0};
-  return run<false>(a, dtype, stream);
+  return run<false>(a, dtype, dtype, stream);
 }
 
 // The paged form: k_pool/v_pool (n_pages, KH, page, hd) strided views (the
 // model's (n_pages, page, KH, hd) pools passed without a copy), block_table
 // (B, P) int32 with row stride tbl_sb, S = P·page.  Row tiles of
-// tile_rows <= 64.  The rest as decode_attention_fwd.
+// tile_rows <= 64.  kv_dtype: the pools' element type, dtype's code for an
+// fp pool, DT_I8 / DT_F8 for int8 / e4m3 pools, whose f32 scales k_scale /
+// v_scale are (n_pages, KH, page) strided views (strides ks_*/vs_*; null
+// for an fp pool).  The rest as decode_attention_fwd.
 extern "C" int paged_decode_attention_fwd(
     const void* q, const void* k_pool, const void* v_pool,
+    const float* k_scale, const float* v_scale,
     const int* block_table, const int* cache_len, void* o, float* part_acc,
     float* part_ml, int B, int KH, int rows, int tile_rows, int q_len, int P,
     int page,
     int hd, long long q_sb, long long q_sh, long long q_sr,
     long long k_sn, long long k_sh, long long k_sp,
-    long long v_sn, long long v_sh, long long v_sp, long long tbl_sb,
+    long long v_sn, long long v_sh, long long v_sp,
+    long long ks_sn, long long ks_sh, long long ks_sp,
+    long long vs_sn, long long vs_sh, long long vs_sp, long long tbl_sb,
     long long o_sb, long long o_sh, long long o_sr,
     int splits, int split_len, int window, float softcap, float scale,
-    int dtype, void* stream) {
-  DecodeArgs a{q, k_pool, v_pool, block_table, cache_len, o, part_acc,
+    int dtype, int kv_dtype, void* stream) {
+  DecodeArgs a{q, k_pool, v_pool,
+               {k_scale, v_scale, ks_sn, ks_sh, ks_sp, vs_sn, vs_sh, vs_sp},
+               block_table, cache_len, o, part_acc,
                part_ml, B, KH, rows, tile_rows, q_len, P * page, hd,
                {q_sb, q_sh, q_sr, k_sn, k_sh, k_sp, v_sn, v_sh, v_sp,
                 o_sb, o_sh, o_sr},
                tbl_sb, page, splits, split_len, window, softcap, scale, 0};
-  return run<true>(a, dtype, stream);
+  return run<true>(a, dtype, kv_dtype, stream);
 }

@@ -5,11 +5,13 @@
 //
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention_pallas
 // (dense decode of the batch path and the drafter, and the q_len > 1 chunk
-// of ops.multi_decode_attention), ::paged_decode_attention_pallas for fp
-// pools (the slot path's paged decode at q_len 1 and the speculative
-// verifier at q_len = gamma + 1) and ::paged_prefill_attention_pallas for
-// fp pools (the chunked engine's fused step, through
-// paged_prefill_attention_mma_fwd), on the route
+// of ops.multi_decode_attention), ::paged_decode_attention_pallas (the
+// slot path's paged decode at q_len 1 and the speculative verifier at
+// q_len = gamma + 1) and ::paged_prefill_attention_pallas (the chunked
+// engine's fused step, through paged_prefill_attention_mma_fwd), the two
+// paged ones over bf16 pools and over int8 / fp8 (e4m3) pools with their
+// per-(page, slot, head) f32 scales (the TPU kernels' k_scale / v_scale
+// operands), on the route
 // kernels/decode_attention.py::route gives bf16 at hd 64/128.  float32 and
 // the other head dims stay on decode_attention.cu and
 // paged_prefill_attention.cu.
@@ -85,13 +87,28 @@
 //      token.  The grid spans the plan's fixed length; empty entries exit,
 //      and rows in no entry (the engine's padding rows) are not written.
 //
-// What it rounds: p to bf16 before PV, so it is held to |got - want| <=
-// 1e-5 + 2^-6·|want| + 2^-8·A with A = attention(q, k, |v|) (flash's
-// tensor-core bound), not to two bf16 ulps of the f32 plain version.
+//  * 8-bit pools (KT int8_t or fp8_t; paged modes only): the ring holds
+//    the stored bytes (a 16-byte cp.async carries 16 keys' dims) and each
+//    key's K and V scale (4-byte cp.async.ca, through the table entry of
+//    its page); after its copies land, each thread converts its own chunks
+//    to bf16 into one shared K/V tile in the swizzled layout the ldmatrix
+//    steps read, exactly (every int8 in [-127, 127] and every e4m3 value
+//    is a bf16 value), so the mma steps are the bf16 pool's.  The scales
+//    commute out of the products, JAX's native_dot algebra used for both
+//    types: dot(q, k·s) = dot(q, k)·s scales S's columns by k_scale in f32
+//    after QK^T, and dot(p, v·s) = dot(p·s^T, v) scales p's columns by
+//    v_scale before the bf16 pack (l sums the unscaled p).  A tile moves
+//    hd + 4 bytes a key and head for K and for V, against 2·hd in bf16.
+//
+// What it rounds: p (for 8-bit pools p·v_scale) to bf16 before PV, so it
+// is held to |got - want| <= 1e-5 + 2^-6·|want| + 2^-8·A with A =
+// attention(q, k, |v|) (flash's tensor-core bound; k, v dequantized for an
+// 8-bit pool), not to two bf16 ulps of the f32 plain version.
 //
 // Resources at hd 128: 96 KB of ring (3 x 32 KB) plus 1 KB of (m, l), two
 // blocks an SM; the partials reuse the ring after the last tile.  At hd 64
-// half of that, four blocks an SM.
+// half of that, four blocks an SM.  An 8-bit pool: a 49.5 KB ring (3 x
+// (16 KB + 512 B of scales)) and a 32 KB converted tile at hd 128.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -113,16 +130,23 @@ constexpr float MD_MASKED = REPRO_NEG_INF;   // a masked logit (base 2)
 // what a launch scores: dense decode, paged decode, paged prefix-append
 enum { MD_DENSE = 0, MD_PAGED = 1, MD_PREFILL = 2 };
 
-template <int HD>
+// Q8: an 8-bit pool, whose stage holds the stored K, V tiles and their
+// scales, converted to one bf16 K/V tile at CVT_OFF
+template <int HD, bool Q8 = false>
 struct MdLayout {
-  static constexpr int CHUNKS = HD / 8;               // 16 B per chunk
-  static constexpr int TILE_BYTES = MD_BK * HD * 2;   // one K or V tile
-  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // K then V
+  static constexpr int CHUNKS = HD / 8;               // 16 B bf16 chunks
+  static constexpr int TILE_BYTES = MD_BK * HD * 2;   // one bf16 K or V tile
+  static constexpr int RAW_BYTES = Q8 ? MD_BK * HD : TILE_BYTES;  // stored
+  static constexpr int SCALE_OFF = 2 * RAW_BYTES;     // Q8: [K, V][64] f32
+  static constexpr int STAGE_BYTES = 2 * RAW_BYTES + (Q8 ? 2 * MD_BK * 4 : 0);
   static constexpr int RING_BYTES = MD_STAGES * STAGE_BYTES;
+  static constexpr int CVT_OFF = RING_BYTES;          // Q8: K then V, bf16
+  static constexpr int CVT_BYTES = Q8 ? 2 * TILE_BYTES : 0;
   static constexpr int PST = HD + 8;                  // f32 partial row
   static constexpr int PART_BYTES = MD_WARPS * 16 * PST * 4;
-  static_assert(PART_BYTES <= RING_BYTES, "partials reuse the ring");
-  static constexpr int WML_OFF = RING_BYTES;          // [warp][16][2]
+  static_assert(PART_BYTES <= RING_BYTES + CVT_BYTES,
+                "partials reuse the ring");
+  static constexpr int WML_OFF = RING_BYTES + CVT_BYTES;  // [warp][16][2]
   static constexpr int ML_OFF = WML_OFF + MD_WARPS * 16 * 2 * 4;  // [64][2]
   static constexpr int BYTES = ML_OFF + MD_MAX_ROWS * 2 * 4;
 };
@@ -133,6 +157,26 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 4 bytes global -> shared (an 8-bit pool's scale); src_bytes 0 writes a
+// zero and reads nothing.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 16 stored 8-bit elements -> 16 bf16 (two 16-byte chunks), exactly
+template <typename KT>
+__device__ __forceinline__ void cvt16_bf16(const uint4& raw, uint4& lo,
+                                           uint4& hi) {
+  const KT* x = reinterpret_cast<const KT*>(&raw);
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) w[i] = pack_bf16(to_f32(x[2 * i]), to_f32(x[2 * i + 1]));
+  lo = make_uint4(w[0], w[1], w[2], w[3]);
+  hi = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
 __device__ __forceinline__ void prefetch_l1(const void* p) {
@@ -154,12 +198,13 @@ __device__ __forceinline__ uint32_t tile_off(int row, int ch) {
 }
 
 // KS key slices per tile: warp w takes 16-row fragment w / KS and keys
-// [(w % KS)·64/KS, +64/KS) of every tile.
-template <int HD, int KS, int MODE>
+// [(w % KS)·64/KS, +64/KS) of every tile.  KT: the cache's element type,
+// bf16, or int8_t / fp8_t for an 8-bit pool (paged modes) with scales sc.
+template <int HD, int KS, int MODE, typename KT>
 __global__ void __launch_bounds__(MD_THREADS)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
+                  const KT* __restrict__ k,
+                  const KT* __restrict__ v, KvScales sc,
                   const int* __restrict__ tbl,
                   const int* __restrict__ cache_len,
                   const int* __restrict__ plan,
@@ -170,8 +215,10 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   int64_t v_ss, int64_t tbl_sb, int64_t plan_st, int page,
                   int64_t o_sb, int64_t o_sh, int64_t o_sr, int window,
                   float softcap, float scale) {
-  using L = MdLayout<HD>;
+  constexpr bool Q8 = IsQ8<KT>::value;
+  using L = MdLayout<HD, Q8>;
   constexpr bool PAGED = MODE != MD_DENSE;
+  static_assert(!Q8 || PAGED, "8-bit caches are paged");
   constexpr int SW = MD_BK / KS;     // keys per warp per tile
   constexpr int NB = SW / 8;         // S n-blocks of 8 keys
   constexpr int KD = HD / 16;        // k-steps over hd (QK^T)
@@ -291,8 +338,10 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const int ntile = kb < s1 ? (s1 - kb + MD_BK - 1) / MD_BK : 0;
 
-  const __nv_bfloat16* kbase = k + (PAGED ? 0 : b * k_s0) + kh * k_sh;
-  const __nv_bfloat16* vbase = v + (PAGED ? 0 : b * v_s0) + kh * v_sh;
+  const KT* kbase = k + (PAGED ? 0 : b * k_s0) + kh * k_sh;
+  const KT* vbase = v + (PAGED ? 0 : b * v_s0) + kh * v_sh;
+  const float* ksbase = sc.k + kh * sc.k_sh;     // 8-bit pools' scales
+  const float* vsbase = sc.v + kh * sc.v_sh;
   const int* trow = tbl + b * tbl_sb;
   const uint32_t ring = smem_u32(md_smem);
   if (PAGED) {
@@ -310,10 +359,14 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // with a block table it reads the rows' entries first, all together, so
   // its copies wait on one round trip to memory per tile rather than one
   // per copy (each copy's "memory" clobber keeps the compiler from
-  // hoisting a later table read above an earlier copy).
-  constexpr int RPT = MD_BK * L::CHUNKS / MD_THREADS;   // 8 at hd 128
-  constexpr int ROW_STEP = MD_THREADS / L::CHUNKS;
-  const int ch = threadIdx.x % L::CHUNKS, row0 = threadIdx.x / L::CHUNKS;
+  // hoisting a later table read above an earlier copy).  An 8-bit row is
+  // RCH = HD / 16 chunks; the thread of chunk 0 of a row also copies the
+  // row's K and V scales.
+  constexpr int RCH = Q8 ? HD / 16 : L::CHUNKS;          // chunks a row
+  constexpr int RPT = MD_BK * RCH / MD_THREADS;          // 8 at hd 128
+  constexpr int ROW_STEP = MD_THREADS / RCH;
+  constexpr int EPC = Q8 ? 16 : 8;                       // elements a chunk
+  const int ch = threadIdx.x % RCH, row0 = threadIdx.x / RCH;
   auto load_tile = [&](int i) {
     if (i < ntile) {
       const int t0 = kb + i * MD_BK;
@@ -329,7 +382,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
         const int row = row0 + j * ROW_STEP, key = t0 + row;
-        const __nv_bfloat16 *ks = kbase, *vs = vbase;
+        const KT *ks = kbase, *vs = vbase;
+        const float *kss = ksbase, *vss = vsbase;
         int bytes = 0;
         if (key < s1) {
           int64_t ko, vo;
@@ -337,16 +391,30 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
             const int slot = key % page;
             ko = (int64_t)pg[j] * k_s0 + (int64_t)slot * k_ss;
             vo = (int64_t)pg[j] * v_s0 + (int64_t)slot * v_ss;
+            if (Q8) {
+              kss = ksbase + (int64_t)pg[j] * sc.k_sn + (int64_t)slot * sc.k_ss;
+              vss = vsbase + (int64_t)pg[j] * sc.v_sn + (int64_t)slot * sc.v_ss;
+            }
           } else {
             ko = (int64_t)key * k_ss;
             vo = (int64_t)key * v_ss;
           }
-          ks = kbase + ko + ch * 8;
-          vs = vbase + vo + ch * 8;
+          ks = kbase + ko + ch * EPC;
+          vs = vbase + vo + ch * EPC;
           bytes = 16;
         }
-        cp_async16(st + tile_off<HD>(row, ch), ks, bytes);
-        cp_async16(st + L::TILE_BYTES + tile_off<HD>(row, ch), vs, bytes);
+        if constexpr (Q8) {
+          // stored rows unswizzled (each thread reads back its own chunks)
+          cp_async16(st + row * HD + ch * 16, ks, bytes);
+          cp_async16(st + L::RAW_BYTES + row * HD + ch * 16, vs, bytes);
+          if (ch == 0) {
+            cp_async4(st + L::SCALE_OFF + row * 4, kss, bytes / 4);
+            cp_async4(st + L::SCALE_OFF + (MD_BK + row) * 4, vss, bytes / 4);
+          }
+        } else {
+          cp_async16(st + tile_off<HD>(row, ch), ks, bytes);
+          cp_async16(st + L::TILE_BYTES + tile_off<HD>(row, ch), vs, bytes);
+        }
       }
     }
     cp_async_commit();
@@ -363,10 +431,36 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int i = 0; i < ntile; ++i) {
     cp_async_wait<MD_STAGES - 1>();
-    __syncthreads();                   // tile i landed
+    const int stage = (i % MD_STAGES) * L::STAGE_BYTES;   // its offset
+    if constexpr (Q8) {
+      // this thread's own chunks of tile i (visible to it after the wait)
+      // to bf16 in the converted tile, which every warp finished reading
+      // at the end of the last iteration
+      const unsigned char* raw = md_smem + stage;
+      unsigned char* cvt = md_smem + L::CVT_OFF;
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int row = row0 + j * ROW_STEP;
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          const uint4 x = *reinterpret_cast<const uint4*>(
+              raw + kv * L::RAW_BYTES + row * HD + ch * 16);
+          uint4 lo, hi;
+          cvt16_bf16<KT>(x, lo, hi);
+          unsigned char* t = cvt + kv * L::TILE_BYTES;
+          *reinterpret_cast<uint4*>(t + tile_off<HD>(row, 2 * ch)) = lo;
+          *reinterpret_cast<uint4*>(t + tile_off<HD>(row, 2 * ch + 1)) = hi;
+        }
+      }
+    }
+    __syncthreads();                   // tile i landed (and converted)
     if (active) {
-      const uint32_t ks = ring + (i % MD_STAGES) * L::STAGE_BYTES;
+      const uint32_t ks = ring + (Q8 ? L::CVT_OFF : stage);
       const uint32_t vs = ks + L::TILE_BYTES;
+      // an 8-bit pool's per-key scales of tile i: K at [0, 64), V at
+      // [64, 128)
+      const float* kscl =
+          reinterpret_cast<const float*>(md_smem + stage + L::SCALE_OFF);
       const int key0 = slice * SW;        // this warp's first key in the tile
 
       // S = Q K^T over this warp's SW keys
@@ -384,6 +478,18 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
           ldmatrix_x4(kf, ks + tile_off<HD>(row, ch));
           mma_bf16(s[2 * n2], qf[kd], kf[0], kf[1]);
           mma_bf16(s[2 * n2 + 1], qf[kd], kf[2], kf[3]);
+        }
+      }
+      // column c of s[n][j]: key0 + n·8 + 2·(lane & 3) + (j & 1)
+      if constexpr (Q8) {
+#pragma unroll
+        for (int n = 0; n < NB; ++n) {
+          const float2 kc = *reinterpret_cast<const float2*>(
+              kscl + key0 + n * 8 + 2 * (lane & 3));
+          s[n][0] *= kc.x;
+          s[n][1] *= kc.y;
+          s[n][2] *= kc.x;
+          s[n][3] *= kc.y;
         }
       }
 
@@ -449,6 +555,17 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
       // O += P V: the S accumulators of keys 16kk..16kk+15 are the A
       // fragment of k-step kk, rounded to bf16
+      if constexpr (Q8) {               // p·v_scale, column by column
+#pragma unroll
+        for (int n = 0; n < NB; ++n) {
+          const float2 vc = *reinterpret_cast<const float2*>(
+              kscl + MD_BK + key0 + n * 8 + 2 * (lane & 3));
+          s[n][0] *= vc.x;
+          s[n][1] *= vc.y;
+          s[n][2] *= vc.x;
+          s[n][3] *= vc.y;
+        }
+      }
 #pragma unroll
       for (int kk = 0; kk < SW / 16; ++kk) {
         uint32_t pf[4];
@@ -568,6 +685,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 struct MdArgs {
   const void *q, *k, *v;
+  KvScales sc;          // 8-bit pools' scales (null for bf16)
   const int* tbl;
   const int* cache_len;
   const int* plan;      // prefix-append's tile plan, or null
@@ -585,15 +703,20 @@ int md_tiles(const MdArgs& a) {
   return a.tile_rows > 0 ? (a.rows + a.tile_rows - 1) / a.tile_rows : 0;
 }
 
+template <int HD, typename KT>
+constexpr int md_bytes() {
+  return MdLayout<HD, IsQ8<KT>::value>::BYTES;
+}
+
 // the kernel's shared memory and cluster attributes, set once
-template <int HD, int KS, int MODE>
+template <int HD, int KS, int MODE, typename KT>
 cudaError_t md_configure() {
-  auto kernel = decode_mma_kernel<HD, KS, MODE>;
+  auto kernel = decode_mma_kernel<HD, KS, MODE, KT>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        MdLayout<HD>::BYTES);
+        md_bytes<HD, KT>());
     if (e != cudaSuccess) return e;
     e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -605,13 +728,13 @@ cudaError_t md_configure() {
 
 // A launch of grid (splits, y, z) in clusters of ``splits`` blocks; attr
 // holds the cluster attribute cfg points at.
-template <int HD>
+template <int HD, typename KT>
 void md_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1],
                int splits, int y, int z, cudaStream_t stream) {
   cfg = {};
   cfg.gridDim = dim3(splits, y, z);
   cfg.blockDim = dim3(MD_THREADS);
-  cfg.dynamicSmemBytes = MdLayout<HD>::BYTES;
+  cfg.dynamicSmemBytes = md_bytes<HD, KT>();
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = splits;
@@ -621,20 +744,20 @@ void md_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1],
   cfg.numAttrs = 1;
 }
 
-template <int HD, int KS, int MODE>
+template <int HD, int KS, int MODE, typename KT>
 cudaError_t md_launch(const MdArgs& a, cudaStream_t stream) {
-  auto kernel = decode_mma_kernel<HD, KS, MODE>;
-  cudaError_t e = md_configure<HD, KS, MODE>();
+  auto kernel = decode_mma_kernel<HD, KS, MODE, KT>;
+  cudaError_t e = md_configure<HD, KS, MODE, KT>();
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  md_config<HD>(cfg, attr, a.splits, a.KH * md_tiles(a), a.plan ? 1 : a.B,
-                stream);
+  md_config<HD, KT>(cfg, attr, a.splits, a.KH * md_tiles(a),
+                    a.plan ? 1 : a.B, stream);
   const long long* st = a.st;
   e = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), a.tbl, a.cache_len, a.plan,
+      static_cast<const KT*>(a.k), static_cast<const KT*>(a.v), a.sc, a.tbl,
+      a.cache_len, a.plan,
       static_cast<__nv_bfloat16*>(a.o), a.B, a.KH, a.rows, a.tile_rows,
       a.q_len, a.S, a.split_len, (int64_t)st[0], (int64_t)st[1],
       (int64_t)st[2], (int64_t)st[3], (int64_t)st[4], (int64_t)st[5],
@@ -646,44 +769,66 @@ cudaError_t md_launch(const MdArgs& a, cudaStream_t stream) {
 }
 
 // the key slices per tile follow the row tile's fragment count
-template <int HD, int MODE>
+template <int HD, int MODE, typename KT>
 cudaError_t md_dispatch_ks(const MdArgs& a, cudaStream_t stream) {
   const int frags = (a.tile_rows + 15) / 16;
-  if (frags == 1) return md_launch<HD, 4, MODE>(a, stream);
-  if (frags == 2) return md_launch<HD, 2, MODE>(a, stream);
-  return md_launch<HD, 1, MODE>(a, stream);
+  if (frags == 1) return md_launch<HD, 4, MODE, KT>(a, stream);
+  if (frags == 2) return md_launch<HD, 2, MODE, KT>(a, stream);
+  return md_launch<HD, 1, MODE, KT>(a, stream);
 }
 
 // how many clusters of ``splits`` blocks of one instance the card holds
 // at once
-template <int HD, int KS, int MODE>
+template <int HD, int KS, int MODE, typename KT>
 cudaError_t md_max_clusters(int splits, int* n) {
-  cudaError_t e = md_configure<HD, KS, MODE>();
+  cudaError_t e = md_configure<HD, KS, MODE, KT>();
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  md_config<HD>(cfg, attr, splits, 1, 1, nullptr);
-  return cudaOccupancyMaxActiveClusters(n, decode_mma_kernel<HD, KS, MODE>,
-                                        &cfg);
+  md_config<HD, KT>(cfg, attr, splits, 1, 1, nullptr);
+  return cudaOccupancyMaxActiveClusters(
+      n, decode_mma_kernel<HD, KS, MODE, KT>, &cfg);
 }
 
 // the instance md_dispatch_ks launches for row tiles of tile_rows
-template <int HD, int MODE>
+template <int HD, int MODE, typename KT>
 cudaError_t md_max_clusters_ks(int tile_rows, int splits, int* n) {
   const int frags = (tile_rows + 15) / 16;
-  if (frags == 1) return md_max_clusters<HD, 4, MODE>(splits, n);
-  if (frags == 2) return md_max_clusters<HD, 2, MODE>(splits, n);
-  return md_max_clusters<HD, 1, MODE>(splits, n);
+  if (frags == 1) return md_max_clusters<HD, 4, MODE, KT>(splits, n);
+  if (frags == 2) return md_max_clusters<HD, 2, MODE, KT>(splits, n);
+  return md_max_clusters<HD, 1, MODE, KT>(splits, n);
 }
 
-template <int MODE>
+template <int MODE, typename KT>
 cudaError_t md_max_clusters_hd(int hd, int tile_rows, int splits, int* n) {
-  if (hd == 64) return md_max_clusters_ks<64, MODE>(tile_rows, splits, n);
-  return md_max_clusters_ks<128, MODE>(tile_rows, splits, n);
+  if (hd == 64) return md_max_clusters_ks<64, MODE, KT>(tile_rows, splits, n);
+  return md_max_clusters_ks<128, MODE, KT>(tile_rows, splits, n);
+}
+
+// the pool's element type: bf16 (DT_BF16), int8 (DT_I8) or e4m3 (DT_F8),
+// the 8-bit ones for the paged modes only; anything else fails
+template <int MODE>
+cudaError_t md_max_clusters_kv(int kv, int hd, int tile_rows, int splits,
+                               int* n) {
+  if (kv == DT_BF16)
+    return md_max_clusters_hd<MODE, __nv_bfloat16>(hd, tile_rows, splits, n);
+  if constexpr (MODE != MD_DENSE) {
+    if (kv == DT_I8)
+      return md_max_clusters_hd<MODE, int8_t>(hd, tile_rows, splits, n);
+    if (kv == DT_F8)
+      return md_max_clusters_hd<MODE, fp8_t>(hd, tile_rows, splits, n);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int MODE, typename KT>
+cudaError_t md_dispatch_hd(const MdArgs& a, cudaStream_t s) {
+  if (a.hd == 64) return md_dispatch_ks<64, MODE, KT>(a, s);
+  return md_dispatch_ks<128, MODE, KT>(a, s);
 }
 
 template <int MODE>
-int md_run(const MdArgs& a, void* stream) {
+int md_run(const MdArgs& a, int kv, void* stream) {
   const long long tiles = md_tiles(a);
   // decode splits cover [0, S) in split_len keys; prefix-append's share
   // each tile's own key range (split_len unused)
@@ -704,8 +849,14 @@ int md_run(const MdArgs& a, void* stream) {
   for (const void* p : ptrs)
     if ((uintptr_t)p % 16) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.hd == 64) return (int)md_dispatch_ks<64, MODE>(a, s);
-  return (int)md_dispatch_ks<128, MODE>(a, s);
+  if (kv == DT_BF16) return (int)md_dispatch_hd<MODE, __nv_bfloat16>(a, s);
+  if constexpr (MODE != MD_DENSE) {
+    if (a.sc.k == nullptr || a.sc.v == nullptr)
+      return (int)cudaErrorInvalidValue;
+    if (kv == DT_I8) return (int)md_dispatch_hd<MODE, int8_t>(a, s);
+    if (kv == DT_F8) return (int)md_dispatch_hd<MODE, fp8_t>(a, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -724,31 +875,40 @@ extern "C" int decode_attention_mma_fwd(
     long long v_ss, long long o_sb, long long o_sh, long long o_sr,
     int splits, int split_len, int window, float softcap, float scale,
     void* stream) {
-  MdArgs a{q, k, v, nullptr, cache_len, nullptr, o, B, KH, rows, tile_rows,
+  MdArgs a{q, k, v, {nullptr, nullptr, 0, 0, 0, 0, 0, 0}, nullptr,
+           cache_len, nullptr, o, B, KH, rows, tile_rows,
            q_len, S, hd, {q_sb, q_sh, q_sr, k_sb, k_sh, k_ss, v_sb, v_sh,
                           v_ss, o_sb, o_sh, o_sr},
            0, 0, 0, 1, splits, split_len, window, softcap, scale};
-  return md_run<MD_DENSE>(a, stream);
+  return md_run<MD_DENSE>(a, DT_BF16, stream);
 }
 
 // The paged form: k_pool/v_pool (n_pages, KH, page, hd) strided views,
-// block_table (B, P) int32 with row stride tbl_sb, S = P·page.  The rest
-// as decode_attention_mma_fwd.
+// block_table (B, P) int32 with row stride tbl_sb, S = P·page.  kv_dtype:
+// the pools' element type, DT_BF16, or DT_I8 / DT_F8 for int8 / e4m3
+// pools, whose f32 scales k_scale / v_scale are (n_pages, KH, page)
+// strided views (strides ks_* / vs_*; null for bf16 pools).  The rest as
+// decode_attention_mma_fwd.
 extern "C" int paged_decode_attention_mma_fwd(
     const void* q, const void* k_pool, const void* v_pool,
+    const float* k_scale, const float* v_scale,
     const int* block_table, const int* cache_len, void* o, int B, int KH,
     int rows, int tile_rows, int q_len, int P, int page, int hd,
     long long q_sb, long long q_sh, long long q_sr, long long k_sn,
     long long k_sh, long long k_sp, long long v_sn, long long v_sh,
-    long long v_sp, long long tbl_sb, long long o_sb, long long o_sh,
-    long long o_sr, int splits, int split_len, int window, float softcap,
-    float scale, void* stream) {
-  MdArgs a{q, k_pool, v_pool, block_table, cache_len, nullptr, o, B, KH,
+    long long v_sp, long long ks_sn, long long ks_sh, long long ks_sp,
+    long long vs_sn, long long vs_sh, long long vs_sp, long long tbl_sb,
+    long long o_sb, long long o_sh, long long o_sr, int splits,
+    int split_len, int window, float softcap, float scale, int kv_dtype,
+    void* stream) {
+  MdArgs a{q, k_pool, v_pool,
+           {k_scale, v_scale, ks_sn, ks_sh, ks_sp, vs_sn, vs_sh, vs_sp},
+           block_table, cache_len, nullptr, o, B, KH,
            rows, tile_rows, q_len, P * page, hd,
            {q_sb, q_sh, q_sr, k_sn, k_sh, k_sp, v_sn, v_sh, v_sp,
             o_sb, o_sh, o_sr},
            tbl_sb, 0, 0, page, splits, split_len, window, softcap, scale};
-  return md_run<MD_PAGED>(a, stream);
+  return md_run<MD_PAGED>(a, kv_dtype, stream);
 }
 
 // Paged prefix-append (chunked prefill): the paged form's operands, with
@@ -758,41 +918,48 @@ extern "C" int paged_decode_attention_mma_fwd(
 // one (q_len 1): plan[i] is the first batch row of entry i and
 // plan[plan_st + i] its row count, i < n_plan, consecutive rows sharing
 // the first one's table row, at most tile_rows / group of them; an entry
-// with count 0 is empty, and rows in no entry are not written.
+// with count 0 is empty, and rows in no entry are not written.  Pools and
+// scales as paged_decode_attention_mma_fwd's.
 extern "C" int paged_prefill_attention_mma_fwd(
     const void* q, const void* k_pool, const void* v_pool,
+    const float* k_scale, const float* v_scale,
     const int* block_table, const int* cache_len, const int* plan, void* o,
     int B, int KH, int rows, int tile_rows, int q_len, int P, int page,
     int hd, long long q_sb, long long q_sh, long long q_sr, long long k_sn,
     long long k_sh, long long k_sp, long long v_sn, long long v_sh,
-    long long v_sp, long long tbl_sb, long long o_sb, long long o_sh,
-    long long o_sr, int n_plan, long long plan_st, int splits, int window,
-    float softcap, float scale, void* stream) {
-  MdArgs a{q, k_pool, v_pool, block_table, cache_len, plan, o, B, KH, rows,
+    long long v_sp, long long ks_sn, long long ks_sh, long long ks_sp,
+    long long vs_sn, long long vs_sh, long long vs_sp, long long tbl_sb,
+    long long o_sb, long long o_sh, long long o_sr, int n_plan,
+    long long plan_st, int splits, int window, float softcap, float scale,
+    int kv_dtype, void* stream) {
+  MdArgs a{q, k_pool, v_pool,
+           {k_scale, v_scale, ks_sn, ks_sh, ks_sp, vs_sn, vs_sh, vs_sp},
+           block_table, cache_len, plan, o, B, KH, rows,
            tile_rows, q_len, P * page, hd,
            {q_sb, q_sh, q_sr, k_sn, k_sh, k_sp, v_sn, v_sh, v_sp,
             o_sb, o_sh, o_sr},
            tbl_sb, plan_st, n_plan, page, splits, 0, window, softcap, scale};
-  return md_run<MD_PREFILL>(a, stream);
+  return md_run<MD_PREFILL>(a, kv_dtype, stream);
 }
 
 // How many clusters of ``splits`` blocks (1..16) of the kernel in mode
-// ``mode`` (0 dense, 1 paged, 2 prefix-append) at head dim hd and row
-// tiles of tile_rows fit on the current device at once, into *n: the
+// ``mode`` (0 dense, 1 paged, 2 prefix-append) at head dim hd, row tiles
+// of tile_rows and cache element type kv_dtype (DT_BF16, or DT_I8 / DT_F8
+// in the paged modes) fit on the current device at once, into *n: the
 // wrappers plan their key splits with it.
 extern "C" int decode_attention_mma_max_clusters(int mode, int hd,
                                                  int tile_rows, int splits,
-                                                 int* n) {
+                                                 int kv_dtype, int* n) {
   if (mode < MD_DENSE || mode > MD_PREFILL || (hd != 64 && hd != 128) ||
       tile_rows < 1 || tile_rows > MD_MAX_ROWS || splits < 1 ||
       splits > MD_MAX_CLUSTER)
     return (int)cudaErrorInvalidValue;
   cudaError_t e;
   if (mode == MD_DENSE)
-    e = md_max_clusters_hd<MD_DENSE>(hd, tile_rows, splits, n);
+    e = md_max_clusters_kv<MD_DENSE>(kv_dtype, hd, tile_rows, splits, n);
   else if (mode == MD_PAGED)
-    e = md_max_clusters_hd<MD_PAGED>(hd, tile_rows, splits, n);
+    e = md_max_clusters_kv<MD_PAGED>(kv_dtype, hd, tile_rows, splits, n);
   else
-    e = md_max_clusters_hd<MD_PREFILL>(hd, tile_rows, splits, n);
+    e = md_max_clusters_kv<MD_PREFILL>(kv_dtype, hd, tile_rows, splits, n);
   return (int)e;
 }

@@ -2,10 +2,11 @@
 // f32 math.
 //
 // Replaces: src/repro/kernels/decode_attention.py::
-// paged_prefill_attention_pallas (body _prefill_append_kernel) for fp
-// pools: the scoring op of models/layers.py mode="prefill_append" through a
-// block table (ops.paged_prefill_attention), which the chunked engine's
-// fused token-budget step runs in every layer.
+// paged_prefill_attention_pallas (body _prefill_append_kernel), over fp
+// pools and over int8 / fp8 (e4m3) pools with their per-(page, slot, head)
+// f32 scales: the scoring op of models/layers.py mode="prefill_append"
+// through a block table (ops.paged_prefill_attention), which the chunked
+// engine's fused token-budget step runs in every layer.
 //
 // The function: q holds a q_len-token chunk per batch row whose K/V the
 // caller has just written into the page pools; chunk token t of row b sees
@@ -38,6 +39,9 @@
 //  * Keys resolve through the block table as they load:
 //    pool[tbl[b, s / page], kh, s % page, :], any page size, 16-byte loads
 //    where rows and strides allow (common.cuh's TileLoader and KvRows).
+//    An 8-bit pool (the kernel templated on its element type) reads each
+//    key's f32 scale through the same table entry and dequantizes the tile
+//    in f32 as it loads, as decode_attention.cu does.
 //  * cache_len is clipped to the table's span; keys at or past a row's
 //    length are never read; rows with cache_len == 0 (and chunk tokens
 //    whose effective length is <= 0) output zeros; optional logit softcap.
@@ -47,10 +51,11 @@ namespace {
 
 constexpr int PP_MAX_ROWS = 8 * ATT_RPW;   // q_blk·group, 8 warps
 
-template <typename T, int HD, int WARPS>
+template <typename T, typename KT, int HD, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32)
-prefill_append_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const int* __restrict__ tbl,
+prefill_append_kernel(const T* __restrict__ q, const KT* __restrict__ k,
+                      const KT* __restrict__ v, KvScales sc,
+                      const int* __restrict__ tbl,
                       const int* __restrict__ cache_len, T* __restrict__ o,
                       int q_len, int q_blk, int group, int S, int page,
                       int hd, int64_t q_sb, int64_t q_sh, int64_t q_sr,
@@ -79,15 +84,17 @@ prefill_append_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lo = window > 0 ? max(eff0 - window, 0) : 0;
 
   const int64_t r0 = (int64_t)t0 * group;           // first query row
-  const KvRows<T, true> krow{k + kh * k_sh, tbl + b * tbl_sb, k_sn, k_sp, page};
-  const KvRows<T, true> vrow{v + kh * v_sh, tbl + b * tbl_sb, v_sn, v_sp, page};
+  const KvRows<KT, true> krow{k + kh * k_sh, tbl + b * tbl_sb, k_sn, k_sp,
+                              page, sc.k + kh * sc.k_sh, sc.k_sn, sc.k_ss};
+  const KvRows<KT, true> vrow{v + kh * v_sh, tbl + b * tbl_sb, v_sn, v_sp,
+                              page, sc.v + kh * sc.v_sh, sc.v_sn, sc.v_ss};
   load_q_rows<T, HD, WARPS>(qs, q + b * q_sb + kh * q_sh + r0 * q_sr, q_sr,
                             rows, hd, vec);
 
   RowState<HD> st;
   st.init();
   if (hi > 0)
-    attend_tiles<T, HD, WARPS, true>(st, qs, ks, vs, krow, vrow,
+    attend_tiles<KT, HD, WARPS, true>(st, qs, ks, vs, krow, vrow,
                                      lo / ATT_BK * ATT_BK, hi, lo, rows, 0,
                                      group, eff0, window, softcap, scale, hd,
                                      vec);
@@ -110,6 +117,7 @@ prefill_append_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // v (page, h, slot), o (b, h, r) strides
 struct PrefillArgs {
   const void *q, *k, *v;
+  KvScales sc;
   const int* tbl;
   const int* cache_len;
   void* o;
@@ -121,21 +129,21 @@ struct PrefillArgs {
   int vec;
 };
 
-template <typename T, int HD, int WARPS>
+template <typename T, typename KT, int HD, int WARPS>
 cudaError_t launch(const PrefillArgs& a, cudaStream_t stream) {
   constexpr size_t smem = att_smem_bytes<HD, WARPS>();
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = allow_smem(prefill_append_kernel<T, HD, WARPS>, smem);
+    cudaError_t e = allow_smem(prefill_append_kernel<T, KT, HD, WARPS>, smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const long long* st = a.st;
   const int n_q = (a.q_len + a.q_blk - 1) / a.q_blk;
-  prefill_append_kernel<T, HD, WARPS>
+  prefill_append_kernel<T, KT, HD, WARPS>
       <<<dim3(n_q, a.KH, a.B), WARPS * 32, smem, stream>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-          static_cast<const T*>(a.v), a.tbl, a.cache_len,
+          static_cast<const T*>(a.q), static_cast<const KT*>(a.k),
+          static_cast<const KT*>(a.v), a.sc, a.tbl, a.cache_len,
           static_cast<T*>(a.o), a.q_len, a.q_blk, a.group, a.S, a.page,
           a.hd, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
           st[8], a.tbl_sb, st[9], st[10], st[11], a.window, a.softcap,
@@ -143,16 +151,27 @@ cudaError_t launch(const PrefillArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KT>
 cudaError_t dispatch_hd(const PrefillArgs& a, cudaStream_t stream) {
   if (a.q_blk * a.group <= 32) {
-    if (a.hd <= 32) return launch<T, 32, 4>(a, stream);
-    if (a.hd <= 64) return launch<T, 64, 4>(a, stream);
-    return launch<T, 128, 4>(a, stream);
+    if (a.hd <= 32) return launch<T, KT, 32, 4>(a, stream);
+    if (a.hd <= 64) return launch<T, KT, 64, 4>(a, stream);
+    return launch<T, KT, 128, 4>(a, stream);
   }
-  if (a.hd <= 32) return launch<T, 32, 8>(a, stream);
-  if (a.hd <= 64) return launch<T, 64, 8>(a, stream);
-  return launch<T, 128, 8>(a, stream);
+  if (a.hd <= 32) return launch<T, KT, 32, 8>(a, stream);
+  if (a.hd <= 64) return launch<T, KT, 64, 8>(a, stream);
+  return launch<T, KT, 128, 8>(a, stream);
+}
+
+// the pool's element type: q's (fp pool), or int8 / e4m3 with scales
+template <typename T>
+cudaError_t dispatch_kv(const PrefillArgs& a, int dtype, int kv,
+                        cudaStream_t stream) {
+  if (kv == dtype) return dispatch_hd<T, T>(a, stream);
+  if (a.sc.k == nullptr || a.sc.v == nullptr) return cudaErrorInvalidValue;
+  if (kv == DT_I8) return dispatch_hd<T, int8_t>(a, stream);
+  if (kv == DT_F8) return dispatch_hd<T, fp8_t>(a, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -162,38 +181,49 @@ cudaError_t dispatch_hd(const PrefillArgs& a, cudaStream_t stream) {
 // model's (n_pages, page, KH, hd) pools passed without a copy);
 // block_table (B, P) int32 with row stride tbl_sb; cache_len (B,) int32
 // INCLUDING the chunk; o (B, KH, q_len·group, hd).  Any strides with a unit
-// innermost one.  q_blk·group <= 64.  softcap <= 0 = none.
+// innermost one.  q_blk·group <= 64.  softcap <= 0 = none.  kv_dtype: the
+// pools' element type, dtype's code for an fp pool, DT_I8 / DT_F8 for
+// int8 / e4m3 pools, whose f32 scales k_scale / v_scale are
+// (n_pages, KH, page) strided views (null for an fp pool).
 extern "C" int paged_prefill_attention_fwd(
     const void* q, const void* k_pool, const void* v_pool,
+    const float* k_scale, const float* v_scale,
     const int* block_table, const int* cache_len, void* o, int B, int KH,
     int q_len, int group, int q_blk, int P, int page, int hd,
     long long q_sb, long long q_sh, long long q_sr,
     long long k_sn, long long k_sh, long long k_sp,
-    long long v_sn, long long v_sh, long long v_sp, long long tbl_sb,
+    long long v_sn, long long v_sh, long long v_sp,
+    long long ks_sn, long long ks_sh, long long ks_sp,
+    long long vs_sn, long long vs_sh, long long vs_sp, long long tbl_sb,
     long long o_sb, long long o_sh, long long o_sr,
-    int window, float softcap, float scale, int dtype, void* stream) {
+    int window, float softcap, float scale, int dtype, int kv_dtype,
+    void* stream) {
   if (hd < 1 || hd > 128 || hd % 4 != 0 || B < 1 || KH < 1 || q_len < 1 ||
       group < 1 || q_blk < 1 || q_blk * group > PP_MAX_ROWS || P < 1 ||
       page < 1 || (q_len + q_blk - 1) / q_blk > 65535 || KH > 65535 ||
       B > 65535)
     return (int)cudaErrorInvalidValue;
-  PrefillArgs a{q, k_pool, v_pool, block_table, cache_len, o,
+  PrefillArgs a{q, k_pool, v_pool,
+                {k_scale, v_scale, ks_sn, ks_sh, ks_sp, vs_sn, vs_sh, vs_sp},
+                block_table, cache_len, o,
                 B, KH, q_len, group, q_blk, P * page, page, hd,
                 {q_sb, q_sh, q_sr, k_sn, k_sh, k_sp, v_sn, v_sh, v_sp,
                  o_sb, o_sh, o_sr},
                 tbl_sb, window, softcap, scale, 0};
   const int hd_pad = hd <= 32 ? 32 : (hd <= 64 ? 64 : 128);
   const int elem = dtype == DT_BF16 ? 2 : 4;
+  const int kelem = kv_dtype == DT_I8 || kv_dtype == DT_F8 ? 1 : elem;
   // 16-byte tile loads: full-width rows and every stride that reaches a
   // row (batch, head, page) keeping 16-byte alignment
   a.vec = rows_vectorisable(q, q_sr, hd, hd_pad, elem) &&
           strides_aligned(q_sb, q_sh, elem) &&
-          rows_vectorisable(k_pool, k_sp, hd, hd_pad, elem) &&
-          strides_aligned(k_sn, k_sh, elem) &&
-          rows_vectorisable(v_pool, v_sp, hd, hd_pad, elem) &&
-          strides_aligned(v_sn, v_sh, elem);
+          rows_vectorisable(k_pool, k_sp, hd, hd_pad, kelem) &&
+          strides_aligned(k_sn, k_sh, kelem) &&
+          rows_vectorisable(v_pool, v_sp, hd, hd_pad, kelem) &&
+          strides_aligned(v_sn, v_sh, kelem);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_BF16) return (int)dispatch_hd<__nv_bfloat16>(a, s);
-  if (dtype == DT_F32) return (int)dispatch_hd<float>(a, s);
+  if (dtype == DT_BF16)
+    return (int)dispatch_kv<__nv_bfloat16>(a, dtype, kv_dtype, s);
+  if (dtype == DT_F32) return (int)dispatch_kv<float>(a, dtype, kv_dtype, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,6 +13,8 @@
                         core), ``csrc/ssm_scan.cu``
 - ``slstm_scan``        the sLSTM recurrence from an initial state,
                         ``csrc/slstm_scan.cu``
+- ``kv_quant``          int8 / fp8 KV-page quantizers and the parity
+                        strategies (the paged kernels read 8-bit pools)
 - ``ops``               device-based dispatch + layout adaptation
 - ``build``             nvcc build into ``build/kernels/`` and ctypes binding
 """

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -103,13 +103,15 @@ class CudaKernel:
 
     ``launches`` grows by one each time the wrapper launches the kernel
     (and nowhere else), so a run can show which kernels its path went
-    through."""
+    through.  The paged kernels also count their launches by the pool's
+    storage (``by_pool``: "fp", "int8" or "fp8")."""
 
     def __init__(self, source: str, symbol: str, argtypes: List):
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.by_pool: Dict[str, int] = {}
         self._fn = None
 
     def bind(self) -> None:
@@ -121,15 +123,26 @@ class CudaKernel:
             fn.restype = ctypes.c_int
             self._fn = fn
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, pool: Optional[str] = None) -> None:
         self.bind()
         err = self._fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
         self.launches += 1
+        if pool is not None:
+            self.by_pool[pool] = self.by_pool.get(pool, 0) + 1
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.by_pool = {}
 
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the 8-bit page pools the paged kernels read with their scales: the C
+#: code of each element type (an fp pool passes its q's ``DTYPES`` code)
+#: and its ``kv_dtype`` name
+POOL_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
+POOL_NAMES = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 
 
 def check_operands(*ts: torch.Tensor) -> None:
@@ -159,3 +172,50 @@ def check_16_bytes(rule: str, **ts: torch.Tensor) -> None:
             if (stride[i] * e) % 16 and size[i] > 1:
                 raise ValueError(f"{name}: {rule} needs 16-byte aligned "
                                  f"strides, got {stride}")
+
+
+def check_pools(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                k_scale: Optional[torch.Tensor],
+                v_scale: Optional[torch.Tensor]) -> int:
+    """The pool rules of the paged kernels: fp pools of q's dtype and no
+    scales, or int8/float8_e4m3fn pools under an f32 or bf16 q with both
+    scales, f32 and shaped as the pools less their head dim, on the
+    operands' device (any strides).  Returns the pool's C code (q's
+    ``DTYPES`` code for an fp pool, else ``POOL_DTYPES``'s).  Raises."""
+    if k_pool.dtype not in POOL_DTYPES:
+        check_operands(q, k_pool, v_pool)
+        if k_scale is not None or v_scale is not None:
+            raise ValueError("an fp pool takes no scales")
+        return DTYPES[q.dtype]
+    check_operands(q)
+    if v_pool.dtype != k_pool.dtype:
+        raise ValueError("k and v pools must share their dtype")
+    for t in (k_pool, v_pool):
+        if t.device != q.device or t.stride(-1) != 1:
+            raise ValueError("pools must lie on q's device with a unit "
+                             "innermost stride")
+    if k_scale is None or v_scale is None:
+        raise ValueError(f"a {k_pool.dtype} pool needs k_scale and v_scale")
+    for t, pool in ((k_scale, k_pool), (v_scale, v_pool)):
+        if (t.dtype != torch.float32 or t.device != q.device
+                or t.shape != pool.shape[:-1]):
+            raise ValueError(f"scales must be float32 {tuple(pool.shape[:-1])}"
+                             f" on q's device, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    return POOL_DTYPES[k_pool.dtype]
+
+
+def pool_name(pool: torch.Tensor) -> str:
+    """The storage a paged launch is counted under: "fp", "int8", "fp8"."""
+    return POOL_NAMES.get(pool.dtype, "fp")
+
+
+def scale_args(k_scale: Optional[torch.Tensor],
+               v_scale: Optional[torch.Tensor]) -> list:
+    """The scale operands of a paged entry point: the two pointers, then
+    k_scale's and v_scale's three strides (page, head, slot); zeros for an
+    fp pool."""
+    if k_scale is None:
+        return [0, 0] + [0] * 6
+    return [k_scale.data_ptr(), v_scale.data_ptr(), *k_scale.stride(),
+            *v_scale.stride()]

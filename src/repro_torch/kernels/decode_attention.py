@@ -132,17 +132,18 @@ def cluster_plan(clusters: int, s: int,
 
 @functools.lru_cache(maxsize=None)
 def max_clusters(device_index: int, mode: int, hd: int, tile_rows: int,
-                 splits: int) -> int:
+                 splits: int, pool: int = DTYPES[torch.bfloat16]) -> int:
     """How many clusters of ``splits`` blocks of the tensor-core kernel in
-    ``mode`` (``MMA_DENSE`` / ``MMA_PAGED`` / ``MMA_PREFILL``) at ``hd`` and
-    row tiles of ``tile_rows`` the card holds at once
-    (``cudaOccupancyMaxActiveClusters``)."""
+    ``mode`` (``MMA_DENSE`` / ``MMA_PAGED`` / ``MMA_PREFILL``) at ``hd``,
+    row tiles of ``tile_rows`` and KV storage ``pool`` (bf16's code, or
+    ``build.POOL_DTYPES``' for the paged modes' 8-bit pools) the card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
     fn = build.load(MMA_KERNEL.source).decode_attention_mma_max_clusters
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     n = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = fn(mode, hd, tile_rows, splits, ctypes.byref(n))
+        err = fn(mode, hd, tile_rows, splits, pool, ctypes.byref(n))
     if err:
         raise RuntimeError(f"decode_attention_mma_max_clusters: CUDA error "
                            f"{err}")
@@ -151,11 +152,12 @@ def max_clusters(device_index: int, mode: int, hd: int, tile_rows: int,
 
 @functools.lru_cache(maxsize=None)
 def card_cluster_plan(clusters: int, s: int, device_index: int, mode: int,
-                      hd: int, tile_rows: int) -> Tuple[int, int]:
+                      hd: int, tile_rows: int,
+                      pool: int = DTYPES[torch.bfloat16]) -> Tuple[int, int]:
     """``cluster_plan`` on the card's own occupancy for the kernel instance
     a launch runs, computed once per launch geometry."""
     return cluster_plan(clusters, s, functools.partial(
-        max_clusters, device_index, mode, hd, tile_rows))
+        max_clusters, device_index, mode, hd, tile_rows, pool=pool))
 
 
 def _operands(q, k, v, q_len):

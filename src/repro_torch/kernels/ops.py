@@ -8,7 +8,8 @@ could reach to get the plain version, and no fallback on failure.
 This module owns what surrounds the kernels, as ``repro.kernels.ops`` does:
 the layout changes (the models use (B, S, H, hd); the kernels want
 (B, H, S, hd), and the (n_pages, page, KH, hd) page pools become
-(n_pages, KH, page, hd), passed as strided views, no copy), the windowed
+(n_pages, KH, page, hd), passed as strided views, no copy, as do an 8-bit
+pool's (n_pages, page, KH) scales, (n_pages, KH, page)), the windowed
 band-slice gather before dense decode, and the recurrent scans' zero
 states.  It pads no head dim: the kernels take
 hd <= 128 with hd % 4 == 0 as they are.
@@ -52,12 +53,28 @@ ROUTES = {
     "slstm_scan": ("slstm_scan_cluster", "cluster", "per_row")}
 
 
+#: the paged kernels, which also count their launches on 8-bit pools by
+#: storage: ``launch_counts()["paged_decode_attention[int8]"]`` and so on
+PAGED = ("paged_decode_attention", "paged_decode_attention_mma",
+         "paged_prefill_attention", "paged_prefill_attention_mma")
+QUANT_POOLS = ("int8", "fp8")
+for _name in PAGED[::2]:
+    for _pool in QUANT_POOLS:
+        ROUTES[f"{_name}[{_pool}]"] = (f"{_name}_mma[{_pool}]", "mma",
+                                       "cuda_cores")
+
+
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last reset.  A kernel with two routes
     (``ROUTES``) counts every launch of either under its own name, and the
     second route alone under that route's key (``launches_by_route``
-    splits them)."""
+    splits them).  ``"<paged kernel>[int8]"`` / ``"[fp8]"`` count the
+    paged kernels' launches on 8-bit pools the same way (both routes under
+    the first route's name)."""
     counts = {name: k.launches for name, k in KERNELS.items()}
+    for name in PAGED:
+        for pool in QUANT_POOLS:
+            counts[f"{name}[{pool}]"] = KERNELS[name].by_pool.get(pool, 0)
     for name, (key, _, _) in ROUTES.items():
         counts[name] += counts[key]
     return counts
@@ -73,7 +90,7 @@ def launches_by_route(counts: Dict[str, int], name: str) -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
-        k.launches = 0
+        k.reset()
 
 
 def _on_card(*ts: torch.Tensor) -> bool:
@@ -191,25 +208,42 @@ def multi_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # paged decode attention (page pools, per-row block tables)
 # ---------------------------------------------------------------------------
 
+def _scales(k_scale: Optional[torch.Tensor],
+            v_scale: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The model's (n_pages, page, KH) scales as the kernels' (n_pages, KH,
+    page) views (JAX's ``_scale_to_kernel``); both or neither."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
+    if k_scale is None:
+        return {}
+    return {"k_scale": k_scale.transpose(1, 2),
+            "v_scale": v_scale.transpose(1, 2)}
+
+
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_table: torch.Tensor,
                            cache_len: CacheLen, *, window: int = 0,
                            softcap: Optional[float] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, H, hd); k_pool, v_pool: (n_pages, page, K, hd) fp pools;
-    block_table: (B, P) int32 (physical page per logical block);
+                           scale: Optional[float] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """q: (B, H, hd); k_pool, v_pool: (n_pages, page, K, hd) pools of q's
+    dtype, or int8/fp8 with ``k_scale``/``v_scale`` (n_pages, page, K)
+    f32; block_table: (B, P) int32 (physical page per logical block);
     cache_len: int, () or (B,) → (B, H, hd).  Shared prefix pages may
     appear in many rows' tables; the pools are only read."""
     if not _on_card(q, k_pool, v_pool, block_table):
         return ref.paged_decode_attention(q, k_pool, v_pool, block_table,
                                           cache_len, window=window,
-                                          softcap=softcap, scale=scale)
+                                          softcap=softcap, scale=scale,
+                                          k_scale=k_scale, v_scale=v_scale)
     b, h, hd = q.shape
     kh = k_pool.shape[2]
     o = PDA.paged_decode_attention_cuda(
         q.reshape(b, kh, h // kh, hd), k_pool.transpose(1, 2),
         v_pool.transpose(1, 2), block_table, cache_len, window=window,
-        softcap=softcap, scale=scale)
+        softcap=softcap, scale=scale, **_scales(k_scale, v_scale))
     return o.reshape(b, h, hd)
 
 
@@ -218,22 +252,24 @@ def paged_multi_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                  block_table: torch.Tensor,
                                  cache_len: CacheLen, *, window: int = 0,
                                  softcap: Optional[float] = None,
-                                 scale: Optional[float] = None
+                                 scale: Optional[float] = None,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """The speculative verifier's scoring op: q (B, T, H, hd), a T = γ+1
-    chunk causal within itself; pools and table as
+    chunk causal within itself; pools, scales and table as
     ``paged_decode_attention``; cache_len INCLUDING the chunk
     → (B, T, H, hd)."""
     if not _on_card(q, k_pool, v_pool, block_table):
         return ref.paged_multi_decode_attention(
             q, k_pool, v_pool, block_table, cache_len, window=window,
-            softcap=softcap, scale=scale)
+            softcap=softcap, scale=scale, k_scale=k_scale, v_scale=v_scale)
     b, t, h, hd = q.shape
     kh = k_pool.shape[2]
     o = PDA.paged_decode_attention_cuda(
         _chunk_to_rows(q, kh), k_pool.transpose(1, 2),
         v_pool.transpose(1, 2), block_table, cache_len, window=window,
-        softcap=softcap, scale=scale, q_len=t)
+        softcap=softcap, scale=scale, q_len=t, **_scales(k_scale, v_scale))
     return _rows_to_chunk(o, t, h)
 
 
@@ -247,11 +283,14 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                             softcap: Optional[float] = None,
                             scale: Optional[float] = None,
                             q_blk: Optional[int] = None,
-                            plan: Optional[torch.Tensor] = None
+                            plan: Optional[torch.Tensor] = None,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """The chunked-prefill scoring op: q (B, C, H, hd), a C-token chunk
-    whose K/V the caller just wrote at per-row (page, offset); pools and
-    table as ``paged_decode_attention``; cache_len INCLUDING the chunk
+    whose K/V the caller just wrote at per-row (page, offset); pools,
+    scales and table as ``paged_decode_attention``; cache_len INCLUDING
+    the chunk
     → (B, C, H, hd).  Chunk token ``t`` sees columns
     ``< cache_len - (C - 1 - t)``.  Card only, and neither changes a
     row's result: ``q_blk`` is the CUDA-core kernel's sub-block of chunk
@@ -261,13 +300,15 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if not _on_card(q, k_pool, v_pool, block_table):
         return ref.paged_prefill_attention(q, k_pool, v_pool, block_table,
                                            cache_len, window=window,
-                                           softcap=softcap, scale=scale)
+                                           softcap=softcap, scale=scale,
+                                           k_scale=k_scale, v_scale=v_scale)
     b, t, h, hd = q.shape
     kh = k_pool.shape[2]
     o = PPA.paged_prefill_attention_cuda(
         _chunk_to_rows(q, kh), k_pool.transpose(1, 2),
         v_pool.transpose(1, 2), block_table, cache_len, window=window,
-        softcap=softcap, scale=scale, q_len=t, q_blk=q_blk, plan=plan)
+        softcap=softcap, scale=scale, q_len=t, q_blk=q_blk, plan=plan,
+        **_scales(k_scale, v_scale))
     return _rows_to_chunk(o, t, h)
 
 

@@ -10,6 +10,16 @@ serves the slot path's decode (``q_len`` 1) and the speculative verifier
 past one block's 64 go to further row tiles.  The split plan follows the
 table width, which is fixed for an engine, never the lengths; keys at or
 past a row's ``cache_len`` are never read.
+
+The pools may be int8 or fp8 (e4m3) with per-(page, slot, head) f32 scales
+in kernel layout (n_pages, KH, page), the model's (n_pages, page, KH)
+scales passed as ``transpose(1, 2)`` views.  Both kernels read the 8-bit
+pages and the scales themselves, each key's scale through the same block
+table entry as its page: the CUDA-core kernel dequantizes in f32 as it
+loads a tile (the JAX kernels' dequant route); the tensor-core kernel
+converts each stored element exactly to bf16 and applies the key scales to
+the columns of S and the value scales to p before PV.  The route still
+follows q's dtype and head dim alone.
 """
 from __future__ import annotations
 
@@ -20,7 +30,7 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.kernels.build import (DTYPES, CudaKernel, check_16_bytes,
-                                       check_operands)
+                                       check_pools, pool_name, scale_args)
 from repro_torch.kernels.decode_attention import (MMA_MAX_ROWS, MMA_PAGED,
                                                   _sm_count,
                                                   card_cluster_plan,
@@ -30,22 +40,26 @@ from repro_torch.kernels.decode_attention import (MMA_MAX_ROWS, MMA_PAGED,
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 KERNEL = CudaKernel("decode_attention.cu", "paged_decode_attention_fwd",
-                    [_P] * 8 + [_I] * 8 + [_L] * 13
-                    + [_I, _I, _I, _F, _F, _I, _P])
+                    [_P] * 10 + [_I] * 8 + [_L] * 19
+                    + [_I, _I, _I, _F, _F, _I, _I, _P])
 MMA_KERNEL = CudaKernel("decode_attention_mma.cu",
                         "paged_decode_attention_mma_fwd",
-                        [_P] * 6 + [_I] * 8 + [_L] * 13
-                        + [_I, _I, _I, _F, _F, _P])
+                        [_P] * 8 + [_I] * 8 + [_L] * 19
+                        + [_I, _I, _I, _F, _F, _I, _P])
 MAX_ROWS = 64         # query rows of one CUDA-core row tile (8 warps)
 
 
 def check_paged(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-                block_table: torch.Tensor):
+                block_table: torch.Tensor,
+                k_scale: Optional[torch.Tensor] = None,
+                v_scale: Optional[torch.Tensor] = None):
     """The operand rules the paged kernels share: q (B, KH, rows, hd),
-    pools (n_pages, KH, page, hd) matching q, hd <= 128 with hd % 4 == 0,
-    a non-empty (B, P) int32 block table with unit column stride on the
-    operands' device.  Returns (B, KH, rows, hd, page, P)."""
-    check_operands(q, k_pool, v_pool)
+    pools (n_pages, KH, page, hd) matching q, of q's dtype, or int8 /
+    float8_e4m3fn with both (n_pages, KH, page) f32 scales
+    (``build.check_pools``), hd <= 128 with hd % 4 == 0, a non-empty
+    (B, P) int32 block table with unit column stride on the operands'
+    device.  Returns (B, KH, rows, hd, page, P, the pool's C code)."""
+    pool = check_pools(q, k_pool, v_pool, k_scale, v_scale)
     if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"bad shapes q{tuple(q.shape)} "
                          f"k_pool{tuple(k_pool.shape)} "
@@ -63,7 +77,7 @@ def check_paged(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                          "unit column stride on the operands' device")
     if block_table.shape[1] < 1:
         raise ValueError("empty block table")
-    return b, kh, rows, hd, k_pool.shape[2], block_table.shape[1]
+    return b, kh, rows, hd, k_pool.shape[2], block_table.shape[1], pool
 
 
 def _group(q, q_len):
@@ -78,12 +92,14 @@ def launch_cuda_cores(q: torch.Tensor, k_pool: torch.Tensor,
                       v_pool: torch.Tensor, block_table: torch.Tensor,
                       cache_len: Union[int, torch.Tensor], *,
                       window: int = 0, softcap: Optional[float] = None,
-                      scale: Optional[float] = None,
-                      q_len: int = 1) -> torch.Tensor:
-    """The CUDA-core kernel, on any input it takes (float32 or bfloat16,
-    hd <= 128, hd % 4 == 0)."""
-    b, kh, rows, hd, page, n_blocks = check_paged(q, k_pool, v_pool,
-                                                  block_table)
+                      scale: Optional[float] = None, q_len: int = 1,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """The CUDA-core kernel, on any input it takes (float32 or bfloat16
+    q, fp or 8-bit pools, hd <= 128, hd % 4 == 0)."""
+    b, kh, rows, hd, page, n_blocks, pool = check_paged(
+        q, k_pool, v_pool, block_table, k_scale, v_scale)
     group = _group(q, q_len)
     lens = device_lengths(cache_len, b, q.device)
     scale = scale if scale is not None else hd ** -0.5
@@ -97,14 +113,16 @@ def launch_cuda_cores(q: torch.Tensor, k_pool: torch.Tensor,
     ks, vs = k_pool.stride(), v_pool.stride()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        KERNEL(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        sc = scale_args(k_scale, v_scale)
+        KERNEL(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *sc[:2],
                block_table.data_ptr(), lens.data_ptr(), o.data_ptr(),
                part_acc.data_ptr(), part_ml.data_ptr(),
                b, kh, rows, row_tile(rows, group, MAX_ROWS), q_len, n_blocks,
                page, hd, *q.stride()[:3], ks[0], ks[1], ks[2], vs[0], vs[1],
-               vs[2], block_table.stride(0), *o.stride()[:3],
+               vs[2], *sc[2:], block_table.stride(0), *o.stride()[:3],
                splits, split_len, int(window), float(softcap or 0.0),
-               float(scale), DTYPES[q.dtype], stream)
+               float(scale), DTYPES[q.dtype], pool, stream,
+               pool=pool_name(k_pool))
     return o
 
 
@@ -112,32 +130,36 @@ def launch_mma(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                block_table: torch.Tensor,
                cache_len: Union[int, torch.Tensor], *, window: int = 0,
                softcap: Optional[float] = None,
-               scale: Optional[float] = None,
-               q_len: int = 1) -> torch.Tensor:
-    """The tensor-core kernel: bfloat16 at hd 64 or 128, operands that keep
-    cp.async's 16-byte rule; raises on anything else."""
+               scale: Optional[float] = None, q_len: int = 1,
+               k_scale: Optional[torch.Tensor] = None,
+               v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The tensor-core kernel: bfloat16 q at hd 64 or 128 over bf16 or
+    8-bit pools, operands that keep cp.async's 16-byte rule; raises on
+    anything else."""
     if route(q.dtype, q.shape[-1]) != "mma":
         raise ValueError(f"the mma kernel takes bfloat16 at hd 64 or 128, "
                          f"got {q.dtype} hd {q.shape[-1]}")
-    b, kh, rows, hd, page, n_blocks = check_paged(q, k_pool, v_pool,
-                                                  block_table)
+    b, kh, rows, hd, page, n_blocks, pool = check_paged(
+        q, k_pool, v_pool, block_table, k_scale, v_scale)
     check_16_bytes("cp.async", q=q, k_pool=k_pool, v_pool=v_pool)
     tile = row_tile(rows, _group(q, q_len), MMA_MAX_ROWS)
     lens = device_lengths(cache_len, b, q.device)
     scale = scale if scale is not None else hd ** -0.5
     splits, split_len = card_cluster_plan(b * kh * math.ceil(rows / tile),
                                           n_blocks * page, q.device.index,
-                                          MMA_PAGED, hd, tile)
+                                          MMA_PAGED, hd, tile, pool)
     o = torch.empty((b, kh, rows, hd), dtype=q.dtype, device=q.device)
     ks, vs = k_pool.stride(), v_pool.stride()
+    sc = scale_args(k_scale, v_scale)
     with torch.cuda.device(q.device):
         MMA_KERNEL(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                   block_table.data_ptr(), lens.data_ptr(), o.data_ptr(),
-                   b, kh, rows, tile, q_len, n_blocks, page, hd,
+                   *sc[:2], block_table.data_ptr(), lens.data_ptr(),
+                   o.data_ptr(), b, kh, rows, tile, q_len, n_blocks, page, hd,
                    *q.stride()[:3], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-                   block_table.stride(0), *o.stride()[:3], splits, split_len,
-                   int(window), float(softcap or 0.0), float(scale),
-                   torch.cuda.current_stream().cuda_stream)
+                   *sc[2:], block_table.stride(0), *o.stride()[:3], splits,
+                   split_len, int(window), float(softcap or 0.0),
+                   float(scale), pool, torch.cuda.current_stream().cuda_stream,
+                   pool=pool_name(k_pool))
     return o
 
 
@@ -148,14 +170,19 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                 window: int = 0,
                                 softcap: Optional[float] = None,
                                 scale: Optional[float] = None,
-                                q_len: int = 1) -> torch.Tensor:
+                                q_len: int = 1,
+                                k_scale: Optional[torch.Tensor] = None,
+                                v_scale: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
     """q: (B, KH, q_len·group, hd) token-major rows; k_pool, v_pool:
     (n_pages, KH, page, hd), any strides with a unit innermost one (the
     model's (n_pages, page, KH, hd) pools pass as ``transpose(1, 2)``
-    views); block_table: (B, P) int32; cache_len: int or () / (B,) int
-    tensor of valid slots INCLUDING the chunk → (B, KH, q_len·group, hd),
-    on the card, through the kernel ``route`` names."""
+    views); ``k_scale``/``v_scale`` (n_pages, KH, page) f32 for int8/fp8
+    pools, any strides; block_table: (B, P) int32; cache_len: int or () /
+    (B,) int tensor of valid slots INCLUDING the chunk → (B, KH,
+    q_len·group, hd), on the card, through the kernel ``route`` names."""
     launch = (launch_mma if route(q.dtype, q.shape[-1]) == "mma"
               else launch_cuda_cores)
     return launch(q, k_pool, v_pool, block_table, cache_len, window=window,
-                  softcap=softcap, scale=scale, q_len=q_len)
+                  softcap=softcap, scale=scale, q_len=q_len, k_scale=k_scale,
+                  v_scale=v_scale)

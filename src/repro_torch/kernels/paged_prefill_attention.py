@@ -32,6 +32,11 @@ row's result, and the plain version and the CUDA-core route ignore it.
 Rows in no tile of the plan (the engine's padding rows, whose outputs it
 drops) are not written.  Its length is fixed per engine (``plan_tiles``),
 so the launch shape never follows the step's mix; empty entries exit.
+
+The pools may be int8 or fp8 (e4m3) with per-(page, slot, head) f32
+scales, read by both kernels as ``paged_decode_attention``'s are (the
+CUDA-core one dequantizes in f32 as it loads, the tensor-core one converts
+the stored bytes exactly to bf16 and scales the columns of S and p).
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import DTYPES, CudaKernel, check_16_bytes
+from repro_torch.kernels.build import (DTYPES, CudaKernel, check_16_bytes,
+                                       pool_name, scale_args)
 from repro_torch.kernels.decode_attention import (MMA_MAX_ROWS, MMA_PREFILL,
                                                   card_cluster_plan,
                                                   device_lengths, route,
@@ -54,12 +60,12 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 KERNEL = CudaKernel("paged_prefill_attention.cu",
                     "paged_prefill_attention_fwd",
-                    [_P] * 6 + [_I] * 8 + [_L] * 13
-                    + [_I, _F, _F, _I, _P])
+                    [_P] * 8 + [_I] * 8 + [_L] * 19
+                    + [_I, _F, _F, _I, _I, _P])
 MMA_KERNEL = CudaKernel("decode_attention_mma.cu",
                         "paged_prefill_attention_mma_fwd",
-                        [_P] * 7 + [_I] * 8 + [_L] * 13
-                        + [_I, _L, _I, _I, _F, _F, _P])
+                        [_P] * 9 + [_I] * 8 + [_L] * 19
+                        + [_I, _L, _I, _I, _F, _F, _I, _P])
 MAX_ROWS = 64         # q_blk·group query rows one CUDA-core block holds
 Q_BLK = 8             # chunk tokens per CUDA-core sub-block, where it fits
 
@@ -139,11 +145,14 @@ def launch_cuda_cores(q: torch.Tensor, k_pool: torch.Tensor,
                       cache_len: Union[int, torch.Tensor], *,
                       window: int = 0, softcap: Optional[float] = None,
                       scale: Optional[float] = None, q_len: int = 1,
-                      q_blk: Optional[int] = None) -> torch.Tensor:
-    """The CUDA-core kernel, on any input it takes (float32 or bfloat16,
-    hd <= 128, hd % 4 == 0)."""
-    b, kh, rows, hd, page, n_blocks = check_paged(q, k_pool, v_pool,
-                                                  block_table)
+                      q_blk: Optional[int] = None,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """The CUDA-core kernel, on any input it takes (float32 or bfloat16
+    q, fp or 8-bit pools, hd <= 128, hd % 4 == 0)."""
+    b, kh, rows, hd, page, n_blocks, pool = check_paged(
+        q, k_pool, v_pool, block_table, k_scale, v_scale)
     group = _group(q, q_len)
     q_blk = default_q_blk(group) if q_blk is None else q_blk
     if q_blk < 1 or q_blk * group > MAX_ROWS:
@@ -155,20 +164,21 @@ def launch_cuda_cores(q: torch.Tensor, k_pool: torch.Tensor,
     ks, vs = k_pool.stride(), v_pool.stride()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        KERNEL(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        sc = scale_args(k_scale, v_scale)
+        KERNEL(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *sc[:2],
                block_table.data_ptr(), lens.data_ptr(), o.data_ptr(),
                b, kh, q_len, group, q_blk, n_blocks, page, hd,
                *q.stride()[:3], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-               block_table.stride(0), *o.stride()[:3],
+               *sc[2:], block_table.stride(0), *o.stride()[:3],
                int(window), float(softcap or 0.0), float(scale),
-               DTYPES[q.dtype], stream)
+               DTYPES[q.dtype], pool, stream, pool=pool_name(k_pool))
     return o
 
 
 @functools.lru_cache(maxsize=None)
 def _mma_geometry(b: int, kh: int, rows: int, hd: int, page: int,
                   n_blocks: int, q_len: int, n_plan: int,
-                  device_index: int) -> Tuple[int, int, int]:
+                  device_index: int, pool: int) -> Tuple[int, int, int]:
     """(tile rows, plan entries, key splits) of a tensor-core launch, once
     per geometry (an engine's calls share one): with a plan of ``n_plan``
     entries each entry is a row tile of up to ``tokens_per_tile`` tokens,
@@ -183,7 +193,7 @@ def _mma_geometry(b: int, kh: int, rows: int, hd: int, page: int,
         tile = row_tile(rows, group, MMA_MAX_ROWS)
         clusters = b * kh * math.ceil(rows / tile)
     splits, _ = card_cluster_plan(clusters, n_blocks * page, device_index,
-                                  MMA_PREFILL, hd, tile)
+                                  MMA_PREFILL, hd, tile, pool)
     return tile, n_plan, splits
 
 
@@ -192,16 +202,18 @@ def launch_mma(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                cache_len: Union[int, torch.Tensor], *, window: int = 0,
                softcap: Optional[float] = None,
                scale: Optional[float] = None, q_len: int = 1,
-               plan: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The tensor-core kernel: bfloat16 at hd 64 or 128, operands that keep
-    cp.async's 16-byte rule; raises on anything else.  With ``plan`` (a
-    (2, n) int32 ``tile_plan`` on the device, q_len 1) its entries are the
-    row tiles (``_mma_geometry``)."""
+               plan: Optional[torch.Tensor] = None,
+               k_scale: Optional[torch.Tensor] = None,
+               v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The tensor-core kernel: bfloat16 q at hd 64 or 128 over bf16 or
+    8-bit pools, operands that keep cp.async's 16-byte rule; raises on
+    anything else.  With ``plan`` (a (2, n) int32 ``tile_plan`` on the
+    device, q_len 1) its entries are the row tiles (``_mma_geometry``)."""
     if route(q.dtype, q.shape[-1]) != "mma":
         raise ValueError(f"the mma kernel takes bfloat16 at hd 64 or 128, "
                          f"got {q.dtype} hd {q.shape[-1]}")
-    b, kh, rows, hd, page, n_blocks = check_paged(q, k_pool, v_pool,
-                                                  block_table)
+    b, kh, rows, hd, page, n_blocks, pool = check_paged(
+        q, k_pool, v_pool, block_table, k_scale, v_scale)
     check_16_bytes("cp.async", q=q, k_pool=k_pool, v_pool=v_pool)
     _group(q, q_len)
     if plan is not None:
@@ -211,21 +223,23 @@ def launch_mma(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         _check_plan(plan, q.device)
     tile, n_plan, splits = _mma_geometry(
         b, kh, rows, hd, page, n_blocks, q_len,
-        0 if plan is None else plan.shape[1], q.device.index)
+        0 if plan is None else plan.shape[1], q.device.index, pool)
     lens = device_lengths(cache_len, b, q.device)
     scale = scale if scale is not None else hd ** -0.5
     o = torch.empty((b, kh, rows, hd), dtype=q.dtype, device=q.device)
     ks, vs = k_pool.stride(), v_pool.stride()
+    sc = scale_args(k_scale, v_scale)
     with torch.cuda.device(q.device):
         MMA_KERNEL(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                   block_table.data_ptr(), lens.data_ptr(),
+                   *sc[:2], block_table.data_ptr(), lens.data_ptr(),
                    plan.data_ptr() if n_plan else 0, o.data_ptr(),
                    b, kh, rows, tile, q_len, n_blocks, page, hd,
                    *q.stride()[:3], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-                   block_table.stride(0), kh * rows * hd, rows * hd, hd,
-                   n_plan, plan.stride(0) if n_plan else 0, splits,
-                   int(window), float(softcap or 0.0), float(scale),
-                   torch.cuda.current_stream().cuda_stream)
+                   *sc[2:], block_table.stride(0), kh * rows * hd, rows * hd,
+                   hd, n_plan, plan.stride(0) if n_plan else 0, splits,
+                   int(window), float(softcap or 0.0), float(scale), pool,
+                   torch.cuda.current_stream().cuda_stream,
+                   pool=pool_name(k_pool))
     return o
 
 
@@ -238,20 +252,24 @@ def paged_prefill_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                  scale: Optional[float] = None,
                                  q_len: int = 1,
                                  q_blk: Optional[int] = None,
-                                 plan: Optional[torch.Tensor] = None
+                                 plan: Optional[torch.Tensor] = None,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """q: (B, KH, q_len·group, hd) token-major rows; k_pool, v_pool:
     (n_pages, KH, page, hd), any strides with a unit innermost one (the
     model's (n_pages, page, KH, hd) pools pass as ``transpose(1, 2)``
-    views); block_table: (B, P) int32; cache_len: int or () / (B,) int
+    views); ``k_scale``/``v_scale`` (n_pages, KH, page) f32 for int8/fp8
+    pools; block_table: (B, P) int32; cache_len: int or () / (B,) int
     tensor of valid slots INCLUDING the chunk → (B, KH, q_len·group, hd),
     on the card, through the kernel ``route`` names.  ``q_blk`` is the
     CUDA-core kernel's sub-block, ``plan`` the tensor-core kernel's row
     tiles; each route ignores the other's."""
+    sc = {"k_scale": k_scale, "v_scale": v_scale}
     if route(q.dtype, q.shape[-1]) == "mma":
         return launch_mma(q, k_pool, v_pool, block_table, cache_len,
                           window=window, softcap=softcap, scale=scale,
-                          q_len=q_len, plan=plan)
+                          q_len=q_len, plan=plan, **sc)
     return launch_cuda_cores(q, k_pool, v_pool, block_table, cache_len,
                              window=window, softcap=softcap, scale=scale,
-                             q_len=q_len, q_blk=q_blk)
+                             q_len=q_len, q_blk=q_blk, **sc)

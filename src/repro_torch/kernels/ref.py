@@ -3,11 +3,13 @@
 They mirror ``repro.kernels.ref`` function by function: the same layouts
 (the model's (B, S, H, hd), and (n_pages, page, KH, hd) page pools),
 float32 compute, and a cast back to the input dtype.  The paged versions
-take fp pools only.  ``ssm_scan`` differs from its JAX oracle on purpose
-(ROADMAP §3): it masks the decay exponent before ``exp`` (the oracle's
-``exp(cum_i - cum_j)`` overflows for j > i under strong decay and gives
-``inf·0 = NaN``); ``slstm_scan`` follows its oracle, which takes an
-initial state (the Pallas kernel does not).  ``ops`` takes them for
+take int8 and fp8 pools with their per-(page, slot, head) scales as the
+JAX oracles do: dequantize the whole pool, then gather.  ``ssm_scan``
+differs from its JAX oracle on purpose (ROADMAP §3): it masks the decay
+exponent before ``exp`` (the oracle's ``exp(cum_i - cum_j)`` overflows for
+j > i under strong decay and gives ``inf·0 = NaN``); ``slstm_scan``
+follows its oracle, which takes an initial state (the Pallas kernel does
+not).  ``ops`` takes them for
 tensors on the CPU; the tests hold them against the JAX oracles, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
@@ -125,18 +127,40 @@ def gather_pages(pool: torch.Tensor, block_table: torch.Tensor
     return pages.reshape((b, p * page) + tuple(pool.shape[2:]))
 
 
+def dequantize_pool(pool: torch.Tensor, scale: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
+    """int8/fp8 pool (n_pages, page, KH, hd) × per-slot scales (n_pages,
+    page, KH) → f32; a ``None`` scale passes an fp pool through.  The
+    defining semantics of the quantized paged kernels, which apply the same
+    multiply to each fetched key."""
+    if scale is None:
+        return pool
+    return pool.float() * scale[..., None]
+
+
+def _paged_kv(k_pool, v_pool, block_table, k_scale, v_scale):
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
+    return (gather_pages(dequantize_pool(k_pool, k_scale), block_table),
+            gather_pages(dequantize_pool(v_pool, v_scale), block_table))
+
+
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_table: torch.Tensor,
                            cache_len, *, window: int = 0,
                            softcap: Optional[float] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Gather every row's pages into a dense (B, P·page, KH, hd) cache, then
     dense ragged decode.  q: (B, H, hd); k_pool, v_pool: (n_pages, page,
-    KH, hd) fp pools; block_table: (B, P); cache_len: int, () or (B,)
-    → (B, H, hd)."""
-    return decode_attention(q, gather_pages(k_pool, block_table),
-                            gather_pages(v_pool, block_table), cache_len,
-                            window=window, softcap=softcap, scale=scale)
+    KH, hd); block_table: (B, P); cache_len: int, () or (B,) → (B, H, hd).
+    ``k_scale``/``v_scale`` (n_pages, page, KH) f32: int8/fp8 pools,
+    dequantized up front."""
+    k, v = _paged_kv(k_pool, v_pool, block_table, k_scale, v_scale)
+    return decode_attention(q, k, v, cache_len, window=window,
+                            softcap=softcap, scale=scale)
 
 
 def paged_multi_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -144,22 +168,26 @@ def paged_multi_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                  block_table: torch.Tensor, cache_len, *,
                                  window: int = 0,
                                  softcap: Optional[float] = None,
-                                 scale: Optional[float] = None
+                                 scale: Optional[float] = None,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """The chunk-causal form: q (B, T, H, hd) at logical positions
     ``cache_len - T .. cache_len - 1`` (cache_len INCLUDING the chunk)
-    → (B, T, H, hd)."""
-    return multi_decode_attention(q, gather_pages(k_pool, block_table),
-                                  gather_pages(v_pool, block_table),
-                                  cache_len, window=window, softcap=softcap,
-                                  scale=scale)
+    → (B, T, H, hd); scales as ``paged_decode_attention``."""
+    k, v = _paged_kv(k_pool, v_pool, block_table, k_scale, v_scale)
+    return multi_decode_attention(q, k, v, cache_len, window=window,
+                                  softcap=softcap, scale=scale)
 
 
 def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, block_table: torch.Tensor,
                             cache_len, *, window: int = 0,
                             softcap: Optional[float] = None,
-                            scale: Optional[float] = None) -> torch.Tensor:
+                            scale: Optional[float] = None,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """The chunked-prefill prefix-append op: q (B, C, H, hd), a C-token
     chunk at logical positions ``cache_len - C .. cache_len - 1`` whose K/V
     the caller just wrote into the pools, attends causally to its own chunk
@@ -170,7 +198,8 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ``cache_len`` → (B, C, H, hd)."""
     return paged_multi_decode_attention(q, k_pool, v_pool, block_table,
                                         cache_len, window=window,
-                                        softcap=softcap, scale=scale)
+                                        softcap=softcap, scale=scale,
+                                        k_scale=k_scale, v_scale=v_scale)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ paged-decode and paged prefix-append kernels (modes ``"prefill"``,
 a page pool through a block table), the SwiGLU MLP, and the xLSTM mixers:
 mLSTM (the chunked scan kernel in prefill, the O(1) update in decode) and
 sLSTM (the recurrence kernel in both), modes ``"prefill"`` and
-``"decode"``.  MoE, Mamba and Hymba, and quantized page pools, are not
+``"decode"``.  Page pools may be int8 or fp8 (e4m3) with per-(page, slot,
+head) scales (``kernels/kv_quant.py``).  MoE, Mamba and Hymba are not
 ported yet and raise.
 
 Unlike the JAX package, which is functional, attention writes the KV cache
@@ -29,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import kv_quant, ops
 from repro_torch.kernels.ref import log_sigmoid
 
 Params = Dict[str, Any]
@@ -123,27 +124,73 @@ def init_paged_attn_cache(cfg: ArchConfig, n_pages: int, page_size: int,
                           ) -> Params:
     """Paged KV layout: a pool of fixed-size pages (n_pages, page, KH, hd)
     shared by all sequences; per-row block tables (passed to ``attention``)
-    resolve logical positions to (page, offset).  fp pools only."""
-    if kv_dtype is not None:
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r}: quantized page pools are not ported "
-            "(ROADMAP queue 1, item 10)")
+    resolve logical positions to (page, offset).
+
+    ``kv_dtype="int8"`` / ``"fp8"`` (e4m3) store the pools quantized, with
+    per-(page, slot, head) f32 scales beside them (``k_scale`` /
+    ``v_scale``, (n_pages, page, KH)): the write paths quantize each token
+    on its own and the paged kernels read the stored bytes and scales, so
+    no committed slot is ever requantized."""
     shape = (n_pages, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kv_dtype is None:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    try:
+        qdtype = kv_quant.KV_DTYPES[kv_dtype]
+    except KeyError:
+        raise ValueError(
+            f"unknown kv_dtype {kv_dtype!r} (None, 'int8' or 'fp8')")
+    return {"k": torch.zeros(shape, dtype=qdtype, device=device),
+            "v": torch.zeros(shape, dtype=qdtype, device=device),
+            "k_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                   device=device)}
+
+
+def put_pool(leaf: torch.Tensor, index, x: torch.Tensor) -> None:
+    """``leaf[index] = x`` for a pool leaf of any storage: an fp8 pool
+    takes its bytes through a ``uint8`` view of both sides (the same
+    bits), as a scatter into float8 is not offered on every device."""
+    if leaf.dtype == kv_quant.FP8_DTYPE:
+        leaf.view(torch.uint8)[index] = x.view(torch.uint8)
+    else:
+        leaf[index] = x
+
+
+def quantize_leaves(pool: Params, k: torch.Tensor, v: torch.Tensor
+                    ) -> Params:
+    """Token K/V as the pool stores them: as they are for an fp pool, else
+    quantized over the head dim with their scales (``kv_quant``, keyed on
+    the pool leaf's dtype)."""
+    if "k_scale" not in pool:
+        return {"k": k, "v": v}
+    # K and V in one pass: each row is quantized on its own, so the bytes
+    # are those of two passes, for half the launches
+    q, scale = kv_quant.quantize_kv_as(torch.stack((k, v)), pool["k"].dtype)
+    return {"k": q[0], "v": q[1], "k_scale": scale[0], "v_scale": scale[1]}
 
 
 def _paged_kv_write(cache: Params, pages: torch.Tensor, off: torch.Tensor,
                     k: torch.Tensor, v: torch.Tensor) -> None:
     """The ONE paged KV scatter, in place: token K/V land at physical
     ``(pages, off)`` (decode writes one token per row, verify and
-    prefill-append a (B, S) chunk).  Several tokens may target the same
-    (trash page, offset): the admission step steers every row it does not
-    admit there, and prefill-append its padding tokens.  Which write
+    prefill-append a (B, S) chunk); a quantized pool takes each token
+    quantized on its own with its scales at the same indices, so the
+    committed neighbours keep their bytes.  Several tokens may target the
+    same (trash page, offset): the admission step steers every row it does
+    not admit there, and prefill-append its padding tokens.  Which write
     wins is then unspecified and harmless, since nothing reads the trash
     page's values; the writes never accumulate."""
-    cache["k"][pages, off] = k
-    cache["v"][pages, off] = v
+    for name, x in quantize_leaves(cache, k, v).items():
+        put_pool(cache[name], (pages, off), x)
+
+
+def _kv_scales(cache: Params) -> Dict[str, torch.Tensor]:
+    """The scale operands of the paged ``ops`` calls ({} for fp pools)."""
+    if "k_scale" in cache:
+        return {"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
+    return {}
 
 
 def _table_pages(block_table: torch.Tensor, pos: torch.Tensor,
@@ -215,7 +262,8 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
             _paged_kv_write(cache, pages, pos % page, k, v)
             o = ops.paged_prefill_attention(
                 q, cache["k"], cache["v"], block_table, idx + s,
-                window=window, softcap=cap, plan=tile_plan)
+                window=window, softcap=cap, plan=tile_plan,
+                **_kv_scales(cache))
         else:
             # padding tokens and positions past the cache write back the old
             # values: a masked select, no host sync.  Positions wrap modulo
@@ -245,11 +293,12 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
             if mode == "decode":
                 o = ops.paged_decode_attention(
                     q[:, 0], cache["k"], cache["v"], block_table, idx + 1,
-                    window=window, softcap=cap)[:, None]
+                    window=window, softcap=cap,
+                    **_kv_scales(cache))[:, None]
             else:
                 o = ops.paged_multi_decode_attention(
                     q, cache["k"], cache["v"], block_table, idx + s,
-                    window=window, softcap=cap)
+                    window=window, softcap=cap, **_kv_scales(cache))
         else:
             rows = torch.arange(b, device=x.device)[:, None]
             posw = torch.clamp(pos, max=cache["k"].shape[1] - 1)

@@ -53,8 +53,12 @@ class EngineConfig:
     token_budget: Optional[int] = None  # fused-step tokens (→ slots + chunk)
     #: explicit KV pool size in pages (None → worst-case bound)
     pool_pages: Optional[int] = None
-    pool_bytes: Optional[int] = None    # not ported (ROADMAP item 10)
-    kv_dtype: Optional[str] = None      # not ported (ROADMAP item 10)
+    #: explicit KV pool size as a device byte budget (paged only; the page
+    #: count follows the kv_dtype page size, see EngineCoreConfig)
+    pool_bytes: Optional[int] = None
+    #: KV page storage: None = the model dtype, "int8" / "fp8" = quantized
+    #: pages with per-(page, slot, head) scales, read by the paged kernels
+    kv_dtype: Optional[str] = None
     mesh: Optional[Any] = None          # not ported (ROADMAP item 13)
     overload: Optional[Any] = None      # not ported (ROADMAP item 9)
 
@@ -98,7 +102,9 @@ class InferenceEngine:
                              spec_gamma=self.ec.spec_gamma,
                              prefill_chunk=self.ec.prefill_chunk,
                              token_budget=self.ec.token_budget,
-                             pool_pages=self.ec.pool_pages),
+                             pool_pages=self.ec.pool_pages,
+                             pool_bytes=self.ec.pool_bytes,
+                             kv_dtype=self.ec.kv_dtype),
             draft=draft)
 
     def warmup(self) -> None:

@@ -33,7 +33,9 @@ tier's parameters, and the KV caches are updated in place.
 Every tensor shape of the slot path is fixed when the tables are allocated
 (pools, block table, logits, index, staging buffer, the fused step's flat
 (token_budget,) batch), so a later CUDA graph can capture the steps.
-Overload control, quantized pools, the device mesh, the
+The page pools may be quantized (``kv_dtype`` "int8" or "fp8", with
+per-(page, slot, head) scales) and sized by a byte budget
+(``pool_bytes``).  Overload control, the device mesh, the
 ``step_impl="vmap"`` oracle and tiers with recurrent (mLSTM/sLSTM) blocks
 are not ported yet: they raise ``NotImplementedError`` naming their
 ROADMAP item.
@@ -53,6 +55,7 @@ from repro_torch.configs.base import ATTN
 from repro_torch.core import eo_adapter as EO
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_prefill_attention as PPA
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serving.kv_pool import (KVPagePool, PrefixCache, TRASH_PAGE,
                                          page_nbytes)
@@ -64,8 +67,6 @@ Params = Dict[str, Any]
 #: value the port takes, where ROADMAP queue 1 lists it)
 NOT_PORTED = (
     ("overload", None, "item 9 (overload control)"),
-    ("kv_dtype", None, "item 10 (quantized paged KV)"),
-    ("pool_bytes", None, "item 10 (quantized paged KV)"),
     ("mesh", None, "item 13 (sharded serving)"),
 )
 
@@ -113,8 +114,16 @@ class EngineCoreConfig:
     #: explicit KV pool size in pages (paged only); None → the worst-case
     #: bound, under which admission never runs out of pages
     pool_pages: Optional[int] = None
-    pool_bytes: Optional[int] = None       # not ported (ROADMAP item 10)
-    kv_dtype: Optional[str] = None         # not ported (ROADMAP item 10)
+    #: explicit KV pool size as a device byte budget (paged only; excludes
+    #: pool_pages): ``pool_bytes // bytes per page`` pages, a page costing
+    #: every attention layer's K+V pools and scales
+    #: (``kv_pool.page_nbytes``), so an 8-bit pool buys ~2x a bf16 pool's
+    #: pages.  Must buy one slot's pages + the trash page.
+    pool_bytes: Optional[int] = None
+    #: KV pool storage (paged only): None → the model dtype (exact);
+    #: "int8" / "fp8" (e4m3) → pages quantized per (page, slot, head) with
+    #: f32 scales beside them, read by the paged kernels themselves
+    kv_dtype: Optional[str] = None
     mesh: Optional[Any] = None             # not ported (ROADMAP item 13)
     overload: Optional[Any] = None         # not ported (ROADMAP item 9)
 
@@ -272,6 +281,16 @@ class EngineCore:
         self._encode_cache: "OrderedDict[Any, Tuple]" = OrderedDict()
         self._encode_cache_cap = 32
 
+        if self.cfg.kv_dtype is not None:
+            if self.cfg.kv_dtype not in ("int8", "fp8"):
+                raise ValueError(f"unknown kv_dtype {self.cfg.kv_dtype!r} "
+                                 "(None, 'int8' or 'fp8')")
+            if self.cache_impl != "paged":
+                raise ValueError(
+                    "kv_dtype requires the paged cache: quantization lives "
+                    "in the page pools and the paged kernels (the dense "
+                    "engine stays the exact oracle)")
+
         n_slots = self.cfg.slots
         if self.cache_impl == "paged":
             ps = self.cfg.page_size
@@ -293,14 +312,29 @@ class EngineCore:
             # cache-only prefixes
             self._n_pages = (1 + n_slots * self._pages_per_slot
                              + scenes * self._n_shared_pages)
+            floor = 1 + self._pages_per_slot
             if self.cfg.pool_pages is not None:
-                floor = 1 + self._pages_per_slot
+                if self.cfg.pool_bytes is not None:
+                    raise ValueError("pool_pages and pool_bytes are "
+                                     "mutually exclusive pool-size knobs")
                 if self.cfg.pool_pages < floor:
                     raise ValueError(
                         f"pool_pages {self.cfg.pool_pages} below the "
                         f"single-slot floor {floor} (trash page + one "
                         "slot's worst-case pages)")
                 self._n_pages = self.cfg.pool_pages
+            elif self.cfg.pool_bytes is not None:
+                # one page's device cost across the whole stack, scales
+                # included: the accounting rule kv_stats() checks
+                per_page = self._page_nbytes_stack()
+                n = self.cfg.pool_bytes // per_page
+                if n < floor:
+                    raise ValueError(
+                        f"pool_bytes {self.cfg.pool_bytes} buys only {n} "
+                        f"pages at {per_page} B/page, below the "
+                        f"single-slot floor {floor} (trash page + one "
+                        "slot's worst-case pages)")
+                self._n_pages = int(n)
             self._pool = KVPagePool(self._n_pages, ps)
             self._prefix = PrefixCache(self._pool, capacity=n_slots + scenes)
             self._bt_np = np.full((n_slots, self._pages_per_slot),
@@ -308,6 +342,8 @@ class EngineCore:
             self._bt_dev = None
         elif self.cfg.pool_pages is not None:
             raise ValueError("pool_pages only applies to the paged cache")
+        elif self.cfg.pool_bytes is not None:
+            raise ValueError("pool_bytes only applies to the paged cache")
 
         self._slots: List[_Slot] = [_Slot() for _ in range(n_slots)]
         self._slot_cache = None
@@ -416,7 +452,8 @@ class EngineCore:
         if self._slot_cache is None:
             if self.cache_impl == "paged":
                 self._slot_cache = T.init_paged_cache(
-                    cfg, n, self._n_pages, self._page_size, dev)
+                    cfg, n, self._n_pages, self._page_size, dev,
+                    kv_dtype=self.cfg.kv_dtype)
             else:
                 self._slot_cache = T.init_cache(cfg, n, self._slot_max_len,
                                                 dev)
@@ -451,11 +488,14 @@ class EngineCore:
 
     def _page_nbytes_stack(self) -> int:
         """Device bytes ONE pool page costs across the whole stack (every
-        attention layer's K+V pools)."""
+        attention layer's K+V pools and an 8-bit pool's scales):
+        ``pool_bytes`` sizing divides by it, ``kv_stats`` checks the live
+        pools against it."""
         cfg = self.tier.cfg
         n_kv = cfg.n_super * len(cfg.block_pattern)
         return n_kv * page_nbytes(
             self._page_size, cfg.num_kv_heads, cfg.resolved_head_dim,
+            kv_dtype=self.cfg.kv_dtype,
             fp_bytes=torch.empty((), dtype=getattr(torch, cfg.dtype))
             .element_size())
 
@@ -580,11 +620,15 @@ class EngineCore:
         pages = self._host_to_dev([p for pg in allocs for p in pg])
 
         def kv(pool: Params, pref: Params) -> Params:
+            # a quantized pool takes the dense prefix quantized here, the
+            # layout every other write path keeps (scales drop the hd axis)
+            pref = L.quantize_leaves(pool, pref["k"], pref["v"])
             for name, leaf in pool.items():
-                x = pref[name]                     # (n_super, K, N_r, KH, hd)
+                x = pref[name]                     # (n_super, K, N_r, KH, ...)
                 ns = x.shape[0]
-                leaf[:, pages] = x.reshape((ns, km * n_shared, ps)
-                                           + tuple(x.shape[3:]))
+                L.put_pool(leaf, (slice(None), pages),
+                           x.reshape((ns, km * n_shared, ps)
+                                     + tuple(x.shape[3:])))
             return pool
 
         T.map_cache_kinds(self.tier.cfg, [self._slot_cache, cache], kv=kv,
@@ -1259,9 +1303,15 @@ class EngineCore:
         self._ensure_slot_tables()
         total = sum(t.numel() * t.element_size()
                     for layer in self._slot_cache for t in layer.values())
+        scales = sum(t.numel() * t.element_size()
+                     for layer in self._slot_cache
+                     for name, t in layer.items() if name.endswith("_scale"))
         out: Dict[str, Any] = {"cache_impl": self.cache_impl,
                                "kv_bytes_total": int(total),
-                               "kv_dtype": None, "kv_scale_bytes": 0}
+                               "kv_dtype": self.cfg.kv_dtype,
+                               #: the f32 scales of an 8-bit pool, inside
+                               #: kv_bytes_total
+                               "kv_scale_bytes": int(scales)}
         adm = self.stats["prefix_hits"] + self.stats["prefix_misses"]
         out["prefix_hit_rate"] = (self.stats["prefix_hits"] / adm
                                   if adm else 0.0)

@@ -596,6 +596,143 @@ def test_prefill_mma_route_refuses_what_it_does_not_take(card):
     assert ops.launch_counts() == before
 
 
+def _quant_case(gen, kind, b, kh, group, hd, page, width, lens, q_len,
+                dtype):
+    """``_paged_case``'s pools quantized to ``kind``: (q, clean pools,
+    trash pools), each a {"k", "v", "k_scale", "v_scale"} dict.  The trash
+    page of the kernel's pools has NaN scales (an int8 page cannot hold
+    NaN) and, in fp8, NaN bytes (0x7F), so a read past a row's length
+    shows; the plain version's has the quantized zero page."""
+    from repro_torch.kernels import kv_quant
+    q, kp, vp, _, _, table, lens_t = _paged_case(
+        gen, b, kh, group, hd, page, width, lens, q_len, torch.float32)
+    pools = kv_quant.quantize_pool(kp, vp, kind)
+    nan = {k: v.clone() for k, v in pools.items()}
+    nan["k_scale"][0] = nan["v_scale"][0] = float("nan")
+    if kind == "fp8":
+        nan["k"].view(torch.uint8)[0] = 0x7F
+        nan["v"].view(torch.uint8)[0] = 0x7F
+    return q.to(dtype), pools, nan, table, lens_t
+
+
+def _scales(pools):
+    return {"k_scale": pools["k_scale"], "v_scale": pools["v_scale"]}
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("op,hd,group,q_len,page,window,dtype", [
+    ("decode", 16, 3, 1, 4, 0, torch.float32),
+    ("decode", 128, 6, 1, 8, 0, torch.float32),
+    ("decode", 128, 6, 1, 8, 0, torch.bfloat16),    # mma
+    ("decode", 64, 7, 5, 1, 40, torch.bfloat16),    # mma verify, window
+    ("decode", 128, 7, 10, 8, 0, torch.bfloat16),   # 70 rows: two tiles
+    ("prefill", 12, 7, 16, 8, 0, torch.float32),
+    ("prefill", 32, 6, 9, 4, 24, torch.float32),    # 8-bit rows at HD 32
+    ("prefill", 128, 6, 64, 8, 0, torch.bfloat16),  # mma prefix-append
+])
+def test_quantized_paged_kernels_match_plain(card, kind, op, hd, group,
+                                             q_len, page, window, dtype):
+    """The paged kernels read an 8-bit pool and its scales themselves: held
+    on the route ``route`` names to the dequantized plain version (the mma
+    route to its bound), the trash page's NaN scales never read, the pools
+    left as they were, the launch counted under the pool's storage."""
+    from repro_torch.kernels.decode_attention import route
+    lens = [0, max(q_len - 1, 1), q_len, q_len + 77, q_len + 150]
+    q, pools, nan, table, lens_t = _quant_case(
+        card, kind, len(lens), 2, group, hd, page, -(-(q_len + 160) // page),
+        lens, q_len, dtype)
+    nan0 = {k: v.clone() for k, v in nan.items()}
+    name = ("paged_decode_attention" if op == "decode"
+            else "paged_prefill_attention")
+    fn = (ops.paged_multi_decode_attention if op == "decode"
+          else ops.paged_prefill_attention)
+    before = ops.launch_counts()
+    got = fn(q, nan["k"], nan["v"], table, lens_t, window=window,
+             **_scales(nan))
+    after = ops.launch_counts()
+    assert after[f"{name}[{kind}]"] == before[f"{name}[{kind}]"] + 1
+    assert after[name] == before[name] + 1
+    want = ref.paged_multi_decode_attention(q.float(), pools["k"],
+                                            pools["v"], table, lens_t,
+                                            window=window, **_scales(pools))
+    if route(dtype, hd) == "mma":
+        kd = ref.gather_pages(ref.dequantize_pool(pools["k"],
+                                                  pools["k_scale"]), table)
+        vd = ref.gather_pages(ref.dequantize_pool(pools["v"],
+                                                  pools["v_scale"]), table)
+        _within_mma_decode_bound(got, q, kd, vd, lens_t, window=window)
+        assert after[f"{name}_mma[{kind}]"] == \
+            before[f"{name}_mma[{kind}]"] + 1
+    else:
+        _close(got, want, TOL[dtype])
+    assert float(got[0].abs().max()) == 0.0
+    for k in nan:
+        assert torch.equal(nan[k].view(torch.uint8) if k in ("k", "v")
+                           else nan[k].nan_to_num(),
+                           nan0[k].view(torch.uint8) if k in ("k", "v")
+                           else nan0[k].nan_to_num())
+    if q_len == 1:
+        got1 = ops.paged_decode_attention(q[:, 0], nan["k"], nan["v"],
+                                          table, lens_t, window=window,
+                                          **_scales(nan))
+        assert torch.equal(got1, got[:, 0])
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("plan", [True, False])
+def test_quantized_prefill_mma_route_at_the_flat_path_shape(card, kind,
+                                                            plan):
+    """(d) on an 8-bit pool, with and without the tile plan: every
+    scheduled row within the route's bound of the dequantized plain
+    version; the trash page (NaN scales) never read."""
+    from repro_torch.kernels import kv_quant
+    q, kp, vp, _, _, table, lens, tiles, rows = _flat_case(
+        card, PATH_DECODE + [(8, 768, 256)], tb=264, n_slots=9, kh=2,
+        group=6, hd=128, page=8, width=257, shared=128,
+        scene_of=[0, 1] * 4 + [2])
+    pools = kv_quant.quantize_pool(kp.float(), vp.float(), kind)
+    nan = {k: v.clone() for k, v in pools.items()}
+    nan["k_scale"][0] = nan["v_scale"][0] = float("nan")
+    got = ops.paged_prefill_attention(q, nan["k"], nan["v"], table, lens,
+                                      plan=tiles if plan else None,
+                                      **_scales(nan))
+    kd = ref.dequantize_pool(pools["k"], pools["k_scale"])
+    vd = ref.dequantize_pool(pools["v"], pools["v_scale"])
+    _held_rows(got, q, kd, vd, table, lens, rows)
+
+
+def test_quantized_wrappers_refuse_what_the_kernels_do_not_take(card):
+    """An 8-bit pool without both scales, scales of the wrong dtype or
+    shape, mixed pools, and scales beside an fp pool raise before any
+    launch."""
+    from repro_torch.kernels import kv_quant
+    q, pools, _, table, lens = _quant_case(card, "int8", 2, 2, 3, 16, 4, 8,
+                                           [3, 9], 1, torch.float32)
+    k, v, ks, vs = pools["k"], pools["v"], pools["k_scale"], pools["v_scale"]
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="together"):
+        ops.paged_decode_attention(q[:, 0], k, v, table, lens, k_scale=ks)
+    with pytest.raises(ValueError, match="needs k_scale"):
+        paged_decode_attention_cuda(ops._chunk_to_rows(q, 2),
+                                    k.transpose(1, 2), v.transpose(1, 2),
+                                    table, lens)
+    with pytest.raises(ValueError, match="float32"):
+        ops.paged_decode_attention(q[:, 0], k, v, table, lens,
+                                   k_scale=ks.double(), v_scale=vs)
+    with pytest.raises(ValueError, match="float32"):
+        ops.paged_decode_attention(q[:, 0], k, v, table, lens,
+                                   k_scale=ks[:, :2], v_scale=vs[:, :2])
+    with pytest.raises(ValueError, match="share their dtype"):
+        ops.paged_decode_attention(
+            q[:, 0], k, kv_quant.quantize_pool(v.float(), v.float(),
+                                               "fp8")["v"],
+            table, lens, k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="no scales"):
+        ops.paged_prefill_attention(q, ks.new_zeros(k.shape), ks.new_zeros(
+            k.shape), table, lens, k_scale=ks, v_scale=vs)
+    assert ops.launch_counts() == before
+
+
 @pytest.mark.parametrize("b,r,nv,ne,d,dtype", [
     (2, 100, 1, 1, 1536, torch.bfloat16),
     (2, 100, 3, 2, 48, torch.float32),

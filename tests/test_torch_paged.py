@@ -289,8 +289,13 @@ def test_paged_cache_layout_matches_jax(gs_model):
     tc = TT.init_paged_cache(cfg, 3, 12, 4, "cpu")
     assert [{k: tuple(v.shape) for k, v in d.items()} for d in tc] == \
         [{k: tuple(v.shape) for k, v in d.items()} for d in jc]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TT.init_paged_cache(cfg, 3, 12, 4, "cpu", kv_dtype="int8")
+    for kind in ("int8", "fp8"):        # the quantized layout is JAX's too
+        jq = JT.init_paged_cache(jcfg, 3, 12, 4, kv_dtype=kind)
+        tq = TT.init_paged_cache(cfg, 3, 12, 4, "cpu", kv_dtype=kind)
+        assert [{k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+                 for k, v in d.items()} for d in tq] == \
+            [{k: (tuple(v.shape), str(v.dtype)) for k, v in d.items()}
+             for d in jq]
     seen = TT.map_cache_kinds(cfg, [tc, tc], kv=lambda a, b: (a is b),
                               state=None)
     assert seen == (True,) * len(cfg.block_pattern)
