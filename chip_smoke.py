@@ -127,6 +127,15 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    The slot path, a γ = 3 speculative engine and a chunked one (chunk 8)
    on int8 and fp8 pools give the CPU's tokens and counters, with the
    stored K/V at most one quantization step apart (the share printed).
+   Overload control (``overload_saturation``, the scenario that
+   ``tests/test_torch_overload.py`` also runs against the JAX package: 4
+   slots, a queue of 4, a pool of 1 + 3P + 3S pages, bulk det on two
+   scenes, then urgent vqa, a bulk vqa expired by an explicit ``now`` and
+   a burst of bulk cls) on the paged, chunked (8), γ 3 and int8 engines:
+   the card gives the CPU's outcomes of every ``submit_many``, rejections
+   with reasons, finished order and tokens, overload counts, prefix
+   counters and pages, with at least one preemption, one ``queue_full``
+   and one expiry, and the pool drained.
 4. The cascade server: ``CascadeServer.handle`` at the full width and
    depth of the paper's pair (Qwen2-VL-2B on the satellite, Qwen2-VL-7B on
    the ground), bfloat16, random weights from a seed, serving requests
@@ -233,17 +242,48 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    4224 B a layer page against 8192 B).  Each quantized kernel is held to
    its bound on the path's own first inputs; token agreement with the
    bf16 runs is reported through ``kv_quant.compare_outputs``.
+12. Overload control at full width (after phase 11, while the pair is
+   loaded, before 9), on the 2B's slot path, bf16, page 8.  (a) A
+   saturated ``EngineCore``: 4 slots, ``OverloadConfig(queue_cap=4)``, a
+   pool of 1 + 3P + 3S = 772 pages (P = 129 private, S = 128 shared pages
+   a slot); 4 bulk det on scenes A, A, B, B, then after 64 steps, with no
+   step between, 2 urgent vqa on a new scene C, a bulk vqa on E with a
+   1 ms deadline and a burst of 5 bulk cls on D; steps until it drains.
+   Checks: every request answered (right length, in the answer vocab) or
+   rejected once with a reason from the three, none both, none lost; a
+   preemption, a deferral, a ``queue_full`` and an expiry; each preempted
+   det answer whose scene prefix stayed resident until it was admitted
+   again begins with the tokens it had committed when it was preempted
+   (recorded as ``_preempt_one`` releases the slot; the other case is
+   reported); after the drain only resident prefix pages in use, no
+   prefix entry in use, the block table all trash page; the paged decode
+   kernel launched 28 × (steps + admission calls), all on the tensor
+   cores, flash 28 × prefix prefills on the wgmma route; the paged decode
+   kernel held to its tensor-core bound (``decode_on_path_inputs``) on the
+   path's own inputs at the first step after the three submits (B 4, KH
+   2, a 257-page table; three rows past the 1024-token prefix, one
+   empty), after the counts were read.  Prints the outcomes, rejections, preemptions and finished order, step ms, answer
+   tokens/s, the device busy share over 8 profiled steps (from step
+   256), ``scheduler_stats()["overload"]`` and the phase's seconds.
+   (b) ``InferenceEngine.serve`` with overload on phase 8's chunked engine
+   (8 slots, chunk 256, budget 264), ``OverloadConfig(queue_cap=32)``, a
+   pool of 1 + 4P + 2S pages (at most four requests at once, new scene
+   streams wait for pages): phase 6's 20 cls/vqa requests, priorities
+   alternating bulk and urgent.  Checks: all answered, ``last_rejected``
+   empty, pages drained to the resident prefixes, prefix-append 28 × fused
+   steps and paged decode 28 × plain steps, all on the tensor cores, no
+   flash, no region score; token agreement with phase 6 is reported.
+   Line ``overload_phase {...}``.
 
-Phases 3, 4, 6, 7, 8, each run of 9 and each path of 10 and 11 (the batch
-evaluator, the speculative server) zero every kernel's launch count just
-before they run and read it just after; each kernel of a path must have
-launched.  In phases 4, 6, 7 and 10 the tensor-core flash route launched
+Phases 3, 4, 6, 7, 8, each run of 9 and each path of 10, 11 and 12 (the
+batch evaluator, the speculative server) zero every kernel's launch count
+just before they run and read it just after; each kernel of a path must
+have launched.  In phases 4, 6, 7 and 10 the tensor-core flash route launched
 once per layer of every ``transformer.prefill`` call (28 × prefills) and
-the CUDA-core route never; in phases 4, 6-8 and 10 every decode launch
-(dense and paged) took the tensor-core route, in phase 3 the CUDA-core
-route;
-every prefix-append launch took the tensor-core route in phase 8 and the
-CUDA-core route in phase 3.
+the CUDA-core route never, as in 12 (a); in phases 4, 6-8 and 10-12 every
+decode launch (dense and paged) took the tensor-core route, in phase 3 the
+CUDA-core route; every prefix-append launch took the tensor-core route in
+phases 8 and 12 (b) and the CUDA-core route in phase 3.
 A kernel with two routes counts all its launches under its old name and
 the tensor-core ones under ``*_wgmma`` / ``*_mma`` as well; the paged
 kernels also count their launches on 8-bit pools under
@@ -2056,6 +2096,7 @@ def small_reference(torch):
             raise RuntimeError(f"card and CPU disagree on {req.task} {taus}")
     small_slot_path(torch, sat, gs, card[0], card[1], ac)
     small_quant_path(torch, sat, gs, card[0], card[1], ac)
+    small_overload_path(torch, sat, gs, card[0], card[1], ac)
     small_batch_path(torch, (sat, gs, conf), card, ac)
     small_xlstm(torch)
     return {(w.tier, w.exit_stage) for _, _, w, _ in want}
@@ -2192,6 +2233,166 @@ def small_quant_path(torch, sat, gs, sat_card, gs_card, ac):
             if not same or gc != cc or worst > 1:
                 raise RuntimeError(f"quantized slot path {kind} {kw}: card "
                                    f"and CPU disagree")
+
+
+# the overload scenario's engines on the small proxies: (tag, config)
+SMALL_OVERLOAD = (("paged", {}), ("chunk8", {"prefill_chunk": 8}),
+                  ("spec3", {"spec_gamma": 3}), ("int8", {"kv_dtype": "int8"}))
+
+
+def port_serving(gs, sat, ac):
+    """The port's serving API as ``overload_saturation`` takes it: the
+    engine classes, the urgent priority, the trash page, the ground tier
+    ``gs``, its draft ``sat`` and the adapter config ``ac``."""
+    import types
+    from repro_torch import serving
+    from repro_torch.serving.kv_pool import TRASH_PAGE
+    return types.SimpleNamespace(
+        Request=serving.Request, Core=serving.EngineCore,
+        CoreConfig=serving.EngineCoreConfig, Overload=serving.OverloadConfig,
+        PRIORITY_URGENT=serving.PRIORITY_URGENT, TRASH_PAGE=TRASH_PAGE,
+        gs=gs, sat=sat, ac=ac)
+
+
+def overload_saturation(pkg, images, kw, answer_vocab: int = 9):
+    """The overload scenario on one engine of ``pkg`` (``port_serving``'s
+    namespace, or the same API of another package): 4 slots of the tier
+    ``pkg.gs`` (drafted by ``pkg.sat`` when ``kw`` asks for ``spec_gamma``),
+    a queue of 4, a pool of 1 + 3P + 3S pages (P private, S shared pages a
+    slot; a dense engine has none); 4 bulk det (2 on scene 0, 2 on 1),
+    6 steps, then 2 urgent vqa on scene 2, a bulk vqa on scene 4 whose
+    deadline only an explicit ``now`` reaches, a burst of 5 bulk cls on
+    scene 3, a pump past that deadline, and the drain.  Each preempted
+    request's committed tokens are recorded as ``_preempt_one`` releases
+    its slot.  Returns what two runs must agree on: each submit call's
+    outcomes, the rejections with reasons after each call and step, the
+    finished order and tokens, the engine counters, the overload counts
+    (no milliseconds) and the pages, the preempted requests' tokens, each
+    request's (task, scene, prompt), and whether the paged pool drained
+    to its resident prefixes (refcount 1 each) with the block table all
+    trash page."""
+    import numpy as np
+    cfg = dict(slots=4, answer_vocab=answer_vocab, **kw)
+    draft = pkg.sat if kw.get("spec_gamma") else None
+    if kw.get("cache_impl") != "dense":
+        probe = pkg.Core(pkg.gs, pkg.ac, pkg.CoreConfig(**cfg), draft=draft)
+        cfg["pool_pages"] = (1 + 3 * probe._private_per_slot
+                             + 3 * probe._n_shared_pages)
+    core = pkg.Core(pkg.gs, pkg.ac, pkg.CoreConfig(
+        overload=pkg.Overload(queue_cap=4), **cfg), draft=draft)
+    preempted, release, preempt = [], core._release_slot, core._preempt_one
+
+    def preempt_one(above, now):
+        def release_and_record(i):
+            sl = core._slots[i]
+            preempted.append((sl.request.request_id,
+                              [int(x) for x in sl.tokens]))
+            release(i)
+        core._release_slot = release_and_record
+        try:
+            return preempt(above, now)
+        finally:
+            core._release_slot = release
+
+    core._preempt_one = preempt_one
+
+    def req(rid, task, scene, prompt=0, priority=0, deadline_s=None):
+        return pkg.Request(task=task, image=images[scene], prompt=prompt,
+                           scene_id=scene, request_id=rid, priority=priority,
+                           deadline_s=deadline_s)
+
+    def took():
+        return [(r.request_id, why) for r, why in core.take_rejected()]
+
+    far, t0 = 1e5, 1000.0
+    det = [req(100 + i, "det", i // 2, i % 2) for i in range(4)]
+    calls = [core.submit_many(det, now=t0)]
+    finished, tokens = [], {}
+
+    def step():
+        for r, t in core.step():
+            finished.append(r.request_id)
+            tokens[r.request_id] = [int(x) for x in t]
+
+    for _ in range(6):
+        step()
+    urgent = [req(110 + i, "vqa", 2, i, pkg.PRIORITY_URGENT)
+              for i in range(2)]
+    late = req(120, "vqa", 4, deadline_s=far)
+    burst = [req(130 + i, "cls", 3, i % 3) for i in range(5)]
+    calls += [core.submit_many(urgent, now=t0 + 1),
+              core.submit_many([late], now=t0 + 1),
+              core.submit_many(burst, now=t0 + 1)]
+    rejected = [took()]
+    calls.append(core.submit_many([], now=t0 + 1 + 2 * far))  # 120 expires
+    rejected.append(took())
+    for _ in range(2000):
+        step()
+        rejected.append(took())
+        if core.active_count() == 0 and core.queue_depth() == 0:
+            break
+    else:
+        raise RuntimeError(f"overload scenario {kw}: the engine did not "
+                           f"drain")
+    ol = dict(core.scheduler_stats()["overload"])
+    ol["readmit_wait_ms"] = ol["readmit_wait_ms"]["n"]
+    ol["ttft_by_priority"] = {p: v["n"]
+                              for p, v in ol["ttft_by_priority"].items()}
+    state = {k: core.stats[k] for k in (
+        "prefix_hits", "prefix_misses", "prefill_tokens", "prefill_by_kind",
+        "mid_stream_refills", "admitted", "finished")}
+    state.update(overload=ol, steps=core.stats["sched"]["steps"],
+                 fused_steps=core.stats["sched"]["fused_steps"])
+    drained = True
+    if core.cache_impl == "paged":
+        kv, prefix = core.kv_stats(), core._prefix
+        state.update({k: kv[k] for k in (
+            "pages_in_use", "n_pages", "prefix_entries",
+            "prefix_entries_in_use", "prefix_shared_pages")})
+        drained = (kv["prefix_entries_in_use"] == 0
+                   and kv["pages_in_use"] == kv["prefix_shared_pages"]
+                   and all(core._pool.refcount(p) == 1
+                           for e in prefix._entries.values()
+                           for p in e.pages)
+                   and bool((np.asarray(core._bt_np)
+                             == pkg.TRASH_PAGE).all()))
+    asked = {r.request_id: (r.task, r.scene_id, r.prompt)
+             for r in det + urgent + [late] + burst}
+    return {"calls": calls, "rejected": rejected, "finished": finished,
+            "tokens": tokens, "state": state, "preempted": preempted,
+            "asked": asked, "drained": drained}
+
+
+def small_overload_path(torch, sat, gs, sat_card, gs_card, ac):
+    """Overload control on the small proxies (f32): the saturation scenario
+    (``overload_saturation``) on the paged, chunked (8), γ 3 speculative
+    and int8 engines of the ground tier (the satellite tier drafts), on
+    the card and on the CPU from the same weights: equal outcomes,
+    rejections, finished order and tokens, overload counts, counters and
+    pages; at least one preemption, one ``queue_full`` and one
+    ``expired``, and the pool drained."""
+    from repro_torch.data import synthetic
+    images = synthetic.make_dataset(
+        "cls", 5, seed=90, cfg=synthetic.EOTaskConfig(
+            image_size=ac.image_size, grid=ac.grid))["images"]
+    cpu, card = port_serving(gs, sat, ac), port_serving(gs_card, sat_card, ac)
+    for tag, kw in SMALL_OVERLOAD:
+        want = overload_saturation(cpu, images, kw)
+        got = overload_saturation(card, images, kw)
+        ol, same = got["state"]["overload"], got == want
+        log(f"  small overload {tag}: card "
+            f"{'equal to' if same else 'DIFFERENT from'} the CPU; "
+            f"finished {got['finished']}, preemptions "
+            f"{ol['preemptions']}, rejections {ol['rejections']}, deferred "
+            f"{ol['admissions_deferred']}, pages in use "
+            f"{got['state']['pages_in_use']} of {got['state']['n_pages']}")
+        if not same:
+            raise RuntimeError(f"overload {tag}: card and CPU disagree: "
+                               f"{got} against {want}")
+        if not (ol["preemptions"] >= 1 and ol["rejections"]["queue_full"] >= 1
+                and ol["rejections"]["expired"] == 1 and got["drained"]):
+            raise RuntimeError(f"overload {tag}: no preemption, queue_full "
+                               f"or expiry, or the pool did not drain: {ol}")
 
 
 def weights_device(tier) -> str:
@@ -3269,6 +3470,306 @@ def quant_phase(torch, sat, gs, ac, slot, spec, chunked):
                          "spec_int8": spec_counts}}
 
 
+OVERLOAD_STEPS = 64          # phase 12 (a): steps before the urgent burst
+OVERLOAD_REASONS = ("queue_full", "expired", "infeasible")
+
+
+def overload_core_phase(torch, sat, ac):
+    """Phase 12 (a): a saturated 2B ``EngineCore`` under overload control
+    (4 slots, ``OverloadConfig(queue_cap=4)``, page 8, a pool of 1 + 3P +
+    3S pages, P private and S shared pages a slot: 772 at full width).
+    Traffic: 4 bulk det (2 on scene A, 2 on B); after ``OVERLOAD_STEPS``
+    steps and with no step between them, 2 urgent vqa on scene C, 1 bulk
+    vqa on scene E with a 1 ms deadline and a burst of 5 bulk cls on
+    scene D; then steps until the engine drains.  Each preempted
+    request's committed tokens are recorded as ``_preempt_one`` releases
+    its slot, with whether its scene's prefix stayed resident until it
+    was admitted again."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (PRIORITY_URGENT, EngineCore,
+                                     EngineCoreConfig, OverloadConfig)
+    from repro_torch.serving.kv_pool import TRASH_PAGE
+    from repro_torch.serving.request import scene_key
+    av = ac.num_classes + 1
+    t_phase = time.perf_counter()
+    probe = EngineCore(sat, ac, EngineCoreConfig(slots=4, page_size=8,
+                                                 answer_vocab=av))
+    n_priv, n_shared = probe._private_per_slot, probe._n_shared_pages
+    pool = 1 + 3 * n_priv + 3 * n_shared
+    core = EngineCore(sat, ac, EngineCoreConfig(
+        slots=4, page_size=8, answer_vocab=av, pool_pages=pool,
+        overload=OverloadConfig(queue_cap=4)))
+    core.warmup()
+    det = scene_stream(["det", "det"], 2, FULL_IMAGE, FULL_GRID, seed=1200)
+    urgent = scene_stream(["vqa", "vqa"], 1, FULL_IMAGE, FULL_GRID,
+                          seed=1210)
+    late = scene_stream(["vqa"], 1, FULL_IMAGE, FULL_GRID, seed=1220)
+    burst = scene_stream(["cls"] * 5, 1, FULL_IMAGE, FULL_GRID, seed=1230)
+    for r in urgent:
+        r.priority = PRIORITY_URGENT
+    late[0].deadline_s = 1e-3
+    submitted = det + urgent + late + burst
+
+    # each preemption: (request id, slot, committed tokens, the scene's
+    # prefix entry); each re-admission: whether that entry was still the
+    # resident one
+    preempted, resident, release = {}, {}, core._release_slot
+    preempt, admit = core._preempt_one, core.admit_many
+
+    def preempt_one(above, now):
+        def release_and_record(i):
+            sl = core._slots[i]
+            preempted[sl.request.request_id] = (
+                i, list(sl.tokens),
+                core._prefix._entries.get(sl.scene))
+            release(i)
+        core._release_slot = release_and_record
+        try:
+            return preempt(above, now)
+        finally:
+            core._release_slot = release
+
+    def admit_many(requests):
+        for r in requests:
+            rec = preempted.get(r.request_id)
+            if rec is not None:
+                resident[r.request_id] = (
+                    core._prefix._entries.get(scene_key(r)) is rec[2])
+        return admit(requests)
+
+    core._preempt_one, core.admit_many = preempt_one, admit_many
+    probe_steps = StepProbe(torch, core, first=256, n=8)
+    answers, order, rejected, outcomes = {}, [], [], []
+
+    def step():
+        for r, t in core.step():
+            answers[r.request_id] = t
+            order.append(r.request_id)
+        rejected.extend(core.take_rejected())
+
+    def snapshot():
+        return {"active": [sl.request.request_id if sl.active else None
+                           for sl in core._slots],
+                "queue": [e.request.request_id for e in core._admq],
+                "pages_in_use": core._pool.pages_in_use}
+
+    # the paged decode's inputs are kept from the first step after the
+    # submits: three slots decoding at mixed lengths and one empty
+    trace, capture = {}, {"on": False}
+
+    def run():
+        outcomes.append(core.submit_many(det))
+        for _ in range(OVERLOAD_STEPS):
+            step()
+        trace["before_urgent"] = snapshot()
+        for group in (urgent, late, burst):
+            outcomes.append(core.submit_many(group))
+        rejected.extend(core.take_rejected())
+        trace["after_submits"] = snapshot()
+        capture["on"] = True
+        step()
+        capture["on"] = False
+        while core.queue_depth() or core.active_count():
+            step()
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with PrefillCounter() as prefills:
+        _, held = capture_inputs(torch, run, ["paged_decode_attention"],
+                                 when=lambda: capture["on"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    prefills.check(counts, "phase 12 (a)")
+    on_path = decode_on_path_inputs(held, 12, "overload core",
+                                    need=("paged_decode_attention",))
+
+    ids = {r.request_id: r for r in submitted}
+    why = {}
+    for r, reason in rejected:
+        why.setdefault(r.request_id, []).append(reason)
+    bad_answers = [rid for rid, t in answers.items()
+                   if len(t) != ac.answer_len(ids[rid].task)
+                   or t.min() < 0 or t.max() >= av]
+    ol = core.scheduler_stats()["overload"]
+    kv, steps = core.kv_stats(), core.stats["sched"]["steps"]
+    n_layers = sat.cfg.num_layers
+    kept = {rid: bool((answers[rid][:len(rec[1])]
+                       == np.asarray(rec[1], np.int32)).all())
+            for rid, rec in preempted.items() if rid in answers}
+    checks = {
+        "every answer the right length, in the answer vocab":
+            not bad_answers,
+        "every request answered or rejected once, none both, none lost":
+            set(answers) | set(why) == set(ids)
+            and not set(answers) & set(why)
+            and all(len(v) == 1 for v in why.values()),
+        "reasons from the three": all(v[0] in OVERLOAD_REASONS
+                                      for v in why.values()),
+        "a preemption": ol["preemptions"] >= 1
+            and ol["preemptions"] == len(preempted),
+        "a deferral": ol["admissions_deferred"] >= 1,
+        "a queue_full": ol["rejections"].get("queue_full", 0) >= 1,
+        "an expiry": ol["rejections"].get("expired", 0) >= 1,
+        "each preempted answer re-emits its tokens where its prefix "
+        "stayed resident": all(kept[rid] for rid, res in resident.items()
+                               if res),
+        "drained: only resident prefix pages":
+            kv["pages_in_use"] == kv["prefix_shared_pages"],
+        "drained: no prefix entry in use": kv["prefix_entries_in_use"] == 0,
+        "drained: block table all trash page":
+            bool((core._bt_np == TRASH_PAGE).all()),
+        "paged launches == layers x (steps + admissions)":
+            counts["paged_decode_attention"]
+            == n_layers * (steps + probe_steps.admissions),
+        "paged decode on the tensor cores only": decode_routes(
+            counts, "mma", need=("paged_decode_attention",))[0],
+    }
+    n_tok = sum(len(t) for t in answers.values())
+    prof = probe_steps.profile()
+    busy = prof and prof["device_busy_share"]
+    step_ms = 1e3 * sum(probe_steps.step_s) / len(probe_steps.step_s)
+    res = {"pool_pages": pool, "private_per_slot": n_priv,
+           "shared_pages": n_shared, "outcomes": outcomes,
+           "rejected": [(r.request_id, w) for r, w in rejected],
+           "finished_order": order, "trace": trace,
+           "preempted": {rid: {"slot": rec[0], "tokens_committed":
+                               len(rec[1]),
+                               "prefix_stayed_resident":
+                               resident.get(rid),
+                               "answer_begins_with_them": kept.get(rid)}
+                         for rid, rec in preempted.items()},
+           "steps": steps, "admission_calls": probe_steps.admissions,
+           "prefix_prefills": prefills.calls,
+           "prefix_hits": core.stats["prefix_hits"],
+           "prefix_misses": core.stats["prefix_misses"],
+           "answer_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "step_ms_mean": step_ms,
+           "step_ms_median": 1e3 * sorted(probe_steps.step_s)[
+               len(probe_steps.step_s) // 2],
+           "device_busy_share": busy, "profile": prof,
+           "scheduler_overload": ol, "on_path_inputs": on_path,
+           "launches": counts,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"  phase 12 (a): {len(answers)} answered, {len(why)} rejected "
+        f"{ol['rejections']}, "
+        f"{ol['preemptions']} preemptions, {steps} steps + "
+        f"{probe_steps.admissions} admission calls, step {step_ms:.2f} ms "
+        f"(mean), {n_tok / wall:.1f} answer tokens/s, device busy "
+        f"{busy if busy is None else round(busy, 3)}")
+    log(f"  phase 12 (a) checks: {checks}")
+    del core, probe
+    torch.cuda.empty_cache()
+    return res, checks, counts
+
+
+def overload_serve_phase(torch, sat, ac, slot):
+    """Phase 12 (b): ``InferenceEngine.serve`` with overload control on
+    phase 8's chunked engine (8 slots, ``prefill_chunk`` 256, budget 264),
+    ``OverloadConfig(queue_cap=32)`` and a pool of 1 + 4P + 2S pages: every
+    slot reserves P private pages, so at most four requests run at once,
+    and new scene streams wait for pages.  Traffic: phase 6's 20 cls/vqa
+    requests (its stream without the det requests), priorities
+    alternating bulk and urgent."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (PRIORITY_URGENT, EngineConfig,
+                                     InferenceEngine, OverloadConfig)
+    from repro_torch.serving.kv_pool import TRASH_PAGE
+    av = ac.num_classes + 1
+    t_phase = time.perf_counter()
+    cfg = dict(slots=8, page_size=8, answer_vocab=av, prefill_chunk=256)
+    probe = InferenceEngine(sat.params, sat.cfg, ac, EngineConfig(**cfg),
+                            device="cuda").core
+    pool = 1 + 4 * probe._private_per_slot + 2 * probe._n_shared_pages
+    eng = InferenceEngine(sat.params, sat.cfg, ac, EngineConfig(
+        pool_pages=pool, overload=OverloadConfig(queue_cap=32), **cfg),
+        device="cuda")
+    core = eng.core
+    eng.warmup()
+    stream = scene_stream(["det", "cls", "vqa", "vqa", "vqa", "vqa"], 4,
+                          FULL_IMAGE, FULL_GRID, seed=300)
+    keep = [i for i, r in enumerate(stream) if r.task != "det"]
+    reqs = [stream[i] for i in keep]
+    for j, r in enumerate(reqs):
+        if j % 2:
+            r.priority = PRIORITY_URGENT
+    probe_steps = StepProbe(torch, core, first=2, n=4)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    toks = served_tokens(out, reqs)
+    bad = [r.task for r, t in zip(reqs, toks)
+           if len(t) != ac.answer_len(r.task) or t.min() < 0
+           or t.max() >= av]
+    sched, kv = core.scheduler_stats(), core.kv_stats()
+    steps, fused = sched["steps"], sched["fused_steps"]
+    n_layers = sat.cfg.num_layers
+    agree = [bool((a == slot["tokens"][i]).all())
+             for a, i in zip(toks, keep)]
+    checks = {
+        "every request answered": len(out) == len(reqs) == 20 and not bad,
+        "last_rejected == []": eng.last_rejected == [],
+        "drained: only resident prefix pages":
+            kv["pages_in_use"] == kv["prefix_shared_pages"]
+            and kv["prefix_entries_in_use"] == 0
+            and bool((core._bt_np == TRASH_PAGE).all()),
+        "prefill launches == layers x fused steps, on the tensor cores":
+            ops.launches_by_route(counts, "paged_prefill_attention")
+            == {"mma": n_layers * fused, "cuda_cores": 0} and fused > 0,
+        "decode launches == layers x plain steps, on the tensor cores":
+            counts["paged_decode_attention"] == n_layers * (steps - fused)
+            and decode_routes(counts, "mma",
+                              need=("paged_decode_attention",))[0],
+        "no flash prefill, no region scoring":
+            ops.launches_by_route(counts, "flash_attention")
+            == {"wgmma": 0, "cuda_cores": 0} and counts["region_score"] == 0,
+    }
+    ol = sched["overload"]
+    res = {"pool_pages": pool, "requests": len(out), "steps": steps,
+           "fused_steps": fused, "admission_calls": probe_steps.admissions,
+           "prefix_hits": core.stats["prefix_hits"],
+           "prefix_misses": core.stats["prefix_misses"],
+           "answers_equal_to_phase_6": sum(agree), "wall_s": wall,
+           "step_ms_mean": 1e3 * sum(probe_steps.step_s)
+           / max(len(probe_steps.step_s), 1),
+           "scheduler_overload": ol, "launches": counts,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"  phase 12 (b): {len(out)} answered in {wall:.2f} s, {steps} steps"
+        f" ({fused} fused), {ol['preemptions']} preemptions, "
+        f"{ol['admissions_deferred']} deferred, prefix hits/misses "
+        f"{res['prefix_hits']}/{res['prefix_misses']}, {sum(agree)}/"
+        f"{len(agree)} answers equal to phase 6's")
+    log(f"  phase 12 (b) checks: {checks}")
+    del eng, core, probe
+    torch.cuda.empty_cache()
+    return res, checks, counts
+
+
+def overload_phase(torch, sat, ac, slot):
+    """Phase 12: overload control at full width on the 2B's slot path,
+    (a) a saturated ``EngineCore`` and (b) an overload-controlled chunked
+    ``InferenceEngine.serve``; fails on any check of either."""
+    t0 = time.perf_counter()
+    res_a, checks_a, counts_a = overload_core_phase(torch, sat, ac)
+    res_b, checks_b, counts_b = overload_serve_phase(torch, sat, ac, slot)
+    log("overload_phase " + json.dumps(
+        {"a": res_a, "b": res_b, "seconds": time.perf_counter() - t0},
+        default=str))
+    bad = [k for k, ok in {**{f"(a) {k}": v for k, v in checks_a.items()},
+                           **{f"(b) {k}": v for k, v in checks_b.items()}
+                           }.items() if not ok]
+    if bad:
+        raise RuntimeError(f"phase 12 failed: {bad}")
+    return {"launches": {"overload_core": counts_a,
+                         "overload_serve_chunked": counts_b}}
+
+
 class FlashOnCudaCores:
     """While active, the model's flash prefill goes to the CUDA-core kernel
     instead of the route ``route`` names: phase 5's yardstick for what the
@@ -3860,10 +4361,10 @@ def capture_inputs(torch, fn, names, when=None):
 
     def wrap(name):
         def call(*args, **kw):
-            if when is None or when():
-                got[name].setdefault(shapes(args),
-                                     (copy(args), {k: copy(v) for k, v
-                                                   in kw.items()}))
+            key = shapes(args) if when is None or when() else None
+            if key is not None and key not in got[name]:
+                got[name][key] = (copy(args),
+                                  {k: copy(v) for k, v in kw.items()})
             return saved[name](*args, **kw)
         return call
 
@@ -4144,6 +4645,9 @@ def main() -> int:
 
     log("phase 11: the slot path on int8 and fp8 pools at full width")
     quant = quant_phase(torch, sat, gs, ac, slot, spec, chunked)
+
+    log("phase 12: overload control at full width (2B slot path)")
+    overload = overload_phase(torch, sat, ac, slot)
     del sat, gs, conf
     torch.cuda.empty_cache()
 
@@ -4159,7 +4663,7 @@ def main() -> int:
                "chunked_serve": chunked["launches"],
                "batch_evaluator": batch["launches"],
                "cascade_server_spec": batch["spec_launches"],
-               **quant["launches"],
+               **quant["launches"], **overload["launches"],
                **{f"xlstm {tag}": c for tag, c in xlstm["launches"].items()}}
     for tag, r in xlstm.items():
         for name, cases in r.get("kernel_vs_plain_max_abs_err", {}).items():

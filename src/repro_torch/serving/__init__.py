@@ -4,8 +4,12 @@ continuous-batching engine over the slot table.
 
 - ``EngineCore``       one tier's batch path (encode / prefill / decode) and
                        slot path (admit_many / step, paged KV, speculative
-                       decoding)
+                       decoding, chunked prefill; submit_many under
+                       overload control)
 - ``InferenceEngine``  request-level continuous batching over a slot table
+- ``AdmissionQueue``   overload control's bounded priority queue
+                       (``OverloadConfig``; outcomes ``ADMITTED`` /
+                       ``QUEUED`` / ``REJECTED``)
 - ``CascadePolicy``    exit/offload decisions (SpaceVerse progressive
                        confidence and every baseline strategy)
 - ``OffloadPipeline``  Eq. 2 → Eq. 3 → link → GS stage
@@ -14,7 +18,11 @@ continuous-batching engine over the slot table.
 - ``CascadeServer``    the two-tier request server
 """
 from repro_torch.serving.request import (Request, Response, TIERS,  # noqa: F401
-                                         scene_key)
+                                         PRIORITY_BULK, PRIORITY_NORMAL,
+                                         PRIORITY_URGENT, scene_key)
+from repro_torch.serving.admission import (ADMITTED, QUEUED,  # noqa: F401
+                                           REJECTED, AdmissionQueue,
+                                           OverloadConfig)
 from repro_torch.serving.engine_core import (EngineCore,  # noqa: F401
                                              EngineCoreConfig, shared_core)
 from repro_torch.serving.engine import (EngineConfig,  # noqa: F401

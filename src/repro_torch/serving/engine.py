@@ -12,7 +12,11 @@ by default: queries over one captured scene share the image-region prefix
 pages read-only and only prefill their prompt token.  With
 ``EngineConfig(prefill_chunk=C)`` a new scene's region prefill streams
 into its pages C tokens at a time inside the steps, next to the decoding
-slots, instead of running at admission.
+slots, instead of running at admission.  With
+``EngineConfig(overload=OverloadConfig(...))`` ``serve`` submits the
+requests once to the engine's bounded priority queue, which admits them
+page-pool-aware, preempts and rejects under saturation
+(``last_rejected``).
 
 It runs on the card unless ``device="cpu"`` is asked for, and the weights
 must already lie on that device.
@@ -30,6 +34,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import eo_adapter as EO
 from repro_torch.core.cascade import TierModel
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.serving.admission import OverloadConfig
 from repro_torch.serving.engine_core import (EngineCore, EngineCoreConfig,
                                              check_ported)
 from repro_torch.serving.request import Request, Response
@@ -60,7 +65,10 @@ class EngineConfig:
     #: pages with per-(page, slot, head) scales, read by the paged kernels
     kv_dtype: Optional[str] = None
     mesh: Optional[Any] = None          # not ported (ROADMAP item 13)
-    overload: Optional[Any] = None      # not ported (ROADMAP item 9)
+    #: overload control: page-pool-aware admission, bounded priority queue,
+    #: deadline expiry and priority preemption (None = off; see
+    #: serving/admission.py)
+    overload: Optional[OverloadConfig] = None
 
     def __post_init__(self):
         check_ported(self)
@@ -104,8 +112,12 @@ class InferenceEngine:
                              token_budget=self.ec.token_budget,
                              pool_pages=self.ec.pool_pages,
                              pool_bytes=self.ec.pool_bytes,
-                             kv_dtype=self.ec.kv_dtype),
+                             kv_dtype=self.ec.kv_dtype,
+                             overload=self.ec.overload),
             draft=draft)
+        #: (request, reason) pairs dropped by the last overload-controlled
+        #: ``serve``: a rejected request gets no Response
+        self.last_rejected: List[Tuple[Request, str]] = []
 
     def warmup(self) -> None:
         """Allocate the slot tables and build the kernels before the first
@@ -127,18 +139,38 @@ class InferenceEngine:
         Requests are admitted whenever a slot is free, including slots that
         finished on the previous step while the rest of the batch is still
         mid-answer, so 1-token VQA/CLS answers next to N_r-token detection
-        answers keep every slot busy."""
+        answers keep every slot busy.
+
+        With ``EngineConfig(overload=...)`` the requests are submitted once
+        to the engine's own queue instead, which admits them page-pool-aware
+        in priority order, preempting and rejecting under saturation.  A
+        rejected request gets no Response: ``self.last_rejected`` holds the
+        (request, reason) pairs after the call."""
         out: List[Response] = []
         core = self.core
+
+        def emit(req: Request, toks: np.ndarray) -> None:
+            pred = toks[0] if req.task in ("vqa", "cls") else toks
+            out.append(Response(
+                request_id=req.request_id, tokens=toks, pred=pred,
+                tier=self.tier, exit_stage=-1, latency_s=0.0,
+                tx_bytes=0.0))
+
+        if self.ec.overload is not None:
+            self.last_rejected = []
+            core.submit_many(list(requests))
+            self.last_rejected.extend(core.take_rejected())
+            while core.queue_depth() or core.active_count() > 0:
+                for req, toks in core.step():
+                    emit(req, toks)
+                self.last_rejected.extend(core.take_rejected())
+            return out
+
         queue = deque(requests)
         while queue or core.active_count() > 0:
             n = min(len(queue), len(core.free_slots()))
             if n:
                 core.admit_many([queue.popleft() for _ in range(n)])
             for req, toks in core.step():
-                pred = toks[0] if req.task in ("vqa", "cls") else toks
-                out.append(Response(
-                    request_id=req.request_id, tokens=toks, pred=pred,
-                    tier=self.tier, exit_stage=-1, latency_s=0.0,
-                    tx_bytes=0.0))
+                emit(req, toks)
         return out

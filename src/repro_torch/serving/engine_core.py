@@ -35,10 +35,17 @@ Every tensor shape of the slot path is fixed when the tables are allocated
 (token_budget,) batch), so a later CUDA graph can capture the steps.
 The page pools may be quantized (``kv_dtype`` "int8" or "fp8", with
 per-(page, slot, head) scales) and sized by a byte budget
-(``pool_bytes``).  Overload control, the device mesh, the
-``step_impl="vmap"`` oracle and tiers with recurrent (mLSTM/sLSTM) blocks
-are not ported yet: they raise ``NotImplementedError`` naming their
-ROADMAP item.
+(``pool_bytes``).
+- **overload control** (``overload=OverloadConfig(...)``, every flavour
+  above): ``submit_many`` admits page-pool-aware from a bounded priority
+  queue, expires queued requests past their deadline, and preempts the
+  lowest-priority slot (drop-and-recompute) for a request that outranks
+  it; ``step`` pumps the queue first.  ``admit_many`` stays the
+  unconditional path the pump commits through.
+
+The device mesh, the ``step_impl="vmap"`` oracle and tiers with recurrent
+(mLSTM/sLSTM) blocks are not ported yet: they raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -57,6 +64,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import paged_prefill_attention as PPA
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.serving.admission import (ADMITTED, QUEUED, REJECTED,
+                                           REASON_EXPIRED, REASON_INFEASIBLE,
+                                           REASON_QUEUE_FULL, AdmissionQueue,
+                                           OverloadConfig, QueueEntry)
 from repro_torch.serving.kv_pool import (KVPagePool, PrefixCache, TRASH_PAGE,
                                          page_nbytes)
 from repro_torch.serving.request import Request, scene_key
@@ -66,7 +77,6 @@ Params = Dict[str, Any]
 #: fields of the JAX engine configs outside the port so far: (field, the
 #: value the port takes, where ROADMAP queue 1 lists it)
 NOT_PORTED = (
-    ("overload", None, "item 9 (overload control)"),
     ("mesh", None, "item 13 (sharded serving)"),
 )
 
@@ -125,7 +135,10 @@ class EngineCoreConfig:
     #: f32 scales beside them, read by the paged kernels themselves
     kv_dtype: Optional[str] = None
     mesh: Optional[Any] = None             # not ported (ROADMAP item 13)
-    overload: Optional[Any] = None         # not ported (ROADMAP item 9)
+    #: overload control: page-pool-aware admission, bounded priority queue,
+    #: deadline expiry and priority preemption (None = off, the
+    #: admit-unconditionally contract; see serving/admission.py)
+    overload: Optional[OverloadConfig] = None
 
     def __post_init__(self):
         check_ported(self)
@@ -376,6 +389,27 @@ class EngineCore:
                       "scheduled_tokens": 0, "stall_steps": 0,
                       "budget": self._token_budget, "step_log": []},
         }
+        # -- overload control (None = admit unconditionally) ---------------
+        self._admq: Optional[AdmissionQueue] = None
+        if self.cfg.overload is not None:
+            self._admq = AdmissionQueue(self.cfg.overload.queue_cap)
+            self._submit_seq = 0
+            #: request_id → {t_submit, seq, deferred, preempts, t_preempt}:
+            #: alive from submit to finish or rejection (bounded by
+            #: queue_cap + slots)
+            self._submit_meta: Dict[int, Dict[str, Any]] = {}
+            #: (request, reason) drained by ``take_rejected``: expiry and
+            #: overflow by a later push happen inside ``step``, after
+            #: ``submit_many`` returned
+            self._rejected: List[Tuple[Request, str]] = []
+            self.stats["overload"] = {
+                "submitted": 0, "admissions_deferred": 0,
+                "preemptions": 0,
+                "rejections": {REASON_QUEUE_FULL: 0, REASON_EXPIRED: 0},
+                #: seconds between a preemption and the re-admission of
+                #: the same request (bounded; scheduler_stats summarises)
+                "readmit_wait_s": [],
+            }
         if self.cfg.spec_gamma:
             self.stats["spec"] = {
                 "steps": 0,             # speculative engine steps
@@ -786,16 +820,248 @@ class EngineCore:
         slot = self._slots[i]
         finished.append((slot.request, np.asarray(slot.tokens, np.int32)))
         log = self.stats["request_log"]
+        # overload engines log the queue wait too: t_submit is when the
+        # request entered submit_many (<= t_admit), and per-priority TTFT
+        # is measured from it, so time parked under saturation is charged
+        meta = (self._submit_meta.pop(slot.request.request_id, None)
+                if self._admq is not None else None)
         log.append({"request_id": slot.request.request_id,
                     "task": slot.request.task, "t_admit": slot.t_admit,
                     "t_first": slot.t_first, "t_done": time.perf_counter(),
-                    "priority": slot.request.priority})
+                    "priority": slot.request.priority,
+                    "t_submit": (meta["t_submit"] if meta is not None
+                                 else slot.t_admit),
+                    "preempts": meta["preempts"] if meta is not None else 0})
         if len(log) > self._occupancy_cap:
             del log[:self._occupancy_cap // 2]
         if slot.probs:
             self._stash_spec_probs(slot)
         self._release_slot(i)
         self.stats["finished"] += 1
+
+    # ------------------------------------------------------------------
+    # overload control (cfg.overload set): page-pool-aware admission with
+    # a bounded priority queue, deadline expiry and priority preemption
+    # ------------------------------------------------------------------
+    def page_demand(self, request: Request) -> int:
+        """Worst-case page demand of admitting ``request`` now: its private
+        pages (prompt + longest answer + spec γ slack, the fixed per-slot
+        reservation) plus the shared scene prefix unless the scene is
+        resident or streaming.  Dense caches reserve every slot's rows up
+        front, so their demand is 0 (admission is gated by slots alone)."""
+        if self.cache_impl != "paged":
+            return 0
+        s_ = scene_key(request)
+        shared = (0 if s_ in self._prefix or s_ in self._streaming
+                  else self._n_shared_pages)
+        return self._private_per_slot + shared
+
+    def _fits(self, entries: List[QueueEntry]) -> bool:
+        """Would the admit path's one up-front ``evict_for`` succeed for
+        ``entries`` as one batch?  Headroom = free pages + zero-user
+        unprotected prefix pages.  A pure probe: nothing is evicted or
+        allocated here, so requests that do not fit stay parked without
+        tearing down cache state (check-then-commit)."""
+        if self.cache_impl != "paged":
+            return True
+        k = len(entries)
+        scenes = [scene_key(e.request) for e in entries]
+        streams = self._streaming          # empty unless chunked
+        new = {s_ for s_ in scenes
+               if s_ not in self._prefix and s_ not in streams}
+        protect = set(scenes) | set(streams)
+        need_pages = (k * self._private_per_slot
+                      + len(new) * self._n_shared_pages)
+        # the admit paths' eviction budget exactly: streams in flight
+        # reserve entry capacity for their later publications
+        need_entries = len(new) + len(streams)
+        if (self._pool.free_pages + self._prefix.evictable_pages(protect)
+                < need_pages):
+            return False
+        resident = len(self._prefix) - self._prefix.evictable_entries(protect)
+        return resident + need_entries <= self._prefix.capacity
+
+    def queue_depth(self) -> int:
+        return len(self._admq) if self._admq is not None else 0
+
+    def take_rejected(self) -> List[Tuple[Request, str]]:
+        """Drain the (request, reason) pairs rejected since the last call.
+        A request ``submit_many`` returned as queued can be rejected later
+        (deadline expiry at pump time, or displacement by a later
+        higher-priority push), so drivers poll this beside ``step``'s
+        finished list."""
+        if self._admq is None:
+            return []
+        out, self._rejected = self._rejected, []
+        return out
+
+    def submit_many(self, requests: List[Request],
+                    now: Optional[float] = None) -> Dict[int, str]:
+        """The overload-controlled admission entry: an outcome per request
+        id, ``"admitted"`` (in a slot now), ``"queued"`` (parked in the
+        bounded priority queue; admitted, preempted for or rejected later)
+        or ``"rejected"`` (queue overflow, already expired, or a demand no
+        idle pool could hold).  ``now`` is the submit time on the
+        ``time.perf_counter`` clock (default: the clock).  Requires
+        ``EngineCoreConfig.overload``; ``admit_many`` stays the
+        unconditional path, which the pump commits through."""
+        if self._admq is None:
+            raise ValueError("submit_many requires EngineCoreConfig."
+                             "overload (admit_many is the unconditional "
+                             "path)")
+        now = time.perf_counter() if now is None else now
+        ol = self.stats["overload"]
+        out: Dict[int, str] = {}
+        for r in requests:
+            ol["submitted"] += 1
+            meta = {"t_submit": now, "seq": self._submit_seq,
+                    "deferred": False, "preempts": 0, "t_preempt": None}
+            self._submit_meta[r.request_id] = meta
+            self._submit_seq += 1
+            entry = QueueEntry(request=r, seq=meta["seq"], t_submit=now)
+            dropped = self._admq.push(entry)
+            if dropped is entry:
+                # the queue is full of work at least as valuable: admit
+                # what fits into free slots first, then retry once, so a
+                # burst on an idle engine is not refused by the bound that
+                # exists for saturation
+                self._pump_queue(now)
+                dropped = self._admq.push(entry)
+            if dropped is not None:
+                self._reject(dropped, REASON_QUEUE_FULL)
+                if dropped is entry:
+                    out[r.request_id] = REJECTED
+                    continue
+            out[r.request_id] = QUEUED
+        self._pump_queue(now)
+        active = {s.request.request_id for s in self._slots if s.active}
+        queued = {e.request.request_id for e in self._admq}
+        for r in requests:
+            rid = r.request_id
+            if out[rid] == REJECTED:
+                continue
+            if rid in active:
+                out[rid] = ADMITTED
+            elif rid in queued:
+                meta = self._submit_meta[rid]
+                if not meta["deferred"]:
+                    meta["deferred"] = True
+                    ol["admissions_deferred"] += 1
+            else:
+                out[rid] = REJECTED     # expired or displaced in the pump
+        return out
+
+    def _reject(self, entry: QueueEntry, reason: str) -> None:
+        ol = self.stats["overload"]
+        ol["rejections"][reason] = ol["rejections"].get(reason, 0) + 1
+        self._submit_meta.pop(entry.request.request_id, None)
+        self._rejected.append((entry.request, reason))
+        if len(self._rejected) > self._occupancy_cap:
+            del self._rejected[:self._occupancy_cap // 2]
+
+    def _pump_queue(self, now: Optional[float] = None) -> None:
+        """Admit the longest prefix of the priority-ordered queue that fits
+        (slots and pages); when the head does not fit and outranks an
+        in-flight request, preempt the lowest-priority slot and retry.
+        Strict head-of-line by priority: a lower-priority entry never
+        jumps a parked urgent one, so backfill cannot take the pages it is
+        waiting for."""
+        if self._admq is None or len(self._admq) == 0:
+            return
+        now = time.perf_counter() if now is None else now
+        for e in self._admq.expire(now):
+            self._reject(e, REASON_EXPIRED)
+        ov = self.cfg.overload
+        while len(self._admq):
+            free = len(self.free_slots())
+            batch: List[QueueEntry] = []
+            for e in self._admq:
+                if len(batch) >= free:
+                    break
+                if not self._fits(batch + [e]):
+                    break
+                batch.append(e)
+            if batch:
+                for _ in batch:
+                    self._admq.pop()
+                self._admit_submitted(batch, now)
+                continue
+            head = self._admq.peek()
+            if (ov.preempt and head is not None
+                    and self._preempt_one(head.request.priority, now)):
+                continue
+            if head is not None and self.active_count() == 0 \
+                    and not self._fits([head]):
+                # an idle engine with everything evictable counted still
+                # cannot hold it: it can never be admitted, and parked it
+                # would wedge the strict-priority head for good
+                self._admq.pop()
+                self._reject(head, REASON_INFEASIBLE)
+                continue
+            break
+
+    def _admit_submitted(self, entries: List[QueueEntry], now: float
+                         ) -> None:
+        """The pump's commit phase: ``_fits`` proved the batch feasible, so
+        the unconditional admit path runs unchanged (its one up-front
+        ``evict_for`` succeeds by construction)."""
+        self.admit_many([e.request for e in entries])
+        ol = self.stats["overload"]
+        for e in entries:
+            meta = self._submit_meta.get(e.request.request_id)
+            if meta is not None and meta["t_preempt"] is not None:
+                wait = ol["readmit_wait_s"]
+                wait.append(now - meta["t_preempt"])
+                meta["t_preempt"] = None
+                if len(wait) > self._occupancy_cap:
+                    del wait[:self._occupancy_cap // 2]
+
+    def _preempt_one(self, above_priority: int, now: float) -> bool:
+        """Preempt ONE in-flight slot whose priority is strictly below
+        ``above_priority``, drop-and-recompute: free its private pages,
+        release its prefix mapping, and queue the request again at the
+        front of its priority class (its original submit seq keeps its
+        age).  Greedy decoding is deterministic and the scene prefix stays
+        resident (or is prefilled again), so the re-admitted request
+        gives the tokens it would have given uncontended (a prefix
+        prefilled again in another batch may round otherwise in bf16).
+        The victim: the lowest priority, then the least decode progress
+        (the least recompute lost), then the lowest slot id.  Only slots
+        that own their prefix mapping (decode/prompt phases) are eligible:
+        a chunked streamer's pages are what its waiters wait on, and
+        "wait" and "prefill" slots have not acquired the prefix the
+        release unmaps."""
+        victims = [(s.request.priority, len(s.tokens or ()), i)
+                   for i, s in enumerate(self._slots)
+                   if s.active and s.phase in ("decode", "prompt")
+                   and s.request.priority < above_priority]
+        if not victims:
+            return False
+        victims.sort()
+        i = victims[0][2]
+        req = self._slots[i].request
+        t_admit = self._slots[i].t_admit
+        ol = self.stats["overload"]
+        ol["preemptions"] += 1
+        meta = self._submit_meta.get(req.request_id)
+        if meta is None:
+            # admitted through admit_many (its callers may mix with submit
+            # traffic): make its meta now so its age still counts
+            meta = {"t_submit": t_admit, "seq": self._submit_seq,
+                    "deferred": False, "preempts": 0, "t_preempt": None}
+            self._submit_meta[req.request_id] = meta
+            self._submit_seq += 1
+        meta["preempts"] += 1
+        meta["t_preempt"] = now
+        self._release_slot(i)
+        dropped = self._admq.push(QueueEntry(
+            request=req, seq=meta["seq"], t_submit=meta["t_submit"],
+            preempts=meta["preempts"]))
+        if dropped is not None:
+            # a queue full of work at least this valuable: the victim (or
+            # the entry it displaced) is the least valuable in the system
+            self._reject(dropped, REASON_QUEUE_FULL)
+        return True
 
     # -- the step ---------------------------------------------------------
     def _slot_step(self) -> torch.Tensor:
@@ -824,7 +1090,11 @@ class EngineCore:
         engines commit the longest verified draft prefix + 1 (up to γ+1
         tokens per slot), token-for-token the greedy stream.  Finished
         slots free immediately; callers refill them before the next
-        ``step`` (continuous batching)."""
+        ``step`` (continuous batching).  Overload-controlled engines pump
+        their own admission queue first, so slots the previous step freed
+        refill before the slots advance."""
+        if self._admq is not None:
+            self._pump_queue()
         if self.cfg.prefill_chunk and any(
                 s.active and s.phase != "decode" for s in self._slots):
             return self._step_chunked()
@@ -1238,8 +1508,11 @@ class EngineCore:
     def scheduler_stats(self) -> Dict[str, Any]:
         """Step counters + derived rates, for every engine flavour; the
         fused-step fields (budget utilisation, token mix, stall steps) are
-        only non-trivial for chunked engines.  There is no
-        ``steady_recompiles``: eager PyTorch compiles nothing per shape."""
+        only non-trivial for chunked engines; overload-controlled engines
+        add an ``"overload"`` block (queue depth and peak, deferrals,
+        preemptions, rejections by reason, re-admission wait, TTFT from
+        submit by priority).  There is no ``steady_recompiles``: eager
+        PyTorch compiles nothing per shape."""
         sched = self.stats["sched"]
         out = {k: v for k, v in sched.items() if k != "step_log"}
         steps = max(sched["steps"], 1)
@@ -1253,6 +1526,37 @@ class EngineCore:
             sched["scheduled_tokens"] / (fused * sched["budget"])
             if fused and sched["budget"] else 0.0)
         out["prefill_by_kind"] = dict(self.stats["prefill_by_kind"])
+        if self._admq is not None:
+            ol = self.stats["overload"]
+            # per-priority TTFT from SUBMIT time (the queue wait is
+            # charged): under saturation the urgent class's tail should
+            # hold while bulk's degrades
+            by_prio: Dict[int, List[float]] = {}
+            for e in self.stats["request_log"]:
+                if e["t_first"] is not None:
+                    by_prio.setdefault(e["priority"], []).append(
+                        e["t_first"] - e["t_submit"])
+            ttft = {
+                p: {"n": len(v),
+                    "p50_ms": float(np.percentile(v, 50)) * 1e3,
+                    "p99_ms": float(np.percentile(v, 99)) * 1e3}
+                for p, v in sorted(by_prio.items())}
+            wait = ol["readmit_wait_s"]
+            out["overload"] = {
+                "queue_depth": len(self._admq),
+                "queue_peak": self._admq.depth_peak,
+                "submitted": ol["submitted"],
+                "admissions_deferred": ol["admissions_deferred"],
+                "preemptions": ol["preemptions"],
+                "rejections": dict(ol["rejections"]),
+                "rejected_total": sum(ol["rejections"].values()),
+                "readmit_wait_ms": {
+                    "n": len(wait),
+                    "mean": float(np.mean(wait)) * 1e3 if wait else 0.0,
+                    "p50": (float(np.percentile(wait, 50)) * 1e3
+                            if wait else 0.0)},
+                "ttft_by_priority": ttft,
+            }
         return out
 
     def spec_stats(self) -> Dict[str, Any]:

@@ -1131,3 +1131,48 @@ def test_ssm_mma_launcher_refuses_what_it_does_not_take(card):
         with pytest.raises(ValueError, match="clusters of"):
             SS.launch_mma(q, q, v, g, st, cs=cs or -1)
     assert ops.launch_counts() == before
+
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module: its overload scenario
+    (``overload_saturation``, which ``tests/test_torch_overload.py`` holds
+    against the JAX package) is the one run here."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("kw", [{}, {"prefill_chunk": 8}],
+                         ids=["paged", "chunked"])
+def test_overload_engines_match_the_cpu(card, kw):
+    """Overload control's saturation scenario on the card (f32 small
+    proxies, the paged kernels on their CUDA-core routes): the same
+    outcomes, rejections, finished order and tokens, overload counts,
+    counters and pages as on the CPU."""
+    from repro_torch.configs.spaceverse_pair import proxy_pair
+    from repro_torch.core import eo_adapter as EO
+    from repro_torch.core.cascade import TierModel
+    from repro_torch.data import synthetic
+    from repro_torch.tree import tree_map
+    smoke = _chip_smoke()
+    sat_cfg, gs_cfg = proxy_pair("small")
+    ac = EO.EOAdapterConfig()
+    cpu = (TierModel(EO.init_adapter(gs_cfg, ac, 1, device="cpu"), gs_cfg),
+           TierModel(EO.init_adapter(sat_cfg, ac, 0, device="cpu"), sat_cfg))
+    on_card = tuple(TierModel(tree_map(lambda t: t.to("cuda"), t.params),
+                              t.cfg) for t in cpu)
+    images = synthetic.make_dataset(
+        "cls", 5, seed=90, cfg=synthetic.EOTaskConfig(
+            image_size=ac.image_size, grid=ac.grid))["images"]
+    want = smoke.overload_saturation(smoke.port_serving(*cpu, ac), images, kw)
+    got = smoke.overload_saturation(smoke.port_serving(*on_card, ac), images,
+                                    kw)
+    assert got == want
+    ol = got["state"]["overload"]
+    assert ol["preemptions"] >= 1 and ol["rejections"]["expired"] == 1
+    assert got["drained"]

@@ -225,8 +225,7 @@ def test_generate_spec_honours_generate(system):
 
 
 def test_engine_config_refuses_what_is_not_ported(system):
-    for kw, item in [({"overload": object()}, "item 9"),
-                     ({"mesh": object()}, "item 13"),
+    for kw, item in [({"mesh": object()}, "item 13"),
                      ({"step_impl": "vmap"}, "item 6")]:
         with pytest.raises(NotImplementedError, match=item):
             EngineConfig(**kw)
