@@ -248,14 +248,17 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    pool of 1 + 3P + 3S = 772 pages (P = 129 private, S = 128 shared pages
    a slot); 4 bulk det on scenes A, A, B, B, then after 64 steps, with no
    step between, 2 urgent vqa on a new scene C, a bulk vqa on E with a
-   1 ms deadline and a burst of 5 bulk cls on D; steps until it drains.
-   Checks: every request answered (right length, in the answer vocab) or
-   rejected once with a reason from the three, none both, none lost; a
+   1 ms deadline and a burst of 5 bulk cls on D; steps until the queue is
+   empty and one slot is left (B's second det, ~950 more steps alone:
+   nothing new happens there), whose slot is then released.
+   Checks: every request answered (right length, in the answer vocab),
+   rejected once with a reason from the three, or the one left in flight
+   with tokens committed, none two of these, none lost; a
    preemption, a deferral, a ``queue_full`` and an expiry; each preempted
    det answer whose scene prefix stayed resident until it was admitted
    again begins with the tokens it had committed when it was preempted
    (recorded as ``_preempt_one`` releases the slot; the other case is
-   reported); after the drain only resident prefix pages in use, no
+   reported); after the release only resident prefix pages in use, no
    prefix entry in use, the block table all trash page; the paged decode
    kernel launched 28 × (steps + admission calls), all on the tensor
    cores, flash 28 × prefix prefills on the wgmma route; the paged decode
@@ -274,16 +277,46 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    steps and paged decode 28 × plain steps, all on the tensor cores, no
    flash, no region score; token agreement with phase 6 is reported.
    Line ``overload_phase {...}``.
+13. Sharded serving at full width (after phase 12, while the 2B is
+   loaded, before 9), on the 2B's slot path, bf16, page 8, phase 6's
+   stream.  (a) dp 2 × tp 1 in this process: a (2, 1) mesh of ``cuda:0``
+   twice, two shard engines of 4 slots with private pools behind the
+   scene-affine router.  ``InferenceEngine.serve`` of the 20 cls/vqa
+   requests: every one answered in the answer vocab; the router's prefix
+   misses/hits (6/14: scene A's fifth request overflows its full shard,
+   as the JAX router decides on the CPU); 4 + 4 slots, 20 routed; paged
+   decode 28 × (shard steps + admission calls) on the tensor cores.  Then
+   the 4 det requests on a ``make_engine_core`` core for 64 steps and no
+   drain: both shards step every step, paged decode 28 × (steps +
+   admission calls).  Their committed tokens against one ``EngineCore``'s
+   run of the same 64 steps and against phase 6's answers, and the 20
+   answers against phase 6's, are reported.  (b) dp 1 × tp 2: two rank
+   processes (``launch.mesh.spawn_tp``) on ``cuda:0`` over ``gloo``, each
+   rebuilding the 2B from phase 4's seed and taking its block of the heads
+   and the FFN (``sharded_tp_rank``): the same serve, the same 64 det
+   steps (the paged decode's inputs kept from the first step: B 8 × KH 1 ×
+   group 6, four rows past the prefix, four empty), the 20 on a chunked
+   engine (``prefill_chunk`` 256; the prefix-append inputs kept from the
+   first fused step with decoding slots).  Checks: both ranks' answers
+   and committed tokens identical and in the answer vocab; 4 misses / 16
+   hits; every pool at KH 1; ``kv_bytes_per_slot_device`` × 2 ==
+   ``kv_bytes_per_slot``; paged decode per rank 28 × (steps + admission
+   calls), prefix-append 28 × fused steps, all on the tensor cores; all-
+   reduces 2 × 28 a model call; the backend gloo; each rank holds rows 4
+   and 6 to their tensor-core bound on its kept inputs after its counts
+   were read.  Prints each rank's step ms and the backend.  Line
+   ``sharded_phase {...}``; a failure in a rank fails the phase.
 
-Phases 3, 4, 6, 7, 8, each run of 9 and each path of 10, 11 and 12 (the
-batch evaluator, the speculative server) zero every kernel's launch count
-just before they run and read it just after; each kernel of a path must
-have launched.  In phases 4, 6, 7 and 10 the tensor-core flash route launched
-once per layer of every ``transformer.prefill`` call (28 × prefills) and
-the CUDA-core route never, as in 12 (a); in phases 4, 6-8 and 10-12 every
-decode launch (dense and paged) took the tensor-core route, in phase 3 the
-CUDA-core route; every prefix-append launch took the tensor-core route in
-phases 8 and 12 (b) and the CUDA-core route in phase 3.
+Phases 3, 4, 6, 7, 8, each run of 9 and each path of 10, 11, 12 and 13
+(the batch evaluator, the speculative server; in 13 each rank's runs too)
+zero every kernel's launch count just before they run and read it just
+after; each kernel of a path must have launched.  In phases 4, 6, 7 and 10
+the tensor-core flash route launched once per layer of every
+``transformer.prefill`` call (28 × prefills) and the CUDA-core route never,
+as in 12 (a) and 13 (a); in phases 4, 6-8 and 10-13 every decode launch
+(dense and paged) took the tensor-core route, in phase 3 the CUDA-core
+route; every prefix-append launch took the tensor-core route in phases 8,
+12 (b) and 13 (b) and the CUDA-core route in phase 3.
 A kernel with two routes counts all its launches under its old name and
 the tensor-core ones under ``*_wgmma`` / ``*_mma`` as well; the paged
 kernels also count their launches on 8-bit pools under
@@ -3481,7 +3514,9 @@ def overload_core_phase(torch, sat, ac):
     Traffic: 4 bulk det (2 on scene A, 2 on B); after ``OVERLOAD_STEPS``
     steps and with no step between them, 2 urgent vqa on scene C, 1 bulk
     vqa on scene E with a 1 ms deadline and a burst of 5 bulk cls on
-    scene D; then steps until the engine drains.  Each preempted
+    scene D; then steps until the queue is empty and at most one slot is
+    active (B's second det, which would run ~950 steps alone), whose slot
+    is released unfinished.  Each preempted
     request's committed tokens are recorded as ``_preempt_one`` releases
     its slot, with whether its scene's prefix stayed resident until it
     was admitted again."""
@@ -3570,7 +3605,7 @@ def overload_core_phase(torch, sat, ac):
         capture["on"] = True
         step()
         capture["on"] = False
-        while core.queue_depth() or core.active_count():
+        while core.queue_depth() or core.active_count() > 1:
             step()
 
     torch.cuda.synchronize()
@@ -3586,6 +3621,13 @@ def overload_core_phase(torch, sat, ac):
     on_path = decode_on_path_inputs(held, 12, "overload core",
                                     need=("paged_decode_attention",))
 
+    # the one request left in flight: its committed tokens, then its slot
+    # released (the engine's own release path, as at a finish)
+    in_flight = {sl.request.request_id: list(sl.tokens)
+                 for sl in core._slots if sl.active}
+    for i, sl in enumerate(core._slots):
+        if sl.active:
+            core._release_slot(i)
     ids = {r.request_id: r for r in submitted}
     why = {}
     for r, reason in rejected:
@@ -3602,10 +3644,14 @@ def overload_core_phase(torch, sat, ac):
     checks = {
         "every answer the right length, in the answer vocab":
             not bad_answers,
-        "every request answered or rejected once, none both, none lost":
-            set(answers) | set(why) == set(ids)
-            and not set(answers) & set(why)
-            and all(len(v) == 1 for v in why.values()),
+        "every request answered, rejected once or left in flight with "
+        "tokens committed, none two of these, none lost":
+            set(answers) | set(why) | set(in_flight) == set(ids)
+            and len(answers) + len(why) + len(in_flight) == len(ids)
+            and all(len(v) == 1 for v in why.values())
+            and len(in_flight) <= 1 and all(
+                0 < len(t) < ac.answer_len(ids[rid].task)
+                for rid, t in in_flight.items()),
         "reasons from the three": all(v[0] in OVERLOAD_REASONS
                                       for v in why.values()),
         "a preemption": ol["preemptions"] >= 1
@@ -3635,6 +3681,7 @@ def overload_core_phase(torch, sat, ac):
            "shared_pages": n_shared, "outcomes": outcomes,
            "rejected": [(r.request_id, w) for r, w in rejected],
            "finished_order": order, "trace": trace,
+           "left_in_flight": {rid: len(t) for rid, t in in_flight.items()},
            "preempted": {rid: {"slot": rec[0], "tokens_committed":
                                len(rec[1]),
                                "prefix_stayed_resident":
@@ -3768,6 +3815,433 @@ def overload_phase(torch, sat, ac, slot):
         raise RuntimeError(f"phase 12 failed: {bad}")
     return {"launches": {"overload_core": counts_a,
                          "overload_serve_chunked": counts_b}}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: sharded serving (a data-parallel router, tensor-parallel ranks)
+# ---------------------------------------------------------------------------
+
+#: phase 13: steps of the det requests' core-level runs (no drain)
+SHARD_DET_STEPS = 64
+#: phase 13 (a): prefix misses / hits of the router on phase 6's 20 cls/vqa
+#: requests at 4 slots a shard: scene A's fifth request overflows its full
+#: shard, so A's prefix is prefilled on both (the JAX router's decisions:
+#: ``tests/test_torch_sharded.py::test_dp2_phase_13_stream_routes_as_jax``)
+SHARD_DP_MISSES, SHARD_DP_HITS = 6, 14
+
+
+def shard_stream():
+    """Phase 6's stream (4 scenes: 1 det, 1 cls, 4 vqa each) with the
+    indices of its cls/vqa and of its det requests."""
+    stream = scene_stream(["det", "cls", "vqa", "vqa", "vqa", "vqa"], 4,
+                          FULL_IMAGE, FULL_GRID, seed=300)
+    keep = [i for i, r in enumerate(stream) if r.task != "det"]
+    dets = [i for i, r in enumerate(stream) if r.task == "det"]
+    return stream, keep, dets
+
+
+class AdmissionCounter:
+    """Counts the ``admit_many`` calls of each of ``cores`` (every call of
+    a paged, unchunked engine runs one model step)."""
+
+    def __init__(self, cores):
+        self.calls = 0
+        for core in cores:
+            admit = core.admit_many
+
+            def counted(requests, admit=admit):
+                self.calls += 1
+                return admit(requests)
+            core.admit_many = counted
+
+
+def det_steps(core, reqs, steps, mark=None):
+    """Admit ``reqs`` in one call, then ``steps`` steps of ``core`` and no
+    drain (``mark["on"]`` holds during the first step); returns (each
+    request's committed tokens, the host seconds of each step, each ending
+    in its token fetch)."""
+    core.admit_many(reqs)
+    times = []
+    for k in range(steps):
+        if mark is not None:
+            mark["on"] = k == 0
+        t0 = time.perf_counter()
+        core.step()
+        times.append(time.perf_counter() - t0)
+    if mark is not None:
+        mark["on"] = False
+    got = {sl.request.request_id: [int(t) for t in sl.tokens]
+           for sl in core._slots if sl.active}
+    return [got[r.request_id] for r in reqs], times
+
+
+def in_answer_vocab(reqs, toks, ac, av):
+    return all(len(t) == ac.answer_len(r.task) and min(t) >= 0
+               and max(t) < av for r, t in zip(reqs, toks))
+
+
+def sharded_dp_phase(torch, sat, ac, slot):
+    """Phase 13 (a): a (2, 1) mesh on the one card, two shard engines of 4
+    slots with private pools behind the scene-affine router.
+    ``InferenceEngine.serve`` of phase 6's 20 cls/vqa requests, then a
+    core-level run of its 4 det requests for ``SHARD_DET_STEPS`` steps,
+    held against one engine's run of the same steps and phase 6's
+    answers."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import (EngineConfig, EngineCore,
+                                     EngineCoreConfig, InferenceEngine,
+                                     make_engine_core)
+    av, n_layers = ac.num_classes + 1, sat.cfg.num_layers
+    mesh = make_host_mesh(model=1, data=2, devices=["cuda:0"] * 2)
+    stream, keep, dets = shard_stream()
+    eng = InferenceEngine(sat.params, sat.cfg, ac, EngineConfig(
+        slots=8, page_size=8, answer_vocab=av, mesh=mesh), device="cuda")
+    core = eng.core
+    eng.warmup()
+    adm = AdmissionCounter(core.shards)
+    reqs = clone_requests([stream[i] for i in keep])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with PrefillCounter() as prefills:
+        out = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    prefills.check(counts, "phase 13 (a) serve")
+    toks = [t.tolist() for t in served_tokens(out, reqs)]
+    st, kv = core.stats, core.kv_stats()
+    steps = sum(sh.stats["sched"]["steps"] for sh in core.shards)
+    per = kv["per_shard"]
+
+    dcore = make_engine_core(sat, ac, EngineCoreConfig(
+        slots=8, page_size=8, answer_vocab=av, mesh=mesh))
+    dcore.warmup()
+    dadm = AdmissionCounter(dcore.shards)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with PrefillCounter() as dprefills:
+        got, step_s = det_steps(dcore, clone_requests(
+            [stream[i] for i in dets]), SHARD_DET_STEPS)
+    torch.cuda.synchronize()
+    dcounts = ops.launch_counts()
+    dprefills.check(dcounts, "phase 13 (a) det core")
+    dsteps = sum(sh.stats["sched"]["steps"] for sh in dcore.shards)
+    one = EngineCore(sat, ac, EngineCoreConfig(slots=8, page_size=8,
+                                               answer_vocab=av))
+    one.warmup()
+    want, one_s = det_steps(one, clone_requests([stream[i] for i in dets]),
+                            SHARD_DET_STEPS)
+    phase6_det = [slot["tokens"][i][:SHARD_DET_STEPS].tolist() for i in dets]
+    checks = {
+        "every request answered in the answer vocab":
+            len(out) == len(reqs) == 20 and in_answer_vocab(reqs, toks, ac,
+                                                            av),
+        f"prefix misses/hits == the router's {SHARD_DP_MISSES}/"
+        f"{SHARD_DP_HITS}": (st["prefix_misses"], st["prefix_hits"])
+            == (SHARD_DP_MISSES, SHARD_DP_HITS),
+        "per shard 4 + 4 slots, 20 routed":
+            [r["slots"] for r in per] == [4, 4]
+            and sum(r["routed"] for r in per) == 20,
+        "paged launches == layers x (steps + admissions), tensor cores":
+            counts["paged_decode_attention"] == n_layers * (steps + adm.calls)
+            and decode_routes(counts, "mma",
+                              need=("paged_decode_attention",))[0],
+        "det core: both shards stepped every step":
+            dsteps == 2 * SHARD_DET_STEPS,
+        "det core: paged launches == layers x (steps + admissions)":
+            dcounts["paged_decode_attention"]
+            == n_layers * (dsteps + dadm.calls),
+        "det core: every request committed a token a step":
+            all(len(t) == SHARD_DET_STEPS for t in got),
+    }
+    res = {"requests": len(out), "steps": steps, "admission_calls": adm.calls,
+           "prefix_misses": st["prefix_misses"],
+           "prefix_hits": st["prefix_hits"], "per_shard": per,
+           "answers_equal_to_phase_6": sum(
+               t == slot["tokens"][i].tolist() for t, i in zip(toks, keep)),
+           "wall_s": wall,
+           "det_core": {"steps": dsteps, "admission_calls": dadm.calls,
+                        "equal_to_one_engine": sum(
+                            a == b for a, b in zip(got, want)),
+                        "equal_to_phase_6": sum(
+                            a == b for a, b in zip(got, phase6_det)),
+                        "step_ms_mean": 1e3 * sum(step_s) / len(step_s),
+                        "one_engine_step_ms_mean":
+                            1e3 * sum(one_s) / len(one_s)},
+           "launches": counts, "det_launches": dcounts, "tokens": toks,
+           "det_tokens": got, "one_det_tokens": want}
+    log(f"  phase 13 (a) dp 2 x tp 1: {len(out)} answered in {wall:.2f} s, "
+        f"{steps} shard steps + {adm.calls} admission calls, prefix "
+        f"misses/hits {st['prefix_misses']}/{st['prefix_hits']}, routed "
+        f"{[r['routed'] for r in per]}, {res['answers_equal_to_phase_6']}/20 "
+        f"answers equal to phase 6's; det core {SHARD_DET_STEPS} steps at "
+        f"{res['det_core']['step_ms_mean']:.2f} ms (one engine "
+        f"{res['det_core']['one_engine_step_ms_mean']:.2f} ms), committed "
+        f"tokens equal to one engine's on "
+        f"{res['det_core']['equal_to_one_engine']}/4, to phase 6's on "
+        f"{res['det_core']['equal_to_phase_6']}/4")
+    log(f"  phase 13 (a) checks: {checks}")
+    del eng, core, dcore, one
+    torch.cuda.empty_cache()
+    return res, checks
+
+
+def sharded_tp_rank(rank):
+    """A rank of phase 13 (b)'s tp-2 world on ``cuda:0``: the 2B's weights
+    rebuilt from phase 4's seed on the card, the (1, 2) mesh over the
+    world's group, then (i) ``InferenceEngine.serve`` of phase 6's 20
+    cls/vqa requests, (ii) its 4 det requests on an ``EngineCore`` for
+    ``SHARD_DET_STEPS`` steps, the paged decode's inputs kept from the
+    first step, (iii) the 20 on a chunked engine (``prefill_chunk`` 256),
+    the prefix-append inputs kept from the first fused step with decoding
+    slots.  Each run's counts are zeroed just before it and read just
+    after; the kernels are held on the kept inputs after that.  Returns
+    plain data for the parent."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.spaceverse_pair import SAT_CONFIG
+    from repro_torch.core import eo_adapter as EO
+    from repro_torch.core.cascade import TierModel
+    from repro_torch.distributed import collectives as CO
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import (EngineConfig, EngineCore,
+                                     EngineCoreConfig, InferenceEngine)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_rank = time.perf_counter()
+    ac = EO.EOAdapterConfig(grid=FULL_GRID, image_size=FULL_IMAGE)
+    sat = TierModel(EO.init_adapter(SAT_CONFIG, ac, 0, device="cuda"),
+                    SAT_CONFIG)
+    av, n_layers = ac.num_classes + 1, SAT_CONFIG.num_layers
+    mesh = make_host_mesh(model=2, data=1, devices=["cuda:0"] * 2)
+    stream, keep, dets = shard_stream()
+    out = {"rank": rank, "backend": dist.get_backend(), "layers": n_layers,
+           "init_s": time.perf_counter() - t_rank}
+
+    def pool_heads(core):
+        return sorted({layer["k"].shape[3] for layer in core._slot_cache})
+
+    def run(tag, core, fn, names=(), when=None):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        CO.reset_all_reduce_counts()
+        t0 = time.perf_counter()
+        res, held = capture_inputs(torch, fn, list(names), when=when)
+        torch.cuda.synchronize()
+        out[tag] = {"wall_s": time.perf_counter() - t0,
+                    "launches": ops.launch_counts(),
+                    "all_reduces": CO.all_reduce_counts(),
+                    "pool_kv_heads": pool_heads(core)}
+        return res, held
+
+    # (i) serve
+    eng = InferenceEngine(sat.params, sat.cfg, ac, EngineConfig(
+        slots=8, page_size=8, answer_vocab=av, mesh=mesh), device="cuda")
+    eng.warmup()
+    adm = AdmissionCounter([eng.core])
+    reqs = clone_requests([stream[i] for i in keep])
+    resp, _ = run("serve", eng.core, lambda: eng.serve(reqs))
+    kv = eng.core.kv_stats()
+    out["serve"].update(
+        tokens=[t.tolist() for t in served_tokens(resp, reqs)],
+        steps=eng.core.stats["sched"]["steps"], admission_calls=adm.calls,
+        prefix_hits=eng.core.stats["prefix_hits"],
+        prefix_misses=eng.core.stats["prefix_misses"],
+        kv={k: kv[k] for k in ("kv_bytes_per_slot", "kv_bytes_per_slot_device",
+                               "kv_bytes_total", "kv_bytes_total_device",
+                               "tp_kv_shards", "mesh")})
+    del eng
+
+    # (ii) the det requests, SHARD_DET_STEPS steps
+    core = EngineCore(sat, ac, EngineCoreConfig(slots=8, page_size=8,
+                                                answer_vocab=av, mesh=mesh))
+    core.warmup()
+    mark = {"on": False}
+    (toks, step_s), held = run(
+        "det_core", core, lambda: det_steps(core, clone_requests(
+            [stream[i] for i in dets]), SHARD_DET_STEPS, mark),
+        ["paged_decode_attention"], when=lambda: mark["on"])
+    out["det_core"].update(tokens=toks, steps=core.stats["sched"]["steps"],
+                           admission_calls=1,
+                           step_ms=[1e3 * s for s in step_s])
+    out["det_core"]["held"] = decode_on_path_inputs(
+        held, 13, f"tp-2 rank {rank} det core",
+        need=("paged_decode_attention",))
+    del core
+
+    # (iii) chunked serve
+    eng = InferenceEngine(sat.params, sat.cfg, ac, EngineConfig(
+        slots=8, page_size=8, answer_vocab=av, prefill_chunk=256,
+        mesh=mesh), device="cuda")
+    eng.warmup()
+    core = eng.core
+
+    def mixed():                      # a fused step with decoding slots
+        return bool(core._streaming) and any(
+            sl.active and sl.phase == "decode" for sl in core._slots)
+
+    reqs = clone_requests([stream[i] for i in keep])
+    resp, held = run("chunked", core, lambda: eng.serve(reqs),
+                     ["paged_prefill_attention"], when=mixed)
+    sched = core.scheduler_stats()
+    out["chunked"].update(
+        tokens=[t.tolist() for t in served_tokens(resp, reqs)],
+        steps=sched["steps"], fused_steps=sched["fused_steps"],
+        prefix_hits=core.stats["prefix_hits"],
+        prefix_misses=core.stats["prefix_misses"])
+    out["chunked"]["held"] = prefill_on_path_inputs(
+        torch, held["paged_prefill_attention"], phase=13)
+    del eng, core
+    out["seconds"] = time.perf_counter() - t_rank
+    return out
+
+
+def sharded_tp_phase(torch, ac, slot, dp):
+    """Phase 13 (b): two rank processes (``spawn_tp``) on ``cuda:0`` over
+    ``gloo``, each running ``sharded_tp_rank``; the parent holds them to
+    each other and to the counts the path must give."""
+    from repro_torch.launch.mesh import spawn_tp
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ranks = spawn_tp(sharded_tp_rank, 2, backend="gloo", timeout_s=600)
+    world_s = time.perf_counter() - t0
+    av = ac.num_classes + 1
+    stream, keep, dets = shard_stream()
+    kept = [stream[i] for i in keep]
+    r0, r1 = ranks
+    n_layers = r0["layers"]
+
+    def model_calls(r, tag):
+        return r[tag]["steps"] + r[tag].get("admission_calls", 0)
+
+    checks = {
+        "both ranks' answers and committed tokens identical": all(
+            r0[t]["tokens"] == r1[t]["tokens"]
+            for t in ("serve", "det_core", "chunked")),
+        "both ranks took the same steps": all(
+            model_calls(r0, t) == model_calls(r1, t)
+            for t in ("serve", "det_core", "chunked")),
+        "serve: prefix misses/hits 4/16": all(
+            (r["serve"]["prefix_misses"], r["serve"]["prefix_hits"])
+            == (4, 16) for r in ranks),
+        "every request answered in the answer vocab, 64 det tokens": all(
+            in_answer_vocab(kept, r["serve"]["tokens"], ac, av)
+            and in_answer_vocab(kept, r["chunked"]["tokens"], ac, av)
+            and all(len(t) == SHARD_DET_STEPS
+                    for t in r["det_core"]["tokens"]) for r in ranks),
+        "each rank's pools hold KH 1": all(
+            r[t]["pool_kv_heads"] == [1] for r in ranks
+            for t in ("serve", "det_core", "chunked")),
+        "kv_bytes_per_slot_device x 2 == kv_bytes_per_slot": all(
+            r["serve"]["kv"]["kv_bytes_per_slot_device"] * 2
+            == r["serve"]["kv"]["kv_bytes_per_slot"] for r in ranks),
+        "paged launches per rank == layers x (steps + admissions)": all(
+            r[t]["launches"]["paged_decode_attention"]
+            == n_layers * model_calls(r, t)
+            for r in ranks for t in ("serve", "det_core")),
+        "chunked: prefix-append == layers x fused, decode == layers x "
+        "plain steps, tensor cores": all(
+            ops.launches_by_route(r["chunked"]["launches"],
+                                  "paged_prefill_attention")
+            == {"mma": n_layers * r["chunked"]["fused_steps"],
+                "cuda_cores": 0}
+            and r["chunked"]["fused_steps"] > 0
+            and r["chunked"]["launches"]["paged_decode_attention"]
+            == n_layers * (r["chunked"]["steps"]
+                           - r["chunked"]["fused_steps"])
+            for r in ranks),
+        "paged decode on the tensor cores only": all(
+            decode_routes(r[t]["launches"], "mma",
+                          need=("paged_decode_attention",))[0]
+            for r in ranks for t in ("serve", "det_core", "chunked")),
+        "all-reduces == 2 x layers a model call": all(
+            r[t]["all_reduces"] == {"attn": n_layers * model_calls(r, t),
+                                    "mlp": n_layers * model_calls(r, t)}
+            for r in ranks for t in ("serve", "det_core", "chunked")),
+        "backend gloo": all(r["backend"] == "gloo" for r in ranks),
+    }
+    det6 = [slot["tokens"][i][:SHARD_DET_STEPS].tolist() for i in dets]
+    res = {
+        "world_s": world_s, "backend": r0["backend"],
+        "rank_seconds": [r["seconds"] for r in ranks],
+        "rank_init_s": [r["init_s"] for r in ranks],
+        "det_step_ms_mean": [sum(r["det_core"]["step_ms"])
+                             / len(r["det_core"]["step_ms"]) for r in ranks],
+        "det_step_ms_median": [sorted(r["det_core"]["step_ms"])[
+            SHARD_DET_STEPS // 2] for r in ranks],
+        "serve_wall_s": [r["serve"]["wall_s"] for r in ranks],
+        "chunked_wall_s": [r["chunked"]["wall_s"] for r in ranks],
+        "serve_steps": r0["serve"]["steps"],
+        "serve_admission_calls": r0["serve"]["admission_calls"],
+        "chunked_steps": r0["chunked"]["steps"],
+        "chunked_fused_steps": r0["chunked"]["fused_steps"],
+        "all_reduces": {t: r0[t]["all_reduces"]
+                        for t in ("serve", "det_core", "chunked")},
+        "kv": r0["serve"]["kv"],
+        "answers_equal_to_phase_6": sum(
+            t == slot["tokens"][i].tolist()
+            for t, i in zip(r0["serve"]["tokens"], keep)),
+        "chunked_answers_equal_to_phase_6": sum(
+            t == slot["tokens"][i].tolist()
+            for t, i in zip(r0["chunked"]["tokens"], keep)),
+        "det_equal_to_phase_6": sum(
+            a == b for a, b in zip(r0["det_core"]["tokens"], det6)),
+        "det_equal_to_dp2": sum(
+            a == b for a, b in zip(r0["det_core"]["tokens"],
+                                   dp["det_tokens"])),
+        "det_equal_to_one_engine": sum(
+            a == b for a, b in zip(r0["det_core"]["tokens"],
+                                   dp["one_det_tokens"])),
+        "held": {"paged_decode_attention_mma": r0["det_core"]["held"],
+                 "paged_prefill_attention_mma": {
+                     f"phase 13 tp-2 fused step, {k}": v
+                     for k, v in r0["chunked"]["held"].items()}},
+        "rank1_held": {"det_core": r1["det_core"]["held"],
+                       "chunked": r1["chunked"]["held"]},
+        "launches": {f"sharded_tp2_{t} rank {r['rank']}": r[t]["launches"]
+                     for r in ranks for t in ("serve", "det_core",
+                                              "chunked")}}
+    log(f"  phase 13 (b) dp 1 x tp 2 over {res['backend']}: world "
+        f"{world_s:.1f} s (ranks {[round(s, 1) for s in res['rank_seconds']]}"
+        f" s, weights {[round(s, 1) for s in res['rank_init_s']]} s); det "
+        f"step ms by rank {[round(m, 2) for m in res['det_step_ms_mean']]} "
+        f"(median {[round(m, 2) for m in res['det_step_ms_median']]}); "
+        f"serve {res['serve_steps']} steps + "
+        f"{res['serve_admission_calls']} admission calls, chunked "
+        f"{res['chunked_steps']} steps ({res['chunked_fused_steps']} fused); "
+        f"answers equal to phase 6's {res['answers_equal_to_phase_6']}/20, "
+        f"chunked {res['chunked_answers_equal_to_phase_6']}/20; det tokens "
+        f"equal to phase 6's on {res['det_equal_to_phase_6']}/4, to (a)'s "
+        f"on {res['det_equal_to_dp2']}/4, to one engine's on "
+        f"{res['det_equal_to_one_engine']}/4")
+    log(f"  phase 13 (b) checks: {checks}")
+    return res, checks
+
+
+def sharded_phase(torch, sat, ac, slot):
+    """Phase 13: sharded serving at full width on the 2B, (a) dp 2 x tp 1
+    in this process and (b) dp 1 x tp 2 in two rank processes; fails on
+    any check of either."""
+    t0 = time.perf_counter()
+    res_a, checks_a = sharded_dp_phase(torch, sat, ac, slot)
+    res_b, checks_b = sharded_tp_phase(torch, ac, slot, res_a)
+    held = res_b.pop("held")
+    launches = {"sharded_dp2_serve": res_a.pop("launches"),
+                "sharded_dp2_det_core": res_a.pop("det_launches"),
+                **res_b.pop("launches")}
+    for k in ("tokens", "det_tokens", "one_det_tokens"):
+        res_a.pop(k)
+    res = {"a": res_a, "b": res_b, "seconds": time.perf_counter() - t0}
+    log("sharded_phase " + json.dumps(res, default=str))
+    bad = [k for k, ok in {**{f"(a) {k}": v for k, v in checks_a.items()},
+                           **{f"(b) {k}": v for k, v in checks_b.items()}
+                           }.items() if not ok]
+    if bad:
+        raise RuntimeError(f"phase 13 failed: {bad}")
+    return {"launches": launches, "held": held}
 
 
 class FlashOnCudaCores:
@@ -4648,6 +5122,12 @@ def main() -> int:
 
     log("phase 12: overload control at full width (2B slot path)")
     overload = overload_phase(torch, sat, ac, slot)
+
+    log("phase 13: sharded serving at full width (2B: dp 2 x tp 1 in this "
+        "process, dp 1 x tp 2 in two rank processes)")
+    sharded = sharded_phase(torch, sat, ac, slot)
+    for name, cases in sharded.pop("held").items():
+        kernels[name].update(cases)
     del sat, gs, conf
     torch.cuda.empty_cache()
 
@@ -4664,6 +5144,7 @@ def main() -> int:
                "batch_evaluator": batch["launches"],
                "cascade_server_spec": batch["spec_launches"],
                **quant["launches"], **overload["launches"],
+               **sharded["launches"],
                **{f"xlstm {tag}": c for tag, c in xlstm["launches"].items()}}
     for tag, r in xlstm.items():
         for name, cases in r.get("kernel_vs_plain_max_abs_err", {}).items():

@@ -29,6 +29,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """One device: the same type and index (no index: device 0)."""
+    return (a.type, a.index or 0) == (b.type, b.index or 0)
+
+
 def check_on_device(device: torch.device, **trees) -> None:
     """Raise ``ValueError`` when a leaf of a named weight tree lies on
     another device type than ``device``."""

@@ -9,7 +9,9 @@ mLSTM (the chunked scan kernel in prefill, the O(1) update in decode) and
 sLSTM (the recurrence kernel in both), modes ``"prefill"`` and
 ``"decode"``.  Page pools may be int8 or fp8 (e4m3) with per-(page, slot,
 head) scales (``kernels/kv_quant.py``).  MoE, Mamba and Hymba are not
-ported yet and raise.
+ported yet and raise.  Attention's output projection and the MLP's down
+projection end in the tensor-parallel all-reduce hooks
+(``distributed.collectives``), identity outside a serving ``tp_context``.
 
 Unlike the JAX package, which is functional, attention writes the KV cache
 in place and the recurrent mixers copy their final states into the cache
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives
 from repro_torch.kernels import kv_quant, ops
 from repro_torch.kernels.ref import log_sigmoid
 
@@ -323,7 +326,9 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
                                  window=window, softcap=cap)
         o = o[:, None]
     o = o.reshape(b, s, cfg.num_heads * hd)
-    return o @ p["wo"], cache
+    # identity outside a serving tp_context; the sum over the model axis
+    # when q/o are head-split
+    return collectives.tp_attn_all_reduce(o @ p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +344,10 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    # identity outside a serving tp_context; the sum over the model axis
+    # when the hidden dim is split
+    return collectives.tp_mlp_all_reduce(
+        (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"])
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,9 @@ continuous-batching engine over the slot table.
                        slot path (admit_many / step, paged KV, speculative
                        decoding, chunked prefill; submit_many under
                        overload control)
+- ``ShardedEngineCore`` data-parallel slot table: one ``EngineCore`` per
+                       data shard of a mesh behind a scene-affine router
+                       (``make_engine_core`` picks it or ``EngineCore``)
 - ``InferenceEngine``  request-level continuous batching over a slot table
 - ``AdmissionQueue``   overload control's bounded priority queue
                        (``OverloadConfig``; outcomes ``ADMITTED`` /
@@ -25,6 +28,8 @@ from repro_torch.serving.admission import (ADMITTED, QUEUED,  # noqa: F401
                                            OverloadConfig)
 from repro_torch.serving.engine_core import (EngineCore,  # noqa: F401
                                              EngineCoreConfig, shared_core)
+from repro_torch.serving.sharded import (ShardedEngineCore,  # noqa: F401
+                                         make_engine_core)
 from repro_torch.serving.engine import (EngineConfig,  # noqa: F401
                                         InferenceEngine)
 from repro_torch.serving.policy import (AIRGPolicy,  # noqa: F401

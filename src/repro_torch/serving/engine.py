@@ -16,7 +16,10 @@ slots, instead of running at admission.  With
 ``EngineConfig(overload=OverloadConfig(...))`` ``serve`` submits the
 requests once to the engine's bounded priority queue, which admits them
 page-pool-aware, preempts and rejects under saturation
-(``last_rejected``).
+(``last_rejected``).  With ``EngineConfig(mesh=...)`` the core comes from
+``serving.sharded.make_engine_core``: a tensor-parallel ``EngineCore`` for
+a mesh whose data axis is 1, a ``ShardedEngineCore`` (one engine per data
+shard behind a scene-affine router) above that.
 
 It runs on the card unless ``device="cpu"`` is asked for, and the weights
 must already lie on that device.
@@ -35,8 +38,8 @@ from repro_torch.core import eo_adapter as EO
 from repro_torch.core.cascade import TierModel
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serving.admission import OverloadConfig
-from repro_torch.serving.engine_core import (EngineCore, EngineCoreConfig,
-                                             check_ported)
+from repro_torch.serving.engine_core import EngineCoreConfig, check_ported
+from repro_torch.serving.sharded import make_engine_core
 from repro_torch.serving.request import Request, Response
 from repro_torch.tree import tree_leaves
 
@@ -64,7 +67,11 @@ class EngineConfig:
     #: KV page storage: None = the model dtype, "int8" / "fp8" = quantized
     #: pages with per-(page, slot, head) scales, read by the paged kernels
     kv_dtype: Optional[str] = None
-    mesh: Optional[Any] = None          # not ported (ROADMAP item 13)
+    #: ``launch.mesh.Mesh`` with ("data", "model") axes, or None (one
+    #: device): the "model" axis splits the core's steps over the mesh's
+    #: process group, a "data" axis above 1 splits the slot table into
+    #: per-shard engines behind a scene-affine router (serving/sharded.py)
+    mesh: Optional[Any] = None
     #: overload control: page-pool-aware admission, bounded priority queue,
     #: deadline expiry and priority preemption (None = off; see
     #: serving/admission.py)
@@ -99,7 +106,7 @@ class InferenceEngine:
         self.ac = adapter_cfg
         self.ec = engine_cfg or EngineConfig()
         self.tier = tier
-        self.core = EngineCore(
+        self.core = make_engine_core(
             TierModel(params, cfg), adapter_cfg,
             EngineCoreConfig(slots=self.ec.slots,
                              answer_vocab=self.ec.answer_vocab,
@@ -113,6 +120,7 @@ class InferenceEngine:
                              pool_pages=self.ec.pool_pages,
                              pool_bytes=self.ec.pool_bytes,
                              kv_dtype=self.ec.kv_dtype,
+                             mesh=self.ec.mesh,
                              overload=self.ec.overload),
             draft=draft)
         #: (request, reason) pairs dropped by the last overload-controlled

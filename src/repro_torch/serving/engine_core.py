@@ -43,12 +43,24 @@ per-(page, slot, head) scales) and sized by a byte budget
   it; ``step`` pumps the queue first.  ``admit_many`` stays the
   unconditional path the pump commits through.
 
-The device mesh, the ``step_impl="vmap"`` oracle and tiers with recurrent
-(mLSTM/sLSTM) blocks are not ported yet: they raise
-``NotImplementedError`` naming their ROADMAP item.
+- **tensor parallelism** (``mesh``, a ``launch.mesh.Mesh`` whose data axis
+  is 1; the batched paged engine on attention-only stacks): every rank
+  process runs this engine over its block of the heads and the FFN
+  (``distributed.sharding.tp_serving_plan``, ``shard_backbone``); its
+  page pools hold only its KV heads, the model all-reduces the attention
+  and MLP outputs over the mesh's group inside the step bodies
+  (``distributed.collectives.tp_context``), the regions-only prefix
+  prefill and the draft tier run replicated at full width, and every
+  decision that reads the clock takes rank 0's, so every rank takes the
+  same decisions.  A data axis above 1 is ``serving.sharded``'s.
+
+The ``step_impl="vmap"`` oracle and tiers with recurrent (mLSTM/sLSTM)
+blocks are not ported yet: they raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -57,9 +69,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ATTN
 from repro_torch.core import eo_adapter as EO
+from repro_torch.device import same_device
+from repro_torch.distributed import collectives as CO
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_prefill_attention as PPA
 from repro_torch.models import layers as L
@@ -74,26 +90,15 @@ from repro_torch.serving.request import Request, scene_key
 
 Params = Dict[str, Any]
 
-#: fields of the JAX engine configs outside the port so far: (field, the
-#: value the port takes, where ROADMAP queue 1 lists it)
-NOT_PORTED = (
-    ("mesh", None, "item 13 (sharded serving)"),
-)
-
 
 def check_ported(cfg: Any) -> None:
-    """Raise ``NotImplementedError`` for a config field set to anything the
-    port does not run yet.  A chunked config the JAX engine refuses (off
-    the batched paged engine) raises its ``ValueError`` first."""
+    """Raise ``NotImplementedError`` for a config the port does not run
+    yet.  A chunked config the JAX engine refuses (off the batched paged
+    engine) raises its ``ValueError`` first."""
     if cfg.prefill_chunk and (cfg.step_impl != "batched"
                               or cfg.cache_impl != "paged"):
         raise ValueError("chunked prefill requires the batched paged engine "
                          "(chunking off is the oracle)")
-    for name, value, item in NOT_PORTED:
-        if getattr(cfg, name) != value:
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r} is not ported "
-                f"(ROADMAP queue 1, {item})")
     if cfg.step_impl == "vmap":
         raise NotImplementedError(
             "step_impl='vmap' (the per-slot oracle) is not ported "
@@ -134,7 +139,11 @@ class EngineCoreConfig:
     #: "int8" / "fp8" (e4m3) → pages quantized per (page, slot, head) with
     #: f32 scales beside them, read by the paged kernels themselves
     kv_dtype: Optional[str] = None
-    mesh: Optional[Any] = None             # not ported (ROADMAP item 13)
+    #: ``launch.mesh.Mesh`` with ("data", "model") axes, or None (one
+    #: device).  The "model" axis splits heads, FFN and page pools over
+    #: the mesh's process group (batched paged engine, attention-only
+    #: stacks); a "data" axis above 1 is ``serving.sharded``'s job
+    mesh: Optional[Any] = None
     #: overload control: page-pool-aware admission, bounded priority queue,
     #: deadline expiry and priority preemption (None = off, the
     #: admit-unconditionally contract; see serving/admission.py)
@@ -263,6 +272,40 @@ class EngineCore:
             self._group = tier.cfg.num_heads // tier.cfg.num_kv_heads
             self._plan_tiles = PPA.plan_tiles(
                 self._token_budget, self.cfg.slots, self._group)
+        # -- device mesh / tensor-parallel plan (None = one device) --------
+        self.mesh = self.cfg.mesh
+        self._tp_plan: Optional[SH.TPServingPlan] = None
+        self._tp_group, self._tp_rank = None, 0
+        #: the backbone and config the slot path's step bodies run: this
+        #: rank's block under a mesh, the tier's own otherwise
+        self._bb, self._mcfg = tier.params["backbone"], tier.cfg
+        if self.mesh is not None:
+            if self.cache_impl != "paged":
+                raise ValueError(
+                    "mesh requires the batched paged engine (the vmap/dense "
+                    "oracles stay single-device by design)")
+            if SH.mesh_axis_size(self.mesh, "data") != 1:
+                raise ValueError(
+                    "EngineCore shards tensor-parallel only (the mesh's "
+                    "'data' axis must be 1); data-parallel slot splits are "
+                    "serving.sharded.ShardedEngineCore's job: it runs one "
+                    "EngineCore per data shard on a 1-row sub-mesh")
+            if any(s.kind != ATTN for s in tier.cfg.block_pattern):
+                raise ValueError(
+                    "mesh serving requires attention-only stacks: recurrent "
+                    "prefix-state rows would have to be replicated across "
+                    "the admit path (and head-splitting has nothing to "
+                    "split in an SSM state)")
+            want = torch.device(self.mesh.device())
+            if not same_device(want, self.device):
+                raise ValueError(f"the tier's weights lie on {self.device}, "
+                                 f"the mesh puts rank {self.mesh.rank} on "
+                                 f"{want}")
+            plan = SH.tp_serving_plan(tier.cfg, self.mesh)
+            self._tp_plan = plan
+            self._tp_group, self._tp_rank = self.mesh.group, self.mesh.rank
+            self._mcfg = plan.cfg_local
+            self._bb = SH.shard_backbone(self._bb, plan, self._tp_rank)
         if any(s.kind != ATTN for s in tier.cfg.block_pattern):
             # the model runs mLSTM/sLSTM stacks (transformer.prefill /
             # decode_step), but the engine's admission does not carry their
@@ -485,8 +528,9 @@ class EngineCore:
         cfg, dev, n = self.tier.cfg, self.device, self.cfg.slots
         if self._slot_cache is None:
             if self.cache_impl == "paged":
+                # under a mesh, at this rank's KV heads
                 self._slot_cache = T.init_paged_cache(
-                    cfg, n, self._n_pages, self._page_size, dev,
+                    self._mcfg, n, self._n_pages, self._page_size, dev,
                     kv_dtype=self.cfg.kv_dtype)
             else:
                 self._slot_cache = T.init_cache(cfg, n, self._slot_max_len,
@@ -519,6 +563,26 @@ class EngineCore:
 
     def _host_to_dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a)).to(self.device)
+
+    def _tp(self):
+        """The context the slot path's step bodies run in: the all-reduce
+        hooks armed over the mesh's group (nothing on one device)."""
+        if self._tp_group is None:
+            return contextlib.nullcontext()
+        return CO.tp_context(self._tp_group, attn=self._tp_plan.attn,
+                             mlp=self._tp_plan.mlp)
+
+    def _now(self, now: Optional[float] = None) -> float:
+        """The time a decision reads: ``now``, else the clock; under a mesh,
+        rank 0's, broadcast over the group.  Ranks that expired different
+        requests would run different steps and deadlock in a collective."""
+        now = time.perf_counter() if now is None else now
+        if self._tp_group is None:
+            return now
+        t = torch.tensor([now], dtype=torch.float64, device=self.device)
+        dist.broadcast(t, src=dist.get_global_rank(self._tp_group, 0),
+                       group=self._tp_group)
+        return float(t.item())
 
     def _page_nbytes_stack(self) -> int:
         """Device bytes ONE pool page costs across the whole stack (every
@@ -652,11 +716,17 @@ class EngineCore:
             self._images([r for _, r in miss]), self.ac.n_regions)
         allocs = [self._pool.alloc(n_shared) for _ in range(km)]
         pages = self._host_to_dev([p for pg in allocs for p in pg])
+        # under a mesh the prefill ran at full heads on every rank; this
+        # rank keeps its KV-head block, sliced before quantization (scales
+        # are per (token, head), so slicing commutes with it exactly)
+        heads = (SH.kv_head_block(self._tp_plan, self._tp_rank)
+                 if self._tp_plan is not None else slice(None))
 
         def kv(pool: Params, pref: Params) -> Params:
             # a quantized pool takes the dense prefix quantized here, the
             # layout every other write path keeps (scales drop the hd axis)
-            pref = L.quantize_leaves(pool, pref["k"], pref["v"])
+            pref = L.quantize_leaves(pool, pref["k"][:, :, :, heads],
+                                     pref["v"][:, :, :, heads])
             for name, leaf in pool.items():
                 x = pref[name]                     # (n_super, K, N_r, KH, ...)
                 ns = x.shape[0]
@@ -686,11 +756,12 @@ class EngineCore:
         ptok_row = np.zeros((n,), np.int32)
         ptok_row[target] = ptoks
         idx_in = np.where(hit, n_r, 0).astype(np.int32)
-        logits, _ = T.decode_step(
-            self.tier.params["backbone"], self.tier.cfg, self._slot_cache,
-            {"tokens": self._host_to_dev(ptok_row)[:, None]},
-            self._host_to_dev(idx_in),
-            block_table=self._host_to_dev(bt_call.astype(np.int32)))
+        with self._tp():
+            logits, _ = T.decode_step(
+                self._bb, self._mcfg, self._slot_cache,
+                {"tokens": self._host_to_dev(ptok_row)[:, None]},
+                self._host_to_dev(idx_in),
+                block_table=self._host_to_dev(bt_call.astype(np.int32)))
         slots = self._host_to_dev(target)
         self._slot_logits.index_copy_(0, slots, logits.index_select(0, slots))
         self._slot_index.index_fill_(0, slots, n_r + 1)
@@ -909,7 +980,7 @@ class EngineCore:
             raise ValueError("submit_many requires EngineCoreConfig."
                              "overload (admit_many is the unconditional "
                              "path)")
-        now = time.perf_counter() if now is None else now
+        now = self._now(now)
         ol = self.stats["overload"]
         out: Dict[int, str] = {}
         for r in requests:
@@ -968,7 +1039,7 @@ class EngineCore:
         waiting for."""
         if self._admq is None or len(self._admq) == 0:
             return
-        now = time.perf_counter() if now is None else now
+        now = self._now(now)
         for e in self._admq.expire(now):
             self._reject(e, REASON_EXPIRED)
         ov = self.cfg.overload
@@ -1074,9 +1145,10 @@ class EngineCore:
         toks = torch.argmax(self._slot_logits[:, :av], dim=-1).to(torch.int32)
         bt = (self._block_table_dev() if self.cache_impl == "paged"
               else None)
-        self._slot_logits, _ = T.decode_step(
-            self.tier.params["backbone"], self.tier.cfg, self._slot_cache,
-            {"tokens": toks[:, None]}, self._slot_index, block_table=bt)
+        with self._tp():
+            self._slot_logits, _ = T.decode_step(
+                self._bb, self._mcfg, self._slot_cache,
+                {"tokens": toks[:, None]}, self._slot_index, block_table=bt)
         self._slot_index = torch.where(self._active_mask_dev(),
                                        self._slot_index + 1,
                                        self._slot_index)
@@ -1171,12 +1243,13 @@ class EngineCore:
         y1 = torch.argmax(av_logits, dim=-1).to(torch.int32)
         tok = torch.where(argm, y1[sclamp], tokens_d)
         feed = self._staging[sclamp, torch.clamp(pos_d, 0, n_r - 1).long()]
-        logits_f, _ = T.prefill_chunk_step(
-            self.tier.params["backbone"], self.tier.cfg, self._slot_cache,
-            {"tokens": tok[:, None], "patch_embeds": feed[:, None],
-             "patch_mask": pmask}, pos_d,
-            block_table=self._block_table_dev()[sclamp],
-            chunk_lens=valid.to(torch.int32), tile_plan=plan_d)
+        with self._tp():
+            logits_f, _ = T.prefill_chunk_step(
+                self._bb, self._mcfg, self._slot_cache,
+                {"tokens": tok[:, None], "patch_embeds": feed[:, None],
+                 "patch_mask": pmask}, pos_d,
+                block_table=self._block_table_dev()[sclamp],
+                chunk_lens=valid.to(torch.int32), tile_plan=plan_d)
         # the flat row feeding each slot's logits (-1: none); unscheduled
         # and region rows all go to the dropped index ``n_slots``
         dest = torch.where(valid & ~pmask, srow_d, n_slots).long()
@@ -1365,10 +1438,11 @@ class EngineCore:
         them.  Returns (n_commit (slots,), tok_probs (slots, γ+1, V_ans))
         and updates the held logits and index."""
         g, av = self.cfg.spec_gamma, self.cfg.answer_vocab
-        logits_all, _ = T.verify_step(
-            self.tier.params["backbone"], self.tier.cfg, self._slot_cache,
-            {"tokens": chunk}, self._slot_index,
-            block_table=self._block_table_dev())
+        with self._tp():
+            logits_all, _ = T.verify_step(
+                self._bb, self._mcfg, self._slot_cache,
+                {"tokens": chunk}, self._slot_index,
+                block_table=self._block_table_dev())
         gtok = torch.argmax(logits_all[..., :av], dim=-1).to(torch.int32)
         eq = (gtok[:, :g] == chunk[:, 1:]).to(torch.int32)
         acc = torch.cumprod(eq, dim=1).sum(dim=1)          # (S,) prefix
@@ -1605,11 +1679,18 @@ class EngineCore:
         pages it maps (idle engines report the reserved-page
         equivalent)."""
         self._ensure_slot_tables()
-        total = sum(t.numel() * t.element_size()
-                    for layer in self._slot_cache for t in layer.values())
-        scales = sum(t.numel() * t.element_size()
-                     for layer in self._slot_cache
-                     for name, t in layer.items() if name.endswith("_scale"))
+        # under a mesh the pools hold this rank's KV heads: the numbers
+        # below are global (the logical pool, as the JAX engine reports),
+        # the "_device" ones this rank's
+        tp_kv = (self._tp_plan.tp if self._tp_plan is not None
+                 and self._tp_plan.attn else 1)
+        total = tp_kv * sum(t.numel() * t.element_size()
+                            for layer in self._slot_cache
+                            for t in layer.values())
+        scales = tp_kv * sum(t.numel() * t.element_size()
+                             for layer in self._slot_cache
+                             for name, t in layer.items()
+                             if name.endswith("_scale"))
         out: Dict[str, Any] = {"cache_impl": self.cache_impl,
                                "kv_bytes_total": int(total),
                                "kv_dtype": self.cfg.kv_dtype,
@@ -1646,4 +1727,11 @@ class EngineCore:
             out["kv_bytes_per_slot"] = int(page_bytes * pages / len(active))
         else:
             out["kv_bytes_per_slot"] = int(page_bytes * self._pages_per_slot)
+        if self.mesh is not None:
+            out["mesh"] = {a: int(self.mesh.shape[a])
+                           for a in self.mesh.axis_names}
+            out["tp_kv_shards"] = tp_kv
+            out["kv_bytes_total_device"] = int(total // tp_kv)
+            out["kv_bytes_per_slot_device"] = int(
+                out["kv_bytes_per_slot"] // tp_kv)
         return out

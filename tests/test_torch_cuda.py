@@ -1176,3 +1176,99 @@ def test_overload_engines_match_the_cpu(card, kw):
     ol = got["state"]["overload"]
     assert ol["preemptions"] >= 1 and ol["rejections"]["expired"] == 1
     assert got["drained"]
+
+
+def _small_tier(device):
+    """The small proxy tier (f32, hd 12, KH 2) from seed 0, made on the CPU
+    and copied to ``device``."""
+    from repro_torch.configs.spaceverse_pair import proxy_pair
+    from repro_torch.core import eo_adapter as EO
+    from repro_torch.core.cascade import TierModel
+    from repro_torch.tree import tree_map
+    cfg, _ = proxy_pair("small")
+    ac = EO.EOAdapterConfig()
+    params = EO.init_adapter(cfg, ac, 0, device="cpu")
+    return TierModel(tree_map(lambda t: t.to(device), params), cfg), ac
+
+
+def _sharded_stream(ac):
+    from repro_torch.data import synthetic
+    from repro_torch.serving import Request
+    data = synthetic.make_dataset("cls", 8, seed=0, cfg=synthetic.EOTaskConfig(
+        image_size=ac.image_size, grid=ac.grid, num_classes=ac.num_classes))
+    return [Request(task="det" if i % 4 == 0 else "vqa",
+                    image=data["images"][i % 3], prompt=i % 2)
+            for i in range(8)]
+
+
+def _sharded_tokens(device, mesh, kw):
+    """The stream's tokens through ``make_engine_core`` on ``mesh`` (None:
+    one device), 4 slots, and the engine's pools' KV-head counts."""
+    from repro_torch.serving import EngineCoreConfig, make_engine_core
+    tier, ac = _small_tier(device)
+    core = make_engine_core(tier, ac, EngineCoreConfig(
+        slots=4, answer_vocab=9, mesh=mesh, **kw))
+    core.warmup()
+    reqs, out = _sharded_stream(ac), {}
+    queue = list(reqs)
+    while queue or core.active_count():
+        n = min(len(queue), len(core.free_slots()))
+        if n:
+            core.admit_many(queue[:n])
+            del queue[:n]
+        for r, t in core.step():
+            out[r.request_id] = t.tolist()
+    shards = getattr(core, "shards", [core])
+    heads = sorted({layer["k"].shape[3] for sh in shards
+                    for layer in sh._slot_cache})
+    return [out[r.request_id] for r in reqs], heads
+
+
+SHARDED_FLAVOURS = {"plain": {}, "chunked": {"prefill_chunk": 4}}
+
+
+def _cuda_tp_rank(rank):
+    """A rank of the card's tp-2 world: both flavours on a (1, 2) mesh of
+    one card, with the kernels' launches by route."""
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_host_mesh(model=2, data=1, devices=["cuda:0"] * 2)
+    out = {}
+    for name, kw in SHARDED_FLAVOURS.items():
+        ops.reset_launch_counts()
+        toks, heads = _sharded_tokens("cuda", mesh, kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        out[name] = (toks, heads, {
+            n: ops.launches_by_route(counts, n)
+            for n in ("paged_decode_attention", "paged_prefill_attention")})
+    return out
+
+
+@pytest.mark.parametrize("flavour", sorted(SHARDED_FLAVOURS))
+def test_sharded_dp2_engine_matches_the_cpu(card, flavour):
+    """A (2, 1) mesh on one card: two shard engines with private pools on
+    cuda:0, the same tokens as one engine on the CPU."""
+    from repro_torch.launch.mesh import make_host_mesh
+    kw = SHARDED_FLAVOURS[flavour]
+    want, _ = _sharded_tokens("cpu", None, kw)
+    got, heads = _sharded_tokens(
+        "cuda", make_host_mesh(model=1, data=2, devices=["cuda:0"] * 2), kw)
+    assert got == want
+    assert heads == [2]
+
+
+def test_sharded_tp2_ranks_on_gloo_match_the_cpu(card):
+    """A (1, 2) mesh on one card: two rank processes over ``gloo``, their
+    all-reduces on CUDA tensors; both ranks give the CPU engine's tokens,
+    their pools hold KH 1, the paged kernels run on the CUDA-core route."""
+    from repro_torch.launch.mesh import spawn_tp
+    ranks = spawn_tp(_cuda_tp_rank, 2, backend="gloo", timeout_s=180)
+    for name, kw in SHARDED_FLAVOURS.items():
+        want, _ = _sharded_tokens("cpu", None, kw)
+        (t0, h0, r0), (t1, h1, _) = ranks[0][name], ranks[1][name]
+        assert t0 == t1 == want, name
+        assert h0 == h1 == [1]
+        kernel = ("paged_prefill_attention" if kw
+                  else "paged_decode_attention")
+        assert r0[kernel]["cuda_cores"] > 0 and r0[kernel]["mma"] == 0

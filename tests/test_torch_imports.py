@@ -43,7 +43,11 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 @pytest.mark.parametrize("module", ["repro_torch", "repro_torch.baselines",
-                                    "repro_torch.core.cascade"])
+                                    "repro_torch.core.cascade",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.distributed.sharding",
+                                    "repro_torch.distributed.collectives",
+                                    "repro_torch.serving.sharded"])
 def test_entry_modules_import_neither_jax_nor_repro(module):
     """Each entry module alone, in a fresh interpreter."""
     probe = (f"import sys, {module}\n"
@@ -52,6 +56,20 @@ def test_entry_modules_import_neither_jax_nor_repro(module):
     out = _run(["-c", probe], cwd=REPO)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def _rank_modules(rank):
+    import repro_torch.serving  # noqa: F401  (the engines a rank runs)
+    return sorted(k for k in sys.modules
+                  if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+
+
+def test_spawned_ranks_import_neither_jax_nor_repro():
+    """The rank processes of ``spawn_tp`` start from a fresh interpreter
+    that imports only the port (and the module of the rank function)."""
+    from repro_torch.launch.mesh import spawn_tp
+    assert spawn_tp(_rank_modules, 2, backend="gloo", timeout_s=60) \
+        == [[], []]
 
 
 def test_chip_smoke_imports_neither_jax_nor_repro():
