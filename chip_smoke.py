@@ -111,11 +111,13 @@ Phases, each of which raises (exit code 1, no result line) on failure:
 3. End to end on a small proxy pair (flash, decode, prefix-append and the
    chunked scan on their CUDA-core routes alone, counted): the port's
    ``CascadeServer``, its
-   ``InferenceEngine.serve`` on the paged slot path, a γ = 3 speculative
-   engine, and chunked prefill (chunk 8, chunk N_r, chunk 8 with γ = 3) on
-   the card must give the decisions and tokens they give on the CPU from
-   the same weights (float32), all equal to the plain engine's, with the
-   plain engine's prefix hits and misses.  So must the batch evaluator
+   ``InferenceEngine.serve`` on the paged slot path, the vmap oracle, a
+   γ = 3 speculative engine, and chunked prefill (chunk 8, chunk N_r,
+   chunk 8 with γ = 3) on the card, warmed up and captured (and the plain
+   engine once more with eager steps), must give the decisions and tokens
+   they give on the CPU from the same weights (float32), all equal to the
+   plain engine's, the paged ones with the plain engine's prefix hits and
+   misses, and no capture after warmup.  So must the batch evaluator
    (``SpaceVerse.run_batch``, vqa/cls/det at B 4), the four baselines at
    their deterministic settings (satellite-only, GS-only without a region
    drop, Tabi, AI-RG at 0.0 and 1.0) and ``CascadeServer(spec_gamma=3)``
@@ -305,14 +307,42 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    reduces 2 × 28 a model call; the backend gloo; each rank holds rows 4
    and 6 to their tensor-core bound on its kept inputs after its counts
    were read.  Prints each rank's step ms and the backend.  Line
-   ``sharded_phase {...}``; a failure in a rank fails the phase.
+   ``sharded_phase {...}``; a failure in a rank fails the phase.  The
+   ranks' engines run eager steps (``cuda_graphs=False``): a gloo
+   all-reduce crosses the host and is not captured.
+14. Captured steps against eager steps at full width (after 13, while
+   the pair is loaded): the same requests through two engines that differ
+   only in ``cuda_graphs``, each warmed up (the captured one captures
+   every step family and admission bucket there), its counts zeroed just
+   before its run: (a) phase 6's stream on the 2B to the end; (b) phase
+   8's chunked engine over its first 128 steps, and phase 7's γ 4 7B
+   engine drafted by the 2B (its vqa/cls requests and a det answer
+   drafted locally) over its first 64; (c) phase 6's stream on int8
+   pools over its first 128 steps.  Checks: tokens equal both ways (the
+   same kernels on the same inputs), launch counts equal both ways, the
+   captured engine has graphs and replays and captured nothing after
+   warmup.  Prints each run's step ms (host clock, mean and median), the
+   device's busy share over 8 profiled steps, the graphs and their pool's
+   bytes, beside the card's name and power limit.  (d) the vmap oracle,
+   captured, on the 2B for 16 steps at 8 slots: its step ms and how many
+   requests' tokens so far equal (a)'s (bf16, other GEMM shapes:
+   reported).  Line ``graphs_phase {...}``.
 
-Phases 3, 4, 6, 7, 8, each run of 9 and each path of 10, 11, 12 and 13
+The slot-path engines of phases 3, 6-8, 10-12 and 13 (a) capture their
+steps as CUDA graphs in ``warmup()`` (``serving/graphs.py``) and replay
+them; a replay adds the launches its capture counted, so the counts below
+hold for captured steps too.  Where a phase keeps a kernel's inputs from
+its path (``capture_inputs``), the steps up to the kept call run their
+bodies eagerly.
+
+Phases 3, 4, 6, 7, 8, each run of 9 and each path of 10, 11, 12, 13 and 14
 (the batch evaluator, the speculative server; in 13 each rank's runs too)
 zero every kernel's launch count just before they run and read it just
 after; each kernel of a path must have launched.  In phases 4, 6, 7 and 10
-the tensor-core flash route launched once per layer of every
-``transformer.prefill`` call (28 × prefills) and the CUDA-core route never,
+the tensor-core flash route launched once per layer of every model
+prefill (28 × prefills: ``transformer.prefill`` calls that launched, and
+replays of an engine's captured prefill steps) and the CUDA-core route
+never,
 as in 12 (a) and 13 (a); in phases 4, 6-8 and 10-13 every decode launch
 (dense and paged) took the tensor-core route, in phase 3 the CUDA-core
 route; every prefix-append launch took the tensor-core route in phases 8,
@@ -2167,25 +2197,32 @@ def served_tokens(responses, reqs):
 
 
 def small_slot_path(torch, sat, gs, sat_card, gs_card, ac):
-    """``InferenceEngine.serve`` on the paged slot path, a γ = 3
-    speculative engine drafted by the satellite tier, and chunked prefill
-    (chunk 8, the whole N_r, and chunk 8 under γ = 3): the same tokens on
-    the card as on the CPU, equal to the plain engine's; the chunked
-    engines hit the prefix cache as often as the unchunked one."""
+    """``InferenceEngine.serve`` on the paged slot path, the vmap oracle, a
+    γ = 3 speculative engine drafted by the satellite tier, and chunked
+    prefill (chunk 8, the whole N_r, and chunk 8 under γ = 3): the same
+    tokens on the card as on the CPU, equal to the plain engine's; the
+    paged engines hit the prefix cache as often as the plain one.  Every
+    card engine is warmed up and runs captured steps (no capture after
+    warmup), and the plain flavour runs once more on the card with eager
+    steps."""
     from repro_torch.serving import EngineConfig, InferenceEngine
     reqs = scene_stream(["det", "vqa", "cls", "vqa"], 3, ac.image_size,
                         ac.grid, seed=70)
     greedy, prefix = {}, {}
-    for kw in ({}, {"spec_gamma": 3}, {"prefill_chunk": 8},
-               {"prefill_chunk": ac.n_regions},
+    for kw in ({}, {"step_impl": "vmap"}, {"spec_gamma": 3},
+               {"prefill_chunk": 8}, {"prefill_chunk": ac.n_regions},
                {"prefill_chunk": 8, "spec_gamma": 3}):
         spec = kw.get("spec_gamma", 0)
-        for dev, tier, draft in (("cpu", gs, sat),
-                                 ("cuda", gs_card, sat_card)):
+        runs = [("cpu", gs, sat, True), ("cuda", gs_card, sat_card, True)]
+        if not kw:
+            runs.append(("cuda", gs_card, sat_card, False))
+        for dev, tier, draft, graphs in runs:
             eng = InferenceEngine(
                 tier.params, tier.cfg, ac,
-                EngineConfig(slots=3, answer_vocab=9, **kw),
+                EngineConfig(slots=3, answer_vocab=9, cuda_graphs=graphs,
+                             **kw),
                 draft=draft if spec else None, device=dev)
+            eng.warmup()
             rs = clone_requests(reqs)
             toks = served_tokens(eng.serve(rs), rs)
             st = eng.core.stats
@@ -2193,17 +2230,28 @@ def small_slot_path(torch, sat, gs, sat_card, gs_card, ac):
             greedy.setdefault(dev, toks)
             prefix.setdefault(dev, hits)
             same = all((a == b).all() for a, b in zip(toks, greedy["cpu"]))
-            log(f"  small slot path {kw or 'plain'} on {dev}: "
-                f"{len(toks)} requests, prefix hits/misses {hits}, "
+            gst = eng.core.graph_stats()
+            recompiles = eng.core.scheduler_stats()["steady_recompiles"]
+            log(f"  small slot path {kw or 'plain'} on {dev}"
+                f"{'' if graphs else ' (eager steps)'}: {len(toks)} "
+                f"requests, prefix hits/misses {hits}, "
                 f"{'equal to' if same else 'DIFFERENT from'} the CPU "
-                "greedy tokens")
+                f"greedy tokens; {gst['graphs']} graphs, {gst['replays']} "
+                f"replays, {recompiles} captures after warmup")
             if not same:
                 raise RuntimeError(f"slot path {kw} on {dev} disagrees with "
                                    "the CPU greedy tokens")
-            if hits != prefix[dev]:
+            if hits != prefix[dev] and eng.core.cache_impl == "paged":
                 raise RuntimeError(f"slot path {kw} on {dev}: prefix "
                                    f"hits/misses {hits}, the plain engine's "
                                    f"{prefix[dev]}")
+            captured = dev == "cuda" and graphs
+            if (gst["captured"] != captured or recompiles
+                    or (gst["graphs"] > 0) != captured
+                    or (gst["replays"] > 0) != captured):
+                raise RuntimeError(f"slot path {kw} on {dev}: graphs "
+                                   f"{gst}, {recompiles} captures after "
+                                   "warmup")
 
 
 def step_share(a, b, kind):
@@ -2731,27 +2779,56 @@ def decode_on_path_inputs(calls, phase: int, what: str,
     return out
 
 
+#: the engines' step families that run a model prefill: the tier's, or
+#: the drafter's
+PREFILL_FAMILIES = {"prefix_prefill": "tier", "dense_admit": "tier",
+                    "draft_prefill": "draft"}
+
+
 class PrefillCounter:
-    """While active, counts ``transformer.prefill`` calls and the attention
-    layers they run (every layer of the Qwen2-VL tiers is one).  ``check``
-    holds a path's flash launches to them: the tensor-core route once per
-    prefill layer (bf16, hd 128), the CUDA-core route never."""
+    """While active, counts the model prefills that ran and the attention
+    layers they ran (every layer of the Qwen2-VL tiers is one): the calls
+    of ``transformer.prefill`` that launched their kernels (not those a
+    CUDA-graph capture records), and the replays of an engine's captured
+    prefill steps (``PREFILL_FAMILIES``; a replay runs no Python).
+    ``check`` holds a path's flash launches to them: the tensor-core route
+    once per prefill layer (bf16, hd 128), the CUDA-core route never."""
 
     def __enter__(self):
+        import torch
         from repro_torch.models import transformer as T
+        from repro_torch.serving import graphs
         self.T, self.orig = T, T.prefill
+        self.graphs, self.orig_run = graphs, graphs.StepGraphs.run
         self.calls = self.layers = 0
 
         def prefill(params, cfg, *a, **kw):
-            self.calls += 1
-            self.layers += cfg.num_layers
+            if not (torch.cuda.is_available()
+                    and torch.cuda.is_current_stream_capturing()):
+                self.calls += 1
+                self.layers += cfg.num_layers
             return self.orig(params, cfg, *a, **kw)
 
+        counter, orig_run = self, self.orig_run
+
+        def run(self, name, key, body):
+            fam = self.families[name]
+            replays = fam.replays
+            orig_run(self, name, key, body)
+            if name in PREFILL_FAMILIES and fam.replays > replays:
+                core = body.func.__self__          # partial(core._..._body)
+                model = (core.tier if PREFILL_FAMILIES[name] == "tier"
+                         else core.draft)
+                counter.calls += 1
+                counter.layers += model.cfg.num_layers
+
         T.prefill = prefill
+        graphs.StepGraphs.run = run
         return self
 
     def __exit__(self, *exc):
         self.T.prefill = self.orig
+        self.graphs.StepGraphs.run = self.orig_run
 
     def check(self, counts, path):
         from repro_torch.kernels import ops
@@ -4038,8 +4115,10 @@ def sharded_tp_rank(rank):
         return res, held
 
     # (i) serve
+    # a gloo all-reduce crosses the host: the ranks' steps run eagerly
     eng = InferenceEngine(sat.params, sat.cfg, ac, EngineConfig(
-        slots=8, page_size=8, answer_vocab=av, mesh=mesh), device="cuda")
+        slots=8, page_size=8, answer_vocab=av, mesh=mesh,
+        cuda_graphs=False), device="cuda")
     eng.warmup()
     adm = AdmissionCounter([eng.core])
     reqs = clone_requests([stream[i] for i in keep])
@@ -4057,7 +4136,8 @@ def sharded_tp_rank(rank):
 
     # (ii) the det requests, SHARD_DET_STEPS steps
     core = EngineCore(sat, ac, EngineCoreConfig(slots=8, page_size=8,
-                                                answer_vocab=av, mesh=mesh))
+                                                answer_vocab=av, mesh=mesh,
+                                                cuda_graphs=False))
     core.warmup()
     mark = {"on": False}
     (toks, step_s), held = run(
@@ -4075,7 +4155,7 @@ def sharded_tp_rank(rank):
     # (iii) chunked serve
     eng = InferenceEngine(sat.params, sat.cfg, ac, EngineConfig(
         slots=8, page_size=8, answer_vocab=av, prefill_chunk=256,
-        mesh=mesh), device="cuda")
+        mesh=mesh, cuda_graphs=False), device="cuda")
     eng.warmup()
     core = eng.core
 
@@ -4242,6 +4322,193 @@ def sharded_phase(torch, sat, ac, slot):
     if bad:
         raise RuntimeError(f"phase 13 failed: {bad}")
     return {"launches": launches, "held": held}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the slot path's captured steps against its eager steps
+# ---------------------------------------------------------------------------
+
+#: phase 14: steps of the partial runs ((b) chunked and γ 4, (c) int8)
+GRAPH_STEPS = {"chunked": 128, "spec": 64, "int8": 128}
+#: phase 14 (d): the vmap oracle's steps at 8 slots
+VMAP_STEPS = 16
+
+
+def stream_steps(core, reqs, steps=None):
+    """Admit ``reqs`` as slots free and step ``core`` ``steps`` times (None:
+    until every request is answered); returns each request's tokens so far
+    (finished or still in a slot) and the number of admission calls."""
+    out, queue, admissions = {}, list(reqs), 0
+    k = 0
+    while (queue or core.active_count()) and (steps is None or k < steps):
+        n = min(len(queue), len(core.free_slots()))
+        if n:
+            core.admit_many(queue[:n])
+            admissions += 1
+            del queue[:n]
+        for r, t in core.step():
+            out[r.request_id] = [int(x) for x in t]
+        k += 1
+    for sl in core._slots:
+        if sl.active:
+            out[sl.request.request_id] = [int(x) for x in sl.tokens]
+    return [out.get(r.request_id, []) for r in reqs], admissions
+
+
+def eager_and_captured(torch, tag, make, reqs, steps=None, first=16):
+    """The same requests through two engines from ``make(cuda_graphs)``:
+    eager steps, then captured ones.  Each is warmed up, its counts zeroed
+    just before its run and read just after; steps [first, first + 8) are
+    profiled.  Returns {"eager": ..., "captured": ...} with the tokens,
+    launches, step ms on the host clock, the device's busy share, the
+    graphs, the pool's bytes and the captures after warmup."""
+    from repro_torch.kernels import ops
+    out = {}
+    for mode, graphs in (("eager", False), ("captured", True)):
+        core = make(graphs)
+        t0 = time.perf_counter()
+        core.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        probe = StepProbe(torch, core, first=first, n=8)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, admissions = stream_steps(core, clone_requests(reqs), steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        prof = probe.profile()
+        gst = core.graph_stats()
+        n_steps = len(probe.step_s)
+        out[mode] = {
+            "tokens": toks, "launches": counts, "steps": n_steps,
+            "admission_calls": admissions, "wall_s": wall,
+            "warmup_s": warm_s,
+            "step_ms_mean": 1e3 * sum(probe.step_s) / max(n_steps, 1),
+            "step_ms_median": 1e3 * sorted(probe.step_s)[n_steps // 2],
+            "device_busy_share": prof and prof["device_busy_share"],
+            "device_ms_per_step": prof and prof["device_ms_per_step"],
+            "top_device_ops": prof and prof["top_device_ops"],
+            "graphs": gst["graphs"], "graphs_by_family": gst["by_family"],
+            "replays": gst["replays"], "pool_bytes": gst["pool_bytes"],
+            "steady_recompiles":
+                core.scheduler_stats()["steady_recompiles"]}
+        r = out[mode]
+        log(f"  {tag} {mode}: {n_steps} steps + {admissions} admission "
+            f"calls in {wall:.2f} s, step {r['step_ms_mean']:.3f} ms mean "
+            f"{r['step_ms_median']:.3f} ms median (host clock), device "
+            f"busy {r['device_busy_share']}, {r['graphs']} graphs "
+            f"({r['pool_bytes']} pool bytes), {r['replays']} replays, "
+            f"{r['steady_recompiles']} captures after warmup, warmup "
+            f"{warm_s:.2f} s")
+        del core
+        torch.cuda.empty_cache()
+    e, c = out["eager"], out["captured"]
+    out["checks"] = {
+        f"{tag}: tokens equal eager and captured": e["tokens"] == c["tokens"],
+        f"{tag}: launches equal eager and captured":
+            e["launches"] == c["launches"] and e["steps"] == c["steps"],
+        f"{tag}: every family captured, none after warmup":
+            c["graphs"] > 0 and c["steady_recompiles"] == 0
+            and c["replays"] > 0 and e["graphs"] == 0}
+    if e["tokens"] != c["tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(e["tokens"], c["tokens"]))
+                if a != b]
+        log(f"  {tag}: tokens differ on requests {diff}")
+    if e["launches"] != c["launches"]:
+        log(f"  {tag}: launches differ: "
+            f"{ {k: (v, c['launches'][k]) for k, v in e['launches'].items() if v != c['launches'][k]} }")
+    return out
+
+
+def graphs_phase(torch, sat, gs, ac, smi):
+    """Phase 14: the slot path's steps eager against captured at full
+    width (the 2B and the 7B, full depth, bf16, page 8): (a) phase 6's
+    stream (24 requests over 4 scenes, 8 slots) to the end; (b) phase 8's
+    chunked engine (chunk 256) and phase 7's γ 4 7B engine drafted by the
+    2B (its vqa/cls requests and a det answer drafted locally), each over
+    its first steps; (c) phase 6's stream on int8 pools over its first
+    steps; (d) the vmap oracle on the 2B for ``VMAP_STEPS`` steps at 8
+    slots, its tokens against (a)'s (reported: other GEMM shapes in
+    bf16).  Tokens and launches must be equal both ways, and no step
+    captured after warmup."""
+    from repro_torch.serving import EngineCore, EngineCoreConfig
+    av = ac.num_classes + 1
+    stream = scene_stream(["det", "cls", "vqa", "vqa", "vqa", "vqa"], 4,
+                          FULL_IMAGE, FULL_GRID, seed=300)
+
+    def core_of(tier, draft=None, **kw):
+        def make(graphs):
+            return EngineCore(tier, ac, EngineCoreConfig(
+                slots=8, page_size=8, answer_vocab=av, cuda_graphs=graphs,
+                **kw), draft=draft)
+        return make
+
+    res = {"card": smi}
+    log(f"  card: {smi}")
+    res["a_slot"] = eager_and_captured(torch, "(a) 2B slot path",
+                                       core_of(sat), stream)
+    res["b_chunked"] = eager_and_captured(
+        torch, "(b) 2B chunked", core_of(sat, prefill_chunk=256), stream,
+        steps=GRAPH_STEPS["chunked"])
+    spec_reqs = spec_small_requests() + scene_stream(
+        ["det"], 1, FULL_IMAGE, FULL_GRID, seed=500)
+
+    def spec_make(graphs):
+        return EngineCore(gs, ac, EngineCoreConfig(
+            slots=4, page_size=8, answer_vocab=av, spec_gamma=4,
+            cuda_graphs=graphs), draft=sat)
+
+    res["b_spec"] = eager_and_captured(
+        torch, "(b) 7B γ 4", spec_make, spec_reqs,
+        steps=GRAPH_STEPS["spec"], first=8)
+    res["c_int8"] = eager_and_captured(
+        torch, "(c) 2B slot path int8", core_of(sat, kv_dtype="int8"),
+        stream, steps=GRAPH_STEPS["int8"])
+    # (d) the vmap oracle, captured
+    vm = EngineCore(sat, ac, EngineCoreConfig(
+        slots=8, answer_vocab=av, step_impl="vmap"))
+    vm.warmup()
+    probe = StepProbe(torch, vm, first=1 << 30)
+    first8 = stream[:8]
+    toks, _ = stream_steps(vm, clone_requests(first8), VMAP_STEPS)
+    torch.cuda.synchronize()
+    batched = res["a_slot"]["captured"]["tokens"][:8]
+    agree = sum(a == b[:len(a)] for a, b in zip(toks, batched))
+    res["d_vmap"] = {
+        "steps": len(probe.step_s),
+        "step_ms_mean": 1e3 * sum(probe.step_s) / len(probe.step_s),
+        "requests_agreeing_with_batched": agree, "requests": len(toks),
+        "graphs": vm.graph_stats()["graphs"],
+        "steady_recompiles": vm.scheduler_stats()["steady_recompiles"]}
+    log(f"  (d) vmap oracle, captured: {len(probe.step_s)} steps at "
+        f"{res['d_vmap']['step_ms_mean']:.3f} ms (host clock); {agree} of "
+        f"{len(toks)} requests' tokens so far equal to the batched "
+        "engine's (bf16, other GEMM shapes: reported)")
+    del vm
+    torch.cuda.empty_cache()
+    checks = {}
+    for key in ("a_slot", "b_chunked", "b_spec", "c_int8"):
+        checks.update(res[key].pop("checks"))
+    checks["(d) vmap: captured, none after warmup"] = (
+        res["d_vmap"]["graphs"] > 0
+        and res["d_vmap"]["steady_recompiles"] == 0)
+    summary = {k: {m: {f: r[m][f] for f in (
+        "steps", "step_ms_mean", "step_ms_median", "device_busy_share",
+        "device_ms_per_step", "graphs", "pool_bytes", "steady_recompiles",
+        "warmup_s", "wall_s")} for m in ("eager", "captured")}
+        for k, r in res.items() if k in ("a_slot", "b_chunked", "b_spec",
+                                         "c_int8")}
+    log("graphs_phase " + json.dumps({"card": smi, **summary,
+                                      "d_vmap": res["d_vmap"]}))
+    log(f"  phase 14 checks: {checks}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"phase 14 failed: {bad}")
+    return {"launches": {
+        f"graphs_{k}_{m}": res[k][m]["launches"]
+        for k in ("a_slot", "b_chunked", "b_spec", "c_int8")
+        for m in ("eager", "captured")}}
 
 
 class FlashOnCudaCores:
@@ -4818,10 +5085,22 @@ def capture_inputs(torch, fn, names, when=None):
     its arguments (the first layer's inputs at that shape on the path),
     counting only calls made while ``when()`` holds if it is given;
     returns (``fn()``'s result, {name: [(args, kwargs), ...]} in call
-    order)."""
+    order).  A replayed CUDA graph calls no ``ops`` function, so while
+    ``when()`` holds and some name has no call kept yet, the engines' steps
+    run their bodies eagerly (the same kernels on the same persistent
+    tensors; the wrappers count their launches), and replay again after
+    that."""
     from repro_torch.kernels import ops
+    from repro_torch.serving import graphs
     saved = {n: getattr(ops, n) for n in names}
     got = {n: {} for n in names}
+    orig_run = graphs.StepGraphs.run
+
+    def run(self, name, key, body):
+        if (when is None or when()) and not all(got[n] for n in names):
+            body()
+            return
+        orig_run(self, name, key, body)
 
     def copy(x):
         if isinstance(x, tuple):
@@ -4845,10 +5124,12 @@ def capture_inputs(torch, fn, names, when=None):
     try:
         for n in saved:
             setattr(ops, n, wrap(n))
+        graphs.StepGraphs.run = run
         res = fn()
     finally:
         for n, f in saved.items():
             setattr(ops, n, f)
+        graphs.StepGraphs.run = orig_run
     return res, {n: list(g.values()) for n, g in got.items()}
 
 
@@ -5128,6 +5409,10 @@ def main() -> int:
     sharded = sharded_phase(torch, sat, ac, slot)
     for name, cases in sharded.pop("held").items():
         kernels[name].update(cases)
+
+    log("phase 14: captured steps against eager steps at full width (2B "
+        "and 7B slot paths)")
+    graphs = graphs_phase(torch, sat, gs, ac, smi)
     del sat, gs, conf
     torch.cuda.empty_cache()
 
@@ -5144,7 +5429,7 @@ def main() -> int:
                "batch_evaluator": batch["launches"],
                "cascade_server_spec": batch["spec_launches"],
                **quant["launches"], **overload["launches"],
-               **sharded["launches"],
+               **sharded["launches"], **graphs["launches"],
                **{f"xlstm {tag}": c for tag, c in xlstm["launches"].items()}}
     for tag, r in xlstm.items():
         for name, cases in r.get("kernel_vs_plain_max_abs_err", {}).items():

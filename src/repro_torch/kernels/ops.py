@@ -16,7 +16,7 @@ hd <= 128 with hd % 4 == 0 as they are.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -91,6 +91,45 @@ def launches_by_route(counts: Dict[str, int], name: str) -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.reset()
+
+
+#: a kernel's counters: (launches, launches by pool storage)
+LaunchState = Dict[str, Tuple[int, Dict[str, int]]]
+
+
+def launch_state() -> LaunchState:
+    """Every kernel's counters as they stand, for ``launch_delta`` and
+    ``restore_launches``."""
+    return {n: (k.launches, dict(k.by_pool)) for n, k in KERNELS.items()}
+
+
+def restore_launches(state: LaunchState) -> None:
+    for n, (launches, by_pool) in state.items():
+        KERNELS[n].launches, KERNELS[n].by_pool = launches, dict(by_pool)
+
+
+def launch_delta(before: LaunchState, after: LaunchState) -> LaunchState:
+    """The launches made between two ``launch_state`` snapshots (kernels
+    with none left out)."""
+    out = {}
+    for n, (launches, by_pool) in after.items():
+        b, bp = before[n]
+        pools = {p: c - bp.get(p, 0) for p, c in by_pool.items()
+                 if c != bp.get(p, 0)}
+        if launches != b or pools:
+            out[n] = (launches - b, pools)
+    return out
+
+
+def add_launches(delta: LaunchState) -> None:
+    """Count ``delta``'s launches as made: a replayed CUDA graph runs its
+    kernels without their Python wrappers, so the replay counts for them
+    what the wrappers counted while the graph was captured."""
+    for n, (launches, by_pool) in delta.items():
+        k = KERNELS[n]
+        k.launches += launches
+        for p, c in by_pool.items():
+            k.by_pool[p] = k.by_pool.get(p, 0) + c
 
 
 def _on_card(*ts: torch.Tensor) -> bool:

@@ -38,7 +38,7 @@ from repro_torch.core import eo_adapter as EO
 from repro_torch.core.cascade import TierModel
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serving.admission import OverloadConfig
-from repro_torch.serving.engine_core import EngineCoreConfig, check_ported
+from repro_torch.serving.engine_core import EngineCoreConfig, check_config
 from repro_torch.serving.sharded import make_engine_core
 from repro_torch.serving.request import Request, Response
 from repro_torch.tree import tree_leaves
@@ -49,7 +49,7 @@ class EngineConfig:
     slots: int = 8
     max_new_tokens: int = 64
     answer_vocab: int = 64
-    step_impl: str = "batched"          # "batched" ("vmap": not ported)
+    step_impl: str = "batched"          # "batched" | "vmap" (oracle)
     cache_impl: str = "paged"           # "paged" | "dense" (oracle)
     page_size: int = 8                  # KV tokens per page (paged only)
     prefix_cache_scenes: Optional[int] = None   # resident scenes (→ slots)
@@ -76,9 +76,12 @@ class EngineConfig:
     #: deadline expiry and priority preemption (None = off; see
     #: serving/admission.py)
     overload: Optional[OverloadConfig] = None
+    #: capture the slot path's steps as CUDA graphs on a CUDA device (False:
+    #: eager steps; see EngineCoreConfig.cuda_graphs)
+    cuda_graphs: bool = True
 
     def __post_init__(self):
-        check_ported(self)
+        check_config(self)
 
 
 class InferenceEngine:
@@ -121,15 +124,17 @@ class InferenceEngine:
                              pool_bytes=self.ec.pool_bytes,
                              kv_dtype=self.ec.kv_dtype,
                              mesh=self.ec.mesh,
-                             overload=self.ec.overload),
+                             overload=self.ec.overload,
+                             cuda_graphs=self.ec.cuda_graphs),
             draft=draft)
         #: (request, reason) pairs dropped by the last overload-controlled
         #: ``serve``: a rejected request gets no Response
         self.last_rejected: List[Tuple[Request, str]] = []
 
     def warmup(self) -> None:
-        """Allocate the slot tables and build the kernels before the first
-        ``serve``, so no build stalls the serving loop."""
+        """Allocate the slot tables, build the kernels and (on the card)
+        capture every slot-path step before the first ``serve``, so no
+        build or capture stalls the serving loop."""
         self.core.warmup()
 
     # -- batch-level API ---------------------------------------------------

@@ -30,12 +30,24 @@ tier's parameters, and the KV caches are updated in place.
   decoding never stops for admission.  The tokens are the unchunked
   engine's.
 
-Every tensor shape of the slot path is fixed when the tables are allocated
-(pools, block table, logits, index, staging buffer, the fused step's flat
-(token_budget,) batch), so a later CUDA graph can capture the steps.
 The page pools may be quantized (``kv_dtype`` "int8" or "fp8", with
 per-(page, slot, head) scales) and sized by a byte budget
 (``pool_bytes``).
+- **compiled steps**: every tensor of the slot path is allocated once, at
+  its final shape (pools, block table, logits, index, staging buffer, the
+  fused step's flat (token_budget,) batch, each step's staged inputs and
+  output buffers), and every model call of admission is padded to a
+  power-of-two bucket of requests capped at ``slots`` (``_admit_pad``, as
+  the JAX engine's), its padding rows writing only the trash page or no
+  slot.  Each step is a host prepare (``graphs.StagedInput.put``), a
+  device-only body over those persistent tensors, and one host fetch; on a
+  CUDA device ``warmup()`` captures every body (the plain, vmap, fused and
+  both speculative steps, the paged admission step, the drafter feed, and
+  every admission bucket) as a CUDA graph (``serving/graphs.py``) and arms
+  ``analysis.compile_guard``; ``step`` replays the graphs.  A capture after
+  warmup counts in ``scheduler_stats()["steady_recompiles"]`` (raises under
+  pytest).  ``cuda_graphs=False`` runs the same bodies eagerly, as the CPU
+  always does.
 - **overload control** (``overload=OverloadConfig(...)``, every flavour
   above): ``submit_many`` admits page-pool-aware from a bounded priority
   queue, expires queued requests past their deadline, and preempts the
@@ -54,14 +66,21 @@ per-(page, slot, head) scales) and sized by a byte budget
   decision that reads the clock takes rank 0's, so every rank takes the
   same decisions.  A data axis above 1 is ``serving.sharded``'s.
 
-The ``step_impl="vmap"`` oracle and tiers with recurrent (mLSTM/sLSTM)
-blocks are not ported yet: they raise ``NotImplementedError`` naming their
-ROADMAP item.
+- **the vmap oracle** (``step_impl="vmap"``): the per-slot step of the
+  JAX engine's ``jax.vmap`` of a batch-1 decode, written as a loop of
+  batch-1 ``T.decode_step`` calls over each slot's view of the dense cache
+  (the caches are updated in place, so a slot's view writes through).  It
+  steps the dense layout and refuses chunked prefill, 8-bit pools,
+  speculative decoding and a mesh, as the JAX engine does.
+
+Tiers with recurrent (mLSTM/sLSTM) blocks are not ported yet: they raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import time
 from collections import OrderedDict
@@ -71,6 +90,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis.compile_guard import CompileGuard
 from repro_torch.configs.base import ATTN
 from repro_torch.core import eo_adapter as EO
 from repro_torch.device import same_device
@@ -84,25 +104,27 @@ from repro_torch.serving.admission import (ADMITTED, QUEUED, REJECTED,
                                            REASON_EXPIRED, REASON_INFEASIBLE,
                                            REASON_QUEUE_FULL, AdmissionQueue,
                                            OverloadConfig, QueueEntry)
+from repro_torch.serving.graphs import StagedInput, StepGraphs
 from repro_torch.serving.kv_pool import (KVPagePool, PrefixCache, TRASH_PAGE,
                                          page_nbytes)
 from repro_torch.serving.request import Request, scene_key
 
 Params = Dict[str, Any]
+#: the slot path's step families, each captured once per shape key (the
+#: admission buckets' families by bucket size)
+STEP_FAMILIES = ("slot_step", "fused_step", "spec_step", "spec_verify",
+                 "paged_admit", "draft_feed", "prefix_prefill",
+                 "dense_admit", "draft_prefill", "region_embed")
 
 
-def check_ported(cfg: Any) -> None:
-    """Raise ``NotImplementedError`` for a config the port does not run
-    yet.  A chunked config the JAX engine refuses (off the batched paged
-    engine) raises its ``ValueError`` first."""
+def check_config(cfg: Any) -> None:
+    """Raise for a config the engine refuses before it is built: chunked
+    prefill off the batched paged engine (the JAX engine's
+    ``ValueError``)."""
     if cfg.prefill_chunk and (cfg.step_impl != "batched"
                               or cfg.cache_impl != "paged"):
         raise ValueError("chunked prefill requires the batched paged engine "
                          "(chunking off is the oracle)")
-    if cfg.step_impl == "vmap":
-        raise NotImplementedError(
-            "step_impl='vmap' (the per-slot oracle) is not ported "
-            "(ROADMAP queue 1, item 6)")
 
 
 @dataclasses.dataclass
@@ -110,7 +132,7 @@ class EngineCoreConfig:
     slots: int = 8
     answer_vocab: int = 64
     max_answer_len: Optional[int] = None   # default: N_r (longest task = det)
-    step_impl: str = "batched"             # "batched" ("vmap": not ported)
+    step_impl: str = "batched"             # "batched" | "vmap" (oracle)
     cache_impl: str = "paged"              # "paged" | "dense" (oracle)
     page_size: int = 8                     # tokens per KV page (paged only)
     #: scenes the prefix cache keeps resident beyond the active slots'
@@ -148,9 +170,14 @@ class EngineCoreConfig:
     #: deadline expiry and priority preemption (None = off, the
     #: admit-unconditionally contract; see serving/admission.py)
     overload: Optional[OverloadConfig] = None
+    #: on a CUDA device, capture every slot-path step as a CUDA graph in
+    #: ``warmup()`` (or at its first call) and replay it (False: the same
+    #: steps eagerly; the CPU always runs eagerly).  A tensor-parallel rank
+    #: must pass False: its all-reduce is not captured
+    cuda_graphs: bool = True
 
     def __post_init__(self):
-        check_ported(self)
+        check_config(self)
 
 
 @dataclasses.dataclass
@@ -178,13 +205,34 @@ class _Slot:
     t_first: Optional[float] = None
 
 
-def _sel_scatter(full: Params, new: Params, slots: torch.Tensor,
+def _sel_scatter(full: Params, new: Params, src: torch.Tensor,
                  axis: int) -> None:
-    """The engine's one slot-scatter idiom, in place: row ``j`` of every
-    leaf of ``new`` along ``axis`` goes to row ``slots[j]`` of ``full``.
-    Eager PyTorch needs none of the JAX package's padded slot ids."""
+    """The engine's one slot-scatter idiom, in place and at a fixed shape:
+    row ``s`` of every leaf of ``full`` along ``axis`` takes row ``src[s]``
+    of ``new`` where ``src[s] >= 0`` and keeps its own elsewhere, so the
+    padding rows of an admission bucket (named by no ``src``) land
+    nowhere."""
+    hit = src >= 0
+    rows = torch.clamp(src, min=0)
     for name, leaf in full.items():
-        leaf.index_copy_(axis, slots, new[name].to(leaf.dtype))
+        mask = hit.view((1,) * axis + (-1,) + (1,) * (leaf.dim() - axis - 1))
+        leaf.copy_(torch.where(
+            mask, new[name].index_select(axis, rows).to(leaf.dtype), leaf))
+
+
+def _admit_pad(k: int, cap: int) -> int:
+    """Fixed-shape admission buckets: next power of two, capped at the
+    slot count, so at most log2(slots) + 2 shapes of each admission call
+    are ever captured (the JAX engine's ``_admit_pad``)."""
+    p = 1
+    while p < k:
+        p *= 2
+    return min(p, cap)
+
+
+def bucket_sizes(slots: int) -> List[int]:
+    """Every admission bucket an engine of ``slots`` slots takes."""
+    return sorted({_admit_pad(k, slots) for k in range(1, slots + 1)})
 
 
 def shared_core(tier, adapter_cfg: EO.EOAdapterConfig) -> "EngineCore":
@@ -211,17 +259,19 @@ class EngineCore:
         self.tier = tier
         self.ac = adapter_cfg
         self.cfg = core_cfg or EngineCoreConfig()
-        check_ported(self.cfg)
+        check_config(self.cfg)
         params, cfg, ac = tier.params, tier.cfg, adapter_cfg
         self.device = params["patch_proj"].device
         self.max_answer_len = self.cfg.max_answer_len or ac.n_regions
         # fixed slot-cache capacity: [regions | prompt | longest answer]
         self._slot_max_len = ac.n_regions + 1 + self.max_answer_len
-        if self.cfg.step_impl != "batched":
+        if self.cfg.step_impl not in ("batched", "vmap"):
             raise ValueError(f"unknown step_impl {self.cfg.step_impl!r}")
         if self.cfg.cache_impl not in ("paged", "dense"):
             raise ValueError(f"unknown cache_impl {self.cfg.cache_impl!r}")
-        self.cache_impl = self.cfg.cache_impl
+        # the vmap oracle predates paging and steps the dense layout
+        self.cache_impl = ("dense" if self.cfg.step_impl == "vmap"
+                           else self.cfg.cache_impl)
 
         self.draft = draft
         if self.cfg.spec_gamma:
@@ -231,8 +281,8 @@ class EngineCore:
                 raise ValueError("spec_gamma > 0 requires a compact draft "
                                  "tier (the cascade's satellite model)")
             if self.cache_impl != "paged":
-                raise ValueError("speculative decoding requires the paged "
-                                 "engine (spec=off is the oracle)")
+                raise ValueError("speculative decoding requires the batched "
+                                 "paged engine (spec=off is the oracle)")
             if draft.params["patch_proj"].device != self.device:
                 raise ValueError("the draft tier must lie on the engine's "
                                  "device")
@@ -345,7 +395,7 @@ class EngineCore:
                 raise ValueError(
                     "kv_dtype requires the paged cache: quantization lives "
                     "in the page pools and the paged kernels (the dense "
-                    "engine stays the exact oracle)")
+                    "and vmap engines stay the exact oracle)")
 
         n_slots = self.cfg.slots
         if self.cache_impl == "paged":
@@ -395,7 +445,6 @@ class EngineCore:
             self._prefix = PrefixCache(self._pool, capacity=n_slots + scenes)
             self._bt_np = np.full((n_slots, self._pages_per_slot),
                                   TRASH_PAGE, np.int32)
-            self._bt_dev = None
         elif self.cfg.pool_pages is not None:
             raise ValueError("pool_pages only applies to the paged cache")
         elif self.cfg.pool_bytes is not None:
@@ -407,9 +456,13 @@ class EngineCore:
         self._slot_index = None
         self._draft_cache = None
         self._spec_probs: "OrderedDict[int, np.ndarray]" = OrderedDict()
-        # active mask on device, re-uploaded only when admission or release
-        # changes it
-        self._active_dev = None
+        # the block table and active mask on the device, persistent buffers
+        # uploaded again (``_sync_tables``) only after admission or release
+        # changed them
+        self._bt_dev = self._active_dev = None
+        self._bt_dirty = self._active_dirty = True
+        #: admission buckets' staged inputs by bucket size
+        self._buckets: Dict[int, Dict[str, StagedInput]] = {}
         self._step_no = 0
         self.stats: Dict[str, Any] = {
             "admitted": 0, "finished": 0, "mid_stream_refills": 0,
@@ -465,6 +518,22 @@ class EngineCore:
                 "piggybacked": 0,       # drafts supplied by the request
             }
         self._occupancy_cap = 4096      # keep the logs bounded on long runs
+
+        # -- compiled steps: one CUDA graph per step family and shape ------
+        capture = self.cfg.cuda_graphs and self.device.type == "cuda"
+        if capture and self._tp_group is not None:
+            backend = dist.get_backend(self._tp_group)
+            why = ("a gloo all-reduce crosses the host, which a CUDA graph "
+                   "cannot capture" if backend == "gloo" else
+                   f"capturing {backend} collectives is not verified yet "
+                   "(ROADMAP)")
+            raise ValueError(f"cuda_graphs on a tensor-parallel rank: {why}; "
+                             "pass cuda_graphs=False (eager steps)")
+        self._graphs = StepGraphs(self.device, capture, STEP_FAMILIES)
+        # warmup() captures every family's shapes, then arms the guard: a
+        # capture after that is a mid-serve stall (raised under pytest,
+        # counted in scheduler_stats()["steady_recompiles"] elsewhere)
+        self._compile_guard = CompileGuard(self._graphs.families)
 
     # ------------------------------------------------------------------
     # batch path (shared by CascadeExecutor)
@@ -524,45 +593,105 @@ class EngineCore:
     # slot path (continuous batching)
     # ------------------------------------------------------------------
     def _ensure_slot_tables(self) -> None:
-        """Allocate every slot-path tensor once, at its final shape."""
+        """Allocate every slot-path tensor once, at its final shape: the
+        caches, logits and index, the block table and active mask, each
+        step's staged inputs and output buffers.  None of them moves
+        afterwards, so a captured step reads and writes them in place."""
+        if self._slot_cache is not None:
+            return
         cfg, dev, n = self.tier.cfg, self.device, self.cfg.slots
-        if self._slot_cache is None:
-            if self.cache_impl == "paged":
-                # under a mesh, at this rank's KV heads
-                self._slot_cache = T.init_paged_cache(
-                    self._mcfg, n, self._n_pages, self._page_size, dev,
-                    kv_dtype=self.cfg.kv_dtype)
-            else:
-                self._slot_cache = T.init_cache(cfg, n, self._slot_max_len,
-                                                dev)
-            self._slot_logits = torch.zeros((n, cfg.vocab_size),
-                                            dtype=torch.float32, device=dev)
-            self._slot_index = torch.zeros((n,), dtype=torch.int32,
-                                           device=dev)
-        if self.cfg.spec_gamma and self._draft_cache is None:
+        g, av, i32 = self.cfg.spec_gamma, self.cfg.answer_vocab, torch.int32
+        if self.cache_impl == "paged":
+            # under a mesh, at this rank's KV heads
+            self._slot_cache = T.init_paged_cache(
+                self._mcfg, n, self._n_pages, self._page_size, dev,
+                kv_dtype=self.cfg.kv_dtype)
+            self._bt_in = StagedInput.zeros(self._bt_np.shape, i32, dev)
+            self._bt_dev = self._bt_in.dev
+            # the paged admission step's rows: admitted, prompt token,
+            # cache index
+            self._admit_in = StagedInput.zeros((3, n), i32, dev)
+        else:
+            self._slot_cache = T.init_cache(cfg, n, self._slot_max_len, dev)
+        self._slot_logits = torch.zeros((n, cfg.vocab_size),
+                                        dtype=torch.float32, device=dev)
+        self._slot_index = torch.zeros((n,), dtype=i32, device=dev)
+        # chunked engines own the index on the host between fused steps
+        self._index_in = StagedInput(self._slot_index)
+        self._active_in = StagedInput.zeros((n,), torch.bool, dev)
+        self._active_dev = self._active_in.dev
+        self._toks_out = torch.zeros((n,), dtype=i32, device=dev)
+        if g:
             self._draft_cache = T.init_cache(self.draft.cfg, n,
                                              self._draft_max_len, dev)
-        if self.cfg.prefill_chunk and self._staging is None:
+            # [pending drafts | their count], and [chunk | n_commit]
+            self._spec_in = StagedInput.zeros((n, g + 1), i32, dev)
+            self._spec_out = torch.zeros((n, g + 2), dtype=i32, device=dev)
+            self._tok_probs_out = torch.zeros((n, g + 1, av),
+                                              dtype=torch.float32, device=dev)
+        if self.cfg.prefill_chunk:
+            tb = self._token_budget
             # each streaming slot's region embeddings, fed C at a time
             self._staging = torch.zeros(
                 (n, self.ac.n_regions, cfg.d_model),
                 dtype=getattr(torch, cfg.dtype), device=dev)
+            # srow, tokens, pos, patch mask, argmax mask, the tile plan
+            self._flat_in = StagedInput.zeros((7, tb), i32, dev)
+            self._fused_tok_out = torch.zeros((tb,), dtype=i32, device=dev)
+            self._fused_probs_out = torch.zeros((n, av), dtype=torch.float32,
+                                                device=dev)
+            if g:
+                # the drafter's mirrored tokens and their cache indices
+                self._feed_in = StagedInput.zeros((2, n), i32, dev)
 
-    def _block_table_dev(self) -> torch.Tensor:
-        """The (slots, pages) block table on the device, uploaded again only
-        after admission or release changed it."""
-        if self._bt_dev is None:
-            self._bt_dev = torch.from_numpy(self._bt_np).to(self.device)
-        return self._bt_dev
+    def _bucket(self, kp: int) -> Dict[str, StagedInput]:
+        """The staged inputs of admission bucket ``kp``: its images, prompt
+        tokens, scene pages, and the bucket row each slot takes (-1:
+        none).  Admission calls of one size share them: each puts its
+        inputs right before its step, in stream order."""
+        b = self._buckets.get(kp)
+        if b is None:
+            ac, dev, i64 = self.ac, self.device, torch.int64
+            b = {"images": StagedInput.zeros(
+                     (kp, ac.image_size, ac.image_size, ac.channels),
+                     torch.float32, dev),
+                 "ptok": StagedInput.zeros((kp,), i64, dev),
+                 "src": StagedInput.zeros((self.cfg.slots,), i64, dev)}
+            if self.cache_impl == "paged":
+                b["pages"] = StagedInput.zeros((kp * self._n_shared_pages,),
+                                               i64, dev)
+            self._buckets[kp] = b
+        return b
 
-    def _active_mask_dev(self) -> torch.Tensor:
-        if self._active_dev is None:
-            self._active_dev = torch.tensor([s.active for s in self._slots],
-                                            device=self.device)
-        return self._active_dev
+    def _put_bucket(self, kp: int, requests: List[Request],
+                    rows: Optional[List[int]] = None,
+                    ptoks: Optional[np.ndarray] = None
+                    ) -> Dict[str, StagedInput]:
+        """Stage ``requests`` in bucket ``kp``: their images, padded with
+        the last request's (as the JAX engine pads), their prompt tokens
+        ``ptoks`` likewise, and ``rows`` (the slot each request lands in)
+        as the bucket row of each slot."""
+        k, b = len(requests), self._bucket(kp)
+        images = [np.asarray(r.image, np.float32) for r in requests]
+        b["images"].put(np.stack(images + images[-1:] * (kp - k)))
+        if ptoks is not None:
+            b["ptok"].put(np.concatenate(
+                [ptoks, np.repeat(ptoks[-1:], kp - k)]))
+        if rows is not None:
+            src = np.full((self.cfg.slots,), -1, np.int64)
+            src[rows] = np.arange(k)
+            b["src"].put(src)
+        return b
 
-    def _host_to_dev(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a)).to(self.device)
+    def _sync_tables(self) -> None:
+        """Upload the block table and the active mask into their device
+        buffers if admission or release changed them since the last step."""
+        if self.cache_impl == "paged" and self._bt_dirty:
+            self._bt_in.put(self._bt_np)
+            self._bt_dirty = False
+        if self._active_dirty:
+            self._active_in.put(np.asarray([s.active for s in self._slots]))
+            self._active_dirty = False
 
     def _tp(self):
         """The context the slot path's step bodies run in: the all-reduce
@@ -612,26 +741,75 @@ class EngineCore:
 
     @torch.inference_mode()
     def warmup(self) -> None:
-        """Allocate the slot tables and build/bind every kernel ahead of
-        the first admission, so no ``nvcc`` build lands mid-serve.  Eager
-        PyTorch compiles nothing per shape, so there are no admission
-        buckets to pre-compile as in the JAX engine.  Chunked engines also
-        run one all-idle fused step (every flat row unscheduled: its writes
-        land on the trash page, no logits are taken), the shape their
-        serving steps take.  Slot state is untouched."""
+        """Allocate the slot tables, build/bind every kernel, and run every
+        slot-path step this engine can take once, at every shape: per
+        admission bucket the dense prefill + scatter, or the prefix prefill
+        (paged), or the region embed + staging scatter (chunked), and the
+        drafter's prefill + scatter (speculative); the paged admission
+        step; the fused step (chunked) and the drafter feed (chunked +
+        speculative); the plain or vmap step, or both speculative steps
+        (draft loop + verify, and verify only).  On a capturing engine
+        (``cuda_graphs`` on a CUDA device) each run is then captured as a
+        CUDA graph, so no capture (and no ``nvcc`` build) lands mid-serve;
+        then the compile guard is armed.  Every run reads inputs that
+        change no slot state: admission buckets name no slot and write only
+        the trash page, steps run over an all-trash block table with no
+        slot active, and the logits and index they overwrite are put back.
+        Idempotent."""
         self._ensure_slot_tables()
         if self.device.type == "cuda":
             for kernel in ops.KERNELS.values():
                 kernel.bind()
+        n, g, run = self.cfg.slots, self.cfg.spec_gamma, self._graphs.warm
+        saved = self._slot_logits.clone(), self._slot_index.clone()
+        if self.cache_impl == "paged":
+            self._bt_dev.fill_(TRASH_PAGE)
+        self._active_dev.zero_()
+        self._bt_dirty = self._active_dirty = True
+        for kp in bucket_sizes(n):
+            b = self._bucket(kp)
+            b["images"].dev.zero_()
+            b["ptok"].dev.zero_()
+            b["src"].dev.fill_(-1)
+            if self.cfg.prefill_chunk:
+                run("region_embed", kp,
+                    functools.partial(self._region_embed_body, kp))
+            elif self.cache_impl == "paged":
+                b["pages"].dev.fill_(TRASH_PAGE)
+                run("prefix_prefill", kp,
+                    functools.partial(self._prefix_body, kp))
+            else:
+                run("dense_admit", kp,
+                    functools.partial(self._dense_admit_body, kp))
+            if g:
+                run("draft_prefill", kp,
+                    functools.partial(self._draft_prefill_body, kp))
         if self.cfg.prefill_chunk:
-            tb, n = self._token_budget, self.cfg.slots
-            zeros = np.zeros((tb,), np.int32)
-            self._fused_step(np.full((tb,), n, np.int32), zeros, zeros,
-                             np.zeros((tb,), bool), np.zeros((tb,), bool))
-
-    def _images(self, requests: List[Request]) -> torch.Tensor:
-        return torch.from_numpy(np.stack(
-            [np.asarray(r.image) for r in requests])).to(self.device)
+            tb = self._token_budget
+            flat = self._flat_in.dev
+            flat.zero_()
+            flat[0].fill_(n)                     # every row unscheduled
+            run("fused_step", None, self._fused_body)
+            if g:
+                # past every row's committed index: rewritten before read
+                self._feed_in.dev[0].zero_()
+                self._feed_in.dev[1].fill_(self._draft_max_len - 1)
+                run("draft_feed", None, self._draft_feed_body)
+        elif self.cache_impl == "paged":
+            self._admit_in.dev.zero_()           # no row admitted
+            run("paged_admit", None, self._paged_admit_body)
+        if g:
+            self._spec_in.dev.zero_()
+            run("spec_step", None, functools.partial(self._spec_body, True))
+            run("spec_verify", None,
+                functools.partial(self._spec_body, False))
+        else:
+            run("slot_step", None, self._slot_step_body)
+        self._slot_logits.copy_(saved[0])
+        self._slot_index.copy_(saved[1])
+        # everything the slot path will run is captured now: a capture past
+        # this point is a finding
+        self._compile_guard.arm()
 
     def admit(self, request: Request) -> int:
         """Prefill ``request`` into a free slot; returns the slot id."""
@@ -641,11 +819,12 @@ class EngineCore:
     def admit_many(self, requests: List[Request]) -> List[int]:
         """Admit up to the free slot count of pending requests in one batched
         call.  Dense cache: the full [regions | prompt] prefix prefills per
-        request and its cache rows are copied into the slots.  Paged cache:
-        the region prefix prefills once per scene not already resident,
-        then every request maps the shared prefix pages read-only and runs
-        only its 1-token prompt suffix (``_admit_many_paged``).  Returns
-        the slot id per request."""
+        request (padded to a power-of-two bucket <= slots) and its cache
+        rows are copied into the slots.  Paged cache: the region prefix
+        prefills once per scene not already resident, then every request
+        maps the shared prefix pages read-only and runs only its 1-token
+        prompt suffix (``_admit_many_paged``).  Returns the slot id per
+        request."""
         if not requests:
             return []
         t_admit = time.perf_counter()      # TTFT clocks start before prefill
@@ -654,24 +833,41 @@ class EngineCore:
             raise RuntimeError("no free slot")
         self._ensure_slot_tables()
         if self.cfg.prefill_chunk:
-            return self._admit_many_chunked(requests, free, t_admit)
-        if self.cache_impl == "paged":
-            return self._admit_many_paged(requests, free, t_admit)
+            target = self._admit_many_chunked(requests, free, t_admit)
+        elif self.cache_impl == "paged":
+            target = self._admit_many_paged(requests, free, t_admit)
+        else:
+            target = self._admit_many_dense(requests, free, t_admit)
+        self._compile_guard.check("admit_many")
+        return target
+
+    def _admit_many_dense(self, requests: List[Request], free: List[int],
+                          t_admit: float) -> List[int]:
+        """One bucketed [regions | prompt] prefill of ``requests`` whose
+        cache rows, logits and index land in free slots; the padding rows
+        land in none."""
         k = len(requests)
+        kp = _admit_pad(k, self.cfg.slots)
         target = free[:k]
-        ptok = self._host_to_dev([self.ac.prompt_id(r.task, r.prompt)
-                                  for r in requests])
-        logits, cache, idx = EO.prefill_tokens(
-            self.tier.params, self.tier.cfg, self.ac, self._images(requests),
-            ptok, self._slot_max_len)
-        slots = self._host_to_dev(target)
-        for full, new in zip(self._slot_cache, cache):
-            _sel_scatter(full, new, slots, 1)
-        self._slot_logits.index_copy_(0, slots, logits)
-        self._slot_index.index_fill_(0, slots, idx)
+        ptoks = np.asarray([self.ac.prompt_id(r.task, r.prompt)
+                            for r in requests], np.int64)
+        self._put_bucket(kp, requests, target, ptoks)
+        self._graphs.run("dense_admit", kp,
+                         functools.partial(self._dense_admit_body, kp))
         self._note_prefill("dense", k * (self.ac.n_regions + 1))
         self._record_admissions(target, requests, t_admit=t_admit)
         return target
+
+    def _dense_admit_body(self, kp: int) -> None:
+        b = self._bucket(kp)
+        logits, cache, idx = EO.prefill_tokens(
+            self.tier.params, self.tier.cfg, self.ac, b["images"].dev,
+            b["ptok"].dev, self._slot_max_len)
+        src = b["src"].dev
+        for full, new in zip(self._slot_cache, cache):
+            _sel_scatter(full, new, src, 1)
+        _sel_scatter({"l": self._slot_logits}, {"l": logits}, src, 0)
+        self._slot_index.copy_(torch.where(src >= 0, idx, self._slot_index))
 
     def _record_admissions(self, slot_ids: List[int],
                            requests: List[Request], scenes=None,
@@ -699,23 +895,38 @@ class EngineCore:
             if self._step_no > 0 and others_active > 0:
                 self.stats["mid_stream_refills"] += 1
             log.append((self._step_no, self.active_count()))
-        self._active_dev = None
+        self._active_dirty = True
         if len(log) > self._occupancy_cap:
             del log[:self._occupancy_cap // 2]
 
     # -- paged admission ------------------------------------------------
     def _prefill_prefixes(self, miss: List[Tuple[Any, Request]]) -> None:
-        """Region-prefill the scenes in ``miss`` (one batched call), write
-        their KV into freshly allocated shared pages, and make them
-        resident in the prefix cache.  The caller has budgeted the pages
-        and entries already (check-then-commit), so nothing here fails."""
+        """Region-prefill the scenes in ``miss`` (one bucketed call), write
+        their KV into freshly allocated shared pages (the padding rows'
+        into the trash page), and make them resident in the prefix cache.
+        The caller has budgeted the pages and entries already
+        (check-then-commit), so nothing here fails."""
         km = len(miss)
-        n_shared, ps = self._n_shared_pages, self._page_size
+        kp = _admit_pad(km, self.cfg.slots)
+        allocs = [self._pool.alloc(self._n_shared_pages) for _ in range(km)]
+        pages = np.full((kp, self._n_shared_pages), TRASH_PAGE, np.int64)
+        pages[:km] = allocs
+        b = self._put_bucket(kp, [r for _, r in miss])
+        b["pages"].put(pages.reshape(-1))
+        self._graphs.run("prefix_prefill", kp,
+                         functools.partial(self._prefix_body, kp))
+        for i, (scene, _r) in enumerate(miss):
+            self._prefix.put(scene, allocs[i], None)
+        self.stats["prefix_misses"] += km
+        self._note_prefill("prefix", km * self.ac.n_regions)
+
+    def _prefix_body(self, kp: int) -> None:
+        b = self._bucket(kp)
+        ps = self._page_size
         _, cache, _ = EO.prefill_regions(
-            self.tier.params, self.tier.cfg, self.ac,
-            self._images([r for _, r in miss]), self.ac.n_regions)
-        allocs = [self._pool.alloc(n_shared) for _ in range(km)]
-        pages = self._host_to_dev([p for pg in allocs for p in pg])
+            self.tier.params, self.tier.cfg, self.ac, b["images"].dev,
+            self.ac.n_regions)
+        pages = b["pages"].dev
         # under a mesh the prefill ran at full heads on every rank; this
         # rank keeps its KV-head block, sliced before quantization (scales
         # are per (token, head), so slicing commutes with it exactly)
@@ -731,16 +942,12 @@ class EngineCore:
                 x = pref[name]                     # (n_super, K, N_r, KH, ...)
                 ns = x.shape[0]
                 L.put_pool(leaf, (slice(None), pages),
-                           x.reshape((ns, km * n_shared, ps)
+                           x.reshape((ns, pages.shape[0], ps)
                                      + tuple(x.shape[3:])))
             return pool
 
         T.map_cache_kinds(self.tier.cfg, [self._slot_cache, cache], kv=kv,
                           state=None)
-        for i, (scene, _r) in enumerate(miss):
-            self._prefix.put(scene, allocs[i], None)
-        self.stats["prefix_misses"] += km
-        self._note_prefill("prefix", km * self.ac.n_regions)
 
     def _paged_admit(self, target: List[int], ptoks: np.ndarray) -> None:
         """Admit requests whose prefixes are page-resident: ONE decode step
@@ -749,22 +956,26 @@ class EngineCore:
         page with index 0 (its write lands there, its logits and index are
         kept).  This is the paged prefill: the region tokens are never
         recomputed."""
-        n, n_r = self.cfg.slots, self.ac.n_regions
-        hit = np.zeros((n,), bool)
-        hit[target] = True
-        bt_call = np.where(hit[:, None], self._bt_np, TRASH_PAGE)
-        ptok_row = np.zeros((n,), np.int32)
-        ptok_row[target] = ptoks
-        idx_in = np.where(hit, n_r, 0).astype(np.int32)
+        a = np.zeros((3, self.cfg.slots), np.int32)
+        a[0, target] = 1
+        a[1, target] = ptoks
+        a[2, target] = self.ac.n_regions
+        self._sync_tables()
+        self._admit_in.put(a)
+        self._graphs.run("paged_admit", None, self._paged_admit_body)
+
+    def _paged_admit_body(self) -> None:
+        hit_i, ptok, idx_in = self._admit_in.dev
+        hit = hit_i.bool()
+        bt = torch.where(hit[:, None], self._bt_dev, TRASH_PAGE)
         with self._tp():
             logits, _ = T.decode_step(
                 self._bb, self._mcfg, self._slot_cache,
-                {"tokens": self._host_to_dev(ptok_row)[:, None]},
-                self._host_to_dev(idx_in),
-                block_table=self._host_to_dev(bt_call.astype(np.int32)))
-        slots = self._host_to_dev(target)
-        self._slot_logits.index_copy_(0, slots, logits.index_select(0, slots))
-        self._slot_index.index_fill_(0, slots, n_r + 1)
+                {"tokens": ptok[:, None]}, idx_in, block_table=bt)
+        self._slot_logits.copy_(torch.where(hit[:, None], logits,
+                                            self._slot_logits))
+        self._slot_index.copy_(torch.where(hit, self.ac.n_regions + 1,
+                                           self._slot_index))
 
     def _admit_many_paged(self, requests: List[Request], free: List[int],
                           t_admit: Optional[float] = None) -> List[int]:
@@ -796,7 +1007,7 @@ class EngineCore:
             self._bt_np[target[i]] = list(entry.pages) + priv
             ptoks[i] = self.ac.prompt_id(r.task, r.prompt)
             private.append(priv)
-        self._bt_dev = None
+        self._bt_dirty = True
         self._paged_admit(target, ptoks)
         self._note_prefill("prompt", k)        # one prompt token per request
         if self.cfg.spec_gamma:
@@ -815,8 +1026,9 @@ class EngineCore:
         another slot → ``"wait"`` (shared pages mapped at publication); its
         scene unseen → ``"prefill"``: this slot streams the scene, fresh
         shared pages are allocated and the region embeddings (one small
-        projection, the only model call here) are staged.  Only the first
-        query of a scene streams; fan-out queries share its pages."""
+        projection, the only model call here, bucketed) are staged.  Only
+        the first query of a scene streams; fan-out queries share its
+        pages."""
         k = len(requests)
         scenes = [scene_key(r) for r in requests]
         new_streams, seen = [], set()
@@ -862,27 +1074,33 @@ class EngineCore:
                 phases.append("prefill")
                 stream_reqs.append(r)
                 stream_slots.append(slot)
-        self._bt_dev = None
+        self._bt_dirty = True
         self.stats["prefix_hits"] += k - len(new_streams)
         self.stats["prefix_misses"] += len(new_streams)
         if stream_slots:
-            embs = self._region_embed(self._images(stream_reqs))
-            self._staging.index_copy_(0, self._host_to_dev(stream_slots),
-                                      embs.to(self._staging.dtype))
+            kp = _admit_pad(len(stream_slots), self.cfg.slots)
+            self._put_bucket(kp, stream_reqs, stream_slots)
+            self._graphs.run("region_embed", kp,
+                             functools.partial(self._region_embed_body, kp))
         self._record_admissions(target, requests, scenes=scenes,
                                 private=private, phases=phases,
                                 t_admit=t_admit)
         return target
 
+    def _region_embed_body(self, kp: int) -> None:
+        b = self._bucket(kp)
+        embs = self._region_embed(b["images"].dev)
+        _sel_scatter({"s": self._staging}, {"s": embs}, b["src"].dev, 0)
+
     def _release_slot(self, i: int) -> None:
         slot = self._slots[i]
         self._slots[i] = _Slot()
-        self._active_dev = None
+        self._active_dirty = True
         if self.cache_impl == "paged" and slot.private_pages is not None:
             self._pool.free(slot.private_pages)
             self._prefix.release(slot.scene)
             self._bt_np[i] = TRASH_PAGE
-            self._bt_dev = None
+            self._bt_dirty = True
 
     def _finish_slot(self, i: int,
                      finished: List[Tuple[Request, np.ndarray]]) -> None:
@@ -1135,24 +1353,41 @@ class EngineCore:
         return True
 
     # -- the step ---------------------------------------------------------
-    def _slot_step(self) -> torch.Tensor:
+    def _slot_step_body(self) -> None:
         """All-slot decode step: ONE batched ``T.decode_step`` over the
         whole table with the (slots,) index vector (through the block
         table when paged).  Inactive slots compute garbage that nothing
         reads (paged: their table rows name the trash page) and keep their
-        index.  Returns the tokens fed, (slots,) int32."""
+        index.  The tokens fed land in ``_toks_out``."""
+        if self.cfg.step_impl == "vmap":
+            self._vmap_step_body()
+            return
         av = self.cfg.answer_vocab
         toks = torch.argmax(self._slot_logits[:, :av], dim=-1).to(torch.int32)
-        bt = (self._block_table_dev() if self.cache_impl == "paged"
-              else None)
+        bt = self._bt_dev if self.cache_impl == "paged" else None
         with self._tp():
-            self._slot_logits, _ = T.decode_step(
+            logits, _ = T.decode_step(
                 self._bb, self._mcfg, self._slot_cache,
                 {"tokens": toks[:, None]}, self._slot_index, block_table=bt)
-        self._slot_index = torch.where(self._active_mask_dev(),
-                                       self._slot_index + 1,
-                                       self._slot_index)
-        return toks
+        self._slot_logits.copy_(logits)
+        self._slot_index.add_(self._active_dev.to(torch.int32))
+        self._toks_out.copy_(toks)
+
+    def _vmap_step_body(self) -> None:
+        """The per-slot oracle (the JAX engine's ``_slot_step_vmap``): one
+        batch-1 ``T.decode_step`` per slot on that slot's view of the dense
+        cache, which the step writes through."""
+        av = self.cfg.answer_vocab
+        toks = torch.argmax(self._slot_logits[:, :av], dim=-1).to(torch.int32)
+        for i in range(self.cfg.slots):
+            row = tuple({name: leaf[:, i:i + 1] for name, leaf in c.items()}
+                        for c in self._slot_cache)
+            logits, _ = T.decode_step(
+                self._bb, self._mcfg, row, {"tokens": toks[i:i + 1, None]},
+                self._slot_index[i:i + 1])
+            self._slot_logits[i:i + 1].copy_(logits)
+        self._slot_index.add_(self._active_dev.to(torch.int32))
+        self._toks_out.copy_(toks)
 
     @torch.inference_mode()
     def step(self) -> List[Tuple[Request, np.ndarray]]:
@@ -1169,13 +1404,20 @@ class EngineCore:
             self._pump_queue()
         if self.cfg.prefill_chunk and any(
                 s.active and s.phase != "decode" for s in self._slots):
-            return self._step_chunked()
-        if self.cfg.spec_gamma:
-            return self._step_spec()
+            finished = self._step_chunked()
+        elif self.cfg.spec_gamma:
+            finished = self._step_spec()
+        else:
+            finished = self._step_plain()
+        self._compile_guard.check("step")
+        return finished
+
+    def _step_plain(self) -> List[Tuple[Request, np.ndarray]]:
         if self.active_count() == 0:
             return []
-        toks = self._slot_step()
-        toks_np = toks.cpu().numpy()  # spacelint: disable=SL001 (the single deliberate per-step fetch: committed tokens must reach the host-side scheduler)
+        self._sync_tables()
+        self._graphs.run("slot_step", None, self._slot_step_body)
+        toks_np = self._toks_out.cpu().numpy()  # spacelint: disable=SL001 (the single deliberate per-step fetch: committed tokens must reach the host-side scheduler)
         self._step_no += 1
         now = time.perf_counter()
         sched = self.stats["sched"]
@@ -1207,39 +1449,31 @@ class EngineCore:
             return self._streaming[slot.scene]["progress"]
         return 0                                   # wait: nothing written
 
-    def _fused_step(self, srow: np.ndarray, tokens: np.ndarray,
-                    pos: np.ndarray, patch_mask: np.ndarray,
-                    use_argmax: np.ndarray, want_probs: bool = False
-                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """ONE step over a flat (token_budget,) batch: row ``j`` is one
-        token of slot ``srow[j]`` at cache slot ``pos[j]``.  Decode rows
-        feed their slot's argmax, prompt rows ``tokens[j]``, region rows
-        the staged embedding at ``pos[j]``; a scene's chunk takes up to C
-        consecutive rows on its streamer's table row, whose KV lands before
-        the reads, so chunk token t sees its siblings < t through the
-        cache.  Those rows share the prefix-append kernel's row tiles
-        through a tile plan built here from ``srow`` and ``pos`` and
-        shipped in the step's one host-to-device copy.  Padding rows
-        (``srow == slots``) are unscheduled: their writes go to the trash
-        page and their outputs are dropped.  The
-        held logits of each slot with a decode or prompt row are replaced
-        by that row's.  Returns (the flat tokens fed, the answer-vocab
-        probabilities of the held logits before the step if asked)."""
+    def _fused_body(self) -> None:
+        """ONE step over a flat (token_budget,) batch (``_flat_in``): row
+        ``j`` is one token of slot ``srow[j]`` at cache slot ``pos[j]``.
+        Decode rows feed their slot's argmax, prompt rows ``tokens[j]``,
+        region rows the staged embedding at ``pos[j]``; a scene's chunk
+        takes up to C consecutive rows on its streamer's table row, whose
+        KV lands before the reads, so chunk token t sees its siblings < t
+        through the cache.  Those rows share the prefix-append kernel's row
+        tiles through the tile plan the host put in rows 5-6.  Padding
+        rows (``srow == slots``) are unscheduled: their writes go to the
+        trash page and their outputs are dropped.  The held logits of each
+        slot with a decode or prompt row are replaced by that row's.  The
+        flat tokens fed land in ``_fused_tok_out``, the answer-vocab
+        probabilities of the held logits before the step in
+        ``_fused_probs_out``."""
         n_slots, n_r = self.cfg.slots, self.ac.n_regions
-        av, tb, dev = self.cfg.answer_vocab, len(srow), self.device
-        plan = PPA.tile_plan(srow, pos, n_slots, self._group,
-                             self._plan_tiles)
-        flat = self._host_to_dev(np.concatenate(
-            [np.stack([srow, tokens, pos, patch_mask, use_argmax]),
-             np.pad(plan, ((0, 0), (0, tb - plan.shape[1])))]
-        ).astype(np.int32))
+        av, tb, dev = self.cfg.answer_vocab, self._token_budget, self.device
+        flat = self._flat_in.dev
         srow_d, tokens_d, pos_d = flat[0], flat[1], flat[2]
         pmask, argm = flat[3].bool(), flat[4].bool()
-        plan_d = flat[5:, :plan.shape[1]]
+        plan_d = flat[5:, :self._plan_tiles]
         valid = srow_d < n_slots
         sclamp = torch.clamp(srow_d, max=n_slots - 1).long()
         av_logits = self._slot_logits[:, :av]
-        probs0 = torch.softmax(av_logits, dim=-1) if want_probs else None
+        self._fused_probs_out.copy_(torch.softmax(av_logits, dim=-1))
         y1 = torch.argmax(av_logits, dim=-1).to(torch.int32)
         tok = torch.where(argm, y1[sclamp], tokens_d)
         feed = self._staging[sclamp, torch.clamp(pos_d, 0, n_r - 1).long()]
@@ -1248,17 +1482,15 @@ class EngineCore:
                 self._bb, self._mcfg, self._slot_cache,
                 {"tokens": tok[:, None], "patch_embeds": feed[:, None],
                  "patch_mask": pmask}, pos_d,
-                block_table=self._block_table_dev()[sclamp],
+                block_table=self._bt_dev[sclamp],
                 chunk_lens=valid.to(torch.int32), tile_plan=plan_d)
         # the flat row feeding each slot's logits (-1: none); unscheduled
         # and region rows all go to the dropped index ``n_slots``
         dest = torch.where(valid & ~pmask, srow_d, n_slots).long()
         src = torch.full((n_slots + 1,), -1, dtype=torch.long, device=dev)
         src = src.scatter_(0, dest, torch.arange(tb, device=dev))[:n_slots]
-        self._slot_logits = torch.where(
-            (src >= 0)[:, None], logits_f[torch.clamp(src, min=0)],
-            self._slot_logits)
-        return tok, probs0
+        _sel_scatter({"l": self._slot_logits}, {"l": logits_f}, src, 0)
+        self._fused_tok_out.copy_(tok)
 
     def _step_chunked(self) -> List[Tuple[Request, np.ndarray]]:
         """ONE fused token-budget step (Sarathi-style chunked prefill).
@@ -1314,13 +1546,20 @@ class EngineCore:
             j += c
             stream_sched.append((s_, c))
 
-        want_probs = any(self._slots[i].probs is not None
-                         for i in decode_rows)
-        tok, probs0 = self._fused_step(srow, tokens, pos, patch_mask,
-                                       use_argmax, want_probs)
-        toks_np = tok.cpu().numpy()  # spacelint: disable=SL001 (the single deliberate per-step fetch: committed tokens must reach the host-side phase machine)
-        # spacelint: disable=SL001 (probs ride the step, and only for slots that asked for them)
-        probs_np = probs0.cpu().numpy() if want_probs else None
+        plan = PPA.tile_plan(srow, pos, n_slots, self._group,
+                             self._plan_tiles)
+        self._sync_tables()
+        self._flat_in.put(np.concatenate(
+            [np.stack([srow, tokens, pos, patch_mask, use_argmax]),
+             np.pad(plan, ((0, 0), (0, tb - plan.shape[1])))]))
+        self._graphs.run("fused_step", None, self._fused_body)
+        toks_np = self._fused_tok_out.cpu().numpy()  # spacelint: disable=SL001 (the single deliberate per-step fetch: committed tokens must reach the host-side phase machine)
+        probs_np = None
+        if any(self._slots[i].probs is not None for i in decode_rows):
+            # a copy: on the CPU ``.cpu()`` is the buffer itself, which the
+            # next step overwrites
+            # spacelint: disable=SL001 (probs ride the step, and only for slots that asked for them)
+            probs_np = self._fused_probs_out.cpu().numpy().copy()
         self._step_no += 1
         now = time.perf_counter()
 
@@ -1381,11 +1620,11 @@ class EngineCore:
                     self._prefix.acquire(s_)
                     if slot.phase == "wait":
                         self._bt_np[jj, :self._n_shared_pages] = st["pages"]
-                        self._bt_dev = None
+                        self._bt_dirty = True
                     slot.phase = "prompt"
         # the per-slot index the plain and speculative steps read once the
         # streams drain (fused steps take positions per flat token)
-        self._slot_index = self._host_to_dev(np.asarray(
+        self._index_in.put(np.asarray(
             [self._slot_pos(i) for i in range(n_slots)], np.int32))
         if self.cfg.spec_gamma and scheduled_prompt:
             self._draft_prefill_rows(scheduled_prompt)
@@ -1399,24 +1638,32 @@ class EngineCore:
         position 0 of drafter rows that are prefilled anew before their
         next draft (at the prompt-to-decode transition), so nothing reads
         it."""
+        self._feed_in.put(np.stack([toks, idx]))
+        self._graphs.run("draft_feed", None, self._draft_feed_body)
+
+    def _draft_feed_body(self) -> None:
+        toks, idx = self._feed_in.dev
         T.decode_step(self.draft.params["backbone"], self.draft.cfg,
-                      self._draft_cache,
-                      {"tokens": self._host_to_dev(toks)[:, None]},
-                      self._host_to_dev(idx))
+                      self._draft_cache, {"tokens": toks[:, None]}, idx)
 
     def _draft_prefill(self, requests: List[Request], ptoks: np.ndarray,
                        rows: List[int]) -> None:
-        """The drafter's [regions | prompt] prefill of ``requests`` into its
-        dense cache rows ``rows`` (it mirrors the slot table on its own
-        cache, which is cheap and never shared)."""
-        _, dcache, _ = EO.prefill_tokens(
-            self.draft.params, self.draft.cfg, self.ac,
-            self._images(requests), self._host_to_dev(ptoks),
-            self._draft_max_len)
-        slots = self._host_to_dev(rows)
-        for full, new in zip(self._draft_cache, dcache):
-            _sel_scatter(full, new, slots, 1)
+        """The drafter's [regions | prompt] prefill of ``requests`` (one
+        bucketed call) into its dense cache rows ``rows`` (it mirrors the
+        slot table on its own cache, which is cheap and never shared)."""
+        kp = _admit_pad(len(rows), self.cfg.slots)
+        self._put_bucket(kp, requests, rows, np.asarray(ptoks, np.int64))
+        self._graphs.run("draft_prefill", kp,
+                         functools.partial(self._draft_prefill_body, kp))
         self._note_prefill("draft", len(rows) * (self.ac.n_regions + 1))
+
+    def _draft_prefill_body(self, kp: int) -> None:
+        b = self._bucket(kp)
+        _, dcache, _ = EO.prefill_tokens(
+            self.draft.params, self.draft.cfg, self.ac, b["images"].dev,
+            b["ptok"].dev, self._draft_max_len)
+        for full, new in zip(self._draft_cache, dcache):
+            _sel_scatter(full, new, b["src"].dev, 1)
 
     def _draft_prefill_rows(self, rows: List[int]) -> None:
         """Chunked + speculative engines: drafting starts when a slot
@@ -1442,7 +1689,7 @@ class EngineCore:
             logits_all, _ = T.verify_step(
                 self._bb, self._mcfg, self._slot_cache,
                 {"tokens": chunk}, self._slot_index,
-                block_table=self._block_table_dev())
+                block_table=self._bt_dev)
         gtok = torch.argmax(logits_all[..., :av], dim=-1).to(torch.int32)
         eq = (gtok[:, :g] == chunk[:, 1:]).to(torch.int32)
         acc = torch.cumprod(eq, dim=1).sum(dim=1)          # (S,) prefix
@@ -1453,13 +1700,12 @@ class EngineCore:
             [self._slot_logits[:, None, :av], logits_all[:, :-1, :av]],
             dim=1), dim=-1)
         rows = torch.arange(chunk.shape[0], device=chunk.device)
-        self._slot_logits = logits_all[rows, acc]
-        self._slot_index = torch.where(
-            self._active_mask_dev(), self._slot_index + n_commit,
-            self._slot_index).to(torch.int32)
+        self._slot_logits.copy_(logits_all[rows, acc])
+        self._slot_index.add_(torch.where(self._active_dev, n_commit,
+                                          0).to(torch.int32))
         return n_commit, tok_probs
 
-    def _draft_chunk(self, pending: torch.Tensor,
+    def _draft_chunk(self, y1: torch.Tensor, pending: torch.Tensor,
                      pending_len: torch.Tensor) -> torch.Tensor:
         """γ+1 compact-model feeds over the drafter's dense cache, from each
         row's y₁ at its committed index.  Piggybacked ``pending`` drafts
@@ -1468,7 +1714,6 @@ class EngineCore:
         the last draft's KV.  Returns the chunk [y₁ | d₁..d_γ]."""
         g, av = self.cfg.spec_gamma, self.cfg.answer_vocab
         dparams, dcfg = self.draft.params, self.draft.cfg
-        y1 = torch.argmax(self._slot_logits[:, :av], dim=-1).to(torch.int32)
         tok, i, drafts = y1, self._slot_index, []
         for j in range(g + 1):
             dlogits, _ = T.decode_step(dparams["backbone"], dcfg,
@@ -1481,18 +1726,37 @@ class EngineCore:
             tok, i = nxt, i + 1
         return torch.cat([y1[:, None], torch.stack(drafts[:g], dim=1)], dim=1)
 
+    def _spec_body(self, draft: bool) -> None:
+        """The speculative step over the staged [pending drafts | count]
+        (``_spec_in``): the drafter's γ+1 feeds then the verify
+        (``draft``), or the verify of the piggybacked drafts alone.  The
+        chunk and each row's commit count land in ``_spec_out``, the
+        chunk tokens' distributions in ``_tok_probs_out``."""
+        g, av = self.cfg.spec_gamma, self.cfg.answer_vocab
+        pend, plen = self._spec_in.dev[:, :g], self._spec_in.dev[:, g]
+        y1 = torch.argmax(self._slot_logits[:, :av], dim=-1).to(torch.int32)
+        if draft:
+            chunk = self._draft_chunk(y1, pend, plen)
+        else:
+            chunk = torch.cat([y1[:, None], pend], dim=1)
+        n_commit, tok_probs = self._verify_accept(chunk)
+        self._spec_out[:, :g + 1].copy_(chunk)
+        self._spec_out[:, g + 1].copy_(n_commit)
+        self._tok_probs_out.copy_(tok_probs)
+
     def _step_spec(self) -> List[Tuple[Request, np.ndarray]]:
         """Speculative all-slot step: draft γ tokens per row (piggybacked
         drafts supply them where available), verify all of them in ONE
         scoring step, commit each row's longest accepted prefix + 1.  When
         every active row's useful drafts were piggybacked, the drafter is
-        skipped (verify-only); its cache then goes stale for those rows,
-        which can only lower later local accept rates, never correctness."""
+        skipped (verify-only, a graph of its own); its cache then goes
+        stale for those rows, which can only lower later local accept
+        rates, never correctness."""
         if self.active_count() == 0:
             return []
         g, n_slots = self.cfg.spec_gamma, self.cfg.slots
-        pend = np.zeros((n_slots, g), np.int32)
-        plen = np.zeros((n_slots,), np.int32)
+        pend = np.zeros((n_slots, g + 1), np.int32)
+        plen = pend[:, g]
         n_active = covered = 0
         for i, slot in enumerate(self._slots):
             if not slot.active:
@@ -1511,25 +1775,23 @@ class EngineCore:
             if plen[i] >= useful:
                 covered += 1
         sp = self.stats["spec"]
-        pend_dev = self._host_to_dev(pend)
         verify_only = covered == n_active
+        self._sync_tables()
+        self._spec_in.put(pend)
         if verify_only:
-            av = self.cfg.answer_vocab
-            y1 = torch.argmax(self._slot_logits[:, :av],
-                              dim=-1).to(torch.int32)
-            chunk = torch.cat([y1[:, None], pend_dev], dim=1)
             sp["verify_only_steps"] += 1
+            self._graphs.run("spec_verify", None,
+                             functools.partial(self._spec_body, False))
         else:
-            chunk = self._draft_chunk(pend_dev, self._host_to_dev(plen))
-        n_commit, tok_probs = self._verify_accept(chunk)
-        # spacelint: disable=SL001 (the single deliberate per-step fetch: the verified chunk and its accept counts reach the host-side scheduler together)
-        fetched = torch.cat([chunk, n_commit[:, None].to(chunk.dtype)],
-                            dim=1).cpu().numpy()
+            self._graphs.run("spec_step", None,
+                             functools.partial(self._spec_body, True))
+        fetched = self._spec_out.cpu().numpy()  # spacelint: disable=SL001 (the single deliberate per-step fetch: the verified chunk and its accept counts reach the host-side scheduler together)
         chunk_np, n_np = fetched[:, :-1], fetched[:, -1]
         probs_np = None
         if any(s.active and s.probs is not None for s in self._slots):
+            # a copy, as in the fused step
             # spacelint: disable=SL001 (probs ride the step, and only for slots that asked for them)
-            probs_np = tok_probs.cpu().numpy()
+            probs_np = self._tok_probs_out.cpu().numpy().copy()
         self._step_no += 1
         now = time.perf_counter()
         sp["steps"] += 1
@@ -1585,10 +1847,13 @@ class EngineCore:
         only non-trivial for chunked engines; overload-controlled engines
         add an ``"overload"`` block (queue depth and peak, deferrals,
         preemptions, rejections by reason, re-admission wait, TTFT from
-        submit by priority).  There is no ``steady_recompiles``: eager
-        PyTorch compiles nothing per shape."""
+        submit by priority).  ``steady_recompiles``: the step captures made
+        after ``warmup()`` armed the compile guard (0: every step of the
+        run replayed a graph captured in warmup; always 0 on an engine that
+        runs eagerly)."""
         sched = self.stats["sched"]
         out = {k: v for k, v in sched.items() if k != "step_log"}
+        out["steady_recompiles"] = self._compile_guard.steady_recompiles
         steps = max(sched["steps"], 1)
         out["tokens_per_step"] = {
             "decode": sched["decode_tokens"] / steps,
@@ -1632,6 +1897,12 @@ class EngineCore:
                 "ttft_by_priority": ttft,
             }
         return out
+
+    def graph_stats(self) -> Dict[str, Any]:
+        """The compiled steps: whether this engine captures, its graphs by
+        step family, their replays, and the device bytes its graph pool
+        holds."""
+        return self._graphs.stats()
 
     def spec_stats(self) -> Dict[str, Any]:
         """Speculative-decoding counters + derived rates (empty when off)."""

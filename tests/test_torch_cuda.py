@@ -1201,13 +1201,13 @@ def _sharded_stream(ac):
             for i in range(8)]
 
 
-def _sharded_tokens(device, mesh, kw):
+def _sharded_tokens(device, mesh, kw, cuda_graphs=True):
     """The stream's tokens through ``make_engine_core`` on ``mesh`` (None:
     one device), 4 slots, and the engine's pools' KV-head counts."""
     from repro_torch.serving import EngineCoreConfig, make_engine_core
     tier, ac = _small_tier(device)
     core = make_engine_core(tier, ac, EngineCoreConfig(
-        slots=4, answer_vocab=9, mesh=mesh, **kw))
+        slots=4, answer_vocab=9, mesh=mesh, cuda_graphs=cuda_graphs, **kw))
     core.warmup()
     reqs, out = _sharded_stream(ac), {}
     queue = list(reqs)
@@ -1229,14 +1229,15 @@ SHARDED_FLAVOURS = {"plain": {}, "chunked": {"prefill_chunk": 4}}
 
 def _cuda_tp_rank(rank):
     """A rank of the card's tp-2 world: both flavours on a (1, 2) mesh of
-    one card, with the kernels' launches by route."""
+    one card, with the kernels' launches by route (eager steps: a gloo
+    all-reduce is not captured)."""
     from repro_torch.launch.mesh import make_host_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_host_mesh(model=2, data=1, devices=["cuda:0"] * 2)
     out = {}
     for name, kw in SHARDED_FLAVOURS.items():
         ops.reset_launch_counts()
-        toks, heads = _sharded_tokens("cuda", mesh, kw)
+        toks, heads = _sharded_tokens("cuda", mesh, kw, cuda_graphs=False)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         out[name] = (toks, heads, {
@@ -1272,3 +1273,136 @@ def test_sharded_tp2_ranks_on_gloo_match_the_cpu(card):
         kernel = ("paged_prefill_attention" if kw
                   else "paged_decode_attention")
         assert r0[kernel]["cuda_cores"] > 0 and r0[kernel]["mma"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the slot path's captured steps (CUDA graphs) against its eager steps
+# ---------------------------------------------------------------------------
+
+GRAPH_FLAVOURS = {"paged": {}, "dense": {"cache_impl": "dense"},
+                  "vmap": {"step_impl": "vmap"},
+                  "chunked": {"prefill_chunk": 8},
+                  "spec_gamma_3": {"spec_gamma": 3},
+                  "chunked_spec": {"prefill_chunk": 8, "spec_gamma": 3},
+                  "int8": {"kv_dtype": "int8"}, "fp8": {"kv_dtype": "fp8"}}
+
+
+def _graph_run(kw, cuda_graphs, dtype="float32", overload=False):
+    """The small proxy tier (and its satellite as the drafter) on the card,
+    warmed up, serving a stream of det/vqa/cls requests over three scenes
+    on 3 slots: (tokens by stream position, launch counts of the run,
+    scheduler stats, graph stats)."""
+    import dataclasses
+    from repro_torch.configs.spaceverse_pair import proxy_pair
+    from repro_torch.core import eo_adapter as EO
+    from repro_torch.core.cascade import TierModel
+    from repro_torch.data import synthetic
+    from repro_torch.serving import (EngineCore, EngineCoreConfig,
+                                     OverloadConfig, Request)
+    from repro_torch.serving.request import PRIORITY_URGENT
+    sat_cfg, gs_cfg = (dataclasses.replace(c, dtype=dtype)
+                       for c in proxy_pair("small"))
+    ac = EO.EOAdapterConfig()
+    gs = TierModel(EO.init_adapter(gs_cfg, ac, 1, device="cuda"), gs_cfg)
+    sat = TierModel(EO.init_adapter(sat_cfg, ac, 0, device="cuda"), sat_cfg)
+    core = EngineCore(gs, ac, EngineCoreConfig(
+        slots=3, answer_vocab=9, cuda_graphs=cuda_graphs,
+        overload=OverloadConfig(queue_cap=16) if overload else None, **kw),
+        draft=sat if kw.get("spec_gamma") else None)
+    core.warmup()
+    cfg = synthetic.EOTaskConfig(image_size=ac.image_size, grid=ac.grid)
+    reqs = []
+    for i, task in enumerate(["det", "vqa", "cls", "det", "vqa", "vqa",
+                              "cls", "det", "vqa"]):
+        data = synthetic.make_dataset(task, 1, seed=i % 3, cfg=cfg)
+        reqs.append(Request(task=task, image=data["images"][0],
+                            prompt=int(data["prompts"][0]), scene_id=i % 3))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out, pos = {}, {r.request_id: i for i, r in enumerate(reqs)}
+    if overload:
+        # a full table of det answers, then an urgent request preempts one
+        core.submit_many([r for r in reqs if r.task == "det"])
+        for _ in range(3):
+            core.step()
+        urgent = Request(task="vqa", image=reqs[1].image, prompt=1,
+                         scene_id=7, priority=PRIORITY_URGENT)
+        pos[urgent.request_id] = len(reqs)
+        core.submit_many([urgent] + [r for r in reqs if r.task != "det"])
+        while core.queue_depth() or core.active_count():
+            for r, t in core.step():
+                out[pos[r.request_id]] = t.tolist()
+    else:
+        queue = list(reqs)
+        while queue or core.active_count():
+            n = min(len(queue), len(core.free_slots()))
+            if n:
+                core.admit_many(queue[:n])
+                del queue[:n]
+            for r, t in core.step():
+                out[pos[r.request_id]] = t.tolist()
+    torch.cuda.synchronize()
+    return (out, ops.launch_counts(), core.scheduler_stats(),
+            core.graph_stats())
+
+
+@pytest.mark.parametrize("flavour", sorted(GRAPH_FLAVOURS))
+def test_captured_engine_equals_eager(card, flavour):
+    """Every slot-path flavour on the f32 proxies: the captured engine
+    gives the eager engine's tokens and launch counts (a replay counts the
+    launches its capture recorded), replays graphs, and captures nothing
+    after warmup."""
+    kw = GRAPH_FLAVOURS[flavour]
+    toks, counts, sched, gst = _graph_run(kw, True)
+    etoks, ecounts, esched, egst = _graph_run(kw, False)
+    assert toks == etoks
+    assert counts == ecounts
+    assert sched["steps"] == esched["steps"]
+    assert gst["captured"] and gst["graphs"] > 0 and gst["replays"] > 0
+    assert sched["steady_recompiles"] == 0
+    assert not egst["captured"] and egst["graphs"] == 0
+
+
+@pytest.mark.parametrize("flavour", ["paged", "spec_gamma_3", "chunked"])
+def test_captured_engine_equals_eager_in_bf16(card, flavour):
+    kw = GRAPH_FLAVOURS[flavour]
+    toks, counts, _, _ = _graph_run(kw, True, dtype="bfloat16")
+    etoks, ecounts, _, _ = _graph_run(kw, False, dtype="bfloat16")
+    assert toks == etoks
+    assert counts == ecounts
+
+
+@pytest.mark.parametrize("flavour", ["paged", "chunked", "spec_gamma_3"])
+def test_no_capture_after_warmup_with_preemption(card, flavour):
+    """Admissions, releases and a preemption under overload control: every
+    step replays a graph captured in warmup (the guard raises under pytest
+    otherwise), and the tokens are the eager engine's."""
+    kw = GRAPH_FLAVOURS[flavour]
+    toks, counts, sched, gst = _graph_run(kw, True, overload=True)
+    etoks, ecounts, _, _ = _graph_run(kw, False, overload=True)
+    assert sched["overload"]["preemptions"] >= 1
+    assert sched["steady_recompiles"] == 0 and gst["replays"] > 0
+    assert toks == etoks and counts == ecounts
+
+
+def _graphs_on_gloo_rank(rank):
+    """A rank of a tp-2 gloo world on the card asking for captured steps:
+    the engine must refuse; returns the message."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import EngineCore, EngineCoreConfig
+    tier, ac = _small_tier("cuda")
+    mesh = make_host_mesh(model=2, data=1, devices=["cuda:0"] * 2)
+    try:
+        EngineCore(tier, ac, EngineCoreConfig(slots=2, answer_vocab=9,
+                                              mesh=mesh))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def test_graphs_on_a_gloo_tp_group_raise(card):
+    from repro_torch.launch.mesh import spawn_tp
+    for msg in spawn_tp(_graphs_on_gloo_rank, 2, backend="gloo",
+                        timeout_s=120):
+        assert msg is not None and "gloo" in msg and "cuda_graphs" in msg
+
