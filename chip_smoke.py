@@ -137,7 +137,12 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    the card gives the CPU's outcomes of every ``submit_many``, rejections
    with reasons, finished order and tokens, overload counts, prefix
    counters and pages, with at least one preemption, one ``queue_full``
-   and one expiry, and the pool drained.
+   and one expiry, and the pool drained.  The engine's recurrent-state
+   admission (``small_recurrent_path``): the reduced xlstm-125m and the
+   mixed stack (attention, mLSTM, sLSTM), both with the vision frontend,
+   served on the paged, int8-pool and dense engines and the vmap oracle
+   (warmed up and captured on the card) give the CPU's tokens and prefix
+   hits/misses, with graphs replayed and none captured after warmup.
 4. The cascade server: ``CascadeServer.handle`` at the full width and
    depth of the paper's pair (Qwen2-VL-2B on the satellite, Qwen2-VL-7B on
    the ground), bfloat16, random weights from a seed, serving requests
@@ -327,6 +332,25 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    captured, on the 2B for 16 steps at 8 slots: its step ms and how many
    requests' tokens so far equal (a)'s (bf16, other GEMM shapes:
    reported).  Line ``graphs_phase {...}``.
+15. The xlstm-125m on the slot path at full width and depth (after 9):
+   ``dataclasses.replace(get_config("xlstm-125m"), frontend="vision")``
+   (12 layers: 8 mLSTM, 4 sLSTM; d 768, 4 heads, vocab 50304, bf16,
+   random weights from a seed) with phase 4's adapter (N_r = 1024), an
+   ``EngineCore`` on the paged slot path, each stream through an eager
+   engine and a captured one: (a) phase 6's stream (24 requests over 4
+   scenes) on 8 slots to the end; (b) 64 vqa/cls requests over 8 scenes
+   on 64 slots.  Checks: tokens and launch counts equal both ways, every
+   request answered in the answer vocab, nothing captured after warmup;
+   ``ssm_scan`` 8 × prefix prefills on the tensor cores, ``slstm_scan``
+   4 × (prefix prefills + admission calls + slot steps) on the cluster
+   route, no other kernel; a further prefix prefill on (a)'s captured
+   engine with its scan inputs kept, both kernels held against their
+   plain versions on them at phase 2's tolerances.  Prints step ms (host
+   clock), device ms a step and busy share (8 profiled steps), the replay
+   ms of each captured prefix-prefill bucket, the admission step and the
+   slot step (CUDA events), answer tokens/s, graphs and pool bytes, state
+   bytes per slot and per resident prefix, the slot step's bound, beside
+   the card's name and power limit.  Line ``xlstm_serve_phase {...}``.
 
 The slot-path engines of phases 3, 6-8, 10-12 and 13 (a) capture their
 steps as CUDA graphs in ``warmup()`` (``serving/graphs.py``) and replay
@@ -335,7 +359,8 @@ hold for captured steps too.  Where a phase keeps a kernel's inputs from
 its path (``capture_inputs``), the steps up to the kept call run their
 bodies eagerly.
 
-Phases 3, 4, 6, 7, 8, each run of 9 and each path of 10, 11, 12, 13 and 14
+Phases 3, 4, 6, 7, 8, each run of 9 and each path of 10, 11, 12, 13, 14
+and 15
 (the batch evaluator, the speculative server; in 13 each rank's runs too)
 zero every kernel's launch count just before they run and read it just
 after; each kernel of a path must have launched.  In phases 4, 6, 7 and 10
@@ -2162,6 +2187,7 @@ def small_reference(torch):
     small_overload_path(torch, sat, gs, card[0], card[1], ac)
     small_batch_path(torch, (sat, gs, conf), card, ac)
     small_xlstm(torch)
+    small_recurrent_path(torch)
     return {(w.tier, w.exit_stage) for _, _, w, _ in want}
 
 
@@ -2627,6 +2653,75 @@ def small_xlstm(torch, steps: int = 16):
         f"{'equal' if same else 'DIFFERENT'}")
     if not same:
         raise RuntimeError("xlstm greedy tokens differ between card and CPU")
+
+
+#: phase 3's recurrent tiers (reduced xlstm-125m overrides, vision
+#: frontend, f32): the xLSTM alone, and attention beside mLSTM and sLSTM
+SMALL_RECURRENT = {"xlstm": {},
+                   "mixed": {"num_layers": 3,
+                             "block_pattern": ("attn", "mlstm", "slstm")}}
+#: the engines phase 3 serves them on
+SMALL_RECURRENT_ENGINES = ({}, {"kv_dtype": "int8"}, {"cache_impl": "dense"},
+                           {"step_impl": "vmap"})
+
+
+def recurrent_cfg(name, **over):
+    """The reduced xlstm-125m with the vision frontend and the overrides of
+    ``SMALL_RECURRENT[name]`` (block kinds by name)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import BlockSpec
+    over = dict(SMALL_RECURRENT[name], frontend="vision", **over)
+    if "block_pattern" in over:
+        over["block_pattern"] = tuple(BlockSpec(kind=k)
+                                      for k in over["block_pattern"])
+    return configs.reduced_config(configs.get_config("xlstm-125m"), **over)
+
+
+def small_recurrent_path(torch):
+    """The engine's recurrent-state admission on the small tiers (f32, so
+    the scans take their CUDA-core and per-row routes, the mixed stack's
+    attention its CUDA-core routes): ``InferenceEngine.serve`` of a
+    det/vqa/cls stream over three scenes on 3 slots, on the paged,
+    int8-pool and dense engines and the vmap oracle, on the card (warmed
+    up, captured) and on the CPU from the same weights: the same tokens
+    and prefix hits/misses, and on the card graphs replayed and none
+    captured after warmup."""
+    from repro_torch.core import eo_adapter as EO
+    from repro_torch.serving import EngineConfig, InferenceEngine
+    from repro_torch.tree import tree_map
+    ac = EO.EOAdapterConfig()
+    reqs = scene_stream(["det", "vqa", "cls", "vqa"], 3, ac.image_size,
+                        ac.grid, seed=80)
+    for name in SMALL_RECURRENT:
+        cfg = recurrent_cfg(name)
+        params = EO.init_adapter(cfg, ac, 11, device="cpu")
+        on = {"cpu": params,
+              "cuda": tree_map(lambda t: t.to("cuda"), params)}
+        for kw in SMALL_RECURRENT_ENGINES:
+            runs = {}
+            for dev, p in on.items():
+                eng = InferenceEngine(p, cfg, ac, EngineConfig(
+                    slots=3, answer_vocab=9, **kw), device=dev)
+                eng.warmup()
+                rs = clone_requests(reqs)
+                toks = served_tokens(eng.serve(rs), rs)
+                st = eng.core.stats
+                runs[dev] = (toks, (st["prefix_hits"], st["prefix_misses"]),
+                             eng.core.graph_stats(),
+                             eng.core.scheduler_stats()["steady_recompiles"])
+            (ct, cc, _, _), (gt, gc, gst, rec) = runs["cpu"], runs["cuda"]
+            same = (all((a == b).all() for a, b in zip(gt, ct))
+                    and len(gt) == len(reqs))
+            log(f"  small recurrent {name} {kw or 'paged'}: {len(gt)} "
+                f"requests, tokens {'equal' if same else 'DIFFERENT'} on "
+                f"the card and the CPU, prefix hits/misses card {gc} cpu "
+                f"{cc}; {gst['graphs']} graphs, {gst['replays']} replays, "
+                f"{rec} captures after warmup")
+            if not (same and gc == cc and gst["graphs"] > 0
+                    and gst["replays"] > 0 and rec == 0):
+                raise RuntimeError(f"recurrent slot path {name} {kw}: card "
+                                   "and CPU disagree, or the card's steps "
+                                   "were not captured in warmup")
 
 
 MAIN_TASKS = [("vqa", (0.5, 0.4)), ("cls", (0.5, 0.4)),
@@ -4355,13 +4450,19 @@ def stream_steps(core, reqs, steps=None):
     return [out.get(r.request_id, []) for r in reqs], admissions
 
 
-def eager_and_captured(torch, tag, make, reqs, steps=None, first=16):
+def eager_and_captured(torch, tag, make, reqs, steps=None, first=16,
+                       inspect=None, keep=()):
     """The same requests through two engines from ``make(cuda_graphs)``:
     eager steps, then captured ones.  Each is warmed up, its counts zeroed
     just before its run and read just after; steps [first, first + 8) are
     profiled.  Returns {"eager": ..., "captured": ...} with the tokens,
     launches, step ms on the host clock, the device's busy share, the
-    graphs, the pool's bytes and the captures after warmup."""
+    graphs, the pool's bytes and the captures after warmup, and what
+    ``inspect(mode, core)`` returns after the counts were read.  The eager
+    run keeps the inputs of the ``ops`` functions ``keep`` at every (step
+    family, operand shapes) it meets (``capture_inputs(by_family=True)``)
+    under "kept": the clones are made the first time each is met, in the
+    admissions and first steps, before the profiled window."""
     from repro_torch.kernels import ops
     out = {}
     for mode, graphs in (("eager", False), ("captured", True)):
@@ -4373,7 +4474,15 @@ def eager_and_captured(torch, tag, make, reqs, steps=None, first=16):
         probe = StepProbe(torch, core, first=first, n=8)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        toks, admissions = stream_steps(core, clone_requests(reqs), steps)
+        kept = None
+        if keep and not graphs:
+            (toks, admissions), kept = capture_inputs(
+                torch, lambda: stream_steps(core, clone_requests(reqs),
+                                            steps), list(keep),
+                by_family=True)
+        else:
+            toks, admissions = stream_steps(core, clone_requests(reqs),
+                                            steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
@@ -4393,6 +4502,10 @@ def eager_and_captured(torch, tag, make, reqs, steps=None, first=16):
             "replays": gst["replays"], "pool_bytes": gst["pool_bytes"],
             "steady_recompiles":
                 core.scheduler_stats()["steady_recompiles"]}
+        if kept is not None:
+            out[mode]["kept"] = kept
+        if inspect is not None:
+            out[mode].update(inspect(mode, core))
         r = out[mode]
         log(f"  {tag} {mode}: {n_steps} steps + {admissions} admission "
             f"calls in {wall:.2f} s, step {r['step_ms_mean']:.3f} ms mean "
@@ -5079,7 +5192,7 @@ def xlstm_continuation(torch, T, params, cfg, toks, n_steps):
     return out
 
 
-def capture_inputs(torch, fn, names, when=None):
+def capture_inputs(torch, fn, names, when=None, by_family=False):
     """Runs ``fn()`` with the ``ops`` functions ``names`` wrapped so that
     the first call of each at each set of operand shapes keeps a copy of
     its arguments (the first layer's inputs at that shape on the path),
@@ -5089,18 +5202,27 @@ def capture_inputs(torch, fn, names, when=None):
     ``when()`` holds and some name has no call kept yet, the engines' steps
     run their bodies eagerly (the same kernels on the same persistent
     tensors; the wrappers count their launches), and replay again after
-    that."""
+    that.  With ``by_family`` a call is kept at each (engine step family,
+    operand shapes), the family being the ``StepGraphs.run`` step it came
+    from (None outside one), and the kept calls come back as {name:
+    {(family, shapes): (args, kwargs)}}: meant for an engine that runs
+    every step eagerly, so that every step of the run is seen."""
     from repro_torch.kernels import ops
     from repro_torch.serving import graphs
     saved = {n: getattr(ops, n) for n in names}
     got = {n: {} for n in names}
     orig_run = graphs.StepGraphs.run
+    family = [None]
 
     def run(self, name, key, body):
-        if (when is None or when()) and not all(got[n] for n in names):
-            body()
-            return
-        orig_run(self, name, key, body)
+        family[0] = name
+        try:
+            if (when is None or when()) and not all(got[n] for n in names):
+                body()
+                return
+            orig_run(self, name, key, body)
+        finally:
+            family[0] = None
 
     def copy(x):
         if isinstance(x, tuple):
@@ -5115,6 +5237,8 @@ def capture_inputs(torch, fn, names, when=None):
     def wrap(name):
         def call(*args, **kw):
             key = shapes(args) if when is None or when() else None
+            if key is not None and by_family:
+                key = (family[0], key)
             if key is not None and key not in got[name]:
                 got[name][key] = (copy(args),
                                   {k: copy(v) for k, v in kw.items()})
@@ -5130,6 +5254,8 @@ def capture_inputs(torch, fn, names, when=None):
         for n, f in saved.items():
             setattr(ops, n, f)
         graphs.StepGraphs.run = orig_run
+    if by_family:
+        return res, got
     return res, {n: list(g.values()) for n, g in got.items()}
 
 
@@ -5316,6 +5442,268 @@ def xlstm_phase(torch, cfg=None, runs=None, cont=(CONT_LEN, CONT_STEPS)):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the xlstm-125m on the slot path, eager against captured
+# ---------------------------------------------------------------------------
+
+#: phase 15 (b): the 64-slot engine's requests over 8 scenes (each scene
+#: one image, these tasks on it): det answers are N_r tokens long, so all
+#: 64 rows stay live for the ``XLSTM_WIDE_STEPS`` slot steps the stream is
+#: cut at, which cover the profiled steps [16, 24)
+XLSTM_WIDE_TASKS = ["det"] * 8
+XLSTM_WIDE_SCENES = 8
+XLSTM_WIDE_STEPS = 32
+#: replays a captured step is timed over (CUDA events, after one more)
+REPLAYS = 10
+
+
+def replay_ms(torch, graph, n: int = REPLAYS) -> float:
+    """Device ms of one replay of a captured step: CUDA events around ``n``
+    replays, after one warm replay."""
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def xlstm_serve_phase(torch, smi):
+    """Phase 15: the vision xlstm-125m (12 layers: 8 mLSTM, 4 sLSTM; d 768,
+    4 heads, vocab 50304, bf16, random weights from a seed; N_r = 1024
+    region tokens) served by ``EngineCore``'s paged slot path, each stream
+    through an eager engine and a captured one (``eager_and_captured``):
+    (a) phase 6's stream (24 requests over 4 scenes) on 8 slots to the
+    end; (b) 64 det requests over 8 scenes on 64 slots (one admission,
+    then ``XLSTM_WIDE_STEPS`` slot steps over 64 live rows' states).
+    Checks: tokens and launch counts equal both ways, every request
+    answered (in (b): the same number of tokens each) in the answer vocab,
+    nothing captured after warmup; ``ssm_scan`` 8 × prefix prefills on its
+    tensor-core route, ``slstm_scan`` 4 × (prefix prefills + admission
+    calls + slot steps) on its cluster route, no other kernel.  Both
+    kernels are held against their plain versions (``TOL_SCAN_BF16`` /
+    ``TOL_SCAN``, ``TOL_SLSTM``) on the inputs of every (step family,
+    shape) each eager run launched them at (every prefix bucket, the
+    admission and the slot step at 8 and at 64 rows), and on (a)'s
+    captured engine on one more scene's prefix prefill (``capture_inputs``,
+    the body run eagerly on the engine's own buffers).  Prints step ms
+    (host clock), device ms a step and the busy share over 8 profiled
+    steps, replay ms of each captured prefix prefill bucket, of the
+    admission step and of the slot step (CUDA events), answer tokens/s,
+    graphs and pool bytes, state bytes per slot and per resident prefix,
+    the slot step's bound, beside the card's name and power limit.  Line
+    ``xlstm_serve_phase {...}``."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.configs.base import MLSTM, SLSTM
+    from repro_torch.core import eo_adapter as EO
+    from repro_torch.core.cascade import TierModel
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import EngineCore, EngineCoreConfig
+    from repro_torch.serving.kv_pool import TRASH_PAGE
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(configs.get_config("xlstm-125m"),
+                              frontend="vision")
+    ac = EO.EOAdapterConfig(grid=FULL_GRID, image_size=FULL_IMAGE)
+    av = ac.num_classes + 1
+    t0 = time.perf_counter()
+    tier = TierModel(EO.init_adapter(cfg, ac, 15, device="cuda"), cfg)
+    torch.cuda.synchronize()
+    weight_bytes = nbytes(*tree_leaves(tier.params))
+    n_m = cfg.n_super * sum(sp.kind == MLSTM for sp in cfg.block_pattern)
+    n_s = cfg.n_super * sum(sp.kind == SLSTM for sp in cfg.block_pattern)
+    log(f"  init {cfg.name} (vision frontend, N_r {ac.n_regions}): "
+        f"{weight_bytes / 1e9:.3f} GB of weights, "
+        f"{time.perf_counter() - t0:.1f} s; card: {smi}")
+    prefix_calls = {}
+
+    def make(slots):
+        def make_core(graphs):
+            core = EngineCore(tier, ac, EngineCoreConfig(
+                slots=slots, page_size=8, answer_vocab=av,
+                cuda_graphs=graphs))
+            calls, prefill = [], core._prefill_prefixes
+            prefix_calls[(slots, graphs)] = calls
+
+            def counted(miss):
+                calls.append(len(miss))
+                prefill(miss)
+
+            core._prefill_prefixes = counted
+            return core
+        return make_core
+
+    held = {"ssm_scan_mma": {}, "slstm_scan_cluster": {}}
+    errors = []
+
+    @torch.inference_mode()
+    def inspect(mode, core):
+        slots = core.cfg.slots
+        calls = prefix_calls[(slots, mode == "captured")]
+        entry = next(iter(core._prefix._entries.values()))
+        out = {"prefix_prefill_calls": len(calls),
+               "prefix_prefill_rows": sum(calls),
+               "state_bytes_per_slot": nbytes(*core._state_leaves) / slots,
+               "state_bytes_per_prefix": nbytes(*(
+                   x for t in entry.state if t for x in t.values())),
+               "slot_step_bound_ms": 1e3 * (
+                   weight_bytes + 2 * nbytes(*core._state_leaves))
+               / HBM_BYTES_PER_S}
+        if mode != "captured":
+            return out
+        # device ms of each captured step, replayed on inert inputs: the
+        # prefix buckets write the trash page, no row is admitted; (a)'s
+        # engine is drained, (b)'s cut with its 64 rows live (it is
+        # dropped after this)
+        fam = core._graphs.families
+        core._sync_tables()
+        for b in core._buckets.values():
+            b["pages"].dev.fill_(TRASH_PAGE)
+        core._admit_in.dev.zero_()
+        out["replay_ms"] = {
+            "prefix_prefill": {kp: replay_ms(torch, g) for kp, (g, _) in
+                               sorted(fam["prefix_prefill"].graphs.items())},
+            "paged_admit": replay_ms(torch, fam["paged_admit"].graphs[None][0]),
+            "slot_step": replay_ms(torch, fam["slot_step"].graphs[None][0])}
+        if slots != 8:
+            return out
+        # one more scene's prefix prefill, its scan inputs kept
+        new = scene_stream(["vqa"], 1, FULL_IMAGE, FULL_GRID, seed=900)
+        _, kept = capture_inputs(torch, lambda: core.admit_many(new),
+                                 ["ssm_scan", "slstm_scan"])
+        for args, kw in kept["ssm_scan"]:
+            case = f"xlstm serve B{args[0].shape[0]} S{args[0].shape[1]}"
+            held["ssm_scan_mma"][case] = {"max_abs_err": ssm_check(
+                case, ops.ssm_scan(*args, **kw), ref.ssm_scan(*args, **kw),
+                errors)}
+        for args, kw in kept["slstm_scan"]:
+            case = f"xlstm serve B{args[0].shape[0]} S{args[0].shape[1]}"
+            held["slstm_scan_cluster"][case] = {"max_abs_err": slstm_check(
+                case, ops.slstm_scan(*args, **kw),
+                ref.slstm_scan(*args, **kw), TOL_SLSTM, errors)}
+        out["held_on_path"] = {k: {c: v["max_abs_err"] for c, v in d.items()}
+                               for k, d in held.items()}
+        return out
+
+    def hold_kept(key, kept, slots):
+        """Both scans against their plain versions on the eager run's
+        inputs at every (family, shape); True if every family that launches
+        them, and every prefix bucket the run took, was held."""
+        fams = {n: {} for n in kept}
+        for name, calls in kept.items():
+            dst = held["ssm_scan_mma" if name == "ssm_scan"
+                       else "slstm_scan_cluster"]
+            for (fam, _), (args, kw) in calls.items():
+                b, n_tok = args[0].shape[:2]
+                fams[name].setdefault(fam, set()).add(b)
+                case = f"xlstm serve {key} {fam} B{b} S{n_tok}"
+                if name == "ssm_scan":
+                    err = ssm_check(case, ops.ssm_scan(*args, **kw),
+                                    ref.ssm_scan(*args, **kw), errors)
+                else:
+                    err = slstm_check(case, ops.slstm_scan(*args, **kw),
+                                      ref.slstm_scan(*args, **kw),
+                                      TOL_SLSTM, errors)
+                dst[case] = {"max_abs_err": err}
+        # the engine's admission buckets: next power of two, capped
+        buckets = {min(1 << (n - 1).bit_length(), slots)
+                   for n in prefix_calls[(slots, False)]}
+        log(f"  ({key}) eager run's scan inputs held at {fams}; prefix "
+            f"buckets taken {sorted(buckets)}")
+        return (set(fams["ssm_scan"]) == {"prefix_prefill"}
+                and set(fams["slstm_scan"]) == {"prefix_prefill",
+                                                "paged_admit", "slot_step"}
+                and fams["ssm_scan"]["prefix_prefill"] == buckets
+                and fams["slstm_scan"]["prefix_prefill"] == buckets
+                and fams["slstm_scan"]["paged_admit"] == {slots}
+                and fams["slstm_scan"]["slot_step"] == {slots})
+
+    stream = scene_stream(["det", "cls", "vqa", "vqa", "vqa", "vqa"], 4,
+                          FULL_IMAGE, FULL_GRID, seed=300)
+    wide = scene_stream(XLSTM_WIDE_TASKS, XLSTM_WIDE_SCENES, FULL_IMAGE,
+                        FULL_GRID, seed=700)
+    scans = ("ssm_scan", "slstm_scan")
+    res, checks = {}, {}
+    t_phase = time.perf_counter()
+    res["a_slot8"] = eager_and_captured(torch, "(a) xlstm-125m 8 slots",
+                                        make(8), stream, inspect=inspect,
+                                        keep=scans)
+    res["b_slot64"] = eager_and_captured(
+        torch, "(b) xlstm-125m 64 slots", make(64), wide,
+        steps=XLSTM_WIDE_STEPS, inspect=inspect, keep=scans)
+    for key, slots in (("a_slot8", 8), ("b_slot64", 64)):
+        checks[f"({key}) eager: the scans held against their plain "
+               "versions at every prefix bucket, the admission and the "
+               f"slot step at {slots} rows"] = hold_kept(
+            key, res[key]["eager"].pop("kept"), slots)
+    for key, reqs in (("a_slot8", stream), ("b_slot64", wide)):
+        r = res[key]
+        checks.update(r.pop("checks"))
+        for mode in ("eager", "captured"):
+            m = r[mode]
+            n_pre = m["prefix_prefill_calls"]
+            want = {"ssm_scan": n_m * n_pre, "ssm_scan_mma": n_m * n_pre,
+                    "slstm_scan": n_s * (n_pre + m["admission_calls"]
+                                         + m["steps"])}
+            want["slstm_scan_cluster"] = want["slstm_scan"]
+            bad = {k: v for k, v in m["launches"].items()
+                   if v != want.get(k, 0)}
+            if bad:
+                log(f"  ({key}) {mode}: launches {bad} against {want}")
+            checks[f"{key} {mode}: ssm_scan = {n_m} x prefix prefills on "
+                   f"the tensor cores, slstm_scan = {n_s} x (prefills + "
+                   "admissions + steps) on the cluster route, no other "
+                   "kernel"] = not bad and n_pre > 0
+            lens = {len(t) for t in m["tokens"]}
+            whole = (all(len(t) == ac.answer_len(q.task)
+                         for q, t in zip(reqs, m["tokens"]))
+                     if key == "a_slot8" else
+                     len(lens) == 1 and min(lens) >= XLSTM_WIDE_STEPS)
+            checks[f"{key} {mode}: every request answered (b: the same "
+                   "tokens each, at least one a step) in the answer "
+                   "vocab"] = whole and all(0 <= x < av for t in m["tokens"]
+                                            for x in t)
+    checks["the path's scan inputs within their tolerances"] \
+        = not errors and all(held.values())
+    launches = {f"xlstm_serve_{key}_{mode}": res[key][mode]["launches"]
+                for key in ("a_slot8", "b_slot64")
+                for mode in ("eager", "captured")}
+    summary = {}
+    for key in ("a_slot8", "b_slot64"):
+        r = res[key]
+        summary[key] = {}
+        for mode in ("eager", "captured"):
+            m = r[mode]
+            n_tok = sum(len(t) for t in m.pop("tokens"))
+            m.pop("launches")
+            m["answer_tokens"] = n_tok
+            m["answer_tokens_per_s"] = n_tok / m["wall_s"]
+            summary[key][mode] = m
+            log(f"  {key} {mode}: step {m['step_ms_mean']:.3f} ms mean "
+                f"(host clock), device {m['device_ms_per_step']} ms a step, "
+                f"busy {m['device_busy_share']}, {n_tok} answer tokens at "
+                f"{m['answer_tokens_per_s']:.1f}/s, {m['prefix_prefill_calls']}"
+                f" prefix prefills, state "
+                f"{m['state_bytes_per_slot'] / 1e6:.2f} MB a slot and "
+                f"{m['state_bytes_per_prefix'] / 1e6:.2f} MB a resident "
+                f"prefix, slot step bound {m['slot_step_bound_ms']:.3f} ms"
+                + (f"; replays (device ms): {m['replay_ms']}"
+                   if "replay_ms" in m else "") + f" [{smi}]")
+    res["seconds"] = time.perf_counter() - t_phase
+    log("xlstm_serve_phase " + json.dumps({"card": smi, **summary,
+                                           "seconds": res["seconds"]}))
+    log(f"  phase 15 checks: {checks}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad or errors:
+        raise RuntimeError(f"phase 15 failed: {bad} {errors}")
+    del tier
+    torch.cuda.empty_cache()
+    return {"held": held, "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5418,6 +5806,13 @@ def main() -> int:
 
     log("phase 9: xlstm-125m serve step at full width (prefill + decode)")
     xlstm = xlstm_phase(torch)
+    torch.cuda.empty_cache()
+
+    log("phase 15: xlstm-125m (vision) on the slot path at full width, "
+        "eager and captured")
+    xlstm_serve = xlstm_serve_phase(torch, smi)
+    for name, cases in xlstm_serve.pop("held").items():
+        kernels[name].update(cases)
 
     # each path drove the kernels with the counts zeroed just before it
     by_path = {"small_proxies_f32": small_counts,
@@ -5430,7 +5825,8 @@ def main() -> int:
                "cascade_server_spec": batch["spec_launches"],
                **quant["launches"], **overload["launches"],
                **sharded["launches"], **graphs["launches"],
-               **{f"xlstm {tag}": c for tag, c in xlstm["launches"].items()}}
+               **{f"xlstm {tag}": c for tag, c in xlstm["launches"].items()},
+               **xlstm_serve["launches"]}
     for tag, r in xlstm.items():
         for name, cases in r.get("kernel_vs_plain_max_abs_err", {}).items():
             kernels[name].update({c: {"max_abs_err": e}

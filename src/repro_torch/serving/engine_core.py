@@ -73,8 +73,16 @@ per-(page, slot, head) scales) and sized by a byte budget
   steps the dense layout and refuses chunked prefill, 8-bit pools,
   speculative decoding and a mesh, as the JAX engine does.
 
-Tiers with recurrent (mLSTM/sLSTM) blocks are not ported yet: they raise
-``NotImplementedError`` naming their ROADMAP item.
+- **recurrent tiers** (mLSTM/sLSTM blocks, alone or beside attention):
+  every flavour above that the JAX engine allows them (paged on exact or
+  8-bit pools, dense, vmap, the batch path, overload control, captured
+  steps); chunked prefill, speculative decoding and a mesh refuse them, as
+  JAX does.  Their O(1) states live per slot beside the page pools.  The
+  prefix prefill snapshots each scene's final states into its
+  ``PrefixCache`` entry; the paged admission copies the admitted rows'
+  snapshots into their slot rows before its step and keeps every other
+  row's states as they were (the decode updates states in place, where
+  JAX's is functional).
 """
 from __future__ import annotations
 
@@ -356,15 +364,8 @@ class EngineCore:
             self._tp_group, self._tp_rank = self.mesh.group, self.mesh.rank
             self._mcfg = plan.cfg_local
             self._bb = SH.shard_backbone(self._bb, plan, self._tp_rank)
-        if any(s.kind != ATTN for s in tier.cfg.block_pattern):
-            # the model runs mLSTM/sLSTM stacks (transformer.prefill /
-            # decode_step), but the engine's admission does not carry their
-            # state yet: nothing may half-run
-            raise NotImplementedError(
-                "an EngineCore over recurrent blocks needs the engine's "
-                "recurrent-state admission (prefix-state snapshots in "
-                "_paged_admit, the state branch of _prefix_scatter), which "
-                "is not ported (ROADMAP queue 1, item 17)")
+        #: mLSTM/sLSTM blocks: per-slot recurrent states ride the caches
+        self._recurrent = any(s.kind != ATTN for s in tier.cfg.block_pattern)
         #: chunked engines: scene → {slot, pages, progress, order, priority}
         #: of the region streams in flight (FIFO by order within priority)
         self._streaming: Dict[Any, Dict[str, Any]] = {}
@@ -433,6 +434,11 @@ class EngineCore:
                 # one page's device cost across the whole stack, scales
                 # included: the accounting rule kv_stats() checks
                 per_page = self._page_nbytes_stack()
+                if per_page == 0:
+                    raise ValueError(
+                        "pool_bytes sizes the pool by the bytes of a page, "
+                        "and a stack with no attention layer keeps no KV in "
+                        "its pages (0 B/page): pass pool_pages")
                 n = self.cfg.pool_bytes // per_page
                 if n < floor:
                     raise ValueError(
@@ -452,6 +458,8 @@ class EngineCore:
 
         self._slots: List[_Slot] = [_Slot() for _ in range(n_slots)]
         self._slot_cache = None
+        self._state_leaves: List[torch.Tensor] = []
+        self._prefix_state_out: Optional[Tuple] = None
         self._slot_logits = None
         self._slot_index = None
         self._draft_cache = None
@@ -613,6 +621,19 @@ class EngineCore:
             self._admit_in = StagedInput.zeros((3, n), i32, dev)
         else:
             self._slot_cache = T.init_cache(cfg, n, self._slot_max_len, dev)
+        #: the slot caches' recurrent-state leaves, (n_super, slots, ...)
+        #: each (none on an attention-only stack)
+        self._state_leaves = [
+            leaf for t in T.map_cache_kinds(
+                cfg, [self._slot_cache], kv=lambda _t: None,
+                state=lambda t: t) if t is not None for leaf in t.values()]
+        if self.cache_impl == "paged" and self._recurrent:
+            # the prefix prefill's final states, rows [0, bucket): the
+            # snapshots its scenes' prefix-cache entries are cloned from
+            self._prefix_state_out = T.map_cache_kinds(
+                cfg, [self._slot_cache], kv=lambda _t: None,
+                state=lambda t: {k: torch.zeros_like(x)
+                                 for k, x in t.items()})
         self._slot_logits = torch.zeros((n, cfg.vocab_size),
                                         dtype=torch.float32, device=dev)
         self._slot_index = torch.zeros((n,), dtype=i32, device=dev)
@@ -715,11 +736,11 @@ class EngineCore:
 
     def _page_nbytes_stack(self) -> int:
         """Device bytes ONE pool page costs across the whole stack (every
-        attention layer's K+V pools and an 8-bit pool's scales):
-        ``pool_bytes`` sizing divides by it, ``kv_stats`` checks the live
-        pools against it."""
+        attention layer's K+V pools and an 8-bit pool's scales; recurrent
+        layers keep no pages): ``pool_bytes`` sizing divides by it,
+        ``kv_stats`` checks the live pools against it."""
         cfg = self.tier.cfg
-        n_kv = cfg.n_super * len(cfg.block_pattern)
+        n_kv = cfg.n_super * sum(s.kind == ATTN for s in cfg.block_pattern)
         return n_kv * page_nbytes(
             self._page_size, cfg.num_kv_heads, cfg.resolved_head_dim,
             kv_dtype=self.cfg.kv_dtype,
@@ -754,14 +775,16 @@ class EngineCore:
         then the compile guard is armed.  Every run reads inputs that
         change no slot state: admission buckets name no slot and write only
         the trash page, steps run over an all-trash block table with no
-        slot active, and the logits and index they overwrite are put back.
-        Idempotent."""
+        slot active, and the logits, index and recurrent states they
+        overwrite are put back.  Idempotent."""
         self._ensure_slot_tables()
         if self.device.type == "cuda":
             for kernel in ops.KERNELS.values():
                 kernel.bind()
         n, g, run = self.cfg.slots, self.cfg.spec_gamma, self._graphs.warm
         saved = self._slot_logits.clone(), self._slot_index.clone()
+        # the slot step advances every row's recurrent state in place
+        saved_states = [leaf.clone() for leaf in self._state_leaves]
         if self.cache_impl == "paged":
             self._bt_dev.fill_(TRASH_PAGE)
         self._active_dev.zero_()
@@ -807,6 +830,8 @@ class EngineCore:
             run("slot_step", None, self._slot_step_body)
         self._slot_logits.copy_(saved[0])
         self._slot_index.copy_(saved[1])
+        for leaf, old in zip(self._state_leaves, saved_states):
+            leaf.copy_(old)
         # everything the slot path will run is captured now: a capture past
         # this point is a finding
         self._compile_guard.arm()
@@ -903,7 +928,9 @@ class EngineCore:
     def _prefill_prefixes(self, miss: List[Tuple[Any, Request]]) -> None:
         """Region-prefill the scenes in ``miss`` (one bucketed call), write
         their KV into freshly allocated shared pages (the padding rows'
-        into the trash page), and make them resident in the prefix cache.
+        into the trash page), and make them resident in the prefix cache
+        with their recurrent-state snapshots (``None`` on an attention-only
+        stack).
         The caller has budgeted the pages and entries already
         (check-then-commit), so nothing here fails."""
         km = len(miss)
@@ -915,8 +942,10 @@ class EngineCore:
         b["pages"].put(pages.reshape(-1))
         self._graphs.run("prefix_prefill", kp,
                          functools.partial(self._prefix_body, kp))
+        # a recurrent stack's entries own their snapshot rows: the next
+        # prefix prefill overwrites the output buffer
         for i, (scene, _r) in enumerate(miss):
-            self._prefix.put(scene, allocs[i], None)
+            self._prefix.put(scene, allocs[i], self._snapshot(i))
         self.stats["prefix_misses"] += km
         self._note_prefill("prefix", km * self.ac.n_regions)
 
@@ -946,32 +975,78 @@ class EngineCore:
                                      + tuple(x.shape[3:])))
             return pool
 
-        T.map_cache_kinds(self.tier.cfg, [self._slot_cache, cache], kv=kv,
-                          state=None)
+        def state(out: Params, pref: Params) -> None:
+            for name, leaf in pref.items():        # (n_super, kp, ...)
+                out[name][:, :kp].copy_(leaf)
 
-    def _paged_admit(self, target: List[int], ptoks: np.ndarray) -> None:
-        """Admit requests whose prefixes are page-resident: ONE decode step
-        over the whole table runs only the admitted rows' 1-token prompt
-        suffix at position N_r; every other row is steered at the trash
-        page with index 0 (its write lands there, its logits and index are
-        kept).  This is the paged prefill: the region tokens are never
-        recomputed."""
+        T.map_cache_kinds(self.tier.cfg, [self._slot_cache, cache], kv=kv,
+                          state=lambda _slot, _pref: None)
+        if self._recurrent:
+            T.map_cache_kinds(self.tier.cfg, [self._prefix_state_out, cache],
+                              kv=lambda _out, _pref: None, state=state)
+
+    def _snapshot(self, i: int) -> Optional[Tuple]:
+        """Row ``i`` of the last prefix prefill's final states, one
+        (n_super, 1, ...) copy per leaf and ``None`` at attention positions
+        (the JAX engine's prefix-entry pytree); ``None`` on an
+        attention-only stack."""
+        if not self._recurrent:
+            return None
+        return T.map_cache_kinds(
+            self.tier.cfg, [self._prefix_state_out], kv=lambda _t: None,
+            state=lambda t: {k: x[:, i:i + 1].clone() for k, x in t.items()})
+
+    def _paged_admit(self, target: List[int], ptoks: np.ndarray,
+                     states: List[Optional[Tuple]]) -> None:
+        """Admit requests whose prefixes are page-resident: each admitted
+        row starts from its scene's recurrent-state snapshot (``states``,
+        one per request), then ONE decode step over the whole table runs
+        only the admitted rows' 1-token prompt suffix at position N_r;
+        every other row is steered at the trash page with index 0 (its
+        write lands there, its logits, index and states are kept).  This is
+        the paged prefill: the region tokens are never recomputed."""
         a = np.zeros((3, self.cfg.slots), np.int32)
         a[0, target] = 1
         a[1, target] = ptoks
         a[2, target] = self.ac.n_regions
         self._sync_tables()
         self._admit_in.put(a)
+        self._stage_states(target, states)
         self._graphs.run("paged_admit", None, self._paged_admit_body)
+
+    def _stage_states(self, rows: List[int],
+                      states: List[Optional[Tuple]]) -> None:
+        """Copy each snapshot in ``states`` into its slot's row (``rows``)
+        of the slot caches' recurrent-state leaves, where the paged
+        admission step starts from.  The rows are free slots' (nothing
+        reads them before that step), so the staging is the slot caches
+        themselves.  Each row is one device-to-device copy: no host tensor,
+        no wait on the stream."""
+        if not self._recurrent:
+            return
+
+        def put(full: Params, *snaps: Params) -> None:
+            for name, leaf in full.items():
+                for r, s in zip(rows, snaps):
+                    leaf[:, r:r + 1].copy_(s[name])
+
+        T.map_cache_kinds(self.tier.cfg, [self._slot_cache, *states],
+                          kv=lambda *_: None, state=put)
 
     def _paged_admit_body(self) -> None:
         hit_i, ptok, idx_in = self._admit_in.dev
         hit = hit_i.bool()
         bt = torch.where(hit[:, None], self._bt_dev, TRASH_PAGE)
+        # the decode advances every row's recurrent state in place (the JAX
+        # engine's is functional): the rows not admitted take theirs back
+        keep = [leaf.clone() for leaf in self._state_leaves]
         with self._tp():
             logits, _ = T.decode_step(
                 self._bb, self._mcfg, self._slot_cache,
                 {"tokens": ptok[:, None]}, idx_in, block_table=bt)
+        for leaf, old in zip(self._state_leaves, keep):
+            mask = hit.view((1, -1) + (1,) * (leaf.dim() - 2))
+            leaf.copy_(torch.where(mask, leaf, old))
         self._slot_logits.copy_(torch.where(hit[:, None], logits,
                                             self._slot_logits))
         self._slot_index.copy_(torch.where(hit, self.ac.n_regions + 1,
@@ -1000,15 +1075,16 @@ class EngineCore:
         self.stats["prefix_hits"] += k - len(miss)
         target = free[:k]
         ptoks = np.empty((k,), np.int32)
-        private = []
+        states, private = [], []
         for i, (r, s_) in enumerate(zip(requests, scenes)):
             entry = self._prefix.acquire(s_)
             priv = self._pool.alloc(self._private_per_slot)
             self._bt_np[target[i]] = list(entry.pages) + priv
             ptoks[i] = self.ac.prompt_id(r.task, r.prompt)
+            states.append(entry.state)
             private.append(priv)
         self._bt_dirty = True
-        self._paged_admit(target, ptoks)
+        self._paged_admit(target, ptoks, states)
         self._note_prefill("prompt", k)        # one prompt token per request
         if self.cfg.spec_gamma:
             self._draft_prefill(requests, ptoks, target)
@@ -1955,12 +2031,13 @@ class EngineCore:
         # the "_device" ones this rank's
         tp_kv = (self._tp_plan.tp if self._tp_plan is not None
                  and self._tp_plan.attn else 1)
-        total = tp_kv * sum(t.numel() * t.element_size()
-                            for layer in self._slot_cache
-                            for t in layer.values())
-        scales = tp_kv * sum(t.numel() * t.element_size()
-                             for layer in self._slot_cache
-                             for name, t in layer.items()
+        # the attention KV alone: recurrent states are no KV (JAX counts
+        # them nowhere)
+        kv = [(name, t) for layer in T.map_cache_kinds(
+                  self.tier.cfg, [self._slot_cache], kv=lambda t: t,
+                  state=lambda _t: {}) for name, t in layer.items()]
+        total = tp_kv * sum(t.numel() * t.element_size() for _, t in kv)
+        scales = tp_kv * sum(t.numel() * t.element_size() for name, t in kv
                              if name.endswith("_scale"))
         out: Dict[str, Any] = {"cache_impl": self.cache_impl,
                                "kv_bytes_total": int(total),

@@ -29,6 +29,7 @@ its graphs, which ``analysis.compile_guard`` watches after warmup.
 """
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Dict, Hashable, Optional, Tuple
 
 import numpy as np
@@ -137,11 +138,19 @@ class StepGraphs:
                  body: Callable[[], None]) -> None:
         before = ops.launch_state()
         graph = torch.cuda.CUDAGraph()
+        # a garbage collection inside the capture may free what a dropped
+        # engine held in a reference cycle (pinned staging tensors, events),
+        # and those CUDA calls invalidate the capture: none runs until it
+        # ends
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
                 body()
             after = ops.launch_state()
         finally:
+            if collecting:
+                gc.enable()
             # the capture launched nothing: its counts belong to replays
             ops.restore_launches(before)
         fam.graphs[key] = (graph, ops.launch_delta(before, after))

@@ -1287,11 +1287,19 @@ GRAPH_FLAVOURS = {"paged": {}, "dense": {"cache_impl": "dense"},
                   "int8": {"kv_dtype": "int8"}, "fp8": {"kv_dtype": "fp8"}}
 
 
-def _graph_run(kw, cuda_graphs, dtype="float32", overload=False):
-    """The small proxy tier (and its satellite as the drafter) on the card,
-    warmed up, serving a stream of det/vqa/cls requests over three scenes
-    on 3 slots: (tokens by stream position, launch counts of the run,
-    scheduler stats, graph stats)."""
+#: the reduced vision xlstm-125m and the mixed stack (attention, mLSTM,
+#: sLSTM): ``chip_smoke.SMALL_RECURRENT``, which phase 3 serves and
+#: tests/test_torch_recurrent_serving.py holds against JAX
+RECURRENT_TIERS = sorted(_chip_smoke().SMALL_RECURRENT)
+
+
+def _graph_run(kw, cuda_graphs, dtype="float32", overload=False,
+               recurrent=None):
+    """The small proxy tier (and its satellite as the drafter), or the
+    ``recurrent`` tier of ``RECURRENT_TIERS`` alone, on the card, warmed
+    up, serving a stream of det/vqa/cls requests over three scenes on 3
+    slots: (tokens by stream position, launch counts of the run, scheduler
+    stats, graph stats)."""
     import dataclasses
     from repro_torch.configs.spaceverse_pair import proxy_pair
     from repro_torch.core import eo_adapter as EO
@@ -1302,6 +1310,8 @@ def _graph_run(kw, cuda_graphs, dtype="float32", overload=False):
     from repro_torch.serving.request import PRIORITY_URGENT
     sat_cfg, gs_cfg = (dataclasses.replace(c, dtype=dtype)
                        for c in proxy_pair("small"))
+    if recurrent is not None:
+        gs_cfg = _chip_smoke().recurrent_cfg(recurrent, dtype=dtype)
     ac = EO.EOAdapterConfig()
     gs = TierModel(EO.init_adapter(gs_cfg, ac, 1, device="cuda"), gs_cfg)
     sat = TierModel(EO.init_adapter(sat_cfg, ac, 0, device="cuda"), sat_cfg)
@@ -1383,6 +1393,77 @@ def test_no_capture_after_warmup_with_preemption(card, flavour):
     assert sched["overload"]["preemptions"] >= 1
     assert sched["steady_recompiles"] == 0 and gst["replays"] > 0
     assert toks == etoks and counts == ecounts
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("flavour", ["paged", "dense", "vmap", "int8",
+                                     "overload"])
+@pytest.mark.parametrize("tier", RECURRENT_TIERS)
+def test_captured_recurrent_engine_equals_eager(card, tier, flavour, dtype):
+    """A recurrent tier's captured engine (the prefix prefill with its
+    state snapshots, the paged admission from the staged snapshots, the
+    slot step over every row's state) against its eager engine: the same
+    tokens and launch counts, graphs replayed, nothing captured after
+    warmup; under overload control, with a preemption re-admitted from its
+    scene's snapshot.  In bf16 the mLSTM scan takes its tensor-core route
+    (dk 32)."""
+    overload = flavour == "overload"
+    kw = {} if overload else GRAPH_FLAVOURS[flavour]
+    toks, counts, sched, gst = _graph_run(kw, True, dtype, overload, tier)
+    etoks, ecounts, esched, _ = _graph_run(kw, False, dtype, overload, tier)
+    assert toks == etoks and len(toks) == (10 if overload else 9)
+    assert counts == ecounts and sched["steps"] == esched["steps"]
+    assert counts["slstm_scan"] > 0
+    assert counts["ssm_scan_mma"] == (counts["ssm_scan"] if dtype == "bfloat16"
+                                      else 0) and counts["ssm_scan"] > 0
+    assert gst["captured"] and gst["graphs"] > 0 and gst["replays"] > 0
+    assert sched["steady_recompiles"] == 0
+    if overload:
+        assert sched["overload"]["preemptions"] >= 1
+
+
+def test_capture_survives_a_collected_graph(card):
+    """A captured graph that a dropped object holds in a reference cycle
+    is destroyed when the collector runs, and destroying a graph inside a
+    capture invalidates that capture: ``StepGraphs`` runs no collection
+    while it captures (here the body asks for one on every allocation
+    while it is captured)."""
+    import gc
+    from repro_torch.serving.graphs import StepGraphs
+
+    class Holder:
+        pass
+
+    def drop_a_captured_graph():
+        h = Holder()
+        h.me = h
+        h.graphs = StepGraphs(torch.device("cuda"), True, ("f",))
+        y = torch.zeros(4, device="cuda")
+        h.graphs.run("f", 0, lambda: y.add_(1))      # eager, then captured
+        assert h.graphs.families["f"].captures() == 1
+
+    graphs = StepGraphs(torch.device("cuda"), True, ("f",))
+    x = torch.zeros(4, device="cuda")
+
+    def body():
+        if torch.cuda.is_current_stream_capturing():
+            gc.set_threshold(1, 1, 1)
+            assert len([[i] for i in range(256)]) == 256
+        x.add_(1)
+
+    threshold = gc.get_threshold()
+    gc.collect()
+    gc.set_threshold(1 << 20)          # no collection before the capture
+    try:
+        drop_a_captured_graph()
+        graphs.run("f", 0, body)       # eager, then captured
+        gc.set_threshold(*threshold)
+        graphs.run("f", 0, body)       # replayed
+    finally:
+        gc.set_threshold(*threshold)
+    torch.cuda.synchronize()
+    assert x.tolist() == [2.0] * 4
+    gc.collect()
 
 
 def _graphs_on_gloo_rank(rank):

@@ -260,9 +260,18 @@ INDEXING = ("index", "index_put", "index_put_", "_index_put_impl_")
 
 
 class NoHostSync(TorchDispatchMode):
+    """Fails on a host sync or a host-made tensor.  ``allow_scalar`` lets a
+    0-dim tensor made on the host pass (a scale a kernel takes by value,
+    as a CPU scalar, which a capture records)."""
+
+    def __init__(self, allow_scalar: bool = False):
+        super().__init__()
+        self.allow_scalar = allow_scalar
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         name = func.overloadpacket.__name__
-        if name in BANNED:
+        if name in BANNED and not (self.allow_scalar and name == "lift_fresh"
+                                   and args[0].dim() == 0):
             raise AssertionError(f"a step body ran aten.{name}")
         if name in INDEXING and any(
                 isinstance(i, torch.Tensor) and i.dtype == torch.bool

@@ -572,23 +572,26 @@ def test_recurrent_stacks_refuse_chunk_modes(step):
         getattr(T, step)(tp, cfg, cache, toks, torch.zeros(1, dtype=torch.int64))
 
 
-@pytest.mark.parametrize("kw,exc", [
-    ({}, NotImplementedError),
-    ({"prefill_chunk": 8}, ValueError),
-    ({"spec_gamma": 1}, ValueError),
+@pytest.mark.parametrize("kw", [
+    pytest.param({"prefill_chunk": 8}, id="prefill_chunk"),
+    pytest.param({"spec_gamma": 1}, id="spec_gamma"),
+    pytest.param({"mesh": True}, id="mesh"),
 ])
-def test_engine_core_refuses_a_recurrent_tier(kw, exc):
-    """The model runs xLSTM; the engine's recurrent-state admission is not
-    ported, so an ``EngineCore`` over it raises before it runs anything.
-    The chunked and speculative configs keep the JAX engine's ValueError."""
+def test_engine_core_refuses_a_recurrent_tier(kw):
+    """An ``EngineCore`` over xLSTM blocks serves (tests/
+    test_torch_recurrent_serving.py), but chunked prefill, speculative
+    decoding and a mesh refuse a recurrent tier with the JAX engine's
+    ValueError: a scan is not bit-stable across chunk boundaries, a state
+    does not roll back, and a state has no heads to split."""
     from repro_torch.core import eo_adapter as EO
     from repro_torch.core.cascade import TierModel
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serving import EngineCore, EngineCoreConfig
     cfg = configs.get_config("xlstm-125m", reduced=True)
     ac = EO.EOAdapterConfig()
     tier = TierModel(EO.init_adapter(cfg, ac, 0, device="cpu"), cfg)
     draft = tier if kw.get("spec_gamma") else None
-    with pytest.raises(exc) as info:
+    if kw.get("mesh"):
+        kw = {"mesh": make_host_mesh(model=1, data=1, devices=["cpu"])}
+    with pytest.raises(ValueError, match="attention-only stacks"):
         EngineCore(tier, ac, EngineCoreConfig(**kw), draft=draft)
-    if exc is NotImplementedError:
-        assert "item 17" in str(info.value)
