@@ -108,6 +108,25 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    and without its tile plan), then (a)-(e) on both routes, timed as
    above beside gather_pages + dequantize + SDPA; their bound counts the
    8-bit pages and the 4-byte scales once per distinct (page, slot).
+   The dense attention configs' shapes (``dense_kernel_checks``): rows 1,
+   2 and 4-6 at head dim 256 on their CUDA-core routes (bf16 takes them
+   by its shape), f32 and bf16, groups 1 and 4, windows 0 and 512 (past
+   512 keys, so they bite), softcaps none and 30, ragged lengths with 0,
+   the paged rows over pages 1-16, q_len 1-10 and chunks up to 64 on fp,
+   int8 and fp8 pools; gemma3-1b's own shapes (H 4, KH 1: prefill Sq =
+   Skv = 1025, dense decode and the slot step at B 8, cache_len
+   1025-2049, the chunked engine's flat fused step and a 256-token chunk,
+   on bf16 and int8 pools), each at its local layers' window 512 and its
+   global layers' none, timed as above beside SDPA (gather + SDPA for
+   the paged rows); every hd-256 launch on the CUDA cores.  Then the
+   tensor-core routes at the new groups: group 1 (codeqwen1.5-7b, 32/32)
+   and 16 (glm4-9b, 32/2) on flash, decode and the slot step's paged
+   decode, and gemma2-27b's group 2 with softcap 50 and window 4096 on
+   flash at Sq = Skv = 6000 and on the paged decode at cache_len
+   5000-6000 (the window floor bites), held to their bound and timed
+   beside SDPA, or for gemma2-27b's softcap one compiled
+   ``flex_attention`` call (tanh score_mod, causal-window block mask;
+   gather + that call for the paged row).
 3. End to end on a small proxy pair (flash, decode, prefix-append and the
    chunked scan on their CUDA-core routes alone, counted): the port's
    ``CascadeServer``, its
@@ -351,6 +370,30 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    slot step (CUDA events), answer tokens/s, graphs and pool bytes, state
    bytes per slot and per resident prefix, the slot step's bound, beside
    the card's name and power limit.  Line ``xlstm_serve_phase {...}``.
+16. The dense attention configs at full width and depth (after 15), each
+   in turn and freed before the next: gemma3-1b (26 layers, 4/1 heads, hd
+   256, window 512 on 22 layers), codeqwen1.5-7b (32 layers, 32/32, hd
+   128), glm4-9b (40 layers, 32/2) and gemma2-27b (46 layers, 32/16,
+   softcaps 50 and 30, window 4096 on every other layer), bf16, random
+   weights from a seed, ``frontend="vision"`` with phase 4's adapter
+   (N_r = 1024), through ``EngineCore``'s paged slot path (8 slots, page
+   8, a pool for the stream's four scenes): phase 6's stream over its
+   first ``DENSE_STEPS`` steps, eager and captured; one
+   ``EngineCore.generate`` (vqa); for gemma3-1b the stream on a chunked
+   engine (``prefill_chunk`` 256) and on int8 pools too.  Checks per run:
+   tokens and launch counts equal both ways, no capture after warmup,
+   answers in the vocab; flash = layers × prefix prefills, paged decode
+   = layers × (steps + admission calls) (chunked: prefix-append =
+   layers × fused steps, paged decode = layers × plain steps), every
+   launch on the route the head dim names (hd 128: tensor cores; hd 256:
+   CUDA cores), no other kernel; generate: flash and dense decode once a
+   layer; every eager run's attention inputs (first layer, each step
+   family and shape) held against the plain versions.  Prints weight
+   bytes, prefix-prefill replay ms by bucket, step ms eager and
+   captured, device ms a step and busy share, the step's weight-streaming
+   bound, answer tokens/s, pool and graph-pool bytes, memory allocated at
+   the phase's start and each model's peak.  Line
+   ``dense_serve_phase {...}``.
 
 The slot-path engines of phases 3, 6-8, 10-12 and 13 (a) capture their
 steps as CUDA graphs in ``warmup()`` (``serving/graphs.py``) and replay
@@ -359,8 +402,8 @@ hold for captured steps too.  Where a phase keeps a kernel's inputs from
 its path (``capture_inputs``), the steps up to the kept call run their
 bodies eagerly.
 
-Phases 3, 4, 6, 7, 8, each run of 9 and each path of 10, 11, 12, 13, 14
-and 15
+Phases 3, 4, 6, 7, 8, each run of 9 and each path of 10, 11, 12, 13, 14,
+15 and 16
 (the batch evaluator, the speculative server; in 13 each rank's runs too)
 zero every kernel's launch count just before they run and read it just
 after; each kernel of a path must have launched.  In phases 4, 6, 7 and 10
@@ -382,6 +425,7 @@ true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import pathlib
@@ -513,6 +557,52 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def dense_mask(torch, lens, q_len, s, window=0):
+    """The (B, 1, T, S) boolean mask of the chunk-causal decode function:
+    token t of row b sees columns < cache_len - (q_len - 1) + t, and with a
+    window those >= that length less the window (SDPA's operand)."""
+    pos = torch.arange(s, device=lens.device)
+    eff = (lens[:, None].long() - (q_len - 1)
+           + torch.arange(q_len, device=lens.device)[None, :])
+    mask = pos[None, None, :] < eff[:, :, None]
+    if window > 0:
+        mask &= pos[None, None, :] >= (eff - window)[:, :, None]
+    return mask[:, None]
+
+
+def flash_flops(torch, h, hd, sq, skv, window=0):
+    """FLOPs of causal attention (QK and PV) over the keys each query row
+    sees: bottom-right causal, at most ``window`` with one."""
+    i = torch.arange(sq, dtype=torch.float64) + (skv - sq)
+    seen = i + 1 if window <= 0 else torch.clamp(i + 1, max=window)
+    return 4.0 * hd * h * float(seen.sum())
+
+
+def timed_rows(timer, kernels, plain, library, n_bytes, flops, shape,
+               **extra):
+    """The report's rows at one main-path shape, one per route of
+    ``kernels`` ({route: (function, max abs error)}): the first route
+    timed in turns with the library call and the others (first, library,
+    others, first: one card, one call; ``library`` None where no PyTorch
+    call computes the function), beside the plain version and the bound
+    of ``n_bytes`` and ``flops``.  ``extra`` goes into every row.  Returns
+    {route: row}."""
+    b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+    base = {"plain_ms": timer(plain), "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": n_bytes, "flops": flops, "shape": shape, **extra}
+    (first, (kernel, err)), *others = kernels.items()
+    runs = [timer(kernel)]
+    base["library_ms"] = timer(library) if library is not None else None
+    ms = {route: timer(fn) for route, (fn, _) in others}
+    runs.append(timer(kernel))
+    ms[first] = sum(runs) / len(runs)
+    rows = {route: dict(base, max_abs_err=err, ms=ms[route], route=route,
+                        bound_share=b_ms / ms[route])
+            for route, (_, err) in kernels.items()}
+    rows[first]["ms_runs"] = runs
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -725,24 +815,19 @@ def kernel_checks(torch):
                        ref.flash_attention(q, k, v), TOL_BF16,
                        f"bf16 {tag} S{s} hd{hd} on CUDA cores",
                        errors)
-        flops = 4.0 * hd * h * s * (s + 1) / 2
-        b_ms, b_by = bound_ms(nbytes(q, k, v, q), flops, "bfloat16")
-        shape = f"B1 H{h} KH{kh} Sq=Skv={s} hd{hd} bf16"
-        m = {"plain_ms": timer(lambda: ref.flash_attention(q, k, v)),
-             "library_ms": timer(lambda: F.scaled_dot_product_attention(
-                 qt, kt, vt, is_causal=True, enable_gqa=True)),
-             "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
-        # kernel, library, CUDA cores, kernel: one card, one call, in turns
-        wg_ms = [timer(lambda: flash_attention_cuda(qt, kt, vt))]
-        cc_ms = timer(lambda: launch_cuda_cores(qt, kt, vt))
-        wg_ms.append(timer(lambda: flash_attention_cuda(qt, kt, vt)))
-        ms = sum(wg_ms) / len(wg_ms)
-        report.setdefault("flash_attention_wgmma", {})[tag] = dict(
-            m, max_abs_err=err, ms=ms, ms_runs=wg_ms, route="wgmma",
-            bound_share=b_ms / ms, tolerance_share=share,
-            sweep_tolerance_share=sweep_share)
-        report.setdefault("flash_attention", {})[tag] = dict(
-            m, max_abs_err=err_cc, ms=cc_ms, route="cuda_cores")
+        rows = timed_rows(
+            timer, {"wgmma": (lambda: flash_attention_cuda(qt, kt, vt), err),
+                    "cuda_cores": (lambda: launch_cuda_cores(qt, kt, vt),
+                                   err_cc)},
+            lambda: ref.flash_attention(q, k, v),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            nbytes(q, k, v, q), flash_flops(torch, h, hd, s, s),
+            f"B1 H{h} KH{kh} Sq=Skv={s} hd{hd} bf16")
+        rows["wgmma"].update(tolerance_share=share,
+                             sweep_tolerance_share=sweep_share)
+        report.setdefault("flash_attention_wgmma", {})[tag] = rows["wgmma"]
+        report.setdefault("flash_attention", {})[tag] = rows["cuda_cores"]
         # what encoding the three tensor maps adds on the host: enqueue
         # time of one launch per route, no L2 flush (the device lags)
         report["flash_attention_wgmma"][tag]["host_us_per_call"] = {
@@ -785,6 +870,9 @@ def kernel_checks(torch):
     report.update(paged_kernel_checks(torch, randn, timer, errors))
     report.update(prefill_kernel_checks(torch, randn, timer, errors))
     report.update(quant_kernel_checks(torch, randn, timer, errors))
+    for name, rows in dense_kernel_checks(torch, randn, timer,
+                                          errors).items():
+        report[name].update(rows)
     report.update(scan_kernel_checks(torch, randn, timer, errors))
 
     torch.cuda.synchronize()
@@ -961,27 +1049,19 @@ def decode_mma_checks(torch, randn, timer, errors):
                        ref.decode_attention(q, k, v, s), TOL_BF16,
                        case + " on CUDA cores", errors)
         q4 = q.reshape(1, h, 1, hd)
-        b_ms, b_by = bound_ms(nbytes(q, k, v, q), 4.0 * hd * h * s,
-                              "bfloat16")
-
-        def library():
-            return F.scaled_dot_product_attention(q4, kt, vt, enable_gqa=True)
-
-        m = {"plain_ms": timer(lambda: ref.decode_attention(q, k, v, lens)),
-             "bound_ms": b_ms, "bound_by": b_by,
-             "shape": f"B1 H{h} KH{kh} S{s} cache_len{s} hd{hd} bf16"}
-        # kernel, library, CUDA cores, kernel: one card, one call, in turns
-        mma_ms = [timer(lambda: DA.launch_mma(qg, kt, vt, lens))]
-        m["library_ms"] = timer(library)
-        cc_ms = timer(lambda: DA.launch_cuda_cores(qg, kt, vt, lens))
-        mma_ms.append(timer(lambda: DA.launch_mma(qg, kt, vt, lens)))
-        ms = sum(mma_ms) / len(mma_ms)
-        out["decode_attention_mma"][tag] = dict(
-            m, max_abs_err=err, ms=ms, ms_runs=mma_ms, route="mma",
-            bound_share=b_ms / ms, tolerance_share=share,
-            sweep_tolerance_share=sweep_share)
-        out["decode_attention"][tag] = dict(m, max_abs_err=err_cc, ms=cc_ms,
-                                            route="cuda_cores")
+        rows = timed_rows(
+            timer, {"mma": (lambda: DA.launch_mma(qg, kt, vt, lens), err),
+                    "cuda_cores": (lambda: DA.launch_cuda_cores(
+                        qg, kt, vt, lens), err_cc)},
+            lambda: ref.decode_attention(q, k, v, lens),
+            lambda: F.scaled_dot_product_attention(q4, kt, vt,
+                                                   enable_gqa=True),
+            nbytes(q, k, v, q), 4.0 * hd * h * s,
+            f"B1 H{h} KH{kh} S{s} cache_len{s} hd{hd} bf16")
+        rows["mma"].update(tolerance_share=share,
+                           sweep_tolerance_share=sweep_share)
+        out["decode_attention_mma"][tag] = rows["mma"]
+        out["decode_attention"][tag] = rows["cuda_cores"]
     return out
 
 
@@ -1025,25 +1105,32 @@ def paged_case(torch, randn, *, b, kh, group, hd, page, width, lens, q_len,
 
 
 def paged_bytes_and_flops(torch, q, k_pool, table, lens, q_len,
-                          scaled=False):
+                          scaled=False, window=0):
     """Bytes the function must move (each distinct (page, slot) a row needs
     read once for K and for V, with an 8-bit pool's (``scaled``) 4-byte
     scale per KV head, q, the table entries it reads, lengths, o written
     once) and its FLOPs (QK and PV over the keys each chunk token sees:
-    max(cache_len - (q_len - 1) + t, 0) for token t)."""
+    max(cache_len - (q_len - 1) + t, 0) for token t, at most ``window``
+    with one).  With a window a row needs only the keys from its first
+    token's floor on."""
     b, _, h, hd = q.shape
     page, kh = k_pool.shape[1], k_pool.shape[2]
     s = table.shape[1] * page
     pos = torch.arange(s, device=table.device)
-    valid = pos[None, :] < lens[:, None].long()
+    lens = lens.long()
+    valid = pos[None, :] < lens[:, None]
+    if window > 0:
+        valid &= pos[None, :] >= (lens - (q_len - 1) - window)[:, None]
     slot = table.long()[:, pos // page] * page + pos % page
     n_slots = int(torch.unique(slot[valid]).numel())
-    n_entries = int((-(-lens.long() // page)).sum())
+    n_entries = int((-(-lens // page)).sum())
     kv = 2 * n_slots * kh * (hd * k_pool.element_size() + 4 * scaled)
     io = 2 * q.numel() * q.element_size() + 4 * (n_entries + b)
-    eff = (lens[:, None].long() - (q_len - 1)
-           + torch.arange(q_len, device=lens.device)[None, :])
-    flops = 4.0 * hd * h * float(eff.clamp(min=0).sum())
+    eff = (lens[:, None] - (q_len - 1)
+           + torch.arange(q_len, device=lens.device)[None, :]).clamp(min=0)
+    if window > 0:
+        eff = eff.clamp(max=window)
+    flops = 4.0 * hd * h * float(eff.sum())
     return kv + io, flops
 
 
@@ -1160,15 +1247,10 @@ def paged_kernel_checks(torch, randn, timer, errors):
             continue
         n_bytes, flops = paged_bytes_and_flops(torch, q, k_pool, table,
                                                lens_t, q_len)
-        b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
         qr = rows_of(q, kh)
         kt, vt = k_pool.transpose(1, 2), v_pool.transpose(1, 2)
         # the yardstick: gather the pages, then one SDPA call (two calls)
-        s = width * page
-        pos = torch.arange(s, device="cuda")
-        eff = (lens_t[:, None].long() - (q_len - 1)
-               + torch.arange(q_len, device="cuda")[None, :])
-        mask = (pos[None, None, :] < eff[:, :, None])[:, None]
+        mask = dense_mask(torch, lens_t, q_len, width * page)
         qh = q.transpose(1, 2)
 
         def library():
@@ -1188,30 +1270,20 @@ def paged_kernel_checks(torch, randn, timer, errors):
                 return ref.paged_multi_decode_attention(q, k_pool, v_pool,
                                                         table, lens_t)
 
-        def mma():
-            return PDA.launch_mma(qr, kt, vt, table, lens_t, q_len=q_len)
-
-        m = {"plain_ms": timer(plain),
-             "library_is": "gather_pages + scaled_dot_product_attention "
-                           "(two calls)",
-             "library_max_abs_err": lib_err,
-             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-             "shape": (f"B{b} KH{kh} g{group} q_len{q_len} hd{hd} "
-                       f"page{page} P{width} cache_len "
-                       f"{lens[0]}..{lens[-1]} bf16")}
-        # kernel, library, CUDA cores, kernel: one card, one call, in turns
-        mma_ms = [timer(mma)]
-        m["library_ms"] = timer(library)
-        cc_ms = timer(lambda: PDA.launch_cuda_cores(qr, kt, vt, table,
-                                                    lens_t, q_len=q_len))
-        mma_ms.append(timer(mma))
-        ms = sum(mma_ms) / len(mma_ms)
-        out["paged_decode_attention_mma"][tag] = dict(
-            m, max_abs_err=err, ms=ms, ms_runs=mma_ms, route="mma",
-            bound_share=b_ms / ms, tolerance_share=share,
-            sweep_tolerance_share=max(shares))
-        out["paged_decode_attention"][tag] = dict(
-            m, max_abs_err=err_cc, ms=cc_ms, route="cuda_cores")
+        rows = timed_rows(
+            timer, {"mma": (lambda: PDA.launch_mma(qr, kt, vt, table, lens_t,
+                                                   q_len=q_len), err),
+                    "cuda_cores": (lambda: PDA.launch_cuda_cores(
+                        qr, kt, vt, table, lens_t, q_len=q_len), err_cc)},
+            plain, library, n_bytes, flops,
+            f"B{b} KH{kh} g{group} q_len{q_len} hd{hd} page{page} "
+            f"P{width} cache_len {lens[0]}..{lens[-1]} bf16",
+            library_is="gather_pages + scaled_dot_product_attention (two "
+                       "calls)", library_max_abs_err=lib_err)
+        rows["mma"].update(tolerance_share=share,
+                           sweep_tolerance_share=max(shares))
+        out["paged_decode_attention_mma"][tag] = rows["mma"]
+        out["paged_decode_attention"][tag] = rows["cuda_cores"]
     return out
 
 
@@ -1438,11 +1510,7 @@ def prefill_kernel_checks(torch, randn, timer, errors):
             errors)
         n_bytes, flops = paged_bytes_and_flops(torch, q, k_pool, table,
                                                lens_t, q_len)
-        b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
-        pos = torch.arange(width * page, device="cuda")
-        eff = (lens_t[:, None].long() - (q_len - 1)
-               + torch.arange(q_len, device="cuda")[None, :])
-        mask = (pos[None, None, :] < eff[:, :, None])[:, None]
+        mask = dense_mask(torch, lens_t, q_len, width * page)
         qh = q.transpose(1, 2)
 
         def library():
@@ -1455,39 +1523,30 @@ def prefill_kernel_checks(torch, randn, timer, errors):
             return PPA.launch_mma(qr, kt, vt, table, lens_t, q_len=q_len,
                                   plan=plan)
 
+        def cuda_cores():
+            return PPA.launch_cuda_cores(qr, kt, vt, table, lens_t,
+                                         q_len=q_len)
+
         lib_err = float((library().transpose(1, 2).float()
                          - want.float()).abs().max())
-        m = {"plain_ms": timer(lambda: ref.paged_prefill_attention(
-                 q, k_pool, v_pool, table, lens_t)),
-             "library_is": "gather_pages + scaled_dot_product_attention "
-                           "(two calls)",
-             "library_max_abs_err": lib_err,
-             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-             "flops": flops,
-             "shape": (f"B{b} KH{kh} g{group} q_len{q_len} hd{hd} "
-                       f"page{page} P{width} cache_len "
-                       f"{int(lens_t.min())}..{int(lens_t.max())} bf16")}
-        # kernel, library, CUDA cores, kernel: one card, one call, in turns
-        mma_ms = [timer(mma)]
-        m["library_ms"] = timer(library)
-        cc_ms = timer(lambda: PPA.launch_cuda_cores(qr, kt, vt, table,
-                                                    lens_t, q_len=q_len))
-        mma_ms.append(timer(mma))
-        ms = sum(mma_ms) / len(mma_ms)
-        row = dict(m, max_abs_err=err, ms=ms, ms_runs=mma_ms, route="mma",
-                   bound_share=b_ms / ms, tolerance_share=share,
-                   sweep_tolerance_share=sweep_share)
+        rows = timed_rows(
+            timer, {"mma": (mma, err), "cuda_cores": (cuda_cores, err_cc)},
+            lambda: ref.paged_prefill_attention(q, k_pool, v_pool, table,
+                                                lens_t),
+            library, n_bytes, flops,
+            f"B{b} KH{kh} g{group} q_len{q_len} hd{hd} page{page} "
+            f"P{width} cache_len {int(lens_t.min())}..{int(lens_t.max())} "
+            f"bf16", library_is="gather_pages + "
+            "scaled_dot_product_attention (two calls)",
+            library_max_abs_err=lib_err)
+        row = rows["mma"]
+        row.update(tolerance_share=share, sweep_tolerance_share=sweep_share)
         # the key splits the kernel's plan chose (clusters of that size)
         tile = PPA.tokens_per_tile(group) * group
         clusters = kh * (plan.shape[1] if plan is not None
                          else b * -(-q_len * group // tile))
         row["splits"] = DA.card_cluster_plan(clusters, width * page, 0,
                                              DA.MMA_PREFILL, hd, tile)[0]
-
-        def cuda_cores():
-            return PPA.launch_cuda_cores(qr, kt, vt, table, lens_t,
-                                         q_len=q_len)
-
         # what each route's wrapper costs the host a call (no L2 flush),
         # and the share of it the wrapper's Python takes (its C entry a
         # no-op)
@@ -1505,8 +1564,7 @@ def prefill_kernel_checks(torch, randn, timer, errors):
                     case, errors)
             row["plan_tiles"] = int((plan[1] > 0).sum())
         out["paged_prefill_attention_mma"][tag] = row
-        out["paged_prefill_attention"][tag] = dict(
-            m, max_abs_err=err_cc, ms=cc_ms, route="cuda_cores")
+        out["paged_prefill_attention"][tag] = rows["cuda_cores"]
     # what the split plan reads: clusters of each size the card holds at
     # once, for each mode's instance at the path's row tiles (a decode
     # step's group rows, prefix-append's 60)
@@ -1704,10 +1762,7 @@ def quant_kernel_checks(torch, randn, timer, errors):
         W = PDA if op == "decode" else PPA
         qr = q.reshape(b, q_len, kh, group, hd).permute(0, 2, 1, 3, 4) \
             .reshape(b, kh, q_len * group, hd)
-        pos = torch.arange(width * page, device="cuda")
-        eff = (lens_t[:, None].long() - (q_len - 1)
-               + torch.arange(q_len, device="cuda")[None, :])
-        mask = (pos[None, None, :] < eff[:, :, None])[:, None]
+        mask = dense_mask(torch, lens_t, q_len, width * page)
         qh = q.transpose(1, 2)
         for kind in QUANT_POOLS:
             pools, nan = quant_pools(torch, k_pool, v_pool, kind)
@@ -1734,7 +1789,6 @@ def quant_kernel_checks(torch, randn, timer, errors):
                 case + " on CUDA cores", errors)
             n_bytes, flops = paged_bytes_and_flops(
                 torch, q, pools["k"], table, lens_t, q_len, scaled=True)
-            b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
 
             def library():
                 kg = ref.gather_pages(as_bits(pools["k"]), table).view(
@@ -1759,28 +1813,464 @@ def quant_kernel_checks(torch, randn, timer, errors):
 
             lib_err = float((library().transpose(1, 2).float()
                              - want.float()).abs().max())
-            m = {"plain_ms": timer(plain),
-                 "library_is": "gather_pages + dequantize + "
-                               "scaled_dot_product_attention",
-                 "library_max_abs_err": lib_err, "pool": kind,
-                 "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-                 "flops": flops,
-                 "shape": (f"B{b} KH{kh} g{group} q_len{q_len} hd{hd} "
-                           f"page{page} P{width} cache_len "
-                           f"{int(lens_t.min())}..{int(lens_t.max())} "
-                           f"bf16 q, {kind} pool")}
-            mma_ms = [timer(mma)]
-            m["library_ms"] = timer(library)
-            cc_ms = timer(cuda_cores)
-            mma_ms.append(timer(mma))
-            ms = sum(mma_ms) / len(mma_ms)
-            out[f"{name}_mma[{kind}]"][tag] = dict(
-                m, max_abs_err=err, ms=ms, ms_runs=mma_ms, route="mma",
-                bound_share=b_ms / ms, tolerance_share=share,
-                sweep_tolerance_share=sweep[kind])
-            out[f"{name}[{kind}]"][tag] = dict(
-                m, max_abs_err=err_cc, ms=cc_ms, route="cuda_cores",
-                bound_share=b_ms / cc_ms)
+            rows = timed_rows(
+                timer, {"mma": (mma, err), "cuda_cores": (cuda_cores,
+                                                          err_cc)},
+                plain, library, n_bytes, flops,
+                f"B{b} KH{kh} g{group} q_len{q_len} hd{hd} page{page} "
+                f"P{width} cache_len {int(lens_t.min())}.."
+                f"{int(lens_t.max())} bf16 q, {kind} pool",
+                library_is="gather_pages + dequantize + "
+                           "scaled_dot_product_attention",
+                library_max_abs_err=lib_err, pool=kind)
+            rows["mma"].update(tolerance_share=share,
+                               sweep_tolerance_share=sweep[kind])
+            out[f"{name}_mma[{kind}]"][tag] = rows["mma"]
+            out[f"{name}[{kind}]"][tag] = rows["cuda_cores"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the dense attention configs' shapes (head dim 256, new groups)
+# ---------------------------------------------------------------------------
+
+#: gemma3-1b's local-layer window, which bites on its 1024-region prefix
+G3_WINDOW = 512
+#: gemma2-27b's local layers: window 4096 and attention softcap 50, held
+#: at a length past the window (the serving path never reaches it)
+G2_WINDOW, G2_SOFTCAP, G2_SKV = 4096, 50.0, 6000
+
+
+def hd256_sweep(torch, randn, errors):
+    """Rows 1, 2 and 4-6 at head dim 256 (the CUDA-core routes; bf16 takes
+    them by its shape) against their plain versions, f32 at ``TOL_F32``
+    and bf16 at ``TOL_BF16``: groups 1 and 4, windows 0 and 512 (lengths
+    past 512, so the window bites), softcaps none and 30, ragged lengths
+    with 0.  Flash at Sq = Skv and Sq < Skv; dense decode at q_len 1 and
+    3; paged decode over pages 1-16 and q_len 1-10 and prefix-append over
+    chunks of 1-64 tokens (q_blk dividing the chunk or not), both over
+    shared prefix pages with a NaN trash page, on fp pools and on int8 and
+    fp8 pools (held against the plain version on the dequantized pools,
+    whose trash page has NaN scales).  Every launch is on the CUDA-core
+    route (counted by the caller)."""
+    from repro_torch.kernels import ops, ref
+    f32, bf16, hd = torch.float32, torch.bfloat16, 256
+    opts = [(0, None), (G3_WINDOW, None), (0, 30.0), (G3_WINDOW, 30.0)]
+    log("hd 256 vs plain (CUDA-core routes)")
+    for j, dt in enumerate((f32, bf16)):
+        tol, tag = (TOL_F32, "f32") if dt == f32 else (TOL_BF16, "bf16")
+        for i, (group, kh, sq, skv) in enumerate(
+                ((1, 2, 65, 65), (4, 1, 600, 600), (4, 2, 33, 700),
+                 (1, 1, 1, 530))):
+            window, softcap = opts[(i + j) % 4]
+            kw = {"window": window, "softcap": softcap}
+            q = randn(2, sq, kh * group, hd, dtype=dt)
+            k, v = (randn(2, skv, kh, hd, dtype=dt) for _ in range(2))
+            check("flash_attention", ops.flash_attention(q, k, v, **kw),
+                  ref.flash_attention(q, k, v, **kw), tol,
+                  f"{tag} hd256 g{group} Sq{sq} Skv{skv} w{window} "
+                  f"cap{softcap}", errors)
+        s = 700
+        lens = torch.tensor([0, 1, 600, s], dtype=torch.int32, device="cuda")
+        for i, (group, kh, q_len) in enumerate(((1, 2, 1), (4, 1, 1),
+                                                (4, 1, 3), (1, 2, 3))):
+            window, softcap = opts[(i + j + 1) % 4]
+            kw = {"window": window, "softcap": softcap}
+            q = randn(4, q_len, kh * group, hd, dtype=dt)
+            k, v = (randn(4, s, kh, hd, dtype=dt) for _ in range(2))
+            if q_len == 1:
+                got = ops.decode_attention(q[:, 0], k, v, lens, **kw)[:, None]
+            else:
+                got = ops.multi_decode_attention(q, k, v, lens, **kw)
+            case = (f"{tag} hd256 g{group} q_len{q_len} w{window} "
+                    f"cap{softcap}")
+            check("decode_attention", got, ref.multi_decode_attention(
+                q, k, v, lens, **kw), tol, case, errors)
+            if float(got[0].abs().max()) != 0.0:
+                errors.append(f"decode_attention {case}: cache_len 0 row "
+                              f"not zero")
+        for i, (op, page, group, q_len, q_blk) in enumerate((
+                ("decode", 1, 4, 1, None), ("decode", 8, 1, 3, None),
+                ("decode", 16, 4, 10, None), ("prefill", 4, 4, 16, 3),
+                ("prefill", 8, 1, 64, None), ("prefill", 16, 4, 1, None))):
+            window, softcap = opts[(i + j) % 4]
+            kw = {"window": window, "softcap": softcap}
+            lens = [0, max(q_len - 1, 1), q_len, q_len + 37, q_len + 600, 3]
+            kh = 2 if group == 1 else 1
+            q, k_pool, v_pool, table, lens_t, nan_pools = paged_case(
+                torch, randn, b=len(lens), kh=kh, group=group, hd=hd,
+                page=page, width=-(-(q_len + 640) // page), lens=lens,
+                q_len=q_len, dtype=dt, shared_blocks=32 // page)
+            for kind in ("fp",) + QUANT_POOLS:
+                if kind == "fp":
+                    pools = {"k": k_pool, "v": v_pool}
+                    nan, scales = {"k": nan_pools[0], "v": nan_pools[1]}, {}
+                    want_sc = {}
+                else:
+                    pools, nan = quant_pools(torch, k_pool, v_pool, kind)
+                    scales, want_sc = scales_of(nan), scales_of(pools)
+                if op == "prefill":
+                    got = ops.paged_prefill_attention(
+                        q, nan["k"], nan["v"], table, lens_t, q_blk=q_blk,
+                        **kw, **scales)
+                elif q_len == 1:
+                    got = ops.paged_decode_attention(
+                        q[:, 0], nan["k"], nan["v"], table, lens_t, **kw,
+                        **scales)[:, None]
+                else:
+                    got = ops.paged_multi_decode_attention(
+                        q, nan["k"], nan["v"], table, lens_t, **kw, **scales)
+                want = ref.paged_multi_decode_attention(
+                    q, pools["k"], pools["v"], table, lens_t, **kw,
+                    **want_sc)
+                case = (f"{kind} {tag} {op} hd256 page{page} g{group} "
+                        f"q_len{q_len} q_blk{q_blk} w{window} cap{softcap}")
+                check(f"paged_{op}", got, want, tol, case, errors)
+                if float(got[0].abs().max()) != 0.0:
+                    errors.append(f"paged_{op} {case}: cache_len 0 row not "
+                                  f"zero")
+
+
+def gemma3_kernel_checks(torch, randn, timer, errors):
+    """Rows 1, 2 and 4-6 at gemma3-1b's own shapes (H 4, KH 1, hd 256, bf16,
+    the CUDA-core routes), each held to ``TOL_BF16`` at its local layers'
+    window (512) and its global layers' (none), and timed at the one that
+    does the most work (the global layers' for the decode rows, the local
+    layers' for prefill and prefix-append: 22 of the 26 layers): (g3
+    prefill) Sq = Skv = 1025; (g3 decode) dense decode B 8 at cache_len
+    1025..2049; (g3 q1) the slot step, B 8, page 8, table width 257, on
+    bf16 and int8 pools; (g3 flat) the chunked engine's flat fused step,
+    8 decode rows and a scene's last 256-token chunk as 256 q_len-1 rows,
+    and (g3 chunk) that chunk as one q_len-256 row, on bf16 and int8
+    pools.  Returns the report's rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    bf16, hd, h, kh = torch.bfloat16, 256, 4, 1
+    out = {n: {} for n in ("flash_attention", "decode_attention",
+                           "paged_decode_attention",
+                           "paged_decode_attention[int8]",
+                           "paged_prefill_attention",
+                           "paged_prefill_attention[int8]")}
+    log("gemma3-1b's shapes (hd 256, CUDA-core routes)")
+    # (g3 prefill)
+    s = 1025
+    q = randn(1, s, h, hd, dtype=bf16)
+    k, v = (randn(1, s, kh, hd, dtype=bf16) for _ in range(2))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    for window in (0, G3_WINDOW):
+        kw = {"window": window}
+        err = check("flash_attention", ops.flash_attention(q, k, v, **kw),
+                    ref.flash_attention(q, k, v, **kw), TOL_BF16,
+                    f"bf16 g3 prefill H{h} KH{kh} S{s} hd{hd} w{window}",
+                    errors)
+        if window == 0:
+            continue
+        mask = ref._attn_mask(s, s, window, True, 0, q.device)
+        out["flash_attention"]["g3 prefill"] = timed_rows(
+            timer, {"cuda_cores": (
+                lambda: ops.flash_attention(q, k, v, **kw), err)},
+            lambda: ref.flash_attention(q, k, v, **kw),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True),
+            nbytes(q, k, v, q), flash_flops(torch, h, hd, s, s, window),
+            f"B1 H{h} KH{kh} Sq=Skv={s} hd{hd} window {window} bf16"
+        )["cuda_cores"]
+    # (g3 decode)
+    b, s = 8, 2049
+    lens = torch.tensor([1025 + (1024 * i) // (b - 1) for i in range(b)],
+                        dtype=torch.int32, device="cuda")
+    q = randn(b, h, hd, dtype=bf16)
+    k, v = (randn(b, s, kh, hd, dtype=bf16) for _ in range(2))
+    for window in (G3_WINDOW, 0):
+        kw = {"window": window}
+        err = check("decode_attention", ops.decode_attention(q, k, v, lens,
+                                                             **kw),
+                    ref.decode_attention(q, k, v, lens, **kw), TOL_BF16,
+                    f"bf16 g3 decode B{b} H{h} KH{kh} S{s} w{window}",
+                    errors)
+    n_keys = int(lens.long().sum())
+    mask = dense_mask(torch, lens, 1, s)
+    q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    out["decode_attention"]["g3 decode"] = timed_rows(
+        timer, {"cuda_cores": (lambda: ops.decode_attention(q, k, v, lens),
+                               err)},
+        lambda: ref.decode_attention(q, k, v, lens),
+        lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask,
+                                               enable_gqa=True),
+        2 * nbytes(q) + 2 * n_keys * kh * hd * 2 + 4 * b,
+        4.0 * hd * h * n_keys,
+        f"B{b} H{h} KH{kh} S{s} cache_len {int(lens[0])}..{int(lens[-1])} "
+        f"hd{hd} bf16")["cuda_cores"]
+    # (g3 q1): the slot step's paged decode
+    page, width = 8, 257
+    lens_l = [1025 + (1024 * i) // (b - 1) for i in range(b)]
+    q, k_pool, v_pool, table, lens_t, nan_pools = paged_case(
+        torch, randn, b=b, kh=kh, group=h // kh, hd=hd, page=page,
+        width=width, lens=lens_l, q_len=1, dtype=bf16,
+        shared_blocks=1024 // page)
+    cases = {"g3 q1": ("decode", q, k_pool, v_pool, nan_pools, table,
+                       lens_t, 1, None)}
+    decode = [(i, 1024 + (1024 * i) // 7, 1) for i in range(8)]
+    qf, kf, vf, tf, lf, nf, plan, _ = flat_step(
+        torch, randn, decode + [(8, 768, 256)], tb=264, n_slots=9, kh=kh,
+        group=h // kh, hd=hd, page=page, width=width, shared=1024 // page,
+        scene_of=[0, 1] * 4 + [2])
+    cases["g3 flat"] = ("prefill", qf, kf, vf, nf, tf, lf, 1, plan)
+    cases["g3 chunk"] = ("prefill", qf[8:].reshape(1, 256, h, hd), kf, vf,
+                         nf, tf[8:9].contiguous(), lf[-1:], 256, None)
+    for tag, (op, q, k_pool, v_pool, nan_pools, table, lens_t, q_len,
+              plan) in cases.items():
+        name = ("paged_decode_attention" if op == "decode"
+                else "paged_prefill_attention")
+        fn = (ops.paged_multi_decode_attention if op == "decode"
+              else ops.paged_prefill_attention)
+        bq = q.shape[0]
+        s = width * page
+        for kind in ("fp", "int8"):
+            if kind == "fp":
+                pools = {"k": k_pool, "v": v_pool}
+                nan = {"k": nan_pools[0], "v": nan_pools[1]}
+                scales, want_sc = {}, {}
+            else:
+                pools, nan = quant_pools(torch, k_pool, v_pool, kind)
+                scales, want_sc = scales_of(nan), scales_of(pools)
+            extra = {} if plan is None else {"plan": plan}
+            windows = (G3_WINDOW, 0) if op == "decode" else (0, G3_WINDOW)
+            for window in windows:
+                kw = {"window": window}
+                err = check(f"paged_{op}", fn(q, nan["k"], nan["v"], table,
+                                              lens_t, **kw, **scales,
+                                              **extra),
+                            ref.paged_multi_decode_attention(
+                                q, pools["k"], pools["v"], table, lens_t,
+                                **kw, **want_sc), TOL_BF16,
+                            f"{kind} bf16 {tag} B{bq} q_len{q_len} "
+                            f"w{window}", errors)
+            if tag == "g3 chunk" and kind == "int8":
+                continue                  # held, not timed
+            # timed at the last window held
+            mask = dense_mask(torch, lens_t, q_len, s, window)
+            qh = q.transpose(1, 2)
+
+            def library(pools=pools, mask=mask, qh=qh, table=table):
+                kd, vd = (ref.gather_pages(ref.dequantize_pool(
+                    pools[n], pools.get(n + "_scale")), table).to(bf16)
+                    .transpose(1, 2) for n in ("k", "v"))
+                return F.scaled_dot_product_attention(
+                    qh, kd, vd, attn_mask=mask, enable_gqa=True)
+
+            n_bytes, flops = paged_bytes_and_flops(
+                torch, q, pools["k"], table, lens_t, q_len,
+                scaled=kind != "fp", window=window)
+            key = name if kind == "fp" else f"{name}[{kind}]"
+            out[key][tag] = timed_rows(
+                timer, {"cuda_cores": (
+                    lambda: fn(q, nan["k"], nan["v"], table, lens_t, **kw,
+                               **scales, **extra), err)},
+                lambda: ref.paged_multi_decode_attention(
+                    q, pools["k"], pools["v"], table, lens_t, **kw,
+                    **want_sc),
+                library, n_bytes, flops,
+                f"B{bq} KH{kh} g{h // kh} q_len{q_len} hd{hd} page{page} "
+                f"P{width} cache_len {int(lens_t.min())}.."
+                f"{int(lens_t.max())} window {window} bf16 q, {kind} pool",
+                library_is=(
+                    "gather_pages + scaled_dot_product_attention (two "
+                    "calls)" if kind == "fp" else "gather_pages + "
+                    "dequantize + scaled_dot_product_attention"),
+                pool=kind)["cuda_cores"]
+    return out
+
+
+def flex_softcap(torch, q, k, v, softcap, mask_mod, batch=None):
+    """The library call for softcapped attention: one ``flex_attention``
+    call with ``softcap * tanh(score / softcap)`` as its ``score_mod`` and
+    ``mask_mod``'s block mask (per batch row with ``batch``), on q (B, H,
+    Sq, hd) and k, v (B, KH, Skv, hd).  Compiled here on these operands,
+    so that a timing sees the compiled call alone.  Returns the call,
+    which takes (q, k, v)."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    block_mask = create_block_mask(mask_mod, batch, None, q.shape[2],
+                                   k.shape[2], device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    def call(q, k, v):
+        return flex(q, k, v, score_mod=score_mod, block_mask=block_mask,
+                    enable_gqa=True)
+
+    call(q, k, v)
+    return call
+
+
+def dense_mma_checks(torch, randn, timer, errors):
+    """The tensor-core routes (bf16, hd 128) at the dense configs' new
+    groups, held to their bound (``check_wgmma`` / ``check_mma_decode``)
+    and timed: group 1 (codeqwen1.5-7b, 32/32 heads) and group 16
+    (glm4-9b, 32/2) on flash (Sq = Skv = 1025), dense decode (B 1,
+    cache_len 2049) and the slot step's paged decode (B 8, page 8, table
+    width 257, cache_len 1025..2049), beside SDPA (gather + SDPA for the
+    paged rows); gemma2-27b's group 2 (32/16) with softcap 50 and window
+    4096 on flash at Sq = Skv = 6000 and on the paged decode at B 8,
+    cache_len 5000..6000, so that the window floor bites, beside one
+    compiled ``flex_attention`` call with the softcap as its score_mod and
+    the window as its block mask (gather + that call for the paged row).
+    Each library call's distance from the plain version is kept beside
+    it.  Returns the report's rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    bf16, hd = torch.bfloat16, 128
+    out = {n: {} for n in ("flash_attention_wgmma", "decode_attention_mma",
+                           "paged_decode_attention_mma")}
+    log("the dense configs' groups on the tensor-core routes")
+    for tag, h, kh, s, window, softcap in (
+            ("codeqwen", 32, 32, 1025, 0, None),
+            ("glm4", 32, 2, 1025, 0, None),
+            ("gemma2", 32, 16, G2_SKV, G2_WINDOW, G2_SOFTCAP)):
+        kw = {"window": window, "softcap": softcap}
+        q = randn(1, s, h, hd, dtype=bf16)
+        k, v = (randn(1, s, kh, hd, dtype=bf16) for _ in range(2))
+        err, share = check_wgmma("flash_attention",
+                                 ops.flash_attention(q, k, v, **kw), q, k, v,
+                                 kw, f"bf16 {tag} H{h} KH{kh} S{s} hd{hd} "
+                                     f"w{window} cap{softcap}", errors)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if softcap:
+            flex = flex_softcap(torch, qt, kt, vt, softcap,
+                                lambda b, h, i, j: (j <= i) & (
+                                    i - j < window))
+
+            def library(qt=qt, kt=kt, vt=vt, flex=flex):
+                return flex(qt, kt, vt)
+            library_is = ("flex_attention (compiled; softcap score_mod, "
+                          "causal window block mask)")
+        else:
+            def library(qt=qt, kt=kt, vt=vt):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            library_is = "scaled_dot_product_attention"
+        lib_err = float((library().transpose(1, 2).float()
+                         - ref.flash_attention(q, k, v, **kw)).abs().max())
+        row = timed_rows(
+            timer, {"wgmma": (lambda: ops.flash_attention(q, k, v, **kw),
+                              err)},
+            lambda: ref.flash_attention(q, k, v, **kw), library,
+            nbytes(q, k, v, q), flash_flops(torch, h, hd, s, s, window),
+            f"B1 H{h} KH{kh} Sq=Skv={s} hd{hd} window {window} softcap "
+            f"{softcap} bf16", library_is=library_is,
+            library_max_abs_err=lib_err)["wgmma"]
+        out["flash_attention_wgmma"][tag] = dict(row, tolerance_share=share)
+        if tag == "gemma2":
+            continue
+        # dense decode, B 1 at cache_len 2049 (the batch path's)
+        s = 2049
+        q = randn(1, h, hd, dtype=bf16)
+        k, v = (randn(1, s, kh, hd, dtype=bf16) for _ in range(2))
+        lens = torch.full((1,), s, dtype=torch.int32, device="cuda")
+        err, share = check_mma_decode(
+            "decode_attention", ops.decode_attention(q, k, v, s)[:, None],
+            q[:, None], k, v, lens, {}, f"bf16 {tag} H{h} KH{kh} S{s}",
+            errors)
+        q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        row = timed_rows(
+            timer, {"mma": (lambda: ops.decode_attention(q, k, v, lens),
+                            err)},
+            lambda: ref.decode_attention(q, k, v, lens),
+            lambda: F.scaled_dot_product_attention(q4, kt, vt,
+                                                   enable_gqa=True),
+            nbytes(q, k, v, q), 4.0 * hd * h * s,
+            f"B1 H{h} KH{kh} S{s} cache_len {s} hd{hd} bf16")["mma"]
+        out["decode_attention_mma"][tag] = dict(row, tolerance_share=share)
+    page = 8
+    for tag, h, kh, lo, hi, window, softcap in (
+            ("codeqwen q1", 32, 32, 1025, 2049, 0, None),
+            ("glm4 q1", 32, 2, 1025, 2049, 0, None),
+            ("gemma2 q1", 32, 16, 5000, G2_SKV, G2_WINDOW, G2_SOFTCAP)):
+        b, width = 8, -(-hi // page)
+        kw = {"window": window, "softcap": softcap}
+        lens_l = [lo + ((hi - lo) * i) // (b - 1) for i in range(b)]
+        q, k_pool, v_pool, table, lens_t, nan_pools = paged_case(
+            torch, randn, b=b, kh=kh, group=h // kh, hd=hd, page=page,
+            width=width, lens=lens_l, q_len=1, dtype=bf16,
+            shared_blocks=1024 // page)
+        kg, vg = (ref.gather_pages(x, table) for x in (k_pool, v_pool))
+        err, share = check_mma_decode(
+            "paged_decode", ops.paged_decode_attention(
+                q[:, 0], *nan_pools, table, lens_t, **kw)[:, None],
+            q, kg, vg, lens_t, kw, f"bf16 {tag} B{b} KH{kh} g{h // kh} "
+                                    f"P{width} w{window} cap{softcap}",
+            errors)
+        qh = q.transpose(1, 2)
+        if softcap:
+            # the block mask reads the lengths; gather + flex_attention
+            flex = flex_softcap(
+                torch, qh, kg.transpose(1, 2), vg.transpose(1, 2), softcap,
+                lambda b, h, i, j, lens=lens_t: (j < lens[b]) & (
+                    j >= lens[b] - window), batch=b)
+
+            def attend(kd, vd, flex=flex, qh=qh):
+                return flex(qh, kd, vd)
+            library_is = ("gather_pages + flex_attention (compiled; "
+                          "softcap score_mod, window block mask)")
+        else:
+            mask = dense_mask(torch, lens_t, 1, width * page, window)
+
+            def attend(kd, vd, mask=mask, qh=qh):
+                return F.scaled_dot_product_attention(
+                    qh, kd, vd, attn_mask=mask, enable_gqa=True)
+            library_is = "gather_pages + scaled_dot_product_attention"
+        library_is += " (two calls)"
+
+        def library(k_pool=k_pool, v_pool=v_pool, table=table,
+                    attend=attend):
+            kd, vd = (ref.gather_pages(x, table).transpose(1, 2)
+                      for x in (k_pool, v_pool))
+            return attend(kd, vd)
+
+        def plain(q=q, k_pool=k_pool, v_pool=v_pool, table=table,
+                  lens_t=lens_t, kw=kw):
+            return ref.paged_decode_attention(q[:, 0], k_pool, v_pool,
+                                              table, lens_t, **kw)
+
+        lib_err = float((library()[:, :, 0].float() - plain()).abs().max())
+        n_bytes, flops = paged_bytes_and_flops(torch, q, k_pool, table,
+                                               lens_t, 1, window=window)
+        row = timed_rows(
+            timer, {"mma": (lambda: ops.paged_decode_attention(
+                q[:, 0], k_pool, v_pool, table, lens_t, **kw), err)},
+            plain, library, n_bytes, flops,
+            f"B{b} KH{kh} g{h // kh} q_len1 hd{hd} page{page} P{width} "
+            f"cache_len {lo}..{hi} window {window} softcap {softcap} bf16",
+            library_is=library_is, library_max_abs_err=lib_err)["mma"]
+        out["paged_decode_attention_mma"][tag] = dict(row,
+                                                      tolerance_share=share)
+    return out
+
+
+def dense_kernel_checks(torch, randn, timer, errors):
+    """Phase 2's checks for the dense attention configs: the hd-256
+    sweep, gemma3-1b's shapes and the new groups on the tensor cores.
+    Every hd-256 launch must be on a CUDA-core route, none of them on a
+    tensor-core one.  Returns the report's rows."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    hd256_sweep(torch, randn, errors)
+    out = gemma3_kernel_checks(torch, randn, timer, errors)
+    counts = ops.launch_counts()
+    routes = {n: ops.launches_by_route(counts, n)
+              for n in ("flash_attention", "decode_attention",
+                        "paged_decode_attention", "paged_prefill_attention")}
+    log(f"  hd 256 launches by route: {routes}")
+    for n, r in routes.items():
+        if r["cuda_cores"] == 0 or min(v for k, v in r.items()
+                                       if k != "cuda_cores") != 0:
+            errors.append(f"{n} at hd 256: launches {r}, want every one on "
+                          f"the CUDA-core route")
+    for name, rows in dense_mma_checks(torch, randn, timer, errors).items():
+        out.setdefault(name, {}).update(rows)
     return out
 
 
@@ -4514,7 +5004,10 @@ def eager_and_captured(torch, tag, make, reqs, steps=None, first=16,
             f"({r['pool_bytes']} pool bytes), {r['replays']} replays, "
             f"{r['steady_recompiles']} captures after warmup, warmup "
             f"{warm_s:.2f} s")
+        # an engine sits in reference cycles (its wrapped methods): free
+        # its pools and graphs before the next engine allocates its own
         del core
+        gc.collect()
         torch.cuda.empty_cache()
     e, c = out["eager"], out["captured"]
     out["checks"] = {
@@ -5704,8 +6197,337 @@ def xlstm_serve_phase(torch, smi):
     return {"held": held, "launches": launches}
 
 
+#: phase 16: the dense attention configs, in the order they are served
+DENSE_MODELS = ("gemma3-1b", "codeqwen1.5-7b", "glm4-9b", "gemma2-27b")
+#: slot steps of each run, eager and captured: phase 6's stream admits its
+#: four scenes within them, and steps [16, 24) are profiled
+DENSE_STEPS = 24
+#: gemma3-1b's further engines: chunked (row 6 at hd 256) and int8 pools
+DENSE_G3_RUNS = {"chunked": {"prefill_chunk": 256},
+                 "int8": {"kv_dtype": "int8"}}
+#: scenes the stream brings: the pool holds their shared prefix pages
+#: beside every slot's worst-case private pages, which admission reserves
+#: (gemma2-27b's 54 GB of weights leave no room for the engine's default
+#: pool, which also counts 8 cache-only prefixes)
+DENSE_SCENES = 4
+#: the attention ops whose inputs each eager run keeps (first layer, each
+#: step family and shape) and holds against their plain versions
+DENSE_KEEP = ("flash_attention", "paged_decode_attention",
+              "paged_prefill_attention")
+
+
+def route_of(name, dtype, hd):
+    """The route ``ops`` sends a call of kernel ``name`` at (dtype, head
+    dim) to: flash's rule for flash, the decode rule for the dense and
+    paged decode kernels and prefix-append."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    return (FA if name == "flash_attention" else DA).route(dtype, hd)
+
+
+def hold_attention(name, args, kw, case, errors):
+    """One kept attention call through ``ops`` against its plain version,
+    on the route ``route_of`` names: the tensor-core routes to their
+    bound (``check_wgmma``, ``check_mma_decode``: paged pools dequantized
+    and gathered), the CUDA-core routes to ``TOL_BF16``.  Returns (the
+    kernels line's row it belongs to, the max absolute error)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.build import POOL_NAMES
+    got = getattr(ops, name)(*args, **kw)
+    kw = {k: v for k, v in kw.items() if k not in ("plan", "q_blk")}
+    q, *rest = args
+    cuda_cores = route_of(name, q.dtype, q.shape[-1]) == "cuda_cores"
+    row = name if cuda_cores else ops.ROUTES[name][0]
+    if rest[0].dtype in POOL_NAMES:
+        row += f"[{POOL_NAMES[rest[0].dtype]}]"
+    if cuda_cores:
+        return row, check(name, got, getattr(ref, name)(*args, **kw),
+                          TOL_BF16, case, errors)
+    if name == "flash_attention":
+        return row, check_wgmma(name, got, *args, kw, case, errors)[0]
+    ks, vs = kw.pop("k_scale", None), kw.pop("v_scale", None)
+    if name.startswith("paged"):
+        k_pool, v_pool, table, lens = rest
+        k = ref.gather_pages(ref.dequantize_pool(k_pool, ks), table)
+        v = ref.gather_pages(ref.dequantize_pool(v_pool, vs), table)
+    else:
+        k, v, lens = rest
+    if q.dim() == 3:                    # one token a row: (B, H, hd)
+        q, got = q[:, None], got[:, None]
+    return row, check_mma_decode(name, got, q, k, v, lens, kw, case,
+                                 errors)[0]
+
+
+def dense_launch_check(ops, counts, dtype, hd, want, kv_dtype):
+    """Whether a run's launches are ``want`` ({kernel: count}), each
+    wholly on the route ``route_of`` names at (dtype, hd), and no other
+    kernel launched (an 8-bit run also counts its paged launches by
+    pool).  Returns (ok, what to log)."""
+    routes = {k: route_of(k, dtype, hd) for k in want}
+    got = {k: counts[k] for k in want}
+    on = {k: ops.launches_by_route(counts, k)[r] for k, r in routes.items()}
+    allowed = set(want) | {ops.ROUTES[k][0] for k in want}
+    if kv_dtype:
+        allowed |= {f"{k}[{kv_dtype}]" for k in allowed}
+    rest = {k: v for k, v in counts.items() if v and k not in allowed}
+    ok = got == want and on == want and not rest
+    return ok, f"launches {got} want {want}, on the routes {routes} " \
+               f"{on}, other kernels {rest}"
+
+
+def dense_serve_phase(torch, smi):
+    """Phase 16: the dense attention configs (codeqwen1.5-7b, glm4-9b,
+    gemma2-27b, gemma3-1b) served at full width and depth, each in turn,
+    bf16, random weights from a seed, with the vision frontend and phase
+    4's adapter (N_r = 1024 = ``num_patches``), through ``EngineCore``'s
+    paged slot path (8 slots, page 8, a pool for the stream's 4 scenes):
+    phase 6's stream over its first ``DENSE_STEPS`` steps through an eager
+    engine and a captured one (``eager_and_captured``); one
+    ``EngineCore.generate`` (vqa, the batch path: flash and dense decode);
+    for gemma3-1b the same stream on a chunked engine (``prefill_chunk``
+    256) and on int8 pools too.  Each model, its engines and their graph
+    pools are freed before the next is built.  Checks, per model: tokens
+    and launch counts equal eager and captured, nothing captured after
+    warmup, every answer in the answer vocab; flash = layers × prefix
+    prefills, paged decode = layers × (steps + admission calls) (chunked:
+    prefix-append = layers × fused steps, paged decode = layers × plain
+    steps, no flash), each on the route its kernel's ``route()`` gives
+    the model's dtype and head dim (``route_of``; bf16 at hd 128: the
+    tensor cores, at hd 256: the CUDA cores) and none on the other, no
+    other kernel; generate: flash and dense decode once a layer; every kept
+    input held against the plain version.  Prints weight bytes, the
+    prefix prefill's replay ms by bucket, step ms (host clock) eager and
+    captured, device ms a step and busy share (8 profiled steps), the
+    step's weight-streaming bound, answer tokens/s, pool and graph-pool
+    bytes, memory allocated at the phase's start and each model's peak,
+    beside the card's name and power limit.  Line
+    ``dense_serve_phase {...}``."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core import eo_adapter as EO
+    from repro_torch.core.cascade import TierModel
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineCore, EngineCoreConfig
+    from repro_torch.serving.kv_pool import TRASH_PAGE, page_nbytes
+    from repro_torch.tree import tree_leaves
+    ac = EO.EOAdapterConfig(grid=FULL_GRID, image_size=FULL_IMAGE)
+    av = ac.num_classes + 1
+    stream = scene_stream(["det", "cls", "vqa", "vqa", "vqa", "vqa"],
+                          DENSE_SCENES, FULL_IMAGE, FULL_GRID, seed=300)
+    t_phase = time.perf_counter()
+    gc.collect()                    # engines of earlier phases in cycles
+    torch.cuda.empty_cache()
+    start_bytes = torch.cuda.memory_allocated()
+    log(f"  {start_bytes / 1e9:.3f} GB allocated at the phase's start "
+        f"[{smi}]")
+    summary, checks, launches, held, errors = {}, {}, {}, {}, []
+    for n_model, name in enumerate(DENSE_MODELS):
+        log(f"  {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated "
+            f"before {name}")
+        torch.cuda.reset_peak_memory_stats()
+        t_model = time.perf_counter()
+        cfg = dataclasses.replace(configs.get_config(name),
+                                  frontend="vision")
+        hd, n_l = cfg.resolved_head_dim, cfg.num_layers
+        dtype = getattr(torch, cfg.dtype)
+        attn = "/".join(sorted({route_of(k, dtype, hd) for k in DENSE_KEEP}))
+        t0 = time.perf_counter()
+        tier = TierModel(EO.init_adapter(cfg, ac, 16 + n_model,
+                                         device="cuda"), cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weight_bytes = nbytes(*tree_leaves(tier.params))
+        embed = tier.params["backbone"]["embed"]
+        # a decode step streams every weight but an untied input table
+        streamed = weight_bytes - (0 if cfg.tie_embeddings
+                                   else nbytes(embed["tok"]))
+        m = {"weight_bytes": weight_bytes, "init_s": init_s,
+             "step_bound_ms": 1e3 * streamed / HBM_BYTES_PER_S,
+             "layers": n_l, "heads": (cfg.num_heads, cfg.num_kv_heads),
+             "head_dim": hd, "runs": {}}
+        log(f"  {name}: {weight_bytes / 1e9:.2f} GB of weights in "
+            f"{init_s:.1f} s, {n_l} layers, heads {cfg.num_heads}/"
+            f"{cfg.num_kv_heads}, hd {hd}; card: {smi}")
+        prefix_calls = {}
+        # the stream's pages: trash + 8 slots' private pages (past the
+        # N_r-token prefix: the prompt and the longest answer) + the
+        # scenes' shared pages
+        shared = ac.n_regions // 8
+        private = -(-(2 * ac.n_regions + 1) // 8) - shared
+        n_pages = 1 + 8 * private + DENSE_SCENES * shared
+
+        def make(key, **kw):
+            page_bytes = cfg.num_layers * page_nbytes(
+                8, cfg.num_kv_heads, hd, kv_dtype=kw.get("kv_dtype"),
+                fp_bytes=getattr(torch, cfg.dtype).itemsize)
+
+            def make_core(graphs):
+                core = EngineCore(tier, ac, EngineCoreConfig(
+                    slots=8, page_size=8, answer_vocab=av,
+                    prefix_cache_scenes=DENSE_SCENES,
+                    pool_bytes=n_pages * page_bytes, cuda_graphs=graphs,
+                    **kw))
+                calls, prefill = [], core._prefill_prefixes
+                prefix_calls[(key, graphs)] = calls
+
+                def counted(miss):
+                    calls.append(len(miss))
+                    prefill(miss)
+
+                core._prefill_prefixes = counted
+                return core
+            return make_core
+
+        @torch.inference_mode()
+        def inspect(mode, core, key):
+            out = {"kv_bytes_total": core.kv_stats()["kv_bytes_total"],
+                   "n_pages": core._n_pages,
+                   "fused_steps": core.stats["sched"]["fused_steps"],
+                   "prefix_prefill_calls": len(
+                       prefix_calls[(key, mode == "captured")])}
+            if mode == "captured" and key == "paged":
+                # device ms of the captured prefix prefill (each bucket),
+                # the admission and the slot step, replayed on inert
+                # inputs (the buckets write the trash page)
+                fam = core._graphs.families
+                core._sync_tables()
+                for b in core._buckets.values():
+                    b["pages"].dev.fill_(TRASH_PAGE)
+                core._admit_in.dev.zero_()
+                # three replays a bucket: gemma2-27b's bucket 8 is ~0.7 s
+                out["replay_ms"] = {
+                    "prefix_prefill": {
+                        kp: replay_ms(torch, g, 3) for kp, (g, _)
+                        in sorted(fam["prefix_prefill"].graphs.items())},
+                    "paged_admit": replay_ms(
+                        torch, fam["paged_admit"].graphs[None][0]),
+                    "slot_step": replay_ms(
+                        torch, fam["slot_step"].graphs[None][0])}
+            if mode == "eager" and key == "paged":
+                # the batch path: one vqa answer (prefill + one decode
+                # step), its attention inputs kept
+                req = stream[2]
+                image = torch.from_numpy(req.image[None]).cuda()
+                prompt = torch.tensor([req.prompt], dtype=torch.int32,
+                                      device="cuda")
+                ops.reset_launch_counts()
+                (toks, _), kept = capture_inputs(
+                    torch, lambda: core.generate("vqa", image, prompt, av),
+                    ["flash_attention", "decode_attention"])
+                torch.cuda.synchronize()
+                out["generate"] = {"launches": ops.launch_counts(),
+                                   "tokens": toks.tolist(), "kept": kept}
+            return out
+
+        runs = {"paged": {}}
+        if name == "gemma3-1b":
+            runs.update(DENSE_G3_RUNS)
+        for key, kw in runs.items():
+            tag = f"(16) {name} {key}"
+            r = eager_and_captured(
+                torch, tag, make(key, **kw), stream, steps=DENSE_STEPS,
+                inspect=lambda mode, core, key=key: inspect(mode, core, key),
+                keep=DENSE_KEEP)
+            checks.update(r.pop("checks"))
+            kept = r["eager"].pop("kept")
+            for op, d in kept.items():
+                for (fam, shapes), (args, kwargs) in d.items():
+                    case = f"phase 16 {name} {key} {fam} {shapes[0]}"
+                    row, err = hold_attention(op, args, kwargs, case, errors)
+                    held.setdefault(row, {})[case] = {"max_abs_err": err}
+            checks[f"{tag}: inputs kept for every attention op it ran"] = (
+                bool(kept["paged_decode_attention"])
+                and bool(kept["paged_prefill_attention" if "prefill_chunk"
+                              in kw else "flash_attention"]))
+            kept = None
+            for mode in ("eager", "captured"):
+                e = r[mode]
+                c = e.pop("launches")
+                launches[f"dense_{name}_{key}_{mode}"] = c
+                n_pre, steps = e["prefix_prefill_calls"], e["steps"]
+                fused = e["fused_steps"]
+                want = {"flash_attention": n_l * n_pre,
+                        "paged_decode_attention": n_l * (
+                            steps - fused + (0 if fused
+                                             else e["admission_calls"])),
+                        "paged_prefill_attention": n_l * fused}
+                ok, what = dense_launch_check(ops, c, dtype, hd, want,
+                                              kw.get("kv_dtype"))
+                log(f"  {tag} {mode}: {what}")
+                checks[f"{tag} {mode}: flash = {n_l} x prefix prefills, "
+                       f"paged decode = {n_l} x (plain steps + admissions),"
+                       f" prefix-append = {n_l} x fused steps, all on the "
+                       f"{attn} route, no other kernel"] = (
+                    ok and steps > 0 and (n_pre > 0 or fused > 0))
+                toks = e.pop("tokens")
+                checks[f"{tag} {mode}: every token in the answer vocab"] = (
+                    all(0 <= x < av for t in toks for x in t)
+                    and sum(map(len, toks)) > 0)
+                e["answer_tokens"] = sum(len(t) for t in toks)
+                e["answer_tokens_per_s"] = e["answer_tokens"] / e["wall_s"]
+                gen = e.pop("generate", None)
+                if gen is None:
+                    continue
+                c = gen["launches"]
+                launches[f"dense_{name}_generate"] = c
+                for op, calls in gen["kept"].items():
+                    for i, (args, kwargs) in enumerate(calls):
+                        case = f"phase 16 {name} generate {op} {i}"
+                        row, err = hold_attention(op, args, kwargs, case,
+                                                  errors)
+                        held.setdefault(row, {})[case] = {"max_abs_err": err}
+                ok, what = dense_launch_check(
+                    ops, c, dtype, hd, {"flash_attention": n_l,
+                                        "decode_attention": n_l}, None)
+                log(f"  (16) {name} generate: {what}")
+                checks[f"(16) {name} generate: flash and dense decode "
+                       f"{n_l} times each on the {attn} route, one answer "
+                       f"token in the vocab"] = (
+                    ok and len(gen["tokens"][0]) == 1
+                    and 0 <= gen["tokens"][0][0] < av)
+                e["generate_tokens"] = gen["tokens"]
+                gen = None
+            m["runs"][key] = r
+        m["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        m["seconds"] = time.perf_counter() - t_model
+        summary[name] = m
+        for key, r in m["runs"].items():
+            for mode in ("eager", "captured"):
+                e = r[mode]
+                log(f"  {name} {key} {mode}: step {e['step_ms_mean']:.3f} ms "
+                    f"mean {e['step_ms_median']:.3f} median (host clock), "
+                    f"device {e['device_ms_per_step']} ms a step, busy "
+                    f"{e['device_busy_share']}, bound "
+                    f"{m['step_bound_ms']:.3f} ms, {e['answer_tokens']} "
+                    f"answer tokens at {e['answer_tokens_per_s']:.1f}/s, "
+                    f"pool {e['kv_bytes_total'] / 1e9:.2f} GB, graph pool "
+                    f"{e['pool_bytes'] / 1e9:.2f} GB"
+                    + (f"; replays (device ms): {e['replay_ms']}"
+                       if "replay_ms" in e else "") + f" [{smi}]")
+        log(f"  {name}: peak {m['max_memory_allocated'] / 1e9:.2f} GB "
+            f"allocated, {m['seconds']:.1f} s [{smi}]")
+        del tier
+        gc.collect()
+        torch.cuda.empty_cache()
+    checks["the path's attention inputs within their tolerances"] = (
+        not errors and bool(held))
+    res = {"card": smi, "start_memory_allocated": start_bytes,
+           "models": summary, "seconds": time.perf_counter() - t_phase}
+    log("dense_serve_phase " + json.dumps(res, default=str))
+    log(f"  phase 16 checks: {checks}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad or errors:
+        raise RuntimeError(f"phase 16 failed: {bad} {errors}")
+    return {"held": held, "launches": launches}
+
+
 def main() -> int:
     import torch
+    t_start = time.perf_counter()
+
+    def phase(title):
+        log(f"{title} [{time.perf_counter() - t_start:.0f} s]")
+
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; the port's smoke run needs the card")
         return 1
@@ -5723,7 +6545,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("phase 1: build")
+    phase("phase 1: build")
     t0 = time.perf_counter()
     rep = build.build_all(SOURCES)
     for src, r in rep.items():
@@ -5735,10 +6557,10 @@ def main() -> int:
             log(f"    {ln}")
     log(f"  built in {time.perf_counter() - t0:.1f} s")
 
-    log("phase 2: kernels vs plain")
+    phase("phase 2: kernels vs plain")
     kernels = kernel_checks(torch)
 
-    log("phase 3: small proxy pair, card vs CPU")
+    phase("phase 3: small proxy pair, card vs CPU")
     ops.reset_launch_counts()
     small_reference(torch)
     torch.cuda.synchronize()
@@ -5763,55 +6585,62 @@ def main() -> int:
         raise RuntimeError(f"small proxies: the chunked scan must run on the "
                            f"CUDA-core route alone (float32): {small_ssm}")
 
-    log("phase 4: main path at full width")
+    phase("phase 4: main path at full width")
     sat, gs, conf, ac, counts, held, served = main_path(torch)
     for name, cases in held.items():
         kernels[name].update(cases)
 
-    log("phase 5: where the time goes")
+    phase("phase 5: where the time goes")
     breakdown(torch, sat, gs, ac)
 
-    log("phase 6: slot path at full width (InferenceEngine.serve, 2B)")
+    phase("phase 6: slot path at full width (InferenceEngine.serve, 2B)")
     slot = slot_phase(torch, sat, ac)
 
-    log("phase 7: speculative verify at full width (7B, drafted by 2B)")
+    phase("phase 7: speculative verify at full width (7B, drafted by 2B)")
     spec = spec_phase(torch, sat, gs, ac)
 
-    log("phase 8: chunked prefill at full width (InferenceEngine.serve, 2B)")
+    phase("phase 8: chunked prefill at full width (InferenceEngine.serve, 2B)")
     chunked = chunked_phase(torch, sat, ac, slot)
 
-    log("phase 10: batch evaluator, baselines and speculative server at "
-        "full width")
+    phase("phase 10: batch evaluator, baselines and speculative server at "
+          "full width")
     batch = batch_phase(torch, sat, gs, conf, ac, served)
     for name, cases in batch.pop("held").items():
         kernels[name].update(cases)
 
-    log("phase 11: the slot path on int8 and fp8 pools at full width")
+    phase("phase 11: the slot path on int8 and fp8 pools at full width")
     quant = quant_phase(torch, sat, gs, ac, slot, spec, chunked)
 
-    log("phase 12: overload control at full width (2B slot path)")
+    phase("phase 12: overload control at full width (2B slot path)")
     overload = overload_phase(torch, sat, ac, slot)
 
-    log("phase 13: sharded serving at full width (2B: dp 2 x tp 1 in this "
-        "process, dp 1 x tp 2 in two rank processes)")
+    phase("phase 13: sharded serving at full width (2B: dp 2 x tp 1 in this "
+          "process, dp 1 x tp 2 in two rank processes)")
     sharded = sharded_phase(torch, sat, ac, slot)
     for name, cases in sharded.pop("held").items():
         kernels[name].update(cases)
 
-    log("phase 14: captured steps against eager steps at full width (2B "
-        "and 7B slot paths)")
+    phase("phase 14: captured steps against eager steps at full width (2B "
+          "and 7B slot paths)")
     graphs = graphs_phase(torch, sat, gs, ac, smi)
     del sat, gs, conf
     torch.cuda.empty_cache()
 
-    log("phase 9: xlstm-125m serve step at full width (prefill + decode)")
+    phase("phase 9: xlstm-125m serve step at full width (prefill + decode)")
     xlstm = xlstm_phase(torch)
     torch.cuda.empty_cache()
 
-    log("phase 15: xlstm-125m (vision) on the slot path at full width, "
-        "eager and captured")
+    phase("phase 15: xlstm-125m (vision) on the slot path at full width, "
+          "eager and captured")
     xlstm_serve = xlstm_serve_phase(torch, smi)
     for name, cases in xlstm_serve.pop("held").items():
+        kernels[name].update(cases)
+
+    phase("phase 16: the dense attention configs (gemma3-1b, codeqwen1.5-7b, "
+        "glm4-9b, gemma2-27b) on the slot path at full width, eager and "
+          "captured")
+    dense = dense_serve_phase(torch, smi)
+    for name, cases in dense.pop("held").items():
         kernels[name].update(cases)
 
     # each path drove the kernels with the counts zeroed just before it
@@ -5826,7 +6655,7 @@ def main() -> int:
                **quant["launches"], **overload["launches"],
                **sharded["launches"], **graphs["launches"],
                **{f"xlstm {tag}": c for tag, c in xlstm["launches"].items()},
-               **xlstm_serve["launches"]}
+               **xlstm_serve["launches"], **dense["launches"]}
     for tag, r in xlstm.items():
         for name, cases in r.get("kernel_vs_plain_max_abs_err", {}).items():
             kernels[name].update({c: {"max_abs_err": e}
@@ -5846,6 +6675,8 @@ def main() -> int:
                 for n, (_, second, first) in two_route.items()}
     base_of = {key: n for n, (key, _, _) in two_route.items()}
     base_of.update({n: n for n in two_route})
+    # each row's headline shape stays where earlier slices put it (the
+    # hd-256 shapes, "g3 ...", are in its by_shape)
     headline = {"flash_attention_wgmma": "7B", "flash_attention": "7B",
                 "decode_attention_mma": "7B", "decode_attention": "7B",
                 "region_score": "main",

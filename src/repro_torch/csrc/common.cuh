@@ -138,6 +138,39 @@ struct TileLoader {
   }
 };
 
+// Row slices a K/V tile of head dim HD moves in: one below HD 256, four at
+// HD 256, so a thread holds no more 16-byte chunks at once than at HD 128
+// (the whole tile would take the registers the row state needs: 64 f32
+// accumulators a row slot at HD 256).
+template <int HD>
+__host__ __device__ constexpr int tile_parts() { return HD > 128 ? 4 : 1; }
+
+// A [ROWS][HD] K and V tile pair, global -> f32 shared memory, in
+// tile_parts<HD>() row slices, each slice's K and V chunks in flight
+// together (at one part: TileLoader's whole tiles, as before HD 256).
+// ``krow``/``vrow`` and ``ksc``/``vsc`` address row r and its scale as
+// TileLoader::fetch_rows takes them; rows >= nrows read as zero.
+template <typename T, int ROWS, int HD, int THREADS, typename KF, typename KS,
+          typename VF, typename VS>
+__device__ __forceinline__ void load_kv_tiles(float* __restrict__ ks, int kss,
+                                              float* __restrict__ vs, int vss,
+                                              const KF& krow, const KS& ksc,
+                                              const VF& vrow, const VS& vsc,
+                                              int nrows) {
+  constexpr int PARTS = tile_parts<HD>(), PR = ROWS / PARTS;
+#pragma unroll
+  for (int p = 0; p < PARTS; ++p) {
+    const int r0 = p * PR;
+    TileLoader<T, PR, HD, THREADS> kl, vl;
+    kl.fetch_rows([&](int r) { return krow(r0 + r); },
+                  [&](int r) { return ksc(r0 + r); }, nrows - r0);
+    vl.fetch_rows([&](int r) { return vrow(r0 + r); },
+                  [&](int r) { return vsc(r0 + r); }, nrows - r0);
+    kl.store(ks + r0 * kss, kss);
+    vl.store(vs + r0 * vss, vss);
+  }
+}
+
 // The element-wise fallback of TileLoader for head dims below the padded HD
 // (the proxies' 12 and 16): dims >= hd and rows >= nrows read as zero; an
 // 8-bit T stores to_f32(x) * scale(r).
@@ -308,11 +341,8 @@ __device__ __forceinline__ void attend_tiles(
     const auto ksc = [&](int r) { return krow.scale(k0 + r); };
     const auto vsc = [&](int r) { return vrow.scale(k0 + r); };
     if (vec) {                                 // K and V both in flight
-      TileLoader<T, ATT_BK, HD, THREADS> kl, vl;
-      kl.fetch_rows(kat, ksc, nk);
-      vl.fetch_rows(vat, vsc, nk);
-      kl.store(ks, KST);
-      vl.store(vs, HD);
+      load_kv_tiles<T, ATT_BK, HD, THREADS>(ks, KST, vs, HD, kat, ksc, vat,
+                                            vsc, nk);
     } else {
       load_rows_scalar<T, ATT_BK, HD, THREADS>(ks, KST, kat, ksc, nk, hd);
       load_rows_scalar<T, ATT_BK, HD, THREADS>(vs, HD, vat, vsc, nk, hd);

@@ -1,8 +1,8 @@
 // Flash-decoding over a dense or a paged KV cache for Hopper (sm_90a),
 // split-K, f32 math on the CUDA cores: the route
 // kernels/decode_attention.py::route gives float32 and the head dims other
-// than 64/128 (the proxies' 12/16); bf16 at hd 64/128 takes the tensor-core
-// kernel in decode_attention_mma.cu.
+// than 64/128 (the proxies' 12/16, gemma3-1b's 256); bf16 at hd 64/128
+// takes the tensor-core kernel in decode_attention_mma.cu.
 //
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention_pallas
 // (dense decode of the batch path, models/layers.py mode="decode", and the
@@ -29,9 +29,16 @@
 //    on the grid's y axis (kernels/decode_attention.py::row_tile
 //    sizes them in whole chunk tokens); a tile's rows keep their global
 //    index in the mask.
-//  * Q rows and K/V tiles move in 16-byte chunks at hd = 32, 64 or 128,
-//    all of a thread's in flight at once (the proxies' hd 12/16 take an
-//    element-wise path).
+//  * Q rows and K/V tiles move in 16-byte chunks at hd = 32, 64, 128 or
+//    256, all of a thread's in flight at once; at hd 256 a 64-key tile
+//    moves in four 16-key slices (common.cuh's load_kv_tiles), so the
+//    loads hold no more registers than at hd 128 beside a row state twice
+//    as large (the proxies' hd 12/16 take an element-wise path).  Shared
+//    memory at hd 256: 164,864 bytes a block on 4 warps, 197,632 on 8
+//    (under the 227 KB opt-in), so one block an SM.  ptxas spills at most
+//    128 bytes at hd 256 (the dense f32 4-warp instance; 40 in the 4-warp
+//    8-bit ones, none on 8 warps), no more than the hd-128 instances'
+//    160: the slices were the cut, the rows per warp stay 8.
 //  * Split-K over the cache gives the card enough blocks at small batch (the
 //    TPU kernel's sequential KV grid axis becomes independent splits); a
 //    second small kernel, one block per (query row, KV head, batch row),
@@ -62,7 +69,9 @@
 namespace {
 
 constexpr int DA_MAX_ROWS = 8 * ATT_RPW;   // 8 warps
-constexpr int DA_COMBINE_THREADS = 128;    // >= hd: one thread per output dim
+// the combine's threads: one per output dim up to hd 128, two dims a
+// thread at hd 256 (its loop strides over the head dim)
+constexpr int DA_COMBINE_THREADS = 128;
 
 template <typename T, typename KT, int HD, int WARPS, bool PAGED>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -225,12 +234,14 @@ cudaError_t dispatch_hd(const DecodeArgs& a, cudaStream_t stream) {
   if (a.tile_rows <= 32) {
     if (a.hd <= 32) return launch<T, KT, 32, 4, PAGED>(a, stream);
     if (a.hd <= 64) return launch<T, KT, 64, 4, PAGED>(a, stream);
-    return launch<T, KT, 128, 4, PAGED>(a, stream);
+    if (a.hd <= 128) return launch<T, KT, 128, 4, PAGED>(a, stream);
+    return launch<T, KT, 256, 4, PAGED>(a, stream);
   }
   if (!PAGED) return cudaErrorInvalidValue;   // dense row tiles: <= 32
   if (a.hd <= 32) return launch<T, KT, 32, 8, PAGED>(a, stream);
   if (a.hd <= 64) return launch<T, KT, 64, 8, PAGED>(a, stream);
-  return launch<T, KT, 128, 8, PAGED>(a, stream);
+  if (a.hd <= 128) return launch<T, KT, 128, 8, PAGED>(a, stream);
+  return launch<T, KT, 256, 8, PAGED>(a, stream);
 }
 
 // the pool's element type: q's (fp pool), or int8 / e4m3 with scales
@@ -250,14 +261,15 @@ cudaError_t dispatch_kv(const DecodeArgs& a, int dtype, int kv,
 template <bool PAGED>
 int run(DecodeArgs& a, int dtype, int kv, void* stream) {
   const int max_rows = PAGED ? DA_MAX_ROWS : 32;
-  if (a.hd < 1 || a.hd > 128 || a.hd % 4 != 0 || a.rows < 1 ||
+  if (a.hd < 1 || a.hd > 256 || a.hd % 4 != 0 || a.rows < 1 ||
       a.tile_rows < 1 || a.tile_rows > max_rows || a.q_len < 1 ||
       a.rows % a.q_len != 0 || a.KH < 1 ||
       (long long)a.KH * ((a.rows + a.tile_rows - 1) / a.tile_rows) > 65535 ||
       a.split_len % ATT_BK != 0 || a.splits < 1 ||
       (long long)a.splits * a.split_len < a.S || (PAGED && a.page < 1))
     return (int)cudaErrorInvalidValue;
-  const int hd_pad = a.hd <= 32 ? 32 : (a.hd <= 64 ? 64 : 128);
+  const int hd_pad =
+      a.hd <= 32 ? 32 : (a.hd <= 64 ? 64 : (a.hd <= 128 ? 128 : 256));
   const int elem = dtype == DT_BF16 ? 2 : 4;
   const int kelem = kv == DT_I8 || kv == DT_F8 ? 1 : elem;
   // 16-byte tile loads: full-width rows and every stride that reaches a

@@ -3,8 +3,9 @@
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (the prefill of [regions | prompt] in models/layers.py, mode="prefill"),
 // on the route kernels/flash_attention.py::route gives float32 and head
-// dims other than 64/128 (the proxies' 12 and 16); bf16 at hd 64/128, the
-// full-width models' prefill, runs flash_attention_wgmma.cu.
+// dims other than 64/128 (the proxies' 12 and 16, gemma3-1b's 256); bf16 at
+// hd 64/128, the other full-width models' prefill, runs
+// flash_attention_wgmma.cu.
 //
 // What bounds it on this card: the work is ~2·2·hd·S²/2 FLOPs per head
 // against a few MB of Q/K/V, so it is bound by operations.  It runs them
@@ -20,11 +21,18 @@
 //    group share them through L2.
 //  * KV tiles above the causal diagonal and below the window are skipped.
 //  * Q/K/V tiles are staged in shared memory as f32 (K rows padded to
-//    hd + 4 floats so the float4 reads of 8 lanes hit distinct banks).
-//    At hd = 32, 64 or 128 they move in 16-byte chunks, all of a thread's
-//    in flight at once, and the next K/V tile is fetched into registers
-//    while the block computes on this one; the proxies' hd 12/16 take an
-//    element-wise path.
+//    hd + 4 floats so the float4 reads of 8 lanes hit distinct banks):
+//    98,816 bytes a block at hd 256, under the 227 KB opt-in.
+//    At hd = 32, 64, 128 or 256 they move in 16-byte chunks, all of a
+//    thread's in flight at once; up to hd 128 the next K/V tile is fetched
+//    into registers while the block computes on this one.  At hd 256 there
+//    is no such prefetch: the row state alone is 64 f32 accumulators a
+//    thread (acc[8][8]), and a prefetched f32 K/V pair would add 128
+//    registers more, so each tile is loaded when its turn comes, in four
+//    8-row slices (common.cuh's load_kv_tiles), K's and V's chunks of a
+//    slice in flight together (ptxas on sm_90a: 255 registers and 8
+//    bytes of spill in f32, 246 and none in bf16).  The proxies' hd
+//    12/16 take an element-wise path.
 //  * The ragged edge (Sq = 1025 is no multiple of any tile) is masked in the
 //    kernel: rows >= Sq are computed on zeros and never stored, keys >= Skv
 //    are masked.  The model's sequence is never padded.
@@ -47,7 +55,9 @@ constexpr size_t fa_smem_bytes() {
   return (size_t)(FA_BQ * HD + FA_BK * (HD + 4) + FA_BK * HD) * sizeof(float);
 }
 
-// HD is the head dim rounded up to 32, 64 or 128; dims >= hd are zero.
+// HD is the head dim rounded up to 32, 64, 128 or 256; dims >= hd are zero.
+// Up to HD 128 the next K/V tile waits in registers while the block works
+// on this one; at HD 256 a tile loads when its turn comes.
 template <typename T, int HD>
 __global__ void __launch_bounds__(FA_WARPS * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -103,10 +113,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_begin = kv_begin / FA_BK;
   const int t_end = (kv_end + FA_BK - 1) / FA_BK;
 
-  // vectorised path: tile t + 1 is in flight in registers while the
-  // block computes on tile t
-  TileLoader<T, FA_BK, HD, THREADS> kl, vl;
-  if (vec && t_begin < t_end) {
+  // vectorised path up to HD 128: tile t + 1 is in flight in registers
+  // while the block computes on tile t
+  constexpr bool PREFETCH = HD <= 128;
+  TileLoader<T, PREFETCH ? FA_BK : 1, HD, THREADS> kl, vl;
+  if (PREFETCH && vec && t_begin < t_end) {
     const int k0 = t_begin * FA_BK;
     kl.fetch(kb + k0 * k_ss, k_ss, Skv - k0);
     vl.fetch(vb + k0 * v_ss, v_ss, Skv - k0);
@@ -114,9 +125,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * FA_BK;
     __syncthreads();                          // previous tile consumed
-    if (vec) {
+    if (vec && PREFETCH) {
       kl.store(ks, KST);
       vl.store(vs, HD);
+    } else if (vec) {                         // HD 256: 8-row slices
+      const T* kt = kb + k0 * k_ss;
+      const T* vt = vb + k0 * v_ss;
+      const auto one = [](int) { return 1.f; };
+      load_kv_tiles<T, FA_BK, HD, THREADS>(
+          ks, KST, vs, HD, [=](int r) { return kt + r * k_ss; }, one,
+          [=](int r) { return vt + r * v_ss; }, one, Skv - k0);
     } else {
       load_tile_scalar<T, FA_BK, HD, THREADS>(ks, KST, kb + k0 * k_ss, k_ss,
                                               Skv - k0, hd);
@@ -124,7 +142,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                               Skv - k0, hd);
     }
     __syncthreads();
-    if (vec && t + 1 < t_end) {
+    if (PREFETCH && vec && t + 1 < t_end) {
       const int k1 = k0 + FA_BK;
       kl.fetch(kb + k1 * k_ss, k_ss, Skv - k1);
       vl.fetch(vb + k1 * v_ss, v_ss, Skv - k1);
@@ -228,7 +246,10 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
   if (hd <= 64)
     return launch<T, 64>(q, k, v, o, B, H, group, Sq, Skv, hd, st, causal,
                          window, softcap, scale, stream);
-  return launch<T, 128>(q, k, v, o, B, H, group, Sq, Skv, hd, st, causal,
+  if (hd <= 128)
+    return launch<T, 128>(q, k, v, o, B, H, group, Sq, Skv, hd, st, causal,
+                          window, softcap, scale, stream);
+  return launch<T, 256>(q, k, v, o, B, H, group, Sq, Skv, hd, st, causal,
                         window, softcap, scale, stream);
 }
 
@@ -245,7 +266,7 @@ extern "C" int flash_attention_fwd(
     long long o_sb, long long o_sh, long long o_ss,
     int causal, int window, float softcap, float scale, int dtype,
     void* stream) {
-  if (hd < 1 || hd > 128 || hd % 4 != 0 || KH < 1 || H % KH != 0 ||
+  if (hd < 1 || hd > 256 || hd % 4 != 0 || KH < 1 || H % KH != 0 ||
       Sq < 1 || Sq > Skv)
     return (int)cudaErrorInvalidValue;
   const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,

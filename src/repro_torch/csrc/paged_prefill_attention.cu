@@ -20,6 +20,8 @@
 // bytes, about 1.4 FLOPs per byte moved from device memory; for one long
 // chunk (q_len 256, group 6: 1536 query rows over ~1 K keys) operations.
 // This first kernel runs on CUDA cores (no wgmma): right first, fast later.
+// It is the route of float32 and of the head dims the tensor-core route
+// does not take (the proxies' 12/16, gemma3-1b's 256).
 //
 // What the design does about it, following the TPU kernel's structure:
 //  * One block per (query sub-block, KV head, batch row).  A sub-block is
@@ -38,7 +40,10 @@
 //    2B at a 264-token budget), enough to fill the card's 132 SMs.
 //  * Keys resolve through the block table as they load:
 //    pool[tbl[b, s / page], kh, s % page, :], any page size, 16-byte loads
-//    where rows and strides allow (common.cuh's TileLoader and KvRows).
+//    where rows and strides allow (common.cuh's TileLoader and KvRows);
+//    at hd 256 a 64-key tile moves in four 16-key slices
+//    (load_kv_tiles), as in decode_attention.cu (ptxas spills at most 48
+//    bytes there, in three of the 4-warp instances).
 //    An 8-bit pool (the kernel templated on its element type) reads each
 //    key's f32 scale through the same table entry and dequantizes the tile
 //    in f32 as it loads, as decode_attention.cu does.
@@ -156,11 +161,13 @@ cudaError_t dispatch_hd(const PrefillArgs& a, cudaStream_t stream) {
   if (a.q_blk * a.group <= 32) {
     if (a.hd <= 32) return launch<T, KT, 32, 4>(a, stream);
     if (a.hd <= 64) return launch<T, KT, 64, 4>(a, stream);
-    return launch<T, KT, 128, 4>(a, stream);
+    if (a.hd <= 128) return launch<T, KT, 128, 4>(a, stream);
+    return launch<T, KT, 256, 4>(a, stream);
   }
   if (a.hd <= 32) return launch<T, KT, 32, 8>(a, stream);
   if (a.hd <= 64) return launch<T, KT, 64, 8>(a, stream);
-  return launch<T, KT, 128, 8>(a, stream);
+  if (a.hd <= 128) return launch<T, KT, 128, 8>(a, stream);
+  return launch<T, KT, 256, 8>(a, stream);
 }
 
 // the pool's element type: q's (fp pool), or int8 / e4m3 with scales
@@ -198,7 +205,7 @@ extern "C" int paged_prefill_attention_fwd(
     long long o_sb, long long o_sh, long long o_sr,
     int window, float softcap, float scale, int dtype, int kv_dtype,
     void* stream) {
-  if (hd < 1 || hd > 128 || hd % 4 != 0 || B < 1 || KH < 1 || q_len < 1 ||
+  if (hd < 1 || hd > 256 || hd % 4 != 0 || B < 1 || KH < 1 || q_len < 1 ||
       group < 1 || q_blk < 1 || q_blk * group > PP_MAX_ROWS || P < 1 ||
       page < 1 || (q_len + q_blk - 1) / q_blk > 65535 || KH > 65535 ||
       B > 65535)
@@ -210,7 +217,7 @@ extern "C" int paged_prefill_attention_fwd(
                 {q_sb, q_sh, q_sr, k_sn, k_sh, k_sp, v_sn, v_sh, v_sp,
                  o_sb, o_sh, o_sr},
                 tbl_sb, window, softcap, scale, 0};
-  const int hd_pad = hd <= 32 ? 32 : (hd <= 64 ? 64 : 128);
+  const int hd_pad = hd <= 32 ? 32 : (hd <= 64 ? 64 : (hd <= 128 ? 128 : 256));
   const int elem = dtype == DT_BF16 ? 2 : 4;
   const int kelem = kv_dtype == DT_I8 || kv_dtype == DT_F8 ? 1 : elem;
   // 16-byte tile loads: full-width rows and every stride that reaches a

@@ -27,8 +27,12 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+# -split-compile=0: each nvcc optimises its kernels on every core (the
+# hd-256 instances made decode_attention.cu the build's critical path:
+# 112.5 s alone, 55.5 s split, on the H100 machine's 8 cores)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -143,6 +147,22 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: and its ``kv_dtype`` name
 POOL_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 POOL_NAMES = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
+
+
+#: the largest head dim the attention kernels take (their CUDA-core
+#: routes; the tensor-core routes take 64 and 128).  The JAX kernels take
+#: any; no config of either package goes past 256 (gemma3-1b's).
+MAX_HEAD_DIM = 256
+
+
+def check_head_dim(hd: int) -> None:
+    """The head dims every attention kernel's wrapper takes: hd <=
+    ``MAX_HEAD_DIM`` with hd % 4 == 0 (16-byte rows of f32 or bf16 for the
+    vectorised loads, a multiple of 4 for the float4 dot products).
+    Raises."""
+    if not 0 < hd <= MAX_HEAD_DIM or hd % 4:
+        raise ValueError(f"head dim {hd} unsupported (hd <= {MAX_HEAD_DIM}, "
+                         f"hd % 4 == 0)")
 
 
 def check_operands(*ts: torch.Tensor) -> None:

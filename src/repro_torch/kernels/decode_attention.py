@@ -19,9 +19,10 @@ Two routes, chosen by ``route`` from the dtype and head dim alone:
   ``mma.sync``.  cp.async needs 16-byte aligned bases and strides;
   operands that break the rule raise here, they never take the other
   route.  p is rounded to bf16 before PV.
-* ``"cuda_cores"``: float32 and every other head dim (hd <= 128,
-  hd % 4 == 0, the proxies' 12 and 16) go to ``csrc/decode_attention.cu``:
-  split-K blocks, f32 math on the CUDA cores, and a combine kernel.
+* ``"cuda_cores"``: float32 and every other head dim (hd <= 256,
+  hd % 4 == 0: the proxies' 12 and 16, gemma3-1b's 256) go to
+  ``csrc/decode_attention.cu``: split-K blocks, f32 math on the CUDA
+  cores, and a combine kernel.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.build import (DTYPES, CudaKernel, check_16_bytes,
-                                       check_operands)
+                                       check_head_dim, check_operands)
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -171,8 +172,7 @@ def _operands(q, k, v, q_len):
     if q_len < 1 or rows < 1 or rows % q_len:
         raise ValueError(f"rows {rows} must be q_len·group with q_len "
                          f"{q_len}")
-    if hd > 128 or hd % 4:
-        raise ValueError(f"head dim {hd} unsupported (hd <= 128, hd % 4 == 0)")
+    check_head_dim(hd)
     if k.shape[2] < 1:
         raise ValueError("empty cache")
     return b, kh, rows, hd, k.shape[2]
@@ -184,7 +184,7 @@ def launch_cuda_cores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       scale: Optional[float] = None,
                       q_len: int = 1) -> torch.Tensor:
     """The CUDA-core kernel, on any input it takes (float32 or bfloat16,
-    hd <= 128, hd % 4 == 0)."""
+    hd <= 256, hd % 4 == 0)."""
     b, kh, rows, hd, s = _operands(q, k, v, q_len)
     lens = device_lengths(cache_len, b, q.device)
     scale = scale if scale is not None else hd ** -0.5

@@ -14,9 +14,11 @@ Two routes, chosen by ``route`` from the dtype and head dim alone:
   operands that break the rule raise here, they never take the other
   route.  p is rounded to bf16 before PV.
 * ``"cuda_cores"``: float32 (whose card-vs-CPU decisions must not flip on
-  TF32 rounding) and every other head dim (hd <= 128, hd % 4 == 0, the
-  proxies' 12 and 16) go to ``csrc/flash_attention.cu``, f32 math on the
-  CUDA cores.
+  TF32 rounding) and every other head dim (hd <= 256, hd % 4 == 0: the
+  proxies' 12 and 16, gemma3-1b's 256) go to ``csrc/flash_attention.cu``,
+  f32 math on the CUDA cores.  bf16 at hd 256 takes this route by its
+  shape: a launch there is counted as a CUDA-core launch, and a failure
+  raises.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import (DTYPES, CudaKernel, check_16_bytes,
-                                      check_operands)
+                                      check_head_dim, check_operands)
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -68,8 +70,7 @@ def _launch_args(q, k, v, causal, window, softcap, scale):
     kh, skv = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != hd or kh < 1 or h % kh:
         raise ValueError("k/v must be (B, KH, Skv, hd) with H % KH == 0")
-    if hd > 128 or hd % 4:
-        raise ValueError(f"head dim {hd} unsupported (hd <= 128, hd % 4 == 0)")
+    check_head_dim(hd)
     if not 1 <= sq <= skv:
         raise ValueError(f"kernel takes 1 <= Sq <= Skv, got {sq} > {skv}")
     scale = scale if scale is not None else hd ** -0.5
@@ -104,7 +105,7 @@ def launch_cuda_cores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       softcap: Optional[float] = None,
                       scale: Optional[float] = None) -> torch.Tensor:
     """The CUDA-core kernel, on any input it takes (float32 or bfloat16,
-    hd <= 128, hd % 4 == 0)."""
+    hd <= 256, hd % 4 == 0)."""
     o, args = _launch_args(q, k, v, causal, window, softcap, scale)
     with torch.cuda.device(q.device):
         KERNEL(*args, DTYPES[q.dtype],

@@ -12,7 +12,7 @@ the layout changes (the models use (B, S, H, hd); the kernels want
 pool's (n_pages, page, KH) scales, (n_pages, KH, page)), the windowed
 band-slice gather before dense decode, and the recurrent scans' zero
 states.  It pads no head dim: the kernels take
-hd <= 128 with hd % 4 == 0 as they are.
+hd <= 256 with hd % 4 == 0 as they are (``build.check_head_dim``).
 """
 from __future__ import annotations
 

@@ -30,7 +30,8 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.kernels.build import (DTYPES, CudaKernel, check_16_bytes,
-                                       check_pools, pool_name, scale_args)
+                                       check_head_dim, check_pools,
+                                       pool_name, scale_args)
 from repro_torch.kernels.decode_attention import (MMA_MAX_ROWS, MMA_PAGED,
                                                   _sm_count,
                                                   card_cluster_plan,
@@ -56,7 +57,7 @@ def check_paged(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     """The operand rules the paged kernels share: q (B, KH, rows, hd),
     pools (n_pages, KH, page, hd) matching q, of q's dtype, or int8 /
     float8_e4m3fn with both (n_pages, KH, page) f32 scales
-    (``build.check_pools``), hd <= 128 with hd % 4 == 0, a non-empty
+    (``build.check_pools``), hd <= 256 with hd % 4 == 0, a non-empty
     (B, P) int32 block table with unit column stride on the operands'
     device.  Returns (B, KH, rows, hd, page, P, the pool's C code)."""
     pool = check_pools(q, k_pool, v_pool, k_scale, v_scale)
@@ -67,8 +68,7 @@ def check_paged(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     b, kh, rows, hd = q.shape
     if k_pool.shape[1] != kh or k_pool.shape[3] != hd:
         raise ValueError("pools must be (n_pages, KH, page, hd) matching q")
-    if hd > 128 or hd % 4:
-        raise ValueError(f"head dim {hd} unsupported (hd <= 128, hd % 4 == 0)")
+    check_head_dim(hd)
     if (block_table.dim() != 2 or block_table.shape[0] != b
             or block_table.dtype != torch.int32
             or block_table.device != q.device
@@ -97,7 +97,7 @@ def launch_cuda_cores(q: torch.Tensor, k_pool: torch.Tensor,
                       v_scale: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """The CUDA-core kernel, on any input it takes (float32 or bfloat16
-    q, fp or 8-bit pools, hd <= 128, hd % 4 == 0)."""
+    q, fp or 8-bit pools, hd <= 256, hd % 4 == 0)."""
     b, kh, rows, hd, page, n_blocks, pool = check_paged(
         q, k_pool, v_pool, block_table, k_scale, v_scale)
     group = _group(q, q_len)

@@ -16,10 +16,11 @@ Two routes, chosen by ``route`` (decode's rule) from the dtype and head dim:
   see, split over a thread-block cluster and merged in distributed shared
   memory.  p is rounded to bf16 before PV.  cp.async needs 16-byte aligned
   bases and strides; operands that break the rule raise here.
-* ``"cuda_cores"``: float32 and every other head dim run the CUDA-core
-  kernel: one block per (query sub-block of ``q_blk`` chunk tokens, KV
-  head, batch row), f32 math, no split-K.  ``q_blk`` is its tile knob:
-  ``q_blk·group <= 64``, and the last sub-block may be short.
+* ``"cuda_cores"``: float32 and every other head dim (gemma3-1b's 256
+  among them) run the CUDA-core kernel: one block per (query sub-block of
+  ``q_blk`` chunk tokens, KV head, batch row), f32 math, no split-K.
+  ``q_blk`` is its tile knob: ``q_blk·group <= 64``, and the last
+  sub-block may be short.
 
 The engine's fused step calls the op at a flat shape: q_len 1, one batch
 row per scheduled token, a streaming scene's chunk as consecutive rows on
@@ -150,7 +151,7 @@ def launch_cuda_cores(q: torch.Tensor, k_pool: torch.Tensor,
                       v_scale: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """The CUDA-core kernel, on any input it takes (float32 or bfloat16
-    q, fp or 8-bit pools, hd <= 128, hd % 4 == 0)."""
+    q, fp or 8-bit pools, hd <= 256, hd % 4 == 0)."""
     b, kh, rows, hd, page, n_blocks, pool = check_paged(
         q, k_pool, v_pool, block_table, k_scale, v_scale)
     group = _group(q, q_len)

@@ -733,6 +733,84 @@ def test_quantized_wrappers_refuse_what_the_kernels_do_not_take(card):
     assert ops.launch_counts() == before
 
 
+#: gemma3-1b's local-layer window, biting at the lengths below
+HD256_WINDOW = 512
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row,pool,group", [
+    ("flash", "fp", 4), ("flash", "fp", 1), ("decode", "fp", 4),
+    ("verify", "fp", 1), ("paged_decode", "fp", 4),
+    ("paged_decode", "int8", 4), ("paged_decode", "fp8", 4),
+    ("paged_verify", "fp", 1), ("paged_verify", "int8", 4),
+    ("prefix_append", "fp", 4), ("prefix_append", "int8", 4),
+    ("prefix_append", "fp8", 1)])
+def test_hd256_kernels_match_plain(card, row, pool, group, dtype):
+    """gemma3-1b's head dim 256: rows 1, 2 and 4-6 on their CUDA-core
+    routes (bf16 takes them by its shape), on fp pools and on int8 and fp8
+    pools with their scales, held to ``TOL`` against the plain version
+    (8-bit pools dequantized), with the window biting, a softcap on every
+    other case, rows of length 0, and a NaN trash page; every launch counted
+    on the CUDA-core route, none on the tensor cores."""
+    window = HD256_WINDOW
+    softcap = 30.0 if group == 1 else None
+    kw = {"window": window, "softcap": softcap}
+    kh = 1 if group == 4 else 2
+    before = ops.launch_counts()
+    if row == "flash":
+        q = _randn(card, 1, 700, kh * group, 256, dtype=dtype)
+        k, v = (_randn(card, 1, 700, kh, 256, dtype=dtype) for _ in "kv")
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention(q, k, v, **kw)
+        name = "flash_attention"
+    elif row in ("decode", "verify"):
+        q_len = 1 if row == "decode" else 3
+        q = _randn(card, 4, q_len, kh * group, 256, dtype=dtype)
+        k, v = (_randn(card, 4, 800, kh, 256, dtype=dtype) for _ in "kv")
+        lens = torch.tensor([0, 1, 650, 800], dtype=torch.int32,
+                            device="cuda")
+        got = ops.multi_decode_attention(q, _nan_past(k, lens),
+                                         _nan_past(v, lens), lens, **kw)
+        want = ref.multi_decode_attention(q, k, v, lens, **kw)
+        name = "decode_attention"
+    else:
+        q_len = {"paged_decode": 1, "paged_verify": 5,
+                 "prefix_append": 16}[row]
+        lens = [0, max(q_len - 1, 1), q_len, q_len + 77, q_len + 700]
+        width = -(-(q_len + 710) // 8)
+        if pool == "fp":
+            q, kp, vp, kn, vn, table, lens_t = _paged_case(
+                card, len(lens), kh, group, 256, 8, width, lens, q_len,
+                dtype)
+            pools, nan = {"k": kp, "v": vp}, {"k": kn, "v": vn}
+            sc, want_sc = {}, {}
+        else:
+            q, pools, nan, table, lens_t = _quant_case(
+                card, pool, len(lens), kh, group, 256, 8, width, lens,
+                q_len, dtype)
+            sc, want_sc = _scales(nan), _scales(pools)
+        if row == "prefix_append":
+            got = ops.paged_prefill_attention(q, nan["k"], nan["v"], table,
+                                              lens_t, q_blk=3, **kw, **sc)
+            name = "paged_prefill_attention"
+        else:
+            got = ops.paged_multi_decode_attention(q, nan["k"], nan["v"],
+                                                   table, lens_t, **kw, **sc)
+            name = "paged_decode_attention"
+        want = ref.paged_multi_decode_attention(q, pools["k"], pools["v"],
+                                                table, lens_t, **kw,
+                                                **want_sc)
+    after = ops.launch_counts()
+    _close(got, want, TOL[dtype])
+    if row != "flash":
+        assert float(got[0].abs().max()) == 0.0
+    second = ops.ROUTES[name][0]
+    assert after[name] == before[name] + 1
+    assert after[second] == before[second]
+    if pool != "fp":
+        assert after[f"{name}[{pool}]"] == before[f"{name}[{pool}]"] + 1
+
+
 @pytest.mark.parametrize("b,r,nv,ne,d,dtype", [
     (2, 100, 1, 1, 1536, torch.bfloat16),
     (2, 100, 3, 2, 48, torch.float32),

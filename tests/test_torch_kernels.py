@@ -49,6 +49,8 @@ FLASH_CASES = [
     (16, 3, 2, 32, 32, 0, None),
     (16, 2, 2, 32, 32, 8, None),      # sliding window
     (12, 3, 1, 24, 24, 0, 5.0),       # logit softcap
+    (256, 4, 1, 24, 24, 8, None),     # gemma3-1b: hd 256, group 4, window
+    (256, 1, 2, 24, 24, 0, 5.0),      # hd 256, group 1, softcap
 ]
 
 
@@ -176,6 +178,24 @@ def test_flash_route_rule():
             route(dtype, 128)
 
 
+def test_hd256_takes_the_cuda_core_routes_and_260_is_refused():
+    """gemma3-1b's head dim 256: bf16 takes the CUDA-core route of flash
+    and of both decode wrappers by its shape (the tensor-core routes take
+    64 and 128), and every attention wrapper takes it; 260 and dims that
+    are not a multiple of 4 still raise, before any launch."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    for dtype in (torch.bfloat16, torch.float32):
+        assert FA.route(dtype, 256) == DA.route(dtype, 256) == "cuda_cores"
+    assert build.MAX_HEAD_DIM == 256
+    for hd in (4, 12, 128, 252, 256):
+        build.check_head_dim(hd)
+    for hd in (0, 254, 260, 512):
+        with pytest.raises(ValueError, match="head dim"):
+            build.check_head_dim(hd)
+
+
 def test_flash_tma_rule_refuses_misaligned_operands():
     """The wgmma route's operands need 16-byte aligned bases and strides;
     a size-1 dimension's stride does not count."""
@@ -195,6 +215,7 @@ def test_flash_tma_rule_refuses_misaligned_operands():
 
 DECODE_CASES = [(hd, group, q_len) for hd in (12, 16) for group in (1, 2, 3)
                 for q_len in (1, 3)]
+DECODE_CASES += [(256, 4, 1), (256, 4, 3), (256, 1, 3)]   # gemma3-1b's hd
 
 
 def _decode_inputs(hd, group, q_len, s=37, kh=2, b=4, seed=0):

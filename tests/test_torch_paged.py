@@ -98,6 +98,47 @@ def test_paged_plain_matches_jax(page, group, q_len, window, softcap):
     assert float(got[0].abs().max()) == 0.0          # cache_len 0 → zeros
 
 
+@pytest.mark.parametrize("op,page,group,q_len,window,softcap", [
+    ("decode", 8, 4, 1, 0, None), ("decode", 4, 1, 3, 8, None),
+    ("decode", 1, 4, 3, 0, 3.0), ("prefill", 8, 4, 4, 8, None),
+    ("prefill", 4, 1, 5, 0, 2.5)])
+def test_paged_plain_matches_jax_at_hd256(op, page, group, q_len, window,
+                                          softcap):
+    """gemma3-1b's head dim 256 (groups 4 and 1): the paged decode and
+    prefix-append plain versions against JAX's oracle and interpret-mode
+    Pallas kernel; rows of length 0, below the chunk and past the window;
+    shared pages in several rows."""
+    rng = np.random.default_rng(page * 100 + group * 10 + q_len + window)
+    q, kp, vp, table, lens = paged_inputs(
+        rng, b=5, kh=1 if group == 4 else 2, group=group, hd=256, page=page,
+        q_len=q_len, lens=[0, 1, 2, 30, 47])
+    kw = dict(window=window, softcap=softcap)
+    jargs = (jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
+             jnp.asarray(lens))
+    targs = (_t(kp), _t(vp), _t(table), _t(lens))
+    if op == "prefill":
+        got = tops.paged_prefill_attention(_t(q), *targs, **kw)
+        want_ref = jref.paged_prefill_attention(jnp.asarray(q), *jargs, **kw)
+        want_kernel = jops.paged_prefill_attention(
+            jnp.asarray(q), *jargs, impl="pallas_interpret", **kw)
+    elif q_len == 1:
+        got = tops.paged_decode_attention(_t(q[:, 0]), *targs, **kw)
+        want_ref = jref.paged_decode_attention(jnp.asarray(q[:, 0]), *jargs,
+                                               **kw)
+        want_kernel = jops.paged_decode_attention(
+            jnp.asarray(q[:, 0]), *jargs, impl="pallas_interpret", **kw)
+    else:
+        got = tops.paged_multi_decode_attention(_t(q), *targs, **kw)
+        want_ref = jref.paged_multi_decode_attention(jnp.asarray(q), *jargs,
+                                                     **kw)
+        want_kernel = jops.paged_multi_decode_attention(
+            jnp.asarray(q), *jargs, impl="pallas_interpret", **kw)
+    for want in (want_ref, want_kernel):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=TOL)
+    assert float(got[0].abs().max()) == 0.0          # cache_len 0 → zeros
+
+
 def test_gather_pages_matches_jax():
     rng = np.random.default_rng(3)
     pool = rng.standard_normal((9, 4, 2, 5)).astype(np.float32)

@@ -229,8 +229,9 @@ def test_scan_wrappers_refuse_cpu_tensors():
 # ---------------------------------------------------------------------------
 
 def test_config_registry_matches_jax():
-    assert configs.list_configs() == ["qwen2-vl-2b", "qwen2-vl-7b",
-                                      "xlstm-125m"]
+    assert configs.list_configs() == ["codeqwen1.5-7b", "gemma2-27b",
+                                      "gemma3-1b", "glm4-9b", "qwen2-vl-2b",
+                                      "qwen2-vl-7b", "xlstm-125m"]
     for name in configs.list_configs():
         for reduced in (False, True):
             assert (dataclasses.asdict(configs.get_config(name, reduced))
