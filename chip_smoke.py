@@ -126,7 +126,16 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    5000-6000 (the window floor bites), held to their bound and timed
    beside SDPA, or for gemma2-27b's softcap one compiled
    ``flex_attention`` call (tanh score_mod, causal-window block mask;
-   gather + that call for the paged row).
+   gather + that call for the paged row).  The flash backward (training)
+   against its plain version: an f32 sweep (hd 12/16/64/128/256,
+   groups 1/4/6/7 (4: the ground proxy's 8/2 heads at hd 16), Sq = Skv
+   in {1, 63, 64, 65, 129, 1025} and 65 < 300, windows 0/100 and
+   softcaps none/30 in turns; K/V views of buffers NaN past Skv; every
+   other case through autograd) within 1e-4·G per element, G the largest
+   |want| over dq, dk and dv, then bf16 at the 2B's training shapes (B 4,
+   12/2 heads, hd 128, S 1025 and 2048; o from the wgmma forward) within
+   that plus 2^-6·|want| (``check_grads``), timed in turns with the
+   library's backward (SDPA forward and backward less its forward).
 3. End to end on a small proxy pair (flash, decode, prefix-append and the
    chunked scan on their CUDA-core routes alone, counted): the port's
    ``CascadeServer``, its
@@ -394,6 +403,27 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    bound, answer tokens/s, pool and graph-pool bytes, memory allocated at
    the phase's start and each model's peak.  Line
    ``dense_serve_phase {...}``.
+17. Training (after 16, with nothing else resident).  (a) Qwen2-VL-2B at
+   full width (28 layers, d 1536, vocab 151936), random bf16 weights from
+   seed 0, phase 4's adapter: ``make_train_step`` (AdamW at lr 3e-4, f32
+   moments, remat "nothing", ce_chunks 8) takes 4 steps in a row on each
+   of three fixed batches (det: B 4 x S 2048, first; vqa, cls: B 4 x S
+   1025), counts zeroed just before.  Checks: every loss finite, the det
+   batch's loss falls at every step; ``flash_attention_bwd`` 28 launches
+   a step and the wgmma forward 56 (the forward and the remat's
+   recompute), no CUDA-core flash; the
+   backward kernel held against its plain version on layer 0's inputs of
+   an extra det step, untimed and after the counts.  Prints step ms by task, one profiled det step
+   (device ms, busy share, top device ops), tokens/s, peak memory, the
+   step's FLOPs beside their bound.  (b) ``core.pipeline.build_system``
+   at the test suite's tiny-bundle settings on the card, then on the CPU
+   (CPU generators on both: the same draws): first-step losses within
+   1e-4 relative, the last within ``TOL_PROXY_FINAL``; a witness, a CPU
+   run whose initial weights are one ulp up, whose gaps from the CPU run
+   bound the card's largest gaps over the steps (x 4); the card bundle's
+   ``spaceverse().evaluate`` on the card.  Line ``train_phase {...}``;
+   paths ``train_full_width`` and ``train_proxies_card`` in the kernels
+   line.
 
 The slot-path engines of phases 3, 6-8, 10-12 and 13 (a) capture their
 steps as CUDA graphs in ``warmup()`` (``serving/graphs.py``) and replay
@@ -438,6 +468,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu",
+           "flash_attention_bwd.cu",
            "decode_attention.cu", "decode_attention_mma.cu",
            "region_score.cu", "paged_prefill_attention.cu", "ssm_scan.cu",
            "ssm_scan_mma.cu", "slstm_scan.cu")
@@ -459,6 +490,9 @@ TOL_SLSTM = (2e-4, 2e-4)
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 REPLACES = {
+    # no Pallas kernel: the JAX package's flash backward is the custom VJP
+    # of ref.flash_structured (_fs_bwd)
+    "flash_attention_bwd": "src/repro/kernels/ref.py:201",
     "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:84",
     "flash_attention": "src/repro/kernels/flash_attention.py:84",
     "decode_attention": "src/repro/kernels/decode_attention.py:219",
@@ -476,6 +510,7 @@ REPLACES = {
     "slstm_scan": "src/repro/kernels/slstm_scan.py:69",
 }
 SOURCE_OF = {
+    "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_wgmma": "src/repro_torch/csrc/flash_attention_wgmma.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
@@ -874,6 +909,7 @@ def kernel_checks(torch):
                                           errors).items():
         report[name].update(rows)
     report.update(scan_kernel_checks(torch, randn, timer, errors))
+    report.update(bwd_kernel_checks(torch, randn, timer, errors))
 
     torch.cuda.synchronize()
     if errors:
@@ -2272,6 +2308,176 @@ def dense_kernel_checks(torch, randn, timer, errors):
     for name, rows in dense_mma_checks(torch, randn, timer, errors).items():
         out.setdefault(name, {}).update(rows)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the flash backward (training)
+# ---------------------------------------------------------------------------
+
+#: the backward kernel's tolerance per element: f32 sums in another order
+#: than the plain version's, whose error an element that cancels keeps from
+#: the terms it sums, which scale with the gradients: 1e-4·G, G the largest
+#: |want| over dq, dk and dv (no absolute floor: a dO scaled by c scales G,
+#: the errors and the tolerance by c, so layer 0's gradients of a mean CE,
+#: ~1e-7, are held as tightly as randn's); in bf16 also 2^-6·|want| (two
+#: bf16 ulps: both sides round an f32 result).  A kernel that wrote zeros
+#: would use 1e4 of it at the largest element in f32, ~60 in bf16.  Both sides recompute p in
+#: f32 from the same q and k; the forward route's bf16 p reaches them only
+#: through o, an input both take.
+BWD_RTOL_F32 = 1e-4
+BWD_RTOL_BF16 = 2.0 ** -6
+#: the f32 sweep: (hd, group, KH) per sequence length, windows and softcaps
+#: in turns
+BWD_HEADS = ((12, 1, 2), (16, 6, 1), (16, 4, 2), (64, 7, 1), (128, 6, 2),
+             (256, 1, 1), (256, 7, 1))
+BWD_SEQS = (1, 63, 64, 65, 129, 1025)
+#: the 2B's training shapes (B 4, 12/2 heads, hd 128, bf16): the vqa/cls
+#: batches (S 1025) and the det batch (S 2048)
+BWD_TIMED = {"2B train": 1025, "det": 2048}
+
+
+def check_grads(name, got, want, case, errors):
+    """(dq, dk, dv) against the plain version's, each element within
+    ``BWD_RTOL_F32·G`` (G the largest |want| over the three; +
+    ``BWD_RTOL_BF16·|want|`` in bf16); returns (max absolute error, share
+    of the tolerance used)."""
+    want = [w.float() for w in want]
+    scale = max(float(w.abs().max()) for w in want)
+    errs, shares = [], []
+    for g, w in zip(got, want):
+        diff = (g.float() - w).abs()
+        rtol = BWD_RTOL_BF16 if g.element_size() == 2 else 0.0   # bf16
+        tol = BWD_RTOL_F32 * scale + rtol * w.abs()
+        errs.append(float(diff.max()))
+        shares.append(float(tolerance_share(diff, tol)))
+    err, share = max(errs), max(shares)
+    ok = math.isfinite(err) and share <= 1.0
+    log(f"  {name:16s} {case:52s} max_abs_err {err:.3e} G {scale:.2e} "
+        f"(dq/dk/dv used "
+        f"{'/'.join(f'{x:.3f}' for x in shares)}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        errors.append(f"{name} {case}: max_abs_err {err}, {share:.3f} of the "
+                      f"tolerance")
+    return err, share
+
+
+def tolerance_share(diff, tol):
+    """The largest diff / tol: 0 / 0 counts 0, any other error over a
+    zero tolerance fails (inf becomes the largest float)."""
+    return (diff / tol).nan_to_num(nan=0.0).max()
+
+
+def bwd_inputs(torch, randn, b, sq, skv, h, kh, hd, dtype, **kw):
+    """q, do (B, Sq, H, hd) and k, v (B, Skv, KH, hd) views of buffers whose
+    rows past Skv are NaN (a read past the keys would show), and o, the
+    forward's output on the card (its route by dtype and head dim) at the
+    window and softcap of ``kw``."""
+    from repro_torch.kernels import ops
+    q, do = randn(b, sq, h, hd, dtype=dtype), randn(b, sq, h, hd, dtype=dtype)
+    kb, vb = (randn(b, skv + 16, kh, hd, dtype=dtype) for _ in range(2))
+    kb[:, skv:], vb[:, skv:] = float("nan"), float("nan")
+    k, v = kb[:, :skv], vb[:, :skv]
+    with torch.no_grad():
+        o = ops.flash_attention(q, k, v, **kw)
+    return q, k, v, o, do
+
+
+def bwd_kernel_checks(torch, randn, timer, errors):
+    """The flash backward against its plain version: the f32 sweep
+    (``BWD_HEADS`` x ``BWD_SEQS``, windows 0/100 and softcaps none/30 in
+    turns, and Sq 65 < Skv 300), every other case through autograd
+    (``ops.flash_attention`` on inputs that require grad, so
+    ``FlashAttentionFn``), the rest straight to the wrapper on (B, H, S, hd)
+    views; then bf16 at ``BWD_TIMED``, timed in turns with the library's
+    backward (``scaled_dot_product_attention`` forward and backward less
+    its forward) beside the plain version and the bound (five S x S x hd
+    products over the causal half, 2.5x the forward's).  Returns the
+    report's rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    log("flash_attention_bwd vs plain")
+    opts = [(0, None), (100, None), (0, 30.0), (100, 30.0)]
+    cases = [(s, s, hd, g, kh) for s in BWD_SEQS for hd, g, kh in BWD_HEADS]
+    cases += [(65, 300, 64, 6, 1), (65, 300, 16, 7, 1)]
+    shares = []
+    for n, (sq, skv, hd, group, kh) in enumerate(cases):
+        window, softcap = opts[n % len(opts)]
+        kw = {"window": window, "softcap": softcap}
+        q, k, v, o, do = bwd_inputs(torch, randn, 2, sq, skv, kh * group, kh,
+                                    hd, torch.float32, **kw)
+        want = ref.flash_attention_bwd(q, k, v, o, do, **kw)
+        if n % 2:
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            with torch.enable_grad():
+                out = ops.flash_attention(*leaves, **kw)
+            got = torch.autograd.grad(out, leaves, do)
+            path = "autograd"
+        else:
+            got = [t.transpose(1, 2) for t in flash_attention_bwd_cuda(
+                *(t.transpose(1, 2) for t in (q, k, v, o, do)), **kw)]
+            path = "wrapper"
+        shares.append(check_grads(
+            "flash_attention_bwd", got, want,
+            f"f32 {path} hd{hd} g{group} Sq{sq} Skv{skv} w{window} "
+            f"cap{softcap}", errors)[1])
+    log(f"  f32 sweep: largest share of the tolerance {max(shares):.3f}")
+    try:
+        q, k, v, o, do = bwd_inputs(torch, randn, 1, 8, 8, 2, 1, 12,
+                                    torch.float32)
+        flash_attention_bwd_cuda(*(t.transpose(1, 2) for t in
+                                   (q, k, v, o, do[..., :8])))
+        errors.append("flash_attention_bwd: a bad shape was not refused")
+    except ValueError as e:
+        log(f"  flash_attention_bwd  bad do shape: refused ({e}) ok")
+
+    out = {}
+    b, h, kh, hd = 4, 12, 2, 128
+    for tag, s in BWD_TIMED.items():
+        q, k, v, o, do = bwd_inputs(torch, randn, b, s, s, h, kh, hd,
+                                    torch.bfloat16)
+        k, v = k.contiguous(), v.contiguous()
+        tr = [t.transpose(1, 2) for t in (q, k, v, o, do)]
+        got = [t.transpose(1, 2) for t in flash_attention_bwd_cuda(*tr)]
+        err, share = check_grads("flash_attention_bwd", got,
+                                 ref.flash_attention_bwd(q, k, v, o, do),
+                                 f"bf16 {tag} B{b} H{h} KH{kh} S{s} hd{hd}",
+                                 errors)
+        qt, kt, vt = (t.detach().requires_grad_() for t in tr[:3])
+        dot = tr[4]
+
+        def lib_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+
+        def lib_both():
+            with torch.enable_grad():
+                lo = F.scaled_dot_product_attention(qt, kt, vt,
+                                                    is_causal=True,
+                                                    enable_gqa=True)
+            torch.autograd.grad(lo, (qt, kt, vt), dot)
+
+        kernel = lambda: flash_attention_bwd_cuda(*tr)  # noqa: E731
+        runs = [timer(kernel)]
+        lib = timer(lib_both) - timer(lib_fwd)
+        runs.append(timer(kernel))
+        ms = sum(runs) / len(runs)
+        n_bytes = nbytes(q, k, v, o, do, q, k, v)
+        flops = 2.5 * b * flash_flops(torch, h, hd, s, s)
+        b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+        out[tag] = {"ms": ms, "ms_runs": runs,
+                    "plain_ms": timer(lambda: ref.flash_attention_bwd(
+                        q, k, v, o, do), reps=3),
+                    "library_ms": lib,
+                    "library_is": "SDPA fwd+bwd - fwd",
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+                    "flops": flops, "max_abs_err": err,
+                    "tolerance_share": share, "route": "cuda_cores",
+                    "bound_share": b_ms / ms,
+                    "sweep_tolerance_share": max(shares),
+                    "shape": f"B{b} H{h} KH{kh} S{s} hd{hd} bf16"}
+    return {"flash_attention_bwd": out}
 
 
 def ssm_flops(b, h, s, dk, dv, chunk):
@@ -6521,6 +6727,325 @@ def dense_serve_phase(torch, smi):
     return {"held": held, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training (the 2B at full width, the proxies' build_system)
+# ---------------------------------------------------------------------------
+
+#: (a): a fixed teacher-forced batch per task, B 4: S 2048 (det), 1025
+#: (vqa, cls); TRAIN_ROUNDS steps on each in a row, det first from the
+#: fresh weights (its answers, 0/1 region tokens, are what the vqa steps
+#: teach too: after them the det loss starts near 0 and only moves with
+#: the other tasks' steps); remat "nothing"
+TRAIN_TASKS = ("det", "vqa", "cls")
+TRAIN_B = 4
+TRAIN_ROUNDS = 4
+#: (b): ``build_system`` at the test suite's tiny-bundle settings
+TRAIN_PROXY = {"scale": "small", "n_train": 64, "n_test": 32,
+               "proxy_steps": 60, "conf_steps": 80, "tasks": ("vqa", "cls")}
+#: card against CPU in (b): the first step's losses (the same weights,
+#: batch and draws, f32 on both, TF32 off: only the sums' order differs)
+#: within 1e-4 relative; the last losses, whose gaps grow step by step,
+#: within ``TOL_PROXY_FINAL`` relative, 4x a reading on an H100 (NVIDIA
+#: H100 80GB HBM3, 700 W; the gaps repeat bit for bit run to run: the
+#: satellite tier after 60 steps 3.6e-7, the ground tier after 90 4.2e-3,
+#: the confidence net, trained on targets made by both tiers and so
+#: carrying the ground tier's gap, 0.133), rounded up.  The growth is the
+#: training's own: a CPU run whose initial weights are one ulp up
+#: (``nudged_init``) drifts from the CPU run about as far (its readings
+#: are in PERF.md), and each card gap's largest over the steps must stay
+#: within ``WITNESS_FACTOR`` times the witness's
+TOL_PROXY_FIRST = 1e-4
+TOL_PROXY_FINAL = {"sat_losses": 1.5e-6, "gs_losses": 0.02,
+                   "conf_losses": 0.55}
+WITNESS_FACTOR = 4.0
+
+
+def train_step_flops(cfg, b, s):
+    """(model FLOPs of one train step: forward + backward of the matmuls
+    (3 x 2 per weight per token), the attention forward and its backward
+    (2.5x); FLOPs executed: that plus the remat's second forward of the
+    blocks and of the CE chunks' unembedding)."""
+    import torch
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    per_layer = d * (2 * nq + 2 * nkv) + 3 * d * cfg.d_ff
+    blocks = 2.0 * b * s * per_layer * cfg.num_layers
+    head = 2.0 * b * s * d * cfg.vocab_size
+    attn = b * cfg.num_layers * flash_flops(torch, cfg.num_heads, hd, s, s)
+    model = 3 * (blocks + head) + attn * (1 + 2.5)
+    return model, model + blocks + attn + head
+
+
+def train_batches(torch, params, cfg, ac, seed: int = 0):
+    """The fixed full-width batch of each task: ``make_dataset`` images at
+    the full adapter, answers from the labels, ``EO.build_batch``."""
+    from repro_torch.core import eo_adapter as EO
+    from repro_torch.data import synthetic
+    eo = synthetic.EOTaskConfig(image_size=ac.image_size, grid=ac.grid,
+                                num_classes=ac.num_classes)
+    out = {}
+    for i, task in enumerate(TRAIN_TASKS):
+        d = synthetic.make_dataset(task, TRAIN_B, seed=seed + i, cfg=eo)
+        t = {k: torch.from_numpy(d[k]).to("cuda")
+             for k in ("images", "prompts", "labels", "region_rel")}
+        answers = EO.answers_from_labels(ac, task, t["labels"],
+                                         t["region_rel"])
+        with torch.no_grad():
+            out[task] = EO.build_batch(params, cfg, ac, task, t["images"],
+                                       t["prompts"], answers)
+    return out
+
+
+def train_full_width(torch, smi):
+    """(a) ``make_train_step`` on the 2B at full width (random bf16 weights
+    from seed 0), remat "nothing", ce_chunks 8, ``TRAIN_ROUNDS`` steps in a
+    row on each task's fixed batch, counts zeroed just before.  Checks:
+    every loss finite; the det batch's loss falls at every step;
+    ``flash_attention_bwd`` 28 launches a step, the wgmma forward 56 (the
+    forward and the remat's recompute), no CUDA-core flash; the backward
+    kernel held against its plain version on layer 0's inputs of an extra
+    det step after the profiled one (neither timed nor counted: the
+    capture clones each call's inputs).  Reports step ms by task, one profiled det step (device ms,
+    busy share), tokens/s, peak memory and the step's FLOPs beside their
+    bound."""
+    from repro_torch.configs.spaceverse_pair import SAT_CONFIG
+    from repro_torch.core import eo_adapter as EO
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops, ref
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    from repro_torch.tree import tree_leaves
+    cfg = SAT_CONFIG
+    ac = EO.EOAdapterConfig(grid=FULL_GRID, image_size=FULL_IMAGE)
+    t_phase = time.perf_counter()
+    adapter = EO.init_adapter(cfg, ac, 0, device="cuda")
+    batches = train_batches(torch, adapter, cfg, ac)
+    params = adapter["backbone"]
+    del adapter
+    # the JAX package's default AdamW (lr 3e-4) without its warmup
+    opt_cfg = O.OptConfig(warmup_steps=1, total_steps=1000)
+    step = TR.make_train_step(cfg, opt_cfg, TR.TrainConfig(
+        remat=True, remat_policy="nothing", ce_chunks=8))
+    opt_state = O.init_opt_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = {t: [] for t in TRAIN_TASKS}
+    ms = {t: [] for t in TRAIN_TASKS}
+    n_steps = TRAIN_ROUNDS * len(TRAIN_TASKS)
+    ops.reset_launch_counts()
+    for task in TRAIN_TASKS:
+        for _ in range(TRAIN_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batches[task])
+            torch.cuda.synchronize()
+            ms[task].append(1e3 * (time.perf_counter() - t0))
+            losses[task].append(float(m["loss"]))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    flash = ops.launches_by_route(counts, "flash_attention")
+
+    # one profiled det step
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batches["det"])
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    prof_sum = profile_summary(torch, prof, 1, prof_s, k=8)
+    losses["det"].append(float(m["loss"]))
+
+    # the backward kernel on the path's own inputs: an extra det step, after
+    # the counts and the timings, keeps its last backward call's (layer 0)
+    held = {}
+    real_bwd = FA.flash_attention_bwd_cuda
+
+    def keep_last(*args, **kw):
+        held["args"] = tuple(a.clone() for a in args)
+        held["kw"] = dict(kw)
+        return real_bwd(*args, **kw)
+
+    FA.flash_attention_bwd_cuda = keep_last
+    try:
+        params, opt_state, _ = step(params, opt_state, batches["det"])
+    finally:
+        FA.flash_attention_bwd_cuda = real_bwd
+    errors = []
+    q, k, v, o, do = held["args"]
+    got = [t.transpose(1, 2) for t in real_bwd(q, k, v, o, do,
+                                               **held["kw"])]
+    want = ref.flash_attention_bwd(*(t.transpose(1, 2)
+                                     for t in (q, k, v, o, do)),
+                                   **held["kw"])
+    err, share = check_grads("flash_attention_bwd", got, want,
+                             f"phase 17 det step layer 0 B{q.shape[0]} "
+                             f"H{q.shape[1]} S{q.shape[2]}", errors)
+
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    steps = {}
+    for task in TRAIN_TASKS:
+        s = batches[task]["targets"].shape[1]
+        model, executed = train_step_flops(cfg, TRAIN_B, s)
+        mean = sum(ms[task][1:]) / len(ms[task][1:])
+        # bytes: the weights read in the forward, the recompute and the
+        # backward, the gradients written, and the AdamW pass over params,
+        # grads and the f32 moments (read and written)
+        n_bytes = n_params * (3 * 2 + 2 + (2 + 2 + 8) + (2 + 8))
+        b_ms, b_by = bound_ms(n_bytes, model, "bfloat16")
+        steps[task] = {"seq": s, "tokens": TRAIN_B * s,
+                       "step_ms": ms[task], "step_ms_mean_after_first": mean,
+                       "tokens_per_s": TRAIN_B * s / (mean / 1e3),
+                       "model_flops": model, "executed_flops": executed,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "model_tflops_per_s": model / (mean / 1e3) / 1e12,
+                       "losses": losses[task]}
+    checks = {
+        "losses finite": all(math.isfinite(x) for v in losses.values()
+                             for x in v),
+        "det loss falls": all(b < a for a, b in zip(
+            losses["det"][:TRAIN_ROUNDS], losses["det"][1:TRAIN_ROUNDS])),
+        "flash_attention_bwd 28 a step":
+            counts["flash_attention_bwd"] == cfg.num_layers * n_steps,
+        "wgmma forward 56 a step":
+            flash["wgmma"] == 2 * cfg.num_layers * n_steps,
+        "no CUDA-core flash": flash["cuda_cores"] == 0,
+        "backward kernel on the path's inputs": not errors}
+    res = {"model": cfg.name, "params": n_params, "batch": TRAIN_B,
+           "steps": steps, "launches": counts, "peak_bytes": peak,
+           "profiled_det_step": {"host_ms": 1e3 * prof_s, **prof_sum},
+           "layer0_bwd_max_abs_err": err, "layer0_bwd_tolerance_share": share,
+           "card": smi, "seconds": time.perf_counter() - t_phase}
+    for task, st in steps.items():
+        log(f"  phase 17 (a) {task} S {st['seq']}: step "
+            f"{st['step_ms_mean_after_first']:.1f} ms (steps "
+            f"{', '.join(f'{x:.1f}' for x in st['step_ms'])}), "
+            f"{st['tokens_per_s']:.0f} tokens/s, "
+            f"{st['model_flops'] / 1e12:.1f} TFLOP a step ({st['model_tflops_per_s']:.1f} TFLOP/s; bound "
+            f"{st['bound_ms']:.1f} ms, {st['bound_by']}), losses "
+            f"{[round(x, 4) for x in st['losses']]} [{smi}]")
+    log(f"  phase 17 (a) profiled det step: host {1e3 * prof_s:.1f} ms, "
+        f"device {prof_sum['device_ms_per_step']:.1f} ms, busy "
+        f"{prof_sum['device_busy_share']:.3f}; peak "
+        f"{peak / 1e9:.2f} GB; launches bwd {counts['flash_attention_bwd']}"
+        f", flash {flash} over {n_steps} steps [{smi}]")
+    log(f"  phase 17 (a) top device ops: {prof_sum['top_device_ops']}")
+    log(f"  phase 17 (a) checks: {checks}")
+    del params, opt_state, batches, held
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, checks, counts, {"phase 17 det layer 0": {
+        "max_abs_err": err, "tolerance_share": share}}
+
+
+def nudged_init(init_tier):
+    """``init_tier`` with every float weight moved one ulp up: a difference
+    of the size of one rounding, for the witness run."""
+    import torch
+    from repro_torch.tree import tree_map
+
+    def init(*args, **kw):
+        return tree_map(lambda t: torch.nextafter(
+            t, torch.full_like(t, math.inf)) if t.is_floating_point()
+            else t, init_tier(*args, **kw))
+    return init
+
+
+def loss_gaps(a, b):
+    """Relative gaps of loss history ``a`` from ``b``: first, last, most."""
+    rel = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    return {"first": rel[0], "last": rel[-1], "max_rel": max(rel)}
+
+
+def train_proxies(torch):
+    """(b) ``build_system`` at ``TRAIN_PROXY`` on the card, then on the CPU
+    (the draws come from CPU generators in both, so they are the same):
+    first-step losses within ``TOL_PROXY_FIRST``, the last losses within
+    ``TOL_PROXY_FINAL`` relative, each history's largest gap within
+    ``WITNESS_FACTOR`` times that of a witness (a CPU run from weights one
+    ulp up, against the CPU run), and the card bundle's
+    ``spaceverse().evaluate`` on the card.  The card run's launches are the
+    path ``train_proxies_card``."""
+    import numpy as np
+    from repro_torch.core import pipeline as P
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    card = P.build_system(**TRAIN_PROXY, device="cuda")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = P.build_system(**TRAIN_PROXY, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    real_init = P.init_tier
+    P.init_tier = nudged_init(real_init)
+    try:
+        witness = P.build_system(**TRAIN_PROXY, device="cpu")
+    finally:
+        P.init_tier = real_init
+    rel, wit = {}, {}
+    for k in ("sat_losses", "gs_losses", "conf_losses"):
+        a, b = card.history[k], cpu.history[k]
+        rel[k] = {**loss_gaps(a, b), "card_first_last": [a[0], a[-1]],
+                  "cpu_first_last": [b[0], b[-1]]}
+        wit[k] = loss_gaps(witness.history[k], b)
+    evals = {}
+    for task in TRAIN_PROXY["tasks"]:
+        out = card.spaceverse().evaluate(task, card.datasets[task], 16)
+        ref_out = cpu.spaceverse().evaluate(task, cpu.datasets[task], 16)
+        evals[task] = {"card_performance": float(out["performance"]),
+                       "cpu_performance": float(ref_out["performance"]),
+                       "card_offload_rate": float(out["offload_rate"]),
+                       "cpu_offload_rate": float(ref_out["offload_rate"]),
+                       "finite": bool(np.isfinite(np.asarray(
+                           out["per_sample_simi"])).all())}
+    checks = {
+        "first-step losses within 1e-4": all(
+            r["first"] <= TOL_PROXY_FIRST for r in rel.values()),
+        "last losses within the bound": all(
+            r["last"] <= TOL_PROXY_FINAL[k] for k, r in rel.items()),
+        "largest gaps within the witness's x 4": all(
+            r["max_rel"] <= WITNESS_FACTOR * wit[k]["max_rel"]
+            for k, r in rel.items()),
+        "losses finite": all(np.isfinite(card.history[k]).all()
+                             for k in card.history),
+        "weights on the card": all(t.device.type == "cuda"
+                                   for t in tree_leaves(card.sat.params)),
+        "evaluate on the card finite": all(e["finite"]
+                                            for e in evals.values()),
+        "backward kernel launched": counts["flash_attention_bwd"] > 0}
+    res = {"relative_loss_gaps": rel, "witness_gaps": wit, "evaluate": evals,
+           "card_seconds": card_s, "cpu_seconds": cpu_s, "launches": counts}
+    gaps = {k: {n: r[n] for n in ("first", "last", "max_rel")}
+            for k, r in rel.items()}
+    log(f"  phase 17 (b) build_system card {card_s:.1f} s, CPU {cpu_s:.1f} "
+        f"s; loss gaps card vs CPU (relative) {gaps}")
+    log(f"  phase 17 (b) witness (CPU from weights one ulp up) vs CPU: {wit}")
+    log(f"  phase 17 (b) evaluate: {evals}")
+    log(f"  phase 17 (b) checks: {checks}")
+    return res, checks, counts
+
+
+def train_phase(torch, smi):
+    """Phase 17: (a) ``train_full_width``, (b) ``train_proxies``.  Line
+    ``train_phase {...}``; raises if a check fails."""
+    t0 = time.perf_counter()
+    res_a, checks_a, counts_a, held = train_full_width(torch, smi)
+    res_b, checks_b, counts_b = train_proxies(torch)
+    res = {"full_width": res_a, "proxies": res_b,
+           "seconds": time.perf_counter() - t0}
+    log("train_phase " + json.dumps(res, default=str))
+    bad = [k for k, v in {**checks_a, **checks_b}.items() if not v]
+    if bad:
+        raise RuntimeError(f"phase 17 failed: {bad}")
+    return {"launches": {"train_full_width": counts_a,
+                         "train_proxies_card": counts_b},
+            "held": {"flash_attention_bwd": held}}
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -6642,6 +7167,14 @@ def main() -> int:
     dense = dense_serve_phase(torch, smi)
     for name, cases in dense.pop("held").items():
         kernels[name].update(cases)
+    torch.cuda.empty_cache()
+
+    phase("phase 17: training (qwen2-vl-2b at full width: make_train_step "
+          "with the flash backward kernel; the proxies' build_system, card "
+          "vs CPU)")
+    train = train_phase(torch, smi)
+    for name, cases in train.pop("held").items():
+        kernels[name].update(cases)
 
     # each path drove the kernels with the counts zeroed just before it
     by_path = {"small_proxies_f32": small_counts,
@@ -6655,7 +7188,8 @@ def main() -> int:
                **quant["launches"], **overload["launches"],
                **sharded["launches"], **graphs["launches"],
                **{f"xlstm {tag}": c for tag, c in xlstm["launches"].items()},
-               **xlstm_serve["launches"], **dense["launches"]}
+               **xlstm_serve["launches"], **dense["launches"],
+               **train["launches"]}
     for tag, r in xlstm.items():
         for name, cases in r.get("kernel_vs_plain_max_abs_err", {}).items():
             kernels[name].update({c: {"max_abs_err": e}
@@ -6691,6 +7225,7 @@ def main() -> int:
                                    "d 2B flat"),
                                   ("paged_prefill_attention",
                                    "d 2B flat"))},
+                "flash_attention_bwd": "det",
                 "ssm_scan_mma": "f xLSTM", "ssm_scan": "f xLSTM",
                 "slstm_scan_cluster": "g xLSTM",
                 "slstm_scan": "g xLSTM"}

@@ -7,7 +7,10 @@ the structure.  Three kinds of tree are accepted:
 
 - adapter params ``{"backbone": ..., "patch_proj": ...}``;
 - bare backbone params ``{"embed": ..., "blocks": (...), "final_norm": ...}``;
-- confidence params ``{"projs": [...], "trunk": {...}}``.
+- confidence params ``{"projs": [...], "trunk": {...}}``;
+- an optimizer state ``{"m": ..., "v": ..., "step": ...}`` (and ``"err"``),
+  carried beside its params (no ``dtype`` cast: the moments stay float32,
+  the step int32).
 
 ``to_numpy`` is the way back; a round trip is byte-equal.  bfloat16 leaves
 travel as ``ml_dtypes.bfloat16`` arrays, the type JAX hands out.
@@ -31,6 +34,11 @@ KINDS = {
     "adapter": {"backbone", "patch_proj"},
     "backbone": {"embed", "blocks", "final_norm"},
     "confidence": {"projs", "trunk"},
+    # ``repro.train.optimizer.init_opt_state``'s tree (m and v shaped as
+    # the params, float32; the int32 step), with the compression's
+    # error-feedback state when it keeps one
+    "opt_state": {"m", "v", "step"},
+    "opt_state_err": {"m", "v", "step", "err"},
 }
 
 
@@ -44,9 +52,8 @@ def kind_of(tree: Any) -> str:
 
 def _leaf_to_torch(a: np.ndarray, device: torch.device,
                    dtype: Optional[torch.dtype]) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:       # JAX hands out read-only views
-        a = a.copy()
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = np.array(a, order="C")  # JAX hands out read-only views; 0-d kept
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     elif a.dtype.name == "float8_e4m3fn":
@@ -62,8 +69,10 @@ def _leaf_to_torch(a: np.ndarray, device: torch.device,
 def from_numpy(tree: Any, *, device: DeviceLike = None,
                dtype: Optional[torch.dtype] = None) -> Any:
     """numpy tree (one of ``KINDS``) → tensors on ``device`` (the card
-    unless ``"cpu"`` is asked for); ``dtype`` casts floating leaves."""
-    kind_of(tree)
+    unless ``"cpu"`` is asked for); ``dtype`` casts floating leaves (never
+    an optimizer state's)."""
+    if kind_of(tree).startswith("opt_state"):
+        dtype = None
     dev = resolve_device(device)
     return tree_map(lambda a: _leaf_to_torch(np.asarray(a), dev, dtype), tree)
 

@@ -10,6 +10,9 @@ and the latency model.
 - ``eo_adapter``        LVLM task protocol for EO tasks
 - ``similarity``        Simi metrics + confidence targets
 - ``latency``           paper-calibrated deployment latency model
+- ``pipeline``          training the proxy tiers and the confidence net,
+                        ``build_system`` (imported on its own: it pulls in
+                        ``repro_torch.train``)
 """
 from repro_torch.core import (cascade, confidence, eo_adapter,  # noqa: F401
                               latency, preprocess, region_attention,

@@ -4,16 +4,20 @@ A shared MLP trunk ``M`` with ``I`` stage-specific input projections
 ``{L_i}``: stage 1 scores from pooled visual features V(x) alone (before any
 decode step); stage i>1 also sees the pooled features of the tokens
 generated so far.  A sample whose score falls below τ_i is offloaded and
-onboard decoding stops.  The port of ``repro.core.confidence``; training
-(Eq. 1) is not ported yet.
+onboard decoding stops.  The port of ``repro.core.confidence``, with its
+training: Eq. (1), Σ_i MSE(g̃_i(V(x), A_{i−1}), cos(ŷ^s, ŷ^g)), by Adam on
+a small supervision split (``train_confidence``).  Its minibatch draws come
+from ``draw_rows`` on an explicit ``torch.Generator`` (the JAX package
+draws threefry bits: the tests feed JAX's draws through it).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
@@ -63,3 +67,57 @@ def apply_stage(params: Params, stage: int, visual: torch.Tensor,
     t = params["trunk"]
     h = torch.relu(h @ t["w1"] + t["b1"])
     return torch.sigmoid((h @ t["w2"] + t["b2"])[..., 0])
+
+
+def loss_fn(params: Params, visual: torch.Tensor,
+            states: Sequence[torch.Tensor], target: torch.Tensor
+            ) -> torch.Tensor:
+    """Eq. (1): Σ_i MSE(g̃_i(·), cos-sim target).  ``states[i]`` is the
+    pooled token features available to stage i+1 (num_stages − 1 of
+    them)."""
+    total = torch.mean((apply_stage(params, 0, visual) - target) ** 2)
+    for i, st in enumerate(states):
+        pred = apply_stage(params, i + 1, visual, st)
+        total = total + torch.mean((pred - target) ** 2)
+    return total
+
+
+def draw_rows(gen: torch.Generator, n: int, size: int) -> torch.Tensor:
+    """A minibatch of ``size`` row indices in [0, n), with replacement
+    (``jax.random.randint``'s role), from ``gen``'s device."""
+    return torch.randint(0, n, (size,), generator=gen, device=gen.device)
+
+
+def train_confidence(params: Params, visual: torch.Tensor,
+                     states: Sequence[torch.Tensor], target: torch.Tensor, *,
+                     steps: int = 300, lr: float = 1e-2, batch: int = 64,
+                     seed: int = 0) -> Tuple[Params, List[float]]:
+    """Adam on Eq. (1) over a small supervision split (paper: 5% of train).
+    The minibatches come from ``draw_rows`` on a CPU generator seeded with
+    ``seed``, so a run's draws do not depend on the device it trains on.
+    Returns (new params, per-step losses)."""
+    n = visual.shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    m = tree_map(torch.zeros_like, params)
+    v = tree_map(torch.zeros_like, params)
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    losses = []
+    for t in range(1, steps + 1):
+        idx = draw_rows(gen, n, min(batch, n)).to(visual.device)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        it = iter(leaves)
+        with torch.enable_grad():
+            loss = loss_fn(tree_map(lambda _: next(it), params), visual[idx],
+                           [s[idx] for s in states], target[idx])
+        grads = iter(torch.autograd.grad(loss, leaves))
+        g = tree_map(lambda _: next(grads), params)
+        m = tree_map(lambda m_, g_: b1 * m_ + (1 - b1) * g_, m, g)
+        v = tree_map(lambda v_, g_: b2 * v_ + (1 - b2) * g_ * g_, v, g)
+        tt = torch.tensor(float(t), dtype=torch.float32)
+        mh = tree_map(lambda m_: m_ / (1 - b1 ** tt).to(m_.device), m)
+        vh = tree_map(lambda v_: v_ / (1 - b2 ** tt).to(v_.device), v)
+        params = tree_map(lambda p, mh_, vh_: (p - lr * mh_
+                                               / (torch.sqrt(vh_) + eps)),
+                          params, mh, vh)
+        losses.append(float(loss.detach()))
+    return params, losses

@@ -1,6 +1,7 @@
 """EO task adapter: wraps a backbone into the paper's LVLM task protocol.
 
-The port of ``repro.core.eo_adapter`` (inference only).  The satellite/GS
+The port of ``repro.core.eo_adapter``: inference, and the teacher-forced
+training batches (``build_batch``, ``answers_from_labels``).  The satellite/GS
 LVLMs answer Earth-observation prompts autoregressively over one layout:
 
     [ R region tokens | prompt token | answer tokens ]
@@ -15,7 +16,7 @@ LVLMs answer Earth-observation prompts autoregressively over one layout:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -78,10 +79,16 @@ def init_adapter(backbone_cfg: ArchConfig, adapter_cfg: EOAdapterConfig,
     """Random backbone + patch projector from one ``torch.Generator``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    return init_adapter_with(backbone_cfg, adapter_cfg, gen, dev)
+
+
+def init_adapter_with(backbone_cfg: ArchConfig, adapter_cfg: EOAdapterConfig,
+                      gen: torch.Generator, device: torch.device) -> Params:
+    """``init_adapter``'s draws from a given generator (on ``device``)."""
     w = torch.randn((adapter_cfg.patch_dim, backbone_cfg.d_model),
-                    generator=gen, device=dev, dtype=torch.float32)
+                    generator=gen, device=device, dtype=torch.float32)
     return {
-        "backbone": T.init_params_with(backbone_cfg, gen, dev),
+        "backbone": T.init_params_with(backbone_cfg, gen, device),
         "patch_proj": (w * adapter_cfg.patch_dim ** -0.5).to(
             getattr(torch, backbone_cfg.dtype)),
     }
@@ -111,6 +118,57 @@ def token_features(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     """Pooled embedding of generated tokens A_i: (B, L) ids → (B, d) f32."""
     tok = params["backbone"]["embed"]["tok"]
     return F.embedding(tokens, tok).float().mean(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Training batches
+# ---------------------------------------------------------------------------
+
+def teacher_forced(adapter_cfg: EOAdapterConfig, task: str,
+                   prompts: torch.Tensor, answers: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+    """The text side of a training batch over [R regions | prompt |
+    answers]: input ``tokens`` [prompt, ans_0 .. ans_{L-2}] (teacher
+    forcing), ``targets`` with the answers at positions R .. R+L-1 and
+    ``loss_mask`` 1 there, int32 / float32."""
+    b, l_ans = answers.shape
+    r = adapter_cfg.n_regions
+    prompt = adapter_cfg.prompt_token(task, prompts)[:, None].to(torch.int32)
+    tokens = torch.cat([prompt, answers[:, :-1].to(torch.int32)], dim=1)
+    s_total = r + 1 + (l_ans - 1)
+    targets = torch.zeros((b, s_total), dtype=torch.int32,
+                          device=answers.device)
+    mask = torch.zeros((b, s_total), dtype=torch.float32,
+                       device=answers.device)
+    targets[:, r:r + l_ans] = answers
+    mask[:, r:r + l_ans] = 1.0
+    return {"tokens": tokens, "targets": targets, "loss_mask": mask}
+
+
+def build_batch(params: Params, backbone_cfg: ArchConfig,
+                adapter_cfg: EOAdapterConfig, task: str,
+                images: torch.Tensor, prompts: torch.Tensor,
+                answers: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """answers: (B, L_ans) int32, the supervised answer tokens.  Returns
+    ``T.loss_fn``'s batch: ``teacher_forced``'s tokens, targets and mask
+    and the region tokens V(x) as ``patch_embeds``."""
+    return dict(teacher_forced(adapter_cfg, task, prompts, answers),
+                patch_embeds=encode_regions(params, adapter_cfg, images))
+
+
+def answers_from_labels(adapter_cfg: EOAdapterConfig, task: str,
+                        labels: torch.Tensor,
+                        region_rel: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """The supervised answer tokens (B, L_ans) int32: vqa the yes/no label,
+    cls the class id, det the per-region relevance mask."""
+    if task in ("vqa", "cls"):
+        return labels[:, None].to(torch.int32)
+    if task == "det":
+        if region_rel is None:
+            raise ValueError("det answers need region_rel")
+        return region_rel.to(torch.int32)
+    raise ValueError(task)
 
 
 # ---------------------------------------------------------------------------

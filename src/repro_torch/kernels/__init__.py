@@ -2,6 +2,8 @@
 
 - ``ref``               plain PyTorch versions (the CPU path and the oracle)
 - ``flash_attention``   prefill attention, ``csrc/flash_attention.cu``
+                        (and ``flash_attention_wgmma.cu``); its backward
+                        for training, ``csrc/flash_attention_bwd.cu``
 - ``decode_attention``  dense flash-decoding, ``csrc/decode_attention.cu``
 - ``paged_decode_attention``  the same through a block table over page
                         pools (slot decode and speculative verify)

@@ -19,6 +19,14 @@ Two routes, chosen by ``route`` from the dtype and head dim alone:
   f32 math on the CUDA cores.  bf16 at hd 256 takes this route by its
   shape: a launch there is counted as a CUDA-core launch, and a failure
   raises.
+
+The backward (training) is one more kernel,
+``csrc/flash_attention_bwd.cu`` (CUDA cores, f32 math, three launches: row
+statistics, dK/dV by key tile with the GQA sum as a loop, dQ by query
+tile), taken for float32 and bfloat16 at every head dim the forward
+takes.  ``FlashAttentionFn`` ties the two together for autograd: its
+forward is the dispatch above, its backward this kernel on the card and
+``ref.flash_attention_bwd`` on the CPU.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.build import (DTYPES, CudaKernel, check_16_bytes,
                                       check_head_dim, check_operands)
 
@@ -39,6 +48,10 @@ WGMMA_KERNEL = CudaKernel("flash_attention_wgmma.cu",
                           "flash_attention_wgmma_fwd",
                           [_P] * 4 + [_I] * 6 + [_L] * 12
                           + [_I, _I, _F, _F, _P])
+BWD_KERNEL = CudaKernel("flash_attention_bwd.cu", "flash_attention_bwd",
+                        [_P] * 10 + [_I] * 6
+                        + [ctypes.POINTER(ctypes.c_longlong)]
+                        + [_I, _I, _F, _F, _I, _P])
 WGMMA_HEAD_DIMS = (64, 128)
 
 
@@ -124,3 +137,88 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               else launch_cuda_cores)
     return launch(q, k, v, causal=causal, window=window, softcap=softcap,
                   scale=scale)
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, *, causal: bool = True,
+                             window: int = 0,
+                             softcap: Optional[float] = None,
+                             scale: Optional[float] = None):
+    """The backward kernel: q, o, do (B, H, Sq, hd); k, v (B, KH, Skv, hd)
+    → (dq (B, H, Sq, hd), dk, dv (B, KH, Skv, hd)), views of (B, S, heads,
+    hd) buffers, in the inputs' dtype (float32 or bfloat16, hd <= 256,
+    hd % 4 == 0, 1 <= Sq <= Skv).  Raises on anything else."""
+    check_operands(q, k, v, o, do)
+    if q.dim() != 4 or k.shape != v.shape or o.shape != q.shape \
+            or do.shape != q.shape:
+        raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} o{tuple(o.shape)} "
+                         f"do{tuple(do.shape)}")
+    b, h, sq, hd = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != hd or kh < 1 or h % kh:
+        raise ValueError("k/v must be (B, KH, Skv, hd) with H % KH == 0")
+    check_head_dim(hd)
+    if not 1 <= sq <= skv:
+        raise ValueError(f"kernel takes 1 <= Sq <= Skv, got {sq} > {skv}")
+    scale = scale if scale is not None else hd ** -0.5
+    dev, dt = q.device, q.dtype
+    dq = torch.empty((b, sq, h, hd), dtype=dt, device=dev).transpose(1, 2)
+    dk = torch.empty((b, skv, kh, hd), dtype=dt, device=dev).transpose(1, 2)
+    dv = torch.empty((b, skv, kh, hd), dtype=dt, device=dev).transpose(1, 2)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    ts = (q, k, v, o, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*[x for t in ts
+                                         for x in t.stride()[:3]])
+    with torch.cuda.device(dev):
+        BWD_KERNEL(*[t.data_ptr() for t in ts], lse.data_ptr(),
+                   delta.data_ptr(), b, h, kh, sq, skv, hd, strides,
+                   int(causal), int(window), float(softcap or 0.0),
+                   float(scale), DTYPES[dt],
+                   torch.cuda.current_stream().cuda_stream)
+    return dq, dk, dv
+
+
+def flash_attention_model_layout(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, **kw) -> torch.Tensor:
+    """The forward in the model layout, q (B, Sq, H, hd), k, v (B, Skv, KH,
+    hd) → (B, Sq, H, hd): ``flash_attention_cuda`` on the card, the plain
+    version on the CPU.  The caller has refused mixed devices."""
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), **kw).transpose(1, 2)
+    return ref.flash_attention(q, k, v, **kw)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention under autograd, in the model layout: q (B, Sq, H,
+    hd), k, v (B, Skv, KH, hd) → (B, Sq, H, hd), as ``ops.flash_attention``.
+    On the card the forward is ``flash_attention_cuda`` (its route by dtype
+    and head dim) and the backward ``flash_attention_bwd_cuda``; on the CPU
+    both are the plain versions.  It saves q, k, v and the output; the
+    backward recomputes p blockwise, as the JAX package's
+    ``ref.flash_structured`` VJP does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        kw = {"causal": causal, "window": window, "softcap": softcap,
+              "scale": scale}
+        o = flash_attention_model_layout(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        if q.device.type == "cuda":
+            dq, dk, dv = flash_attention_bwd_cuda(
+                *(t.transpose(1, 2) for t in (q, k, v, o, do)), **ctx.kw)
+            dq, dk, dv = (t.transpose(1, 2) for t in (dq, dk, dv))
+        else:
+            dq, dk, dv = ref.flash_attention_bwd(q, k, v, o, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None

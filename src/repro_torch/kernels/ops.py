@@ -31,6 +31,7 @@ from repro_torch.kernels import ssm_scan as SS
 
 KERNELS = {"flash_attention": FA.KERNEL,
            "flash_attention_wgmma": FA.WGMMA_KERNEL,
+           "flash_attention_bwd": FA.BWD_KERNEL,
            "decode_attention": DA.KERNEL,
            "decode_attention_mma": DA.MMA_KERNEL, "region_score": RS.KERNEL,
            "paged_decode_attention": PDA.KERNEL,
@@ -160,14 +161,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) → (B, Sq, H, hd)."""
-    if not _on_card(q, k, v):
-        return ref.flash_attention(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, scale=scale)
-    o = FA.flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=causal,
-                                window=window, softcap=softcap, scale=scale)
-    return o.transpose(1, 2)
+    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) → (B, Sq, H, hd).  Under
+    autograd (grad enabled and an input that requires it) the call goes
+    through ``FlashAttentionFn``, whose backward is the backward kernel on
+    the card; otherwise it launches the forward alone, as in inference."""
+    _on_card(q, k, v)           # refuses mixed devices on either path
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FA.FlashAttentionFn.apply(q, k, v, causal, window, softcap,
+                                         scale)
+    return FA.flash_attention_model_layout(q, k, v, causal=causal,
+                                           window=window, softcap=softcap,
+                                           scale=scale)
 
 
 # ---------------------------------------------------------------------------

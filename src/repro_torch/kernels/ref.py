@@ -12,6 +12,8 @@ follows its oracle, which takes an initial state (the Pallas kernel does
 not).  ``ops`` takes them for
 tensors on the CPU; the tests hold them against the JAX oracles, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
+``flash_attention_bwd`` is the plain version of the training backward
+(the math of the JAX package's ``ref._fs_bwd``).
 """
 from __future__ import annotations
 
@@ -66,6 +68,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None):
+    """The gradient of ``flash_attention`` at (q, k, v): given its output
+    ``o`` and the output's gradient ``do`` (both (B, Sq, H, hd)), returns
+    (dq, dk, dv) in the inputs' dtypes, computed in float32.
+
+    The math of ``repro/kernels/ref.py::_fs_bwd`` (the JAX package's flash
+    backward, a custom VJP): delta = rowsum(do·o); p recomputed from the
+    row's logsumexp over its visible keys; ds = p·(dp − delta), times
+    (1 − tanh²) under a softcap; dk and dv summed over each KV head's group.
+    A row that sees no key gets p = 0 and so zero gradients, as the
+    forward's ``max(l, 1e-30)`` division gives it a constant zero output."""
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    group = h // kh
+    scale = scale if scale is not None else hd ** -0.5
+    qf = q.float().reshape(b, sq, kh, group, hd)
+    dof = do.float().reshape(b, sq, kh, group, hd)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    dcap = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+        dcap = 1.0 - t * t
+    mask = _attn_mask(sq, skv, window, causal, skv - sq, q.device)
+    sm = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = sm.amax(dim=-1, keepdim=True)
+    lse = m + torch.log(torch.clamp((torch.exp(sm - m) * mask).sum(
+        dim=-1, keepdim=True), min=1e-30))
+    p = torch.where(mask, torch.exp(s - lse), torch.zeros_like(s))
+    delta = (dof * o.float().reshape(b, sq, kh, group, hd)).sum(-1)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if dcap is not None:
+        ds = ds * dcap
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _lengths(cache_len, b: int, device) -> torch.Tensor:

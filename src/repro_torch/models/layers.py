@@ -2,13 +2,15 @@
 
 The ported slice of ``repro.models.layers``: RMSNorm, RoPE with
 Qwen2-VL's M-RoPE sections, GQA attention backed by the flash, decode and
-paged-decode and paged prefix-append kernels (modes ``"prefill"``,
-``"decode"``, ``"verify"`` and ``"prefill_append"``, over a dense cache or
-a page pool through a block table), the SwiGLU MLP, and the xLSTM mixers:
-mLSTM (the chunked scan kernel in prefill, the O(1) update in decode) and
-sLSTM (the recurrence kernel in both), modes ``"prefill"`` and
-``"decode"``.  Page pools may be int8 or fp8 (e4m3) with per-(page, slot,
-head) scales (``kernels/kv_quant.py``).  MoE, Mamba and Hymba are not
+paged-decode and paged prefix-append kernels (modes ``"train"``, no cache,
+differentiable through the flash backward; ``"prefill"``, ``"decode"``,
+``"verify"`` and ``"prefill_append"``, over a dense cache or a page pool
+through a block table), the SwiGLU MLP, and the xLSTM mixers: mLSTM (the
+chunked scan kernel in prefill, the O(1) update in decode) and sLSTM (the
+recurrence kernel in both), modes ``"prefill"`` and ``"decode"`` (their
+``"train"`` mode waits for the scans' backward and raises).  Page pools
+may be int8 or fp8 (e4m3) with per-(page, slot, head) scales
+(``kernels/kv_quant.py``).  MoE, Mamba and Hymba are not
 ported yet and raise.  Attention's output projection and the MLP's down
 projection end in the tensor-parallel all-reduce hooks
 (``distributed.collectives``), identity outside a serving ``tp_context``.
@@ -213,7 +215,8 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
               chunk_lens: Optional[torch.Tensor] = None,
               tile_plan: Optional[torch.Tensor] = None,
               mode: str = "prefill") -> Tuple[torch.Tensor, Params]:
-    """``"prefill"``: causal attention over the whole sequence, whose K/V
+    """``"train"``: causal attention over the whole sequence, no cache (the
+    training forward; differentiable).  ``"prefill"``: the same, whose K/V
     fill cache positions [0, S).  ``"decode"``: S == 1 at ``cache_index``
     (an int, or a (B,) tensor of per-row positions), attending to the cache
     up to and including that position.  ``"verify"``: a speculative
@@ -230,9 +233,10 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
     ``"prefill_append"`` at S 1 only) groups rows into the prefix-append
     kernel's row tiles (``ops.paged_prefill_attention``); it never changes
     a valid row's result."""
-    if mode not in ("prefill", "decode", "verify", "prefill_append"):
+    if mode not in ("train", "prefill", "decode", "verify",
+                    "prefill_append"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
-    if cache is None:
+    if cache is None and mode != "train":
         raise ValueError(f"mode {mode!r} needs a cache")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -246,11 +250,14 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
     k = apply_rope(k, cos, sin)
 
     cap = cfg.attn_softcap
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         o = ops.flash_attention(q, k, v, causal=True, window=window,
                                 softcap=cap)
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
+        # train writes nothing in place: autograd sees every op, and the
+        # flash call's backward is the backward kernel on the card
+        if mode == "prefill":
+            cache["k"][:, :s] = k
+            cache["v"][:, :s] = v
     elif mode == "prefill_append":
         idx = torch.as_tensor(cache_index, device=x.device).broadcast_to(
             (b,))

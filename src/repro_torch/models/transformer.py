@@ -7,27 +7,33 @@ the JAX stack runs one ``lax.scan`` over super-blocks, this one indexes
 layer ``i`` of each stacked leaf (a view) inside a Python loop.
 
 Public entry points: ``init_params`` / ``init_cache`` /
-``init_paged_cache``, ``prefill`` (the full prompt, filling a dense KV
-cache), ``decode_step`` (one token per row, dense or through a block table
-over page pools), ``verify_step`` (a γ+1-token speculative chunk) and
-``prefill_chunk_step`` (the chunked prefill's ragged fused step).  Block
-kinds ported: attention (``ATTN``, dense FFN) and the xLSTM mixers
-(``MLSTM``, ``SLSTM``, no FFN), whose recurrent states ride the cache and
-are written back in place; their stacks run ``prefill`` and ``decode_step``
-only (verify and prefill-append need attention blocks, as in the JAX
-package).  MoE, Mamba and Hymba blocks raise.
+``init_paged_cache``; the training forward under autograd,
+``forward_train`` (logits), ``loss_fn`` (the chunked masked CE, with
+block-granular remat through ``torch.utils.checkpoint``) and
+``hidden_features``; under inference mode ``prefill`` (the full prompt,
+filling a dense KV cache), ``decode_step`` (one token per row, dense or
+through a block table over page pools), ``verify_step`` (a γ+1-token
+speculative chunk) and ``prefill_chunk_step`` (the chunked prefill's
+ragged fused step).  Block kinds ported: attention (``ATTN``, dense FFN)
+and the xLSTM mixers (``MLSTM``, ``SLSTM``, no FFN), whose recurrent
+states ride the cache and are written back in place; their stacks run
+``prefill`` and ``decode_step`` only (verify and prefill-append need
+attention blocks, as in the JAX package; their training mode waits for
+the scans' backward).  MoE, Mamba and Hymba blocks raise.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ATTN, MLSTM, SLSTM, ArchConfig, BlockSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import frontends
 from repro_torch.models import layers as L
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
@@ -225,28 +231,173 @@ def _layer(tree: Any, i: int) -> Any:
     return tree_map(lambda x: x[i], tree)
 
 
+def _unstacked(tree: Any, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree, each leaf unbound once.
+    Under autograd, indexing layer ``i`` of a leaf that requires grad adds
+    a gradient the size of the whole stack for every layer; through one
+    ``unbind`` the backward stacks the layers' gradients in one copy."""
+    parts = [x.unbind(0) for x in tree_leaves(tree)]
+    out = []
+    for i in range(n):
+        it = iter([p[i] for p in parts])
+        out.append(tree_map(lambda _: next(it), tree))
+    return out
+
+
+#: the matmul ops a selective remat policy keeps: ``"dots"`` the products
+#: without batch dims (JAX's ``dots_with_no_batch_dims_saveable``; the
+#: model's ``x @ W`` runs as ``mm``), ``"dots_saveable"`` every product
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _selective(ops_saved):
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops_saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    def context_fn():
+        return create_selective_checkpoint_contexts(policy)
+    return context_fn
+
+
+#: remat policies of the training forward, by the JAX package's names
+#: (``repro/models/transformer.py::REMAT_POLICIES``): ``"nothing"`` keeps
+#: only each block's input and recomputes the block in the backward; the
+#: others keep the products named above through
+#: ``create_selective_checkpoint_contexts``
+REMAT_POLICIES = {
+    "nothing": None,
+    "dots": _selective(_DOTS),
+    "dots_saveable": _selective(_DOTS + _BATCHED_DOTS),
+}
+
+
+def _remat(fn: Callable, policy: str, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant) with
+    the named remat policy."""
+    context = REMAT_POLICIES[policy]
+    kw = {} if context is None else {"context_fn": context}
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor,
-               positions: torch.Tensor, *, mode: str, cache: Tuple,
-               cache_index=None, block_table=None,
-               chunk_lens=None, tile_plan=None) -> torch.Tensor:
+               positions: torch.Tensor, *, mode: str,
+               cache: Optional[Tuple], cache_index=None, block_table=None,
+               chunk_lens=None, tile_plan=None, remat: bool = False,
+               remat_policy: str = "nothing") -> torch.Tensor:
+    """The blocks in order, then the final norm.  ``cache`` None: no cache
+    (mode ``"train"``).  ``remat``: each block runs under
+    ``torch.utils.checkpoint`` at ``remat_policy``, so the backward
+    recomputes one block at a time (the JAX package's block-granular
+    ``jax.checkpoint``)."""
     cos, sin = L.rope_angles(
         positions, cfg.resolved_head_dim, cfg.rope_theta,
         cfg.mrope_sections if cfg.use_mrope and positions.dim() == 3
         else None)
+    if remat and remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat_policy!r} "
+                         f"({sorted(REMAT_POLICIES)})")
+    per_layer = ([_unstacked(b, cfg.n_super) for b in params["blocks"]]
+                 if mode == "train" else None)
     for i in range(cfg.n_super):
         for pos, spec in enumerate(cfg.block_pattern):
-            x = _apply_block(_layer(params["blocks"][pos], i), x, cfg=cfg,
-                             spec=spec, cos=cos, sin=sin,
-                             cache=_layer(cache[pos], i),
-                             cache_index=cache_index, mode=mode,
-                             block_table=block_table, chunk_lens=chunk_lens,
-                             tile_plan=tile_plan)
+            p = (per_layer[pos][i] if per_layer is not None
+                 else _layer(params["blocks"][pos], i))
+            c = None if cache is None else _layer(cache[pos], i)
+
+            def block(x, p=p, c=c, spec=spec):
+                return _apply_block(p, x, cfg=cfg, spec=spec, cos=cos,
+                                    sin=sin, cache=c,
+                                    cache_index=cache_index, mode=mode,
+                                    block_table=block_table,
+                                    chunk_lens=chunk_lens,
+                                    tile_plan=tile_plan)
+
+            x = _remat(block, remat_policy, x) if remat else block(x)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
+
+def largest_divisor_leq(n: int, cap: int) -> int:
+    """The largest divisor of ``n`` that is at most ``cap`` (at least 1)."""
+    for d in range(min(cap, n), 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+def forward_train(params: Params, cfg: ArchConfig,
+                  inputs: Dict[str, torch.Tensor], *, remat: bool = True,
+                  remat_policy: str = "nothing"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence logits under autograd.  Returns (logits (B, S, V)
+    float32, aux): ``aux`` is the MoE load-balance loss, 0 for the stacks
+    the port runs (attention blocks with a dense FFN)."""
+    x, positions = frontends.embed_inputs(params["embed"], cfg, inputs)
+    x = _run_stack(params, cfg, x, positions, mode="train", cache=None,
+                   remat=remat, remat_policy=remat_policy)
+    return (frontends.logits_from_hidden(params["embed"], cfg, x),
+            x.new_zeros((), dtype=torch.float32))
+
+
+def _ce_chunk(embed: Params, cfg: ArchConfig, x: torch.Tensor,
+              targets: torch.Tensor, mask: torch.Tensor):
+    """One sequence chunk of the CE: (masked NLL sum, masked hit count)."""
+    logits = frontends.logits_from_hidden(embed, cfg, x)       # (B, c, V)
+    target_logit = logits.gather(-1, targets[..., None].long())[..., 0]
+    nll = torch.logsumexp(logits, dim=-1) - target_logit
+    hits = (logits.argmax(-1) == targets).float()
+    return (nll * mask).sum(), (hits * mask).sum()
+
+
+def loss_fn(params: Params, cfg: ArchConfig,
+            batch: Dict[str, torch.Tensor], *, remat: bool = True,
+            ce_chunks: int = 8, remat_policy: str = "nothing"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Masked next-token cross entropy + MoE aux (0 here).  ``batch``: the
+    inputs and ``targets`` (B, S) int, ``loss_mask`` (B, S).  Returns
+    (loss, {"ce", "aux", "acc"}), float32 scalars.
+
+    The unembedding and CE run in ``largest_divisor_leq(S, ce_chunks)``
+    sequence chunks, each rematerialised under ``remat`` (its (B, S/n, V)
+    f32 logits live only inside the chunk, in the forward and again in the
+    backward), with the target logit and the logsumexp per chunk: no
+    (B, S, V) f32 logits are ever live, as in the JAX package."""
+    x, positions = frontends.embed_inputs(params["embed"], cfg, batch)
+    x = _run_stack(params, cfg, x, positions, mode="train", cache=None,
+                   remat=remat, remat_policy=remat_policy)
+    targets = batch["targets"]
+    mask = batch["loss_mask"].float()
+    s = x.shape[1]
+    c = s // largest_divisor_leq(s, ce_chunks)
+    ce_sum = x.new_zeros((), dtype=torch.float32)
+    acc_sum = x.new_zeros((), dtype=torch.float32)
+    for lo in range(0, s, c):
+        args = (params["embed"], cfg, x[:, lo:lo + c],
+                targets[:, lo:lo + c], mask[:, lo:lo + c])
+        if remat:
+            ce, hits = checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            ce, hits = _ce_chunk(*args)
+        ce_sum = ce_sum + ce
+        acc_sum = acc_sum + hits
+    denom = torch.clamp(mask.sum(), min=1.0)
+    aux = x.new_zeros((), dtype=torch.float32)
+    ce = ce_sum / denom
+    return ce + aux, {"ce": ce, "aux": aux, "acc": acc_sum / denom}
+
+
+def hidden_features(params: Params, cfg: ArchConfig,
+                    inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Final-layer hidden states (B, S, d): the paper's V(x)/E(T) feature
+    space for Eq. (2) scoring and the confidence net's input."""
+    x, positions = frontends.embed_inputs(params["embed"], cfg, inputs)
+    return _run_stack(params, cfg, x, positions, mode="train", cache=None)
+
 
 @torch.inference_mode()
 def prefill(params: Params, cfg: ArchConfig, inputs: Dict[str, torch.Tensor],

@@ -1565,3 +1565,130 @@ def test_graphs_on_a_gloo_tp_group_raise(card):
                         timeout_s=120):
         assert msg is not None and "gloo" in msg and "cuda_graphs" in msg
 
+
+
+# ---------------------------------------------------------------------------
+# training: the flash backward kernel and a train step
+# ---------------------------------------------------------------------------
+
+def _grads_close(got, want, dtype):
+    """The backward's tolerance (``chip_smoke.check_grads``): f32 sums in
+    another order, 1e-4·G per element, G the largest |want| over dq, dk
+    and dv (no absolute floor, so it scales with the gradients); in bf16
+    also 2^-6·|want| (two bf16 ulps)."""
+    rtol = 2.0 ** -6 if dtype == torch.bfloat16 else 0.0
+    want = [w.float() for w in want]
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        diff = (g.float() - w).abs()
+        bound = 1e-4 * scale + rtol * w.abs()
+        assert not bool((diff > bound).any()), float(diff.max())
+
+
+@pytest.mark.parametrize("hd,group,kh,sq,skv,window,softcap,dtype", [
+    (12, 1, 2, 1, 1, 0, None, torch.float32),
+    (16, 7, 1, 65, 65, 100, 30.0, torch.float32),
+    (16, 4, 2, 129, 129, 0, None, torch.float32),         # the ground proxy
+    (64, 6, 1, 129, 129, 0, 30.0, torch.float32),
+    (128, 6, 2, 64, 64, 100, None, torch.float32),
+    (256, 7, 1, 63, 63, 0, None, torch.float32),
+    (256, 1, 1, 1025, 1025, 100, 30.0, torch.float32),
+    (16, 6, 1, 65, 300, 0, None, torch.float32),          # Sq < Skv
+    (128, 6, 2, 1025, 1025, 0, None, torch.bfloat16),     # the 2B's shape
+])
+def test_flash_bwd_kernel_matches_plain(card, hd, group, kh, sq, skv, window,
+                                        softcap, dtype):
+    """The backward kernel through autograd (``ops.flash_attention`` on
+    inputs that require grad) against the plain backward at the f32
+    sweep's corners and the 2B's bf16 shape; K/V are views of buffers NaN
+    past Skv."""
+    kw = {"window": window, "softcap": softcap}
+    h = kh * group
+    q = _randn(card, 2, sq, h, hd, dtype=dtype)
+    do = _randn(card, 2, sq, h, hd, dtype=dtype)
+    kb, vb = (_randn(card, 2, skv + 16, kh, hd, dtype=dtype)
+              for _ in range(2))
+    kb[:, skv:], vb[:, skv:] = float("nan"), float("nan")
+    k, v = kb[:, :skv], vb[:, :skv]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = ops.launch_counts()["flash_attention_bwd"]
+    with torch.enable_grad():
+        o = ops.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(o, leaves, do)
+    assert ops.launch_counts()["flash_attention_bwd"] == before + 1
+    want = ref.flash_attention_bwd(q, k, v, o.detach(), do, **kw)
+    _grads_close(got, want, dtype)
+
+
+def test_flash_bwd_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    q = _randn(card, 1, 2, 8, 12)
+    k = _randn(card, 1, 1, 8, 12)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_cuda(q, k, k, q, q[..., :8])
+    with pytest.raises(TypeError):
+        flash_attention_bwd_cuda(*(t.half() for t in (q, k, k, q, q)))
+    with pytest.raises(ValueError):                   # Sq > Skv
+        flash_attention_bwd_cuda(q, k[:, :, :4], k[:, :, :4], q, q)
+
+
+@pytest.mark.parametrize("tier", ["satellite", "ground"])
+def test_train_step_on_the_card_matches_the_cpu(card, tier):
+    """One ``make_train_step`` step of a small proxy (the satellite's 4/2
+    heads at hd 12; the ground's 8/2 at hd 16, 4 layers; f32, remat
+    "nothing", 2 microbatches) on the card against the same step on the
+    CPU: loss and metrics within 1e-5 relative; the gradient, as the first
+    moment (1 - b1)·g the step leaves, per leaf within 1e-4·max|want| (f32
+    sums in another order, scaled to the gradient as the backward's
+    tolerance is); the parameters within 1e-5 + 1e-4·|want| of AdamW on
+    the CPU applied to the card's own gradient.  Not of the CPU step's
+    parameters: Adam's first update lr·g/(|g| + eps) turns a last-bit
+    difference in a gradient of ~eps (1e-9 to 1e-8 here) into up to lr,
+    which an f32 CPU step already shows against an f64 one."""
+    from repro_torch.configs.spaceverse_pair import proxy_pair
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    from repro_torch.tree import tree_leaves, tree_map
+    sat_cfg, gs_cfg = proxy_pair("small")
+    cfg = gs_cfg if tier == "ground" else sat_cfg
+    rng = np.random.default_rng(0)
+    b, r, s_t = 4, cfg.num_patches, 4
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s_t)),
+             "patch_embeds": rng.standard_normal((b, r, cfg.d_model)),
+             "targets": rng.integers(0, cfg.vocab_size, (b, r + s_t)),
+             "loss_mask": (rng.random((b, r + s_t)) > 0.3)}
+    opt = O.OptConfig(lr=1e-3, warmup_steps=1)
+    tc = TR.TrainConfig(microbatches=2)
+    params0, state0 = TR.init_train_state(cfg, 0, tc, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.clone().to(dev), params0)
+        state = tree_map(lambda t: t.clone().to(dev), state0)
+        tb = {k: torch.from_numpy(np.asarray(
+            v, np.float32 if v.dtype.kind in "fb" else np.int32)).to(dev)
+            for k, v in batch.items()}
+        ops.reset_launch_counts()
+        params, state, m = TR.make_train_step(cfg, opt, tc)(params, state,
+                                                           tb)
+        counts = ops.launch_counts()
+        out[dev] = (params, state, {k: float(v) for k, v in m.items()},
+                    counts)
+    (_, sc, mc, _), (pg, sg, mg, counts) = out["cpu"], out["cuda"]
+    for k in ("loss", "ce", "acc", "grad_norm", "lr"):
+        assert abs(mg[k] - mc[k]) <= 1e-5 * max(abs(mc[k]), 1.0), k
+    for a, w in zip(tree_leaves(sg["m"]), tree_leaves(sc["m"])):
+        diff = (a.cpu() - w).abs()
+        assert float(diff.max()) <= 1e-4 * float(w.abs().max()), \
+            float(diff.max())
+    grads = tree_map(lambda m_: m_.cpu() / (1 - opt.b1), sg["m"])
+    want, _, _ = O.apply_updates(tree_map(torch.clone, params0), grads,
+                                 tree_map(torch.clone, state0), opt)
+    for a, w in zip(tree_leaves(pg), tree_leaves(want)):
+        diff = (a.cpu() - w).abs()
+        assert not bool((diff > 1e-5 + 1e-4 * w.abs()).any()), \
+            float(diff.max())
+    # two microbatches, remat "nothing": each block's forward runs twice
+    # (the forward and the backward's recompute), its backward once, on
+    # the card's kernels
+    assert counts["flash_attention_bwd"] == 2 * cfg.num_layers
+    assert counts["flash_attention"] == 4 * cfg.num_layers

@@ -47,7 +47,13 @@ def test_port_imports_neither_jax_nor_repro():
                                     "repro_torch.launch.mesh",
                                     "repro_torch.distributed.sharding",
                                     "repro_torch.distributed.collectives",
-                                    "repro_torch.serving.sharded"])
+                                    "repro_torch.serving.sharded",
+                                    "repro_torch.train.optimizer",
+                                    "repro_torch.train.compression",
+                                    "repro_torch.train.trainer",
+                                    "repro_torch.train.checkpoint",
+                                    "repro_torch.train.elastic",
+                                    "repro_torch.core.pipeline"])
 def test_entry_modules_import_neither_jax_nor_repro(module):
     """Each entry module alone, in a fresh interpreter."""
     probe = (f"import sys, {module}\n"
@@ -158,3 +164,24 @@ def test_cascade_entry_points_default_to_the_card():
             with pytest.raises(RuntimeError, match="CUDA"):
                 make()
         assert make(device="cpu") is not None, name
+
+
+def test_training_entry_points_default_to_the_card():
+    """``init_train_state`` and ``build_system`` run on the card by default
+    (without one they raise) and on the CPU when asked."""
+    from repro_torch.configs.spaceverse_pair import proxy_pair
+    from repro_torch.core import pipeline as P
+    from repro_torch.train import trainer as TR
+    sat, _ = proxy_pair("small")
+    if torch.cuda.is_available():
+        params, state = TR.init_train_state(sat)
+        assert params["final_norm"].device.type == "cuda"
+        assert state["step"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TR.init_train_state(sat)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            P.build_system(n_train=4, n_test=4, proxy_steps=1, conf_steps=1)
+    params, state = TR.init_train_state(sat, device="cpu")
+    assert state["m"]["final_norm"].dtype == torch.float32
+    assert int(state["step"]) == 0
