@@ -127,15 +127,26 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    beside SDPA, or for gemma2-27b's softcap one compiled
    ``flex_attention`` call (tanh score_mod, causal-window block mask;
    gather + that call for the paged row).  The flash backward (training)
-   against its plain version: an f32 sweep (hd 12/16/64/128/256,
-   groups 1/4/6/7 (4: the ground proxy's 8/2 heads at hd 16), Sq = Skv
-   in {1, 63, 64, 65, 129, 1025} and 65 < 300, windows 0/100 and
-   softcaps none/30 in turns; K/V views of buffers NaN past Skv; every
-   other case through autograd) within 1e-4·G per element, G the largest
-   |want| over dq, dk and dv, then bf16 at the 2B's training shapes (B 4,
-   12/2 heads, hd 128, S 1025 and 2048; o from the wgmma forward) within
-   that plus 2^-6·|want| (``check_grads``), timed in turns with the
-   library's backward (SDPA forward and backward less its forward).
+   has two routes.  The CUDA-core kernel against its plain version: an
+   f32 sweep (hd 12/16/64/128/256, groups 1/4/6/7 (4: the ground proxy's
+   8/2 heads at hd 16), Sq = Skv in {1, 63, 64, 65, 129, 1025} and
+   65 < 300, windows 0/100 and softcaps none/30 in turns; K/V views of
+   buffers NaN past Skv; every other case through autograd) within
+   1e-4·G per element, G the largest |want| over dq, dk and dv, and in
+   bf16 at the 2B's training shapes within that plus 2^-6·|want|
+   (``check_grads``).  The tensor-core kernel (bf16, hd 64/128; it reads
+   the wgmma forward's lse and rounds P and dS to bf16) over a bf16 sweep
+   (hd 64/128, groups 1/6/7, Sq = Skv in {1, 63, 64, 65, 1025} and
+   65 < 300, windows and softcaps in turns, NaN past Skv, autograd and
+   the wrapper) within 1e-4·G + 2^-6·|want| + 2^-8·A (``check_bwd_wgmma``;
+   A the products over absolute values), two calls bit-equal, its
+   launches counted by route, the forward's lse within 1e-5 of the plain
+   logsumexp and its output unchanged by writing lse, a misaligned view
+   and a missing lse refused.  At the 2B's training shapes (B 4, 12/2
+   heads, hd 128, S 1025 and 2048) both routes are timed in turns with
+   the library's backward (SDPA forward and backward less its forward),
+   and the dK/dV pass's causal tail is read from a profile (the group's
+   heads split over 1, 2, 3 and 6 blocks).
 3. End to end on a small proxy pair (flash, decode, prefix-append and the
    chunked scan on their CUDA-core routes alone, counted): the port's
    ``CascadeServer``, its
@@ -410,18 +421,21 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    of three fixed batches (det: B 4 x S 2048, first; vqa, cls: B 4 x S
    1025), counts zeroed just before.  Checks: every loss finite, the det
    batch's loss falls at every step; ``flash_attention_bwd`` 28 launches
-   a step and the wgmma forward 56 (the forward and the remat's
-   recompute), no CUDA-core flash; the
-   backward kernel held against its plain version on layer 0's inputs of
-   an extra det step, untimed and after the counts.  Prints step ms by task, one profiled det step
-   (device ms, busy share, top device ops), tokens/s, peak memory, the
-   step's FLOPs beside their bound.  (b) ``core.pipeline.build_system``
+   a step, all on the tensor-core route, and the wgmma forward 56 (the
+   forward and the remat's recompute), no CUDA-core flash; the
+   backward kernel held against its plain version, under its bound, on
+   layer 0's inputs of an extra det step, untimed and after the counts.
+   Prints step ms by task, one profiled det step (device ms, busy share,
+   top device ops, the backward's kernels' device ms) and one profiled
+   vqa step (device ms, busy share), tokens/s, peak memory, the step's
+   FLOPs beside their bound.  (b) ``core.pipeline.build_system``
    at the test suite's tiny-bundle settings on the card, then on the CPU
    (CPU generators on both: the same draws): first-step losses within
    1e-4 relative, the last within ``TOL_PROXY_FINAL``; a witness, a CPU
    run whose initial weights are one ulp up, whose gaps from the CPU run
    bound the card's largest gaps over the steps (x 4); the card bundle's
-   ``spaceverse().evaluate`` on the card.  Line ``train_phase {...}``;
+   ``spaceverse().evaluate`` on the card; its backward runs on the
+   CUDA-core route alone (f32).  Line ``train_phase {...}``;
    paths ``train_full_width`` and ``train_proxies_card`` in the kernels
    line.
 
@@ -468,7 +482,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu",
-           "flash_attention_bwd.cu",
+           "flash_attention_bwd.cu", "flash_attention_bwd_wgmma.cu",
            "decode_attention.cu", "decode_attention_mma.cu",
            "region_score.cu", "paged_prefill_attention.cu", "ssm_scan.cu",
            "ssm_scan_mma.cu", "slstm_scan.cu")
@@ -493,6 +507,7 @@ REPLACES = {
     # no Pallas kernel: the JAX package's flash backward is the custom VJP
     # of ref.flash_structured (_fs_bwd)
     "flash_attention_bwd": "src/repro/kernels/ref.py:201",
+    "flash_attention_bwd_wgmma": "src/repro/kernels/ref.py:201",
     "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:84",
     "flash_attention": "src/repro/kernels/flash_attention.py:84",
     "decode_attention": "src/repro/kernels/decode_attention.py:219",
@@ -511,6 +526,8 @@ REPLACES = {
 }
 SOURCE_OF = {
     "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_wgmma":
+        "src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
     "flash_attention_wgmma": "src/repro_torch/csrc/flash_attention_wgmma.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
@@ -2382,21 +2399,148 @@ def bwd_inputs(torch, randn, b, sq, skv, h, kh, hd, dtype, **kw):
     return q, k, v, o, do
 
 
-def bwd_kernel_checks(torch, randn, timer, errors):
-    """The flash backward against its plain version: the f32 sweep
-    (``BWD_HEADS`` x ``BWD_SEQS``, windows 0/100 and softcaps none/30 in
-    turns, and Sq 65 < Skv 300), every other case through autograd
-    (``ops.flash_attention`` on inputs that require grad, so
-    ``FlashAttentionFn``), the rest straight to the wrapper on (B, H, S, hd)
-    views; then bf16 at ``BWD_TIMED``, timed in turns with the library's
-    backward (``scaled_dot_product_attention`` forward and backward less
-    its forward) beside the plain version and the bound (five S x S x hd
-    products over the causal half, 2.5x the forward's).  Returns the
-    report's rows."""
-    import torch.nn.functional as F
+#: the tensor-core backward's bf16 sweep: (hd, group, KH) per sequence
+#: length, windows and softcaps in turns
+BWD_WGMMA_HEADS = ((64, 1, 2), (128, 6, 2), (128, 7, 1), (64, 6, 1),
+                   (128, 1, 4))
+BWD_WGMMA_SEQS = (1, 63, 64, 65, 1025)
+
+
+def check_bwd_wgmma(name, got, q, k, v, o, do, kw, case, errors):
+    """The tensor-core backward's (dq, dk, dv) against the f32 plain
+    version's, element by element within 1e-4·G + 2^-6·|want| + 2^-8·A: G
+    the largest |want| over the three (f32 sums in another order, as
+    ``check_grads``), 2^-6·|want| two bf16 ulps (the gradients' own
+    rounding), A the same products over absolute values
+    (``ref.flash_attention_bwd_abs``: A_dv = Σ_group Pᵀ·|dO|, A_dk =
+    scale·Σ_group |dS|ᵀ·|Q|, A_dq = scale·|dS|·|K|).  It rounds P and dS
+    to bf16 before those products; bf16's unit roundoff is 2^-8, so
+    2^-8·A is exactly the worst case of the two roundings alone, and the
+    shares printed are the evidence of room.  q, k, v, o, do in the model
+    layout.  Returns (max absolute error, share of the bound used)."""
+    from repro_torch.kernels import ref
+    f32 = [t.float() for t in (q, k, v, o, do)]
+    want = ref.flash_attention_bwd(*f32, **kw)
+    a = ref.flash_attention_bwd_abs(*f32, **kw)
+    big = max(float(w.abs().max()) for w in want)
+    errs, shares = [], []
+    for g, w, x in zip(got, want, a):
+        diff = (g.float() - w).abs()
+        errs.append(float(diff.max()))
+        shares.append(float(tolerance_share(
+            diff, 1e-4 * big + 2.0 ** -6 * w.abs() + 2.0 ** -8 * x)))
+    err, share = max(errs), max(shares)
+    ok = math.isfinite(err) and share <= 1.0
+    log(f"  {name:16s} {case:52s} max_abs_err {err:.3e} G {big:.2e} bound "
+        f"1e-4G+2^-6|want|+2^-8A (dq/dk/dv used "
+        f"{'/'.join(f'{x:.3f}' for x in shares)}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        errors.append(f"{name} {case}: max_abs_err {err}, {share:.3f} of the "
+                      f"bound")
+    return err, share
+
+
+def bwd_wgmma_sweep(torch, randn, errors):
+    """The tensor-core backward (bf16, hd 64/128) against the plain
+    version: ``BWD_WGMMA_HEADS`` x ``BWD_WGMMA_SEQS`` and Sq 65 < Skv 300,
+    windows 0/100 and softcaps none/30 in turns, K/V views of buffers NaN
+    past Skv; every other case through autograd (``ops.flash_attention``
+    on leaves that require grad: ``FlashAttentionFn`` saves the forward's
+    lse), the rest straight to the wrapper with ``launch_wgmma``'s lse.
+    Also: two calls are bit-equal, each call counts one launch under
+    ``flash_attention_bwd_wgmma`` and none on the CUDA cores, the forward's
+    lse equals the plain logsumexp within 1e-5, the forward with a null
+    lse writes the same output bits as with one, and a misaligned view or
+    a missing lse raises before any launch.  Returns the largest share of
+    the bound any case used."""
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
-    log("flash_attention_bwd vs plain")
+    bf16 = torch.bfloat16
+    log("flash_attention_bwd vs plain (wgmma route)")
+    opts = [(0, None), (100, None), (0, 30.0), (100, 30.0)]
+    cases = [(s, s, hd, g, kh) for s in BWD_WGMMA_SEQS
+             for hd, g, kh in BWD_WGMMA_HEADS]
+    cases += [(65, 300, 128, 6, 2), (65, 300, 64, 7, 1)]
+    shares, lse_err = [], 0.0
+    for n, (sq, skv, hd, group, kh) in enumerate(cases):
+        window, softcap = opts[n % len(opts)]
+        kw = {"window": window, "softcap": softcap}
+        q, k, v, o, do = bwd_inputs(torch, randn, 2, sq, skv, kh * group, kh,
+                                    hd, bf16, **kw)
+        before = ops.launch_counts()
+        if n % 2:
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            with torch.enable_grad():
+                out = ops.flash_attention(*leaves, **kw)
+            got = torch.autograd.grad(out, leaves, do)
+            o, path = out.detach(), "autograd"
+        else:
+            tr = [t.transpose(1, 2) for t in (q, k, v)]
+            o2, lse = FA.launch_wgmma(*tr, with_lse=True, **kw)
+            if not same_bits(o2.transpose(1, 2), o):
+                errors.append(f"flash_attention_wgmma Sq{sq} hd{hd}: the "
+                              f"forward with lse wrote other bits")
+            want_lse = ref.flash_attention_lse(q.float(), k.float(), **kw)
+            lse_err = max(lse_err, float((lse - want_lse).abs().max()))
+            got = [t.transpose(1, 2) for t in FA.flash_attention_bwd_cuda(
+                *tr, o.transpose(1, 2), do.transpose(1, 2), lse=lse, **kw)]
+            again = [t.transpose(1, 2) for t in FA.flash_attention_bwd_cuda(
+                *tr, o.transpose(1, 2), do.transpose(1, 2), lse=lse, **kw)]
+            if not all(same_bits(x, y) for x, y in zip(got, again)):
+                errors.append(f"flash_attention_bwd_wgmma Sq{sq} hd{hd}: two "
+                              f"calls differ")
+            path = "wrapper x2"
+        after = ops.launch_counts()
+        runs = ops.launches_by_route(after, "flash_attention_bwd")
+        was = ops.launches_by_route(before, "flash_attention_bwd")
+        calls = 1 if n % 2 else 2
+        if (runs["wgmma"] - was["wgmma"] != calls
+                or runs["cuda_cores"] != was["cuda_cores"]):
+            errors.append(f"flash_attention_bwd Sq{sq} hd{hd}: launches "
+                          f"{was} -> {runs}, want {calls} wgmma")
+        shares.append(check_bwd_wgmma(
+            "flash_attention_bwd", got, q, k, v, o, do, kw,
+            f"bf16 {path} hd{hd} g{group} Sq{sq} Skv{skv} w{window} "
+            f"cap{softcap}", errors)[1])
+    log(f"  wgmma sweep: largest share of the bound {max(shares):.3f}; "
+        f"forward lse vs plain max_abs_err {lse_err:.3e}")
+    if not lse_err <= 1e-5:
+        errors.append(f"flash_attention_wgmma: lse max_abs_err {lse_err}")
+    q, k, v, o, do = bwd_inputs(torch, randn, 1, 70, 70, 2, 1, 128, bf16)
+    tr = [t.transpose(1, 2) for t in (q, k, v, o, do)]
+    _, lse = FA.launch_wgmma(*tr[:3], with_lse=True)
+    buf = randn(1, 70, 2, 136, dtype=bf16)
+    for what, args, kw in (
+            ("misaligned do view", tr[:4] + [buf[..., 1:129].transpose(1, 2)],
+             {"lse": lse}),
+            ("missing lse", tr, {})):
+        try:
+            FA.flash_attention_bwd_cuda(*args, **kw)
+            errors.append(f"flash_attention_bwd_wgmma: a {what} was not "
+                          f"refused")
+        except ValueError as e:
+            log(f"  flash_attention_bwd  {what}: refused ({e}) ok")
+    return max(shares)
+
+
+def bwd_kernel_checks(torch, randn, timer, errors):
+    """The flash backward against its plain version: the CUDA-core route's
+    f32 sweep (``BWD_HEADS`` x ``BWD_SEQS``, windows 0/100 and softcaps
+    none/30 in turns, and Sq 65 < Skv 300), every other case through
+    autograd (``ops.flash_attention`` on inputs that require grad, so
+    ``FlashAttentionFn``), the rest straight to the wrapper on (B, H, S, hd)
+    views; the tensor-core route's bf16 sweep (``bwd_wgmma_sweep``); then
+    bf16 at ``BWD_TIMED``, both routes and the library's backward
+    (``scaled_dot_product_attention`` forward and backward less its
+    forward) timed in turns (wgmma, library, CUDA cores, wgmma) beside the
+    plain version and the bound (five S x S x hd products over the causal
+    half, 2.5x the forward's, whatever a route executes).  Returns the
+    report's rows, the CUDA-core route under ``flash_attention_bwd`` and
+    the tensor-core route under ``flash_attention_bwd_wgmma``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops, ref
+    log("flash_attention_bwd vs plain (CUDA-core route)")
     opts = [(0, None), (100, None), (0, 30.0), (100, 30.0)]
     cases = [(s, s, hd, g, kh) for s in BWD_SEQS for hd, g, kh in BWD_HEADS]
     cases += [(65, 300, 64, 6, 1), (65, 300, 16, 7, 1)]
@@ -2414,7 +2558,7 @@ def bwd_kernel_checks(torch, randn, timer, errors):
             got = torch.autograd.grad(out, leaves, do)
             path = "autograd"
         else:
-            got = [t.transpose(1, 2) for t in flash_attention_bwd_cuda(
+            got = [t.transpose(1, 2) for t in FA.flash_attention_bwd_cuda(
                 *(t.transpose(1, 2) for t in (q, k, v, o, do)), **kw)]
             path = "wrapper"
         shares.append(check_grads(
@@ -2425,24 +2569,33 @@ def bwd_kernel_checks(torch, randn, timer, errors):
     try:
         q, k, v, o, do = bwd_inputs(torch, randn, 1, 8, 8, 2, 1, 12,
                                     torch.float32)
-        flash_attention_bwd_cuda(*(t.transpose(1, 2) for t in
-                                   (q, k, v, o, do[..., :8])))
+        FA.flash_attention_bwd_cuda(*(t.transpose(1, 2) for t in
+                                      (q, k, v, o, do[..., :8])))
         errors.append("flash_attention_bwd: a bad shape was not refused")
     except ValueError as e:
         log(f"  flash_attention_bwd  bad do shape: refused ({e}) ok")
+    wgmma_share = bwd_wgmma_sweep(torch, randn, errors)
 
-    out = {}
+    out = {"flash_attention_bwd": {}, "flash_attention_bwd_wgmma": {}}
     b, h, kh, hd = 4, 12, 2, 128
     for tag, s in BWD_TIMED.items():
-        q, k, v, o, do = bwd_inputs(torch, randn, b, s, s, h, kh, hd,
+        q, k, v, _, do = bwd_inputs(torch, randn, b, s, s, h, kh, hd,
                                     torch.bfloat16)
         k, v = k.contiguous(), v.contiguous()
-        tr = [t.transpose(1, 2) for t in (q, k, v, o, do)]
-        got = [t.transpose(1, 2) for t in flash_attention_bwd_cuda(*tr)]
-        err, share = check_grads("flash_attention_bwd", got,
-                                 ref.flash_attention_bwd(q, k, v, o, do),
-                                 f"bf16 {tag} B{b} H{h} KH{kh} S{s} hd{hd}",
-                                 errors)
+        tr = [t.transpose(1, 2) for t in (q, k, v)]
+        o, lse = FA.launch_wgmma(*tr, with_lse=True)
+        tr += [o, do.transpose(1, 2)]
+        o = o.transpose(1, 2)
+        shape = f"B{b} H{h} KH{kh} S{s} hd{hd} bf16"
+        got = [t.transpose(1, 2) for t in FA.launch_bwd_wgmma(*tr, lse)]
+        err, share = check_bwd_wgmma("flash_attention_bwd", got, q, k, v, o,
+                                     do, {}, f"bf16 wgmma {tag} {shape}",
+                                     errors)
+        got = [t.transpose(1, 2) for t in FA.launch_bwd_cuda_cores(*tr)]
+        err_cc, share_cc = check_grads(
+            "flash_attention_bwd", got, ref.flash_attention_bwd(q, k, v, o,
+                                                                do),
+            f"bf16 CUDA cores {tag} {shape}", errors)
         qt, kt, vt = (t.detach().requires_grad_() for t in tr[:3])
         dot = tr[4]
 
@@ -2458,26 +2611,87 @@ def bwd_kernel_checks(torch, randn, timer, errors):
                                                     enable_gqa=True)
             torch.autograd.grad(lo, (qt, kt, vt), dot)
 
-        kernel = lambda: flash_attention_bwd_cuda(*tr)  # noqa: E731
-        runs = [timer(kernel)]
+        wgmma = lambda: FA.launch_bwd_wgmma(*tr, lse)  # noqa: E731
+        runs = [timer(wgmma)]
         lib = timer(lib_both) - timer(lib_fwd)
-        runs.append(timer(kernel))
+        cc_ms = timer(lambda: FA.launch_bwd_cuda_cores(*tr))
+        runs.append(timer(wgmma))
         ms = sum(runs) / len(runs)
         n_bytes = nbytes(q, k, v, o, do, q, k, v)
         flops = 2.5 * b * flash_flops(torch, h, hd, s, s)
         b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
-        out[tag] = {"ms": ms, "ms_runs": runs,
-                    "plain_ms": timer(lambda: ref.flash_attention_bwd(
-                        q, k, v, o, do), reps=3),
-                    "library_ms": lib,
-                    "library_is": "SDPA fwd+bwd - fwd",
-                    "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-                    "flops": flops, "max_abs_err": err,
-                    "tolerance_share": share, "route": "cuda_cores",
-                    "bound_share": b_ms / ms,
-                    "sweep_tolerance_share": max(shares),
-                    "shape": f"B{b} H{h} KH{kh} S{s} hd{hd} bf16"}
-    return {"flash_attention_bwd": out}
+        base = {"plain_ms": timer(lambda: ref.flash_attention_bwd(
+                    q, k, v, o, do), reps=3),
+                "library_ms": lib, "library_is": "SDPA fwd+bwd - fwd",
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+                "flops": flops, "shape": shape}
+        out["flash_attention_bwd_wgmma"][tag] = dict(
+            base, ms=ms, ms_runs=runs, max_abs_err=err,
+            tolerance_share=share, route="wgmma", bound_share=b_ms / ms,
+            vs_library=ms / lib, sweep_tolerance_share=wgmma_share)
+        out["flash_attention_bwd"][tag] = dict(
+            base, ms=cc_ms, max_abs_err=err_cc, tolerance_share=share_cc,
+            route="cuda_cores", bound_share=b_ms / cc_ms,
+            vs_library=cc_ms / lib, sweep_tolerance_share=max(shares))
+        log(f"  flash_attention_bwd {tag}: wgmma {ms:.4f} ms "
+            f"({b_ms / ms:.4f} of the bound, {ms / lib:.2f}x SDPA's "
+            f"{lib:.4f} ms), CUDA cores {cc_ms:.4f} ms ({b_ms / cc_ms:.4f})"
+            f", bound {b_ms:.5f} ms")
+    out["flash_attention_bwd_wgmma"]["2B train"]["tail"] = bwd_tail(
+        torch, randn, errors)
+    return out
+
+
+BWD_KERNELS = ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dkdv_sum_kernel",
+               "bwd_dq_kernel")
+
+
+def bwd_tail(torch, randn, errors):
+    """The dK/dV pass's causal tail at the 2B's shapes: each kernel's
+    device ms a launch (profiler, 5 launches) with the group's 6 heads
+    split over d = 1, 2, 3, 6 blocks (``bwd_splits`` forced), each run held
+    to the bound.  Unsplit, the pass lasts as long as its heaviest block;
+    1 - (the best split's dK/dV kernel) / (the unsplit one) is the share of
+    the unsplit pass that was tail.  Returns {S: {d: per-kernel ms},
+    "chosen": ..., "tail_share": ...}."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention as FA
+    b, h, kh, hd = 4, 12, 2, 128
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    real, out = FA.bwd_splits, {}
+    try:
+        for s in BWD_TIMED.values():
+            q, k, v, _, do = bwd_inputs(torch, randn, b, s, s, h, kh, hd,
+                                        torch.bfloat16)
+            k, v = k.contiguous(), v.contiguous()
+            tr = [t.transpose(1, 2) for t in (q, k, v)]
+            o, lse = FA.launch_wgmma(*tr, with_lse=True)
+            args = tr + [o, do.transpose(1, 2), lse]
+            res = {}
+            for d in (1, 2, 3, 6):
+                FA.bwd_splits = lambda *a, d=d: d  # noqa: E731
+                got = [t.transpose(1, 2) for t in FA.launch_bwd_wgmma(*args)]
+                check_bwd_wgmma("flash_attention_bwd", got, q, k, v,
+                                o.transpose(1, 2), do, {},
+                                f"bf16 S{s} heads split over {d}", errors)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        FA.launch_bwd_wgmma(*args)
+                    torch.cuda.synchronize()
+                res[d] = {n: ms for n, (c, ms) in kernel_device_ms(
+                    torch, prof, BWD_KERNELS).items() if c}
+            best = min(res[d]["bwd_dkdv_kernel"] for d in res)
+            chosen = real(b, kh, h // kh, hd, s, s, True, 0, sms)
+            out[f"S{s}"] = {"by_split": res, "chosen": chosen,
+                            "tail_share":
+                                1 - best / res[1]["bwd_dkdv_kernel"]}
+            log(f"  flash_attention_bwd wgmma S{s} device ms a launch by "
+                f"heads split: {res}; chosen {chosen}; unsplit dK/dV tail "
+                f"share {out[f'S{s}']['tail_share']:.3f}")
+    finally:
+        FA.bwd_splits = real
+    return out
 
 
 def ssm_flops(b, h, s, dk, dv, chunk):
@@ -6801,13 +7015,16 @@ def train_full_width(torch, smi):
     from seed 0), remat "nothing", ce_chunks 8, ``TRAIN_ROUNDS`` steps in a
     row on each task's fixed batch, counts zeroed just before.  Checks:
     every loss finite; the det batch's loss falls at every step;
-    ``flash_attention_bwd`` 28 launches a step, the wgmma forward 56 (the
-    forward and the remat's recompute), no CUDA-core flash; the backward
-    kernel held against its plain version on layer 0's inputs of an extra
-    det step after the profiled one (neither timed nor counted: the
-    capture clones each call's inputs).  Reports step ms by task, one profiled det step (device ms,
-    busy share), tokens/s, peak memory and the step's FLOPs beside their
-    bound."""
+    ``flash_attention_bwd`` 28 launches a step, all on the tensor-core
+    route (``flash_attention_bwd_wgmma``), none on the CUDA cores; the
+    wgmma forward 56 (the forward and the remat's recompute), no CUDA-core
+    flash; the backward kernel held against its plain version, under its
+    bound (``check_bwd_wgmma``), on layer 0's inputs of an extra det step
+    after the profiled one (neither timed nor counted: the capture clones
+    each call's inputs).  Reports step ms by task, one profiled det step
+    (device ms, busy share, the backward's kernels' device ms) and, last,
+    one profiled vqa step (device ms, busy share), tokens/s, peak memory
+    and the step's FLOPs beside their bound."""
     from repro_torch.configs.spaceverse_pair import SAT_CONFIG
     from repro_torch.core import eo_adapter as EO
     from repro_torch.kernels import flash_attention as FA
@@ -6844,6 +7061,7 @@ def train_full_width(torch, smi):
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     flash = ops.launches_by_route(counts, "flash_attention")
+    bwd = ops.launches_by_route(counts, "flash_attention_bwd")
 
     # one profiled det step
     from torch.profiler import ProfilerActivity, profile
@@ -6855,6 +7073,8 @@ def train_full_width(torch, smi):
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
     prof_sum = profile_summary(torch, prof, 1, prof_s, k=8)
+    bwd_prof = kernel_device_ms(torch, prof, BWD_KERNELS)
+    prof_sum["bwd_device_ms"] = {n: c * ms for n, (c, ms) in bwd_prof.items()}
     losses["det"].append(float(m["loss"]))
 
     # the backward kernel on the path's own inputs: an extra det step, after
@@ -6864,7 +7084,7 @@ def train_full_width(torch, smi):
 
     def keep_last(*args, **kw):
         held["args"] = tuple(a.clone() for a in args)
-        held["kw"] = dict(kw)
+        held["kw"] = dict(kw)           # lse: the forward's own buffer
         return real_bwd(*args, **kw)
 
     FA.flash_attention_bwd_cuda = keep_last
@@ -6876,12 +7096,21 @@ def train_full_width(torch, smi):
     q, k, v, o, do = held["args"]
     got = [t.transpose(1, 2) for t in real_bwd(q, k, v, o, do,
                                                **held["kw"])]
-    want = ref.flash_attention_bwd(*(t.transpose(1, 2)
-                                     for t in (q, k, v, o, do)),
-                                   **held["kw"])
-    err, share = check_grads("flash_attention_bwd", got, want,
-                             f"phase 17 det step layer 0 B{q.shape[0]} "
-                             f"H{q.shape[1]} S{q.shape[2]}", errors)
+    kw = {n: x for n, x in held["kw"].items() if n != "lse"}
+    err, share = check_bwd_wgmma(
+        "flash_attention_bwd", got,
+        *(t.transpose(1, 2) for t in (q, k, v, o, do)), kw,
+        f"phase 17 det step layer 0 B{q.shape[0]} H{q.shape[1]} "
+        f"S{q.shape[2]}", errors)
+
+    # one profiled vqa step last (S 1025): where its step time goes
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, _ = step(params, opt_state, batches["vqa"])
+        torch.cuda.synchronize()
+        vqa_s = time.perf_counter() - t0
+    vqa_sum = profile_summary(torch, prof, 1, vqa_s, k=4)
 
     n_params = sum(t.numel() for t in tree_leaves(params))
     steps = {}
@@ -6908,6 +7137,8 @@ def train_full_width(torch, smi):
             losses["det"][:TRAIN_ROUNDS], losses["det"][1:TRAIN_ROUNDS])),
         "flash_attention_bwd 28 a step":
             counts["flash_attention_bwd"] == cfg.num_layers * n_steps,
+        "backward on the tensor cores alone":
+            bwd == {"wgmma": cfg.num_layers * n_steps, "cuda_cores": 0},
         "wgmma forward 56 a step":
             flash["wgmma"] == 2 * cfg.num_layers * n_steps,
         "no CUDA-core flash": flash["cuda_cores"] == 0,
@@ -6915,6 +7146,7 @@ def train_full_width(torch, smi):
     res = {"model": cfg.name, "params": n_params, "batch": TRAIN_B,
            "steps": steps, "launches": counts, "peak_bytes": peak,
            "profiled_det_step": {"host_ms": 1e3 * prof_s, **prof_sum},
+           "profiled_vqa_step": {"host_ms": 1e3 * vqa_s, **vqa_sum},
            "layer0_bwd_max_abs_err": err, "layer0_bwd_tolerance_share": share,
            "card": smi, "seconds": time.perf_counter() - t_phase}
     for task, st in steps.items():
@@ -6928,9 +7160,13 @@ def train_full_width(torch, smi):
     log(f"  phase 17 (a) profiled det step: host {1e3 * prof_s:.1f} ms, "
         f"device {prof_sum['device_ms_per_step']:.1f} ms, busy "
         f"{prof_sum['device_busy_share']:.3f}; peak "
-        f"{peak / 1e9:.2f} GB; launches bwd {counts['flash_attention_bwd']}"
-        f", flash {flash} over {n_steps} steps [{smi}]")
+        f"{peak / 1e9:.2f} GB; backward kernels' device ms "
+        f"{prof_sum['bwd_device_ms']}; launches bwd {bwd}, flash {flash} "
+        f"over {n_steps} steps [{smi}]")
     log(f"  phase 17 (a) top device ops: {prof_sum['top_device_ops']}")
+    log(f"  phase 17 (a) profiled vqa step (last): host {1e3 * vqa_s:.1f} "
+        f"ms, device {vqa_sum['device_ms_per_step']:.1f} ms, busy "
+        f"{vqa_sum['device_busy_share']:.3f} [{smi}]")
     log(f"  phase 17 (a) checks: {checks}")
     del params, opt_state, batches, held
     gc.collect()
@@ -7016,7 +7252,10 @@ def train_proxies(torch):
                                    for t in tree_leaves(card.sat.params)),
         "evaluate on the card finite": all(e["finite"]
                                             for e in evals.values()),
-        "backward kernel launched": counts["flash_attention_bwd"] > 0}
+        "backward kernel launched on the CUDA cores alone":
+            counts["flash_attention_bwd"] > 0
+            and ops.launches_by_route(counts, "flash_attention_bwd")[
+                "wgmma"] == 0}
     res = {"relative_loss_gaps": rel, "witness_gaps": wit, "evaluate": evals,
            "card_seconds": card_s, "cpu_seconds": cpu_s, "launches": counts}
     gaps = {k: {n: r[n] for n in ("first", "last", "max_rel")}
@@ -7043,7 +7282,7 @@ def train_phase(torch, smi):
         raise RuntimeError(f"phase 17 failed: {bad}")
     return {"launches": {"train_full_width": counts_a,
                          "train_proxies_card": counts_b},
-            "held": {"flash_attention_bwd": held}}
+            "held": {"flash_attention_bwd_wgmma": held}}
 
 
 def main() -> int:
@@ -7225,6 +7464,7 @@ def main() -> int:
                                    "d 2B flat"),
                                   ("paged_prefill_attention",
                                    "d 2B flat"))},
+                "flash_attention_bwd_wgmma": "det",
                 "flash_attention_bwd": "det",
                 "ssm_scan_mma": "f xLSTM", "ssm_scan": "f xLSTM",
                 "slstm_scan_cluster": "g xLSTM",

@@ -50,6 +50,11 @@
 //    acc / max(l, 1e-30) as the TPU kernel; logit softcap (applied before
 //    the mask) and sliding window are kept.
 //
+// For training it also writes each row's logsumexp (lse, the JAX
+// package's residual (q, k, v, out, lse) of ref._fs_fwd): the tensor-core
+// backward (flash_attention_bwd_wgmma.cu) reads it instead of recomputing
+// QK^T.  Inference passes a null lse and writes nothing more.
+//
 // What it rounds: p to bf16 before PV (as every flash kernel and SDPA do),
 // so it is held to |got - want| <= 1e-5 + 2^-6·|want| + 2^-8·A with
 // A = attention(q, k, |v|), not to two bf16 ulps of the f32 plain version.
@@ -67,11 +72,10 @@
 
 namespace {
 
-constexpr int WG_BQ = 64;          // query rows per block
-constexpr int WG_BK = 64;          // keys per K/V tile
+constexpr int WG_BQ = WG_ROWS;     // query rows per block
+constexpr int WG_BK = WG_ROWS;     // keys per K/V tile
 constexpr int BOX_COLS = 64;       // 64 bf16 = 128 B, one swizzle span
 static_assert(BOX_COLS == TMA_BOX_COLS, "make_map cuts boxes of BOX_COLS");
-constexpr float LOG2E = 1.4426950408889634f;
 
 // NWG consumer warpgroups share the block's 64 query rows and take its K/V
 // tiles in turn (tile i to warpgroup i % NWG); one producer warp follows
@@ -96,166 +100,6 @@ struct Layout {
       MERGE_OFF + (NWG > 1 ? 128 * (HD / 2 + 4) * 4 : 0);
   static constexpr int ALLOC = BYTES + 1024;       // room to align to 1 KB
 };
-
-// --- mbarriers --------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// --- wgmma ---------------------------------------------------------------------
-
-// Shared-memory matrix descriptor, 128-byte swizzle.  K-major tiles (Q, K):
-// 8-row core groups 1024 B apart (SBO), LBO unused.  N-major tiles (V):
-// 8-key groups 1024 B apart (SBO), 64-column atoms LBO apart.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4)
-         | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16)
-         | ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32)
-         | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups are still in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma (it sees only the issuing asm).
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void u32_fence(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B from shared memory
-// (both K-major, 128-byte swizzle); scale_d 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                             uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// D[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (four bf16
-// pairs per thread), B from shared memory N-major (transposed, 128-byte
-// swizzle).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// D[64 x 128] += A[64 x 16] . B[16 x 128], A from registers (four bf16
-// pairs per thread), B from shared memory N-major (transposed, 128-byte
-// swizzle).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  wgmma_rs_n64(d, a, b);
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  wgmma_rs_n128(d, a, b);
-}
-
-// 2^x on the SFU (ex2.approx.ftz: ~2 ulp, results below 2^-126 flush to
-// 0); exp2f adds a denormal fix-up per element.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// S = Q K^T of one K tile, over hd in k-steps of 16 (32 B inside a 128-B
-// swizzle row; hd 128 steps into the second 64-column box at k-step 4).
-template <int HD>
-__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t sq,
-                                         uint32_t ks) {
-  reg_fence(s);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t box = kk / 4, within = (kk % 4) * 32;
-    wgmma_ss_n64(s, sw128_desc(sq + box * WG_BQ * 128 + within, 16, 1024),
-                 sw128_desc(ks + box * WG_BK * 128 + within, 16, 1024),
-                 kk > 0);
-  }
-}
-
-// O += P V of one V tile, over its keys in k-steps of 16 (16 rows of
-// 128 B); hd 128 spans both 64-column boxes through LBO.
-template <int HD>
-__device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
-                                         const uint32_t (&pa)[WG_BK / 16][4],
-                                         uint32_t vs) {
-  reg_fence(acc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < WG_BK / 16; ++kk)
-    wgmma_rs(acc, pa[kk], sw128_desc(vs + kk * 16 * 128, WG_BK * 128, 1024));
-}
 
 // One thread's two query rows and the softmax on its S fragment: element
 // j sits at row qk + 8·((j >> 1) & 1) (in key coordinates) and key column
@@ -311,15 +155,6 @@ struct Rows {
   }
 };
 
-// p (f32, in the S fragment) rounded to bf16 into the A fragments of the
-// PV wgmma: the S fragment of keys 16kk..16kk+15 is k-step kk's A
-// fragment, pair by pair.
-__device__ __forceinline__ void to_a_fragments(const float (&p)[32],
-                                               uint32_t (&pa)[WG_BK / 16][4]) {
-#pragma unroll
-  for (int j = 0; j < 32; j += 2) pa[j / 8][(j % 8) / 2] = pack_bf16(p[j], p[j + 1]);
-}
-
 // --- the kernel ------------------------------------------------------------------
 
 template <int HD, int NWG>
@@ -327,9 +162,10 @@ __global__ void __launch_bounds__(Layout<HD, NWG>::THREADS, 3 - NWG)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
-                   __nv_bfloat16* __restrict__ o, int group, int Sq, int Skv,
-                   int64_t o_sb, int64_t o_sh, int64_t o_ss, int causal,
-                   int window, float softcap, float scale) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int group, int Sq, int Skv, int64_t o_sb, int64_t o_sh,
+                   int64_t o_ss, int causal, int window, float softcap,
+                   float scale) {
   using L = Layout<HD, NWG>;
   constexpr int ND = HD / 2;                  // O floats per thread
   extern __shared__ uint8_t wg_smem_raw[];
@@ -399,13 +235,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int j = 0; j < ND; ++j) acc[j] = 0.f;
   float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l[2] = {0.f, 0.f};
   float s[32], alpha[2];
-  uint32_t pa[WG_BK / 16][4];
+  uint32_t pa[4][4];
 
   mbar_wait(q_full, 0);
   for (int i = wg; i < n_tiles; i += NWG) {
     const int st = i % L::STAGES, par = (i / L::STAGES) & 1;
     mbar_wait(k_full(st), par);
-    issue_qk<HD>(s, sq, sk + st * L::KV_BYTES);
+    wgmma_tile_abt<HD>(s, sq, sk + st * L::KV_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(s);
@@ -414,7 +250,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int j = 0; j < ND; ++j) acc[j] *= alpha[(j >> 1) & 1];
     to_a_fragments(s, pa);
     mbar_wait(v_full(st), par);
-    issue_pv<HD>(acc, pa, sv + st * L::KV_BYTES);
+    wgmma_tile_pb<HD>(acc, pa, sv + st * L::KV_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(acc);
@@ -441,6 +277,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       a0[r] = fast_exp2(m[r] - mm);
       a1[r] = fast_exp2(m1 - mm);
       l[r] = l[r] * a0[r] + mg[ND + 2 + r] * a1[r];
+      m[r] = mm;
     }
 #pragma unroll
     for (int j = 0; j < ND; ++j)
@@ -453,6 +290,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     l[r] = fmaxf(l[r], 1e-30f);
+  }
+  // the backward's residual: lse = m·ln 2 + log(l) per row (m is in base
+  // 2), rows of lse_rows(Sq) floats, the padding past Sq written as 0
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* lrow = lse + ((int64_t)b * gridDim.x + h) * lse_rows(Sq);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + r0 + 8 * r;
+      lrow[qi] = qi < Sq ? m[r] * LN2 + logf(l[r]) : 0.f;
+    }
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -473,8 +320,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int HD, int NWG>
 cudaError_t launch_nwg(const CUtensorMap& qm, const CUtensorMap& km,
-                       const CUtensorMap& vm, void* o, int B, int H,
-                       int group, int Sq, int Skv, const long long* ost,
+                       const CUtensorMap& vm, void* o, float* lse, int B,
+                       int H, int group, int Sq, int Skv, const long long* ost,
                        int causal, int window, float softcap, float scale,
                        cudaStream_t stream) {
   using L = Layout<HD, NWG>;
@@ -486,8 +333,8 @@ cudaError_t launch_nwg(const CUtensorMap& qm, const CUtensorMap& km,
   }
   dim3 grid(H, (Sq + WG_BQ - 1) / WG_BQ, B);
   flash_wgmma_kernel<HD, NWG><<<grid, L::THREADS, L::ALLOC, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), group, Sq, Skv, ost[0],
-      ost[1], ost[2], causal, window, softcap, scale);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, group, Sq, Skv,
+      ost[0], ost[1], ost[2], causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -498,8 +345,8 @@ cudaError_t launch_nwg(const CUtensorMap& qm, const CUtensorMap& km,
 // path: two warpgroups per block then take its tiles in turn, halving it.
 template <int HD>
 cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
-                   const CUtensorMap& vm, void* o, int B, int H, int group,
-                   int Sq, int Skv, const long long* ost, int causal,
+                   const CUtensorMap& vm, void* o, float* lse, int B, int H,
+                   int group, int Sq, int Skv, const long long* ost, int causal,
                    int window, float softcap, float scale,
                    cudaStream_t stream) {
   int dev = 0, sms = 0;
@@ -509,22 +356,25 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)H * B * ((Sq + WG_BQ - 1) / WG_BQ);
   if (blocks >= 2ll * sms)
-    return launch_nwg<HD, 1>(qm, km, vm, o, B, H, group, Sq, Skv, ost,
+    return launch_nwg<HD, 1>(qm, km, vm, o, lse, B, H, group, Sq, Skv, ost,
                              causal, window, softcap, scale, stream);
-  return launch_nwg<HD, 2>(qm, km, vm, o, B, H, group, Sq, Skv, ost, causal,
-                           window, softcap, scale, stream);
+  return launch_nwg<HD, 2>(qm, km, vm, o, lse, B, H, group, Sq, Skv, ost,
+                           causal, window, softcap, scale, stream);
 }
 
 }  // namespace
 
 // q (B,H,Sq,hd), k/v (B,KH,Skv,hd), o (B,H,Sq,hd), all bfloat16, hd 64 or
 // 128; element strides with a unit innermost one.  q, k and v need 16-byte
-// aligned bases and strides (TMA); o is written with 4-byte stores.
+// aligned bases and strides (TMA); o is written with 4-byte stores.  lse,
+// when not null, receives each row's logsumexp (natural log, f32) in rows
+// of lse_rows(Sq) floats, (B, H, lse_rows(Sq)) contiguous, the padding 0:
+// the residual the tensor-core backward reads.  Inference passes null.
 // softcap <= 0 means no softcap.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for what the kernel does not take (the wrapper
 // checks first and raises with the reason).
 extern "C" int flash_attention_wgmma_fwd(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, void* lse,
     int B, int H, int KH, int Sq, int Skv, int hd,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
@@ -543,9 +393,9 @@ extern "C" int flash_attention_wgmma_fwd(
   const long long ost[3] = {o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = hd == 64
-      ? launch<64>(qm, km, vm, o, B, H, H / KH, Sq, Skv, ost, causal, window,
-                   softcap, scale, s)
-      : launch<128>(qm, km, vm, o, B, H, H / KH, Sq, Skv, ost, causal, window,
-                    softcap, scale, s);
+      ? launch<64>(qm, km, vm, o, static_cast<float*>(lse), B, H, H / KH, Sq,
+                   Skv, ost, causal, window, softcap, scale, s)
+      : launch<128>(qm, km, vm, o, static_cast<float*>(lse), B, H, H / KH,
+                    Sq, Skv, ost, causal, window, softcap, scale, s);
   return (int)e;
 }

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives shared by the port's tensor-core and cluster
 // kernels: shared-memory addresses, cp.async groups, ldmatrix and
 // mma.sync, mbarriers, the cluster barrier and distributed shared memory,
-// and TMA loads with their tensor maps (encoded on the host through
-// cudaGetDriverEntryPoint: no -lcuda).
+// TMA loads with their tensor maps (encoded on the host through
+// cudaGetDriverEntryPoint: no -lcuda), and the warpgroup products (wgmma)
+// on 64-row tiles that the flash forward and backward share.
 #pragma once
 
 #include <cuda.h>
@@ -70,6 +71,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
                ::"r"(bar), "r"(bytes) : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
 // acquire at cluster scope: bytes other blocks of the cluster stored and
 // counted on this barrier are visible once the phase completes
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
@@ -122,6 +128,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// ``bytes`` (a multiple of 16) from global ``src`` (16-byte aligned) into
+// shared memory at ``dst``; completion is counted on ``bar`` in bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 constexpr int TMA_BOX_COLS = 64;   // 64 bf16 = 128 B, one swizzle span
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -171,4 +188,187 @@ inline bool make_map(CUtensorMap* map, EncodeTiled enc, const void* ptr,
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// --- wgmma on 64-row tiles -----------------------------------------------------
+//
+// A tile is WG_ROWS rows of HD bf16 columns as TMA lays it down with
+// make_map(..., WG_ROWS): 64-column boxes of WG_ROWS x 128 B, one after
+// another (WG_BOX bytes apart), 128-byte swizzle, 1 KB aligned.  The
+// accumulator of an m64nN product: thread t of the warpgroup holds rows
+// 16·(t / 32) + (t % 32) / 4 and +8; element j sits at row
+// r0 + 8·((j >> 1) & 1) and column 8·(j / 4) + 2·(t % 4) + (j & 1).
+
+constexpr int WG_ROWS = 64;
+constexpr int WG_BOX = WG_ROWS * 128;       // bytes of one 64-column box
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// The row length of the flash forward's lse residual and of the
+// backward's delta, (B, H, lse_rows(Sq)) f32: Sq rounded up to whole
+// tiles, so that every tile's 64 floats are one 16-byte aligned bulk copy.
+__host__ __device__ constexpr int lse_rows(int sq) {
+  return (sq + WG_ROWS - 1) / WG_ROWS * WG_ROWS;
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle.  K-major tiles:
+// 8-row core groups 1024 B apart (SBO), LBO unused.  N-major tiles:
+// 8-row groups 1024 B apart (SBO), 64-column atoms LBO apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16)
+         | ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32)
+         | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma (it sees only the issuing asm).
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void u32_fence(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B from shared memory
+// (both K-major, 128-byte swizzle); scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (four bf16
+// pairs per thread), B from shared memory N-major (transposed, 128-byte
+// swizzle).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] . B[16 x 128], A from registers (four bf16
+// pairs per thread), B from shared memory N-major (transposed, 128-byte
+// swizzle).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  wgmma_rs_n64(d, a, b);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  wgmma_rs_n128(d, a, b);
+}
+
+// 2^x on the SFU (ex2.approx.ftz: ~2 ulp, results below 2^-126 flush to
+// 0); exp2f adds a denormal fix-up per element.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// D[64 x 64] = A · B^T over HD, A and B 64-row tiles (K-major: HD is the
+// depth), in k-steps of 16 (32 B inside a 128-B swizzle row; hd 128 steps
+// into the second box at k-step 4).  S = Q·K^T and its kin.  Issues only.
+template <int HD>
+__device__ __forceinline__ void wgmma_tile_abt(float (&d)[32], uint32_t a,
+                                               uint32_t b) {
+  reg_fence(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t box = kk / 4, within = (kk % 4) * 32;
+    wgmma_ss_n64(d, sw128_desc(a + box * WG_BOX + within, 16, 1024),
+                 sw128_desc(b + box * WG_BOX + within, 16, 1024), kk > 0);
+  }
+}
+
+// acc[64 x HD] += P · B, P [64 x 64] in A fragments (to_a_fragments), B a
+// 64-row tile whose rows are P's columns, read N-major through the
+// transpose bit (k-steps of 16 rows of 128 B; hd 128 spans both boxes
+// through LBO).  O += P·V and its kin.  Issues only.
+template <int HD>
+__device__ __forceinline__ void wgmma_tile_pb(float (&acc)[HD / 2],
+                                              const uint32_t (&pa)[4][4],
+                                              uint32_t b) {
+  reg_fence(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < WG_ROWS / 16; ++kk)
+    wgmma_rs(acc, pa[kk], sw128_desc(b + kk * 16 * 128, WG_BOX, 1024));
+}
+
+// A 64 x 64 f32 accumulator rounded to bf16 into the A fragments of a
+// product over its columns: the fragment of columns 16kk..16kk+15 is
+// k-step kk's A fragment, pair by pair.
+__device__ __forceinline__ void to_a_fragments(const float (&p)[32],
+                                               uint32_t (&pa)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 32; j += 2) pa[j / 8][(j % 8) / 2] = pack_bf16(p[j], p[j + 1]);
 }

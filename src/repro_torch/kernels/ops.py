@@ -32,6 +32,7 @@ from repro_torch.kernels import ssm_scan as SS
 KERNELS = {"flash_attention": FA.KERNEL,
            "flash_attention_wgmma": FA.WGMMA_KERNEL,
            "flash_attention_bwd": FA.BWD_KERNEL,
+           "flash_attention_bwd_wgmma": FA.BWD_WGMMA_KERNEL,
            "decode_attention": DA.KERNEL,
            "decode_attention_mma": DA.MMA_KERNEL, "region_score": RS.KERNEL,
            "paged_decode_attention": PDA.KERNEL,
@@ -45,6 +46,8 @@ KERNELS = {"flash_attention": FA.KERNEL,
 #: the first route's)}
 ROUTES = {
     "flash_attention": ("flash_attention_wgmma", "wgmma", "cuda_cores"),
+    "flash_attention_bwd": ("flash_attention_bwd_wgmma", "wgmma",
+                            "cuda_cores"),
     "decode_attention": ("decode_attention_mma", "mma", "cuda_cores"),
     "paged_decode_attention": ("paged_decode_attention_mma", "mma",
                                "cuda_cores"),

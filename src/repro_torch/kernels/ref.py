@@ -13,7 +13,9 @@ not).  ``ops`` takes them for
 tensors on the CPU; the tests hold them against the JAX oracles, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 ``flash_attention_bwd`` is the plain version of the training backward
-(the math of the JAX package's ``ref._fs_bwd``).
+(the math of the JAX package's ``ref._fs_bwd``), ``flash_attention_lse``
+of the forward's lse residual, ``flash_attention_bwd_abs`` the products
+whose 2^-8 share bounds the wgmma backward's bf16 roundings.
 """
 from __future__ import annotations
 
@@ -70,6 +72,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(b, sq, h, hd).to(q.dtype)
 
 
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Each row's logsumexp of its scaled (capped) logits over its visible
+    keys, m + log(max(l, 1e-30)) as the forward defines it: q (B, Sq, H,
+    hd), k (B, Skv, KH, hd) → (B, H, Sq) float32.  The plain version of the
+    wgmma forward's residual (the JAX package's ``_fs_fwd`` lse)."""
+    b, sq, h, hd = q.shape
+    lse = _flash_logits(q, k, causal, window, softcap, scale)[3]
+    return lse.reshape(b, h, sq)
+
+
+def _flash_logits(q, k, causal, window, softcap, scale):
+    """The forward's logits in float32, in the (B, KH, G, Sq, Skv) score
+    layout: (s capped, 1 − tanh² or None, the mask, lse (…, Sq, 1), q as
+    (B, Sq, KH, G, hd), k, scale)."""
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    qf = q.float().reshape(b, sq, kh, h // kh, hd)
+    kf = k.float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    dcap = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+        dcap = 1.0 - t * t
+    mask = _attn_mask(sq, skv, window, causal, skv - sq, q.device)
+    sm = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = sm.amax(dim=-1, keepdim=True)
+    lse = m + torch.log(torch.clamp((torch.exp(sm - m) * mask).sum(
+        dim=-1, keepdim=True), min=1e-30))
+    return s, dcap, mask, lse, qf, kf, scale
+
+
+def _flash_bwd_parts(q, k, v, o, do, causal, window, softcap, scale):
+    """The recompute both backward functions share, in float32: (p, ds,
+    qf, kf, dof, scale) in the (B, KH, G, Sq, Skv) score layout."""
+    s, dcap, mask, lse, qf, kf, scale = _flash_logits(q, k, causal, window,
+                                                      softcap, scale)
+    p = torch.where(mask, torch.exp(s - lse), torch.zeros_like(s))
+    dof = do.float().reshape(qf.shape)
+    delta = (dof * o.float().reshape(qf.shape)).sum(-1)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if dcap is not None:
+        ds = ds * dcap
+    return p, ds, qf, kf, dof, scale
+
+
+def _flash_bwd_products(p, ds, qf, kf, dof, scale):
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    return dq.reshape(dq.shape[0], dq.shape[1], -1, dq.shape[-1]), dk, dv
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
@@ -85,35 +145,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (1 − tanh²) under a softcap; dk and dv summed over each KV head's group.
     A row that sees no key gets p = 0 and so zero gradients, as the
     forward's ``max(l, 1e-30)`` division gives it a constant zero output."""
-    b, sq, h, hd = q.shape
-    skv, kh = k.shape[1], k.shape[2]
-    group = h // kh
-    scale = scale if scale is not None else hd ** -0.5
-    qf = q.float().reshape(b, sq, kh, group, hd)
-    dof = do.float().reshape(b, sq, kh, group, hd)
-    kf, vf = k.float(), v.float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
-    dcap = None
-    if softcap is not None:
-        t = torch.tanh(s / softcap)
-        s = softcap * t
-        dcap = 1.0 - t * t
-    mask = _attn_mask(sq, skv, window, causal, skv - sq, q.device)
-    sm = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    m = sm.amax(dim=-1, keepdim=True)
-    lse = m + torch.log(torch.clamp((torch.exp(sm - m) * mask).sum(
-        dim=-1, keepdim=True), min=1e-30))
-    p = torch.where(mask, torch.exp(s - lse), torch.zeros_like(s))
-    delta = (dof * o.float().reshape(b, sq, kh, group, hd)).sum(-1)
-    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
-    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
-    if dcap is not None:
-        ds = ds * dcap
-    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
-    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
-    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
-    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+    dq, dk, dv = _flash_bwd_products(*_flash_bwd_parts(
+        q, k, v, o, do, causal, window, softcap, scale))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_abs(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True,
+                            window: int = 0, softcap: Optional[float] = None,
+                            scale: Optional[float] = None):
+    """The backward's three products over absolute values, float32: A_dq =
+    scale·|ds|·|k|, A_dk = scale·Σ_group |ds|ᵀ·|q|, A_dv = Σ_group pᵀ·|do|
+    (p >= 0).  Rounding p and ds to bf16 before the products (the wgmma
+    backward) moves each gradient by at most 2^-8 times its A."""
+    p, ds, qf, kf, dof, scale = _flash_bwd_parts(q, k, v, o, do, causal,
+                                                 window, softcap, scale)
+    return _flash_bwd_products(p, ds.abs(), qf.abs(), kf.abs(), dof.abs(),
+                               scale)
 
 
 def _lengths(cache_len, b: int, device) -> torch.Tensor:

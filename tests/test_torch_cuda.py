@@ -9,8 +9,11 @@ Tolerances, element by element: attention 1e-4 absolute in float32 (TF32
 off) and 1e-5 + 2^-6·|want| in bfloat16 (two bfloat16 ulps: both sides
 round an f32 result), except the tensor-core routes of flash, decode and
 prefix-append attention, which round p to bfloat16 before PV and are held
-to 1e-5 + 2^-6·|want| + 2^-8·attention(q, k, |v|); region scores, f32
-math and output, 1e-5 absolute;
+to 1e-5 + 2^-6·|want| + 2^-8·attention(q, k, |v|); the flash backward
+1e-4·G (G the largest |want| over dq, dk, dv), + 2^-6·|want| in bf16,
+and on its tensor-core route (P and dS rounded to bf16) + 2^-8·A, A the
+same products over absolute values; region scores, f32 math and output,
+1e-5 absolute;
 the scans 1e-4 + 1e-4·|want| (f32 on both sides, another summation order),
 a bf16 scan output 1e-4 + 2^-6·|want|, the sLSTM 2e-4 + 2e-4·|want|.
 """
@@ -21,7 +24,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    bwd_route, flash_attention_cuda)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention_cuda)
 from repro_torch.kernels.paged_prefill_attention import (  # noqa: E402
@@ -1598,10 +1602,11 @@ def _grads_close(got, want, dtype):
 ])
 def test_flash_bwd_kernel_matches_plain(card, hd, group, kh, sq, skv, window,
                                         softcap, dtype):
-    """The backward kernel through autograd (``ops.flash_attention`` on
-    inputs that require grad) against the plain backward at the f32
-    sweep's corners and the 2B's bf16 shape; K/V are views of buffers NaN
-    past Skv."""
+    """The backward through autograd (``ops.flash_attention`` on inputs
+    that require grad) against the plain backward at the f32 sweep's
+    corners (CUDA cores) and the 2B's bf16 shape (the tensor-core route
+    since it took bf16 at hd 128, held to its bound); K/V are views of
+    buffers NaN past Skv."""
     kw = {"window": window, "softcap": softcap}
     h = kh * group
     q = _randn(card, 2, sq, h, hd, dtype=dtype)
@@ -1616,8 +1621,106 @@ def test_flash_bwd_kernel_matches_plain(card, hd, group, kh, sq, skv, window,
         o = ops.flash_attention(*leaves, **kw)
     got = torch.autograd.grad(o, leaves, do)
     assert ops.launch_counts()["flash_attention_bwd"] == before + 1
+    if bwd_route(dtype, hd) == "wgmma":
+        _within_bwd_wgmma_bound(got, q, k, v, o.detach(), do, **kw)
+        return
     want = ref.flash_attention_bwd(q, k, v, o.detach(), do, **kw)
     _grads_close(got, want, dtype)
+
+
+def _within_bwd_wgmma_bound(got, q, k, v, o, do, **kw):
+    """The tensor-core backward (``chip_smoke.check_bwd_wgmma``): each
+    element within 1e-4·G + 2^-6·|want| + 2^-8·A, want the f32 plain
+    version, G the largest |want| over dq, dk and dv, A the same products
+    over absolute values (P and dS are rounded to bf16 before them)."""
+    f32 = [t.float() for t in (q, k, v, o, do)]
+    want = ref.flash_attention_bwd(*f32, **kw)
+    a = ref.flash_attention_bwd_abs(*f32, **kw)
+    big = max(float(w.abs().max()) for w in want)
+    for g, w, x in zip(got, want, a):
+        diff = (g.float() - w).abs()
+        bound = 1e-4 * big + 2.0 ** -6 * w.abs() + 2.0 ** -8 * x
+        assert not bool((diff > bound).any()), float(diff.max())
+
+
+def _bwd_case(gen, sq, skv, h, kh, hd):
+    """bf16 q, do (B 2, Sq, H, hd) and k, v views of (B, Skv + 16, KH, hd)
+    buffers NaN past Skv."""
+    bf16 = torch.bfloat16
+    q, do = (_randn(gen, 2, sq, h, hd, dtype=bf16) for _ in range(2))
+    kb, vb = (_randn(gen, 2, skv + 16, kh, hd, dtype=bf16)
+              for _ in range(2))
+    kb[:, skv:], vb[:, skv:] = float("nan"), float("nan")
+    return q, kb[:, :skv], vb[:, :skv], do
+
+
+@pytest.mark.parametrize("hd,group,kh", [(64, 1, 2), (128, 6, 2),
+                                         (128, 7, 1), (64, 6, 1)])
+@pytest.mark.parametrize("sq,skv,window,softcap", [
+    (1, 1, 0, None), (63, 63, 100, None), (64, 64, 0, 30.0),
+    (65, 65, 100, 30.0), (1025, 1025, 0, None), (65, 300, 0, 30.0),
+    (65, 300, 100, None)])
+def test_flash_bwd_wgmma_route_matches_plain(card, hd, group, kh, sq, skv,
+                                             window, softcap):
+    """The tensor-core backward through autograd against the plain
+    backward under its bound, one launch counted under
+    ``flash_attention_bwd_wgmma`` and none on the CUDA cores; K/V views of
+    buffers NaN past Skv."""
+    kw = {"window": window, "softcap": softcap}
+    q, k, v, do = _bwd_case(card, sq, skv, kh * group, kh, hd)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = ops.launches_by_route(ops.launch_counts(), "flash_attention_bwd")
+    with torch.enable_grad():
+        o = ops.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(o, leaves, do)
+    after = ops.launches_by_route(ops.launch_counts(), "flash_attention_bwd")
+    assert after == {"wgmma": before["wgmma"] + 1,
+                     "cuda_cores": before["cuda_cores"]}
+    _within_bwd_wgmma_bound(got, q, k, v, o.detach(), do, **kw)
+
+
+def test_flash_bwd_wgmma_is_deterministic_and_lse_is_the_plain_one(card):
+    """Two calls of the tensor-core backward give the same bits; the
+    forward's lse equals the plain logsumexp within 1e-5; the forward with
+    a null lse writes the same output bits as with one."""
+    from repro_torch.kernels import flash_attention as FA
+    for sq, skv, window, softcap in ((1025, 1025, 0, None),
+                                     (65, 300, 100, 30.0)):
+        kw = {"window": window, "softcap": softcap}
+        q, k, v, do = _bwd_case(card, sq, skv, 12, 2, 128)
+        tr = [t.transpose(1, 2) for t in (q, k, v)]
+        o, lse = FA.launch_wgmma(*tr, with_lse=True, **kw)
+        assert torch.equal(o, FA.launch_wgmma(*tr, **kw))
+        want = ref.flash_attention_lse(q.float(), k.float(), **kw)
+        assert float((lse - want).abs().max()) <= 1e-5
+        runs = [FA.flash_attention_bwd_cuda(*tr, o, do.transpose(1, 2),
+                                            lse=lse, **kw)
+                for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_flash_bwd_wgmma_refuses_what_it_does_not_take(card):
+    """A misaligned view, a missing or malformed lse and an lse on the
+    CUDA-core route raise before any launch."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v, do = _bwd_case(card, 70, 70, 2, 1, 128)
+    tr = [t.transpose(1, 2) for t in (q, k, v)]
+    o, lse = FA.launch_wgmma(*tr, with_lse=True)
+    dot = do.transpose(1, 2)
+    before = ops.launch_counts()["flash_attention_bwd"]
+    buf = _randn(card, 1, 70, 2, 136, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA"):
+        FA.flash_attention_bwd_cuda(
+            *tr, o, buf[..., 1:129].transpose(1, 2).expand_as(dot), lse=lse)
+    with pytest.raises(ValueError, match="lse"):
+        FA.flash_attention_bwd_cuda(*tr, o, dot)
+    with pytest.raises(ValueError, match="lse"):
+        FA.flash_attention_bwd_cuda(*tr, o, dot, lse=lse.contiguous())
+    with pytest.raises(ValueError, match="lse"):
+        FA.flash_attention_bwd_cuda(*(t.float() for t in (*tr, o, dot)),
+                                    lse=lse)
+    assert ops.launch_counts()["flash_attention_bwd"] == before
 
 
 def test_flash_bwd_refuses_what_it_does_not_take(card):
