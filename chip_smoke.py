@@ -109,8 +109,10 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    above beside gather_pages + dequantize + SDPA; their bound counts the
    8-bit pages and the 4-byte scales once per distinct (page, slot).
    The dense attention configs' shapes (``dense_kernel_checks``): rows 1,
-   2 and 4-6 at head dim 256 on their CUDA-core routes (bf16 takes them
-   by its shape), f32 and bf16, groups 1 and 4, windows 0 and 512 (past
+   2 and 4-6 at head dim 256 on the route each wrapper's rule names (bf16
+   dense decode and prefix-append: the tensor cores, held to their bound;
+   flash, paged decode and f32: the CUDA cores), f32 and bf16, groups 1
+   and 4, windows 0 and 512 (past
    512 keys, so they bite), softcaps none and 30, ragged lengths with 0,
    the paged rows over pages 1-16, q_len 1-10 and chunks up to 64 on fp,
    int8 and fp8 pools; gemma3-1b's own shapes (H 4, KH 1: prefill Sq =
@@ -118,7 +120,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    1025-2049, the chunked engine's flat fused step and a 256-token chunk,
    on bf16 and int8 pools), each at its local layers' window 512 and its
    global layers' none, timed as above beside SDPA (gather + SDPA for
-   the paged rows); every hd-256 launch on the CUDA cores.  Then the
+   the paged rows), the two-route rows on both routes in turns; every
+   hd-256 launch of the sweep on its rule's route, and the card's
+   cluster occupancy at hd 256 logged.  Then the
    tensor-core routes at the new groups: group 1 (codeqwen1.5-7b, 32/32)
    and 16 (glm4-9b, 32/2) on flash, decode and the slot step's paged
    decode, and gemma2-27b's group 2 with softcap 50 and window 4096 on
@@ -405,8 +409,10 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    answers in the vocab; flash = layers × prefix prefills, paged decode
    = layers × (steps + admission calls) (chunked: prefix-append =
    layers × fused steps, paged decode = layers × plain steps), every
-   launch on the route the head dim names (hd 128: tensor cores; hd 256:
-   CUDA cores), no other kernel; generate: flash and dense decode once a
+   launch on the route its kernel's rule names (hd 128: tensor cores; hd
+   256: dense decode and prefix-append on the tensor cores, flash and
+   paged decode on the CUDA cores), no other kernel; generate: flash and
+   dense decode once a
    layer; every eager run's attention inputs (first layer, each step
    family and shape) held against the plain versions.  Prints weight
    bytes, prefix-prefill replay ms by bucket, step ms eager and
@@ -1889,29 +1895,49 @@ def quant_kernel_checks(torch, randn, timer, errors):
 
 #: gemma3-1b's local-layer window, which bites on its 1024-region prefix
 G3_WINDOW = 512
+#: the attention kernels the hd-256 sweep runs
+HD256_KERNELS = ("flash_attention", "decode_attention",
+                 "paged_decode_attention", "paged_prefill_attention")
 #: gemma2-27b's local layers: window 4096 and attention softcap 50, held
 #: at a length past the window (the serving path never reaches it)
 G2_WINDOW, G2_SOFTCAP, G2_SKV = 4096, 50.0, 6000
 
 
 def hd256_sweep(torch, randn, errors):
-    """Rows 1, 2 and 4-6 at head dim 256 (the CUDA-core routes; bf16 takes
-    them by its shape) against their plain versions, f32 at ``TOL_F32``
-    and bf16 at ``TOL_BF16``: groups 1 and 4, windows 0 and 512 (lengths
-    past 512, so the window bites), softcaps none and 30, ragged lengths
-    with 0.  Flash at Sq = Skv and Sq < Skv; dense decode at q_len 1 and
-    3; paged decode over pages 1-16 and q_len 1-10 and prefix-append over
-    chunks of 1-64 tokens (q_blk dividing the chunk or not), both over
+    """Rows 1, 2 and 4-6 at head dim 256 against their plain versions, each
+    on the route its wrapper's rule names: bf16 dense decode and
+    prefix-append on the tensor cores, held to ``check_mma_decode``'s
+    bound; flash, paged decode and every f32 call on the CUDA cores, f32 at
+    ``TOL_F32`` and bf16 at ``TOL_BF16``: groups 1 and 4, windows 0 and 512
+    (lengths past 512, so the window bites), softcaps none and 30, ragged
+    lengths with 0.  Flash at Sq = Skv and Sq < Skv; dense decode at q_len 1
+    and 3; paged decode over pages 1-16 and q_len 1-10 and prefix-append
+    over chunks of 1-64 tokens (q_blk dividing the chunk or not), both over
     shared prefix pages with a NaN trash page, on fp pools and on int8 and
     fp8 pools (held against the plain version on the dequantized pools,
-    whose trash page has NaN scales).  Every launch is on the CUDA-core
-    route (counted by the caller)."""
+    whose trash page has NaN scales).  Returns ({"f32" / "bf16": the
+    launches by route of each kernel}, the largest share of the tensor-core
+    bound used)."""
     from repro_torch.kernels import ops, ref
     f32, bf16, hd = torch.float32, torch.bfloat16, 256
     opts = [(0, None), (G3_WINDOW, None), (0, 30.0), (G3_WINDOW, 30.0)]
-    log("hd 256 vs plain (CUDA-core routes)")
+    log("hd 256 vs plain (each kernel's route)")
+    launches, shares = {}, []
+
+    def held(name, got, want, q, dense_kv, lens, kw, case):
+        # the tensor-core route to its bound, the CUDA-core one to its
+        # tolerance; dense_kv() gives k, v dense (pools dequantized and
+        # gathered), built only where the bound reads them
+        if route_of(name, q.dtype, hd) == "mma":
+            shares.append(check_mma_decode(name, got, q, *dense_kv(), lens,
+                                           kw, case, errors)[1])
+        else:
+            check(name, got, want, TOL_F32 if q.dtype == f32 else TOL_BF16,
+                  case, errors)
+
     for j, dt in enumerate((f32, bf16)):
         tol, tag = (TOL_F32, "f32") if dt == f32 else (TOL_BF16, "bf16")
+        before = ops.launch_counts()
         for i, (group, kh, sq, skv) in enumerate(
                 ((1, 2, 65, 65), (4, 1, 600, 600), (4, 2, 33, 700),
                  (1, 1, 1, 530))):
@@ -1937,8 +1963,8 @@ def hd256_sweep(torch, randn, errors):
                 got = ops.multi_decode_attention(q, k, v, lens, **kw)
             case = (f"{tag} hd256 g{group} q_len{q_len} w{window} "
                     f"cap{softcap}")
-            check("decode_attention", got, ref.multi_decode_attention(
-                q, k, v, lens, **kw), tol, case, errors)
+            held("decode_attention", got, ref.multi_decode_attention(
+                q, k, v, lens, **kw), q, lambda: (k, v), lens, kw, case)
             if float(got[0].abs().max()) != 0.0:
                 errors.append(f"decode_attention {case}: cache_len 0 row "
                               f"not zero")
@@ -1976,35 +2002,58 @@ def hd256_sweep(torch, randn, errors):
                 want = ref.paged_multi_decode_attention(
                     q, pools["k"], pools["v"], table, lens_t, **kw,
                     **want_sc)
+                def dense_kv():
+                    return tuple(ref.gather_pages(ref.dequantize_pool(
+                        pools[n], pools.get(n + "_scale")), table)
+                        for n in ("k", "v"))
                 case = (f"{kind} {tag} {op} hd256 page{page} g{group} "
                         f"q_len{q_len} q_blk{q_blk} w{window} cap{softcap}")
-                check(f"paged_{op}", got, want, tol, case, errors)
+                held("paged_decode_attention" if op == "decode"
+                     else "paged_prefill_attention", got, want, q,
+                     dense_kv, lens_t, kw, case)
                 if float(got[0].abs().max()) != 0.0:
                     errors.append(f"paged_{op} {case}: cache_len 0 row not "
                                   f"zero")
+        after = ops.launch_counts()
+        delta = {n: after[n] - before[n] for n in after}
+        launches[tag] = {n: ops.launches_by_route(delta, n)
+                         for n in HD256_KERNELS}
+    log(f"  hd 256 mma sweep: largest share of the bound {max(shares):.3f}")
+    return launches, max(shares)
 
 
 def gemma3_kernel_checks(torch, randn, timer, errors):
-    """Rows 1, 2 and 4-6 at gemma3-1b's own shapes (H 4, KH 1, hd 256, bf16,
-    the CUDA-core routes), each held to ``TOL_BF16`` at its local layers'
-    window (512) and its global layers' (none), and timed at the one that
-    does the most work (the global layers' for the decode rows, the local
-    layers' for prefill and prefix-append: 22 of the 26 layers): (g3
-    prefill) Sq = Skv = 1025; (g3 decode) dense decode B 8 at cache_len
-    1025..2049; (g3 q1) the slot step, B 8, page 8, table width 257, on
-    bf16 and int8 pools; (g3 flat) the chunked engine's flat fused step,
-    8 decode rows and a scene's last 256-token chunk as 256 q_len-1 rows,
-    and (g3 chunk) that chunk as one q_len-256 row, on bf16 and int8
-    pools.  Returns the report's rows."""
+    """Rows 1, 2 and 4-6 at gemma3-1b's own shapes (H 4, KH 1, hd 256,
+    bf16), each held at its local layers' window (512) and its global
+    layers' (none) on the route its wrapper's rule names (dense decode and
+    prefix-append: the tensor cores, to their bound; flash and paged
+    decode: the CUDA cores, to ``TOL_BF16``), the two-route rows also on
+    the CUDA cores, and timed at the window that does the most work (the
+    global layers' for the decode rows, the local layers' for prefill and
+    prefix-append: 22 of the 26 layers), both routes in turns beside the
+    library call: (g3 prefill) Sq = Skv = 1025; (g3 decode) dense decode B
+    8 at cache_len 1025..2049; (g3 q1) the slot step, B 8, page 8, table
+    width 257, on bf16 and int8 pools; (g3 flat) the chunked engine's flat
+    fused step, 8 decode rows and a scene's last 256-token chunk as 256
+    q_len-1 rows, with the engine's tile plan (group 4: 16 tokens a
+    tile), and (g3 chunk) that chunk as one q_len-256 row, on bf16 and
+    int8 pools (the int8 chunk held, not timed).  Logs the clusters of
+    1..16 blocks the card holds at once at hd 256 (what the split plans
+    read).  Returns the report's rows."""
     import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_prefill_attention as PPA
+    from repro_torch.kernels.build import POOL_DTYPES
     bf16, hd, h, kh = torch.bfloat16, 256, 4, 1
     out = {n: {} for n in ("flash_attention", "decode_attention",
-                           "paged_decode_attention",
+                           "decode_attention_mma", "paged_decode_attention",
                            "paged_decode_attention[int8]",
                            "paged_prefill_attention",
-                           "paged_prefill_attention[int8]")}
-    log("gemma3-1b's shapes (hd 256, CUDA-core routes)")
+                           "paged_prefill_attention[int8]",
+                           "paged_prefill_attention_mma",
+                           "paged_prefill_attention_mma[int8]")}
+    log("gemma3-1b's shapes (hd 256)")
     # (g3 prefill)
     s = 1025
     q = randn(1, s, h, hd, dtype=bf16)
@@ -2028,32 +2077,56 @@ def gemma3_kernel_checks(torch, randn, timer, errors):
             nbytes(q, k, v, q), flash_flops(torch, h, hd, s, s, window),
             f"B1 H{h} KH{kh} Sq=Skv={s} hd{hd} window {window} bf16"
         )["cuda_cores"]
-    # (g3 decode)
+    # (g3 decode): ops on the tensor cores, and both launchers
     b, s = 8, 2049
     lens = torch.tensor([1025 + (1024 * i) // (b - 1) for i in range(b)],
                         dtype=torch.int32, device="cuda")
     q = randn(b, h, hd, dtype=bf16)
     k, v = (randn(b, s, kh, hd, dtype=bf16) for _ in range(2))
+    qg, kt, vt = q.reshape(b, kh, h // kh, hd), k.transpose(1, 2), \
+        v.transpose(1, 2)
     for window in (G3_WINDOW, 0):
         kw = {"window": window}
-        err = check("decode_attention", ops.decode_attention(q, k, v, lens,
-                                                             **kw),
-                    ref.decode_attention(q, k, v, lens, **kw), TOL_BF16,
-                    f"bf16 g3 decode B{b} H{h} KH{kh} S{s} w{window}",
-                    errors)
+        case = f"bf16 g3 decode B{b} H{h} KH{kh} S{s} w{window}"
+        err, share = check_mma_decode(
+            "decode_attention", ops.decode_attention(q, k, v, lens,
+                                                     **kw)[:, None],
+            q[:, None], k, v, lens, kw, case, errors)
+        err_cc = check("decode_attention", DA.launch_cuda_cores(
+            qg, kt, vt, lens, **kw).reshape(b, h, hd),
+            ref.decode_attention(q, k, v, lens, **kw), TOL_BF16,
+            case + " on CUDA cores", errors)
     n_keys = int(lens.long().sum())
     mask = dense_mask(torch, lens, 1, s)
-    q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    out["decode_attention"]["g3 decode"] = timed_rows(
-        timer, {"cuda_cores": (lambda: ops.decode_attention(q, k, v, lens),
-                               err)},
+    q4 = q[:, :, None]
+    rows = timed_rows(
+        timer, {"mma": (lambda: DA.launch_mma(qg, kt, vt, lens), err),
+                "cuda_cores": (lambda: DA.launch_cuda_cores(qg, kt, vt,
+                                                            lens), err_cc)},
         lambda: ref.decode_attention(q, k, v, lens),
         lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask,
                                                enable_gqa=True),
         2 * nbytes(q) + 2 * n_keys * kh * hd * 2 + 4 * b,
         4.0 * hd * h * n_keys,
         f"B{b} H{h} KH{kh} S{s} cache_len {int(lens[0])}..{int(lens[-1])} "
-        f"hd{hd} bf16")["cuda_cores"]
+        f"hd{hd} bf16")
+    rows["mma"].update(tolerance_share=share, splits=DA.card_cluster_plan(
+        b * kh, s, 0, DA.MMA_DENSE, hd, h // kh)[0])
+    out["decode_attention_mma"]["g3 decode"] = rows["mma"]
+    out["decode_attention"]["g3 decode"] = rows["cuda_cores"]
+    # the clusters of n blocks the card holds at once at hd 256 (one block
+    # an SM), for each layout: bf16 dense decode at the decode step's 4
+    # rows, prefix-append's 64-row tiles on bf16 and int8 pools
+    occupancy = {f"{name} {pool}": {
+        n: DA.max_clusters(0, mode, hd, rows_, n, code)
+        for n in range(1, 17)} for name, mode, rows_, pool, code in (
+            ("dense", DA.MMA_DENSE, h // kh, "bf16", 1),
+            ("prefix-append", DA.MMA_PREFILL, 64, "bf16", 1),
+            ("prefix-append", DA.MMA_PREFILL, 64, "int8",
+             POOL_DTYPES[torch.int8]))}
+    log(f"  mma: clusters of 1..16 blocks the card holds at once at hd "
+        f"{hd} {occupancy}; g3 decode splits {rows['mma']['splits']}")
+    rows["mma"]["max_clusters_by_size"] = occupancy
     # (g3 q1): the slot step's paged decode
     page, width = 8, 257
     lens_l = [1025 + (1024 * i) // (b - 1) for i in range(b)]
@@ -2079,6 +2152,7 @@ def gemma3_kernel_checks(torch, randn, timer, errors):
               else ops.paged_prefill_attention)
         bq = q.shape[0]
         s = width * page
+        qr = ops._chunk_to_rows(q, kh)
         for kind in ("fp", "int8"):
             if kind == "fp":
                 pools = {"k": k_pool, "v": v_pool}
@@ -2088,17 +2162,40 @@ def gemma3_kernel_checks(torch, randn, timer, errors):
                 pools, nan = quant_pools(torch, k_pool, v_pool, kind)
                 scales, want_sc = scales_of(nan), scales_of(pools)
             extra = {} if plan is None else {"plan": plan}
+            kd, vd = (ref.gather_pages(ref.dequantize_pool(
+                pools[n], pools.get(n + "_scale")), table)
+                for n in ("k", "v"))
+
+            def launch(route, window, nan=nan, scales=scales, qr=qr,
+                       table=table, lens_t=lens_t, q_len=q_len, plan=plan):
+                # prefix-append straight to one route's launcher
+                sc = ops._scales(scales.get("k_scale"), scales.get("v_scale"))
+                if route == "mma":
+                    return PPA.launch_mma(
+                        qr, nan["k"].transpose(1, 2), nan["v"].transpose(1, 2),
+                        table, lens_t, window=window, q_len=q_len, plan=plan,
+                        **sc)
+                return PPA.launch_cuda_cores(
+                    qr, nan["k"].transpose(1, 2), nan["v"].transpose(1, 2),
+                    table, lens_t, window=window, q_len=q_len, **sc)
+
             windows = (G3_WINDOW, 0) if op == "decode" else (0, G3_WINDOW)
             for window in windows:
                 kw = {"window": window}
-                err = check(f"paged_{op}", fn(q, nan["k"], nan["v"], table,
-                                              lens_t, **kw, **scales,
-                                              **extra),
-                            ref.paged_multi_decode_attention(
-                                q, pools["k"], pools["v"], table, lens_t,
-                                **kw, **want_sc), TOL_BF16,
-                            f"{kind} bf16 {tag} B{bq} q_len{q_len} "
-                            f"w{window}", errors)
+                case = f"{kind} bf16 {tag} B{bq} q_len{q_len} w{window}"
+                got = fn(q, nan["k"], nan["v"], table, lens_t, **kw,
+                         **scales, **extra)
+                want = ref.paged_multi_decode_attention(
+                    q, pools["k"], pools["v"], table, lens_t, **kw, **want_sc)
+                if op == "decode":
+                    err = check(f"paged_{op}", got, want, TOL_BF16, case,
+                                errors)
+                    continue
+                err, share = check_mma_decode(f"paged_{op}", got, q, kd, vd,
+                                              lens_t, kw, case, errors)
+                err_cc = check(f"paged_{op}", ops._rows_to_chunk(
+                    launch("cuda_cores", window), q_len, h), want, TOL_BF16,
+                    case + " on CUDA cores", errors)
             if tag == "g3 chunk" and kind == "int8":
                 continue                  # held, not timed
             # timed at the last window held
@@ -2115,11 +2212,16 @@ def gemma3_kernel_checks(torch, randn, timer, errors):
             n_bytes, flops = paged_bytes_and_flops(
                 torch, q, pools["k"], table, lens_t, q_len,
                 scaled=kind != "fp", window=window)
-            key = name if kind == "fp" else f"{name}[{kind}]"
-            out[key][tag] = timed_rows(
-                timer, {"cuda_cores": (
+            if op == "decode":
+                kernels = {"cuda_cores": (
                     lambda: fn(q, nan["k"], nan["v"], table, lens_t, **kw,
-                               **scales, **extra), err)},
+                               **scales, **extra), err)}
+            else:
+                kernels = {"mma": (lambda: launch("mma", window), err),
+                           "cuda_cores": (lambda: launch("cuda_cores",
+                                                         window), err_cc)}
+            rows = timed_rows(
+                timer, kernels,
                 lambda: ref.paged_multi_decode_attention(
                     q, pools["k"], pools["v"], table, lens_t, **kw,
                     **want_sc),
@@ -2131,7 +2233,16 @@ def gemma3_kernel_checks(torch, randn, timer, errors):
                     "gather_pages + scaled_dot_product_attention (two "
                     "calls)" if kind == "fp" else "gather_pages + "
                     "dequantize + scaled_dot_product_attention"),
-                pool=kind)["cuda_cores"]
+                pool=kind)
+            sfx = "" if kind == "fp" else f"[{kind}]"
+            out[name + sfx][tag] = rows["cuda_cores"]
+            if "mma" in rows:
+                rows["mma"]["tolerance_share"] = share
+                rows["mma"]["splits"] = PPA._mma_geometry(
+                    bq, kh, qr.shape[2], hd, page, width, q_len,
+                    0 if plan is None else plan.shape[1], 0,
+                    POOL_DTYPES.get(pools["k"].dtype, 1))[2]
+                out[f"{name}_mma{sfx}"][tag] = rows["mma"]
     return out
 
 
@@ -2306,22 +2417,22 @@ def dense_mma_checks(torch, randn, timer, errors):
 def dense_kernel_checks(torch, randn, timer, errors):
     """Phase 2's checks for the dense attention configs: the hd-256
     sweep, gemma3-1b's shapes and the new groups on the tensor cores.
-    Every hd-256 launch must be on a CUDA-core route, none of them on a
-    tensor-core one.  Returns the report's rows."""
-    from repro_torch.kernels import ops
-    ops.reset_launch_counts()
-    hd256_sweep(torch, randn, errors)
+    Every hd-256 launch of the sweep must be on the route its wrapper's
+    rule names for its dtype (bf16 dense decode and prefix-append: the
+    tensor cores; bf16 flash and paged decode, every f32 call: the CUDA
+    cores), none on the other.  Returns the report's rows."""
+    launches, share = hd256_sweep(torch, randn, errors)
+    log(f"  hd 256 launches by route: {launches}")
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for n, r in launches[tag].items():
+            want = route_of(n, dt, 256)
+            if r[want] == 0 or any(v for k, v in r.items() if k != want):
+                errors.append(f"{n} at hd 256 in {tag}: launches {r}, want "
+                              f"every one on the {want} route")
     out = gemma3_kernel_checks(torch, randn, timer, errors)
-    counts = ops.launch_counts()
-    routes = {n: ops.launches_by_route(counts, n)
-              for n in ("flash_attention", "decode_attention",
-                        "paged_decode_attention", "paged_prefill_attention")}
-    log(f"  hd 256 launches by route: {routes}")
-    for n, r in routes.items():
-        if r["cuda_cores"] == 0 or min(v for k, v in r.items()
-                                       if k != "cuda_cores") != 0:
-            errors.append(f"{n} at hd 256: launches {r}, want every one on "
-                          f"the CUDA-core route")
+    for name in ("decode_attention_mma", "paged_prefill_attention_mma"):
+        for row in out[name].values():
+            row["sweep_tolerance_share"] = share
     for name, rows in dense_mma_checks(torch, randn, timer, errors).items():
         out.setdefault(name, {}).update(rows)
     return out
@@ -6638,11 +6749,15 @@ DENSE_KEEP = ("flash_attention", "paged_decode_attention",
 
 def route_of(name, dtype, hd):
     """The route ``ops`` sends a call of kernel ``name`` at (dtype, head
-    dim) to: flash's rule for flash, the decode rule for the dense and
-    paged decode kernels and prefix-append."""
+    dim) to: the rule of that kernel's own wrapper (flash, dense decode,
+    paged decode, prefix-append)."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
-    return (FA if name == "flash_attention" else DA).route(dtype, hd)
+    from repro_torch.kernels import paged_decode_attention as PDA
+    from repro_torch.kernels import paged_prefill_attention as PPA
+    return {"flash_attention": FA, "decode_attention": DA,
+            "paged_decode_attention": PDA,
+            "paged_prefill_attention": PPA}[name].route(dtype, hd)
 
 
 def hold_attention(name, args, kw, case, errors):
@@ -6713,7 +6828,9 @@ def dense_serve_phase(torch, smi):
     prefix-append = layers × fused steps, paged decode = layers × plain
     steps, no flash), each on the route its kernel's ``route()`` gives
     the model's dtype and head dim (``route_of``; bf16 at hd 128: the
-    tensor cores, at hd 256: the CUDA cores) and none on the other, no
+    tensor cores, at hd 256: the tensor cores for dense decode and
+    prefix-append, the CUDA cores for flash and paged decode) and none on
+    the other, no
     other kernel; generate: flash and dense decode once a layer; every kept
     input held against the plain version.  Prints weight bytes, the
     prefix prefill's replay ms by bucket, step ms (host clock) eager and

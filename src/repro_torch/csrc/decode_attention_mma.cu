@@ -1,7 +1,8 @@
 // Flash-decoding over a dense or a paged KV cache, and paged prefix-append
 // attention (chunked prefill), on Hopper's tensor cores (sm_90a): one
 // launch per call, K/V through a cp.async ring, QK^T and PV on mma.sync.
-// bfloat16 in and out, float32 accumulation; head dims 64 and 128.
+// bfloat16 in and out, float32 accumulation; head dims 64 and 128, and
+// 256 (gemma3-1b's) in dense decode and prefix-append.
 //
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention_pallas
 // (dense decode of the batch path and the drafter, and the q_len > 1 chunk
@@ -11,9 +12,9 @@
 // engine's fused step, through paged_prefill_attention_mma_fwd), the two
 // paged ones over bf16 pools and over int8 / fp8 (e4m3) pools with their
 // per-(page, slot, head) f32 scales (the TPU kernels' k_scale / v_scale
-// operands), on the route
-// kernels/decode_attention.py::route gives bf16 at hd 64/128.  float32 and
-// the other head dims stay on decode_attention.cu and
+// operands), on the routes each wrapper's ``route`` gives bf16: hd 64/128
+// for paged decode, 64/128/256 for dense decode and prefix-append.
+// float32 and the other head dims stay on decode_attention.cu and
 // paged_prefill_attention.cu.
 //
 // What bounds it on this card: bytes for decode.  A (batch row, KV head)
@@ -52,7 +53,9 @@
 //    trip to memory per 16 bytes).
 //  * Tensor cores.  The row tile's query rows (token-major, q_len·group)
 //    are packed into 16-row fragments held in registers as mma A operands,
-//    loaded once; rows past the tile are zero and never stored.  S = QK^T
+//    loaded once (at hd 256 staged once in shared memory and read by
+//    ldmatrix at each k-step: see Resources); rows past the tile are zero
+//    and never stored.  S = QK^T
 //    runs as mma.sync.m16n8k16 (bf16, f32 accumulate) with K fragments
 //    from ldmatrix; PV with p re-packed from the S accumulators into bf16
 //    A fragments (as FlashAttention-2) and V fragments from ldmatrix.trans.
@@ -109,6 +112,15 @@
 // blocks an SM; the partials reuse the ring after the last tile.  At hd 64
 // half of that, four blocks an SM.  An 8-bit pool: a 49.5 KB ring (3 x
 // (16 KB + 512 B of scales)) and a 32 KB converted tile at hd 128.
+// At hd 256 registers bind, not shared memory: a thread's f32 output
+// accumulator is 128 registers and its Q fragments would be 64 more, with
+// S (up to 32) past the 255 a thread may hold.  So Q is staged once per
+// block (64 rows x 512 B = 32 KB, the K tiles' swizzled layout) and each
+// k-step reads its A operand by ldmatrix.  The bf16 layout is 3 x 64 KB
+// of ring + 32 KB of Q + 1 KB of (m, l) = 230,400 of the 232,448 bytes a
+// block may use (the 67.6 KB of partials reuse the ring): one block an
+// SM, which cluster_plan reads from the card's occupancy.  An 8-bit pool:
+// 3 x 32.5 KB of ring + a 64 KB converted tile + Q, ~195 KB.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -130,8 +142,13 @@ constexpr float MD_MASKED = REPRO_NEG_INF;   // a masked logit (base 2)
 // what a launch scores: dense decode, paged decode, paged prefix-append
 enum { MD_DENSE = 0, MD_PAGED = 1, MD_PREFILL = 2 };
 
+// the most dynamic shared memory one block may use on this card
+constexpr int MD_SMEM_MAX = 232448;
+
 // Q8: an 8-bit pool, whose stage holds the stored K, V tiles and their
-// scales, converted to one bf16 K/V tile at CVT_OFF
+// scales, converted to one bf16 K/V tile at CVT_OFF.  QS (hd 256): the
+// row tile's Q is staged once at Q_OFF, in the K tiles' swizzled layout,
+// and read by ldmatrix at every k-step, instead of living in registers.
 template <int HD, bool Q8 = false>
 struct MdLayout {
   static constexpr int CHUNKS = HD / 8;               // 16 B bf16 chunks
@@ -146,9 +163,13 @@ struct MdLayout {
   static constexpr int PART_BYTES = MD_WARPS * 16 * PST * 4;
   static_assert(PART_BYTES <= RING_BYTES + CVT_BYTES,
                 "partials reuse the ring");
-  static constexpr int WML_OFF = RING_BYTES + CVT_BYTES;  // [warp][16][2]
+  static constexpr bool QS = HD > 128;
+  static constexpr int Q_OFF = RING_BYTES + CVT_BYTES;  // QS: [64][HD] bf16
+  static constexpr int Q_BYTES = QS ? MD_MAX_ROWS * HD * 2 : 0;
+  static constexpr int WML_OFF = Q_OFF + Q_BYTES;     // [warp][16][2]
   static constexpr int ML_OFF = WML_OFF + MD_WARPS * 16 * 2 * 4;  // [64][2]
   static constexpr int BYTES = ML_OFF + MD_MAX_ROWS * 2 * 4;
+  static_assert(BYTES <= MD_SMEM_MAX, "one block's shared memory");
 };
 
 // 16 bytes global -> shared, bypassing L1; src_bytes 0 writes 16 zeros and
@@ -279,9 +300,11 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float sl2e = scale * MD_LOG2E;
 
-  // Q A fragments, loaded once; rows past the tile are zero
-  uint32_t qf[KD][4];
-  {
+  // Q A fragments, loaded once; rows past the tile are zero.  At hd 256
+  // (L::QS) Q is staged in shared memory below instead: these 64
+  // registers a thread, with acc's 128, would not fit.
+  uint32_t qf[L::QS ? 1 : KD][4];
+  if constexpr (!L::QS) {
     const __nv_bfloat16* qa =
         oka ? q + (int64_t)batch_of(ra) * q_sb + kh * q_sh +
                   (int64_t)row_of(ra) * q_sr
@@ -361,12 +384,16 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // per copy (each copy's "memory" clobber keeps the compiler from
   // hoisting a later table read above an earlier copy).  An 8-bit row is
   // RCH = HD / 16 chunks; the thread of chunk 0 of a row also copies the
-  // row's K and V scales.
+  // row's K and V scales.  A bf16 row at hd 256 is 32 chunks: a thread
+  // copies chunks ch and ch + 16 of its rows, so it holds 8 rows' table
+  // entries a tile, not 16 (which, beside acc, spill).
   constexpr int RCH = Q8 ? HD / 16 : L::CHUNKS;          // chunks a row
-  constexpr int RPT = MD_BK * RCH / MD_THREADS;          // 8 at hd 128
-  constexpr int ROW_STEP = MD_THREADS / RCH;
+  constexpr int CPT = !Q8 && HD > 128 ? 2 : 1;           // a thread's, a row
+  constexpr int TPR = RCH / CPT;                         // threads a row
+  constexpr int RPT = MD_BK * TPR / MD_THREADS;          // 8 at hd 128
+  constexpr int ROW_STEP = MD_THREADS / TPR;
   constexpr int EPC = Q8 ? 16 : 8;                       // elements a chunk
-  const int ch = threadIdx.x % RCH, row0 = threadIdx.x / RCH;
+  const int ch = threadIdx.x % TPR, row0 = threadIdx.x / TPR;
   auto load_tile = [&](int i) {
     if (i < ntile) {
       const int t0 = kb + i * MD_BK;
@@ -411,9 +438,17 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
             cp_async4(st + L::SCALE_OFF + row * 4, kss, bytes / 4);
             cp_async4(st + L::SCALE_OFF + (MD_BK + row) * 4, vss, bytes / 4);
           }
-        } else {
+        } else if constexpr (CPT == 1) {
           cp_async16(st + tile_off<HD>(row, ch), ks, bytes);
           cp_async16(st + L::TILE_BYTES + tile_off<HD>(row, ch), vs, bytes);
+        } else {
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) {
+            const int cc = ch + c * TPR;
+            cp_async16(st + tile_off<HD>(row, cc), ks + c * TPR * EPC, bytes);
+            cp_async16(st + L::TILE_BYTES + tile_off<HD>(row, cc),
+                       vs + c * TPR * EPC, bytes);
+          }
         }
       }
     }
@@ -425,6 +460,22 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int n = 0; n < ND; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  // QS: the row tile's fragments' rows into shared memory, 16-byte chunks
+  // in the K tiles' swizzled layout, rows past the tile zero; they ride in
+  // tile 0's commit group, so the first wait covers them
+  if constexpr (L::QS) {
+    const uint32_t qtile = ring + L::Q_OFF;
+    for (int e = threadIdx.x; e < nfrag * 16 * L::CHUNKS; e += MD_THREADS) {
+      const int r = e / L::CHUNKS, c = e % L::CHUNKS;
+      const bool ok = r < nrows;
+      cp_async16(qtile + tile_off<HD>(r, c),
+                 ok ? q + (int64_t)batch_of(r) * q_sb + kh * q_sh +
+                          (int64_t)row_of(r) * q_sr + c * 8
+                    : q,
+                 ok ? 16 : 0);
+    }
+  }
 
 #pragma unroll
   for (int i = 0; i < MD_STAGES; ++i) load_tile(i);
@@ -468,16 +519,40 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int n = 0; n < NB; ++n)
         s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      // two loops, not one over a chosen A operand: the hd-64/128 one keeps
+      // its earlier form (a shared loop changed that code and slowed their
+      // dense decode)
+      if constexpr (L::QS) {
+        // this lane's row of the fragment's A operand in staged Q (the four
+        // 8x8 matrices: rows 0-7 / 8-15 by lane bit 3, k halves by bit 4)
+        const uint32_t qtile = ring + L::Q_OFF;
+        const int qrow = frag * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
 #pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
+        for (int kd = 0; kd < KD; ++kd) {
+          uint32_t qa[4];
+          ldmatrix_x4(qa, qtile + tile_off<HD>(qrow, kd * 2 + (lane >> 4)));
 #pragma unroll
-        for (int n2 = 0; n2 < NB / 2; ++n2) {
-          const int row = key0 + n2 * 16 + (lane & 7) + ((lane >> 4) << 3);
-          const int ch = kd * 2 + ((lane >> 3) & 1);
-          uint32_t kf[4];
-          ldmatrix_x4(kf, ks + tile_off<HD>(row, ch));
-          mma_bf16(s[2 * n2], qf[kd], kf[0], kf[1]);
-          mma_bf16(s[2 * n2 + 1], qf[kd], kf[2], kf[3]);
+          for (int n2 = 0; n2 < NB / 2; ++n2) {
+            const int row = key0 + n2 * 16 + (lane & 7) + ((lane >> 4) << 3);
+            const int ch = kd * 2 + ((lane >> 3) & 1);
+            uint32_t kf[4];
+            ldmatrix_x4(kf, ks + tile_off<HD>(row, ch));
+            mma_bf16(s[2 * n2], qa, kf[0], kf[1]);
+            mma_bf16(s[2 * n2 + 1], qa, kf[2], kf[3]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+          for (int n2 = 0; n2 < NB / 2; ++n2) {
+            const int row = key0 + n2 * 16 + (lane & 7) + ((lane >> 4) << 3);
+            const int ch = kd * 2 + ((lane >> 3) & 1);
+            uint32_t kf[4];
+            ldmatrix_x4(kf, ks + tile_off<HD>(row, ch));
+            mma_bf16(s[2 * n2], qf[kd], kf[0], kf[1]);
+            mma_bf16(s[2 * n2 + 1], qf[kd], kf[2], kf[3]);
+          }
         }
       }
       // column c of s[n][j]: key0 + n·8 + 2·(lane & 3) + (j & 1)
@@ -799,9 +874,19 @@ cudaError_t md_max_clusters_ks(int tile_rows, int splits, int* n) {
   return md_max_clusters<HD, 1, MODE, KT>(splits, n);
 }
 
+// the head dims a mode takes: 64 and 128; 256 in dense decode and
+// prefix-append (their hd-256 instances stage Q in shared memory)
+constexpr bool md_takes_hd(int mode, int hd) {
+  return hd == 64 || hd == 128 || (hd == 256 && mode != MD_PAGED);
+}
+
 template <int MODE, typename KT>
 cudaError_t md_max_clusters_hd(int hd, int tile_rows, int splits, int* n) {
   if (hd == 64) return md_max_clusters_ks<64, MODE, KT>(tile_rows, splits, n);
+  if constexpr (md_takes_hd(MODE, 256)) {
+    if (hd == 256)
+      return md_max_clusters_ks<256, MODE, KT>(tile_rows, splits, n);
+  }
   return md_max_clusters_ks<128, MODE, KT>(tile_rows, splits, n);
 }
 
@@ -824,6 +909,9 @@ cudaError_t md_max_clusters_kv(int kv, int hd, int tile_rows, int splits,
 template <int MODE, typename KT>
 cudaError_t md_dispatch_hd(const MdArgs& a, cudaStream_t s) {
   if (a.hd == 64) return md_dispatch_ks<64, MODE, KT>(a, s);
+  if constexpr (md_takes_hd(MODE, 256)) {
+    if (a.hd == 256) return md_dispatch_ks<256, MODE, KT>(a, s);
+  }
   return md_dispatch_ks<128, MODE, KT>(a, s);
 }
 
@@ -835,7 +923,7 @@ int md_run(const MdArgs& a, int kv, void* stream) {
   const bool splits_cover =
       MODE == MD_PREFILL ||
       (a.split_len >= 1 && (long long)a.splits * a.split_len >= a.S);
-  if ((a.hd != 64 && a.hd != 128) || a.B < 1 || a.rows < 1 ||
+  if (!md_takes_hd(MODE, a.hd) || a.B < 1 || a.rows < 1 ||
       a.tile_rows < 1 || a.tile_rows > MD_MAX_ROWS || a.q_len < 1 ||
       a.rows % a.q_len != 0 || a.KH < 1 || tiles < 1 ||
       a.KH * tiles > 65535 || a.B > 65535 || a.splits < 1 ||
@@ -861,7 +949,7 @@ int md_run(const MdArgs& a, int kv, void* stream) {
 
 }  // namespace
 
-// bf16 only, hd 64 or 128.  q (B,KH,rows,hd) token-major rows (rows =
+// bf16 only, hd 64, 128 or 256.  q (B,KH,rows,hd) token-major rows (rows =
 // q_len·group) in row tiles of tile_rows <= 64; k/v (B,KH,S,hd); cache_len
 // (B,) int32; o (B,KH,rows,hd).  Unit innermost strides; q/k/v bases and
 // the strides of dimensions larger than 1 16-byte aligned.  splits (<= 16)
@@ -950,7 +1038,7 @@ extern "C" int paged_prefill_attention_mma_fwd(
 extern "C" int decode_attention_mma_max_clusters(int mode, int hd,
                                                  int tile_rows, int splits,
                                                  int kv_dtype, int* n) {
-  if (mode < MD_DENSE || mode > MD_PREFILL || (hd != 64 && hd != 128) ||
+  if (mode < MD_DENSE || mode > MD_PREFILL || !md_takes_hd(mode, hd) ||
       tile_rows < 1 || tile_rows > MD_MAX_ROWS || splits < 1 ||
       splits > MD_MAX_CLUSTER)
     return (int)cudaErrorInvalidValue;

@@ -150,8 +150,9 @@ POOL_NAMES = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 
 
 #: the largest head dim the attention kernels take (their CUDA-core
-#: routes; the tensor-core routes take 64 and 128).  The JAX kernels take
-#: any; no config of either package goes past 256 (gemma3-1b's).
+#: routes; the tensor-core routes take 64 and 128, dense decode's and
+#: prefix-append's also 256).  The JAX kernels take any; no config of
+#: either package goes past 256 (gemma3-1b's).
 MAX_HEAD_DIM = 256
 
 

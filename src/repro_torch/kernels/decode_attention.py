@@ -12,17 +12,20 @@ index in the chunk for the mask.
 
 Two routes, chosen by ``route`` from the dtype and head dim alone:
 
-* ``"mma"``: bfloat16 at hd 64 or 128 (the models' decode) goes to
-  ``csrc/decode_attention_mma.cu``: one launch, the key splits of a
-  (batch row, KV head, row tile) one thread-block cluster merging through
-  distributed shared memory, K/V through a cp.async ring, QK^T and PV on
-  ``mma.sync``.  cp.async needs 16-byte aligned bases and strides;
-  operands that break the rule raise here, they never take the other
-  route.  p is rounded to bf16 before PV.
+* ``"mma"``: bfloat16 at hd 64, 128 or 256 (the models' decode, gemma3-1b's
+  256 included) goes to ``csrc/decode_attention_mma.cu``: one launch, the
+  key splits of a (batch row, KV head, row tile) one thread-block cluster
+  merging through distributed shared memory, K/V through a cp.async ring,
+  QK^T and PV on ``mma.sync``.  cp.async needs 16-byte aligned bases and
+  strides; operands that break the rule raise here, they never take the
+  other route.  p is rounded to bf16 before PV.
 * ``"cuda_cores"``: float32 and every other head dim (hd <= 256,
-  hd % 4 == 0: the proxies' 12 and 16, gemma3-1b's 256) go to
-  ``csrc/decode_attention.cu``: split-K blocks, f32 math on the CUDA
-  cores, and a combine kernel.
+  hd % 4 == 0: the proxies' 12 and 16) go to ``csrc/decode_attention.cu``:
+  split-K blocks, f32 math on the CUDA cores, and a combine kernel.
+
+The tensor-core kernel's three modes take different head dims
+(``MMA_HEAD_DIMS``), so each wrapper has its own rule: this one, the paged
+decode's and prefix-append's, each through ``mma_route``.
 """
 from __future__ import annotations
 
@@ -45,7 +48,6 @@ KERNEL = CudaKernel("decode_attention.cu", "decode_attention_fwd",
 MMA_KERNEL = CudaKernel("decode_attention_mma.cu", "decode_attention_mma_fwd",
                         [_P] * 5 + [_I] * 7 + [_L] * 12
                         + [_I, _I, _I, _F, _F, _P])
-MMA_HEAD_DIMS = (64, 128)
 KV_TILE = 64          # keys per shared-memory tile; splits are multiples
 MAX_ROWS = 32         # query rows of one CUDA-core row tile
 MMA_MAX_ROWS = 64     # query rows of one tensor-core row tile (4 x 16)
@@ -53,17 +55,28 @@ BLOCKS_PER_SM = 2     # CUDA-core split-K target: about this many blocks an SM
 MAX_CLUSTER = 16      # key splits per cluster on the tensor-core route
 #: the tensor-core kernel's modes (its ``MODE`` template argument)
 MMA_DENSE, MMA_PAGED, MMA_PREFILL = 0, 1, 2
+#: the head dims each mode has instances for (the C entry points refuse the
+#: rest): paged decode stops at 128
+MMA_HEAD_DIMS = {MMA_DENSE: (64, 128, 256), MMA_PAGED: (64, 128),
+                 MMA_PREFILL: (64, 128, 256)}
+
+
+def mma_route(dtype: torch.dtype, hd: int, mode: int) -> str:
+    """The kernel a (dtype, head dim) takes in the tensor-core kernel's
+    ``mode``: ``"mma"`` for bfloat16 at the mode's ``MMA_HEAD_DIMS``,
+    ``"cuda_cores"`` for float32 and other head dims; any other dtype
+    raises."""
+    if dtype not in DTYPES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS[mode]:
+        return "mma"
+    return "cuda_cores"
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
-    """The kernel a (dtype, head dim) takes: ``"mma"`` for bfloat16 at hd 64
-    or 128, ``"cuda_cores"`` for float32 and other head dims; any other
-    dtype raises."""
-    if dtype not in DTYPES:
-        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
-    if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS:
-        return "mma"
-    return "cuda_cores"
+    """Dense decode's route: ``"mma"`` for bfloat16 at hd 64, 128 or 256,
+    ``"cuda_cores"`` for float32 and other head dims."""
+    return mma_route(dtype, hd, MMA_DENSE)
 
 
 def device_lengths(cache_len: Union[int, torch.Tensor], b: int,
@@ -212,11 +225,12 @@ def launch_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                softcap: Optional[float] = None,
                scale: Optional[float] = None,
                q_len: int = 1) -> torch.Tensor:
-    """The tensor-core kernel: bfloat16 at hd 64 or 128, operands that keep
-    cp.async's 16-byte rule; raises on anything else."""
+    """The tensor-core kernel: bfloat16 at hd 64, 128 or 256, operands that
+    keep cp.async's 16-byte rule; raises on anything else."""
     if route(q.dtype, q.shape[-1]) != "mma":
         raise ValueError(f"the mma kernel takes bfloat16 at hd "
-                         f"{MMA_HEAD_DIMS}, got {q.dtype} hd {q.shape[-1]}")
+                         f"{MMA_HEAD_DIMS[MMA_DENSE]}, got {q.dtype} hd "
+                         f"{q.shape[-1]}")
     b, kh, rows, hd, s = _operands(q, k, v, q_len)
     check_16_bytes("cp.async", q=q, k=k, v=v)
     lens = device_lengths(cache_len, b, q.device)

@@ -2,14 +2,15 @@
 around the paged entry points of ``csrc/decode_attention_mma.cu`` and
 ``csrc/decode_attention.cu``.
 
-The paged form of ``decode_attention``'s kernels, sharing their bodies and
-their route rule (``decode_attention.route``): key ``s`` of batch row ``b``
-lives at ``pool[block_table[b, s // page], kh, s % page, :]``.  One entry
-serves the slot path's decode (``q_len`` 1) and the speculative verifier
-(``q_len`` = γ+1, causal within the chunk), at any ``q_len·group``: rows
-past one block's 64 go to further row tiles.  The split plan follows the
-table width, which is fixed for an engine, never the lengths; keys at or
-past a row's ``cache_len`` are never read.
+The paged form of ``decode_attention``'s kernels, sharing their bodies,
+with its own route rule (``route``: bf16 at hd 64 and 128 on the tensor
+cores; the kernel's paged mode has no hd-256 instance): key ``s`` of batch
+row ``b`` lives at ``pool[block_table[b, s // page], kh, s % page, :]``.
+One entry serves the slot path's decode (``q_len`` 1) and the speculative
+verifier (``q_len`` = γ+1, causal within the chunk), at any
+``q_len·group``: rows past one block's 64 go to further row tiles.  The
+split plan follows the table width, which is fixed for an engine, never
+the lengths; keys at or past a row's ``cache_len`` are never read.
 
 The pools may be int8 or fp8 (e4m3) with per-(page, slot, head) f32 scales
 in kernel layout (n_pages, KH, page), the model's (n_pages, page, KH)
@@ -32,10 +33,11 @@ import torch
 from repro_torch.kernels.build import (DTYPES, CudaKernel, check_16_bytes,
                                        check_head_dim, check_pools,
                                        pool_name, scale_args)
-from repro_torch.kernels.decode_attention import (MMA_MAX_ROWS, MMA_PAGED,
+from repro_torch.kernels.decode_attention import (MMA_HEAD_DIMS,
+                                                  MMA_MAX_ROWS, MMA_PAGED,
                                                   _sm_count,
                                                   card_cluster_plan,
-                                                  device_lengths, route,
+                                                  device_lengths, mma_route,
                                                   row_tile, split_plan)
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -48,6 +50,13 @@ MMA_KERNEL = CudaKernel("decode_attention_mma.cu",
                         [_P] * 8 + [_I] * 8 + [_L] * 19
                         + [_I, _I, _I, _F, _F, _I, _P])
 MAX_ROWS = 64         # query rows of one CUDA-core row tile (8 warps)
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """Paged decode's route: ``"mma"`` for bfloat16 at hd 64 or 128,
+    ``"cuda_cores"`` for float32 and other head dims (gemma3-1b's 256
+    among them)."""
+    return mma_route(dtype, hd, MMA_PAGED)
 
 
 def check_paged(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -137,8 +146,9 @@ def launch_mma(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     8-bit pools, operands that keep cp.async's 16-byte rule; raises on
     anything else."""
     if route(q.dtype, q.shape[-1]) != "mma":
-        raise ValueError(f"the mma kernel takes bfloat16 at hd 64 or 128, "
-                         f"got {q.dtype} hd {q.shape[-1]}")
+        raise ValueError(f"the mma kernel takes bfloat16 at hd "
+                         f"{MMA_HEAD_DIMS[MMA_PAGED]}, got {q.dtype} hd "
+                         f"{q.shape[-1]}")
     b, kh, rows, hd, page, n_blocks, pool = check_paged(
         q, k_pool, v_pool, block_table, k_scale, v_scale)
     check_16_bytes("cp.async", q=q, k_pool=k_pool, v_pool=v_pool)

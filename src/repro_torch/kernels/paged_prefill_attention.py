@@ -8,16 +8,17 @@ K/V the caller has just written into the pools; chunk token ``t`` of row
 ``b`` sees the logical columns ``< cache_len[b] - (q_len - 1) + t``, where
 key ``s`` lives at ``pool[block_table[b, s // page], kh, s % page, :]``.
 
-Two routes, chosen by ``route`` (decode's rule) from the dtype and head dim:
+Two routes, chosen by ``route`` from the dtype and head dim:
 
-* ``"mma"``: bfloat16 at hd 64 or 128 (the models' chunked slot path) runs
-  the tensor-core decode body in its prefix-append mode: row tiles of up to
-  64 query rows (whole chunk tokens), each walking only the keys its rows
-  see, split over a thread-block cluster and merged in distributed shared
-  memory.  p is rounded to bf16 before PV.  cp.async needs 16-byte aligned
-  bases and strides; operands that break the rule raise here.
-* ``"cuda_cores"``: float32 and every other head dim (gemma3-1b's 256
-  among them) run the CUDA-core kernel: one block per (query sub-block of
+* ``"mma"``: bfloat16 at hd 64, 128 or 256 (the models' chunked slot path,
+  gemma3-1b's 256 included) runs the tensor-core decode body in its
+  prefix-append mode: row tiles of up to 64 query rows (whole chunk
+  tokens), each walking only the keys its rows see, split over a
+  thread-block cluster and merged in distributed shared memory.  p is
+  rounded to bf16 before PV.  cp.async needs 16-byte aligned bases and
+  strides; operands that break the rule raise here.
+* ``"cuda_cores"``: float32 and every other head dim (the proxies' 12 and
+  16) run the CUDA-core kernel: one block per (query sub-block of
   ``q_blk`` chunk tokens, KV head, batch row), f32 math, no split-K.
   ``q_blk`` is its tile knob: ``q_blk·group <= 64``, and the last
   sub-block may be short.
@@ -51,9 +52,10 @@ import torch
 
 from repro_torch.kernels.build import (DTYPES, CudaKernel, check_16_bytes,
                                        pool_name, scale_args)
-from repro_torch.kernels.decode_attention import (MMA_MAX_ROWS, MMA_PREFILL,
+from repro_torch.kernels.decode_attention import (MMA_HEAD_DIMS,
+                                                  MMA_MAX_ROWS, MMA_PREFILL,
                                                   card_cluster_plan,
-                                                  device_lengths, route,
+                                                  device_lengths, mma_route,
                                                   row_tile)
 from repro_torch.kernels.paged_decode_attention import _group, check_paged
 
@@ -69,6 +71,12 @@ MMA_KERNEL = CudaKernel("decode_attention_mma.cu",
                         + [_I, _L, _I, _I, _F, _F, _I, _P])
 MAX_ROWS = 64         # q_blk·group query rows one CUDA-core block holds
 Q_BLK = 8             # chunk tokens per CUDA-core sub-block, where it fits
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """Prefix-append's route: ``"mma"`` for bfloat16 at hd 64, 128 or 256,
+    ``"cuda_cores"`` for float32 and other head dims."""
+    return mma_route(dtype, hd, MMA_PREFILL)
 
 
 def default_q_blk(group: int) -> int:
@@ -206,13 +214,14 @@ def launch_mma(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                plan: Optional[torch.Tensor] = None,
                k_scale: Optional[torch.Tensor] = None,
                v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The tensor-core kernel: bfloat16 q at hd 64 or 128 over bf16 or
+    """The tensor-core kernel: bfloat16 q at hd 64, 128 or 256 over bf16 or
     8-bit pools, operands that keep cp.async's 16-byte rule; raises on
     anything else.  With ``plan`` (a (2, n) int32 ``tile_plan`` on the
     device, q_len 1) its entries are the row tiles (``_mma_geometry``)."""
     if route(q.dtype, q.shape[-1]) != "mma":
-        raise ValueError(f"the mma kernel takes bfloat16 at hd 64 or 128, "
-                         f"got {q.dtype} hd {q.shape[-1]}")
+        raise ValueError(f"the mma kernel takes bfloat16 at hd "
+                         f"{MMA_HEAD_DIMS[MMA_PREFILL]}, got {q.dtype} hd "
+                         f"{q.shape[-1]}")
     b, kh, rows, hd, page, n_blocks, pool = check_paged(
         q, k_pool, v_pool, block_table, k_scale, v_scale)
     check_16_bytes("cp.async", q=q, k_pool=k_pool, v_pool=v_pool)

@@ -750,12 +750,18 @@ HD256_WINDOW = 512
     ("prefix_append", "fp", 4), ("prefix_append", "int8", 4),
     ("prefix_append", "fp8", 1)])
 def test_hd256_kernels_match_plain(card, row, pool, group, dtype):
-    """gemma3-1b's head dim 256: rows 1, 2 and 4-6 on their CUDA-core
-    routes (bf16 takes them by its shape), on fp pools and on int8 and fp8
-    pools with their scales, held to ``TOL`` against the plain version
-    (8-bit pools dequantized), with the window biting, a softcap on every
-    other case, rows of length 0, and a NaN trash page; every launch counted
-    on the CUDA-core route, none on the tensor cores."""
+    """gemma3-1b's head dim 256: rows 1, 2 and 4-6 on the route each
+    wrapper's rule names, on fp pools and on int8 and fp8 pools with their
+    scales, with the window biting, a softcap on every other case, rows of
+    length 0, and a NaN trash page.  bf16 dense decode and verify and bf16
+    prefix-append take the tensor cores: held to their bound (8-bit pools
+    dequantized), each launch counted on the mma route.  Flash, paged
+    decode and verify, and every f32 call take the CUDA cores: held to
+    ``TOL`` against the plain version, no launch on the tensor cores."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode_attention as PDA
+    from repro_torch.kernels import paged_prefill_attention as PPA
     window = HD256_WINDOW
     softcap = 30.0 if group == 1 else None
     kw = {"window": window, "softcap": softcap}
@@ -776,7 +782,7 @@ def test_hd256_kernels_match_plain(card, row, pool, group, dtype):
         got = ops.multi_decode_attention(q, _nan_past(k, lens),
                                          _nan_past(v, lens), lens, **kw)
         want = ref.multi_decode_attention(q, k, v, lens, **kw)
-        name = "decode_attention"
+        name, dense = "decode_attention", (k, v, lens)
     else:
         q_len = {"paged_decode": 1, "paged_verify": 5,
                  "prefix_append": 16}[row]
@@ -804,15 +810,99 @@ def test_hd256_kernels_match_plain(card, row, pool, group, dtype):
         want = ref.paged_multi_decode_attention(q, pools["k"], pools["v"],
                                                 table, lens_t, **kw,
                                                 **want_sc)
+        dense = tuple(ref.gather_pages(ref.dequantize_pool(
+            pools[n], pools.get(n + "_scale")), table) for n in "kv") + (
+            lens_t,)
     after = ops.launch_counts()
-    _close(got, want, TOL[dtype])
+    rule = {"flash_attention": FA, "decode_attention": DA,
+            "paged_decode_attention": PDA,
+            "paged_prefill_attention": PPA}[name].route
+    mma = rule(dtype, 256) == "mma"
+    assert mma == (dtype == torch.bfloat16 and row in (
+        "decode", "verify", "prefix_append"))
+    if mma:
+        _within_mma_decode_bound(got, q, *dense, **kw)
+    else:
+        _close(got, want, TOL[dtype])
     if row != "flash":
         assert float(got[0].abs().max()) == 0.0
     second = ops.ROUTES[name][0]
     assert after[name] == before[name] + 1
-    assert after[second] == before[second]
+    assert after[second] == before[second] + int(mma)
     if pool != "fp":
         assert after[f"{name}[{pool}]"] == before[f"{name}[{pool}]"] + 1
+
+
+@pytest.mark.parametrize("kind", ["fp", "int8"])
+@pytest.mark.parametrize("step", ["mixed", "g3 flat"])
+def test_hd256_mma_prefill_with_a_tile_plan_at_group_4(card, kind, step):
+    """The hd-256 prefix-append on the tensor cores with the engine's tile
+    plan at gemma3-1b's group 4 (16 tokens a tile): a mixed step (decode
+    rows, a prompt row, a fresh stream and one mid-prefill, then padding)
+    and the chunked engine's flat step (8 decode rows and a 256-token
+    chunk), on fp and int8 pools, window on; every scheduled row within
+    the route's bound of the plain version (int8 dequantized), with the
+    plan and without it; each call one launch on the mma route."""
+    from repro_torch.kernels import kv_quant
+    if step == "mixed":
+        runs, geo = [(0, 300, 1), (1, 150, 1), (2, 64, 1), (3, 0, 23),
+                     (4, 40, 50)], dict(tb=90, n_slots=5, width=48, shared=8,
+                                        scene_of=[0, 0, 1, 2, 1])
+        window = 100
+    else:
+        runs, geo = PATH_DECODE + [(8, 768, 256)], dict(
+            tb=264, n_slots=9, width=257, shared=128,
+            scene_of=[0, 1] * 4 + [2])
+        window = HD256_WINDOW
+    q, kp, vp, kn, vn, table, lens, tiles, rows = _flat_case(
+        card, runs, kh=1, group=4, hd=256, page=8, **geo)
+    if kind == "fp":
+        nan, sc = {"k": kn, "v": vn}, {}
+    else:
+        pools = kv_quant.quantize_pool(kp.float(), vp.float(), kind)
+        nan = {k: v.clone() for k, v in pools.items()}
+        nan["k_scale"][0] = nan["v_scale"][0] = float("nan")
+        sc = _scales(nan)
+        kp = ref.dequantize_pool(pools["k"], pools["k_scale"])
+        vp = ref.dequantize_pool(pools["v"], pools["v_scale"])
+    for plan in (tiles, None):
+        before = ops.launch_counts()["paged_prefill_attention_mma"]
+        got = ops.paged_prefill_attention(q, nan["k"], nan["v"], table, lens,
+                                          window=window, plan=plan, **sc)
+        assert ops.launch_counts()["paged_prefill_attention_mma"] == \
+            before + 1
+        _held_rows(got, q, kp, vp, table, lens,
+                   rows if plan is not None else torch.ones_like(rows),
+                   window=window)
+
+
+def test_hd256_mma_refuses_what_it_does_not_take(card):
+    """At hd 256 cp.async's 16-byte rule is checked before the launch (a
+    misaligned view raises on the dense decode and prefix-append entries,
+    it never takes the CUDA-core route); the paged decode's tensor-core
+    launcher refuses hd 256, and the C occupancy entry refuses it in the
+    paged mode while answering for the other two."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import paged_decode_attention as PDA
+    bf16 = torch.bfloat16
+    buf = _randn(card, 1, 2, 8, 264, dtype=bf16)
+    pool = _randn(card, 4, 2, 8, 264, dtype=bf16)
+    table = torch.zeros((1, 3), dtype=torch.int32, device="cuda")
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention_cuda(buf[..., 1:257], buf[..., :256],
+                              buf[..., :256], 3)
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_prefill_attention_cuda(buf[..., :256], pool[..., 1:257],
+                                     pool[..., :256], table, 3)
+    with pytest.raises(ValueError, match="mma kernel takes"):
+        PDA.launch_mma(buf[..., :256], pool[..., :256], pool[..., :256],
+                       table, 3)
+    assert ops.launch_counts() == before
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        DA.max_clusters(0, DA.MMA_PAGED, 256, 4, 1)
+    for mode in (DA.MMA_DENSE, DA.MMA_PREFILL):
+        assert DA.max_clusters(0, mode, 256, 64, 1) >= 1
 
 
 @pytest.mark.parametrize("b,r,nv,ne,d,dtype", [

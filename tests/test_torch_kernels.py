@@ -180,14 +180,23 @@ def test_flash_route_rule():
 
 def test_hd256_takes_the_cuda_core_routes_and_260_is_refused():
     """gemma3-1b's head dim 256: bf16 takes the CUDA-core route of flash
-    and of both decode wrappers by its shape (the tensor-core routes take
-    64 and 128), and every attention wrapper takes it; 260 and dims that
-    are not a multiple of 4 still raise, before any launch."""
+    and of paged decode by its shape (their tensor-core kernels have no
+    hd-256 instance), the tensor-core route of dense decode and
+    prefix-append (whose hd-256 instances stage Q in shared memory); f32
+    takes the CUDA cores everywhere; every attention wrapper takes it;
+    260 and dims that are not a multiple of 4 still raise, before any
+    launch."""
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
-    for dtype in (torch.bfloat16, torch.float32):
-        assert FA.route(dtype, 256) == DA.route(dtype, 256) == "cuda_cores"
+    from repro_torch.kernels import paged_decode_attention as PDA
+    from repro_torch.kernels import paged_prefill_attention as PPA
+    assert FA.route(torch.bfloat16, 256) == "cuda_cores"
+    assert PDA.route(torch.bfloat16, 256) == "cuda_cores"
+    assert DA.route(torch.bfloat16, 256) == "mma"
+    assert PPA.route(torch.bfloat16, 256) == "mma"
+    for m in (FA, DA, PDA, PPA):
+        assert m.route(torch.float32, 256) == "cuda_cores"
     assert build.MAX_HEAD_DIM == 256
     for hd in (4, 12, 128, 252, 256):
         build.check_head_dim(hd)
@@ -426,20 +435,26 @@ def test_decode_split_plan_covers_the_cache_without_a_cliff(b, kh, s):
 # ---------------------------------------------------------------------------
 
 def test_decode_route_rule():
-    """bf16 at hd 64/128 takes the tensor cores (mma.sync); float32 and
-    other head dims take the CUDA cores; any other dtype raises.  The paged
-    wrapper follows the same rule."""
+    """Each decode-family wrapper has its own rule, by the head dims its
+    mode of the tensor-core kernel takes: bf16 at hd 64/128/256 takes the
+    tensor cores (mma.sync) for dense decode and prefix-append, at hd
+    64/128 for paged decode; float32 and other head dims take the CUDA
+    cores; any other dtype raises."""
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import paged_decode_attention as PDA
-    from repro_torch.kernels.decode_attention import route
-    assert route(torch.bfloat16, 64) == route(torch.bfloat16, 128) == "mma"
-    assert PDA.route is route
-    for dtype, hd in [(torch.float32, 128), (torch.float32, 64),
-                      (torch.bfloat16, 16), (torch.bfloat16, 12),
-                      (torch.bfloat16, 96)]:
-        assert route(dtype, hd) == "cuda_cores"
-    for dtype in (torch.float16, torch.float64):
-        with pytest.raises(TypeError):
-            route(dtype, 128)
+    from repro_torch.kernels import paged_prefill_attention as PPA
+    mma_dims = {DA: (64, 128, 256), PDA: (64, 128), PPA: (64, 128, 256)}
+    for m, dims in mma_dims.items():
+        for hd in (12, 16, 64, 96, 128, 256):
+            want = "mma" if hd in dims else "cuda_cores"
+            assert m.route(torch.bfloat16, hd) == want, (m.__name__, hd)
+            assert m.route(torch.float32, hd) == "cuda_cores"
+        for dtype in (torch.float16, torch.float64):
+            with pytest.raises(TypeError):
+                m.route(dtype, 128)
+    assert DA.MMA_HEAD_DIMS == {DA.MMA_DENSE: mma_dims[DA],
+                                DA.MMA_PAGED: mma_dims[PDA],
+                                DA.MMA_PREFILL: mma_dims[PPA]}
 
 
 def _pieces(rows, group, max_rows):
@@ -544,12 +559,13 @@ def test_cluster_plan_at_the_path_shapes(clusters, s, plan):
 
 
 def _emulate_mma_decode(q, k, v, lens, *, window=0, softcap=None,
-                        splits=1, split_len=None, tile=64):
+                        splits=1, split_len=None, tile=64, start=0):
     """What the tensor-core decode kernel computes, in float32 on the CPU:
-    per key split, an online softmax in base 2 over 64-key tiles with p
-    rounded to bf16 before PV and l summed from the f32 p; the splits
-    merged in f32; the output rounded to bf16.  q (B, T, H, hd), k/v
-    (B, S, KH, hd), cache_len INCLUDING the chunk."""
+    per key split (split ``i`` from key ``start + i·split_len``), an online
+    softmax in base 2 over 64-key tiles with p rounded to bf16 before PV
+    and l summed from the f32 p; the splits merged in f32; the output
+    rounded to bf16.  q (B, T, H, hd), k/v (B, S, KH, hd), cache_len
+    INCLUDING the chunk."""
     b, t, h, hd = q.shape
     s, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -562,7 +578,8 @@ def _emulate_mma_decode(q, k, v, lens, *, window=0, softcap=None,
     eff = ln - (t - 1) + (torch.arange(t * g) // g)[None, None, :, None]
     parts = []
     for sp in range(splits):
-        s0, s1 = sp * split_len, min(sp * split_len + split_len, s)
+        s0 = start + sp * split_len
+        s1 = min(s0 + split_len, s)
         m = torch.full(qf.shape[:-1] + (1,), -1e30)
         lsum, acc = torch.zeros_like(m), torch.zeros_like(qf)
         for k0 in range(s0, s1, tile):
@@ -633,6 +650,103 @@ def test_mma_decode_rounding_stays_within_its_bound(b, q_len, group, kh, hd,
         *(jnp.asarray(t_.float().numpy()) for t_ in (q, k, v)),
         jnp.asarray(lens.numpy()), **kw)
     _close(want, oracle)
+
+
+#: H100_CLUSTERS at hd 256, where one block an SM fits (the bf16 layout
+#: takes 230,400 of 232,448 bytes, the int8 one ~195 KB): the same for
+#: dense decode and prefix-append, every row tile and both pools
+#: (``cudaOccupancyMaxActiveClusters``, as chip_smoke.py phase 2 prints it)
+H100_HD256_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15,
+                       8: 15, 9: 9, 10: 7, 11: 7, 12: 7, 13: 7, 14: 7,
+                       15: 7, 16: 7}
+
+
+@pytest.mark.parametrize("clusters,s,plan", [
+    (8, 2049, (9, 256)),       # g3 decode: B 8 x KH 1
+    (16, 2056, (6, 384)),      # g3 chunk: 16 row tiles of 16 tokens
+    (25, 2056, (4, 576)),      # g3 flat: the plan's 25 tiles (group 4)
+    (1, 1089, (9, 128)),       # generate's dense decode, B 1
+])
+def test_cluster_plan_at_gemma3_shapes_on_its_occupancy(clusters, s, plan):
+    """At hd 256 the card holds half the clusters it holds at hd 128 (one
+    block an SM), so the planner gives gemma3-1b's shapes fewer splits than
+    the hd-128 table would, and every cluster still on the card at once."""
+    from repro_torch.kernels.decode_attention import cluster_plan
+    assert all(2 * H100_HD256_CLUSTERS[n] <= H100_CLUSTERS[n] + 1
+               for n in range(1, 9))
+    got = cluster_plan(clusters, s, H100_HD256_CLUSTERS.get)
+    assert got == plan
+    assert clusters <= H100_HD256_CLUSTERS[got[0]]
+    assert got[0] <= cluster_plan(clusters, s, H100_CLUSTERS.get)[0]
+
+
+def _gemma3_case(rng, b, q_len, s, lens):
+    """bf16 q (B, q_len, 4, 256), k, v (B, S, 1, 256) and int32 lengths."""
+    q = _t(_rand(rng, b, q_len, 4, 256)).bfloat16()
+    k = _t(_rand(rng, b, s, 1, 256)).bfloat16()
+    v = _t(_rand(rng, b, s, 1, 256)).bfloat16()
+    return q, k, v, _t(np.asarray(lens, np.int32))
+
+
+def _oracle_matches_plain(q, k, v, lens, **kw):
+    want = tref.multi_decode_attention(q.float(), k.float(), v.float(), lens,
+                                       **kw)
+    oracle = jref.multi_decode_attention(
+        *(jnp.asarray(t_.float().numpy()) for t_ in (q, k, v)),
+        jnp.asarray(lens.numpy()), **kw)
+    _close(want, oracle)
+
+
+@pytest.mark.parametrize("window", [512, 0])
+def test_mma_decode_rounding_at_gemma3_decode(window):
+    """gemma3-1b's dense decode on the tensor cores (B 8, KH 1, group 4, hd
+    256; its local layers' window and its global layers'; a row of length
+    0): the emulated arithmetic over the split plan of the hd-256
+    occupancy stays within 0.6 of the bound, the empty row is zero, and
+    the plain version equals the JAX oracle."""
+    from repro_torch.kernels.decode_attention import cluster_plan
+    s = 2049
+    lens = [0] + [1025 + (1024 * i) // 6 for i in range(7)]
+    q, k, v, lens = _gemma3_case(np.random.default_rng(window + 3), 8, 1, s,
+                                 lens)
+    splits, split_len = cluster_plan(8, s, H100_HD256_CLUSTERS.get)
+    got = _emulate_mma_decode(q, k, v, lens, window=window, splits=splits,
+                              split_len=split_len)
+    assert mma_decode_bound_share(got, q, k, v, lens, window=window) <= 0.6
+    assert float(got[0].abs().max()) == 0.0
+    _oracle_matches_plain(q, k, v, lens, window=window)
+
+
+def test_mma_prefill_rounding_at_a_gemma3_chunk():
+    """A 64-token chunk of gemma3-1b (group 4, window 512) over a ~700-key
+    prefix, as the prefix-append mode scores it: row tiles of 16 tokens,
+    each walking only its keys [lo, hi) (hi its last token's length, lo
+    its first token's window floor), shared by the cluster's splits in
+    whole tiles.  The emulation stays within 0.6 of the bound of the whole
+    chunk's plain version, which equals the JAX oracle."""
+    from repro_torch.kernels.decode_attention import KV_TILE, cluster_plan
+    q_len, s, window, tokens = 64, 768, 512, 16
+    lens = _t(np.array([764, 64 + 300], np.int32))
+    q, k, v, lens = _gemma3_case(np.random.default_rng(64), 2, q_len, s,
+                                 lens.numpy())
+    n_tiles = q_len // tokens
+    splits, _ = cluster_plan(2 * n_tiles, s, H100_HD256_CLUSTERS.get)
+    rows = []
+    for b in range(2):
+        parts = []
+        for t0 in range(0, q_len, tokens):
+            t1 = t0 + tokens
+            hi = int(lens[b]) - (q_len - t1)
+            lo = max(int(lens[b]) - (q_len - 1) + t0 - window, 0)
+            per = -(-(hi - lo) // (splits * KV_TILE)) * KV_TILE
+            parts.append(_emulate_mma_decode(
+                q[b:b + 1, t0:t1], k[b:b + 1], v[b:b + 1],
+                lens[b:b + 1] - (q_len - t1), window=window, splits=splits,
+                split_len=per, start=lo))
+        rows.append(torch.cat(parts, dim=1))
+    got = torch.cat(rows)
+    assert mma_decode_bound_share(got, q, k, v, lens, window=window) <= 0.6
+    _oracle_matches_plain(q, k, v, lens, window=window)
 
 
 # ---------------------------------------------------------------------------
