@@ -6,14 +6,17 @@
 Phases, each of which raises (exit code 1, no result line) on failure:
 
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all started together) into ``build/kernels/``.
+   source, all started together) into ``build/kernels/``, printing
+   ptxas's registers and spills of every kernel; each of the 22 hd-256
+   instances of the tensor-core attention kernels must spill nothing.
 2. Hold each kernel against its plain PyTorch version on the card: the main
    paths' shapes in bfloat16 and small float32 shapes (head dims 12/16, GQA
    groups 1-3, ragged lengths with 0, window, softcap, q_len 3; TF32 off).
    Flash has two routes: the CUDA-core kernel (f32, and bf16 at hd 12/16)
    at the old tolerances, also at the 2B/7B shapes when sent there; the
-   tensor-core kernel (bf16, hd 64/128) over a sweep (B 2, Sq = Skv in
-   {1, 63, 64, 65, 129, 1025}, groups 1/6/7, hd 64/128, windows 0/100,
+   tensor-core kernel (bf16, hd 64/128/256) over a sweep (B 2, Sq = Skv in
+   {1, 63, 64, 65, 129, 1025}, groups 1/6/7, hd 64/128 (and group 4 at hd
+   256, windows 0/512), windows 0/100,
    softcaps none/30, Sq 65 < Skv 300; the model layout through ``ops``
    and (B, H, S, hd) tensors; K/V views of buffers that are NaN past Skv)
    and at the 2B/7B shapes, each element within 1e-5 + 2^-6·|want| +
@@ -21,9 +24,10 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    ``check_wgmma``), and a misaligned view must raise.
    Decode attention has two routes too: the CUDA-core kernels (f32 and hd
    12/16, at the old tolerances; q_len·group past one block's rows in row
-   tiles: 33, 35 and 70 rows) and the tensor-core kernel (bf16, hd 64/128,
-   ``mma.sync``, one launch a call), held to flash's tensor-core bound
-   (``check_mma_decode``) over a sweep (hd 64/128, groups 1-7, q_len 1-16,
+   tiles: 33, 35 and 70 rows) and the tensor-core kernel (bf16, hd
+   64/128/256, ``mma.sync``, one launch a call), held to flash's
+   tensor-core bound (``check_mma_decode``) over a sweep (hd 64/128/256,
+   groups 1-7, q_len 1-16,
    cache_len 0, 1, a partial tile and the whole cache, windows, softcaps;
    the cache NaN past each row's length) and at the 2B/7B decode step,
    where the CUDA-core kernel is held to its own tolerance at the same
@@ -109,18 +113,19 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    above beside gather_pages + dequantize + SDPA; their bound counts the
    8-bit pages and the 4-byte scales once per distinct (page, slot).
    The dense attention configs' shapes (``dense_kernel_checks``): rows 1,
-   2 and 4-6 at head dim 256 on the route each wrapper's rule names (bf16
-   dense decode and prefix-append: the tensor cores, held to their bound;
-   flash, paged decode and f32: the CUDA cores), f32 and bf16, groups 1
+   2 and 4-6 at head dim 256 on the route each wrapper's rule names (bf16:
+   the tensor cores, flash on wgmma and the decode family on mma.sync,
+   held to their bound; f32: the CUDA cores), f32 and bf16, groups 1
    and 4, windows 0 and 512 (past
    512 keys, so they bite), softcaps none and 30, ragged lengths with 0,
    the paged rows over pages 1-16, q_len 1-10 and chunks up to 64 on fp,
    int8 and fp8 pools; gemma3-1b's own shapes (H 4, KH 1: prefill Sq =
-   Skv = 1025, dense decode and the slot step at B 8, cache_len
-   1025-2049, the chunked engine's flat fused step and a 256-token chunk,
-   on bf16 and int8 pools), each at its local layers' window 512 and its
-   global layers' none, timed as above beside SDPA (gather + SDPA for
-   the paged rows), the two-route rows on both routes in turns; every
+   Skv = 1025 at B 1 and the prefix prefill's bucket 8, dense decode and
+   the slot step at B 8, cache_len 1025-2049, the verifier at q_len 5,
+   the chunked engine's flat fused step and a 256-token chunk, on bf16
+   and int8 pools), each at its local layers' window 512 and its global
+   layers' none, timed as above beside SDPA (gather + SDPA for the paged
+   rows), every row on both routes in turns; every
    hd-256 launch of the sweep on its rule's route, and the card's
    cluster occupancy at hd 256 logged.  Then the
    tensor-core routes at the new groups: group 1 (codeqwen1.5-7b, 32/32)
@@ -409,9 +414,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    answers in the vocab; flash = layers × prefix prefills, paged decode
    = layers × (steps + admission calls) (chunked: prefix-append =
    layers × fused steps, paged decode = layers × plain steps), every
-   launch on the route its kernel's rule names (hd 128: tensor cores; hd
-   256: dense decode and prefix-append on the tensor cores, flash and
-   paged decode on the CUDA cores), no other kernel; generate: flash and
+   launch on the route its kernel's rule names (bf16 at hd 128 and 256:
+   the tensor cores), no other kernel; generate: flash and
    dense decode once a
    layer; every eager run's attention inputs (first layer, each step
    family and shape) held against the plain versions.  Prints weight
@@ -479,6 +483,7 @@ import gc
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -561,6 +566,35 @@ LOCAL_TAIL = 32
 
 def log(*a):
     print(*a, flush=True)
+
+
+#: the hd-256 instances of the tensor-core attention kernels: flash's one
+#: (one warpgroup) and the decode kernel's 3 modes x 3 key slicings x
+#: their pools (bf16 dense decode; bf16, int8 and fp8 in the paged modes)
+HD256_INSTANCES = 1 + 3 * (1 + 3 + 3)
+
+
+def hd256_instances(report):
+    """{kernel instance: (registers, spill-store bytes)} of every hd-256
+    instance of ``flash_wgmma_kernel`` and ``decode_mma_kernel``, read
+    from ptxas's ``-v`` lines in ``build.build_all``'s report (a source
+    found already built reports none)."""
+    out, name = {}, None
+    for r in report.values():
+        for ln in r["log"].splitlines():
+            if "Compiling entry function" in ln:
+                m = re.search(r"(flash_wgmma_kernel|decode_mma_kernel)"
+                              r"ILi256E[^ ']*", ln)
+                name = m.group(0)[:60] if m else None
+            elif name and "spill stores" in ln:
+                spill = int(re.search(r"(\d+) bytes spill stores",
+                                      ln).group(1))
+                out[name] = [None, spill]
+            elif name and "Used" in ln and "registers" in ln:
+                out[name][0] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+                name = None
+    return {k: tuple(v) for k, v in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -734,16 +768,19 @@ def check_bound(name, got, want, a, case, errors):
 
 
 def flash_wgmma_sweep(torch, randn, errors):
-    """The tensor-core route (bf16, hd 64/128) against the plain version in
-    the model layout through ``ops`` and on (B, H, S, hd) tensors straight
-    to the wrapper: B 2, Sq = Skv in {1, 63, 64, 65, 129, 1025}, groups
-    1/6/7, hd 64 and 128, windows 0/100, softcaps none/30 (in turns), and
-    Sq 65 < Skv 300.  K/V are views into buffers whose rows past Skv are
-    NaN, so a tensor map sized past Skv would show.  The grids run from 2
-    blocks to B 2 x 28 heads x 17 tiles = 952, so both block shapes the
-    launcher picks (one or two consumer warpgroups) are held.  A
-    misaligned view must raise before any launch.  Returns the largest
-    share of the bound any case used."""
+    """The tensor-core route (bf16, hd 64/128/256) against the plain
+    version in the model layout through ``ops`` and on (B, H, S, hd)
+    tensors straight to the wrapper: B 2, Sq = Skv in {1, 63, 64, 65, 129,
+    1025}, groups 1/6/7, hd 64 and 128, windows 0/100, softcaps none/30 (in
+    turns), and Sq 65 < Skv 300; then the same lengths at hd 256, group 4
+    over one KV head (gemma3-1b's), windows 0/512 with the softcaps in
+    turns.  K/V are views into buffers whose rows past Skv are NaN, so a
+    tensor map sized past Skv would show.  The grids run from 2 blocks to
+    B 2 x 28 heads x 17 tiles = 952, so both block shapes the launcher
+    picks at hd 64/128 (one or two consumer warpgroups) are held, and the
+    hd-256 instance (one warpgroup on every grid).  A misaligned view must
+    raise before any launch, at hd 128 and 256.  Returns the largest share
+    of the bound any case used."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     bf16, nan = torch.bfloat16, float("nan")
@@ -753,9 +790,14 @@ def flash_wgmma_sweep(torch, randn, errors):
              for g, kh, hd in ((1, 2, 64), (6, 2, 128), (7, 4, 128),
                                (7, 1, 64))]
     cases += [(65, 300, 6, 2, 128), (65, 300, 7, 1, 64)]
+    n_hd128 = len(cases)
+    cases += [(s, s, 4, 1, 256) for s in (1, 63, 64, 65, 129, 1025)]
+    cases += [(65, 300, 4, 1, 256), (600, 1025, 1, 2, 256)]
+    g3_opts = [(0, None), (G3_WINDOW, None), (0, 30.0), (G3_WINDOW, 30.0)]
     shares = []
     for n, (sq, skv, group, kh, hd) in enumerate(cases):
-        window, softcap = opts[n % len(opts)]
+        window, softcap = (opts[n % len(opts)] if n < n_hd128
+                           else g3_opts[n % len(g3_opts)])
         kw = {"window": window, "softcap": softcap}
         h = kh * group
         q = randn(2, sq, h, hd, dtype=bf16)
@@ -780,15 +822,19 @@ def flash_wgmma_sweep(torch, randn, errors):
                 f"bf16 {layout} hd{hd} g{group} Sq{sq} Skv{skv} "
                 f"w{window} cap{softcap}", errors)[1])
     log(f"  wgmma sweep: largest share of the bound {max(shares):.3f}")
-    buf = randn(1, 70, 4, 136, dtype=bf16)
-    try:
-        flash_attention_cuda(buf[..., 1:129].transpose(1, 2),
-                             buf[:, :, :2, :128].transpose(1, 2),
-                             buf[:, :, :2, :128].transpose(1, 2))
-        errors.append("flash_attention: a misaligned view was not refused")
-        log("  flash_attention  misaligned q view: launched (FAIL)")
-    except ValueError as e:
-        log(f"  flash_attention  misaligned q view: refused ({e}) ok")
+    for hd in (128, 256):
+        buf = randn(1, 70, 4, hd + 8, dtype=bf16)
+        try:
+            flash_attention_cuda(buf[..., 1:hd + 1].transpose(1, 2),
+                                 buf[:, :, :2, :hd].transpose(1, 2),
+                                 buf[:, :, :2, :hd].transpose(1, 2))
+            errors.append(f"flash_attention: a misaligned hd-{hd} view was "
+                          f"not refused")
+            log(f"  flash_attention  misaligned hd-{hd} q view: launched "
+                f"(FAIL)")
+        except ValueError as e:
+            log(f"  flash_attention  misaligned hd-{hd} q view: refused "
+                f"({e}) ok")
     return max(shares)
 
 
@@ -953,13 +999,14 @@ def kernel_checks(torch):
 
 
 def decode_mma_sweep(torch, randn, errors):
-    """The tensor-core decode route (bf16, hd 64/128) against the plain
+    """The tensor-core decode route (bf16, hd 64/128/256) against the plain
     version through ``ops``: B 4 rows of cache_len 0, 1, 100 (a partial
     tile) and 300 (the whole cache), hd 64 and 128, groups 1-7, q_len 1-16
-    (up to 70 rows: two row tiles), windows 0/37 and softcaps none/30 in
-    turns.  The cache past each row's length is NaN, so a read past it
-    would show; the row of length 0 must be zero.  A misaligned view must
-    raise.  Returns the largest share of the bound any case used."""
+    (up to 70 rows: two row tiles), then hd 256 at groups 1 and 4 (q_len
+    1, 3, 5, 10: one to three fragments), windows 0/37 and softcaps
+    none/30 in turns.  The cache past each row's length is NaN, so a read
+    past it would show; the row of length 0 must be zero.  A misaligned
+    view must raise.  Returns the largest share of the bound any case used."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     bf16, nan = torch.bfloat16, float("nan")
@@ -969,7 +1016,8 @@ def decode_mma_sweep(torch, randn, errors):
     shares = []
     for n, (hd, group, q_len) in enumerate([
             (128, 7, 1), (64, 1, 1), (128, 6, 3), (64, 7, 10), (128, 2, 4),
-            (64, 5, 2), (128, 7, 9), (128, 3, 1), (64, 4, 16)]):
+            (64, 5, 2), (128, 7, 9), (128, 3, 1), (64, 4, 16),
+            (256, 4, 1), (256, 1, 3), (256, 4, 5), (256, 4, 10)]):
         window, softcap = opts[n % len(opts)]
         kw = {"window": window, "softcap": softcap}
         q = randn(b, q_len, kh * group, hd, dtype=bf16)
@@ -1905,13 +1953,14 @@ G2_WINDOW, G2_SOFTCAP, G2_SKV = 4096, 50.0, 6000
 
 def hd256_sweep(torch, randn, errors):
     """Rows 1, 2 and 4-6 at head dim 256 against their plain versions, each
-    on the route its wrapper's rule names: bf16 dense decode and
-    prefix-append on the tensor cores, held to ``check_mma_decode``'s
-    bound; flash, paged decode and every f32 call on the CUDA cores, f32 at
-    ``TOL_F32`` and bf16 at ``TOL_BF16``: groups 1 and 4, windows 0 and 512
-    (lengths past 512, so the window bites), softcaps none and 30, ragged
-    lengths with 0.  Flash at Sq = Skv and Sq < Skv; dense decode at q_len 1
-    and 3; paged decode over pages 1-16 and q_len 1-10 and prefix-append
+    on the route its wrapper's rule names: every bf16 call on the tensor
+    cores, flash held to ``check_wgmma``'s bound and the decode family to
+    ``check_mma_decode``'s; every f32 call on the CUDA cores at
+    ``TOL_F32``: groups 1 and 4, windows 0 and 512 (lengths past 512, so
+    the window bites), softcaps none and 30, ragged lengths with 0.  Flash
+    at Sq = Skv and Sq < Skv; dense decode at q_len 1 and 3; paged decode
+    over pages 1-16 and q_len 1-10 (the verifier's 20 rows at γ 4 and 40
+    at γ 9 among them) and prefix-append
     over chunks of 1-64 tokens (q_blk dividing the chunk or not), both over
     shared prefix pages with a NaN trash page, on fp pools and on int8 and
     fp8 pools (held against the plain version on the dequantized pools,
@@ -1928,7 +1977,7 @@ def hd256_sweep(torch, randn, errors):
         # the tensor-core route to its bound, the CUDA-core one to its
         # tolerance; dense_kv() gives k, v dense (pools dequantized and
         # gathered), built only where the bound reads them
-        if route_of(name, q.dtype, hd) == "mma":
+        if route_of(name, q.dtype, hd) != "cuda_cores":
             shares.append(check_mma_decode(name, got, q, *dense_kv(), lens,
                                            kw, case, errors)[1])
         else:
@@ -1945,10 +1994,15 @@ def hd256_sweep(torch, randn, errors):
             kw = {"window": window, "softcap": softcap}
             q = randn(2, sq, kh * group, hd, dtype=dt)
             k, v = (randn(2, skv, kh, hd, dtype=dt) for _ in range(2))
-            check("flash_attention", ops.flash_attention(q, k, v, **kw),
-                  ref.flash_attention(q, k, v, **kw), tol,
-                  f"{tag} hd256 g{group} Sq{sq} Skv{skv} w{window} "
-                  f"cap{softcap}", errors)
+            got = ops.flash_attention(q, k, v, **kw)
+            case = (f"{tag} hd256 g{group} Sq{sq} Skv{skv} w{window} "
+                    f"cap{softcap}")
+            if route_of("flash_attention", dt, hd) == "wgmma":
+                shares.append(check_wgmma("flash_attention", got, q, k, v,
+                                          kw, case, errors)[1])
+            else:
+                check("flash_attention", got,
+                      ref.flash_attention(q, k, v, **kw), tol, case, errors)
         s = 700
         lens = torch.tensor([0, 1, 600, s], dtype=torch.int32, device="cuda")
         for i, (group, kh, q_len) in enumerate(((1, 2, 1), (4, 1, 1),
@@ -1971,7 +2025,8 @@ def hd256_sweep(torch, randn, errors):
         for i, (op, page, group, q_len, q_blk) in enumerate((
                 ("decode", 1, 4, 1, None), ("decode", 8, 1, 3, None),
                 ("decode", 16, 4, 10, None), ("prefill", 4, 4, 16, 3),
-                ("prefill", 8, 1, 64, None), ("prefill", 16, 4, 1, None))):
+                ("prefill", 8, 1, 64, None), ("prefill", 16, 4, 1, None),
+                ("decode", 8, 4, 5, None))):
             window, softcap = opts[(i + j) % 4]
             kw = {"window": window, "softcap": softcap}
             lens = [0, max(q_len - 1, 1), q_len, q_len + 37, q_len + 600, 3]
@@ -2025,58 +2080,76 @@ def hd256_sweep(torch, randn, errors):
 def gemma3_kernel_checks(torch, randn, timer, errors):
     """Rows 1, 2 and 4-6 at gemma3-1b's own shapes (H 4, KH 1, hd 256,
     bf16), each held at its local layers' window (512) and its global
-    layers' (none) on the route its wrapper's rule names (dense decode and
-    prefix-append: the tensor cores, to their bound; flash and paged
-    decode: the CUDA cores, to ``TOL_BF16``), the two-route rows also on
-    the CUDA cores, and timed at the window that does the most work (the
-    global layers' for the decode rows, the local layers' for prefill and
-    prefix-append: 22 of the 26 layers), both routes in turns beside the
-    library call: (g3 prefill) Sq = Skv = 1025; (g3 decode) dense decode B
-    8 at cache_len 1025..2049; (g3 q1) the slot step, B 8, page 8, table
-    width 257, on bf16 and int8 pools; (g3 flat) the chunked engine's flat
-    fused step, 8 decode rows and a scene's last 256-token chunk as 256
-    q_len-1 rows, with the engine's tile plan (group 4: 16 tokens a
-    tile), and (g3 chunk) that chunk as one q_len-256 row, on bf16 and
-    int8 pools (the int8 chunk held, not timed).  Logs the clusters of
-    1..16 blocks the card holds at once at hd 256 (what the split plans
-    read).  Returns the report's rows."""
+    layers' (none) on the route its wrapper's rule names (the tensor
+    cores, to their bound), also on the CUDA cores (to ``TOL_BF16``), and
+    timed, both routes in turns beside the library call: (g3 prefill) Sq =
+    Skv = 1025 at both windows, and (g3 prefill B8) the prefix prefill's
+    bucket 8 (B 8) at the local window; (g3 decode) dense decode B 8 at
+    cache_len 1025..2049; (g3 q1) the slot step, B 8, page 8, table width
+    257, on bf16 and int8 pools; (g3 verify) the verifier at γ 4 (q_len
+    5, 20 rows) on the same table, held, not timed; (g3 flat) the chunked
+    engine's flat fused step, 8 decode rows and a scene's last 256-token
+    chunk as 256 q_len-1 rows, with the engine's tile plan (group 4: 16
+    tokens a tile), and (g3 chunk) that chunk as one q_len-256 row, on
+    bf16 and int8 pools (the int8 chunk held, not timed).  The decode rows
+    are timed at the global layers' window, which does the most work, the
+    prefix-append rows at the local layers' (22 of the 26 layers).  Logs
+    the clusters of 1..16 blocks the card holds at once at hd 256 in each
+    mode (what the split plans read).  Returns the report's rows."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_decode_attention as PDA
     from repro_torch.kernels import paged_prefill_attention as PPA
     from repro_torch.kernels.build import POOL_DTYPES
     bf16, hd, h, kh = torch.bfloat16, 256, 4, 1
-    out = {n: {} for n in ("flash_attention", "decode_attention",
+    out = {n: {} for n in ("flash_attention", "flash_attention_wgmma",
+                           "decode_attention",
                            "decode_attention_mma", "paged_decode_attention",
                            "paged_decode_attention[int8]",
+                           "paged_decode_attention_mma",
+                           "paged_decode_attention_mma[int8]",
                            "paged_prefill_attention",
                            "paged_prefill_attention[int8]",
                            "paged_prefill_attention_mma",
                            "paged_prefill_attention_mma[int8]")}
     log("gemma3-1b's shapes (hd 256)")
-    # (g3 prefill)
+    # (g3 prefill), (g3 prefill B8): flash on both routes
     s = 1025
-    q = randn(1, s, h, hd, dtype=bf16)
-    k, v = (randn(1, s, kh, hd, dtype=bf16) for _ in range(2))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    for window in (0, G3_WINDOW):
-        kw = {"window": window}
-        err = check("flash_attention", ops.flash_attention(q, k, v, **kw),
-                    ref.flash_attention(q, k, v, **kw), TOL_BF16,
-                    f"bf16 g3 prefill H{h} KH{kh} S{s} hd{hd} w{window}",
-                    errors)
-        if window == 0:
-            continue
-        mask = ref._attn_mask(s, s, window, True, 0, q.device)
-        out["flash_attention"]["g3 prefill"] = timed_rows(
-            timer, {"cuda_cores": (
-                lambda: ops.flash_attention(q, k, v, **kw), err)},
-            lambda: ref.flash_attention(q, k, v, **kw),
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True),
-            nbytes(q, k, v, q), flash_flops(torch, h, hd, s, s, window),
-            f"B1 H{h} KH{kh} Sq=Skv={s} hd{hd} window {window} bf16"
-        )["cuda_cores"]
+    for tag, b, timed in (("g3 prefill", 1, (G3_WINDOW, 0)),
+                          ("g3 prefill B8", 8, (G3_WINDOW,))):
+        q = randn(b, s, h, hd, dtype=bf16)
+        k, v = (randn(b, s, kh, hd, dtype=bf16) for _ in range(2))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        for window in (0, G3_WINDOW):
+            kw = {"window": window}
+            case = f"bf16 {tag} B{b} H{h} KH{kh} S{s} hd{hd} w{window}"
+            err, share = check_wgmma("flash_attention",
+                                     ops.flash_attention(q, k, v, **kw), q,
+                                     k, v, kw, case, errors)
+            err_cc = check("flash_attention", FA.launch_cuda_cores(
+                qt, kt, vt, **kw).transpose(1, 2), ref.flash_attention(
+                    q, k, v, **kw), TOL_BF16, case + " on CUDA cores",
+                errors)
+            if window not in timed:
+                continue
+            mask = ref._attn_mask(s, s, window, True, 0, q.device)
+            rows = timed_rows(
+                timer, {"wgmma": (lambda: FA.flash_attention_cuda(
+                    qt, kt, vt, **kw), err), "cuda_cores": (
+                        lambda: FA.launch_cuda_cores(qt, kt, vt, **kw),
+                        err_cc)},
+                lambda: ref.flash_attention(q, k, v, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                nbytes(q, k, v, q), flash_flops(torch, h, hd, s, s, window),
+                f"B{b} H{h} KH{kh} Sq=Skv={s} hd{hd} window {window} bf16",
+                library_is="scaled_dot_product_attention (window mask)")
+            rows["wgmma"]["tolerance_share"] = share
+            key = tag if window else f"{tag} global"
+            out["flash_attention_wgmma"][key] = rows["wgmma"]
+            out["flash_attention"][key] = rows["cuda_cores"]
     # (g3 decode): ops on the tensor cores, and both launchers
     b, s = 8, 2049
     lens = torch.tensor([1025 + (1024 * i) // (b - 1) for i in range(b)],
@@ -2116,14 +2189,18 @@ def gemma3_kernel_checks(torch, randn, timer, errors):
     out["decode_attention"]["g3 decode"] = rows["cuda_cores"]
     # the clusters of n blocks the card holds at once at hd 256 (one block
     # an SM), for each layout: bf16 dense decode at the decode step's 4
-    # rows, prefix-append's 64-row tiles on bf16 and int8 pools
-    occupancy = {f"{name} {pool}": {
+    # rows, paged decode at the slot step's 4 and the verifier's 20 on
+    # bf16 and int8 pools, prefix-append's 64-row tiles on both
+    i8 = POOL_DTYPES[torch.int8]
+    occupancy = {f"{name} {rows_} rows {pool}": {
         n: DA.max_clusters(0, mode, hd, rows_, n, code)
         for n in range(1, 17)} for name, mode, rows_, pool, code in (
             ("dense", DA.MMA_DENSE, h // kh, "bf16", 1),
+            ("paged", DA.MMA_PAGED, h // kh, "bf16", 1),
+            ("paged", DA.MMA_PAGED, h // kh, "int8", i8),
+            ("paged", DA.MMA_PAGED, 5 * h // kh, "bf16", 1),
             ("prefix-append", DA.MMA_PREFILL, 64, "bf16", 1),
-            ("prefix-append", DA.MMA_PREFILL, 64, "int8",
-             POOL_DTYPES[torch.int8]))}
+            ("prefix-append", DA.MMA_PREFILL, 64, "int8", i8))}
     log(f"  mma: clusters of 1..16 blocks the card holds at once at hd "
         f"{hd} {occupancy}; g3 decode splits {rows['mma']['splits']}")
     rows["mma"]["max_clusters_by_size"] = occupancy
@@ -2136,6 +2213,9 @@ def gemma3_kernel_checks(torch, randn, timer, errors):
         shared_blocks=1024 // page)
     cases = {"g3 q1": ("decode", q, k_pool, v_pool, nan_pools, table,
                        lens_t, 1, None)}
+    q5 = randn(b, 5, h, hd, dtype=bf16)
+    cases["g3 verify"] = ("decode", q5, k_pool, v_pool, nan_pools, table,
+                          lens_t, 5, None)
     decode = [(i, 1024 + (1024 * i) // 7, 1) for i in range(8)]
     qf, kf, vf, tf, lf, nf, plan, _ = flat_step(
         torch, randn, decode + [(8, 768, 256)], tb=264, n_slots=9, kh=kh,
@@ -2167,17 +2247,22 @@ def gemma3_kernel_checks(torch, randn, timer, errors):
                 for n in ("k", "v"))
 
             def launch(route, window, nan=nan, scales=scales, qr=qr,
-                       table=table, lens_t=lens_t, q_len=q_len, plan=plan):
-                # prefix-append straight to one route's launcher
+                       table=table, lens_t=lens_t, q_len=q_len, plan=plan,
+                       op=op):
+                # straight to one route's launcher
                 sc = ops._scales(scales.get("k_scale"), scales.get("v_scale"))
+                pools = (nan["k"].transpose(1, 2), nan["v"].transpose(1, 2))
+                if op == "decode":
+                    fn = PDA.launch_mma if route == "mma" \
+                        else PDA.launch_cuda_cores
+                    return fn(qr, *pools, table, lens_t, window=window,
+                              q_len=q_len, **sc)
                 if route == "mma":
-                    return PPA.launch_mma(
-                        qr, nan["k"].transpose(1, 2), nan["v"].transpose(1, 2),
-                        table, lens_t, window=window, q_len=q_len, plan=plan,
-                        **sc)
-                return PPA.launch_cuda_cores(
-                    qr, nan["k"].transpose(1, 2), nan["v"].transpose(1, 2),
-                    table, lens_t, window=window, q_len=q_len, **sc)
+                    return PPA.launch_mma(qr, *pools, table, lens_t,
+                                          window=window, q_len=q_len,
+                                          plan=plan, **sc)
+                return PPA.launch_cuda_cores(qr, *pools, table, lens_t,
+                                             window=window, q_len=q_len, **sc)
 
             windows = (G3_WINDOW, 0) if op == "decode" else (0, G3_WINDOW)
             for window in windows:
@@ -2187,16 +2272,12 @@ def gemma3_kernel_checks(torch, randn, timer, errors):
                          **scales, **extra)
                 want = ref.paged_multi_decode_attention(
                     q, pools["k"], pools["v"], table, lens_t, **kw, **want_sc)
-                if op == "decode":
-                    err = check(f"paged_{op}", got, want, TOL_BF16, case,
-                                errors)
-                    continue
                 err, share = check_mma_decode(f"paged_{op}", got, q, kd, vd,
                                               lens_t, kw, case, errors)
                 err_cc = check(f"paged_{op}", ops._rows_to_chunk(
                     launch("cuda_cores", window), q_len, h), want, TOL_BF16,
                     case + " on CUDA cores", errors)
-            if tag == "g3 chunk" and kind == "int8":
+            if tag == "g3 verify" or (tag == "g3 chunk" and kind == "int8"):
                 continue                  # held, not timed
             # timed at the last window held
             mask = dense_mask(torch, lens_t, q_len, s, window)
@@ -2212,14 +2293,9 @@ def gemma3_kernel_checks(torch, randn, timer, errors):
             n_bytes, flops = paged_bytes_and_flops(
                 torch, q, pools["k"], table, lens_t, q_len,
                 scaled=kind != "fp", window=window)
-            if op == "decode":
-                kernels = {"cuda_cores": (
-                    lambda: fn(q, nan["k"], nan["v"], table, lens_t, **kw,
-                               **scales, **extra), err)}
-            else:
-                kernels = {"mma": (lambda: launch("mma", window), err),
-                           "cuda_cores": (lambda: launch("cuda_cores",
-                                                         window), err_cc)}
+            kernels = {"mma": (lambda: launch("mma", window), err),
+                       "cuda_cores": (lambda: launch("cuda_cores", window),
+                                      err_cc)}
             rows = timed_rows(
                 timer, kernels,
                 lambda: ref.paged_multi_decode_attention(
@@ -2236,13 +2312,16 @@ def gemma3_kernel_checks(torch, randn, timer, errors):
                 pool=kind)
             sfx = "" if kind == "fp" else f"[{kind}]"
             out[name + sfx][tag] = rows["cuda_cores"]
-            if "mma" in rows:
-                rows["mma"]["tolerance_share"] = share
+            rows["mma"]["tolerance_share"] = share
+            code = POOL_DTYPES.get(pools["k"].dtype, 1)
+            if op == "decode":
+                rows["mma"]["splits"] = DA.card_cluster_plan(
+                    bq * kh, s, 0, DA.MMA_PAGED, hd, qr.shape[2], code)[0]
+            else:
                 rows["mma"]["splits"] = PPA._mma_geometry(
                     bq, kh, qr.shape[2], hd, page, width, q_len,
-                    0 if plan is None else plan.shape[1], 0,
-                    POOL_DTYPES.get(pools["k"].dtype, 1))[2]
-                out[f"{name}_mma{sfx}"][tag] = rows["mma"]
+                    0 if plan is None else plan.shape[1], 0, code)[2]
+            out[f"{name}_mma{sfx}"][tag] = rows["mma"]
     return out
 
 
@@ -2418,9 +2497,9 @@ def dense_kernel_checks(torch, randn, timer, errors):
     """Phase 2's checks for the dense attention configs: the hd-256
     sweep, gemma3-1b's shapes and the new groups on the tensor cores.
     Every hd-256 launch of the sweep must be on the route its wrapper's
-    rule names for its dtype (bf16 dense decode and prefix-append: the
-    tensor cores; bf16 flash and paged decode, every f32 call: the CUDA
-    cores), none on the other.  Returns the report's rows."""
+    rule names for its dtype (every bf16 call: the tensor cores; every
+    f32 call: the CUDA cores), none on the other.  Returns the report's
+    rows."""
     launches, share = hd256_sweep(torch, randn, errors)
     log(f"  hd 256 launches by route: {launches}")
     for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -2430,7 +2509,11 @@ def dense_kernel_checks(torch, randn, timer, errors):
                 errors.append(f"{n} at hd 256 in {tag}: launches {r}, want "
                               f"every one on the {want} route")
     out = gemma3_kernel_checks(torch, randn, timer, errors)
-    for name in ("decode_attention_mma", "paged_prefill_attention_mma"):
+    for name in ("flash_attention_wgmma", "decode_attention_mma",
+                 "paged_decode_attention_mma",
+                 "paged_decode_attention_mma[int8]",
+                 "paged_prefill_attention_mma",
+                 "paged_prefill_attention_mma[int8]"):
         for row in out[name].values():
             row["sweep_tolerance_share"] = share
     for name, rows in dense_mma_checks(torch, randn, timer, errors).items():
@@ -6827,10 +6910,8 @@ def dense_serve_phase(torch, smi):
     prefills, paged decode = layers × (steps + admission calls) (chunked:
     prefix-append = layers × fused steps, paged decode = layers × plain
     steps, no flash), each on the route its kernel's ``route()`` gives
-    the model's dtype and head dim (``route_of``; bf16 at hd 128: the
-    tensor cores, at hd 256: the tensor cores for dense decode and
-    prefix-append, the CUDA cores for flash and paged decode) and none on
-    the other, no
+    the model's dtype and head dim (``route_of``; bf16 at hd 128 and 256:
+    the tensor cores) and none on the other, no
     other kernel; generate: flash and dense decode once a layer; every kept
     input held against the plain version.  Prints weight bytes, the
     prefix prefill's replay ms by bucket, step ms (host clock) eager and
@@ -7437,6 +7518,18 @@ def main() -> int:
         for ln in info:
             log(f"    {ln}")
     log(f"  built in {time.perf_counter() - t0:.1f} s")
+    if all(rep[src]["log"] for src in ("flash_attention_wgmma.cu",
+                                       "decode_attention_mma.cu")):
+        hd256 = hd256_instances(rep)
+        log(f"  hd-256 tensor-core instances (registers, spill-store "
+            f"bytes): {hd256}")
+        spilled = {k: v for k, v in hd256.items() if v[1]}
+        if len(hd256) != HD256_INSTANCES or spilled:
+            raise RuntimeError(f"hd-256 tensor-core instances: {len(hd256)}"
+                               f" built (want {HD256_INSTANCES}), spilling "
+                               f"{spilled}")
+    else:
+        log("  hd-256 tensor-core instances: found built, not checked")
 
     phase("phase 2: kernels vs plain")
     kernels = kernel_checks(torch)

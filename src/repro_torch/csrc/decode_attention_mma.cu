@@ -1,8 +1,8 @@
 // Flash-decoding over a dense or a paged KV cache, and paged prefix-append
 // attention (chunked prefill), on Hopper's tensor cores (sm_90a): one
 // launch per call, K/V through a cp.async ring, QK^T and PV on mma.sync.
-// bfloat16 in and out, float32 accumulation; head dims 64 and 128, and
-// 256 (gemma3-1b's) in dense decode and prefix-append.
+// bfloat16 in and out, float32 accumulation; head dims 64, 128 and 256
+// (gemma3-1b's) in all three modes.
 //
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention_pallas
 // (dense decode of the batch path and the drafter, and the q_len > 1 chunk
@@ -12,10 +12,9 @@
 // engine's fused step, through paged_prefill_attention_mma_fwd), the two
 // paged ones over bf16 pools and over int8 / fp8 (e4m3) pools with their
 // per-(page, slot, head) f32 scales (the TPU kernels' k_scale / v_scale
-// operands), on the routes each wrapper's ``route`` gives bf16: hd 64/128
-// for paged decode, 64/128/256 for dense decode and prefix-append.
-// float32 and the other head dims stay on decode_attention.cu and
-// paged_prefill_attention.cu.
+// operands), on the routes each wrapper's ``route`` gives bf16: hd
+// 64/128/256.  float32 and the other head dims stay on decode_attention.cu
+// and paged_prefill_attention.cu.
 //
 // What bounds it on this card: bytes for decode.  A (batch row, KV head)
 // reads its cache_len x hd K and V once, ~1 MB per layer at the main path's
@@ -120,7 +119,10 @@
 // of ring + 32 KB of Q + 1 KB of (m, l) = 230,400 of the 232,448 bytes a
 // block may use (the 67.6 KB of partials reuse the ring): one block an
 // SM, which cluster_plan reads from the card's occupancy.  An 8-bit pool:
-// 3 x 32.5 KB of ring + a 64 KB converted tile + Q, ~195 KB.
+// 3 x 32.5 KB of ring + a 64 KB converted tile + Q, ~195 KB.  The layout
+// is the mode's no more than the pool's: paged decode (gemma3-1b's slot
+// step at q_len 1, its verifier at q_len γ+1: 20 rows at γ 4, 40 at γ 9)
+// takes the same hd-256 body, staging and table reads as prefix-append.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -874,19 +876,17 @@ cudaError_t md_max_clusters_ks(int tile_rows, int splits, int* n) {
   return md_max_clusters<HD, 1, MODE, KT>(splits, n);
 }
 
-// the head dims a mode takes: 64 and 128; 256 in dense decode and
-// prefix-append (their hd-256 instances stage Q in shared memory)
-constexpr bool md_takes_hd(int mode, int hd) {
-  return hd == 64 || hd == 128 || (hd == 256 && mode != MD_PAGED);
+// the head dims every mode takes: 64, 128 and 256 (whose instances stage Q
+// in shared memory)
+constexpr bool md_takes_hd(int hd) {
+  return hd == 64 || hd == 128 || hd == 256;
 }
 
 template <int MODE, typename KT>
 cudaError_t md_max_clusters_hd(int hd, int tile_rows, int splits, int* n) {
   if (hd == 64) return md_max_clusters_ks<64, MODE, KT>(tile_rows, splits, n);
-  if constexpr (md_takes_hd(MODE, 256)) {
-    if (hd == 256)
-      return md_max_clusters_ks<256, MODE, KT>(tile_rows, splits, n);
-  }
+  if (hd == 256)
+    return md_max_clusters_ks<256, MODE, KT>(tile_rows, splits, n);
   return md_max_clusters_ks<128, MODE, KT>(tile_rows, splits, n);
 }
 
@@ -909,9 +909,7 @@ cudaError_t md_max_clusters_kv(int kv, int hd, int tile_rows, int splits,
 template <int MODE, typename KT>
 cudaError_t md_dispatch_hd(const MdArgs& a, cudaStream_t s) {
   if (a.hd == 64) return md_dispatch_ks<64, MODE, KT>(a, s);
-  if constexpr (md_takes_hd(MODE, 256)) {
-    if (a.hd == 256) return md_dispatch_ks<256, MODE, KT>(a, s);
-  }
+  if (a.hd == 256) return md_dispatch_ks<256, MODE, KT>(a, s);
   return md_dispatch_ks<128, MODE, KT>(a, s);
 }
 
@@ -923,7 +921,7 @@ int md_run(const MdArgs& a, int kv, void* stream) {
   const bool splits_cover =
       MODE == MD_PREFILL ||
       (a.split_len >= 1 && (long long)a.splits * a.split_len >= a.S);
-  if (!md_takes_hd(MODE, a.hd) || a.B < 1 || a.rows < 1 ||
+  if (!md_takes_hd(a.hd) || a.B < 1 || a.rows < 1 ||
       a.tile_rows < 1 || a.tile_rows > MD_MAX_ROWS || a.q_len < 1 ||
       a.rows % a.q_len != 0 || a.KH < 1 || tiles < 1 ||
       a.KH * tiles > 65535 || a.B > 65535 || a.splits < 1 ||
@@ -1038,7 +1036,7 @@ extern "C" int paged_prefill_attention_mma_fwd(
 extern "C" int decode_attention_mma_max_clusters(int mode, int hd,
                                                  int tile_rows, int splits,
                                                  int kv_dtype, int* n) {
-  if (mode < MD_DENSE || mode > MD_PREFILL || !md_takes_hd(mode, hd) ||
+  if (mode < MD_DENSE || mode > MD_PREFILL || !md_takes_hd(hd) ||
       tile_rows < 1 || tile_rows > MD_MAX_ROWS || splits < 1 ||
       splits > MD_MAX_CLUSTER)
     return (int)cudaErrorInvalidValue;

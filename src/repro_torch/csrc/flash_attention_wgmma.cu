@@ -1,11 +1,11 @@
 // Causal GQA flash-attention forward on Hopper's tensor cores (sm_90a):
 // wgmma for QK^T and PV, TMA for the Q, K and V tiles.  bfloat16 in and
-// out, float32 accumulation; head dims 64 and 128.
+// out, float32 accumulation; head dims 64, 128 and 256 (gemma3-1b's).
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (the prefill of [regions | prompt] in models/layers.py, mode="prefill"),
-// on the route kernels/flash_attention.py::route gives bf16 at hd 64/128.
-// float32 and the other head dims stay on flash_attention.cu.
+// on the route kernels/flash_attention.py::route gives bf16 at hd
+// 64/128/256.  float32 and the other head dims stay on flash_attention.cu.
 //
 // What bounds it on this card: operations.  At the 7B's shape (B 1, H 28,
 // Sq = Skv = 1025, hd 128, causal) the two products are 4·hd·H·S(S+1)/2 =
@@ -63,6 +63,25 @@
 // bound measured on the card (chip_smoke.py, phases 2 and 4) are what
 // show the bound holds with room.
 //
+// At hd 256 (gemma3-1b: B 1, 4/1 heads, S 1025, window 512 on 22 of its 26
+// layers) the work is 1.61 GFLOP against ~2.6 MB: 0.0016 ms at the bf16
+// peak, operations again.  A Q, K or V tile is 32 KB (four boxes), and a
+// thread's f32 output accumulator 64 x 256 / 128 = 128 registers, beside
+// S's 32 and P's 16 A-fragment registers.  So the hd-256 instance takes
+// one consumer warpgroup on any grid, under __launch_bounds__(160, 1)
+// (255 registers a thread), with three K/V stages: 32 + 3 x 64 KB =
+// 230,480 bytes with the barriers and the 1 KB alignment, one block an SM.
+// Two warpgroups cannot share the block: four stages would take 288 KB,
+// and with one stage each (160 KB) plus the 67.6 KB hand-over the block
+// needs 232,504 bytes, 56 past what a block may use; and the 288 threads
+// would cap a thread at 224 registers, fewer than acc, S and P take with
+// the addressing.  gemma3-1b's prefill is 4 heads x 17 query tiles = 68
+// blocks, under one wave, so each block's chain of key tiles (9 under the
+// window, 17 on a global layer) sets the time, a tile's two products
+// (4.2 MFLOP) about 0.6 us at an SM's share of the peak; the three-stage
+// ring keeps the next two tiles' loads under them.  PV is one
+// wgmma m64n256k16 a k-step; QK^T steps its descriptors over four boxes.
+//
 // Host side: the three tensor maps are encoded on every call with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
 // -lcuda); the wrapper checks TMA's rules (16-byte aligned base and
@@ -81,11 +100,14 @@ static_assert(BOX_COLS == TMA_BOX_COLS, "make_map cuts boxes of BOX_COLS");
 // tiles in turn (tile i to warpgroup i % NWG); one producer warp follows
 // them.  NWG 1: two K/V stages, two blocks per SM.  NWG 2: four stages
 // (two per warpgroup), one block per SM, and warpgroup 1 hands its
-// partial (m, l, acc) to warpgroup 0 at the end.
+// partial (m, l, acc) to warpgroup 0 at the end.  HD 256: NWG 1 with
+// three stages, one block per SM (see the header).
 template <int HD, int NWG>
 struct Layout {
+  static_assert(HD <= 128 || NWG == 1, "hd 256 takes one warpgroup");
   static constexpr int THREADS = 128 * NWG + 32;
-  static constexpr int STAGES = 2 * NWG;
+  static constexpr int STAGES = HD > 128 ? 3 : 2 * NWG;
+  static constexpr int MIN_BLOCKS = HD > 128 ? 1 : 3 - NWG;   // an SM's
   static constexpr int BOXES = HD / BOX_COLS;
   static constexpr int Q_BOX = WG_BQ * 128;        // bytes of one 64-col box
   static constexpr int KV_BOX = WG_BK * 128;
@@ -99,6 +121,7 @@ struct Layout {
   static constexpr int BYTES =
       MERGE_OFF + (NWG > 1 ? 128 * (HD / 2 + 4) * 4 : 0);
   static constexpr int ALLOC = BYTES + 1024;       // room to align to 1 KB
+  static_assert(ALLOC <= 232448, "one block's shared memory");
 };
 
 // One thread's two query rows and the softmax on its S fragment: element
@@ -158,7 +181,8 @@ struct Rows {
 // --- the kernel ------------------------------------------------------------------
 
 template <int HD, int NWG>
-__global__ void __launch_bounds__(Layout<HD, NWG>::THREADS, 3 - NWG)
+__global__ void __launch_bounds__(Layout<HD, NWG>::THREADS,
+                                  Layout<HD, NWG>::MIN_BLOCKS)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
@@ -364,12 +388,13 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
 
 }  // namespace
 
-// q (B,H,Sq,hd), k/v (B,KH,Skv,hd), o (B,H,Sq,hd), all bfloat16, hd 64 or
-// 128; element strides with a unit innermost one.  q, k and v need 16-byte
-// aligned bases and strides (TMA); o is written with 4-byte stores.  lse,
-// when not null, receives each row's logsumexp (natural log, f32) in rows
-// of lse_rows(Sq) floats, (B, H, lse_rows(Sq)) contiguous, the padding 0:
-// the residual the tensor-core backward reads.  Inference passes null.
+// q (B,H,Sq,hd), k/v (B,KH,Skv,hd), o (B,H,Sq,hd), all bfloat16, hd 64,
+// 128 or 256; element strides with a unit innermost one.  q, k and v need
+// 16-byte aligned bases and strides (TMA); o is written with 4-byte
+// stores.  lse, when not null, receives each row's logsumexp (natural log,
+// f32) in rows of lse_rows(Sq) floats, (B, H, lse_rows(Sq)) contiguous,
+// the padding 0: the residual the tensor-core backward reads.  Inference
+// passes null.
 // softcap <= 0 means no softcap.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for what the kernel does not take (the wrapper
 // checks first and raises with the reason).
@@ -381,7 +406,8 @@ extern "C" int flash_attention_wgmma_fwd(
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     int causal, int window, float softcap, float scale, void* stream) {
-  if ((hd != 64 && hd != 128) || KH < 1 || H % KH != 0 || Sq < 1 || Sq > Skv)
+  if ((hd != 64 && hd != 128 && hd != 256) || KH < 1 || H % KH != 0 ||
+      Sq < 1 || Sq > Skv)
     return (int)cudaErrorInvalidValue;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorInvalidValue;
@@ -392,6 +418,10 @@ extern "C" int flash_attention_wgmma_fwd(
     return (int)cudaErrorInvalidValue;
   const long long ost[3] = {o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 256)            // one consumer warpgroup on any grid
+    return (int)launch_nwg<256, 1>(qm, km, vm, o, static_cast<float*>(lse),
+                                   B, H, H / KH, Sq, Skv, ost, causal, window,
+                                   softcap, scale, s);
   cudaError_t e = hd == 64
       ? launch<64>(qm, km, vm, o, static_cast<float*>(lse), B, H, H / KH, Sq,
                    Skv, ost, causal, window, softcap, scale, s)

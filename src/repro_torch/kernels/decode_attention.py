@@ -23,9 +23,10 @@ Two routes, chosen by ``route`` from the dtype and head dim alone:
   hd % 4 == 0: the proxies' 12 and 16) go to ``csrc/decode_attention.cu``:
   split-K blocks, f32 math on the CUDA cores, and a combine kernel.
 
-The tensor-core kernel's three modes take different head dims
-(``MMA_HEAD_DIMS``), so each wrapper has its own rule: this one, the paged
-decode's and prefix-append's, each through ``mma_route``.
+Each mode of the tensor-core kernel names its head dims
+(``MMA_HEAD_DIMS``; all three take 64, 128 and 256), so each wrapper has
+its own rule: this one, the paged decode's and prefix-append's, each
+through ``mma_route``.
 """
 from __future__ import annotations
 
@@ -56,8 +57,8 @@ MAX_CLUSTER = 16      # key splits per cluster on the tensor-core route
 #: the tensor-core kernel's modes (its ``MODE`` template argument)
 MMA_DENSE, MMA_PAGED, MMA_PREFILL = 0, 1, 2
 #: the head dims each mode has instances for (the C entry points refuse the
-#: rest): paged decode stops at 128
-MMA_HEAD_DIMS = {MMA_DENSE: (64, 128, 256), MMA_PAGED: (64, 128),
+#: rest): since the paged mode's hd-256 instances, the same for all three
+MMA_HEAD_DIMS = {MMA_DENSE: (64, 128, 256), MMA_PAGED: (64, 128, 256),
                  MMA_PREFILL: (64, 128, 256)}
 
 

@@ -8,21 +8,20 @@ Sq need not be a multiple of any tile: the kernels mask their ragged edge.
 
 Two routes, chosen by ``route`` from the dtype and head dim alone:
 
-* ``"wgmma"``: bfloat16 at hd 64 or 128 (the models' prefill) goes to
-  ``csrc/flash_attention_wgmma.cu``, QK^T and PV on the tensor cores with
-  K/V tiles loaded by TMA.  TMA needs 16-byte aligned bases and strides;
-  operands that break the rule raise here, they never take the other
-  route.  p is rounded to bf16 before PV.
+* ``"wgmma"``: bfloat16 at hd 64, 128 or 256 (the models' prefill,
+  gemma3-1b's 256 included) goes to ``csrc/flash_attention_wgmma.cu``,
+  QK^T and PV on the tensor cores with K/V tiles loaded by TMA.  TMA needs
+  16-byte aligned bases and strides; operands that break the rule raise
+  here, they never take the other route.  p is rounded to bf16 before PV.
 * ``"cuda_cores"``: float32 (whose card-vs-CPU decisions must not flip on
   TF32 rounding) and every other head dim (hd <= 256, hd % 4 == 0: the
-  proxies' 12 and 16, gemma3-1b's 256) go to ``csrc/flash_attention.cu``,
-  f32 math on the CUDA cores.  bf16 at hd 256 takes this route by its
-  shape: a launch there is counted as a CUDA-core launch, and a failure
-  raises.
+  proxies' 12 and 16) go to ``csrc/flash_attention.cu``, f32 math on the
+  CUDA cores.
 
-The backward (training) has two routes too, chosen by ``bwd_route`` (the
-forward's rule, so a forward on the tensor cores has saved what the
-backward on the tensor cores reads):
+The backward (training) has two routes too, chosen by ``bwd_route``, its
+own rule (``BWD_WGMMA_HEAD_DIMS``): the tensor-core backward has no
+hd-256 instance, so bf16 at hd 256 runs its forward on the tensor cores
+and its backward on the CUDA cores, which recompute lse themselves:
 
 * ``"wgmma"``: bfloat16 at hd 64 or 128 goes to
   ``csrc/flash_attention_bwd_wgmma.cu`` (a delta pre-pass, dK/dV by key
@@ -32,14 +31,15 @@ backward on the tensor cores reads):
   with_lse=True)``), the JAX package's residual.  It rounds p and dS to
   bf16 before the products that take them.  TMA's 16-byte rule holds for
   q, k, v, o and do, or it raises.
-* ``"cuda_cores"``: float32 and every other head dim go to
-  ``csrc/flash_attention_bwd.cu`` (f32 math, three launches: row
+* ``"cuda_cores"``: float32 and every other head dim (256 among them)
+  go to ``csrc/flash_attention_bwd.cu`` (f32 math, three launches: row
   statistics, dK/dV by key tile, dQ by query tile).
 
 Both are deterministic (no atomics; the GQA sum is a loop).
 ``FlashAttentionFn`` ties forward and backward together for autograd: on
-the card the forward saves lse on the wgmma route and the backward takes
-its route's kernel; on the CPU both are the plain versions.
+the card the forward saves lse where the backward's route is wgmma (and
+so is the forward's) and the backward takes its route's kernel; on the
+CPU both are the plain versions.
 """
 from __future__ import annotations
 
@@ -70,15 +70,17 @@ BWD_WGMMA_KERNEL = CudaKernel("flash_attention_bwd_wgmma.cu",
                               [_P] * 11 + [_I] * 7
                               + [ctypes.POINTER(ctypes.c_longlong)]
                               + [_I, _I, _F, _F, _P])
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 256)
+#: the head dims of the tensor-core backward (a subset of the forward's)
+BWD_WGMMA_HEAD_DIMS = (64, 128)
 #: rows of every tile of the tensor-core kernels
 TILE = 64
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
     """The kernel a (dtype, head dim) takes: ``"wgmma"`` for bfloat16 at hd
-    64 or 128, ``"cuda_cores"`` for float32 and other head dims; any other
-    dtype raises."""
+    64, 128 or 256, ``"cuda_cores"`` for float32 and other head dims; any
+    other dtype raises."""
     if dtype not in DTYPES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
     if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
@@ -89,9 +91,12 @@ def route(dtype: torch.dtype, hd: int) -> str:
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
     """The backward kernel a (dtype, head dim) takes: ``"wgmma"`` for
     bfloat16 at hd 64 or 128, ``"cuda_cores"`` for float32 and other head
-    dims; any other dtype raises.  The forward's rule, so that a forward on
-    the wgmma route has saved the lse the wgmma backward reads."""
-    return route(dtype, hd)
+    dims (256 among them, whose forward is on the tensor cores); any other
+    dtype raises.  Where it names ``"wgmma"`` the forward's route does
+    too, so that forward has saved the lse the wgmma backward reads."""
+    if route(dtype, hd) == "wgmma" and hd in BWD_WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_cores"
 
 
 def lse_rows(sq: int) -> int:
@@ -178,8 +183,8 @@ def launch_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool = True, window: int = 0,
                  softcap: Optional[float] = None,
                  scale: Optional[float] = None, with_lse: bool = False):
-    """The tensor-core kernel: bfloat16 at hd 64 or 128, operands that keep
-    TMA's 16-byte rule; raises on anything else.  Returns o, or with
+    """The tensor-core kernel: bfloat16 at hd 64, 128 or 256, operands that
+    keep TMA's 16-byte rule; raises on anything else.  Returns o, or with
     ``with_lse`` (o, lse): lse each row's logsumexp of its scaled (capped)
     logits over its visible keys, (B, H, Sq) float32, a view of a (B, H,
     lse_rows(Sq)) buffer (the wgmma backward's residual)."""
@@ -298,7 +303,8 @@ def launch_bwd_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     anything else.  Returns (dq, dk, dv)."""
     if bwd_route(q.dtype, q.shape[-1]) != "wgmma":
         raise ValueError(f"the wgmma backward takes bfloat16 at hd "
-                         f"{WGMMA_HEAD_DIMS}, got {q.dtype} hd {q.shape[-1]}")
+                         f"{BWD_WGMMA_HEAD_DIMS}, got {q.dtype} hd "
+                         f"{q.shape[-1]}")
     grads, ptrs, strides, scale = _bwd_args(q, k, v, o, do, scale)
     check_tma(q=q, k=k, v=v, o=o, do=do)
     check_lse(lse, q)
@@ -363,16 +369,18 @@ class FlashAttentionFn(torch.autograd.Function):
     On the card the forward is ``flash_attention_cuda`` (its route by dtype
     and head dim) and the backward ``flash_attention_bwd_cuda`` (its
     route by ``bwd_route``); on the CPU both are the plain versions.  It
-    saves q, k, v and the output, and on the wgmma route also lse: the JAX
-    package's residual (q, k, v, out, lse) of ``ref.flash_structured``,
-    whose VJP recomputes p blockwise from it; the CUDA-core backward
-    recomputes lse itself."""
+    saves q, k, v and the output, and where the backward's route is wgmma
+    also lse: the JAX package's residual (q, k, v, out, lse) of
+    ``ref.flash_structured``, whose VJP recomputes p blockwise from it; the
+    CUDA-core backward (f32, other head dims, and hd 256 behind a wgmma
+    forward) recomputes lse itself."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale):
         kw = {"causal": causal, "window": window, "softcap": softcap,
               "scale": scale}
-        if q.device.type == "cuda" and route(q.dtype, q.shape[-1]) == "wgmma":
+        if (q.device.type == "cuda"
+                and bwd_route(q.dtype, q.shape[-1]) == "wgmma"):
             o, lse = launch_wgmma(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), with_lse=True, **kw)
             o = o.transpose(1, 2)

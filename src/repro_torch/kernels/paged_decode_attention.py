@@ -3,8 +3,9 @@ around the paged entry points of ``csrc/decode_attention_mma.cu`` and
 ``csrc/decode_attention.cu``.
 
 The paged form of ``decode_attention``'s kernels, sharing their bodies,
-with its own route rule (``route``: bf16 at hd 64 and 128 on the tensor
-cores; the kernel's paged mode has no hd-256 instance): key ``s`` of batch
+with its own route rule (``route``: bf16 at hd 64, 128 and 256 on the
+tensor cores; at 256, gemma3-1b's, the kernel stages Q in shared memory
+and runs one block an SM): key ``s`` of batch
 row ``b`` lives at ``pool[block_table[b, s // page], kh, s % page, :]``.
 One entry serves the slot path's decode (``q_len`` 1) and the speculative
 verifier (``q_len`` = γ+1, causal within the chunk), at any
@@ -53,9 +54,8 @@ MAX_ROWS = 64         # query rows of one CUDA-core row tile (8 warps)
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
-    """Paged decode's route: ``"mma"`` for bfloat16 at hd 64 or 128,
-    ``"cuda_cores"`` for float32 and other head dims (gemma3-1b's 256
-    among them)."""
+    """Paged decode's route: ``"mma"`` for bfloat16 at hd 64, 128 or 256,
+    ``"cuda_cores"`` for float32 and other head dims."""
     return mma_route(dtype, hd, MMA_PAGED)
 
 
@@ -142,8 +142,8 @@ def launch_mma(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                scale: Optional[float] = None, q_len: int = 1,
                k_scale: Optional[torch.Tensor] = None,
                v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The tensor-core kernel: bfloat16 q at hd 64 or 128 over bf16 or
-    8-bit pools, operands that keep cp.async's 16-byte rule; raises on
+    """The tensor-core kernel: bfloat16 q at hd 64, 128 or 256 over bf16
+    or 8-bit pools, operands that keep cp.async's 16-byte rule; raises on
     anything else."""
     if route(q.dtype, q.shape[-1]) != "mma":
         raise ValueError(f"the mma kernel takes bfloat16 at hd "

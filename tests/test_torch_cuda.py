@@ -753,11 +753,11 @@ def test_hd256_kernels_match_plain(card, row, pool, group, dtype):
     """gemma3-1b's head dim 256: rows 1, 2 and 4-6 on the route each
     wrapper's rule names, on fp pools and on int8 and fp8 pools with their
     scales, with the window biting, a softcap on every other case, rows of
-    length 0, and a NaN trash page.  bf16 dense decode and verify and bf16
-    prefix-append take the tensor cores: held to their bound (8-bit pools
-    dequantized), each launch counted on the mma route.  Flash, paged
-    decode and verify, and every f32 call take the CUDA cores: held to
-    ``TOL`` against the plain version, no launch on the tensor cores."""
+    length 0, and a NaN trash page.  Every bf16 row takes the tensor cores
+    (flash on wgmma, the decode family on mma.sync): held to its bound
+    (8-bit pools dequantized), each launch counted on the tensor-core
+    route.  Every f32 call takes the CUDA cores: held to ``TOL`` against
+    the plain version, no launch on the tensor cores."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PDA
@@ -817,18 +817,19 @@ def test_hd256_kernels_match_plain(card, row, pool, group, dtype):
     rule = {"flash_attention": FA, "decode_attention": DA,
             "paged_decode_attention": PDA,
             "paged_prefill_attention": PPA}[name].route
-    mma = rule(dtype, 256) == "mma"
-    assert mma == (dtype == torch.bfloat16 and row in (
-        "decode", "verify", "prefix_append"))
-    if mma:
-        _within_mma_decode_bound(got, q, *dense, **kw)
-    else:
+    tensor_cores = rule(dtype, 256) != "cuda_cores"
+    assert tensor_cores == (dtype == torch.bfloat16)
+    if not tensor_cores:
         _close(got, want, TOL[dtype])
+    elif row == "flash":
+        _within_wgmma_bound(got, q, k, v, **kw)
+    else:
+        _within_mma_decode_bound(got, q, *dense, **kw)
     if row != "flash":
         assert float(got[0].abs().max()) == 0.0
     second = ops.ROUTES[name][0]
     assert after[name] == before[name] + 1
-    assert after[second] == before[second] + int(mma)
+    assert after[second] == before[second] + int(tensor_cores)
     if pool != "fp":
         assert after[f"{name}[{pool}]"] == before[f"{name}[{pool}]"] + 1
 
@@ -877,13 +878,12 @@ def test_hd256_mma_prefill_with_a_tile_plan_at_group_4(card, kind, step):
 
 
 def test_hd256_mma_refuses_what_it_does_not_take(card):
-    """At hd 256 cp.async's 16-byte rule is checked before the launch (a
-    misaligned view raises on the dense decode and prefix-append entries,
-    it never takes the CUDA-core route); the paged decode's tensor-core
-    launcher refuses hd 256, and the C occupancy entry refuses it in the
-    paged mode while answering for the other two."""
+    """At hd 256 cp.async's 16-byte rule (dense decode, paged decode,
+    prefix-append) and TMA's (flash) are checked before the launch: a
+    misaligned view raises, it never takes the CUDA-core route; the C
+    occupancy entry answers for all three modes of the decode kernel (one
+    block an SM at least)."""
     from repro_torch.kernels import decode_attention as DA
-    from repro_torch.kernels import paged_decode_attention as PDA
     bf16 = torch.bfloat16
     buf = _randn(card, 1, 2, 8, 264, dtype=bf16)
     pool = _randn(card, 4, 2, 8, 264, dtype=bf16)
@@ -895,14 +895,16 @@ def test_hd256_mma_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="16-byte"):
         paged_prefill_attention_cuda(buf[..., :256], pool[..., 1:257],
                                      pool[..., :256], table, 3)
-    with pytest.raises(ValueError, match="mma kernel takes"):
-        PDA.launch_mma(buf[..., :256], pool[..., :256], pool[..., :256],
-                       table, 3)
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_decode_attention_cuda(buf[..., :256], pool[..., :256],
+                                    pool[..., 1:257], table, 3)
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention_cuda(buf[..., 1:257], buf[..., :256],
+                             buf[..., :256])
     assert ops.launch_counts() == before
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        DA.max_clusters(0, DA.MMA_PAGED, 256, 4, 1)
-    for mode in (DA.MMA_DENSE, DA.MMA_PREFILL):
-        assert DA.max_clusters(0, mode, 256, 64, 1) >= 1
+    for mode in (DA.MMA_DENSE, DA.MMA_PAGED, DA.MMA_PREFILL):
+        for rows in (4, 64):
+            assert DA.max_clusters(0, mode, 256, rows, 1) >= 1
 
 
 @pytest.mark.parametrize("b,r,nv,ne,d,dtype", [
@@ -1811,6 +1813,33 @@ def test_flash_bwd_wgmma_refuses_what_it_does_not_take(card):
         FA.flash_attention_bwd_cuda(*(t.float() for t in (*tr, o, dot)),
                                     lse=lse)
     assert ops.launch_counts()["flash_attention_bwd"] == before
+
+
+def test_hd256_grad_takes_a_wgmma_forward_and_a_cuda_core_backward(card):
+    """gemma3-1b's hd 256 under autograd (bf16, 4/1 heads, its local
+    layers' window): the forward launches once on the wgmma route and
+    saves no lse, since the backward's route at hd 256 is the CUDA cores
+    (which recompute it, and raise if handed one); the backward launches
+    once there and never on the tensor cores.  The output is within the
+    wgmma route's bound, the gradients within the backward's bf16
+    tolerance of the plain backward on that output."""
+    kw = {"window": HD256_WINDOW, "softcap": None}
+    q, k, v, do = _bwd_case(card, 600, 600, 4, 1, 256)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = ops.launch_counts()
+    with torch.enable_grad():
+        o = ops.flash_attention(*leaves, **kw)
+    mid = ops.launch_counts()
+    got = torch.autograd.grad(o, leaves, do)
+    after = ops.launch_counts()
+    assert mid["flash_attention_wgmma"] == before["flash_attention_wgmma"] + 1
+    assert mid["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert after["flash_attention_bwd_wgmma"] == \
+        before["flash_attention_bwd_wgmma"]
+    _within_wgmma_bound(o.detach(), q, k, v, **kw)
+    want = ref.flash_attention_bwd(q, k, v, o.detach(), do, **kw)
+    _grads_close(got, want, torch.bfloat16)
 
 
 def test_flash_bwd_refuses_what_it_does_not_take(card):

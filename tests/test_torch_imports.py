@@ -12,6 +12,9 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: pytest's workers share the cores, and torch's
+# default of a thread a core in each worker oversubscribes them
+torch.set_num_threads(1)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 

@@ -9,6 +9,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: pytest's workers share the cores, and torch's
+# default of a thread a core in each worker oversubscribes them
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -143,6 +146,8 @@ def wgmma_bound_share(got, q, k, v, **kw):
     (6, 2, 64, 65, 200, 0, None),       # ragged Sq < Skv
     (2, 2, 128, 130, 130, 32, None),    # sliding window
     (3, 1, 64, 100, 100, 0, 30.0),      # logit softcap
+    (4, 1, 256, 600, 600, 512, None),   # gemma3-1b's local layers
+    (4, 1, 256, 300, 600, 0, None),     # its global ones, Sq < Skv
 ])
 def test_wgmma_flash_rounding_stays_within_its_bound(group, kh, hd, sq, skv,
                                                      window, softcap):
@@ -164,12 +169,14 @@ def test_wgmma_flash_rounding_stays_within_its_bound(group, kh, hd, sq, skv,
 
 
 def test_flash_route_rule():
-    """bf16 at hd 64/128 takes the tensor cores; float32 (card-vs-CPU
+    """bf16 at hd 64/128/256 takes the tensor cores; float32 (card-vs-CPU
     decisions in f32 must not flip on TF32 rounding) and other head dims
     take the CUDA cores; any other dtype raises."""
     from repro_torch.kernels.flash_attention import route
-    assert route(torch.bfloat16, 64) == route(torch.bfloat16, 128) == "wgmma"
+    for hd in (64, 128, 256):
+        assert route(torch.bfloat16, hd) == "wgmma"
     for dtype, hd in [(torch.float32, 128), (torch.float32, 64),
+                      (torch.float32, 256), (torch.bfloat16, 252),
                       (torch.bfloat16, 16), (torch.bfloat16, 12),
                       (torch.bfloat16, 96)]:
         assert route(dtype, hd) == "cuda_cores"
@@ -179,20 +186,23 @@ def test_flash_route_rule():
 
 
 def test_hd256_takes_the_cuda_core_routes_and_260_is_refused():
-    """gemma3-1b's head dim 256: bf16 takes the CUDA-core route of flash
-    and of paged decode by its shape (their tensor-core kernels have no
-    hd-256 instance), the tensor-core route of dense decode and
-    prefix-append (whose hd-256 instances stage Q in shared memory); f32
-    takes the CUDA cores everywhere; every attention wrapper takes it;
-    260 and dims that are not a multiple of 4 still raise, before any
+    """gemma3-1b's head dim 256: bf16 takes the tensor-core route of every
+    attention forward (flash on wgmma; dense decode, paged decode and
+    prefix-append on mma.sync, whose hd-256 instances stage Q in shared
+    memory), while the flash backward stays on the CUDA cores (its
+    tensor-core kernel has no hd-256 instance); f32 takes the CUDA cores
+    everywhere, the backward too; every attention wrapper takes it; 260
+    and dims that are not a multiple of 4 still raise, before any
     launch."""
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PDA
     from repro_torch.kernels import paged_prefill_attention as PPA
-    assert FA.route(torch.bfloat16, 256) == "cuda_cores"
-    assert PDA.route(torch.bfloat16, 256) == "cuda_cores"
+    assert FA.route(torch.bfloat16, 256) == "wgmma"
+    assert FA.bwd_route(torch.bfloat16, 256) == "cuda_cores"
+    assert FA.bwd_route(torch.float32, 256) == "cuda_cores"
+    assert PDA.route(torch.bfloat16, 256) == "mma"
     assert DA.route(torch.bfloat16, 256) == "mma"
     assert PPA.route(torch.bfloat16, 256) == "mma"
     for m in (FA, DA, PDA, PPA):
@@ -437,13 +447,14 @@ def test_decode_split_plan_covers_the_cache_without_a_cliff(b, kh, s):
 def test_decode_route_rule():
     """Each decode-family wrapper has its own rule, by the head dims its
     mode of the tensor-core kernel takes: bf16 at hd 64/128/256 takes the
-    tensor cores (mma.sync) for dense decode and prefix-append, at hd
-    64/128 for paged decode; float32 and other head dims take the CUDA
-    cores; any other dtype raises."""
+    tensor cores (mma.sync) for dense decode, paged decode and
+    prefix-append; float32 and other head dims take the CUDA cores; any
+    other dtype raises."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import paged_decode_attention as PDA
     from repro_torch.kernels import paged_prefill_attention as PPA
-    mma_dims = {DA: (64, 128, 256), PDA: (64, 128), PPA: (64, 128, 256)}
+    mma_dims = {DA: (64, 128, 256), PDA: (64, 128, 256),
+                PPA: (64, 128, 256)}
     for m, dims in mma_dims.items():
         for hd in (12, 16, 64, 96, 128, 256):
             want = "mma" if hd in dims else "cuda_cores"
@@ -715,6 +726,53 @@ def test_mma_decode_rounding_at_gemma3_decode(window):
     assert mma_decode_bound_share(got, q, k, v, lens, window=window) <= 0.6
     assert float(got[0].abs().max()) == 0.0
     _oracle_matches_plain(q, k, v, lens, window=window)
+
+
+@pytest.mark.parametrize("q_len,window", [(1, 512), (5, 0)])
+def test_mma_paged_rounding_at_gemma3_slot_step(q_len, window):
+    """gemma3-1b's slot step (q_len 1, its local layers' window) and its
+    verifier at γ 4 (q_len 5: 20 rows, two fragments; its global layers)
+    on the paged tensor-core route: B 8, KH 1, group 4, hd 256, page 8,
+    table width 257, a row of length 0, entries past each row's length on
+    the zero trash page.  The emulated arithmetic over the split plan of
+    the hd-256 occupancy, on the pages the table names, stays within 0.6
+    of the bound, the empty row is zero, and the plain version equals the
+    JAX oracle."""
+    from repro_torch.kernels.decode_attention import (MMA_MAX_ROWS,
+                                                      cluster_plan, row_tile)
+    b, kh, group, hd, page, width = 8, 1, 4, 256, 8, 257
+    rng = np.random.default_rng(q_len * 100 + window)
+    lens = np.array([0] + [1025 + (1024 * i) // 6 for i in range(7)],
+                    np.int32)
+    need = -(-lens // page)
+    table = np.zeros((b, width), np.int32)
+    perm = rng.permutation(int(need.sum())) + 1      # page 0: the trash
+    for r, n0 in enumerate(np.cumsum(need) - need):
+        table[r, :need[r]] = perm[n0:n0 + need[r]]
+    pools = [_rand(rng, 1 + len(perm), page, kh, hd) for _ in range(2)]
+    for pool in pools:
+        pool[0] = 0.0
+    q = _t(_rand(rng, b, q_len, kh * group, hd)).bfloat16()
+    k_pool, v_pool = (_t(x).bfloat16() for x in pools)
+    table_t, lens_t = _t(table), _t(lens)
+    k, v = (tref.gather_pages(x, table_t) for x in (k_pool, v_pool))
+    rows = q_len * group
+    tiles = -(-rows // row_tile(rows, group, MMA_MAX_ROWS))
+    splits, split_len = cluster_plan(b * kh * tiles, width * page,
+                                     H100_HD256_CLUSTERS.get)
+    assert (splits, split_len) == (9, 256)
+    kw = dict(window=window)
+    got = _emulate_mma_decode(q, k, v, lens_t, splits=splits,
+                              split_len=split_len, **kw)
+    assert mma_decode_bound_share(got, q, k, v, lens_t, **kw) <= 0.6
+    assert float(got[0].abs().max()) == 0.0
+    want = tref.paged_multi_decode_attention(q.float(), k_pool.float(),
+                                             v_pool.float(), table_t,
+                                             lens_t, **kw)
+    oracle = jref.paged_multi_decode_attention(
+        *(jnp.asarray(t_.float().numpy()) for t_ in (q, k_pool, v_pool)),
+        jnp.asarray(table), jnp.asarray(lens), **kw)
+    _close(want, oracle)
 
 
 def test_mma_prefill_rounding_at_a_gemma3_chunk():

@@ -22,6 +22,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: pytest's workers share the cores, and torch's
+# default of a thread a core in each worker oversubscribes them
+torch.set_num_threads(1)
 
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402

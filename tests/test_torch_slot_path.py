@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: pytest's workers share the cores, and torch's
+# default of a thread a core in each worker oversubscribes them
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 
