@@ -978,6 +978,9 @@ def kernel_checks(torch):
                                           errors).items():
         report[name].update(rows)
     report.update(scan_kernel_checks(torch, randn, timer, errors))
+    for name, rows in hymba_kernel_checks(torch, randn, timer,
+                                          errors).items():
+        report[name].update(rows)
     report.update(bwd_kernel_checks(torch, randn, timer, errors))
 
     torch.cuda.synchronize()
@@ -2143,7 +2146,8 @@ def gemma3_kernel_checks(torch, randn, timer, errors):
                 lambda: ref.flash_attention(q, k, v, **kw),
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask, enable_gqa=True),
-                nbytes(q, k, v, q), flash_flops(torch, h, hd, s, s, window),
+                nbytes(q, k, v, q),
+                b * flash_flops(torch, h, hd, s, s, window),
                 f"B{b} H{h} KH{kh} Sq=Skv={s} hd{hd} window {window} bf16",
                 library_is="scaled_dot_product_attention (window mask)")
             rows["wgmma"]["tolerance_share"] = share
@@ -2322,6 +2326,175 @@ def gemma3_kernel_checks(torch, randn, timer, errors):
                     bq, kh, qr.shape[2], hd, page, width, q_len,
                     0 if plan is None else plan.shape[1], 0, code)[2]
             out[f"{name}_mma{sfx}"][tag] = rows["mma"]
+    return out
+
+
+#: hymba-1.5b's attention (25/5 heads, hd 64) and Mamba scan (25 heads,
+#: n 16, P 128) shapes, and its local layers' window
+HY_HEADS, HY_KV_HEADS, HY_HD = 25, 5, 64
+HY_SSM = (25, 16, 128)
+HY_WINDOW = 1024
+
+
+def hymba_kernel_checks(torch, randn, timer, errors):
+    """Rows 1, 2, 4 and 7 at hymba-1.5b's shapes (bf16; attention H 25,
+    KH 5, group 5, hd 64; the scan H 25, dk 16, dv 128), each on the route
+    its wrapper's rule names, held at the local layers' window (1024) and
+    the global layers' (none), and where the window binds: (hy prefill)
+    flash at the prefix prefill's bucket 4, B 4 x 1024 tokens, and (hy
+    prefill 1100) B 1 x 1100, where a query past 1024 drops keys (held,
+    not timed); (hy decode) dense decode at B 8, cache_len 1025..2049
+    (held); (hy q1) the slot step's paged decode, B 8, page 8, cache_len
+    1025..2049 (past the window), bf16 pools; (f″ Hymba) the scan at B 1 x
+    S 1024 with q = C and k = B the two halves of one (B, S, H, 2n)
+    buffer, as ``layers.mamba`` hands them over (head stride 2n, C 32
+    bytes past B), carried state.  Rows 1, 4 and 7 are timed at the local
+    window beside the plain version, the bound and the library call (SDPA
+    with the window mask; gather + SDPA; none for the scan).  Returns the
+    report's rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_decode_attention as PDA
+    from repro_torch.kernels import ssm_scan as SS
+    bf16, hd, h, kh = torch.bfloat16, HY_HD, HY_HEADS, HY_KV_HEADS
+    out = {n: {} for n in ("flash_attention_wgmma", "decode_attention_mma",
+                           "paged_decode_attention_mma", "ssm_scan_mma")}
+    log("hymba-1.5b's shapes (H 25, KH 5, hd 64; scan H 25, dk 16, dv 128)")
+    for tag, b, s, timed in (("hy prefill", 4, 1024, True),
+                             ("hy prefill 1100", 1, 1100, False)):
+        q = randn(b, s, h, hd, dtype=bf16)
+        k, v = (randn(b, s, kh, hd, dtype=bf16) for _ in range(2))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        for window in (0, HY_WINDOW):
+            kw = {"window": window}
+            case = f"bf16 {tag} B{b} H{h} KH{kh} S{s} hd{hd} w{window}"
+            if FA.route(bf16, hd) != "wgmma":
+                errors.append(f"flash at hd {hd} bf16 is not on wgmma")
+            err, share = check_wgmma("flash_attention",
+                                     ops.flash_attention(q, k, v, **kw), q,
+                                     k, v, kw, case, errors)
+            if not timed or window != HY_WINDOW:
+                out["flash_attention_wgmma"][f"{tag} w{window}"] = {
+                    "max_abs_err": err}
+                continue
+            mask = ref._attn_mask(s, s, window, True, 0, q.device)
+            rows = timed_rows(
+                timer, {"wgmma": (lambda: FA.flash_attention_cuda(
+                    qt, kt, vt, **kw), err)},
+                lambda: ref.flash_attention(q, k, v, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                nbytes(q, k, v, q),
+                b * flash_flops(torch, h, hd, s, s, window),
+                f"B{b} H{h} KH{kh} Sq=Skv={s} hd{hd} window {window} bf16",
+                library_is="scaled_dot_product_attention (window mask)")
+            rows["wgmma"]["tolerance_share"] = share
+            out["flash_attention_wgmma"][tag] = rows["wgmma"]
+    # (hy decode): dense decode at group 5, held
+    b, s = 8, 2049
+    lens = torch.tensor([1025 + (1024 * i) // (b - 1) for i in range(b)],
+                        dtype=torch.int32, device="cuda")
+    q = randn(b, h, hd, dtype=bf16)
+    k, v = (randn(b, s, kh, hd, dtype=bf16) for _ in range(2))
+    if DA.route(bf16, hd) != "mma":
+        errors.append(f"dense decode at hd {hd} bf16 is not on mma")
+    for window in (HY_WINDOW, 0):
+        kw = {"window": window}
+        err, _ = check_mma_decode(
+            "decode_attention", ops.decode_attention(q, k, v, lens,
+                                                     **kw)[:, None],
+            q[:, None], k, v, lens, kw,
+            f"bf16 hy decode B{b} H{h} KH{kh} S{s} w{window}", errors)
+        out["decode_attention_mma"][f"hy decode w{window}"] = {
+            "max_abs_err": err}
+    # (hy q1): the slot step's paged decode past the window
+    page, width = 8, 257
+    lens_l = [1025 + (1024 * i) // (b - 1) for i in range(b)]
+    q, k_pool, v_pool, table, lens_t, (k_nan, v_nan) = paged_case(
+        torch, randn, b=b, kh=kh, group=h // kh, hd=hd, page=page,
+        width=width, lens=lens_l, q_len=1, dtype=bf16,
+        shared_blocks=1024 // page)
+    if PDA.route(bf16, hd) != "mma":
+        errors.append(f"paged decode at hd {hd} bf16 is not on mma")
+    kd, vd = (ref.gather_pages(p, table) for p in (k_pool, v_pool))
+    qr = ops._chunk_to_rows(q, kh)
+    for window in (0, HY_WINDOW):
+        kw = {"window": window}
+        err, share = check_mma_decode(
+            "paged_decode", ops.paged_decode_attention(
+                q[:, 0], k_nan, v_nan, table, lens_t, **kw)[:, None],
+            q, kd, vd, lens_t, kw,
+            f"bf16 hy q1 B{b} KH{kh} g{h // kh} w{window}", errors)
+    mask = dense_mask(torch, lens_t, 1, width * page, HY_WINDOW)
+    qh = q.transpose(1, 2)
+
+    def library():
+        kg, vg = (ref.gather_pages(p, table).transpose(1, 2)
+                  for p in (k_pool, v_pool))
+        return F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask,
+                                              enable_gqa=True)
+
+    n_bytes, flops = paged_bytes_and_flops(torch, q, k_pool, table, lens_t,
+                                           1, window=HY_WINDOW)
+    pools = (k_nan.transpose(1, 2), v_nan.transpose(1, 2))
+    rows = timed_rows(
+        timer, {"mma": (lambda: PDA.launch_mma(
+            qr, *pools, table, lens_t, window=HY_WINDOW, q_len=1), err)},
+        lambda: ref.paged_multi_decode_attention(
+            q, k_pool, v_pool, table, lens_t, window=HY_WINDOW),
+        library, n_bytes, flops,
+        f"B{b} KH{kh} g{h // kh} q_len1 hd{hd} page{page} P{width} "
+        f"cache_len {lens_l[0]}..{lens_l[-1]} window {HY_WINDOW} bf16",
+        library_is="gather_pages + scaled_dot_product_attention (two "
+                   "calls)")
+    rows["mma"].update(tolerance_share=share, splits=DA.card_cluster_plan(
+        b * kh, width * page, 0, DA.MMA_PAGED, hd, qr.shape[2], 1)[0])
+    out["paged_decode_attention_mma"]["hy q1"] = rows["mma"]
+    # (f″ Hymba): the Mamba scan on the strided halves of bc
+    hs, n, p_dim = HY_SSM
+    b, s = 1, 1024
+    bc = randn(b, s, hs, 2 * n, dtype=bf16)
+    k_s, q_s = bc[..., :n], bc[..., n:]
+    dt = F.softplus(randn(b, s, hs))
+    v_s = (randn(b, s, hs, p_dim) * dt[..., None]).to(bf16)
+    g = -dt
+    st = randn(b, hs, n, p_dim) * 0.5
+    if SS.route(bf16, n) != "mma":
+        errors.append(f"the scan at dk {n} bf16 is not on mma")
+    shape = (f"B{b} S{s} H{hs} dk{n} dv{p_dim} chunk64 bf16, q/k halves of "
+             f"(B, S, H, {2 * n})")
+    before = ops.launches_by_route(ops.launch_counts(), "ssm_scan")
+    got = ops.ssm_scan(q_s, k_s, v_s, g, st)
+    after = ops.launches_by_route(ops.launch_counts(), "ssm_scan")
+    if after["mma"] - before["mma"] != 1:
+        errors.append(f"ssm_scan (f″ Hymba): not one launch on the tensor "
+                      f"cores ({before} -> {after})")
+    err = ssm_check(f"(f″ Hymba) {shape}", got,
+                    ref.ssm_scan(q_s, k_s, v_s, g, st), errors)
+    # the same halves made contiguous: the strided views must agree
+    err = max(err, ssm_check(
+        f"(f″ Hymba) {shape}: strided = packed", got,
+        ops.ssm_scan(q_s.contiguous(), k_s.contiguous(), v_s, g, st),
+        errors))
+    args = [x.transpose(1, 2) for x in (q_s, k_s, v_s, g)] + [st]
+    ms = [timer(lambda: SS.launch_mma(*args), reps=10)]
+    plain = timer(lambda: ref.ssm_scan(q_s, k_s, v_s, g, st), reps=3)
+    ms.append(timer(lambda: SS.launch_mma(*args), reps=10))
+    n_bytes = (nbytes(q_s, k_s, v_s, g, st) + nbytes(v_s) + nbytes(st))
+    b_ms, b_by = bound_ms(n_bytes, ssm_flops(b, hs, s, n, p_dim, 64),
+                          "bfloat16")
+    m = sum(ms) / 2
+    out["ssm_scan_mma"]["f″ Hymba"] = {
+        "max_abs_err": err, "ms": m, "ms_runs": ms, "plain_ms": plain,
+        "library_ms": None, "library_is": "no single library call",
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+        "shape": shape, "route": "mma", "bound_share": b_ms / m,
+        "plan": ssm_plan(b, hs, n, p_dim)}
+    log(f"  ssm_scan (f″ Hymba) {shape}: {m:.4f} ms, plain {plain:.3f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}); plan "
+        f"{out['ssm_scan_mma']['f″ Hymba']['plan']}")
     return out
 
 
@@ -2833,7 +3006,76 @@ def bwd_kernel_checks(torch, randn, timer, errors):
             f", bound {b_ms:.5f} ms")
     out["flash_attention_bwd_wgmma"]["2B train"]["tail"] = bwd_tail(
         torch, randn, errors)
+    out["flash_attention_bwd"].update(bwd_hd256_row(torch, randn, timer,
+                                                    errors))
     return out
+
+
+#: gemma3-1b's training shape for the backward at hd 256: B 4 x S 1025
+#: (phase 17's vqa/cls batch), 4/1 heads, a global layer (no window)
+BWD_G3 = (4, 1025, 4, 1, 256)
+
+
+def bwd_hd256_row(torch, randn, timer, errors):
+    """Row "1 bwd" at hd 256 (gemma3-1b, ``BWD_G3``, bf16): the route
+    ``bwd_route`` names (the CUDA cores, behind a wgmma forward that saves
+    no lse) held against the plain version, then timed in turns with the
+    library's backward (SDPA forward and backward less its forward:
+    kernel, library, kernel) beside the plain version and the bound.
+    Returns {"g3 train": row}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    b, s, h, kh, hd = BWD_G3
+    q, k, v, _, do = bwd_inputs(torch, randn, b, s, s, h, kh, hd,
+                                torch.bfloat16)
+    k, v = k.contiguous(), v.contiguous()
+    tr = [t.transpose(1, 2) for t in (q, k, v)]
+    route = FA.bwd_route(torch.bfloat16, hd)
+    o = FA.flash_attention_cuda(*tr)
+    tr += [o, do.transpose(1, 2)]
+    o = o.transpose(1, 2)
+    shape = f"B{b} H{h} KH{kh} S{s} hd{hd} bf16"
+    got = [t.transpose(1, 2) for t in FA.flash_attention_bwd_cuda(*tr)]
+    err, share = check_grads("flash_attention_bwd", got,
+                             ref.flash_attention_bwd(q, k, v, o, do),
+                             f"bf16 {route} g3 train {shape}", errors)
+    if route != "cuda_cores":
+        errors.append(f"flash_attention_bwd at hd {hd}: route {route}, "
+                      "want cuda_cores")
+    qt, kt, vt = (t.detach().requires_grad_() for t in tr[:3])
+    dot = tr[4]
+
+    def lib_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+
+    def lib_both():
+        with torch.enable_grad():
+            lo = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                enable_gqa=True)
+        torch.autograd.grad(lo, (qt, kt, vt), dot)
+
+    kernel = lambda: FA.flash_attention_bwd_cuda(*tr)  # noqa: E731
+    runs = [timer(kernel, reps=5)]
+    lib = timer(lib_both, reps=5) - timer(lib_fwd, reps=5)
+    runs.append(timer(kernel, reps=5))
+    ms = sum(runs) / len(runs)
+    n_bytes = nbytes(q, k, v, o, do, q, k, v)
+    flops = 2.5 * b * flash_flops(torch, h, hd, s, s)
+    b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+    row = {"plain_ms": timer(lambda: ref.flash_attention_bwd(q, k, v, o, do),
+                             reps=3),
+           "library_ms": lib, "library_is": "SDPA fwd+bwd - fwd",
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+           "flops": flops, "shape": shape, "ms": ms, "ms_runs": runs,
+           "max_abs_err": err, "tolerance_share": share, "route": route,
+           "bound_share": b_ms / ms, "vs_library": ms / lib}
+    log(f"  flash_attention_bwd g3 train {shape}: {route} {ms:.4f} ms "
+        f"({b_ms / ms:.4f} of the bound, {ms / lib:.2f}x SDPA's {lib:.4f} "
+        f"ms), plain {row['plain_ms']:.3f} ms, bound {b_ms:.5f} ms")
+    return {"g3 train": row}
 
 
 BWD_KERNELS = ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dkdv_sum_kernel",
@@ -3781,10 +4023,31 @@ def recurrent_cfg(name, **over):
     return configs.reduced_config(configs.get_config("xlstm-125m"), **over)
 
 
+#: phase 3's hybrid tier: the reduced hymba-1.5b (d 64, 4/2 heads, hd 16,
+#: Mamba n 16, P 32, f32) cut to a global and a local hybrid layer, the
+#: window cut to 8 so that it binds inside the 16-region scene prefix
+SMALL_HYBRID_WINDOWS = (0, 8)
+
+
+def hybrid_cfg(**over):
+    """The reduced hymba-1.5b with the vision frontend, one hybrid layer a
+    window of ``SMALL_HYBRID_WINDOWS``, and ``over``."""
+    from repro_torch import configs
+    from repro_torch.configs.base import HYBRID, BlockSpec
+    pattern = tuple(BlockSpec(kind=HYBRID, window=w)
+                    for w in SMALL_HYBRID_WINDOWS)
+    over = dict(dict(num_layers=len(pattern), block_pattern=pattern,
+                     frontend="vision"), **over)
+    return configs.reduced_config(configs.get_config("hymba-1.5b"), **over)
+
+
 def small_recurrent_path(torch):
-    """The engine's recurrent-state admission on the small tiers (f32, so
-    the scans take their CUDA-core and per-row routes, the mixed stack's
-    attention its CUDA-core routes): ``InferenceEngine.serve`` of a
+    """The engine's recurrent-state admission on the small tiers (the
+    ``SMALL_RECURRENT`` xLSTM stacks and ``hybrid_cfg``'s two Hymba
+    layers; f32, so the scans take their CUDA-core and per-row routes,
+    attention its CUDA-core routes; the hybrid tier's pools hold its
+    attention halves' KV beside its Mamba states, int8 too):
+    ``InferenceEngine.serve`` of a
     det/vqa/cls stream over three scenes on 3 slots, on the paged,
     int8-pool and dense engines and the vmap oracle, on the card (warmed
     up, captured) and on the CPU from the same weights: the same tokens
@@ -3796,8 +4059,9 @@ def small_recurrent_path(torch):
     ac = EO.EOAdapterConfig()
     reqs = scene_stream(["det", "vqa", "cls", "vqa"], 3, ac.image_size,
                         ac.grid, seed=80)
-    for name in SMALL_RECURRENT:
-        cfg = recurrent_cfg(name)
+    tiers = {name: recurrent_cfg(name) for name in SMALL_RECURRENT}
+    tiers["hymba"] = hybrid_cfg()
+    for name, cfg in tiers.items():
         params = EO.init_adapter(cfg, ac, 11, device="cpu")
         on = {"cpu": params,
               "cuda": tree_map(lambda t: t.to("cuda"), params)}
@@ -4064,7 +4328,10 @@ class StepProbe:
     fetch, so the clock covers the device work), notes per step whether it
     was a fused (chunked-prefill) step and how many slots were decoding
     before it, stamps the host time at which each request received tokens,
-    and profiles steps [``first``, ``first + n``) with ``torch.profiler``."""
+    and profiles steps [``first``, ``first + n``) with ``torch.profiler``,
+    the device's activity alone: recording every host op too slowed the
+    profiled steps and made the summary of an eager run's 8 steps take
+    8-52 s (phase 14 (b)'s eager 7B: 51.8 s), ~190 s of a smoke run."""
 
     def __init__(self, torch, core, first: int = 64, n: int = 8):
         from torch.profiler import ProfilerActivity, profile
@@ -4072,8 +4339,7 @@ class StepProbe:
         self.admissions, self.step_s = 0, []
         self.fused, self.decoding, self.emitted = [], [], {}
         self.first, self.n = first, n
-        self.prof = profile(activities=[ProfilerActivity.CPU,
-                                        ProfilerActivity.CUDA])
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
         self.window_s = 0.0
         step, admit = core.step, core.admit_many
 
@@ -4126,11 +4392,32 @@ class StepProbe:
         return 1e3 * max(gaps) if gaps else None
 
     def profile(self):
-        """``profile_summary`` of the profiled steps; None when fewer steps
+        """``device_summary`` of the profiled steps; None when fewer steps
         ran."""
         if len(self.step_s) < self.first + self.n:
             return None
-        return profile_summary(self.torch, self.prof, self.n, self.window_s)
+        return device_summary(self.torch, self.prof, self.n, self.window_s)
+
+
+def device_summary(torch, prof, n_steps: int, seconds: float, k: int = 6):
+    """``profile_summary``'s device numbers (the busy share, device ms a
+    step, the ``k`` device operations with the most device time) from a
+    profile of the device's activity alone, summed over its raw events:
+    building the profiler's Python event tree (``key_averages``) took
+    3-15 s for 8 eager steps of a full-width model."""
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != torch.autograd.DeviceType.CUDA
+                or e.is_user_annotation()):
+            continue
+        n, ns = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (n + 1, ns + e.duration_ns())
+    total_ms = sum(ns for _, ns in by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:k]
+    return {"device_busy_share": total_ms / 1e3 / seconds,
+            "device_ms_per_step": total_ms / n_steps,
+            "top_device_ops": [[name[:90], n, ns / 1e6 / n_steps]
+                               for name, (n, ns) in top]}
 
 
 def profile_summary(torch, prof, n_steps: int, seconds: float, k: int = 6):
@@ -5555,7 +5842,7 @@ def stream_steps(core, reqs, steps=None):
 
 
 def eager_and_captured(torch, tag, make, reqs, steps=None, first=16,
-                       inspect=None, keep=()):
+                       inspect=None, keep=(), keep_by=()):
     """The same requests through two engines from ``make(cuda_graphs)``:
     eager steps, then captured ones.  Each is warmed up, its counts zeroed
     just before its run and read just after; steps [first, first + 8) are
@@ -5566,7 +5853,8 @@ def eager_and_captured(torch, tag, make, reqs, steps=None, first=16,
     run keeps the inputs of the ``ops`` functions ``keep`` at every (step
     family, operand shapes) it meets (``capture_inputs(by_family=True)``)
     under "kept": the clones are made the first time each is met, in the
-    admissions and first steps, before the profiled window."""
+    admissions and first steps, before the profiled window; ``keep_by``
+    names keyword arguments whose values join that key (``kw_keys``)."""
     from repro_torch.kernels import ops
     out = {}
     for mode, graphs in (("eager", False), ("captured", True)):
@@ -5583,20 +5871,22 @@ def eager_and_captured(torch, tag, make, reqs, steps=None, first=16,
             (toks, admissions), kept = capture_inputs(
                 torch, lambda: stream_steps(core, clone_requests(reqs),
                                             steps), list(keep),
-                by_family=True)
+                by_family=True, kw_keys=keep_by)
         else:
             toks, admissions = stream_steps(core, clone_requests(reqs),
                                             steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
+        t0 = time.perf_counter()
         prof = probe.profile()
+        profile_s = time.perf_counter() - t0
         gst = core.graph_stats()
         n_steps = len(probe.step_s)
         out[mode] = {
             "tokens": toks, "launches": counts, "steps": n_steps,
             "admission_calls": admissions, "wall_s": wall,
-            "warmup_s": warm_s,
+            "warmup_s": warm_s, "profile_s": profile_s,
             "step_ms_mean": 1e3 * sum(probe.step_s) / max(n_steps, 1),
             "step_ms_median": 1e3 * sorted(probe.step_s)[n_steps // 2],
             "device_busy_share": prof and prof["device_busy_share"],
@@ -5617,7 +5907,7 @@ def eager_and_captured(torch, tag, make, reqs, steps=None, first=16,
             f"busy {r['device_busy_share']}, {r['graphs']} graphs "
             f"({r['pool_bytes']} pool bytes), {r['replays']} replays, "
             f"{r['steady_recompiles']} captures after warmup, warmup "
-            f"{warm_s:.2f} s")
+            f"{warm_s:.2f} s, profile summary {profile_s:.2f} s")
         # an engine sits in reference cycles (its wrapped methods): free
         # its pools and graphs before the next engine allocates its own
         del core
@@ -6299,7 +6589,8 @@ def xlstm_continuation(torch, T, params, cfg, toks, n_steps):
     return out
 
 
-def capture_inputs(torch, fn, names, when=None, by_family=False):
+def capture_inputs(torch, fn, names, when=None, by_family=False,
+                   kw_keys=()):
     """Runs ``fn()`` with the ``ops`` functions ``names`` wrapped so that
     the first call of each at each set of operand shapes keeps a copy of
     its arguments (the first layer's inputs at that shape on the path),
@@ -6313,7 +6604,9 @@ def capture_inputs(torch, fn, names, when=None, by_family=False):
     operand shapes), the family being the ``StepGraphs.run`` step it came
     from (None outside one), and the kept calls come back as {name:
     {(family, shapes): (args, kwargs)}}: meant for an engine that runs
-    every step eagerly, so that every step of the run is seen."""
+    every step eagerly, so that every step of the run is seen.  The
+    keyword arguments ``kw_keys`` (such as "window") join the key: a call
+    is kept at each of their values too, whose value ends the key."""
     from repro_torch.kernels import ops
     from repro_torch.serving import graphs
     saved = {n: getattr(ops, n) for n in names}
@@ -6346,6 +6639,8 @@ def capture_inputs(torch, fn, names, when=None, by_family=False):
             key = shapes(args) if when is None or when() else None
             if key is not None and by_family:
                 key = (family[0], key)
+            if key is not None and kw_keys:
+                key = key + (tuple(kw.get(k) for k in kw_keys),)
             if key is not None and key not in got[name]:
                 got[name][key] = (copy(args),
                                   {k: copy(v) for k, v in kw.items()})
@@ -7140,6 +7435,289 @@ def dense_serve_phase(torch, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: hymba-1.5b (attention ‖ Mamba) on the slot path at full width
+# ---------------------------------------------------------------------------
+
+#: what each eager run of phase 18 keeps, by (step family, shapes, window)
+HYMBA_KEEP = ("flash_attention", "paged_decode_attention", "ssm_scan")
+#: (b): ``EngineCore.generate``'s adapter: N_r + 1 = 1025 tokens at the full
+#: grid is no multiple of the scan's 64-token chunk, which both packages'
+#: ``ssm_scan`` require (the JAX package asserts it), so the batch path
+#: runs a 7 x 7 grid of the same 16-pixel regions (the same weights): a
+#: 50-token prefill, one chunk
+HYMBA_GEN_GRID = 7
+HYMBA_GEN_TASKS = ("vqa", "cls", "det")
+
+
+def hymba_launch_check(counts, want):
+    """Whether a run's launches are ``want`` ({kernel: count}) with every
+    flash launch on wgmma, every decode and scan launch on mma, and no
+    other kernel.  Returns (ok, what to log)."""
+    from repro_torch.kernels import ops
+    second = {k: ops.ROUTES[k][0] for k in want}
+    got = {k: counts[k] for k in want}
+    on = {k: counts[second[k]] for k in want}
+    rest = {k: v for k, v in counts.items()
+            if v and k not in set(want) | set(second.values())}
+    ok = got == want and on == want and not rest
+    return ok, (f"launches {got} want {want}, on the tensor cores {on}, "
+                f"other kernels {rest}")
+
+
+def hold_scan(args, kw, case, errors):
+    """A kept ``ssm_scan`` call (q = C, k = B: clones, so packed) against
+    its plain version, on the layout the path hands the kernel: C and B
+    put back as the two halves of one (B, S, H, 2n) buffer."""
+    from repro_torch.kernels import ops, ref
+    import torch
+    q, k, *rest = args
+    n = q.shape[-1]
+    bc = torch.cat([k, q], dim=-1)
+    q, k = bc[..., n:], bc[..., :n]
+    return ssm_check(case, ops.ssm_scan(q, k, *rest, **kw),
+                     ref.ssm_scan(q, k, *rest, **kw), errors)
+
+
+def hymba_serve_phase(torch, smi):
+    """Phase 18: hymba-1.5b at full width and depth (32 hybrid layers:
+    attention ‖ Mamba; d 1600, 25/5 heads, hd 64, window 1024 on 30 of
+    them, Mamba n 16, P 128; bf16, random weights from a seed; the vision
+    frontend, N_r = 1024): (a) phase 6's stream (24 requests over 4
+    scenes) on ``EngineCore``'s paged slot path, 8 slots, page 8, to the
+    end, through an eager engine and a captured one
+    (``eager_and_captured``); (b) ``EngineCore.generate`` (the batch path:
+    flash, dense decode, the scan) on ``HYMBA_GEN_TASKS`` at
+    ``HYMBA_GEN_GRID``.  Checks: tokens and launch counts equal eager and
+    captured, nothing captured after warmup, every request answered in
+    full in the answer vocab; flash = 32 x prefix prefills on wgmma,
+    ssm_scan = 32 x prefix prefills on mma, paged decode = 32 x (steps +
+    admission calls) on mma, no other kernel; generate: flash and the scan
+    32 x a request, dense decode 32 x its answer tokens, all on the
+    tensor cores; every kept input (each step family, shape and window of
+    the eager run; the scan's on C and B as halves of one buffer, as the
+    path lays them) held against the plain version (``hold_attention``,
+    ``hold_scan``).  Prints step ms (host clock), device ms a step and the
+    busy share (8 profiled steps), the slot step's bound (weights, the
+    Mamba states read and written, 8 rows' KV at N_r + 1 tokens read
+    once), answer tokens/s, replay ms of each prefix-prefill bucket, the
+    admission and the slot step, pool bytes, state bytes per slot and per
+    resident prefix and peak memory, beside the card's name and power
+    limit.  Line ``hymba_serve_phase {...}``."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core import eo_adapter as EO
+    from repro_torch.core.cascade import TierModel
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineCore, EngineCoreConfig
+    from repro_torch.serving.kv_pool import TRASH_PAGE
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(configs.get_config("hymba-1.5b"),
+                              frontend="vision")
+    n_l, hd = cfg.num_layers, cfg.resolved_head_dim
+    ac = EO.EOAdapterConfig(grid=FULL_GRID, image_size=FULL_IMAGE)
+    av = ac.num_classes + 1
+    t0 = time.perf_counter()
+    tier = TierModel(EO.init_adapter(cfg, ac, 18, device="cuda"), cfg)
+    torch.cuda.synchronize()
+    weight_bytes = nbytes(*tree_leaves(tier.params))
+    # a step's K+V of one token in every layer
+    kv_token = n_l * 2 * cfg.num_kv_heads * hd * 2
+    log(f"  init {cfg.name} (vision frontend, N_r {ac.n_regions}): "
+        f"{weight_bytes / 1e9:.3f} GB of weights, "
+        f"{time.perf_counter() - t0:.1f} s; card: {smi}")
+    prefix_calls = {}
+
+    def make_core(graphs):
+        core = EngineCore(tier, ac, EngineCoreConfig(
+            slots=8, page_size=8, answer_vocab=av, cuda_graphs=graphs))
+        calls, prefill = [], core._prefill_prefixes
+        prefix_calls[graphs] = calls
+
+        def counted(miss):
+            calls.append(len(miss))
+            prefill(miss)
+
+        core._prefill_prefixes = counted
+        return core
+
+    @torch.inference_mode()
+    def inspect(mode, core):
+        entry = next(iter(core._prefix._entries.values()))
+        state = nbytes(*core._state_leaves)
+        out = {"prefix_prefill_calls": len(prefix_calls[mode == "captured"]),
+               "kv_bytes_total": core.kv_stats()["kv_bytes_total"],
+               "n_pages": core._n_pages,
+               "state_bytes_per_slot": state / core.cfg.slots,
+               "state_bytes_per_prefix": nbytes(*(
+                   t["mamba"]["state"] for t in entry.state)),
+               "slot_step_bound_ms": 1e3 * (
+                   weight_bytes + 2 * state
+                   + core.cfg.slots * (ac.n_regions + 1) * kv_token)
+               / HBM_BYTES_PER_S}
+        if mode != "captured":
+            return out
+        # device ms of each captured step, replayed on inert inputs: the
+        # prefix buckets write the trash page, no row is admitted, the
+        # drained table steps no active row
+        fam = core._graphs.families
+        core._sync_tables()
+        for b in core._buckets.values():
+            b["pages"].dev.fill_(TRASH_PAGE)
+        core._admit_in.dev.zero_()
+        out["replay_ms"] = {
+            "prefix_prefill": {kp: replay_ms(torch, g) for kp, (g, _) in
+                               sorted(fam["prefix_prefill"].graphs.items())},
+            "paged_admit": replay_ms(torch,
+                                     fam["paged_admit"].graphs[None][0]),
+            "slot_step": replay_ms(torch, fam["slot_step"].graphs[None][0])}
+        return out
+
+    stream = scene_stream(["det", "cls", "vqa", "vqa", "vqa", "vqa"], 4,
+                          FULL_IMAGE, FULL_GRID, seed=300)
+    r = eager_and_captured(torch, "(18a) hymba-1.5b 8 slots", make_core,
+                           stream, inspect=inspect, keep=HYMBA_KEEP,
+                           keep_by=("window",))
+    checks, errors, held, launches = dict(r.pop("checks")), [], {}, {}
+    kept = r["eager"].pop("kept")
+    seen = {}
+    for op, d in kept.items():
+        for (fam, shapes, (window,)), (args, kwargs) in d.items():
+            case = (f"phase 18 {fam} {op} B{shapes[0][0]} "
+                    f"S{shapes[0][1] if len(shapes[0]) == 4 else 1} "
+                    f"w{window}")
+            seen.setdefault(op, set()).add((fam, window))
+            if op == "ssm_scan":
+                row, err = "ssm_scan_mma", hold_scan(args, kwargs, case,
+                                                     errors)
+            else:
+                row, err = hold_attention(op, args, kwargs, case, errors)
+            held.setdefault(row, {})[case] = {"max_abs_err": err}
+    kept = None
+    log(f"  (18a) eager: inputs held at {seen}")
+    windows = {0, HY_WINDOW}
+    checks["(18a) eager: flash and the scan held at every prefix prefill "
+           "bucket (both windows for flash), paged decode at the admission "
+           "and the slot step at both windows"] = (
+        {w for f, w in seen.get("flash_attention", ())
+         if f == "prefix_prefill"} == windows
+        and {f for f, _ in seen.get("ssm_scan", ())} == {"prefix_prefill"}
+        and {(f, w) for f, w in seen.get("paged_decode_attention", ())}
+        == {(f, w) for f in ("paged_admit", "slot_step") for w in windows})
+    for mode in ("eager", "captured"):
+        m = r[mode]
+        c = m.pop("launches")
+        launches[f"hymba_serve_a_{mode}"] = c
+        n_pre = m["prefix_prefill_calls"]
+        ok, what = hymba_launch_check(c, {
+            "flash_attention": n_l * n_pre, "ssm_scan": n_l * n_pre,
+            "paged_decode_attention": n_l * (m["steps"]
+                                             + m["admission_calls"])})
+        log(f"  (18a) {mode}: {what}")
+        checks[f"(18a) {mode}: flash and ssm_scan = {n_l} x prefix "
+               f"prefills, paged decode = {n_l} x (steps + admissions), "
+               "all on the tensor cores, no other kernel"] = ok and n_pre > 0
+        toks = m.pop("tokens")
+        checks[f"(18a) {mode}: every request answered in full in the "
+               "answer vocab"] = (
+            all(len(t) == ac.answer_len(q.task)
+                for q, t in zip(stream, toks))
+            and all(0 <= x < av for t in toks for x in t))
+        m["answer_tokens"] = sum(map(len, toks))
+        m["answer_tokens_per_s"] = m["answer_tokens"] / m["wall_s"]
+        log(f"  hymba-1.5b (18a) {mode}: step {m['step_ms_mean']:.3f} ms "
+            f"mean {m['step_ms_median']:.3f} median (host clock), device "
+            f"{m['device_ms_per_step']} ms a step, busy "
+            f"{m['device_busy_share']}, slot step bound "
+            f"{m['slot_step_bound_ms']:.3f} ms, {m['answer_tokens']} answer "
+            f"tokens at {m['answer_tokens_per_s']:.1f}/s, "
+            f"{m['prefix_prefill_calls']} prefix prefills, pool "
+            f"{m['kv_bytes_total'] / 1e9:.3f} GB ({m['n_pages']} pages), "
+            f"graph pool {m['pool_bytes'] / 1e9:.3f} GB, state "
+            f"{m['state_bytes_per_slot'] / 1e6:.3f} MB a slot and "
+            f"{m['state_bytes_per_prefix'] / 1e6:.3f} MB a resident prefix"
+            + (f"; replays (device ms): {m['replay_ms']}"
+               if "replay_ms" in m else "") + f" [{smi}]")
+
+    # (b) the batch path at a grid whose prefill the scan's chunk divides
+    gen_ac = EO.EOAdapterConfig(grid=HYMBA_GEN_GRID,
+                                image_size=16 * HYMBA_GEN_GRID)
+    assert gen_ac.patch_dim == ac.patch_dim
+    reqs = scene_stream(list(HYMBA_GEN_TASKS), 1, gen_ac.image_size,
+                        gen_ac.grid, seed=318)
+    core = EngineCore(tier, gen_ac, EngineCoreConfig(
+        slots=1, answer_vocab=av, cache_impl="dense"))
+    gen = {"tasks": list(HYMBA_GEN_TASKS), "tokens": []}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+
+    def run_generate():
+        for req in reqs:
+            image = torch.from_numpy(req.image[None]).cuda()
+            prompt = torch.tensor([req.prompt], dtype=torch.int32,
+                                  device="cuda")
+            toks, _ = core.generate(req.task, image, prompt, av)
+            gen["tokens"].append(toks[0].tolist())
+
+    _, kept = capture_inputs(torch, run_generate, list(
+        ("flash_attention", "decode_attention", "ssm_scan")),
+        kw_keys=("window",))
+    torch.cuda.synchronize()
+    gen["seconds"] = time.perf_counter() - t0
+    c = ops.launch_counts()
+    launches["hymba_generate"] = c
+    n_ans = sum(gen_ac.answer_len(t) for t in HYMBA_GEN_TASKS)
+    ok, what = hymba_launch_check(c, {
+        "flash_attention": n_l * len(reqs), "ssm_scan": n_l * len(reqs),
+        "decode_attention": n_l * n_ans})
+    log(f"  (18b) generate: {what}")
+    checks[f"(18b) generate: flash and the scan {n_l} x a request, dense "
+           f"decode {n_l} x its answer tokens, on the tensor cores"] = ok
+    checks["(18b) generate: every answer in full in the answer vocab"] = (
+        [len(t) for t in gen["tokens"]]
+        == [gen_ac.answer_len(t) for t in HYMBA_GEN_TASKS]
+        and all(0 <= x < av for t in gen["tokens"] for x in t))
+    for op, calls in kept.items():
+        for i, (args, kwargs) in enumerate(calls):
+            case = (f"phase 18 generate {op} {i} B{args[0].shape[0]} "
+                    f"w{kwargs.get('window')}")
+            if op == "ssm_scan":
+                row, err = "ssm_scan_mma", hold_scan(args, kwargs, case,
+                                                     errors)
+            else:
+                row, err = hold_attention(op, args, kwargs, case, errors)
+            held.setdefault(row, {})[case] = {"max_abs_err": err}
+    checks["(18b) generate: flash and dense decode held at both windows, "
+           "the scan at its prefill"] = (
+        {kw.get("window") for _, kw in kept["flash_attention"]}
+        == {0, HY_WINDOW}
+        and {kw.get("window") for _, kw in kept["decode_attention"]}
+        == {0, HY_WINDOW} and len(kept["ssm_scan"]) >= 1)
+    kept = None
+    checks["the path's kernel inputs within their tolerances"] = (
+        not errors and bool(held))
+    del core
+    res = {"card": smi, "weight_bytes": weight_bytes, "a_slot8": r,
+           "b_generate": gen,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_phase}
+    log(f"  hymba-1.5b: peak {res['max_memory_allocated'] / 1e9:.2f} GB "
+        f"allocated, phase {res['seconds']:.1f} s [{smi}]")
+    log("hymba_serve_phase " + json.dumps(res, default=str))
+    log(f"  phase 18 checks: {checks}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad or errors:
+        raise RuntimeError(f"phase 18 failed: {bad} {errors}")
+    del tier
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"held": held, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 17: training (the 2B at full width, the proxies' build_system)
 # ---------------------------------------------------------------------------
 
@@ -7624,6 +8202,13 @@ def main() -> int:
     train = train_phase(torch, smi)
     for name, cases in train.pop("held").items():
         kernels[name].update(cases)
+    torch.cuda.empty_cache()
+
+    phase("phase 18: hymba-1.5b (attention ‖ Mamba) on the slot path at "
+          "full width, eager and captured, and the batch path")
+    hymba = hymba_serve_phase(torch, smi)
+    for name, cases in hymba.pop("held").items():
+        kernels[name].update(cases)
 
     # each path drove the kernels with the counts zeroed just before it
     by_path = {"small_proxies_f32": small_counts,
@@ -7638,7 +8223,7 @@ def main() -> int:
                **sharded["launches"], **graphs["launches"],
                **{f"xlstm {tag}": c for tag, c in xlstm["launches"].items()},
                **xlstm_serve["launches"], **dense["launches"],
-               **train["launches"]}
+               **train["launches"], **hymba["launches"]}
     for tag, r in xlstm.items():
         for name, cases in r.get("kernel_vs_plain_max_abs_err", {}).items():
             kernels[name].update({c: {"max_abs_err": e}

@@ -5,13 +5,14 @@ Qwen2-VL's M-RoPE sections, GQA attention backed by the flash, decode and
 paged-decode and paged prefix-append kernels (modes ``"train"``, no cache,
 differentiable through the flash backward; ``"prefill"``, ``"decode"``,
 ``"verify"`` and ``"prefill_append"``, over a dense cache or a page pool
-through a block table), the SwiGLU MLP, and the xLSTM mixers: mLSTM (the
-chunked scan kernel in prefill, the O(1) update in decode) and sLSTM (the
-recurrence kernel in both), modes ``"prefill"`` and ``"decode"`` (their
-``"train"`` mode waits for the scans' backward and raises).  Page pools
-may be int8 or fp8 (e4m3) with per-(page, slot, head) scales
-(``kernels/kv_quant.py``).  MoE, Mamba and Hymba are not
-ported yet and raise.  Attention's output projection and the MLP's down
+through a block table), the SwiGLU MLP, the recurrent mixers: mLSTM and
+Mamba-2's SSD (the chunked scan kernel in prefill, the O(1) update in
+decode) and sLSTM (the recurrence kernel in both), and Hymba's hybrid
+mixer (attention and Mamba side by side on the same input), modes
+``"prefill"`` and ``"decode"`` (the scans' ``"train"`` mode waits for
+their backward and raises).  Page pools may be int8 or fp8 (e4m3) with
+per-(page, slot, head) scales (``kernels/kv_quant.py``).  MoE is not
+ported yet and raises.  Attention's output projection and the MLP's down
 projection end in the tensor-parallel all-reduce hooks
 (``distributed.collectives``), identity outside a serving ``tp_context``.
 
@@ -355,6 +356,131 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     # when the hidden dim is split
     return collectives.tp_mlp_all_reduce(
         (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"])
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2-style SSD mixer (selective gated linear attention)
+# ---------------------------------------------------------------------------
+
+def _ssm_state_dim(cfg: ArchConfig) -> int:
+    """The state's key width n: ``ssm_state``, at least 16."""
+    return max(cfg.ssm_state, 16)
+
+
+def init_mamba(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    h = cfg.resolved_ssm_heads
+    n = _ssm_state_dim(cfg)
+    dt = getattr(torch, cfg.dtype)
+    f32 = torch.float32
+    return {
+        "w_in": dense_init(gen, d, (d, 2 * d_in), dt, device),
+        "w_bc": dense_init(gen, d, (d, 2 * h * n), dt, device),
+        "w_dt": dense_init(gen, d, (d, h), dt, device),
+        "dt_bias": torch.zeros((h,), dtype=f32, device=device),
+        "a_log": torch.zeros((h,), dtype=f32, device=device),
+        "w_out": dense_init(gen, d_in, (d_in, d), dt, device),
+        "d_skip": torch.zeros((h,), dtype=f32, device=device),
+    }
+
+
+def init_mamba_cache(cfg: ArchConfig, batch: int, device) -> Params:
+    """The (B, H, n, P) f32 state: n = max(ssm_state, 16) keys (B and C's
+    width), P = ssm_expand · d / H values a head."""
+    h = cfg.resolved_ssm_heads
+    p_dim = cfg.ssm_expand * cfg.d_model // h
+    return {"state": torch.zeros((batch, h, _ssm_state_dim(cfg), p_dim),
+                                 dtype=torch.float32, device=device)}
+
+
+def mamba(p: Params, x: torch.Tensor, *, cfg: ArchConfig,
+          cache: Optional[Params] = None, mode: str = "prefill"
+          ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """``"prefill"``: the chunked scan over the sequence from the cache's
+    state (no cache: zeros), q = C and k = B, the two halves of each
+    head's 2n columns of ``x @ w_bc`` (strided views, no copy).
+    ``"decode"``: S == 1, the O(1) state update.  The final state is copied
+    into ``cache["state"]`` in place.  The casts follow the JAX package
+    step by step: dt and the log decay in f32, v = x_in · dt and the D
+    skip in the compute dtype, and so the gate o · silu(z)."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(
+            f"mamba mode {mode!r} is not ported (train mode waits for the "
+            "scans' backward, ROADMAP.md queue 1 item 19)")
+    b, s, d = x.shape
+    h = cfg.resolved_ssm_heads
+    n = _ssm_state_dim(cfg)
+    d_in = cfg.ssm_expand * d
+    p_dim = d_in // h
+
+    xz = x @ p["w_in"]
+    x_in, z = xz[..., :d_in], xz[..., d_in:]
+    bc = (x @ p["w_bc"]).reshape(b, s, h, 2 * n)
+    b_mat, c_mat = bc[..., :n], bc[..., n:]
+    dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"])      # (B,S,H)
+    log_g = -dt * torch.exp(p["a_log"])                          # <= 0
+    v = x_in.reshape(b, s, h, p_dim) * dt[..., None].to(x.dtype)
+
+    state = cache["state"] if cache is not None else None
+    if mode == "decode":
+        if s != 1:
+            raise ValueError("decode takes one token per row")
+        o, new_state = ops.ssm_decode_step(
+            c_mat[:, 0], b_mat[:, 0], v[:, 0], log_g[:, 0], state)
+        o = o[:, None]
+    else:
+        o, new_state = ops.ssm_scan(c_mat, b_mat, v, log_g, state)
+    o = o + v * p["d_skip"][:, None].to(x.dtype)                 # D skip
+    o = o.reshape(b, s, d_in) * F.silu(z)
+    if cache is not None:
+        cache["state"].copy_(new_state)
+    return o @ p["w_out"], cache
+
+
+# ---------------------------------------------------------------------------
+# Hymba hybrid mixer: attention ‖ mamba, per-branch normalised mean
+# ---------------------------------------------------------------------------
+
+def init_hybrid(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
+    dt = getattr(torch, cfg.dtype)
+    return {
+        "attn": init_attention(gen, cfg, device),
+        "mamba": init_mamba(gen, cfg, device),
+        "norm_a": torch.zeros((cfg.d_model,), dtype=dt, device=device),
+        "norm_m": torch.zeros((cfg.d_model,), dtype=dt, device=device),
+    }
+
+
+def init_hybrid_cache(cfg: ArchConfig, batch: int, attn: Params,
+                      device) -> Params:
+    """The attention branch's cache ``attn`` (dense KV from
+    ``init_attn_cache`` or page pools from ``init_paged_attn_cache``)
+    beside the Mamba state."""
+    return {"attn": attn, "mamba": init_mamba_cache(cfg, batch, device)}
+
+
+def hybrid(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
+           cos: torch.Tensor, sin: torch.Tensor,
+           cache: Optional[Params] = None, mode: str = "prefill",
+           **attention_args) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Attention (``cache["attn"]``: dense KV or page pools, written in
+    place; ``attention_args``: ``cache_index``, ``block_table`` and the
+    rest of ``attention``'s) and Mamba (``cache["mamba"]``) on the same
+    input, fused as 0.5 · (rms_norm(a, norm_a) + rms_norm(m, norm_m)).
+    Modes ``"prefill"`` and ``"decode"``, as ``mamba``."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(
+            f"hybrid mode {mode!r} is not ported (train mode waits for the "
+            "scans' backward, ROADMAP.md queue 1 item 19)")
+    a_out, _ = attention(p["attn"], x, cfg=cfg, window=window, cos=cos,
+                         sin=sin, cache=None if cache is None
+                         else cache["attn"], mode=mode, **attention_args)
+    m_out, _ = mamba(p["mamba"], x, cfg=cfg, cache=None if cache is None
+                     else cache["mamba"], mode=mode)
+    out = 0.5 * (rms_norm(a_out, p["norm_a"], cfg.norm_eps)
+                 + rms_norm(m_out, p["norm_m"], cfg.norm_eps))
+    return out, cache
 
 
 # ---------------------------------------------------------------------------

@@ -14,12 +14,14 @@ block-granular remat through ``torch.utils.checkpoint``) and
 filling a dense KV cache), ``decode_step`` (one token per row, dense or
 through a block table over page pools), ``verify_step`` (a γ+1-token
 speculative chunk) and ``prefill_chunk_step`` (the chunked prefill's
-ragged fused step).  Block kinds ported: attention (``ATTN``, dense FFN)
-and the xLSTM mixers (``MLSTM``, ``SLSTM``, no FFN), whose recurrent
-states ride the cache and are written back in place; their stacks run
+ragged fused step).  Block kinds ported: attention (``ATTN``, dense FFN),
+the xLSTM mixers (``MLSTM``, ``SLSTM``, no FFN), Mamba (``MAMBA``, dense
+FFN) and Hymba's hybrid (``HYBRID``: attention ‖ Mamba, dense FFN), whose
+recurrent states ride the cache and are written back in place (a hybrid
+layer's cache is ``{"attn": KV, "mamba": {"state"}}``); their stacks run
 ``prefill`` and ``decode_step`` only (verify and prefill-append need
 attention blocks, as in the JAX package; their training mode waits for
-the scans' backward).  MoE, Mamba and Hymba blocks raise.
+the scans' backward).  MoE blocks raise.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import ATTN, MLSTM, SLSTM, ArchConfig, BlockSpec
+from repro_torch.configs.base import (ATTN, HYBRID, MAMBA, MLSTM, SLSTM,
+                                      ArchConfig, BlockSpec)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import frontends
 from repro_torch.models import layers as L
@@ -44,10 +47,10 @@ Params = Dict[str, Any]
 
 class _Mixer(NamedTuple):
     """What a block kind runs: ``init(gen, cfg, device)`` its weights,
-    ``cache(cfg, batch, kv)`` one layer's cache as meta tensors (``kv()``
-    is the attention KV of the dense or paged cache), ``apply(p, h, cfg=,
-    spec=, cache=, mode=, **attention_args)`` the mixer, and whether an
-    FFN follows it."""
+    ``cache(cfg, batch, kv)`` one layer's cache tree as meta tensors
+    (``kv()`` is the attention KV of the dense or paged cache),
+    ``apply(p, h, cfg=, spec=, cache=, mode=, **attention_args)`` the
+    mixer, and whether an FFN follows it."""
     init: Callable
     cache: Callable
     apply: Callable
@@ -65,17 +68,28 @@ def _apply_recurrent(mixer):
     return apply
 
 
+def _apply_hybrid(p, h, *, cfg, spec, cache, mode, **kw):
+    return L.hybrid(p, h, cfg=cfg, window=spec.window, cache=cache,
+                    mode=mode, **kw)[0]
+
+
+def _state_cache(init_cache):
+    return lambda cfg, batch, kv: init_cache(cfg, batch, "meta")
+
+
 _MIXERS = {
     ATTN: _Mixer(L.init_attention, lambda cfg, batch, kv: kv(),
                  _apply_attention, True),
-    MLSTM: _Mixer(L.init_mlstm,
-                  lambda cfg, batch, kv: L.init_mlstm_cache(cfg, batch,
-                                                            "meta"),
+    MLSTM: _Mixer(L.init_mlstm, _state_cache(L.init_mlstm_cache),
                   _apply_recurrent(L.mlstm), False),
-    SLSTM: _Mixer(L.init_slstm,
-                  lambda cfg, batch, kv: L.init_slstm_cache(cfg, batch,
-                                                            "meta"),
+    SLSTM: _Mixer(L.init_slstm, _state_cache(L.init_slstm_cache),
                   _apply_recurrent(L.slstm), False),
+    MAMBA: _Mixer(L.init_mamba, _state_cache(L.init_mamba_cache),
+                  _apply_recurrent(L.mamba), True),
+    HYBRID: _Mixer(L.init_hybrid,
+                   lambda cfg, batch, kv: L.init_hybrid_cache(cfg, batch,
+                                                              kv(), "meta"),
+                   _apply_hybrid, True),
 }
 
 
@@ -89,7 +103,8 @@ def _check_block(spec: BlockSpec, mode: Optional[str] = None) -> None:
     if spec.kind not in _MIXERS or spec.moe:
         raise NotImplementedError(
             f"block kind {spec.kind!r} (moe={spec.moe}) is not ported: "
-            "attention blocks with a dense FFN, mLSTM and sLSTM")
+            "attention, Mamba and hybrid blocks with a dense FFN, mLSTM "
+            "and sLSTM")
 
 
 def _has_ffn(cfg: ArchConfig, spec: BlockSpec) -> bool:
@@ -154,16 +169,17 @@ def _stacked_caches(cfg: ArchConfig, kv: Callable[[], Params], batch: int,
                     device) -> Tuple:
     """Zeros of each leaf of the per-layer cache of every pattern position
     (``kv()`` for attention, as meta tensors: shapes only; the recurrent
-    states of mLSTM and sLSTM with the JAX shapes) stacked to
-    (n_super, ...) on ``device``, one tree per pattern position.  Every
-    leaf is zero, as the JAX ``init_cache`` makes it."""
+    states with the JAX shapes; a hybrid layer's ``{"attn", "mamba"}``
+    tree of both) stacked to (n_super, ...) on ``device``, one tree per
+    pattern position.  Every leaf is zero, as the JAX ``init_cache`` makes
+    it."""
     out = []
     for spec in cfg.block_pattern:
         _check_block(spec)
         one = _MIXERS[spec.kind].cache(cfg, batch, kv)
-        out.append({k: torch.zeros((cfg.n_super,) + tuple(x.shape),
-                                   dtype=x.dtype, device=device)
-                    for k, x in one.items()})
+        out.append(tree_map(
+            lambda x: torch.zeros((cfg.n_super,) + tuple(x.shape),
+                                  dtype=x.dtype, device=device), one))
     return tuple(out)
 
 
@@ -171,7 +187,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device) -> Tuple:
     """Per-pattern-position caches, each leaf stacked to (n_super, ...):
     dense KV (B, max_len, KH, hd) for attention, the (B, H, dk, dk + 1)
-    state for mLSTM, (h, c, n, m) of (B, d) for sLSTM."""
+    state for mLSTM, (h, c, n, m) of (B, d) for sLSTM, the (B, H, n, P)
+    state for Mamba, and both as ``{"attn", "mamba"}`` for a hybrid."""
     dt = getattr(torch, cfg.dtype)
     return _stacked_caches(
         cfg, lambda: L.init_attn_cache(cfg, batch, max_len, dt, "meta"),
@@ -197,12 +214,19 @@ def map_cache_kinds(cfg: ArchConfig, caches, *, kv, state) -> Tuple:
     """Apply ``kv`` to every attention-KV subtree and ``state`` to every
     recurrent-state subtree of one or more structurally identical caches
     (positionally, one subtree from each), as the JAX package's function of
-    the same name."""
+    the same name: a hybrid layer's cache gives ``{"attn": kv(...),
+    "mamba": state(...)}``."""
     out = []
     for i, spec in enumerate(cfg.block_pattern):
         _check_block(spec)
-        fn = kv if spec.kind == ATTN else state
-        out.append(fn(*[c[i] for c in caches]))
+        parts = [c[i] for c in caches]
+        if spec.kind == ATTN:
+            out.append(kv(*parts))
+        elif spec.kind == HYBRID:
+            out.append({"attn": kv(*[p["attn"] for p in parts]),
+                        "mamba": state(*[p["mamba"] for p in parts])})
+        else:
+            out.append(state(*parts))
     return tuple(out)
 
 

@@ -99,7 +99,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.analysis.compile_guard import CompileGuard
-from repro_torch.configs.base import ATTN
+from repro_torch.configs.base import ATTN, HYBRID
 from repro_torch.core import eo_adapter as EO
 from repro_torch.device import same_device
 from repro_torch.distributed import collectives as CO
@@ -116,6 +116,7 @@ from repro_torch.serving.graphs import StagedInput, StepGraphs
 from repro_torch.serving.kv_pool import (KVPagePool, PrefixCache, TRASH_PAGE,
                                          page_nbytes)
 from repro_torch.serving.request import Request, scene_key
+from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
 #: the slot path's step families, each captured once per shape key (the
@@ -222,10 +223,14 @@ def _sel_scatter(full: Params, new: Params, src: torch.Tensor,
     nowhere."""
     hit = src >= 0
     rows = torch.clamp(src, min=0)
-    for name, leaf in full.items():
+
+    def put(leaf: torch.Tensor, x: torch.Tensor) -> None:
         mask = hit.view((1,) * axis + (-1,) + (1,) * (leaf.dim() - axis - 1))
         leaf.copy_(torch.where(
-            mask, new[name].index_select(axis, rows).to(leaf.dtype), leaf))
+            mask, x.index_select(axis, rows).to(leaf.dtype), leaf))
+
+    # a hybrid layer's cache nests its attention KV and Mamba state
+    tree_map(put, full, new)
 
 
 def _admit_pad(k: int, cap: int) -> int:
@@ -364,7 +369,8 @@ class EngineCore:
             self._tp_group, self._tp_rank = self.mesh.group, self.mesh.rank
             self._mcfg = plan.cfg_local
             self._bb = SH.shard_backbone(self._bb, plan, self._tp_rank)
-        #: mLSTM/sLSTM blocks: per-slot recurrent states ride the caches
+        #: mLSTM/sLSTM/Mamba/hybrid blocks: per-slot recurrent states ride
+        #: the caches
         self._recurrent = any(s.kind != ATTN for s in tier.cfg.block_pattern)
         #: chunked engines: scene → {slot, pages, progress, order, priority}
         #: of the region streams in flight (FIFO by order within priority)
@@ -623,10 +629,10 @@ class EngineCore:
             self._slot_cache = T.init_cache(cfg, n, self._slot_max_len, dev)
         #: the slot caches' recurrent-state leaves, (n_super, slots, ...)
         #: each (none on an attention-only stack)
-        self._state_leaves = [
-            leaf for t in T.map_cache_kinds(
-                cfg, [self._slot_cache], kv=lambda _t: None,
-                state=lambda t: t) if t is not None for leaf in t.values()]
+        self._state_leaves = []
+        T.map_cache_kinds(cfg, [self._slot_cache], kv=lambda _t: None,
+                          state=lambda t: self._state_leaves.extend(
+                              t.values()))
         if self.cache_impl == "paged" and self._recurrent:
             # the prefix prefill's final states, rows [0, bucket): the
             # snapshots its scenes' prefix-cache entries are cloned from
@@ -735,12 +741,14 @@ class EngineCore:
         return float(t.item())
 
     def _page_nbytes_stack(self) -> int:
-        """Device bytes ONE pool page costs across the whole stack (every
-        attention layer's K+V pools and an 8-bit pool's scales; recurrent
-        layers keep no pages): ``pool_bytes`` sizing divides by it,
-        ``kv_stats`` checks the live pools against it."""
+        """Device bytes ONE pool page costs across the whole stack (the K+V
+        pools of every attention layer and of every hybrid layer's
+        attention half, and an 8-bit pool's scales; recurrent layers keep
+        no pages): ``pool_bytes`` sizing divides by it, ``kv_stats`` checks
+        the live pools against it."""
         cfg = self.tier.cfg
-        n_kv = cfg.n_super * sum(s.kind == ATTN for s in cfg.block_pattern)
+        n_kv = cfg.n_super * sum(s.kind in (ATTN, HYBRID)
+                                 for s in cfg.block_pattern)
         return n_kv * page_nbytes(
             self._page_size, cfg.num_kv_heads, cfg.resolved_head_dim,
             kv_dtype=self.cfg.kv_dtype,
@@ -1456,8 +1464,7 @@ class EngineCore:
         av = self.cfg.answer_vocab
         toks = torch.argmax(self._slot_logits[:, :av], dim=-1).to(torch.int32)
         for i in range(self.cfg.slots):
-            row = tuple({name: leaf[:, i:i + 1] for name, leaf in c.items()}
-                        for c in self._slot_cache)
+            row = tree_map(lambda leaf: leaf[:, i:i + 1], self._slot_cache)
             logits, _ = T.decode_step(
                 self._bb, self._mcfg, row, {"tokens": toks[i:i + 1, None]},
                 self._slot_index[i:i + 1])
@@ -2031,11 +2038,12 @@ class EngineCore:
         # the "_device" ones this rank's
         tp_kv = (self._tp_plan.tp if self._tp_plan is not None
                  and self._tp_plan.attn else 1)
-        # the attention KV alone: recurrent states are no KV (JAX counts
-        # them nowhere)
-        kv = [(name, t) for layer in T.map_cache_kinds(
-                  self.tier.cfg, [self._slot_cache], kv=lambda t: t,
-                  state=lambda _t: {}) for name, t in layer.items()]
+        # the attention KV alone (a hybrid layer's attention half):
+        # recurrent states are no KV (JAX counts them nowhere)
+        kv = []
+        T.map_cache_kinds(self.tier.cfg, [self._slot_cache],
+                          kv=lambda t: kv.extend(t.items()),
+                          state=lambda _t: None)
         total = tp_kv * sum(t.numel() * t.element_size() for _, t in kv)
         scales = tp_kv * sum(t.numel() * t.element_size() for name, t in kv
                              if name.endswith("_scale"))

@@ -1184,6 +1184,73 @@ def _ssm_close(got, want):
     assert bool(got[0].isfinite().all()) and bool(got[1].isfinite().all())
 
 
+@pytest.mark.parametrize("b,s,carried", [(1, 1024, True), (8, 1024, False),
+                                         (2, 50, True)])
+def test_ssm_mma_route_on_hymbas_bc_halves(card, b, s, carried):
+    """hymba-1.5b's scan (H 25, dk 16, dv 128, bf16) with q = C and k = B
+    the two halves of one ``bc.reshape(b, s, h, 2n)`` buffer, as
+    ``layers.mamba`` hands them over: head stride 2n = 32 elements (not
+    dk), C 32 bytes past B.  One launch on the tensor cores, within the
+    scan tolerances of the plain version, and equal to the same scan on
+    packed copies (a map that took dk for the head stride would read B's
+    columns as C's).  S 1024: a prefix prefill (bucket 1 and 8); S 50: the
+    batch path's 7 x 7 grid prefill, one 50-token chunk."""
+    h, n, p_dim = 25, 16, 128
+    bc = _randn(card, b, s, h, 2 * n, dtype=torch.bfloat16)
+    k, q = bc[..., :n], bc[..., n:]
+    assert q.stride()[-2] == 2 * n and q.data_ptr() - k.data_ptr() == 32
+    dt = torch.nn.functional.softplus(_randn(card, b, s, h))
+    v = (_randn(card, b, s, h, p_dim) * dt[..., None]).bfloat16()
+    st = _randn(card, b, h, n, p_dim) * 0.5 if carried else None
+    before = ops.launches_by_route(ops.launch_counts(), "ssm_scan")
+    got = ops.ssm_scan(q, k, v, -dt, st)
+    after = ops.launches_by_route(ops.launch_counts(), "ssm_scan")
+    assert {r: after[r] - before[r] for r in after} == {"mma": 1,
+                                                        "cuda_cores": 0}
+    _ssm_close(got, ref.ssm_scan(q, k, v, -dt, st))
+    packed = ops.ssm_scan(q.contiguous(), k.contiguous(), v, -dt, st)
+    _ssm_close(got, packed)
+
+
+@pytest.mark.parametrize("lens", [[1000, 1024, 1025, 1500],
+                                  [1025, 1300, 1700, 2049]])
+@pytest.mark.parametrize("window", [1024, 0])
+def test_hymba_attention_at_group_5_and_window_1024(card, lens, window):
+    """hymba-1.5b's attention (25/5 heads: group 5, hd 64, bf16) on the
+    tensor cores, the window of its local layers and none: dense decode
+    and the slot step's paged decode (page 8, NaN trash page) at cache_len
+    on both sides of 1024, where the window first drops a key; flash
+    (wgmma) at B 1 x 1100 tokens, where queries past 1024 drop keys.  Each
+    one launch on its tensor-core key, within flash's bound."""
+    bf16, kh, group, hd = torch.bfloat16, 5, 5, 64
+    b = len(lens)
+    q, kp, vp, kn, vn, table, lens_t = _paged_case(
+        card, b, kh, group, hd, 8, 257, lens, 1, bf16)
+    before = ops.launch_counts()
+    got = ops.paged_decode_attention(q[:, 0], kn, vn, table, lens_t,
+                                     window=window)
+    assert (ops.launch_counts()["paged_decode_attention_mma"]
+            == before["paged_decode_attention_mma"] + 1)
+    _within_mma_decode_bound(got[:, None], q, ref.gather_pages(kp, table),
+                             ref.gather_pages(vp, table), lens_t,
+                             window=window)
+    k = _randn(card, b, 2049, kh, hd, dtype=bf16)
+    v = _randn(card, b, 2049, kh, hd, dtype=bf16)
+    got = ops.decode_attention(q[:, 0], _nan_past(k, lens_t),
+                               _nan_past(v, lens_t), lens_t, window=window)
+    assert (ops.launch_counts()["decode_attention_mma"]
+            == before["decode_attention_mma"] + 1)
+    _within_mma_decode_bound(got[:, None], q, k, v, lens_t, window=window)
+    s = 1100
+    qf = _randn(card, 1, s, kh * group, hd, dtype=bf16)
+    kf = _randn(card, 1, s, kh, hd, dtype=bf16)
+    vf = _randn(card, 1, s, kh, hd, dtype=bf16)
+    got = ops.flash_attention(qf, kf, vf, window=window)
+    assert (ops.launch_counts()["flash_attention_wgmma"]
+            == before["flash_attention_wgmma"] + 1)
+    _within_wgmma_bound(got, qf, kf, vf, window=window)
+
+
 @pytest.mark.parametrize("b,s", [(4, 512), (128, 512)])
 def test_ssm_mma_route_at_the_path_shapes(card, b, s):
     """(f)'s shape cut to S 512 (B 4, H 4, dk 384, dv 385) and phase 9
@@ -1484,7 +1551,9 @@ def _graph_run(kw, cuda_graphs, dtype="float32", overload=False,
     from repro_torch.serving.request import PRIORITY_URGENT
     sat_cfg, gs_cfg = (dataclasses.replace(c, dtype=dtype)
                        for c in proxy_pair("small"))
-    if recurrent is not None:
+    if recurrent == "hymba":
+        gs_cfg = _chip_smoke().hybrid_cfg(dtype=dtype)
+    elif recurrent is not None:
         gs_cfg = _chip_smoke().recurrent_cfg(recurrent, dtype=dtype)
     ac = EO.EOAdapterConfig()
     gs = TierModel(EO.init_adapter(gs_cfg, ac, 1, device="cuda"), gs_cfg)
@@ -1594,6 +1663,27 @@ def test_captured_recurrent_engine_equals_eager(card, tier, flavour, dtype):
     assert sched["steady_recompiles"] == 0
     if overload:
         assert sched["overload"]["preemptions"] >= 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("flavour", ["paged", "dense", "vmap", "int8"])
+def test_captured_hymba_engine_equals_eager(card, flavour, dtype):
+    """The two-layer Hymba tier (``chip_smoke.hybrid_cfg``: attention ‖
+    Mamba, window 8 inside the 16-region prefix): captured against eager,
+    the same tokens and launch counts, graphs replayed, nothing captured
+    after warmup; every layer runs flash and the scan in each prefill.  In
+    bf16 the scan takes its tensor-core route on C and B, the strided
+    halves of one buffer."""
+    kw = GRAPH_FLAVOURS[flavour]
+    toks, counts, sched, gst = _graph_run(kw, True, dtype, False, "hymba")
+    etoks, ecounts, esched, _ = _graph_run(kw, False, dtype, False, "hymba")
+    assert toks == etoks and len(toks) == 9
+    assert counts == ecounts and sched["steps"] == esched["steps"]
+    assert counts["ssm_scan"] == counts["flash_attention"] > 0
+    assert counts["ssm_scan_mma"] == (counts["ssm_scan"] if dtype == "bfloat16"
+                                      else 0)
+    assert gst["captured"] and gst["graphs"] > 0 and gst["replays"] > 0
+    assert sched["steady_recompiles"] == 0
 
 
 def test_capture_survives_a_collected_graph(card):

@@ -233,15 +233,17 @@ def test_scan_wrappers_refuse_cpu_tensors():
 
 def test_config_registry_matches_jax():
     assert configs.list_configs() == ["codeqwen1.5-7b", "gemma2-27b",
-                                      "gemma3-1b", "glm4-9b", "qwen2-vl-2b",
-                                      "qwen2-vl-7b", "xlstm-125m"]
+                                      "gemma3-1b", "glm4-9b", "hymba-1.5b",
+                                      "qwen2-vl-2b", "qwen2-vl-7b",
+                                      "xlstm-125m"]
+    assert "hymba-1.5b" in jconfigs.list_configs()
     for name in configs.list_configs():
         for reduced in (False, True):
             assert (dataclasses.asdict(configs.get_config(name, reduced))
                     == dataclasses.asdict(jconfigs.get_config(name,
                                                               reduced)))
     with pytest.raises(KeyError):
-        configs.get_config("hymba-1.5b")
+        configs.get_config("qwen2-moe-a2.7b")
 
 
 VARIANTS = {
@@ -555,10 +557,13 @@ def test_cache_trees_match_jax(variant):
                 == JT.map_cache_kinds(jcfg, [jc, jc], **kinds))
 
 
-@pytest.mark.parametrize("kind", ["mamba", "hybrid"])
+@pytest.mark.parametrize("kind", ["moe"])
 def test_unported_recurrent_blocks_raise(kind):
+    """MoE blocks are not ported (Mamba and hybrid blocks are:
+    ``tests/test_torch_hymba.py``)."""
     cfg = dataclasses.replace(configs.get_config("xlstm-125m", reduced=True),
-                              block_pattern=(BlockSpec(kind=kind),),
+                              block_pattern=(BlockSpec(kind="attn",
+                                                       moe=True),),
                               num_layers=1)
     with pytest.raises(NotImplementedError, match="not ported"):
         T.init_params(cfg, device="cpu")
