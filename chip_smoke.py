@@ -569,22 +569,25 @@ def log(*a):
 
 
 #: the hd-256 instances of the tensor-core attention kernels: flash's one
-#: (one warpgroup) and the decode kernel's 3 modes x 3 key slicings x
-#: their pools (bf16 dense decode; bf16, int8 and fp8 in the paged modes)
-HD256_INSTANCES = 1 + 3 * (1 + 3 + 3)
+#: (one warpgroup), the decode kernel's 3 modes x 3 key slicings x their
+#: pools (bf16 dense decode; bf16, int8 and fp8 in the paged modes) and the
+#: backward's dK/dV and dQ kernels (two warpgroups each)
+HD256_INSTANCES = 1 + 3 * (1 + 3 + 3) + 2
 
 
 def hd256_instances(report):
     """{kernel instance: (registers, spill-store bytes)} of every hd-256
-    instance of ``flash_wgmma_kernel`` and ``decode_mma_kernel``, read
-    from ptxas's ``-v`` lines in ``build.build_all``'s report (a source
-    found already built reports none)."""
+    instance of ``flash_wgmma_kernel`` and ``decode_mma_kernel``, and of
+    the backward's ``bwd_dkdv_kernel_hd256`` and ``bwd_dq_kernel_hd256``,
+    read from ptxas's ``-v`` lines in ``build.build_all``'s report (a
+    source found already built reports none)."""
     out, name = {}, None
     for r in report.values():
         for ln in r["log"].splitlines():
             if "Compiling entry function" in ln:
-                m = re.search(r"(flash_wgmma_kernel|decode_mma_kernel)"
-                              r"ILi256E[^ ']*", ln)
+                m = re.search(r"((flash_wgmma_kernel|decode_mma_kernel)"
+                              r"ILi256E|bwd_(dkdv|dq)_kernel_hd256)[^ ']*",
+                              ln)
                 name = m.group(0)[:60] if m else None
             elif name and "spill stores" in ln:
                 spill = int(re.search(r"(\d+) bytes spill stores",
@@ -2769,7 +2772,7 @@ def bwd_inputs(torch, randn, b, sq, skv, h, kh, hd, dtype, **kw):
 #: the tensor-core backward's bf16 sweep: (hd, group, KH) per sequence
 #: length, windows and softcaps in turns
 BWD_WGMMA_HEADS = ((64, 1, 2), (128, 6, 2), (128, 7, 1), (64, 6, 1),
-                   (128, 1, 4))
+                   (128, 1, 4), (256, 4, 1))
 BWD_WGMMA_SEQS = (1, 63, 64, 65, 1025)
 
 
@@ -2808,7 +2811,7 @@ def check_bwd_wgmma(name, got, q, k, v, o, do, kw, case, errors):
 
 
 def bwd_wgmma_sweep(torch, randn, errors):
-    """The tensor-core backward (bf16, hd 64/128) against the plain
+    """The tensor-core backward (bf16, hd 64/128/256) against the plain
     version: ``BWD_WGMMA_HEADS`` x ``BWD_WGMMA_SEQS`` and Sq 65 < Skv 300,
     windows 0/100 and softcaps none/30 in turns, K/V views of buffers NaN
     past Skv; every other case through autograd (``ops.flash_attention``
@@ -2827,7 +2830,8 @@ def bwd_wgmma_sweep(torch, randn, errors):
     opts = [(0, None), (100, None), (0, 30.0), (100, 30.0)]
     cases = [(s, s, hd, g, kh) for s in BWD_WGMMA_SEQS
              for hd, g, kh in BWD_WGMMA_HEADS]
-    cases += [(65, 300, 128, 6, 2), (65, 300, 64, 7, 1)]
+    cases += [(65, 300, 128, 6, 2), (65, 300, 64, 7, 1),
+              (65, 300, 256, 4, 1)]
     shares, lse_err = [], 0.0
     for n, (sq, skv, hd, group, kh) in enumerate(cases):
         window, softcap = opts[n % len(opts)]
@@ -3006,125 +3010,188 @@ def bwd_kernel_checks(torch, randn, timer, errors):
             f", bound {b_ms:.5f} ms")
     out["flash_attention_bwd_wgmma"]["2B train"]["tail"] = bwd_tail(
         torch, randn, errors)
-    out["flash_attention_bwd"].update(bwd_hd256_row(torch, randn, timer,
-                                                    errors))
+    for name, rows in bwd_hd256_row(torch, randn, timer, errors).items():
+        out[name].update(rows)
     return out
 
 
 #: gemma3-1b's training shape for the backward at hd 256: B 4 x S 1025
-#: (phase 17's vqa/cls batch), 4/1 heads, a global layer (no window)
+#: (phase 17 (c)'s batch), 4/1 heads, timed on a global layer (window 0)
+#: and on a local one (``G3_WINDOW``)
 BWD_G3 = (4, 1025, 4, 1, 256)
 
 
 def bwd_hd256_row(torch, randn, timer, errors):
-    """Row "1 bwd" at hd 256 (gemma3-1b, ``BWD_G3``, bf16): the route
-    ``bwd_route`` names (the CUDA cores, behind a wgmma forward that saves
-    no lse) held against the plain version, then timed in turns with the
-    library's backward (SDPA forward and backward less its forward:
-    kernel, library, kernel) beside the plain version and the bound.
-    Returns {"g3 train": row}."""
+    """Row "1 bwd" at hd 256 (gemma3-1b, ``BWD_G3``, bf16) at windows 0 and
+    ``G3_WINDOW``: the route ``bwd_route`` names (wgmma, reading the wgmma
+    forward's lse; one launch a call, none on the CUDA cores) held under
+    its bound (``check_bwd_wgmma``), the CUDA-core route on the same
+    inputs within its bf16 tolerance; then wgmma, the library's backward
+    (SDPA forward and backward less its forward; a window mask where
+    there is a window), the CUDA cores and wgmma again timed in turns,
+    beside the plain version and the bound.  Returns
+    {"flash_attention_bwd_wgmma": {tag: row}, "flash_attention_bwd":
+    {tag: row}}, tags "g3 train" (window 0) and "g3 train w512"."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     b, s, h, kh, hd = BWD_G3
-    q, k, v, _, do = bwd_inputs(torch, randn, b, s, s, h, kh, hd,
-                                torch.bfloat16)
-    k, v = k.contiguous(), v.contiguous()
-    tr = [t.transpose(1, 2) for t in (q, k, v)]
     route = FA.bwd_route(torch.bfloat16, hd)
-    o = FA.flash_attention_cuda(*tr)
-    tr += [o, do.transpose(1, 2)]
-    o = o.transpose(1, 2)
-    shape = f"B{b} H{h} KH{kh} S{s} hd{hd} bf16"
-    got = [t.transpose(1, 2) for t in FA.flash_attention_bwd_cuda(*tr)]
-    err, share = check_grads("flash_attention_bwd", got,
-                             ref.flash_attention_bwd(q, k, v, o, do),
-                             f"bf16 {route} g3 train {shape}", errors)
-    if route != "cuda_cores":
+    if route != "wgmma":
         errors.append(f"flash_attention_bwd at hd {hd}: route {route}, "
-                      "want cuda_cores")
-    qt, kt, vt = (t.detach().requires_grad_() for t in tr[:3])
-    dot = tr[4]
+                      "want wgmma")
+    out = {"flash_attention_bwd_wgmma": {}, "flash_attention_bwd": {}}
+    for window in (0, G3_WINDOW):
+        kw = {"window": window}
+        tag = "g3 train" + (f" w{window}" if window else "")
+        q, k, v, _, do = bwd_inputs(torch, randn, b, s, s, h, kh, hd,
+                                    torch.bfloat16)
+        k, v = k.contiguous(), v.contiguous()
+        tr = [t.transpose(1, 2) for t in (q, k, v)]
+        o, lse = FA.launch_wgmma(*tr, with_lse=True, **kw)
+        tr += [o, do.transpose(1, 2)]
+        o = o.transpose(1, 2)
+        shape = f"B{b} H{h} KH{kh} S{s} hd{hd} w{window} bf16"
+        before = ops.launches_by_route(ops.launch_counts(),
+                                       "flash_attention_bwd")
+        got = [t.transpose(1, 2) for t in FA.flash_attention_bwd_cuda(
+            *tr, lse=lse, **kw)]
+        after = ops.launches_by_route(ops.launch_counts(),
+                                      "flash_attention_bwd")
+        if after != {"wgmma": before["wgmma"] + 1,
+                     "cuda_cores": before["cuda_cores"]}:
+            errors.append(f"flash_attention_bwd {tag}: launches {before} "
+                          f"-> {after}, want one wgmma")
+        err, share = check_bwd_wgmma("flash_attention_bwd", got, q, k, v, o,
+                                     do, kw, f"bf16 wgmma {tag} {shape}",
+                                     errors)
+        got = [t.transpose(1, 2) for t in FA.launch_bwd_cuda_cores(*tr, **kw)]
+        err_cc, share_cc = check_grads(
+            "flash_attention_bwd", got,
+            ref.flash_attention_bwd(q, k, v, o, do, **kw),
+            f"bf16 CUDA cores {tag} {shape}", errors)
+        qt, kt, vt = (t.detach().requires_grad_() for t in tr[:3])
+        dot = tr[4]
+        lib_kw = ({"is_causal": True} if not window else
+                  {"attn_mask": ref._attn_mask(s, s, window, True, 0,
+                                               q.device)})
 
-    def lib_fwd():
-        with torch.no_grad():
-            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                           enable_gqa=True)
+        def lib_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                               **lib_kw)
 
-    def lib_both():
-        with torch.enable_grad():
-            lo = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                enable_gqa=True)
-        torch.autograd.grad(lo, (qt, kt, vt), dot)
+        def lib_both():
+            with torch.enable_grad():
+                lo = F.scaled_dot_product_attention(qt, kt, vt,
+                                                    enable_gqa=True, **lib_kw)
+            torch.autograd.grad(lo, (qt, kt, vt), dot)
 
-    kernel = lambda: FA.flash_attention_bwd_cuda(*tr)  # noqa: E731
-    runs = [timer(kernel, reps=5)]
-    lib = timer(lib_both, reps=5) - timer(lib_fwd, reps=5)
-    runs.append(timer(kernel, reps=5))
-    ms = sum(runs) / len(runs)
-    n_bytes = nbytes(q, k, v, o, do, q, k, v)
-    flops = 2.5 * b * flash_flops(torch, h, hd, s, s)
-    b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
-    row = {"plain_ms": timer(lambda: ref.flash_attention_bwd(q, k, v, o, do),
-                             reps=3),
-           "library_ms": lib, "library_is": "SDPA fwd+bwd - fwd",
-           "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-           "flops": flops, "shape": shape, "ms": ms, "ms_runs": runs,
-           "max_abs_err": err, "tolerance_share": share, "route": route,
-           "bound_share": b_ms / ms, "vs_library": ms / lib}
-    log(f"  flash_attention_bwd g3 train {shape}: {route} {ms:.4f} ms "
-        f"({b_ms / ms:.4f} of the bound, {ms / lib:.2f}x SDPA's {lib:.4f} "
-        f"ms), plain {row['plain_ms']:.3f} ms, bound {b_ms:.5f} ms")
-    return {"g3 train": row}
+        kernel = lambda: FA.flash_attention_bwd_cuda(  # noqa: E731
+            *tr, lse=lse, **kw)
+        runs = [timer(kernel)]
+        lib = timer(lib_both, reps=5) - timer(lib_fwd, reps=5)
+        cc_ms = timer(lambda: FA.launch_bwd_cuda_cores(*tr, **kw), reps=5)
+        runs.append(timer(kernel))
+        ms = sum(runs) / len(runs)
+        n_bytes = nbytes(q, k, v, o, do, q, k, v)
+        flops = 2.5 * b * flash_flops(torch, h, hd, s, s, window)
+        b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+        base = {"plain_ms": timer(lambda: ref.flash_attention_bwd(
+                    q, k, v, o, do, **kw), reps=3),
+                "library_ms": lib,
+                "library_is": "SDPA fwd+bwd - fwd" + (
+                    ", window mask" if window else ""),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+                "flops": flops, "shape": shape}
+        out["flash_attention_bwd_wgmma"][tag] = dict(
+            base, ms=ms, ms_runs=runs, max_abs_err=err,
+            tolerance_share=share, route="wgmma", bound_share=b_ms / ms,
+            vs_library=ms / lib, vs_cuda_cores=ms / cc_ms)
+        out["flash_attention_bwd"][tag] = dict(
+            base, ms=cc_ms, max_abs_err=err_cc, tolerance_share=share_cc,
+            route="cuda_cores", bound_share=b_ms / cc_ms,
+            vs_library=cc_ms / lib)
+        log(f"  flash_attention_bwd {tag} {shape}: wgmma {ms:.4f} ms "
+            f"({b_ms / ms:.4f} of the bound, {ms / lib:.2f}x SDPA's "
+            f"{lib:.4f} ms) [CUDA cores {cc_ms:.4f} ms, "
+            f"{b_ms / cc_ms:.4f}], plain {base['plain_ms']:.3f} ms, bound "
+            f"{b_ms:.5f} ms")
+    return out
 
 
 BWD_KERNELS = ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dkdv_sum_kernel",
                "bwd_dq_kernel")
 
 
+#: bwd_tail's shapes: (tag, (B, S, H, KH, hd), window, head splits)
+BWD_TAIL = ([(f"S{s}", (4, s, 12, 2, 128), 0, (1, 2, 3, 6))
+             for s in BWD_TIMED.values()]
+            + [(f"g3 w{w}", BWD_G3, w, (1, 2, 4)) for w in (0, G3_WINDOW)])
+
+
 def bwd_tail(torch, randn, errors):
-    """The dK/dV pass's causal tail at the 2B's shapes: each kernel's
-    device ms a launch (profiler, 5 launches) with the group's 6 heads
-    split over d = 1, 2, 3, 6 blocks (``bwd_splits`` forced), each run held
-    to the bound.  Unsplit, the pass lasts as long as its heaviest block;
-    1 - (the best split's dK/dV kernel) / (the unsplit one) is the share of
-    the unsplit pass that was tail.  Returns {S: {d: per-kernel ms},
-    "chosen": ..., "tail_share": ...}."""
-    from torch.profiler import ProfilerActivity, profile
+    """The dK/dV pass's causal tail at the 2B's shapes and gemma3-1b's
+    (``BWD_TAIL``): each kernel's device ms a launch (profiler, 5
+    launches) with the group's heads split over each d (``bwd_splits``
+    forced), each run held to the bound.  Unsplit, the pass lasts as long
+    as its heaviest block; 1 - (the best split's dK/dV kernel) / (the
+    unsplit one) is the share of the unsplit pass that was tail, and the
+    unsplit kernel over the heaviest block's pairs (``FA.bwd_pairs``) is
+    a pair's µs, the cost model's constant (``PAIR_US_HD128``,
+    ``PAIR_US_HD256``).  A split whose profile still misses launches
+    after ``profiled_kernels``' sessions is listed as not measured.
+    Returns {tag: {"by_split": {d: per-kernel ms}, "chosen",
+    "not_measured", "tail_share", "pair_us"}}."""
     from repro_torch.kernels import flash_attention as FA
-    b, h, kh, hd = 4, 12, 2, 128
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     real, out = FA.bwd_splits, {}
     try:
-        for s in BWD_TIMED.values():
+        for tag, (b, s, h, kh, hd), window, splits in BWD_TAIL:
+            kw = {"window": window}
             q, k, v, _, do = bwd_inputs(torch, randn, b, s, s, h, kh, hd,
                                         torch.bfloat16)
             k, v = k.contiguous(), v.contiguous()
             tr = [t.transpose(1, 2) for t in (q, k, v)]
-            o, lse = FA.launch_wgmma(*tr, with_lse=True)
+            o, lse = FA.launch_wgmma(*tr, with_lse=True, **kw)
             args = tr + [o, do.transpose(1, 2), lse]
             res = {}
-            for d in (1, 2, 3, 6):
+            for d in splits:
                 FA.bwd_splits = lambda *a, d=d: d  # noqa: E731
-                got = [t.transpose(1, 2) for t in FA.launch_bwd_wgmma(*args)]
+                got = [t.transpose(1, 2)
+                       for t in FA.launch_bwd_wgmma(*args, **kw)]
                 check_bwd_wgmma("flash_attention_bwd", got, q, k, v,
-                                o.transpose(1, 2), do, {},
-                                f"bf16 S{s} heads split over {d}", errors)
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(5):
-                        FA.launch_bwd_wgmma(*args)
-                    torch.cuda.synchronize()
-                res[d] = {n: ms for n, (c, ms) in kernel_device_ms(
-                    torch, prof, BWD_KERNELS).items() if c}
-            best = min(res[d]["bwd_dkdv_kernel"] for d in res)
-            chosen = real(b, kh, h // kh, hd, s, s, True, 0, sms)
-            out[f"S{s}"] = {"by_split": res, "chosen": chosen,
-                            "tail_share":
-                                1 - best / res[1]["bwd_dkdv_kernel"]}
-            log(f"  flash_attention_bwd wgmma S{s} device ms a launch by "
-                f"heads split: {res}; chosen {chosen}; unsplit dK/dV tail "
-                f"share {out[f'S{s}']['tail_share']:.3f}")
+                                o.transpose(1, 2), do, kw,
+                                f"bf16 {tag} hd{hd} heads split over {d}",
+                                errors)
+                # each launch runs delta, dK/dV and dQ, and the partials'
+                # sum where the heads are split
+                want = {n: 5 for n in BWD_KERNELS
+                        if d > 1 or "sum" not in n}
+                got, sessions = profiled_kernels(
+                    torch, lambda: [FA.launch_bwd_wgmma(*args, **kw)
+                                    for _ in range(5)], BWD_KERNELS, want)
+                if sessions > 1:
+                    log(f"  bwd tail {tag} split {d}: {sessions} profiler "
+                        f"sessions for a full count, last {got}")
+                if all(got[n][0] >= c for n, c in want.items()):
+                    res[d] = {n: ms for n, (c, ms) in got.items() if c}
+            dkdv = {d: r["bwd_dkdv_kernel"] for d, r in res.items()}
+            unsplit = dkdv.get(1)
+            best = min(dkdv.values()) if dkdv else None
+            heaviest, _ = FA.bwd_pairs(b, kh, h // kh, s, s, True, window)
+            chosen = real(b, kh, h // kh, hd, s, s, True, window, sms)
+            out[tag] = {"by_split": res, "chosen": chosen,
+                        "not_measured": [d for d in splits if d not in res],
+                        "tail_share": 1 - best / unsplit if unsplit else None,
+                        "pair_us": 1e3 * unsplit / heaviest if unsplit
+                        else None}
+            log(f"  flash_attention_bwd wgmma {tag} (B{b} H{h} KH{kh} S{s} "
+                f"hd{hd} w{window}) device ms a launch by heads split: "
+                f"{res}; chosen {chosen}; not measured (the profiler "
+                f"dropped events) {out[tag]['not_measured']}; unsplit "
+                f"dK/dV tail share {out[tag]['tail_share']}, "
+                f"{out[tag]['pair_us']} us a pair ({heaviest} pairs)")
     finally:
         FA.bwd_splits = real
     return out
@@ -4399,12 +4466,15 @@ class StepProbe:
         return device_summary(self.torch, self.prof, self.n, self.window_s)
 
 
-def device_summary(torch, prof, n_steps: int, seconds: float, k: int = 6):
+def device_summary(torch, prof, n_steps: int, seconds: float, k: int = 6,
+                   names=()):
     """``profile_summary``'s device numbers (the busy share, device ms a
     step, the ``k`` device operations with the most device time) from a
     profile of the device's activity alone, summed over its raw events:
     building the profiler's Python event tree (``key_averages``) took
-    3-15 s for 8 eager steps of a full-width model."""
+    3-15 s for 8 eager steps of a full-width model.  With ``names``, also
+    "named_ms_per_step": the device ms a step of the kernels whose name
+    contains each."""
     by_name = {}
     for e in prof.profiler.kineto_results.events():
         if (e.device_type() != torch.autograd.DeviceType.CUDA
@@ -4414,10 +4484,15 @@ def device_summary(torch, prof, n_steps: int, seconds: float, k: int = 6):
         by_name[e.name()] = (n + 1, ns + e.duration_ns())
     total_ms = sum(ns for _, ns in by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:k]
-    return {"device_busy_share": total_ms / 1e3 / seconds,
-            "device_ms_per_step": total_ms / n_steps,
-            "top_device_ops": [[name[:90], n, ns / 1e6 / n_steps]
-                               for name, (n, ns) in top]}
+    out = {"device_busy_share": total_ms / 1e3 / seconds,
+           "device_ms_per_step": total_ms / n_steps,
+           "top_device_ops": [[name[:90], n, ns / 1e6 / n_steps]
+                              for name, (n, ns) in top]}
+    if names:
+        out["named_ms_per_step"] = {
+            want: sum(ns for name, (_, ns) in by_name.items()
+                      if want in name) / 1e6 / n_steps for want in names}
+    return out
 
 
 def profile_summary(torch, prof, n_steps: int, seconds: float, k: int = 6):
@@ -6478,6 +6553,25 @@ TOL_CONT_BF16 = {"max_abs_logit_diff": 0.5, "max_state_diff_rel_to_max": 0.25,
                  "prefill_vs_f32_max_abs": 1.0, "decode_vs_f32_max_abs": 1.0}
 
 
+def profiled_kernels(torch, run, names, want, tries=3):
+    """``kernel_device_ms`` of ``run()`` under the profiler (the device's
+    activity alone), profiled again, up to ``tries`` sessions, while a
+    kernel of ``want`` ({name: launches}) shows fewer launches than
+    ``run`` made: a CUPTI session now and then drops a kernel's events
+    (once on an H100, in the dK/dV tail's profile of one split).
+    Returns ({name: (launches, ms a launch)}, the sessions it took)."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        got = kernel_device_ms(torch, prof, names)
+        if all(got[n][0] >= c for n, c in want.items()):
+            break
+    return got, i + 1
+
+
 def kernel_device_ms(torch, prof, names):
     """{name: (launches, device ms per launch)} of the device kernels whose
     name contains each of ``names``, from a ``torch.profiler`` run."""
@@ -7752,16 +7846,19 @@ WITNESS_FACTOR = 4.0
 
 def train_step_flops(cfg, b, s):
     """(model FLOPs of one train step: forward + backward of the matmuls
-    (3 x 2 per weight per token), the attention forward and its backward
-    (2.5x); FLOPs executed: that plus the remat's second forward of the
-    blocks and of the CE chunks' unembedding)."""
+    (3 x 2 per weight per token), the attention forward over the keys each
+    layer's window lets a query see and its backward (2.5x); FLOPs
+    executed: that plus the remat's second forward of the blocks and of
+    the CE chunks' unembedding)."""
     import torch
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
     per_layer = d * (2 * nq + 2 * nkv) + 3 * d * cfg.d_ff
     blocks = 2.0 * b * s * per_layer * cfg.num_layers
     head = 2.0 * b * s * d * cfg.vocab_size
-    attn = b * cfg.num_layers * flash_flops(torch, cfg.num_heads, hd, s, s)
+    attn = b * cfg.n_super * sum(flash_flops(torch, cfg.num_heads, hd, s, s,
+                                             spec.window)
+                                 for spec in cfg.block_pattern)
     model = 3 * (blocks + head) + attn * (1 + 2.5)
     return model, model + blocks + attn + head
 
@@ -7786,6 +7883,38 @@ def train_batches(torch, params, cfg, ac, seed: int = 0):
     return out
 
 
+def hold_last_bwd(run, case, errors):
+    """``run()`` (a train step) with the flash backward's last call of it
+    (layer 0's) kept: its inputs cloned, its lse the forward's own buffer;
+    then the kernel on them held under its bound (``check_bwd_wgmma``).
+    Returns (what ``run`` returned, max absolute error, share of the
+    bound)."""
+    from repro_torch.kernels import flash_attention as FA
+    held = {}
+    real_bwd = FA.flash_attention_bwd_cuda
+
+    def keep_last(*args, **kw):
+        held["args"] = tuple(a.clone() for a in args)
+        held["kw"] = dict(kw)
+        return real_bwd(*args, **kw)
+
+    FA.flash_attention_bwd_cuda = keep_last
+    try:
+        out = run()
+    finally:
+        FA.flash_attention_bwd_cuda = real_bwd
+    q, k, v, o, do = held["args"]
+    got = [t.transpose(1, 2) for t in real_bwd(q, k, v, o, do,
+                                               **held["kw"])]
+    kw = {n: x for n, x in held["kw"].items() if n != "lse"}
+    err, share = check_bwd_wgmma(
+        "flash_attention_bwd", got,
+        *(t.transpose(1, 2) for t in (q, k, v, o, do)), kw,
+        f"{case} B{q.shape[0]} H{q.shape[1]} S{q.shape[2]} "
+        f"w{kw.get('window')}", errors)
+    return out, err, share
+
+
 def train_full_width(torch, smi):
     """(a) ``make_train_step`` on the 2B at full width (random bf16 weights
     from seed 0), remat "nothing", ce_chunks 8, ``TRAIN_ROUNDS`` steps in a
@@ -7803,8 +7932,7 @@ def train_full_width(torch, smi):
     and the step's FLOPs beside their bound."""
     from repro_torch.configs.spaceverse_pair import SAT_CONFIG
     from repro_torch.core import eo_adapter as EO
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.train import optimizer as O
     from repro_torch.train import trainer as TR
     from repro_torch.tree import tree_leaves
@@ -7855,29 +7983,10 @@ def train_full_width(torch, smi):
 
     # the backward kernel on the path's own inputs: an extra det step, after
     # the counts and the timings, keeps its last backward call's (layer 0)
-    held = {}
-    real_bwd = FA.flash_attention_bwd_cuda
-
-    def keep_last(*args, **kw):
-        held["args"] = tuple(a.clone() for a in args)
-        held["kw"] = dict(kw)           # lse: the forward's own buffer
-        return real_bwd(*args, **kw)
-
-    FA.flash_attention_bwd_cuda = keep_last
-    try:
-        params, opt_state, _ = step(params, opt_state, batches["det"])
-    finally:
-        FA.flash_attention_bwd_cuda = real_bwd
     errors = []
-    q, k, v, o, do = held["args"]
-    got = [t.transpose(1, 2) for t in real_bwd(q, k, v, o, do,
-                                               **held["kw"])]
-    kw = {n: x for n, x in held["kw"].items() if n != "lse"}
-    err, share = check_bwd_wgmma(
-        "flash_attention_bwd", got,
-        *(t.transpose(1, 2) for t in (q, k, v, o, do)), kw,
-        f"phase 17 det step layer 0 B{q.shape[0]} H{q.shape[1]} "
-        f"S{q.shape[2]}", errors)
+    (params, opt_state, _), err, share = hold_last_bwd(
+        lambda: step(params, opt_state, batches["det"]),
+        "phase 17 det step layer 0", errors)
 
     # one profiled vqa step last (S 1025): where its step time goes
     with profile(activities=[ProfilerActivity.CPU,
@@ -7944,10 +8053,128 @@ def train_full_width(torch, smi):
         f"ms, device {vqa_sum['device_ms_per_step']:.1f} ms, busy "
         f"{vqa_sum['device_busy_share']:.3f} [{smi}]")
     log(f"  phase 17 (a) checks: {checks}")
-    del params, opt_state, batches, held
+    del params, opt_state, batches
     gc.collect()
     torch.cuda.empty_cache()
     return res, checks, counts, {"phase 17 det layer 0": {
+        "max_abs_err": err, "tolerance_share": share}}
+
+
+#: (c): gemma3-1b's fixed token batch, B x S + 1 tokens from a numpy
+#: seed (inputs and next-token targets), and its steps
+G3_TRAIN_B, G3_TRAIN_S, G3_TRAIN_STEPS = 4, 1025, 4
+
+
+def train_gemma3(torch, smi):
+    """(c) ``make_train_step`` on gemma3-1b at full width and depth (26
+    layers, d 1152, 4/1 heads, hd 256, window 512 on 22 layers, vocab
+    262,144; random bf16 weights from seed 0), remat "nothing", ce_chunks
+    8, ``G3_TRAIN_STEPS`` steps on one fixed token batch (B 4 x S 1025,
+    numpy seed 0), counts zeroed just before.  Checks: every loss finite,
+    the loss falling at every step; ``flash_attention_bwd`` 26 launches a
+    step, all on the tensor-core route
+    (``flash_attention_bwd_wgmma``), none on the CUDA cores; the wgmma
+    forward 52 a step (the forward and the remat's recompute), no
+    CUDA-core flash; the backward kernel held under its bound
+    (``check_bwd_wgmma``) on layer 0's inputs (a local layer) of an extra
+    step after the profiled one.  Reports step ms, tokens/s against the
+    step's FLOP bound, one profiled step's device ms, busy share and
+    backward kernels' device ms (the device's activity alone), and peak
+    memory."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    from repro_torch.tree import tree_leaves
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    cfg = get_config("gemma3-1b")
+    b, s = G3_TRAIN_B, G3_TRAIN_S
+    params = T.init_params(cfg, 0, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s + 1)).astype(np.int32)).to("cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             "loss_mask": torch.ones((b, s), device="cuda")}
+    opt_cfg = O.OptConfig(warmup_steps=1, total_steps=1000)
+    step = TR.make_train_step(cfg, opt_cfg, TR.TrainConfig(
+        remat=True, remat_policy="nothing", ce_chunks=8))
+    opt_state = O.init_opt_state(params)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    ops.reset_launch_counts()
+    for _ in range(G3_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    flash = ops.launches_by_route(counts, "flash_attention")
+    bwd = ops.launches_by_route(counts, "flash_attention_bwd")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    losses.append(float(m["loss"]))
+    prof_sum = device_summary(torch, prof, 1, prof_s, k=6, names=BWD_KERNELS)
+
+    errors = []
+    (params, opt_state, m), err, share = hold_last_bwd(
+        lambda: step(params, opt_state, batch),
+        "phase 17 (c) gemma3-1b layer 0", errors)
+    losses.append(float(m["loss"]))
+
+    model, executed = train_step_flops(cfg, b, s)
+    mean = sum(ms[1:]) / len(ms[1:])
+    n_bytes = n_params * (3 * 2 + 2 + (2 + 2 + 8) + (2 + 8))
+    b_ms, b_by = bound_ms(n_bytes, model, "bfloat16")
+    n_steps = G3_TRAIN_STEPS
+    checks = {
+        "losses finite": all(math.isfinite(x) for x in losses),
+        "loss falls at every step": all(
+            y < x for x, y in zip(losses, losses[1:])),
+        "flash_attention_bwd 26 a step":
+            counts["flash_attention_bwd"] == cfg.num_layers * n_steps,
+        "backward on the tensor cores alone":
+            bwd == {"wgmma": cfg.num_layers * n_steps, "cuda_cores": 0},
+        "wgmma forward 52 a step":
+            flash["wgmma"] == 2 * cfg.num_layers * n_steps,
+        "no CUDA-core flash": flash["cuda_cores"] == 0,
+        "backward kernel on the path's inputs": not errors}
+    res = {"model": cfg.name, "params": n_params, "batch": b, "seq": s,
+           "tokens": b * s, "step_ms": ms, "step_ms_mean_after_first": mean,
+           "tokens_per_s": b * s / (mean / 1e3), "model_flops": model,
+           "executed_flops": executed, "bound_ms": b_ms, "bound_by": b_by,
+           "model_tflops_per_s": model / (mean / 1e3) / 1e12,
+           "losses": losses, "launches": counts, "peak_bytes": peak,
+           "profiled_step": {"host_ms": 1e3 * prof_s, **prof_sum},
+           "layer0_bwd_max_abs_err": err, "layer0_bwd_tolerance_share": share,
+           "card": smi, "seconds": time.perf_counter() - t_phase}
+    log(f"  phase 17 (c) gemma3-1b B {b} x S {s}: step {mean:.1f} ms (steps "
+        f"{', '.join(f'{x:.1f}' for x in ms)}), {res['tokens_per_s']:.0f} "
+        f"tokens/s, {model / 1e12:.2f} TFLOP a step "
+        f"({res['model_tflops_per_s']:.1f} TFLOP/s; bound {b_ms:.1f} ms, "
+        f"{b_by}), losses {[round(x, 4) for x in losses]}; peak "
+        f"{peak / 1e9:.2f} GB [{smi}]")
+    log(f"  phase 17 (c) profiled step: host {1e3 * prof_s:.1f} ms, device "
+        f"{prof_sum['device_ms_per_step']:.1f} ms, busy "
+        f"{prof_sum['device_busy_share']:.3f}; backward kernels' device ms "
+        f"{prof_sum['named_ms_per_step']}; top {prof_sum['top_device_ops']}; "
+        f"launches bwd {bwd}, flash {flash} over {n_steps} steps; "
+        f"{res['seconds']:.1f} s [{smi}]")
+    log(f"  phase 17 (c) checks: {checks}")
+    del params, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, checks, counts, {"phase 17 (c) gemma3-1b layer 0": {
         "max_abs_err": err, "tolerance_share": share}}
 
 
@@ -8045,20 +8272,25 @@ def train_proxies(torch):
 
 
 def train_phase(torch, smi):
-    """Phase 17: (a) ``train_full_width``, (b) ``train_proxies``.  Line
-    ``train_phase {...}``; raises if a check fails."""
+    """Phase 17: (a) ``train_full_width``, (b) ``train_proxies``, (c)
+    ``train_gemma3``.  Line ``train_phase {...}``; raises if a check
+    fails."""
     t0 = time.perf_counter()
     res_a, checks_a, counts_a, held = train_full_width(torch, smi)
     res_b, checks_b, counts_b = train_proxies(torch)
-    res = {"full_width": res_a, "proxies": res_b,
+    res_c, checks_c, counts_c, held_c = train_gemma3(torch, smi)
+    res = {"full_width": res_a, "proxies": res_b, "gemma3": res_c,
            "seconds": time.perf_counter() - t0}
     log("train_phase " + json.dumps(res, default=str))
-    bad = [k for k, v in {**checks_a, **checks_b}.items() if not v]
+    bad = [f"({part}) {k}" for part, checks in
+           (("a", checks_a), ("b", checks_b), ("c", checks_c))
+           for k, v in checks.items() if not v]
     if bad:
         raise RuntimeError(f"phase 17 failed: {bad}")
     return {"launches": {"train_full_width": counts_a,
-                         "train_proxies_card": counts_b},
-            "held": {"flash_attention_bwd_wgmma": held}}
+                         "train_proxies_card": counts_b,
+                         "train_gemma3": counts_c},
+            "held": {"flash_attention_bwd_wgmma": {**held, **held_c}}}
 
 
 def main() -> int:
@@ -8097,7 +8329,8 @@ def main() -> int:
             log(f"    {ln}")
     log(f"  built in {time.perf_counter() - t0:.1f} s")
     if all(rep[src]["log"] for src in ("flash_attention_wgmma.cu",
-                                       "decode_attention_mma.cu")):
+                                       "decode_attention_mma.cu",
+                                       "flash_attention_bwd_wgmma.cu")):
         hd256 = hd256_instances(rep)
         log(f"  hd-256 tensor-core instances (registers, spill-store "
             f"bytes): {hd256}")
@@ -8198,7 +8431,7 @@ def main() -> int:
 
     phase("phase 17: training (qwen2-vl-2b at full width: make_train_step "
           "with the flash backward kernel; the proxies' build_system, card "
-          "vs CPU)")
+          "vs CPU; gemma3-1b at full width, hd 256)")
     train = train_phase(torch, smi)
     for name, cases in train.pop("held").items():
         kernels[name].update(cases)

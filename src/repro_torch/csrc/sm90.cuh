@@ -3,7 +3,8 @@
 // mma.sync, mbarriers, the cluster barrier and distributed shared memory,
 // TMA loads with their tensor maps (encoded on the host through
 // cudaGetDriverEntryPoint: no -lcuda), and the warpgroup products (wgmma)
-// on 64-row tiles that the flash forward and backward share.
+// on 64-row tiles that the flash forward and backward share, with named
+// barriers and the bf16 tile a warpgroup hands another for an SS product.
 #pragma once
 
 #include <cuda.h>
@@ -99,6 +100,24 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
     if (clock64() - t0 > (1ll << 33)) asm volatile("trap;");
 }
 
+// Named barrier ``id`` (1-15; 0 is __syncthreads) over ``n`` threads of
+// whole warps: sync waits for all n, arrive counts this warp and goes on.
+// Shared-memory writes before either are visible to the threads that
+// synced past the barrier.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Order this thread's shared-memory stores before the async proxy's reads
+// (a later wgmma's operands), once a barrier orders the threads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void cluster_barrier() {
   __syncwarp();                       // .aligned: the warp converged
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
@@ -148,7 +167,22 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
+// cuTensorMapEncodeTiled needs a context current on the calling thread.
+// The runtime makes the device's primary context current at a thread's
+// first call that needs one, so on a thread whose first CUDA work is an
+// entry point of ours (autograd's device thread, when the flash backward
+// is a graph's first op on the card) the encoder finds none and fails:
+// cudaFree(nullptr) binds it first, once a thread.
+inline void bind_context() {
+  thread_local bool bound = false;
+  if (!bound) {
+    cudaFree(nullptr);
+    bound = true;
+  }
+}
+
 inline EncodeTiled encode_tiled() {
+  bind_context();
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
@@ -355,6 +389,30 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D[64 x 128] += A[64 x 16] . B[16 x 128], A from shared memory K-major,
+// B from shared memory N-major (transposed), both 128-byte swizzle.
+__device__ __forceinline__ void wgmma_ss_n128_tb(float (&d)[64], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t b) {
   wgmma_rs_n64(d, a, b);
@@ -415,4 +473,37 @@ __device__ __forceinline__ void to_a_fragments(const float (&p)[32],
                                                uint32_t (&pa)[4][4]) {
 #pragma unroll
   for (int j = 0; j < 32; j += 2) pa[j / 8][(j % 8) / 2] = pack_bf16(p[j], p[j + 1]);
+}
+
+// A 64 x 64 f32 accumulator rounded to bf16 into shared memory at ``tile``
+// (1 KB aligned) as TMA lays a 64-column box down: 64 rows of 128 B, the
+// 16-byte chunk c of row r at chunk c ^ (r % 8).  So it is the K-major A
+// operand of a product over its columns (wgmma_tile_ss_n128), written by
+// other threads than the ones that issue it.  r0, c0: the thread's
+// accumulator row and column (as in the header above).  A warp's eight
+// rows land in eight different chunks: no bank conflicts.
+__device__ __forceinline__ void to_a_tile(uint32_t tile, const float (&x)[32],
+                                          int r0, int c0) {
+#pragma unroll
+  for (int j = 0; j < 32; j += 2) {
+    const int r = r0 + 8 * ((j >> 1) & 1);
+    const uint32_t at = tile + r * 128 + (((j / 4) ^ (r & 7)) << 4) + 2 * c0;
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at),
+                 "r"(pack_bf16(x[j], x[j + 1])) : "memory");
+  }
+}
+
+// acc[64 x 128] += A · B, A a 64 x 64 bf16 tile in shared memory
+// (to_a_tile's layout: K-major over its 64 columns), B 128 columns (two
+// boxes) of a 64-row tile whose rows are A's columns, read N-major through
+// the transpose bit from ``b``.  dV += Pᵀ·dO and its kin on one half of hd
+// 256.  Issues only.
+__device__ __forceinline__ void wgmma_tile_ss_n128(float (&acc)[64],
+                                                   uint32_t a, uint32_t b) {
+  reg_fence(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < WG_ROWS / 16; ++kk)
+    wgmma_ss_n128_tb(acc, sw128_desc(a + kk * 32, 16, 1024),
+                     sw128_desc(b + kk * 16 * 128, WG_BOX, 1024));
 }

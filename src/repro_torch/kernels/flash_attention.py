@@ -18,21 +18,22 @@ Two routes, chosen by ``route`` from the dtype and head dim alone:
   proxies' 12 and 16) go to ``csrc/flash_attention.cu``, f32 math on the
   CUDA cores.
 
-The backward (training) has two routes too, chosen by ``bwd_route``, its
-own rule (``BWD_WGMMA_HEAD_DIMS``): the tensor-core backward has no
-hd-256 instance, so bf16 at hd 256 runs its forward on the tensor cores
-and its backward on the CUDA cores, which recompute lse themselves:
+The backward (training) has two routes too, chosen by ``bwd_route`` from
+the dtype and head dim alone (``BWD_WGMMA_HEAD_DIMS``, the forward's
+tensor-core head dims):
 
-* ``"wgmma"``: bfloat16 at hd 64 or 128 goes to
-  ``csrc/flash_attention_bwd_wgmma.cu`` (a delta pre-pass, dK/dV by key
-  tile with the group's heads split over ``bwd_splits`` blocks and their
-  f32 partials summed in a fixed order, dQ by query tile; wgmma + TMA).  It reads the logsumexp ``lse``
-  that the wgmma forward writes when asked (``launch_wgmma(...,
-  with_lse=True)``), the JAX package's residual.  It rounds p and dS to
-  bf16 before the products that take them.  TMA's 16-byte rule holds for
-  q, k, v, o and do, or it raises.
-* ``"cuda_cores"``: float32 and every other head dim (256 among them)
-  go to ``csrc/flash_attention_bwd.cu`` (f32 math, three launches: row
+* ``"wgmma"``: bfloat16 at hd 64, 128 or 256 (the 2B's, the 7B's and
+  gemma3-1b's training) goes to ``csrc/flash_attention_bwd_wgmma.cu`` (a
+  delta pre-pass, dK/dV by key tile with the group's heads split over
+  ``bwd_splits`` blocks and their f32 partials summed in a fixed order, dQ
+  by query tile; wgmma + TMA; at hd 256 two consumer warpgroups a block
+  split the gradient's columns and hand P and dS over in shared memory).
+  It reads the logsumexp ``lse`` that the wgmma forward writes when asked
+  (``launch_wgmma(..., with_lse=True)``), the JAX package's residual.  It
+  rounds p and dS to bf16 before the products that take them.  TMA's
+  16-byte rule holds for q, k, v, o and do, or it raises.
+* ``"cuda_cores"``: float32 and every other head dim go to
+  ``csrc/flash_attention_bwd.cu`` (f32 math, three launches: row
   statistics, dK/dV by key tile, dQ by query tile).
 
 Both are deterministic (no atomics; the GQA sum is a loop).
@@ -44,6 +45,8 @@ CPU both are the plain versions.
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
 from typing import Optional
 
 import torch
@@ -71,8 +74,8 @@ BWD_WGMMA_KERNEL = CudaKernel("flash_attention_bwd_wgmma.cu",
                               + [ctypes.POINTER(ctypes.c_longlong)]
                               + [_I, _I, _F, _F, _P])
 WGMMA_HEAD_DIMS = (64, 128, 256)
-#: the head dims of the tensor-core backward (a subset of the forward's)
-BWD_WGMMA_HEAD_DIMS = (64, 128)
+#: the head dims of the tensor-core backward (the forward's)
+BWD_WGMMA_HEAD_DIMS = (64, 128, 256)
 #: rows of every tile of the tensor-core kernels
 TILE = 64
 
@@ -90,10 +93,10 @@ def route(dtype: torch.dtype, hd: int) -> str:
 
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
     """The backward kernel a (dtype, head dim) takes: ``"wgmma"`` for
-    bfloat16 at hd 64 or 128, ``"cuda_cores"`` for float32 and other head
-    dims (256 among them, whose forward is on the tensor cores); any other
-    dtype raises.  Where it names ``"wgmma"`` the forward's route does
-    too, so that forward has saved the lse the wgmma backward reads."""
+    bfloat16 at hd 64, 128 or 256, ``"cuda_cores"`` for float32 and other
+    head dims; any other dtype raises.  Where it names ``"wgmma"`` the
+    forward's route does too, so that forward has saved the lse the wgmma
+    backward reads."""
     if route(dtype, hd) == "wgmma" and hd in BWD_WGMMA_HEAD_DIMS:
         return "wgmma"
     return "cuda_cores"
@@ -107,40 +110,76 @@ def lse_rows(sq: int) -> int:
 
 
 #: the dK/dV pass's cost model (``bwd_splits``), measured on an H100
-#: (NVIDIA H100 80GB HBM3, 700 W): a (query tile, head) pair of a 64-key
-#: block at hd 128 takes ~2.1 µs, one block a SM (242 registers a
-#: thread); partials move at the memory's 3.35 TB/s
+#: (NVIDIA H100 80GB HBM3, 700 W) by ``chip_smoke.py``'s ``bwd_tail`` (the
+#: unsplit pass over its heaviest block's pairs): a (query tile, head)
+#: pair of a 64-key block takes ~2.1 µs at hd 128 (one consumer
+#: warpgroup, 242 registers a thread, one block a SM; hd 64 scaled from
+#: it) and ~3.46 µs at hd 256 (two warpgroups, 199 registers; gemma3-1b,
+#: B 4 x S 1025, 0.2355 ms over 68 pairs); partials move at the memory's
+#: 3.35 TB/s
 PAIR_US_HD128 = 2.1
+PAIR_US_HD256 = 3.46
 BYTES_PER_US = 3.35e6
 
 
+def _tile_pairs(sq: int, skv: int, causal: bool, window: int):
+    """The query tiles that see each 64-key tile's keys, in key-tile
+    order."""
+    off, out = skv - sq, []
+    for k0 in range(0, skv, TILE):
+        kmax = min(k0 + TILE, skv) - 1
+        i_begin = max(0, k0 - off) if causal else 0
+        i_end = min(sq, kmax + window - off) if window > 0 else sq
+        out.append((-(-i_end // TILE) - i_begin // TILE)
+                   if i_end > i_begin else 0)
+    return out
+
+
+def bwd_pairs(b: int, kh: int, group: int, sq: int, skv: int, causal: bool,
+              window: int):
+    """The dK/dV pass's unsplit work in (query tile, head) pairs: (the
+    heaviest block's, all blocks'), a block per (64-key tile, KV head,
+    batch row) walking its group's heads over the query tiles that see
+    its keys."""
+    n_t = _tile_pairs(sq, skv, causal, window)
+    return max(n_t) * group, sum(n_t) * group * b * kh
+
+
+def bwd_makespan(b: int, kh: int, group: int, sq: int, skv: int,
+                 causal: bool, window: int, d: int, sms: int) -> float:
+    """The dK/dV pass's length in pairs with the group split over ``d``
+    blocks: its blocks, one a SM, handed out in launch order (the split
+    and KV head fastest, the key tile slowest) to whichever SM is free
+    first.  The first key tiles are the heaviest under the causal mask,
+    so the order is close to longest first; a windowed pass's equal middle
+    tiles fill whole waves, and a split that leaves a last wave short of
+    a full one gains nothing."""
+    free = [0.0] * sms
+    for n_t in _tile_pairs(sq, skv, causal, window):
+        for _ in range(b * kh * d):
+            heapq.heapreplace(free, free[0] + n_t * group / d)
+    return max(free)
+
+
+@functools.lru_cache(maxsize=256)
 def bwd_splits(b: int, kh: int, group: int, hd: int, sq: int, skv: int,
                causal: bool, window: int, sms: int) -> int:
     """How many blocks share a KV head's group of heads in the wgmma
     backward's dK/dV pass.  Its grid is one block per (64-key tile, KV
     head, batch row, split) and each block walks its heads' query tiles,
     so under the causal mask the first key tile does Sq/64 times the last
-    one's work; with one block a SM the pass lasts
-    max(heaviest chain / d, all pairs / sms) pairs.  Splitting over d
+    one's work; the pass lasts ``bwd_makespan`` pairs.  Splitting over d
     blocks costs f32 partials written, read and summed (2d + 1/2 f32
     tiles of dK and dV).  Returns the divisor d of ``group`` with the
     least modelled time (1: no partials)."""
-    off, total, heaviest = skv - sq, 0, 0
-    for k0 in range(0, skv, TILE):
-        kmax = min(k0 + TILE, skv) - 1
-        i_begin = max(0, k0 - off) if causal else 0
-        i_end = min(sq, kmax + window - off) if window > 0 else sq
-        n_t = (-(-i_end // TILE) - i_begin // TILE) if i_end > i_begin else 0
-        total += n_t * group
-        heaviest = max(heaviest, n_t * group)
-    total *= b * kh
-    pair_us = PAIR_US_HD128 * hd / 128
+    pair_us = PAIR_US_HD256 if hd > 128 else PAIR_US_HD128 * hd / 128
     tile_bytes = b * kh * skv * hd * 4 * 2
     best, best_us = 1, None
     for d in range(1, group + 1):
         if group % d:
             continue
-        us = max(heaviest / d, total / sms) * pair_us
+        us = bwd_makespan(b, kh, group, sq, skv, causal, window, d,
+                          sms) * pair_us
         if d > 1:
             us += (2 * d + 0.5) * tile_bytes / BYTES_PER_US
         if best_us is None or us < best_us:
@@ -298,8 +337,8 @@ def launch_bwd_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      causal: bool = True, window: int = 0,
                      softcap: Optional[float] = None,
                      scale: Optional[float] = None):
-    """The tensor-core backward: bfloat16 at hd 64 or 128, q, k, v, o and
-    do keeping TMA's 16-byte rule, ``lse`` the wgmma forward's; raises on
+    """The tensor-core backward: bfloat16 at hd 64, 128 or 256, q, k, v,
+    o and do keeping TMA's 16-byte rule, ``lse`` the wgmma forward's; raises on
     anything else.  Returns (dq, dk, dv)."""
     if bwd_route(q.dtype, q.shape[-1]) != "wgmma":
         raise ValueError(f"the wgmma backward takes bfloat16 at hd "
@@ -372,8 +411,8 @@ class FlashAttentionFn(torch.autograd.Function):
     saves q, k, v and the output, and where the backward's route is wgmma
     also lse: the JAX package's residual (q, k, v, out, lse) of
     ``ref.flash_structured``, whose VJP recomputes p blockwise from it; the
-    CUDA-core backward (f32, other head dims, and hd 256 behind a wgmma
-    forward) recomputes lse itself."""
+    CUDA-core backward (f32 and the other head dims) recomputes lse
+    itself."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale):

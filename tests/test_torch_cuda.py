@@ -1837,17 +1837,19 @@ def _bwd_case(gen, sq, skv, h, kh, hd):
 
 
 @pytest.mark.parametrize("hd,group,kh", [(64, 1, 2), (128, 6, 2),
-                                         (128, 7, 1), (64, 6, 1)])
+                                         (128, 7, 1), (64, 6, 1),
+                                         (256, 4, 1)])
 @pytest.mark.parametrize("sq,skv,window,softcap", [
     (1, 1, 0, None), (63, 63, 100, None), (64, 64, 0, 30.0),
-    (65, 65, 100, 30.0), (1025, 1025, 0, None), (65, 300, 0, 30.0),
-    (65, 300, 100, None)])
+    (65, 65, 100, 30.0), (1025, 1025, 0, None), (1025, 1025, 512, None),
+    (65, 300, 0, 30.0), (65, 300, 100, None), (65, 300, 512, None)])
 def test_flash_bwd_wgmma_route_matches_plain(card, hd, group, kh, sq, skv,
                                              window, softcap):
     """The tensor-core backward through autograd against the plain
     backward under its bound, one launch counted under
     ``flash_attention_bwd_wgmma`` and none on the CUDA cores; K/V views of
-    buffers NaN past Skv."""
+    buffers NaN past Skv.  hd 256 at gemma3-1b's heads (4/1) and its local
+    layers' window 512 among them."""
     kw = {"window": window, "softcap": softcap}
     q, k, v, do = _bwd_case(card, sq, skv, kh * group, kh, hd)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -1861,15 +1863,18 @@ def test_flash_bwd_wgmma_route_matches_plain(card, hd, group, kh, sq, skv,
     _within_bwd_wgmma_bound(got, q, k, v, o.detach(), do, **kw)
 
 
-def test_flash_bwd_wgmma_is_deterministic_and_lse_is_the_plain_one(card):
+@pytest.mark.parametrize("h,kh,hd", [(12, 2, 128), (4, 1, 256)])
+def test_flash_bwd_wgmma_is_deterministic_and_lse_is_the_plain_one(card, h,
+                                                                   kh, hd):
     """Two calls of the tensor-core backward give the same bits; the
     forward's lse equals the plain logsumexp within 1e-5; the forward with
-    a null lse writes the same output bits as with one."""
+    a null lse writes the same output bits as with one.  At the 2B's heads
+    (hd 128) and gemma3-1b's (hd 256)."""
     from repro_torch.kernels import flash_attention as FA
     for sq, skv, window, softcap in ((1025, 1025, 0, None),
                                      (65, 300, 100, 30.0)):
         kw = {"window": window, "softcap": softcap}
-        q, k, v, do = _bwd_case(card, sq, skv, 12, 2, 128)
+        q, k, v, do = _bwd_case(card, sq, skv, h, kh, hd)
         tr = [t.transpose(1, 2) for t in (q, k, v)]
         o, lse = FA.launch_wgmma(*tr, with_lse=True, **kw)
         assert torch.equal(o, FA.launch_wgmma(*tr, **kw))
@@ -1905,14 +1910,13 @@ def test_flash_bwd_wgmma_refuses_what_it_does_not_take(card):
     assert ops.launch_counts()["flash_attention_bwd"] == before
 
 
-def test_hd256_grad_takes_a_wgmma_forward_and_a_cuda_core_backward(card):
+def test_hd256_grad_saves_lse_and_takes_the_wgmma_backward(card):
     """gemma3-1b's hd 256 under autograd (bf16, 4/1 heads, its local
     layers' window): the forward launches once on the wgmma route and
-    saves no lse, since the backward's route at hd 256 is the CUDA cores
-    (which recompute it, and raise if handed one); the backward launches
-    once there and never on the tensor cores.  The output is within the
-    wgmma route's bound, the gradients within the backward's bf16
-    tolerance of the plain backward on that output."""
+    saves its lse, the wgmma backward's residual; the backward launches
+    once on the tensor cores and never on the CUDA cores.  The output is
+    within the wgmma route's bound, the gradients within the backward's
+    bound."""
     kw = {"window": HD256_WINDOW, "softcap": None}
     q, k, v, do = _bwd_case(card, 600, 600, 4, 1, 256)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -1920,16 +1924,38 @@ def test_hd256_grad_takes_a_wgmma_forward_and_a_cuda_core_backward(card):
     with torch.enable_grad():
         o = ops.flash_attention(*leaves, **kw)
     mid = ops.launch_counts()
+    saved = o.grad_fn.saved_tensors
+    assert len(saved) == 5 and saved[4].dtype == torch.float32
+    assert tuple(saved[4].shape) == (2, 4, 600)
     got = torch.autograd.grad(o, leaves, do)
     after = ops.launch_counts()
     assert mid["flash_attention_wgmma"] == before["flash_attention_wgmma"] + 1
     assert mid["flash_attention"] == before["flash_attention"] + 1
     assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
     assert after["flash_attention_bwd_wgmma"] == \
-        before["flash_attention_bwd_wgmma"]
+        before["flash_attention_bwd_wgmma"] + 1
     _within_wgmma_bound(o.detach(), q, k, v, **kw)
-    want = ref.flash_attention_bwd(q, k, v, o.detach(), do, **kw)
-    _grads_close(got, want, torch.bfloat16)
+    _within_bwd_wgmma_bound(got, q, k, v, o.detach(), do, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_hd256_cuda_core_backward_matches_plain(card, dtype):
+    """The CUDA-core backward at hd 256 called directly
+    (``launch_bwd_cuda_cores``, the route f32 takes and bf16 no longer
+    does), gemma3-1b's heads and window: one launch, none on the tensor
+    cores, within the backward's tolerance of the plain version."""
+    from repro_torch.kernels import flash_attention as FA
+    kw = {"window": HD256_WINDOW, "softcap": None}
+    q, k, v, do = (t.to(dtype) for t in _bwd_case(card, 600, 600, 4, 1,
+                                                   256))
+    o = ops.flash_attention(q, k, v, **kw)
+    before = ops.launches_by_route(ops.launch_counts(), "flash_attention_bwd")
+    got = [t.transpose(1, 2) for t in FA.launch_bwd_cuda_cores(
+        *(t.transpose(1, 2) for t in (q, k, v, o, do)), **kw)]
+    after = ops.launches_by_route(ops.launch_counts(), "flash_attention_bwd")
+    assert after == {"wgmma": before["wgmma"],
+                     "cuda_cores": before["cuda_cores"] + 1}
+    _grads_close(got, ref.flash_attention_bwd(q, k, v, o, do, **kw), dtype)
 
 
 def test_flash_bwd_refuses_what_it_does_not_take(card):

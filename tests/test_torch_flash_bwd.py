@@ -32,22 +32,19 @@ from repro_torch.kernels.flash_attention import bwd_route, route  # noqa: E402
 
 
 def test_flash_bwd_route_rule():
-    """bf16 at hd 64/128 takes the tensor-core backward (where the
-    forward's route is wgmma too, so its forward saved lse); float32 and
-    other head dims take the CUDA cores, hd 256 among them, whose forward
-    takes wgmma (the tensor-core backward has no hd-256 instance); any
-    other dtype raises."""
-    assert bwd_route(torch.bfloat16, 64) == bwd_route(torch.bfloat16,
-                                                      128) == "wgmma"
+    """bf16 at hd 64/128/256 takes the tensor-core backward (where the
+    forward's route is wgmma too, so its forward saved lse: gemma3-1b's
+    hd 256 among them); float32 and other head dims take the CUDA cores;
+    any other dtype raises."""
+    assert bwd_route(torch.bfloat16, 64) == bwd_route(
+        torch.bfloat16, 128) == bwd_route(torch.bfloat16, 256) == "wgmma"
     for dtype, hd in [(torch.float32, 128), (torch.float32, 64),
-                      (torch.bfloat16, 16), (torch.bfloat16, 12),
-                      (torch.bfloat16, 96), (torch.bfloat16, 256)]:
+                      (torch.float32, 256), (torch.bfloat16, 16),
+                      (torch.bfloat16, 12), (torch.bfloat16, 96)]:
         assert bwd_route(dtype, hd) == "cuda_cores"
     for dtype in (torch.bfloat16, torch.float32):
-        for hd in (12, 64, 128):
+        for hd in (12, 64, 128, 256):
             assert bwd_route(dtype, hd) == route(dtype, hd)
-    assert route(torch.bfloat16, 256) == "wgmma"
-    assert route(torch.float32, 256) == "cuda_cores"
     for dtype in (torch.float16, torch.float64):
         with pytest.raises(TypeError):
             bwd_route(dtype, 128)
@@ -58,11 +55,24 @@ def test_flash_bwd_splits_rule():
     group its cost model prefers: at the 2B's training shapes on an H100's
     132 SMs, 2 blocks at S 1025 (136 unsplit blocks, one a SM: the pass
     is its heaviest block's 102 pairs) and none at S 2048 (256 blocks, two
-    waves that balance); a group of 1 never splits, and every answer
-    divides the group."""
-    from repro_torch.kernels.flash_attention import bwd_splits
+    waves that balance); at gemma3-1b's (B 4 x S 1025, 4/1 heads, hd 256,
+    a global layer: 68 unsplit blocks, the first key tile's 68 pairs) all
+    4 heads apart, which an H100 measured fastest (0.079 ms against 0.123
+    at 2 and 0.236 unsplit), and at its local layers' window 512 two
+    blocks (136 blocks of 18 pairs: at 4, 272 blocks make a short third
+    wave, and the H100 measured 0.0718 ms + 0.0054 for the sum at 2
+    against 0.0742 + 0.0104 at 4); a group of 1 never splits, and every
+    answer divides the group."""
+    from repro_torch.kernels.flash_attention import (bwd_makespan,
+                                                     bwd_pairs, bwd_splits)
     assert bwd_splits(4, 2, 6, 128, 1025, 1025, True, 0, 132) == 2
     assert bwd_splits(4, 2, 6, 128, 2048, 2048, True, 0, 132) == 1
+    assert bwd_pairs(4, 1, 4, 1025, 1025, True, 0) == (68, 2448)
+    assert bwd_splits(4, 1, 4, 256, 1025, 1025, True, 0, 132) == 4
+    assert bwd_pairs(4, 1, 4, 1025, 1025, True, 512) == (36, 1872)
+    assert [bwd_makespan(4, 1, 4, 1025, 1025, True, 512, d, 132)
+            for d in (1, 2, 4)] == [36, 18, 18]
+    assert bwd_splits(4, 1, 4, 256, 1025, 1025, True, 512, 132) == 2
     for group in (1, 5, 6, 7, 16):
         for sq, skv, window in ((1, 1, 0), (65, 300, 100), (4096, 4096, 0)):
             d = bwd_splits(2, 2, group, 64, sq, skv, True, window, 132)
@@ -75,7 +85,9 @@ def _emulate_wgmma_bwd(q, k, v, o, do, lse, *, window=0, softcap=None):
     dP in f32 from the bf16 operands, p = exp(x - lse) with the forward's
     lse, delta = rowsum(dO·O), dS = p·(dP - delta)·(1 - tanh²); P and dS
     rounded to bf16 before dV = Pᵀ·dO, dK = scale·dSᵀ·Q and dQ =
-    scale·dS·K; the gradients rounded to bf16.  Bottom-right causal."""
+    scale·dS·K; the gradients rounded to bf16.  Bottom-right causal.  At
+    hd 256 dS multiplies as the kernel's hand-over does, (p·(1 -
+    tanh²))·(dP - delta)."""
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -97,7 +109,8 @@ def _emulate_wgmma_bwd(q, k, v, o, do, lse, *, window=0, softcap=None):
     p = torch.where(mask, torch.exp(x - lse), torch.zeros(()))
     delta = (dof * o.float().reshape(b, sq, kh, g, hd)).sum(-1)
     dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
-    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) * dcap
+    dp = dp - delta.permute(0, 2, 3, 1)[..., None]
+    ds = (p * dcap) * dp if hd == 256 else p * dp * dcap
     pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
     dq = torch.einsum("bkgqs,bskd->bqkgd", dsb, kf) * scale
     dk = torch.einsum("bkgqs,bqkgd->bskd", dsb, qf) * scale
@@ -129,8 +142,12 @@ def _vjp(f, q, k, v, do):
     (7, 1, 128, 128, 128, 0, None),
     (6, 1, 64, 65, 200, 0, None),
     (2, 2, 64, 192, 192, 50, None),
-    (3, 2, 128, 128, 128, 0, 5.0)],
-    ids=["group7_hd128", "group6_hd64_sq65_skv200", "window", "softcap"])
+    (3, 2, 128, 128, 128, 0, 5.0),
+    (4, 1, 256, 192, 192, 40, None),
+    (4, 1, 256, 128, 128, 0, 5.0),
+    (4, 1, 256, 65, 200, 30, None)],
+    ids=["group7_hd128", "group6_hd64_sq65_skv200", "window", "softcap",
+         "hd256_window", "hd256_softcap", "hd256_sq65_skv200"])
 def test_flash_bwd_wgmma_emulation_within_bound(group, kh, hd, sq, skv,
                                                 window, softcap):
     """The emulated route on bf16 inputs stays within 0.6 of its bound; the

@@ -189,18 +189,17 @@ def test_hd256_takes_the_cuda_core_routes_and_260_is_refused():
     """gemma3-1b's head dim 256: bf16 takes the tensor-core route of every
     attention forward (flash on wgmma; dense decode, paged decode and
     prefix-append on mma.sync, whose hd-256 instances stage Q in shared
-    memory), while the flash backward stays on the CUDA cores (its
-    tensor-core kernel has no hd-256 instance); f32 takes the CUDA cores
-    everywhere, the backward too; every attention wrapper takes it; 260
-    and dims that are not a multiple of 4 still raise, before any
-    launch."""
+    memory) and of the flash backward (wgmma, its hd-256 kernels); f32
+    takes the CUDA cores everywhere, the backward too; every attention
+    wrapper takes it; 260 and dims that are not a multiple of 4 still
+    raise, before any launch."""
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PDA
     from repro_torch.kernels import paged_prefill_attention as PPA
     assert FA.route(torch.bfloat16, 256) == "wgmma"
-    assert FA.bwd_route(torch.bfloat16, 256) == "cuda_cores"
+    assert FA.bwd_route(torch.bfloat16, 256) == "wgmma"
     assert FA.bwd_route(torch.float32, 256) == "cuda_cores"
     assert PDA.route(torch.bfloat16, 256) == "mma"
     assert DA.route(torch.bfloat16, 256) == "mma"

@@ -19,6 +19,7 @@ The JAX package draws threefry bits where the port draws from a
 JAX's realised draws, fed through the port's draw helpers, and the port's
 own draws are checked for reproducibility by seed.
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -32,6 +33,8 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro import configs as jconfigs  # noqa: E402
+from repro.configs.base import BlockSpec as JBlockSpec  # noqa: E402
 from repro.configs.spaceverse_pair import proxy_pair as jproxy_pair  # noqa: E402
 from repro.core import confidence as JC  # noqa: E402
 from repro.core import eo_adapter as JEO  # noqa: E402
@@ -47,6 +50,7 @@ from repro.train import optimizer as JO  # noqa: E402
 from repro.train import trainer as JTR  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import BlockSpec  # noqa: E402
 from repro_torch.configs.spaceverse_pair import proxy_pair  # noqa: E402
 from repro_torch.core import confidence as C  # noqa: E402
 from repro_torch.core import eo_adapter as EO  # noqa: E402
@@ -245,6 +249,78 @@ def test_recurrent_mixers_refuse_train_mode(kind):
     x = torch.zeros((1, 4, cfg.d_model))
     with pytest.raises(NotImplementedError, match="'train'"):
         mixer(p, x, cfg=cfg, mode="train")
+
+
+# ---------------------------------------------------------------------------
+# gemma3-1b's attention shape: head dim 256, 4/1 heads, a local window
+# ---------------------------------------------------------------------------
+
+#: gemma3-1b reduced (d 64) with its head dim 256, one local and one
+#: global layer, the local window cut to 8 so that it binds at S 24
+G3_WINDOW, G3_B, G3_S = 8, 2, 24
+
+
+@pytest.fixture(scope="module")
+def g3():
+    out = []
+    for get, spec in ((jconfigs.get_config, JBlockSpec),
+                      (get_config, BlockSpec)):
+        out.append(dataclasses.replace(
+            get("gemma3-1b", reduced=True), head_dim=256,
+            num_layers=2, block_pattern=(spec(kind="attn", window=G3_WINDOW),
+                                         spec(kind="attn", window=0))))
+    jcfg, cfg = out
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (G3_B, G3_S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             "loss_mask": (rng.random((G3_B, G3_S)) > 0.2
+                           ).astype(np.float32)}
+    return {"jcfg": jcfg, "cfg": cfg,
+            "jp": JT.init_params(jcfg, jax.random.PRNGKey(0)),
+            "jb": {k: jnp.asarray(v) for k, v in batch.items()},
+            "tb": {k: torch.from_numpy(v) for k, v in batch.items()}}
+
+
+def test_gemma3_hd256_loss_fn_and_grads_match_jax(g3):
+    """gemma3-1b's training at its attention shape (hd 256, 4/1 heads, a
+    binding window): ``T.loss_fn`` and every gradient leaf through
+    ``TR.value_and_grad`` against ``jax.value_and_grad`` of the JAX
+    package's ``loss_fn`` (remat "nothing", ce_chunks 8, as phase 17 (c)
+    trains the full model on the card), within 1e-5 + 1e-4·|want|."""
+    kw = {"remat": True, "remat_policy": "nothing", "ce_chunks": 8}
+    (lj, mj), gj = jax.jit(jax.value_and_grad(
+        lambda p, b: JT.loss_fn(p, g3["jcfg"], b, **kw), has_aux=True))(
+        g3["jp"], g3["jb"])
+    loss, m, grads = TR.value_and_grad(
+        lambda p, b: T.loss_fn(p, g3["cfg"], b, **kw), _port(g3["jp"]),
+        g3["tb"])
+    _close(loss, lj, 1e-5, 1e-4)
+    for k in ("ce", "aux", "acc"):
+        _close(m[k], mj[k], 1e-5, 1e-4, k)
+    _trees_close(grads, gj, 1e-5, 1e-4)
+
+
+def test_gemma3_hd256_train_step_matches_jax(g3):
+    """One ``make_train_step`` (AdamW) at gemma3-1b's attention shape
+    against the JAX package's: metrics 1e-6 + 1e-5·|want|, parameters and
+    moments as ``test_train_step_matches_jax`` holds them."""
+    opt = JO.OptConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    popt = O.OptConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    kw = {"remat": True, "remat_policy": "nothing", "ce_chunks": 8}
+    jstep = jax.jit(JTR.make_train_step(g3["jcfg"], opt,
+                                        JTR.TrainConfig(**kw)))
+    step = TR.make_train_step(g3["cfg"], popt, TR.TrainConfig(**kw))
+    jstate = JO.init_opt_state(g3["jp"])
+    tstate = bridge.from_numpy(jax.tree.map(np.asarray, jstate),
+                               device="cpu")
+    jp, jst, jm = jstep(g3["jp"], jstate, g3["jb"])
+    tp, tstate, m = step(_port(g3["jp"]), tstate, g3["tb"])
+    for k in ("loss", "ce", "aux", "acc", "grad_norm", "lr"):
+        _close(m[k], jm[k], 1e-6, 1e-5, k)
+    _trees_close(tp, jp, 1e-5 + 0.02 * _lr_sum(opt, 1), 1e-3)
+    for k in ("m", "v"):
+        _trees_close(tstate[k], jst[k], 1e-6, 1e-3)
 
 
 # ---------------------------------------------------------------------------
