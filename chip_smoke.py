@@ -496,7 +496,8 @@ SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu",
            "flash_attention_bwd.cu", "flash_attention_bwd_wgmma.cu",
            "decode_attention.cu", "decode_attention_mma.cu",
            "region_score.cu", "paged_prefill_attention.cu", "ssm_scan.cu",
-           "ssm_scan_mma.cu", "slstm_scan.cu")
+           "ssm_scan_mma.cu", "slstm_scan.cu", "ssm_scan_bwd.cu",
+           "slstm_scan_bwd.cu")
 # decode_attention.cu and decode_attention_mma.cu each hold a dense and a
 # paged decode entry point; decode_attention_mma.cu also the prefix-append
 # kernel's tensor-core entry
@@ -534,6 +535,10 @@ REPLACES = {
     "ssm_scan": "src/repro/kernels/ssm_scan.py:65",
     "slstm_scan_cluster": "src/repro/kernels/slstm_scan.py:69",
     "slstm_scan": "src/repro/kernels/slstm_scan.py:69",
+    # no Pallas kernel: the JAX package trains through jax.vjp of the
+    # reference scans (their lax.scans)
+    "ssm_scan_bwd": "src/repro/kernels/ref.py:493",
+    "slstm_scan_bwd": "src/repro/kernels/ref.py:558",
 }
 SOURCE_OF = {
     "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -555,6 +560,8 @@ SOURCE_OF = {
     "ssm_scan": "src/repro_torch/csrc/ssm_scan.cu",
     "slstm_scan_cluster": "src/repro_torch/csrc/slstm_scan.cu",
     "slstm_scan": "src/repro_torch/csrc/slstm_scan.cu",
+    "ssm_scan_bwd": "src/repro_torch/csrc/ssm_scan_bwd.cu",
+    "slstm_scan_bwd": "src/repro_torch/csrc/slstm_scan_bwd.cu",
 }
 # full-width adapter: N_r = 32² = 1024 = cfg.num_patches, 16-px regions
 # (the Eq. 3 pyramid pools by 1, 2, 4 and 8, so the side must divide by 8)
@@ -985,6 +992,7 @@ def kernel_checks(torch):
                                           errors).items():
         report[name].update(rows)
     report.update(bwd_kernel_checks(torch, randn, timer, errors))
+    report.update(scan_bwd_kernel_checks(torch, randn, timer, errors))
 
     torch.cuda.synchronize()
     if errors:
@@ -3493,6 +3501,370 @@ def slstm_kernel_checks(torch, randn, timer, errors):
     log(f"  sLSTM dependence floor: {floor:.3f} us a step on the cluster "
         f"route at (B 1, H 1, P 8); x {steps_g} steps = "
         f"{1e-3 * floor * steps_g:.3f} ms at (g)")
+    return out
+
+
+#: the scans' backward against its plain version.  Each output is held
+#: against the plain version computed in f64 on the same inputs (the plain
+#: backward computes in f64 where it is given f64): its largest error there
+#: may be at most SCAN_BWD_K times the plain f32 version's own largest
+#: error on the same output, plus SCAN_BWD_FLOOR·max|want| (where both f32
+#: sides are exact).  The f32 version's own error is the size of this
+#: function's rounding on these inputs, whatever its source: dlog_g is a
+#: reverse cumulative sum whose terms cancel, the sLSTM's i and f gates and
+#: dm0 are differences along the m path (h does not depend on m but through
+#: the clamp), and a bf16 output's rounding is in it too.  The sLSTM's
+#: dgates_x and dr are held gate by gate (z, i, f, o): where the clamp
+#: binds, the gates' gradients differ by 10^8 in size.  16: the kernels sum
+#: in another order and depth than torch's products and cumulative sums.
+SCAN_BWD_K = 16.0
+SCAN_BWD_FLOOR = 2.0 ** -20
+
+
+def scan_bwd_pieces(kind, outs):
+    """A scan backward's outputs by name: the chunked scan's (dq, dk, dv,
+    dlog_g, dstate); the sLSTM's dgates_x (B, S, 4d) and dr (H, P, 4P) by
+    gate (blocks [z|i|f|o], of d and of P), then the initial (h, c, n, m)'s
+    gradients."""
+    if kind == "ssm_scan_bwd":
+        return dict(zip(("dq", "dk", "dv", "dlog_g", "dstate"), outs))
+    dgx, dr, dstate = outs
+    out = {}
+    for name, t in (("dgates_x", dgx), ("dr", dr)):
+        blocks = t.unflatten(-1, (4, -1))
+        for i, gate in enumerate("zifo"):
+            out[f"{name}.{gate}"] = blocks[..., i, :]
+    out.update(zip(("dh0", "dc0", "dn0", "dm0"), dstate))
+    return out
+
+
+def scan_bwd_share(got, want, want64):
+    """(max |got - want64|, its share of SCAN_BWD_K·max|want - want64| +
+    SCAN_BWD_FLOOR·max|want64|, the shares a zeroed and a doubled ``got``
+    would use, the f32 version's own error over max|want64|)."""
+    got, want, w64 = got.double(), want.double(), want64.double()
+    big = float(w64.abs().max())
+    own = float((want - w64).abs().max())
+    tol = SCAN_BWD_K * own + SCAN_BWD_FLOOR * big
+
+    def share(diff):
+        m = float(diff.max())
+        return m / tol if tol > 0 else (0.0 if m == 0 else math.inf)
+
+    diff = (got - w64).abs()
+    return (float(diff.max()), share(diff), share(w64.abs()),
+            share((2 * got - w64).abs()), own / big if big > 0 else 0.0)
+
+
+def hold_scan_bwd(kind, got, want, want64, case, errors):
+    """Each output of a scan's backward (``scan_bwd_pieces``) held by
+    ``scan_bwd_share``, a line each; failures go to ``errors``.  Returns
+    {"max_abs_err", "tolerance_share": the largest over the outputs,
+    "blind_share": the smallest share a zeroed or doubled output would use
+    on an output the f32 version gets within 1% of its largest element
+    (None where there is none), "discriminates": that share above 1}."""
+    pieces = [scan_bwd_pieces(kind, x) for x in (got, want, want64)]
+    err, worst, blind = 0.0, 0.0, math.inf
+    for name, g in pieces[0].items():
+        e, sh, zero, dbl, own = scan_bwd_share(g, pieces[1][name],
+                                               pieces[2][name])
+        ok = math.isfinite(e) and sh <= 1.0 and bool(g.isfinite().all())
+        log(f"  {kind} {name:10s} {case:50s} max_abs_err {e:.3e} used "
+            f"{sh:.3f} of {SCAN_BWD_K:g}x the f32 plain's own error "
+            f"({own:.1e} of max); zeroed/doubled {zero:.3g}/{dbl:.3g} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            errors.append(f"{kind} {name} {case}: max_abs_err {e}, {sh:.3f} "
+                          f"of the tolerance")
+        err, worst = max(err, e), max(worst, sh)
+        if own <= 0.01 and zero > 0.0:
+            blind = min(blind, zero, dbl)
+    return {"max_abs_err": err, "tolerance_share": worst,
+            "blind_share": blind if math.isfinite(blind) else None,
+            "discriminates": blind > 1.0}
+
+
+def as_f64(x):
+    """A tensor, or a tuple of tensors and Nones, in f64."""
+    if isinstance(x, tuple):
+        return tuple(as_f64(t) for t in x)
+    return None if x is None else x.double()
+
+
+def ssm_bwd_hold(torch, case, args, chunk, errors, got=None):
+    """The chunked scan's backward kernel (``SS.ssm_scan_bwd_cuda`` in the
+    kernel layout, or ``got`` where the caller ran it) on ``args`` (q, k,
+    v, log_g, state, do, dstate_final in the model layout) against
+    ``ref.ssm_scan_bwd`` on the same card tensors, by ``hold_scan_bwd``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as SS
+    q, k, v, g, st, do, d_sf = args
+    if got is None:
+        got = SS.ssm_scan_bwd_cuda(*(t.transpose(1, 2) for t in (q, k, v, g)),
+                                   st, do.transpose(1, 2), d_sf, chunk=chunk)
+        got = [t.transpose(1, 2) for t in got[:4]] + [got[4]]
+    want = ref.ssm_scan_bwd(*args, chunk=chunk)
+    want64 = ref.ssm_scan_bwd(*as_f64(tuple(args)), chunk=chunk)
+    return hold_scan_bwd("ssm_scan_bwd", got, want, want64, case, errors)
+
+
+def slstm_bwd_hold(torch, case, args, errors, got=None):
+    """The sLSTM's backward kernel (``SL.slstm_scan_bwd_cuda``, or ``got``
+    where the caller ran it) on ``args`` (gates_x, r, state, hs, dh,
+    dfinal) against ``ref.slstm_scan_bwd`` on the same card tensors, by
+    ``hold_scan_bwd``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm_scan as SL
+    if got is None:
+        got = SL.slstm_scan_bwd_cuda(*args)
+    want = ref.slstm_scan_bwd(*args)
+    want64 = ref.slstm_scan_bwd(*as_f64(tuple(args)))
+    return hold_scan_bwd("slstm_scan_bwd", got, want, want64, case, errors)
+
+
+def ssm_bwd_flops(b, h, s, dk, dv, chunk):
+    """FLOPs of the chunk form's backward: per chunk and (row, head) q·kᵀ,
+    do·vᵀ, pᵀ·do, b·k and bᵀ·q over the full C×C block, and the five
+    C×dk×dv products (the chunk-start state's recompute, S_c·do, dS·v,
+    dSᵀ·k, the dS update)."""
+    c = min(chunk, s)
+    per = 2 * c * c * (3 * dk + 2 * dv) + 10 * c * dk * dv
+    return float(b * h * (s // c) * per)
+
+
+def slstm_bwd_flops(b, s, heads, p_dim):
+    """FLOPs of the sLSTM's backward: the pre-activations' recompute
+    h·R, the step's dg·Rᵀ and dR = hᵀ·dg (2·P·4P each a row, head and
+    step) and ~60 a unit for the gates."""
+    return float(b * s * heads * (24 * p_dim * p_dim + 60 * p_dim))
+
+
+#: the backward kernels' training shapes, phase 19's: the chunked scan at
+#: xlstm-125m's mLSTM (B 4, S 2048, H 4, dk 384, dv 385, bf16) and
+#: hymba-1.5b's Mamba (B 2, S 2048, H 25, dk 16, dv 128, bf16, q and k the
+#: halves of one buffer); the sLSTM at xlstm-125m's (B 4, S 2048, H 4, P
+#: 192, f32)
+SSM_BWD_TIMED = {"f bwd xLSTM": (4, 2048, 4, 384, 385, False),
+                 "f'' bwd Hymba": (2, 2048, 25, 16, 128, True)}
+SLSTM_BWD_TIMED = {"g bwd xLSTM": (4, 2048, 4, 192)}
+
+
+def ssm_bwd_inputs(torch, randn, b, s, h, dk, dv, dtype, carried=False,
+                   dsf=False, halves=False, g_const=None):
+    """The chunked scan's backward operands in the model layout: q, k (the
+    halves of one (B, S, H, 2·dk) buffer with ``halves``), v, log_g, the
+    initial state, do and the final state's cotangent (None where off)."""
+    import torch.nn.functional as F
+    if halves:
+        bc = randn(b, s, h, 2 * dk).to(dtype)
+        q, k = bc[..., dk:], bc[..., :dk]
+    else:
+        q = (randn(b, s, h, dk) * dk ** -0.5).to(dtype)
+        k = randn(b, s, h, dk).to(dtype)
+    v = randn(b, s, h, dv).to(dtype)
+    g = (-F.softplus(randn(b, s, h)) if g_const is None
+         else torch.full((b, s, h), g_const, device="cuda"))
+    st = randn(b, h, dk, dv) if carried else None
+    do = randn(b, s, h, dv).to(dtype)
+    d_sf = randn(b, h, dk, dv) if dsf else None
+    return q, k, v, g, st, do, d_sf
+
+
+def slstm_bwd_check(torch, case, gx, r, st, dh, dfinal, errors):
+    """``slstm_bwd_hold`` on the forward kernel's own h sequence."""
+    from repro_torch.kernels import ops
+    with torch.no_grad():
+        hs, _ = ops.slstm_scan(gx, r, st)
+    return slstm_bwd_hold(torch, case, (gx, r, st, hs, dh, dfinal), errors)
+
+
+def scan_bwd_kernel_checks(torch, randn, timer, errors):
+    """The two backward kernels against their plain versions.  The chunked
+    scan's (``csrc/ssm_scan_bwd.cu``): an f32 sweep (S 1, 37 below the
+    chunk, 64, 96, 128, 256; chunk 16, 32, 64; dk 8-384 and 70, not a
+    multiple of the 64-wide tile; dv 5-385; zero and carried state; a
+    final-state cotangent or none; Hymba's q/k halves of one buffer; log_g
+    soft and -30, where the output must be finite), a bf16 sweep at the
+    models' widths, one call through ``ops.ssm_scan`` under autograd (one
+    forward and one backward launch), then ``SSM_BWD_TIMED`` held and timed
+    beside the plain version.  The sLSTM's (``csrc/slstm_scan_bwd.cu``): an
+    f32 sweep (B 1-5, S 1-50, H 1-4, P 8-256: clusters of 1-8 blocks, ragged
+    units; zero and carried state; final-state cotangents or none; gate
+    pre-activations ~N(0, 10²); a carried n below 1e-6 with the input gate
+    far below the forget gate, where max(n, 1e-6) binds), one call through
+    ``ops.slstm_scan`` under autograd, then ``SLSTM_BWD_TIMED``.  Neither
+    backward has a single PyTorch call computing it: the library column is
+    null.  Returns {"ssm_scan_bwd": rows, "slstm_scan_bwd": rows}."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import slstm_scan as SL
+    from repro_torch.kernels import ssm_scan as SS
+    out = {"ssm_scan_bwd": {}, "slstm_scan_bwd": {}}
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    log("ssm_scan_bwd vs plain")
+    for b, s, h, dk, dv, chunk, dt, carried, dsf, halves, g_const in [
+            (2, 37, 2, 8, 9, 64, f32, False, False, False, None),
+            (2, 128, 2, 16, 24, 64, f32, True, True, False, None),
+            (1, 64, 3, 16, 17, 16, f32, True, False, False, None),
+            (3, 1, 2, 8, 5, 64, f32, True, True, False, None),
+            (1, 96, 2, 70, 33, 32, f32, False, True, False, None),
+            (2, 256, 2, 16, 9, 64, f32, True, False, False, -30.0),
+            (2, 256, 2, 384, 385, 64, f32, True, True, False, None),
+            (2, 128, 25, 16, 128, 64, f32, True, True, True, None),
+            (2, 128, 4, 384, 385, 64, bf16, False, False, False, None),
+            (2, 37, 2, 32, 24, 64, bf16, True, True, False, None),
+            (2, 128, 25, 16, 128, 64, bf16, False, True, True, None)]:
+        tag = "f32" if dt == f32 else "bf16"
+        case = (f"{tag} B{b} S{s} H{h} dk{dk} dv{dv} chunk{chunk}"
+                f"{' state' if carried else ''}{' dSF' if dsf else ''}"
+                f"{' halves' if halves else ''}"
+                f"{f' g{g_const}' if g_const else ''}")
+        args = ssm_bwd_inputs(torch, randn, b, s, h, dk, dv, dt, carried,
+                              dsf, halves, g_const)
+        out["ssm_scan_bwd"][case] = ssm_bwd_hold(torch, case, args, chunk,
+                                                 errors)
+
+    # through ops under autograd: one forward and one backward launch
+    q, k, v, g, st, do, _ = ssm_bwd_inputs(torch, randn, 2, 128, 2, 32, 33,
+                                           bf16, carried=True)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, g, st)]
+    before = ops.launch_counts()
+    o, _ = ops.ssm_scan(*leaves)
+    grads = torch.autograd.grad(o, leaves, do)
+    after = ops.launch_counts()
+    ssm_bwd_hold(torch, "bf16 through ops.ssm_scan under autograd",
+                 (q, k, v, g, st, do, None), 64, errors, got=grads)
+    if (after["ssm_scan"] - before["ssm_scan"],
+            after["ssm_scan_bwd"] - before["ssm_scan_bwd"]) != (1, 1):
+        errors.append("ssm_scan under autograd: not one forward and one "
+                      "backward launch")
+
+    for tag, (b, s, h, dk, dv, halves) in SSM_BWD_TIMED.items():
+        args = ssm_bwd_inputs(torch, randn, b, s, h, dk, dv, bf16,
+                              halves=halves)
+        q, k, v, g, _, do, _ = args
+        if not halves:          # the model's operands (layers.mlstm)
+            k = (k.float() * torch.sigmoid(randn(b, s, h))[..., None]).to(
+                bf16)
+            v[..., -1] = 1.0
+            g = ref.log_sigmoid(3.0 + randn(b, s, h))
+        args = (q, k, v, g, None, do, None)
+        shape = (f"B{b} S{s} H{h} dk{dk} dv{dv} chunk64 bf16"
+                 f"{' q/k halves' if halves else ''}")
+        held = ssm_bwd_hold(torch, f"({tag}) {shape}", args, 64, errors)
+        kargs = [t.transpose(1, 2) for t in (q, k, v, g)]
+        dot = do.transpose(1, 2)
+        ms = timer(lambda: SS.ssm_scan_bwd_cuda(*kargs, None, dot), reps=3)
+        plain_ms = timer(lambda: ref.ssm_scan_bwd(q, k, v, g, None, do),
+                         reps=2)
+        ms = (ms + timer(lambda: SS.ssm_scan_bwd_cuda(*kargs, None, dot),
+                         reps=3)) / 2
+        # q, k, v, do, log_g and the (zero) state read; dq, dk, dv, dlog_g
+        # and dstate written
+        n_bytes = (nbytes(q, k, v, do) + nbytes(q, k, v) + 2 * nbytes(g)
+                   + 2 * 4 * b * h * dk * dv)
+        b_ms, b_by = bound_ms(n_bytes, ssm_bwd_flops(b, h, s, dk, dv, 64),
+                              "bfloat16")
+        out["ssm_scan_bwd"][tag] = {
+            **held, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "library_is": "no single library call",
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "flops": ssm_bwd_flops(b, h, s, dk, dv, 64),
+            "bound_share": b_ms / ms, "shape": shape}
+        log(f"  ssm_scan_bwd ({tag}) {shape}: {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; share "
+            f"{b_ms / ms:.4f})")
+        del args, kargs, q, k, v, g, do
+
+    log("slstm_scan_bwd vs plain")
+
+    def slstm_inputs(b, s, heads, p_dim, scale, carried, dfin, clamp=False):
+        d = heads * p_dim
+        gx = randn(b, s, 4 * d) * scale
+        gx[..., 2 * d:3 * d] += 3.0
+        r = randn(heads, p_dim, 4 * p_dim) * p_dim ** -0.5
+        st = None
+        if carried:
+            st = (torch.tanh(randn(b, heads, p_dim)),
+                  randn(b, heads, p_dim) * 3,
+                  torch.rand((b, heads, p_dim), device="cuda") * 5 + 0.5,
+                  randn(b, heads, p_dim) * 10)
+        if clamp:               # n below 1e-6, the input gate far below f
+            gx[..., d:2 * d] = -30.0
+            gx[..., 2 * d:3 * d] = 8.0
+            st = (st[0], st[1] * 1e-8, torch.full_like(st[2], 1e-8),
+                  torch.zeros_like(st[3]))
+        dh = randn(b, s, d)
+        dfinal = (tuple(randn(b, heads, p_dim) for _ in range(4)) if dfin
+                  else None)
+        return gx, r, st, dh, dfinal
+
+    for b, s, heads, p_dim, scale, carried, dfin, clamp in [
+            (1, 1, 1, 8, 1.0, False, False, False),
+            (2, 13, 2, 8, 10.0, True, True, False),
+            (2, 13, 2, 16, 1.0, True, True, True),
+            (3, 37, 1, 64, 10.0, True, False, False),
+            (2, 50, 3, 100, 10.0, True, True, False),
+            (2, 33, 4, 192, 1.0, False, True, False),
+            (5, 7, 4, 192, 1.0, True, True, False),
+            (1, 20, 1, 256, 10.0, True, True, False)]:
+        case = (f"f32 B{b} S{s} H{heads} P{p_dim} cs"
+                f"{SL.bwd_cluster_size(p_dim)} x{scale:g}"
+                f"{' state' if carried else ''}{' dfinal' if dfin else ''}"
+                f"{' clamp' if clamp else ''}")
+        args = slstm_inputs(b, s, heads, p_dim, scale, carried, dfin, clamp)
+        if clamp:
+            with torch.no_grad():
+                n_f = ops.slstm_scan(args[0], args[1], args[2])[1][2]
+            if not float(n_f.max()) < 1e-6:
+                errors.append(f"slstm_scan_bwd {case}: the clamp does not "
+                              f"bind")
+        out["slstm_scan_bwd"][case] = slstm_bwd_check(torch, case, *args,
+                                                      errors)
+
+    gx, r, st, dh, _ = slstm_inputs(2, 40, 4, 192, 1.0, True, False)
+    leaves = [x.clone().requires_grad_() for x in (gx, r, *st)]
+    before = ops.launch_counts()
+    hs, _ = ops.slstm_scan(leaves[0], leaves[1], tuple(leaves[2:]))
+    grads = torch.autograd.grad(hs, leaves, dh)
+    after = ops.launch_counts()
+    slstm_bwd_hold(torch, "f32 through ops.slstm_scan under autograd",
+                   (gx, r, st, hs.detach(), dh, None), errors,
+                   got=(grads[0], grads[1], grads[2:]))
+    if (after["slstm_scan"] - before["slstm_scan"],
+            after["slstm_scan_bwd"] - before["slstm_scan_bwd"]) != (1, 1):
+        errors.append("slstm_scan under autograd: not one forward and one "
+                      "backward launch")
+
+    for tag, (b, s, heads, p_dim) in SLSTM_BWD_TIMED.items():
+        gx, r, _, dh, _ = slstm_inputs(b, s, heads, p_dim, 1.0, False, False)
+        shape = f"B{b} S{s} H{heads} P{p_dim} f32"
+        held = slstm_bwd_check(torch, f"({tag}) {shape}", gx, r, None, dh,
+                               None, errors)
+        with torch.no_grad():
+            hs, _ = ops.slstm_scan(gx, r)
+        ms = timer(lambda: SL.slstm_scan_bwd_cuda(gx, r, None, hs, dh),
+                   reps=3)
+        plain_ms = timer(lambda: ref.slstm_scan_bwd(gx, r, None, hs, dh),
+                         reps=1)
+        ms = (ms + timer(lambda: SL.slstm_scan_bwd_cuda(gx, r, None, hs, dh),
+                         reps=3)) / 2
+        d = heads * p_dim
+        # gates, R, hs and dh read; dgates_x, dR and the state's written
+        n_bytes = 2 * nbytes(gx, r) + 2 * nbytes(hs) + 8 * 4 * b * d
+        flops = slstm_bwd_flops(b, s, heads, p_dim)
+        b_ms, b_by = bound_ms(n_bytes, flops, "float32")
+        out["slstm_scan_bwd"][tag] = {
+            **held, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "library_is": "no single library call",
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "flops": flops, "bound_share": b_ms / ms,
+            "sequential_steps": s, "us_per_step": 1e3 * ms / s,
+            "cluster_size": SL.bwd_cluster_size(p_dim), "shape": shape}
+        log(f"  slstm_scan_bwd ({tag}) {shape}: {ms:.4f} ms "
+            f"({1e3 * ms / s:.3f} us a step, clusters of "
+            f"{SL.bwd_cluster_size(p_dim)}), plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; share {b_ms / ms:.4f})")
     return out
 
 
@@ -7883,38 +8255,6 @@ def train_batches(torch, params, cfg, ac, seed: int = 0):
     return out
 
 
-def hold_last_bwd(run, case, errors):
-    """``run()`` (a train step) with the flash backward's last call of it
-    (layer 0's) kept: its inputs cloned, its lse the forward's own buffer;
-    then the kernel on them held under its bound (``check_bwd_wgmma``).
-    Returns (what ``run`` returned, max absolute error, share of the
-    bound)."""
-    from repro_torch.kernels import flash_attention as FA
-    held = {}
-    real_bwd = FA.flash_attention_bwd_cuda
-
-    def keep_last(*args, **kw):
-        held["args"] = tuple(a.clone() for a in args)
-        held["kw"] = dict(kw)
-        return real_bwd(*args, **kw)
-
-    FA.flash_attention_bwd_cuda = keep_last
-    try:
-        out = run()
-    finally:
-        FA.flash_attention_bwd_cuda = real_bwd
-    q, k, v, o, do = held["args"]
-    got = [t.transpose(1, 2) for t in real_bwd(q, k, v, o, do,
-                                               **held["kw"])]
-    kw = {n: x for n, x in held["kw"].items() if n != "lse"}
-    err, share = check_bwd_wgmma(
-        "flash_attention_bwd", got,
-        *(t.transpose(1, 2) for t in (q, k, v, o, do)), kw,
-        f"{case} B{q.shape[0]} H{q.shape[1]} S{q.shape[2]} "
-        f"w{kw.get('window')}", errors)
-    return out, err, share
-
-
 def train_full_width(torch, smi):
     """(a) ``make_train_step`` on the 2B at full width (random bf16 weights
     from seed 0), remat "nothing", ce_chunks 8, ``TRAIN_ROUNDS`` steps in a
@@ -7932,6 +8272,7 @@ def train_full_width(torch, smi):
     and the step's FLOPs beside their bound."""
     from repro_torch.configs.spaceverse_pair import SAT_CONFIG
     from repro_torch.core import eo_adapter as EO
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
     from repro_torch.train import optimizer as O
     from repro_torch.train import trainer as TR
@@ -7984,9 +8325,12 @@ def train_full_width(torch, smi):
     # the backward kernel on the path's own inputs: an extra det step, after
     # the counts and the timings, keeps its last backward call's (layer 0)
     errors = []
-    (params, opt_state, _), err, share = hold_last_bwd(
+    (params, opt_state, _), kept = hold_last_calls(
         lambda: step(params, opt_state, batches["det"]),
-        "phase 17 det step layer 0", errors)
+        {"flash_attention_bwd": (FA, "flash_attention_bwd_cuda")})
+    layer0 = hold_layer0_bwd(torch, kept, "phase 17 det step",
+                             errors)["flash_attention_bwd"]
+    err, share = layer0["max_abs_err"], layer0["tolerance_share"]
 
     # one profiled vqa step last (S 1025): where its step time goes
     with profile(activities=[ProfilerActivity.CPU,
@@ -8083,6 +8427,7 @@ def train_gemma3(torch, smi):
     memory."""
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.train import optimizer as O
@@ -8127,9 +8472,12 @@ def train_gemma3(torch, smi):
     prof_sum = device_summary(torch, prof, 1, prof_s, k=6, names=BWD_KERNELS)
 
     errors = []
-    (params, opt_state, m), err, share = hold_last_bwd(
+    (params, opt_state, m), kept = hold_last_calls(
         lambda: step(params, opt_state, batch),
-        "phase 17 (c) gemma3-1b layer 0", errors)
+        {"flash_attention_bwd": (FA, "flash_attention_bwd_cuda")})
+    layer0 = hold_layer0_bwd(torch, kept, "phase 17 (c) gemma3-1b",
+                             errors)["flash_attention_bwd"]
+    err, share = layer0["max_abs_err"], layer0["tolerance_share"]
     losses.append(float(m["loss"]))
 
     model, executed = train_step_flops(cfg, b, s)
@@ -8293,6 +8641,258 @@ def train_phase(torch, smi):
             "held": {"flash_attention_bwd_wgmma": {**held, **held_c}}}
 
 
+#: phase 19: the recurrent configs trained at full width and depth, (B, S,
+#: steps) each on one fixed token batch (numpy seed 0): xlstm-125m (8 mLSTM
+#: and 4 sLSTM layers, d 768) and hymba-1.5b (32 hybrid layers, d 1600,
+#: the 1024-token window binding at S 2048)
+RECURRENT_TRAIN = {"xlstm-125m": (4, 2048, 3), "hymba-1.5b": (2, 2048, 3)}
+#: the phase's budget in seconds (both models, build excluded)
+RECURRENT_TRAIN_BUDGET_S = 90.0
+#: the backward kernels each model's layers launch, by layer kind
+RECURRENT_BWD = {"mlstm": ("ssm_scan_bwd",), "slstm": ("slstm_scan_bwd",),
+                 "hybrid": ("ssm_scan_bwd", "flash_attention_bwd")}
+
+
+def hold_last_calls(run, wrappers):
+    """``run()`` (a train step) with each named wrapper's last call kept,
+    its positional arguments cloned, its keyword ones kept as they are (the
+    flash backward's lse is a view of the forward's padded buffer, which a
+    clone would not keep): the backward runs the layers in reverse, so the
+    last call is layer 0's.  Under ``key + " window"``, the last call with
+    a ``window``, where that is another call (the lowest windowed layer's:
+    layer 1 of Hymba's pattern).  ``wrappers``: {key: (module,
+    attribute)}.  Returns (what ``run`` returned, {key: (args, kwargs)})."""
+    held, saved = {}, {}
+
+    def keeper(key, real):
+        def keep(*args, **kw):
+            call = (tuple(a.clone() if hasattr(a, "clone") else a
+                          for a in args), dict(kw))
+            held[key] = call
+            if kw.get("window"):
+                held[key + " window"] = call
+            return real(*args, **kw)
+        return keep
+
+    for key, (mod, attr) in wrappers.items():
+        saved[key] = getattr(mod, attr)
+        setattr(mod, attr, keeper(key, saved[key]))
+    try:
+        out = run()
+    finally:
+        for key, (mod, attr) in wrappers.items():
+            setattr(mod, attr, saved[key])
+    for key in wrappers:
+        if held.get(key + " window") is held.get(key):
+            held.pop(key + " window", None)
+    return out, held
+
+
+def hold_layer0_bwd(torch, held, case, errors):
+    """Each kept backward call (``hold_last_calls``) rerun through its
+    kernel and held against its plain version on the same inputs: the
+    chunked scan's and the sLSTM's by ``hold_scan_bwd`` (against the plain
+    version in f64, each output within 16x the f32 plain's own error), the
+    flash backward under its bound (``check_bwd_wgmma``).  Returns {key:
+    {"max_abs_err", "tolerance_share", ...}}."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssm_scan as SS
+    out = {}
+    if "ssm_scan_bwd" in held:
+        args, kw = held["ssm_scan_bwd"]
+        q, k, v, g, st, do, dsf = args
+        got = SS.ssm_scan_bwd_cuda(*args, **kw)
+        got = [t.transpose(1, 2) for t in got[:4]] + [got[4]]
+        model = tuple(t.transpose(1, 2) for t in (q, k, v, g))
+        shape = f"B{q.shape[0]} H{q.shape[1]} S{q.shape[2]} dk{q.shape[3]}"
+        out["ssm_scan_bwd"] = ssm_bwd_hold(
+            torch, f"{case} layer 0 {shape}",
+            (*model, st, do.transpose(1, 2), dsf), kw.get("chunk", 64),
+            errors, got=got)
+    if "slstm_scan_bwd" in held:
+        args, _ = held["slstm_scan_bwd"]
+        shape = f"B{args[0].shape[0]} S{args[0].shape[1]}"
+        out["slstm_scan_bwd"] = slstm_bwd_hold(
+            torch, f"{case} layer 0 {shape}", args, errors)
+    for key, layer in (("flash_attention_bwd", "layer 0"),
+                       ("flash_attention_bwd window",
+                        "lowest windowed layer")):
+        if key not in held:
+            continue
+        (q, k, v, o, do), kw = held[key]
+        got = [t.transpose(1, 2) for t in FA.flash_attention_bwd_cuda(
+            q, k, v, o, do, **kw)]
+        kw = {n: x for n, x in kw.items() if n != "lse"}
+        err, share = check_bwd_wgmma(
+            "flash_attention_bwd", got,
+            *(t.transpose(1, 2) for t in (q, k, v, o, do)), kw,
+            f"{case} {layer} B{q.shape[0]} H{q.shape[1]} KH{k.shape[1]} "
+            f"S{q.shape[2]} hd{q.shape[3]} w{kw.get('window')}", errors)
+        out[key] = {"max_abs_err": err, "tolerance_share": share}
+    return out
+
+
+def train_recurrent(torch, smi, name):
+    """One model of phase 19: ``make_train_step`` at full width and depth
+    (random weights from seed 0, the config's dtype), remat "nothing",
+    ce_chunks 8, ``RECURRENT_TRAIN``'s steps on one fixed token batch,
+    counts zeroed just before; then one profiled step (the device's
+    activity alone) and one step whose layer-0 backward calls (and, where
+    windows bind, the last windowed layer's flash backward) are kept and
+    held against their plain versions.  Checks: every loss and grad norm
+    finite; each backward kernel launched layers × steps times (its kind's
+    layers); the scan forward on its tensor-core route, twice a layer and
+    step (forward and the remat's recompute); no CUDA-core flash."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import slstm_scan as SL
+    from repro_torch.kernels import ssm_scan as SS
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    from repro_torch.tree import tree_leaves
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    cfg = get_config(name)
+    b, s, n_steps = RECURRENT_TRAIN[name]
+    params = T.init_params(cfg, 0, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s + 1)).astype(np.int32)).to("cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             "loss_mask": torch.ones((b, s), device="cuda")}
+    step = TR.make_train_step(cfg, O.OptConfig(warmup_steps=1,
+                                               total_steps=1000),
+                              TR.TrainConfig(remat=True,
+                                             remat_policy="nothing",
+                                             ce_chunks=8))
+    opt_state = O.init_opt_state(params)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    kinds = [spec.kind for spec in cfg.block_pattern] * cfg.n_super
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms = [], [], []
+    ops.reset_launch_counts()
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    names = ("ssm_bwd", "slstm_bwd", "bwd_dkdv", "bwd_dq", "ssm_scan_mma",
+             "slstm_cluster", "flash_wgmma")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    losses.append(float(m["loss"]))
+    norms.append(float(m["grad_norm"]))
+    prof_sum = device_summary(torch, prof, 1, prof_s, k=6, names=names)
+
+    wrappers = {"ssm_scan_bwd": (SS, "ssm_scan_bwd_cuda")}
+    if "slstm" in kinds:
+        wrappers["slstm_scan_bwd"] = (SL, "slstm_scan_bwd_cuda")
+    if "hybrid" in kinds:
+        wrappers["flash_attention_bwd"] = (FA, "flash_attention_bwd_cuda")
+    (params, opt_state, m), held = hold_last_calls(
+        lambda: step(params, opt_state, batch), wrappers)
+    losses.append(float(m["loss"]))
+    norms.append(float(m["grad_norm"]))
+    errors = []
+    held_errs = hold_layer0_bwd(torch, held, f"phase 19 {name}", errors)
+    del held
+
+    want = {}
+    for kind in kinds:
+        for kern in RECURRENT_BWD[kind]:
+            want[kern] = want.get(kern, 0) + n_steps
+    scans = {"mlstm": 0, "hybrid": 0}
+    for kind in kinds:
+        if kind in scans:
+            scans[kind] += 1
+    n_scan = sum(scans.values())
+    ssm = ops.launches_by_route(counts, "ssm_scan")
+    flash = ops.launches_by_route(counts, "flash_attention")
+    bwd = ops.launches_by_route(counts, "flash_attention_bwd")
+    mean = sum(ms[1:]) / len(ms[1:])
+    checks = {
+        "losses finite": all(math.isfinite(x) for x in losses),
+        "grad norms finite": all(math.isfinite(x) for x in norms),
+        **{f"{kern} {n} a step": counts[kern] == n
+           for kern, n in want.items()},
+        "flash backward on the tensor cores alone": bwd["cuda_cores"] == 0,
+        "scan forward on the tensor cores, twice a layer and step":
+            ssm == {"mma": 2 * n_scan * n_steps, "cuda_cores": 0},
+        "no CUDA-core flash": flash["cuda_cores"] == 0,
+        "backward kernels on the path's inputs": not errors,
+        "a zeroed or doubled scan gradient fails layer 0's hold": all(
+            held_errs[kern]["discriminates"]
+            for kern in ("ssm_scan_bwd", "slstm_scan_bwd")
+            if kern in held_errs)}
+    res = {"model": cfg.name, "params": n_params, "batch": b, "seq": s,
+           "tokens": b * s, "dtype": cfg.dtype, "step_ms": ms,
+           "step_ms_mean_after_first": mean,
+           "tokens_per_s": b * s / (mean / 1e3), "losses": losses,
+           "grad_norms": norms, "launches": counts, "peak_bytes": peak,
+           "profiled_step": {"host_ms": 1e3 * prof_s, **prof_sum},
+           "layer0_bwd": held_errs, "card": smi,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"  phase 19 {name} B {b} x S {s}: step {mean:.1f} ms (steps "
+        f"{', '.join(f'{x:.1f}' for x in ms)}), {res['tokens_per_s']:.0f} "
+        f"tokens/s, losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 3) for x in norms]}; peak {peak / 1e9:.2f} GB [{smi}]")
+    log(f"  phase 19 {name} profiled step: host {1e3 * prof_s:.1f} ms, "
+        f"device {prof_sum['device_ms_per_step']:.1f} ms, busy "
+        f"{prof_sum['device_busy_share']:.3f}; kernels' device ms "
+        f"{prof_sum['named_ms_per_step']}; top {prof_sum['top_device_ops']}; "
+        f"launches {dict((k, counts[k]) for k in want)}, scan forward {ssm}, "
+        f"flash {flash}, flash bwd {bwd}; {res['seconds']:.1f} s [{smi}]")
+    log(f"  phase 19 {name} checks: {checks}")
+    del params, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, checks, counts, held_errs
+
+
+def train_recurrent_phase(torch, smi):
+    """Phase 19: ``train_recurrent`` on each of ``RECURRENT_TRAIN``'s
+    models, within ``RECURRENT_TRAIN_BUDGET_S``.  Line
+    ``train_recurrent_phase {...}``; raises if a check fails."""
+    t0 = time.perf_counter()
+    res, bad, launches, held = {}, [], {}, {}
+    for name in RECURRENT_TRAIN:
+        r, checks, counts, errs = train_recurrent(torch, smi, name)
+        res[name] = r
+        bad += [f"{name}: {k}" for k, v in checks.items() if not v]
+        launches[f"train_{name}"] = counts
+        for key, kern, layer in (
+                ("ssm_scan_bwd", "ssm_scan_bwd", "layer 0"),
+                ("slstm_scan_bwd", "slstm_scan_bwd", "layer 0"),
+                ("flash_attention_bwd", "flash_attention_bwd_wgmma",
+                 "layer 0"),
+                ("flash_attention_bwd window", "flash_attention_bwd_wgmma",
+                 "lowest windowed layer")):
+            if key in errs:
+                held.setdefault(kern, {})[f"phase 19 {name} {layer}"] = \
+                    errs[key]
+    res["seconds"] = time.perf_counter() - t0
+    log("train_recurrent_phase " + json.dumps(res, default=str))
+    log(f"  phase 19: {res['seconds']:.1f} s (budget "
+        f"{RECURRENT_TRAIN_BUDGET_S:.0f} s)")
+    if res["seconds"] > RECURRENT_TRAIN_BUDGET_S:
+        bad.append(f"{res['seconds']:.1f} s, past the phase's budget")
+    if bad:
+        raise RuntimeError(f"phase 19 failed: {bad}")
+    return {"launches": launches, "held": held}
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -8442,6 +9042,13 @@ def main() -> int:
     hymba = hymba_serve_phase(torch, smi)
     for name, cases in hymba.pop("held").items():
         kernels[name].update(cases)
+    torch.cuda.empty_cache()
+
+    phase("phase 19: training of the recurrent configs at full width and "
+          "depth (xlstm-125m, hymba-1.5b): the scans' backward kernels")
+    rec_train = train_recurrent_phase(torch, smi)
+    for name, cases in rec_train.pop("held").items():
+        kernels[name].update(cases)
 
     # each path drove the kernels with the counts zeroed just before it
     by_path = {"small_proxies_f32": small_counts,
@@ -8456,7 +9063,8 @@ def main() -> int:
                **sharded["launches"], **graphs["launches"],
                **{f"xlstm {tag}": c for tag, c in xlstm["launches"].items()},
                **xlstm_serve["launches"], **dense["launches"],
-               **train["launches"], **hymba["launches"]}
+               **train["launches"], **hymba["launches"],
+               **rec_train["launches"]}
     for tag, r in xlstm.items():
         for name, cases in r.get("kernel_vs_plain_max_abs_err", {}).items():
             kernels[name].update({c: {"max_abs_err": e}
@@ -8496,7 +9104,9 @@ def main() -> int:
                 "flash_attention_bwd": "det",
                 "ssm_scan_mma": "f xLSTM", "ssm_scan": "f xLSTM",
                 "slstm_scan_cluster": "g xLSTM",
-                "slstm_scan": "g xLSTM"}
+                "slstm_scan": "g xLSTM",
+                "ssm_scan_bwd": "f bwd xLSTM",
+                "slstm_scan_bwd": "g bwd xLSTM"}
     line = []
     for name, tag in headline.items():
         shapes = kernels[name]

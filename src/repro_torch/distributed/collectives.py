@@ -9,7 +9,8 @@ only for the sublayer kinds the context marks as split, so a replicated
 sublayer is never multiplied by the tensor-parallel degree.  Every
 all-reduce counts under its kind (``all_reduce_counts``).  The gradient
 helpers of the JAX module (``reduce_scatter_grads``, ``all_gather_params``,
-``chunked_psum``) are not ported (ROADMAP queue 1, item 19).
+``chunked_psum``), the tools of ZeRO-1 sharding, are not ported (ROADMAP
+queue 1, item 12's rest).
 """
 from __future__ import annotations
 

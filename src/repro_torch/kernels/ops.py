@@ -40,8 +40,10 @@ KERNELS = {"flash_attention": FA.KERNEL,
            "paged_prefill_attention": PPA.KERNEL,
            "paged_prefill_attention_mma": PPA.MMA_KERNEL,
            "ssm_scan": SS.KERNEL, "ssm_scan_mma": SS.MMA_KERNEL,
+           "ssm_scan_bwd": SS.BWD_KERNEL,
            "slstm_scan": SL.KERNEL,
-           "slstm_scan_cluster": SL.CLUSTER_KERNEL}
+           "slstm_scan_cluster": SL.CLUSTER_KERNEL,
+           "slstm_scan_bwd": SL.BWD_KERNEL}
 #: the kernels with two routes: {name: (the second route's key, its route,
 #: the first route's)}
 ROUTES = {
@@ -368,18 +370,17 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              chunk: int = 64):
     """q, k: (B, S, H, dk); v: (B, S, H, dv); log_g: (B, S, H); state
     (B, H, dk, dv) or None (f32 zeros) → (o (B, S, H, dv), final_state
-    f32)."""
-    if not _on_card(q, k, v, log_g):
+    f32).  Under autograd (grad enabled and an input that requires it) the
+    call goes through ``SsmScanFn``, whose backward is the backward kernel
+    on the card; otherwise it launches the forward alone."""
+    on_card = _on_card(q, k, v, log_g)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (q, k, v, log_g, state)):
+        return SS.SsmScanFn.apply(q, k, v, log_g, state, chunk)
+    if not on_card:
         return ref.ssm_scan(q, k, v, log_g, state, chunk=chunk)
-    b, s, h, dk = q.shape
-    dv = v.shape[-1]
-    if state is None:
-        state = torch.zeros((b, h, dk, dv), dtype=torch.float32,
-                            device=q.device)
-    o, sf = SS.ssm_scan_cuda(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), log_g.transpose(1, 2),
-                             state, chunk=chunk)
-    return o.transpose(1, 2), sf
+    return SS.ssm_scan_model_layout(q, k, v, log_g, state, chunk=chunk)
 
 
 #: the O(1) per-token update; no kernel, as in the JAX package
@@ -393,7 +394,14 @@ ssm_decode_step = ref.ssm_decode_step
 def slstm_scan(gates_x: torch.Tensor, r: torch.Tensor, state=None):
     """gates_x: (B, S, 4d) [z|i|f|o]; r: (H, P, 4P); state: initial
     (h, c, n, m) each (B, H, P), or None (the zero start) → (h (B, S, d),
-    final (h, c, n, m))."""
-    if not _on_card(gates_x, r):
+    final (h, c, n, m)).  Under autograd the call goes through
+    ``SlstmScanFn``, as ``ssm_scan`` through ``SsmScanFn``."""
+    on_card = _on_card(gates_x, r)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (gates_x, r, *(state or ()))):
+        hs, *final = SL.SlstmScanFn.apply(gates_x, r,
+                                          *(state or (None,) * 4))
+        return hs, tuple(final)
+    if not on_card:
         return ref.slstm_scan(gates_x, r, state)
     return SL.slstm_scan_cuda(gates_x, r, state)

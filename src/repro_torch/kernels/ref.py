@@ -303,6 +303,12 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
 # ssm_scan: chunked gated linear attention (Mamba-2 SSD / mLSTM core)
 # ---------------------------------------------------------------------------
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The plain scans' backward computes in f32, or in f64 where it is
+    given f64 (a reference for the rounding of the f32 versions)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def chunk_for(s: int, chunk: int) -> int:
     """The JAX package's rule: ``min(chunk, s)``, which must divide s."""
     chunk = min(chunk, s)
@@ -350,6 +356,81 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         st = torch.exp(total)[..., None] * st + kd.transpose(-1, -2) @ vi
         outs.append((o_inter + o_intra).transpose(1, 2))
     return torch.cat(outs, dim=1).to(q.dtype), st
+
+
+def ssm_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_g: torch.Tensor, state: Optional[torch.Tensor],
+                 do: torch.Tensor, dstate_final: Optional[torch.Tensor] = None,
+                 *, chunk: int = 64):
+    """The backward of ``ssm_scan``: the cotangent ``do`` (B, S, H, dv) of o
+    and ``dstate_final`` (B, H, dk, dv) of the final state (None: zero) →
+    (dq, dk, dv, dlog_g in their inputs' dtypes, dstate (B, H, dk, dv)
+    f32), the gradient of the same expression as the JAX oracle's, written
+    out (no autograd).
+
+    The chunk-start states are recomputed from ``state`` in a forward sweep;
+    the reverse sweep carries dS, the gradient of the state after the chunk:
+      dv_j = Σ_{i>=j} p_ij do_i + exp(T - cum_j)·dSᵀ k_j
+      dq_i = exp(cum_i)·S_c do_i + Σ_{j<=i} b_ij k_j
+      dk_j = Σ_{i>=j} b_ij q_i + exp(T - cum_j)·dS v_j
+      dS  <- exp(T)·dS + Σ_i exp(cum_i) q_i do_iᵀ
+    with p_ij = (q_i·k_j)·exp(cum_i - cum_j), b_ij = (do_i·v_j)·exp(cum_i -
+    cum_j) for j <= i, the exponent masked before ``exp`` as in the forward.
+    The decay's gradient needs no exponent: with c_t = Σ_{s<=t} log_g_s over
+    the whole sequence, o depends on c through exp(c_t)·q_t and
+    exp(-c_j)·k_j only, so dL/dc_t = q_t·dq_t - k_t·dk_t (the full
+    gradients), plus <dS_F, S_F> at the last token from the final state's
+    exp(c_T) factor; dlog_g is its reverse cumulative sum."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    chunk = chunk_for(s, chunk)
+    f32 = _acc(q.dtype)
+
+    def heads(x):
+        return x.to(f32).transpose(1, 2)                  # (B, H, S, d)
+
+    qh, kh, vh, doh = heads(q), heads(k), heads(v), heads(do)
+    g = log_g.to(f32).transpose(1, 2)                     # (B, H, S)
+    st = (torch.zeros((b, h, dk, dv), dtype=f32, device=q.device)
+          if state is None else state.to(f32))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=q.device))
+    spans = [slice(c0, c0 + chunk) for c0 in range(0, s, chunk)]
+    starts = []
+    for sl in spans:                       # the chunk-start states
+        cum = torch.cumsum(g[..., sl], dim=-1)
+        total = cum[..., -1:]
+        starts.append(st)
+        kd = kh[:, :, sl] * torch.exp(total - cum)[..., None]
+        st = torch.exp(total)[..., None] * st + kd.transpose(-1, -2) @ vh[
+            :, :, sl]
+    d_s = (torch.zeros_like(st) if dstate_final is None
+           else dstate_final.to(f32))
+    dq, dk_, dv_ = (torch.empty_like(x) for x in (qh, kh, vh))
+    for sl, s_c in zip(reversed(spans), reversed(starts)):
+        qi, ki, vi, doi = qh[:, :, sl], kh[:, :, sl], vh[:, :, sl], doh[
+            :, :, sl]
+        cum = torch.cumsum(g[..., sl], dim=-1)
+        total = cum[..., -1:]
+        decay = torch.exp(torch.where(
+            tri, cum[..., :, None] - cum[..., None, :], float("-inf")))
+        p = (qi @ ki.transpose(-1, -2)) * decay
+        bm = (doi @ vi.transpose(-1, -2)) * decay
+        ecum = torch.exp(cum)[..., None]
+        wdec = torch.exp(total - cum)[..., None]
+        dv_[:, :, sl] = p.transpose(-1, -2) @ doi + wdec * (ki @ d_s)
+        dq[:, :, sl] = ecum * (doi @ s_c.transpose(-1, -2)) + bm @ ki
+        dk_[:, :, sl] = (bm.transpose(-1, -2) @ qi
+                         + wdec * (vi @ d_s.transpose(-1, -2)))
+        d_s = (torch.exp(total)[..., None] * d_s
+               + (qi * ecum).transpose(-1, -2) @ doi)
+    dcum = (qh * dq).sum(-1) - (kh * dk_).sum(-1)          # (B, H, S)
+    if dstate_final is not None:
+        dcum[..., -1] += (dstate_final.to(f32) * st).sum((-1, -2))
+    dlog_g = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    return (dq.transpose(1, 2).to(q.dtype), dk_.transpose(1, 2).to(k.dtype),
+            dv_.transpose(1, 2).to(v.dtype),
+            dlog_g.transpose(1, 2).to(log_g.dtype), d_s)
 
 
 def ssm_decode_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -413,3 +494,106 @@ def slstm_scan(gates_x: torch.Tensor, r: torch.Tensor, state=None):
         hs.append(h)
     out = torch.stack(hs, dim=1).reshape(b, s, d4 // 4)
     return out.to(gates_x.dtype), (h, c, n, m)
+
+
+def _max_weight(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """d max(x, y) / dx as JAX takes it: 1 where x > y, 0.5 at a tie."""
+    return torch.where(x > y, 1.0, torch.where(x == y, 0.5, 0.0))
+
+
+def slstm_preactivations(gates_x: torch.Tensor, r: torch.Tensor, h0,
+                         hs: torch.Tensor) -> torch.Tensor:
+    """Every step's gate pre-activations (B, S, 4, H, P) f32 recomputed
+    from the saved h sequence ``hs`` (B, S, d) and the initial h0 (B, H,
+    P): gates_x + h_{t-1}·R[h], one product over all t."""
+    b, s, _ = gates_x.shape
+    heads, p_dim = r.shape[0], r.shape[1]
+    f32 = _acc(gates_x.dtype)
+    h_prev = torch.cat([h0.to(f32).reshape(b, 1, heads, p_dim),
+                        hs.to(f32).reshape(b, s, heads, p_dim)[:, :-1]], 1)
+    rec = torch.einsum("bshp,hpq->bshq", h_prev, r.to(f32))
+    return (gates_x.to(f32).reshape(b, s, 4, heads, p_dim)
+            + rec.reshape(b, s, heads, 4, p_dim).transpose(2, 3)), h_prev
+
+
+def slstm_scan_bwd(gates_x: torch.Tensor, r: torch.Tensor, state,
+                   hs: torch.Tensor, dh: torch.Tensor, dfinal=None):
+    """The backward of ``slstm_scan``: from the forward's inputs, its h
+    sequence ``hs`` (B, S, d), the cotangent ``dh`` (B, S, d) of hs and
+    ``dfinal`` (of the final (h, c, n, m), each entry (B, H, P) or None;
+    None: all zero) → (dgates_x (B, S, 4d) in gates_x's dtype, dr (H, P,
+    4P) f32, dstate: the gradients of the initial (h, c, n, m), each (B, H,
+    P) f32).  Written out, the gradient of the same expression as the JAX
+    oracle's, m path and clamp included (``jnp.maximum`` gives a tie half
+    to each side).
+
+    The forward saves h alone: the pre-activations are recomputed from it
+    in one product (``slstm_preactivations``), (c, n, m) by an elementwise
+    forward sweep.  The reverse sweep per step, from the carried
+    (dc, dn, dm) and dh_t + dg_{t+1}·R[h]ᵀ:
+      h = o·c / max(n, 1e-6)        → do, dc, dn
+      c = f'·c_p + i'·z, n = f'·n_p + i'  with i' = exp(i - m), f' =
+      exp(log f + m_p - m), m = max(log f + m_p, i)
+    then the four gates' pre-activation gradients dg_t, the carry to t - 1
+    and dR = Σ_t h_{t-1}ᵀ dg_t, one product."""
+    b, s, d4 = gates_x.shape
+    heads, p_dim = r.shape[0], r.shape[1]
+    f32 = _acc(gates_x.dtype)
+    if state is None:
+        state = slstm_zero_state(b, heads, p_dim, gates_x.device)
+    h0, c0, n0, m0 = (x.to(f32).reshape(b, heads, p_dim) for x in state)
+    g, h_prev = slstm_preactivations(gates_x, r, h0, hs)
+    zt, ii = torch.tanh(g[:, :, 0]), g[:, :, 1]
+    log_f, ot = log_sigmoid(g[:, :, 2]), torch.sigmoid(g[:, :, 3])
+    c, n, m = c0, n0, m0
+    cs, ns, ms = [c0], [n0], [m0]          # the state before each step
+    for t in range(s):
+        m_new = torch.maximum(log_f[:, t] + m, ii[:, t])
+        i_p = torch.exp(ii[:, t] - m_new)
+        f_p = torch.exp(log_f[:, t] + m - m_new)
+        c = f_p * c + i_p * zt[:, t]
+        n = f_p * n + i_p
+        m = m_new
+        cs.append(c)
+        ns.append(n)
+        ms.append(m)
+    dfinal = dfinal or (None,) * 4
+    zero = torch.zeros_like(c0)
+    dh_f, dc, dn, dm = (zero if x is None
+                        else x.to(f32).reshape(b, heads, p_dim)
+                        for x in dfinal)
+    dhs = dh.to(f32).reshape(b, s, heads, p_dim)
+    rf = r.to(f32)
+    dg = torch.empty_like(g)
+    d_rec = dh_f
+    for t in range(s - 1, -1, -1):
+        c_p, n_p, m_p = cs[t], ns[t], ms[t]
+        c, n, m = cs[t + 1], ns[t + 1], ms[t + 1]
+        dht = dhs[:, t] + d_rec
+        nc = torch.clamp(n, min=1e-6)
+        d_o = dht * c / nc
+        dc = dc + dht * ot[:, t] / nc
+        dn = dn - dht * ot[:, t] * c / (nc * nc) * _max_weight(
+            n, torch.full_like(n, 1e-6))
+        a = log_f[:, t] + m_p
+        i_p = torch.exp(ii[:, t] - m)
+        f_p = torch.exp(a - m)
+        dz = dc * i_p
+        d_ip = (dc * zt[:, t] + dn) * i_p
+        d_fp = (dc * c_p + dn * n_p) * f_p
+        dm = dm - d_ip - d_fp
+        w_a = _max_weight(a, ii[:, t])
+        da = d_fp + dm * w_a
+        dii = d_ip + dm * (1.0 - w_a)
+        dg[:, t, 0] = dz * (1.0 - zt[:, t] * zt[:, t])
+        dg[:, t, 1] = dii
+        dg[:, t, 2] = da * torch.sigmoid(-g[:, t, 2])
+        dg[:, t, 3] = d_o * ot[:, t] * (1.0 - ot[:, t])
+        d_rec = torch.einsum("bhq,hpq->bhp",
+                             dg[:, t].transpose(1, 2).reshape(
+                                 b, heads, 4 * p_dim), rf)
+        dc, dn, dm = dc * f_p, dn * f_p, da
+    dg_h = dg.transpose(2, 3).reshape(b, s, heads, 4 * p_dim)
+    dr = torch.einsum("bshp,bshq->hpq", h_prev, dg_h)
+    return (dg.reshape(b, s, d4).to(gates_x.dtype), dr,
+            (d_rec, dc, dn, dm))

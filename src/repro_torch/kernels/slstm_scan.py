@@ -18,6 +18,17 @@ Two routes, chosen by ``route`` from P alone:
   cluster's exchange at small P (the reduced proxies' P 16).
 
 Both raise on what they do not take; neither falls back to the other.
+
+The backward (training) is one kernel, ``csrc/slstm_scan_bwd.cu``: a
+thread-block cluster of ``bwd_cluster_size(P)`` blocks per (batch row,
+head) walks the steps in reverse, each block holding its units' rows of
+R[h] in shared memory and exchanging each step's gate gradients through
+distributed shared memory.  It takes the pre-activations, which the
+wrapper recomputes from the forward's h sequence in one product, and
+recomputes (c, n, m) itself; dR is one product after it.  ``SlstmScanFn``
+ties forward and backward together for autograd: on the card the forward
+is ``slstm_scan_cuda`` and the backward ``slstm_scan_bwd_cuda``; on the
+CPU both are the plain versions.
 """
 from __future__ import annotations
 
@@ -36,6 +47,10 @@ KERNEL = CudaKernel("slstm_scan.cu", "slstm_scan_fwd",
 CLUSTER_KERNEL = CudaKernel("slstm_scan.cu", "slstm_scan_cluster_fwd",
                             [_P] * 11 + [_I] * 4 + [_L] * 4
                             + [_I, _I, _P])
+BWD_KERNEL = CudaKernel("slstm_scan_bwd.cu", "slstm_scan_bwd",
+                        [_P] * 16 + [_I] * 5 + [_P])
+BWD_MAX_CLUSTER = 8   # the backward's clusters stay portable
+BWD_UNITS = 24        # units a block of the backward aims at
 MAX_THREADS = 1024    # 4P <= this: the per-row route's threads a block
 MAX_CLUSTER = 16      # blocks a cluster (more than 8 is non-portable)
 DEPTH = 4             # steps of gates_x in the cluster kernel's ring
@@ -157,7 +172,19 @@ def route(p_dim: int) -> str:
     return "cluster" if p_dim >= CLUSTER_MIN_P else "per_row"
 
 
-def _operands(gates_x, r, state):
+def bwd_cluster_size(p_dim: int) -> int:
+    """Blocks a cluster of the backward kernel at P: about ``BWD_UNITS``
+    units a block (R[h]'s rows of them in shared memory, one step's
+    product split over the blocks), at most ``BWD_MAX_CLUSTER``, each block
+    owning at least one unit."""
+    cs = min(BWD_MAX_CLUSTER, max(1, -(-p_dim // BWD_UNITS)))
+    while cs > 1 and (cs - 1) * -(-p_dim // cs) >= p_dim:
+        cs -= 1
+    return cs
+
+
+def _checked(gates_x, r):
+    """The shape rules both directions share → (b, s, heads, p_dim)."""
     check_operands(gates_x, r)
     if gates_x.dtype != torch.float32:
         raise TypeError(f"the sLSTM kernel takes float32, got "
@@ -172,14 +199,26 @@ def _operands(gates_x, r, state):
     if 4 * p_dim > MAX_THREADS or b > 65535 or s < 1:
         raise ValueError(f"unsupported sLSTM: P {p_dim} (4P <= "
                          f"{MAX_THREADS}), S {s}")
+    return b, s, heads, p_dim
+
+
+def _state(state, b, heads, p_dim, device):
+    """The initial (h, c, n, m), each (B, H, P) f32 contiguous on the
+    gates' device (None: the zero start)."""
     if state is None:
-        state = ref.slstm_zero_state(b, heads, p_dim, gates_x.device)
+        state = ref.slstm_zero_state(b, heads, p_dim, device)
     st = []
     for x in state:
-        if x.device != gates_x.device or x.numel() != b * heads * p_dim:
+        if x.device != device or x.numel() != b * heads * p_dim:
             raise ValueError("each state leaf must be (B, H, P) on the "
                              "gates' device")
         st.append(x.float().reshape(b, heads, p_dim).contiguous())
+    return st
+
+
+def _operands(gates_x, r, state):
+    b, s, heads, p_dim = _checked(gates_x, r)
+    st = _state(state, b, heads, p_dim, gates_x.device)
     h = torch.empty((b, s, heads * p_dim), dtype=torch.float32,
                     device=gates_x.device)
     final = tuple(torch.empty((b, heads, p_dim), dtype=torch.float32,
@@ -227,3 +266,83 @@ def slstm_scan_cuda(gates_x: torch.Tensor, r: torch.Tensor, state=None):
     if r.dim() == 3 and route(r.shape[1]) == "cluster":
         return launch_cluster(gates_x, r, state)
     return launch_per_row(gates_x, r, state)
+
+
+def slstm_scan_bwd_cuda(gates_x: torch.Tensor, r: torch.Tensor, state,
+                        hs: torch.Tensor, dh: torch.Tensor, dfinal=None):
+    """The backward kernel: the forward's operands, its h sequence ``hs``
+    (B, S, d), the cotangent ``dh`` (B, S, d) and ``dfinal`` (the final (h,
+    c, n, m)'s, entries (B, H, P) or None) → (dgates_x (B, S, 4d) f32, dr
+    (H, P, 4P) f32, the initial (h, c, n, m)'s gradients, each (B, H, P)
+    f32).  The pre-activations gates_x + h_{t-1}·R[h]
+    (``ref.slstm_preactivations``, in the kernel's (B, S, 4, H, P) layout)
+    and dR = Σ_t h_{t-1}ᵀ dg_t are one plain matrix product each, before
+    and after the kernel; one C entry a call."""
+    b, s, heads, p_dim = _checked(gates_x, r)
+    dev, f32 = gates_x.device, torch.float32
+    d = heads * p_dim
+    st = _state(state, b, heads, p_dim, dev)
+    for name, t in (("hs", hs), ("dh", dh)):
+        if t.shape != (b, s, d) or t.device != dev:
+            raise ValueError(f"{name} must be (B, S, d) on the gates' device")
+    rc = r.contiguous()
+    gp, h_prev = ref.slstm_preactivations(gates_x, rc, st[0], hs)
+    gp = gp.contiguous()                               # (B, S, 4, H, P)
+    h_heads = h_prev.reshape(b * s, heads, p_dim).transpose(0, 1)
+    dhc = dh.float().contiguous()
+    dfin = [None if x is None else x.float().reshape(b, d).contiguous()
+            for x in (dfinal or (None,) * 4)]
+    dg = torch.empty_like(gp)
+    cnm = torch.empty((3, b, s, d), dtype=f32, device=dev)
+    d0 = [torch.empty((b, heads, p_dim), dtype=f32, device=dev)
+          for _ in range(4)]
+    with torch.cuda.device(dev):
+        BWD_KERNEL(gp.data_ptr(), rc.data_ptr(),
+                   *(x.data_ptr() for x in st[1:]), dhc.data_ptr(),
+                   *(None if x is None else x.data_ptr() for x in dfin),
+                   dg.data_ptr(), cnm.data_ptr(),
+                   *(x.data_ptr() for x in d0), b, s, heads, p_dim,
+                   bwd_cluster_size(p_dim),
+                   torch.cuda.current_stream().cuda_stream)
+    dgh = dg.permute(3, 0, 1, 2, 4).reshape(heads, b * s, 4 * p_dim)
+    dr = torch.matmul(h_heads.transpose(1, 2), dgh)   # (H, P, 4P)
+    return dg.reshape(b, s, 4 * d), dr, tuple(d0)
+
+
+class SlstmScanFn(torch.autograd.Function):
+    """The sLSTM recurrence under autograd: gates_x (B, S, 4d), r (H, P,
+    4P) and the initial h, c, n, m (each (B, H, P) or (B, d); all four None
+    for the zero start) → (h (B, S, d), h, c, n, m final), as
+    ``ops.slstm_scan``.  On the card the forward is ``slstm_scan_cuda``
+    and the backward ``slstm_scan_bwd_cuda``; on the CPU both are the plain
+    versions.  It saves its inputs and the h sequence: the backward
+    recomputes the pre-activations and (c, n, m) from them."""
+
+    @staticmethod
+    def forward(ctx, gates_x, r, h0, c0, n0, m0):
+        ctx.set_materialize_grads(False)
+        state = None if h0 is None else (h0, c0, n0, m0)
+        if gates_x.device.type == "cuda":
+            hs, final = slstm_scan_cuda(gates_x, r, state)
+        else:
+            hs, final = ref.slstm_scan(gates_x, r, state)
+        ctx.save_for_backward(gates_x, r, h0, c0, n0, m0, hs)
+        return (hs, *final)
+
+    @staticmethod
+    def backward(ctx, dhs, *dfinal):
+        gates_x, r, h0, c0, n0, m0, hs = ctx.saved_tensors
+        state = None if h0 is None else (h0, c0, n0, m0)
+        if dhs is None:
+            dhs = torch.zeros_like(hs)
+        if gates_x.device.type == "cuda":
+            dgx, dr, ds = slstm_scan_bwd_cuda(gates_x, r, state, hs, dhs,
+                                              dfinal)
+        else:
+            dgx, dr, ds = ref.slstm_scan_bwd(gates_x, r, state, hs, dhs,
+                                             dfinal)
+        if state is None:
+            return dgx.to(gates_x.dtype), dr.to(r.dtype), None, None, None, \
+                None
+        return (dgx.to(gates_x.dtype), dr.to(r.dtype),
+                *(g.reshape(x.shape).to(x.dtype) for g, x in zip(ds, state)))

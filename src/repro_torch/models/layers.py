@@ -362,6 +362,17 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 # Mamba-2-style SSD mixer (selective gated linear attention)
 # ---------------------------------------------------------------------------
 
+def _check_recurrent_mode(name: str, mode: str,
+                          cache: Optional[Params]) -> None:
+    """The recurrent mixers' modes: ``"prefill"`` and ``"decode"`` (state
+    from the cache, written back in place) and ``"train"`` (no cache: the
+    JAX package's train mode returns none and writes none)."""
+    if mode not in ("prefill", "decode", "train"):
+        raise NotImplementedError(f"{name} mode {mode!r} is not ported")
+    if mode == "train" and cache is not None:
+        raise ValueError(f"{name} mode 'train' takes no cache")
+
+
 def _ssm_state_dim(cfg: ArchConfig) -> int:
     """The state's key width n: ``ssm_state``, at least 16."""
     return max(cfg.ssm_state, 16)
@@ -401,13 +412,12 @@ def mamba(p: Params, x: torch.Tensor, *, cfg: ArchConfig,
     state (no cache: zeros), q = C and k = B, the two halves of each
     head's 2n columns of ``x @ w_bc`` (strided views, no copy).
     ``"decode"``: S == 1, the O(1) state update.  The final state is copied
-    into ``cache["state"]`` in place.  The casts follow the JAX package
-    step by step: dt and the log decay in f32, v = x_in · dt and the D
-    skip in the compute dtype, and so the gate o · silu(z)."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mamba mode {mode!r} is not ported (train mode waits for the "
-            "scans' backward, ROADMAP.md queue 1 item 19)")
+    into ``cache["state"]`` in place.  ``"train"``: the scan from zeros
+    under autograd (its backward kernel on the card), no cache.  The casts
+    follow the JAX package step by step: dt and the log decay in f32, v =
+    x_in · dt and the D skip in the compute dtype, and so the gate o ·
+    silu(z)."""
+    _check_recurrent_mode("mamba", mode, cache)
     b, s, d = x.shape
     h = cfg.resolved_ssm_heads
     n = _ssm_state_dim(cfg)
@@ -468,11 +478,9 @@ def hybrid(p: Params, x: torch.Tensor, *, cfg: ArchConfig, window: int,
     place; ``attention_args``: ``cache_index``, ``block_table`` and the
     rest of ``attention``'s) and Mamba (``cache["mamba"]``) on the same
     input, fused as 0.5 · (rms_norm(a, norm_a) + rms_norm(m, norm_m)).
-    Modes ``"prefill"`` and ``"decode"``, as ``mamba``."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"hybrid mode {mode!r} is not ported (train mode waits for the "
-            "scans' backward, ROADMAP.md queue 1 item 19)")
+    Modes ``"prefill"``, ``"decode"`` and ``"train"`` (no cache), as
+    ``mamba``."""
+    _check_recurrent_mode("hybrid", mode, cache)
     a_out, _ = attention(p["attn"], x, cfg=cfg, window=window, cos=cos,
                          sin=sin, cache=None if cache is None
                          else cache["attn"], mode=mode, **attention_args)
@@ -520,10 +528,11 @@ def mlstm(p: Params, x: torch.Tensor, *, cfg: ArchConfig,
     """``"prefill"``: the chunked scan over the sequence from the cache's
     state (zeros from ``init_cache``; no cache: zeros).  ``"decode"``:
     S == 1, the O(1) state update.  The final state is copied into
-    ``cache["state"]`` in place.  The casts follow the JAX package step by
-    step: ``k · i_gate`` in the compute dtype, the gates in f32."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mlstm mode {mode!r} is not ported")
+    ``cache["state"]`` in place.  ``"train"``: the scan from zeros under
+    autograd (its backward kernel on the card), no cache.  The casts
+    follow the JAX package step by step: ``k · i_gate`` in the compute
+    dtype, the gates in f32."""
+    _check_recurrent_mode("mlstm", mode, cache)
     b, s, d = x.shape
     h = cfg.resolved_ssm_heads
     d_in = 2 * d
@@ -596,10 +605,11 @@ def slstm(p: Params, x: torch.Tensor, *, cfg: ArchConfig,
           ) -> Tuple[torch.Tensor, Optional[Params]]:
     """The recurrence from the cache's (h, c, n, m) (no cache: the zero
     start) over S tokens, prefill and decode alike; the final state is
-    copied into the cache in place.  The state is (B, d) in the cache and
-    (B, H, P) in the kernel (the same memory order)."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"slstm mode {mode!r} is not ported")
+    copied into the cache in place.  ``"train"``: from the zero start under
+    autograd (its backward kernel on the card), no cache.  The state is
+    (B, d) in the cache and (B, H, P) in the kernel (the same memory
+    order)."""
+    _check_recurrent_mode("slstm", mode, cache)
     b, s, d = x.shape
     h = cfg.resolved_ssm_heads
     p_dim = d // h

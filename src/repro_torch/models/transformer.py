@@ -19,9 +19,10 @@ the xLSTM mixers (``MLSTM``, ``SLSTM``, no FFN), Mamba (``MAMBA``, dense
 FFN) and Hymba's hybrid (``HYBRID``: attention ‖ Mamba, dense FFN), whose
 recurrent states ride the cache and are written back in place (a hybrid
 layer's cache is ``{"attn": KV, "mamba": {"state"}}``); their stacks run
-``prefill`` and ``decode_step`` only (verify and prefill-append need
-attention blocks, as in the JAX package; their training mode waits for
-the scans' backward).  MoE blocks raise.
+``prefill``, ``decode_step`` and the training forward, whose scans go
+through their autograd functions (``SsmScanFn``, ``SlstmScanFn``: the
+backward kernels on the card), but neither verify nor prefill-append
+(they need attention blocks, as in the JAX package).  MoE blocks raise.
 """
 from __future__ import annotations
 
@@ -360,7 +361,7 @@ def forward_train(params: Params, cfg: ArchConfig,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits under autograd.  Returns (logits (B, S, V)
     float32, aux): ``aux`` is the MoE load-balance loss, 0 for the stacks
-    the port runs (attention blocks with a dense FFN)."""
+    the port runs (no MoE blocks)."""
     x, positions = frontends.embed_inputs(params["embed"], cfg, inputs)
     x = _run_stack(params, cfg, x, positions, mode="train", cache=None,
                    remat=remat, remat_policy=remat_policy)

@@ -2030,3 +2030,194 @@ def test_train_step_on_the_card_matches_the_cpu(card, tier):
     # the card's kernels
     assert counts["flash_attention_bwd"] == 2 * cfg.num_layers
     assert counts["flash_attention"] == 4 * cfg.num_layers
+
+
+# ---------------------------------------------------------------------------
+# the scans' backward kernels (training of the recurrent stacks)
+# ---------------------------------------------------------------------------
+
+def _hold_scan_bwd(hold, *args, got):
+    """The scans' backward against its plain version as phase 2 holds it
+    (``chip_smoke.ssm_bwd_hold`` / ``slstm_bwd_hold``): each output (the
+    sLSTM's dgates_x and dr gate by gate) against the plain version in
+    f64, within ``chip_smoke.SCAN_BWD_K`` (16) times the plain f32
+    version's own error plus 2^-20·max|want|."""
+    errors = []
+    getattr(_chip_smoke(), hold)(torch, "card test", *args, errors, got=got)
+    assert not errors, errors
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk,dtype,carried,dsf,halves", [
+    (2, 37, 2, 8, 9, 64, torch.float32, False, False, False),
+    (2, 128, 2, 16, 24, 64, torch.float32, True, True, False),
+    (1, 96, 2, 70, 33, 32, torch.float32, False, True, False),
+    (2, 128, 2, 384, 385, 64, torch.float32, True, True, False),
+    (2, 128, 25, 16, 128, 64, torch.bfloat16, True, True, True),
+    (2, 128, 4, 384, 385, 64, torch.bfloat16, False, False, False)])
+def test_ssm_scan_bwd_kernel_matches_plain(card, b, s, h, dk, dv, chunk,
+                                           dtype, carried, dsf, halves):
+    """``csrc/ssm_scan_bwd.cu`` against ``ref.ssm_scan_bwd``: S below the
+    chunk, several chunks, dk not a multiple of the 64-wide tile,
+    xLSTM's widths, Hymba's q/k halves of one buffer, a carried state and
+    a final-state cotangent; dq, dk, dv, dlog_g and dstate."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
+    if halves:
+        bc = _randn(card, b, s, h, 2 * dk, dtype=dtype)
+        q, k = bc[..., dk:], bc[..., :dk]
+    else:
+        q = (_randn(card, b, s, h, dk) * dk ** -0.5).to(dtype)
+        k = _randn(card, b, s, h, dk, dtype=dtype)
+    v, do = (_randn(card, b, s, h, dv, dtype=dtype) for _ in range(2))
+    g = -torch.nn.functional.softplus(_randn(card, b, s, h))
+    st = _randn(card, b, h, dk, dv) if carried else None
+    d_sf = _randn(card, b, h, dk, dv) if dsf else None
+    got = ssm_scan_bwd_cuda(*(t.transpose(1, 2) for t in (q, k, v, g)), st,
+                            do.transpose(1, 2), d_sf, chunk=chunk)
+    got = [t.transpose(1, 2) for t in got[:4]] + [got[4]]
+    _hold_scan_bwd("ssm_bwd_hold", (q, k, v, g, st, do, d_sf), chunk,
+                   got=got)
+
+
+@pytest.mark.parametrize("b,s,heads,p_dim,carried,clamp", [
+    (1, 1, 1, 8, False, False), (2, 13, 2, 16, True, True),
+    (3, 37, 1, 64, True, False), (2, 50, 3, 100, True, False),
+    (2, 33, 4, 192, False, False), (1, 20, 1, 256, True, False)])
+def test_slstm_scan_bwd_kernel_matches_plain(card, b, s, heads, p_dim,
+                                             carried, clamp):
+    """``csrc/slstm_scan_bwd.cu`` (clusters of 1-8 blocks) against
+    ``ref.slstm_scan_bwd`` on the forward kernel's h sequence, with the
+    final state's cotangents; ``clamp``: a carried n below 1e-6 with the
+    input gate far below the forget gate, where max(n, 1e-6) binds."""
+    from repro_torch.kernels.slstm_scan import slstm_scan_bwd_cuda
+    d = heads * p_dim
+    gx = _randn(card, b, s, 4 * d) * 3
+    gx[..., 2 * d:3 * d] += 3.0
+    r = _randn(card, heads, p_dim, 4 * p_dim) * p_dim ** -0.5
+    st = None
+    if carried:
+        st = (torch.tanh(_randn(card, b, heads, p_dim)),
+              _randn(card, b, heads, p_dim),
+              torch.rand((b, heads, p_dim), device="cuda") + 0.5,
+              _randn(card, b, heads, p_dim))
+    if clamp:
+        gx[..., d:2 * d] = -30.0
+        gx[..., 2 * d:3 * d] = 8.0
+        st = (st[0], st[1] * 1e-8, torch.full_like(st[2], 1e-8),
+              torch.zeros_like(st[3]))
+    hs, (_, _, n_f, _) = slstm_scan_cuda(gx, r, st)
+    if clamp:
+        assert float(n_f.max()) < 1e-6
+    dh = _randn(card, b, s, d)
+    dfinal = tuple(_randn(card, b, heads, p_dim) for _ in range(4))
+    got = slstm_scan_bwd_cuda(gx, r, st, hs, dh, dfinal)
+    _hold_scan_bwd("slstm_bwd_hold", (gx, r, st, hs, dh, dfinal), got=got)
+
+
+def test_scan_bwd_kernels_are_deterministic(card):
+    """Both backward kernels sum in a fixed order (no atomics): two calls
+    on the same inputs are bit-equal."""
+    from repro_torch.kernels.slstm_scan import slstm_scan_bwd_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
+    b, s, h, dk, dv = 2, 256, 2, 96, 70
+    args = [_randn(card, b, h, s, d, dtype=torch.bfloat16)
+            for d in (dk, dk, dv)]
+    g = -torch.nn.functional.softplus(_randn(card, b, h, s))
+    do = _randn(card, b, h, s, dv, dtype=torch.bfloat16)
+    one, two = (ssm_scan_bwd_cuda(*args, g, None, do) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+    gx = _randn(card, 2, 40, 4 * 4 * 64)
+    r = _randn(card, 4, 64, 256) * 0.125
+    hs, _ = slstm_scan_cuda(gx, r)
+    dh = _randn(card, 2, 40, 256)
+    one, two = (slstm_scan_bwd_cuda(gx, r, None, hs, dh) for _ in range(2))
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    assert all(torch.equal(x, y) for x, y in zip(one[2], two[2]))
+
+
+def test_scan_bwd_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels.slstm_scan import slstm_scan_bwd_cuda
+    from repro_torch.kernels.ssm_scan import BWD_MAX_DK, ssm_scan_bwd_cuda
+    q = _randn(card, 1, 2, 64, 8)
+    g = _randn(card, 1, 2, 64)
+    st = torch.zeros((1, 2, 8, 8), device="cuda")
+    with pytest.raises(ValueError):                    # do's shape
+        ssm_scan_bwd_cuda(q, q, q, g, st, q[..., :4])
+    with pytest.raises(ValueError):                    # S % chunk
+        ssm_scan_bwd_cuda(q[:, :, :40], q[:, :, :40], q[:, :, :40],
+                          g[..., :40], st, q[:, :, :40], chunk=32)
+    big = _randn(card, 1, 1, 4, BWD_MAX_DK + 4)
+    with pytest.raises(ValueError):                    # dk
+        ssm_scan_bwd_cuda(big, big, big[..., :8], g[:, :1, :4],
+                          torch.zeros((1, 1, BWD_MAX_DK + 4, 8),
+                                      device="cuda"), big[..., :8])
+    gx = _randn(card, 1, 4, 32)
+    r = _randn(card, 1, 8, 32)
+    hs, _ = slstm_scan_cuda(gx, r)
+    with pytest.raises(ValueError):                    # dh's shape
+        slstm_scan_bwd_cuda(gx, r, None, hs, hs[:, :2])
+    with pytest.raises(TypeError):                     # f32 only
+        slstm_scan_bwd_cuda(gx.bfloat16(), r.bfloat16(), None, hs, hs)
+
+
+def _recurrent_train_cfg(name):
+    """xlstm-125m reduced (4 mLSTM, 2 sLSTM layers, d 64) and hymba-1.5b
+    reduced to 2 hybrid layers (a global one and one whose window of 8
+    binds), f32."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import BlockSpec
+    cfg = get_config(name, reduced=True)
+    if name == "hymba-1.5b":
+        cfg = dataclasses.replace(cfg, num_layers=2, block_pattern=(
+            BlockSpec(kind="hybrid", window=0),
+            BlockSpec(kind="hybrid", window=8)))
+    return cfg
+
+
+@pytest.mark.parametrize("name", ["xlstm-125m", "hymba-1.5b"])
+def test_recurrent_train_step_on_the_card_matches_the_cpu(card, name):
+    """One ``make_train_step`` step (AdamW, remat "nothing") of the reduced
+    recurrent stacks on the card against the same step on the CPU, as
+    ``test_train_step_on_the_card_matches_the_cpu`` holds the proxies: loss
+    and metrics within 1e-5 relative, the gradient (the first moment) per
+    leaf within 1e-4·max|want|; on the card each layer's scan backward ran
+    once, on its kernel, and its forward twice (forward and recompute)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as TR
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = _recurrent_train_cfg(name)
+    rng = np.random.default_rng(1)
+    b, s = 2, 128 if name == "xlstm-125m" else 64
+    toks = rng.integers(0, cfg.vocab_size, (b, s + 1))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             "loss_mask": (rng.random((b, s)) > 0.2)}
+    opt = O.OptConfig(lr=1e-3, warmup_steps=1)
+    tc = TR.TrainConfig(remat=True, remat_policy="nothing", ce_chunks=4)
+    params0 = T.init_params(cfg, 0, device="cpu")
+    state0 = O.init_opt_state(params0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.clone().to(dev), params0)
+        state = tree_map(lambda t: t.clone().to(dev), state0)
+        tb = {k: torch.from_numpy(np.asarray(
+            v, np.float32 if v.dtype.kind in "fb" else np.int32)).to(dev)
+            for k, v in batch.items()}
+        ops.reset_launch_counts()
+        _, state, m = TR.make_train_step(cfg, opt, tc)(params, state, tb)
+        out[dev] = (state, {k: float(v) for k, v in m.items()},
+                    ops.launch_counts())
+    (sc, mc, _), (sg, mg, counts) = out["cpu"], out["cuda"]
+    for k in ("loss", "ce", "acc", "grad_norm"):
+        assert abs(mg[k] - mc[k]) <= 1e-5 * max(abs(mc[k]), 1.0), k
+    for a, w in zip(tree_leaves(sg["m"]), tree_leaves(sc["m"])):
+        diff = (a.cpu() - w).abs()
+        assert float(diff.max()) <= 1e-4 * float(w.abs().max()), \
+            float(diff.max())
+    kinds = [sp.kind for sp in cfg.block_pattern] * cfg.n_super
+    n_ssm = sum(k in ("mlstm", "hybrid") for k in kinds)
+    assert counts["ssm_scan_bwd"] == n_ssm
+    assert counts["ssm_scan"] == 2 * n_ssm
+    assert counts["slstm_scan_bwd"] == kinds.count("slstm")
+    assert counts["slstm_scan"] == 2 * kinds.count("slstm")
+    assert counts["flash_attention_bwd"] == kinds.count("hybrid")

@@ -222,18 +222,6 @@ def test_mamba_and_hybrid_layers_match_jax(kind, mode):
             _close(a, w, TOL_SSM, rtol=TOL_SSM)
 
 
-def test_mamba_refuses_train_mode():
-    jcfg, cfg = _hymba()
-    tp = _layer_params(JL.init_mamba(jax.random.PRNGKey(0), jcfg))
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        L.mamba(tp, x, cfg=cfg, mode="train")
-    _, small = _hymba(**VARIANTS["mamba"])
-    with pytest.raises(NotImplementedError, match="item 19"):
-        T.forward_train(T.init_params(small, seed=0, device="cpu"), small,
-                        {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
-
-
 def _f32(x):
     if torch.is_tensor(x):
         return x.float().numpy()

@@ -57,7 +57,6 @@ from repro_torch.core import eo_adapter as EO  # noqa: E402
 from repro_torch.core import pipeline as P  # noqa: E402
 from repro_torch.core.cascade import TierModel  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
-from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.train import checkpoint as CK  # noqa: E402
 from repro_torch.train import compression as GC  # noqa: E402
@@ -237,18 +236,6 @@ def test_remat_recomputes_each_block_once():
         finally:
             ops.flash_attention = saved
         assert len(calls) == want * cfg.num_layers
-
-
-@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
-def test_recurrent_mixers_refuse_train_mode(kind):
-    cfg = get_config("xlstm-125m", reduced=True)
-    gen = torch.Generator().manual_seed(0)
-    init, mixer = {"mlstm": (L.init_mlstm, L.mlstm),
-                   "slstm": (L.init_slstm, L.slstm)}[kind]
-    p = init(gen, cfg, "cpu")
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="'train'"):
-        mixer(p, x, cfg=cfg, mode="train")
 
 
 # ---------------------------------------------------------------------------
